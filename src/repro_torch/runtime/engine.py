@@ -1,0 +1,752 @@
+"""InferenceEngine and ContinuousEngine of the port.
+
+Counterparts of `repro.runtime.engine` for the paged-KV serving path:
+
+- :class:`InferenceEngine` runs bucketed prompt prefill
+  (:meth:`~InferenceEngine.prefill_batch`) and the fused decode tick
+  (:meth:`~InferenceEngine.decode_step_batch`: one decode step, token
+  selection, emission and stop flags) over a device-resident
+  :class:`GenState`.  No tick reads anything back to the host; emitted
+  tokens accumulate on the device and move once per flush.  Where the
+  JAX package compiles one cell per bucket, the port runs eagerly.
+- :class:`ContinuousEngine` layers iteration-level continuous batching
+  on top: a persistent slot cache over ONE paged KV pool that newly
+  admitted prefills splice into while other rows are mid-decode.  It
+  implements `repro_torch.core.pipeline.PipelineBackend`.
+
+The port serves the paged layout with whole-prompt prefill.  Packed and
+chunked prefill, the prefix cache and the contiguous layout are not
+ported yet; the constructor refuses their options.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, replace
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cost_model import block_round
+from repro_torch.core.pipeline import PipelineBackend
+from repro_torch.models import decode_step, make_paged_cache, prefill
+from repro_torch.runtime import sanitizer
+from repro_torch.runtime.bucketing import BucketLadder
+from repro_torch.runtime.device import resolve_device
+from repro_torch.runtime.kv_cache import (DEFAULT_KV_BLOCK,
+                                          BlockTableManager, KVSlabManager,
+                                          kv_bytes_per_token)
+from repro_torch.runtime.sampling import (DEFAULT_SAMPLE_CANDIDATES,
+                                          sample_tokens)
+from repro_torch.runtime.session import GenerationParams, Session
+
+# stop-id slots per row in GenState.eos: column 0 is the request's eos_id,
+# the rest hold extra GenerationParams.stop ids (-1 = unused)
+STOP_SLOTS = 4
+
+# ContinuousEngine options of the JAX package not ported yet
+NOT_PORTED_OPTIONS = ("kv_layout", "prefix_cache", "packed_prefill",
+                       "chunked_prefill", "prefill_chunk_tokens")
+
+
+@dataclass
+class GenState:
+    """Device-resident state of an in-flight generation batch: the KV
+    cache, the last token per row, the emission buffer, per-row stop
+    bookkeeping and sampling params.
+
+    ``cache`` is either the prompt KV parts a prefill produced
+    (``k``/``v`` (L, B, S, KV, dh), ``len``, ``pos_offset``) or a paged
+    decode cache (``k``/``v`` pools, ``block_tables``, ``len``,
+    ``pos_offset``); only the latter decodes."""
+    cache: Dict[str, torch.Tensor]
+    cur: torch.Tensor                 # (B,) last token
+    emitted: torch.Tensor             # (B, cap) generated tokens
+    counts: torch.Tensor              # (B,) number emitted
+    done: torch.Tensor                # (B,) bool
+    budget: torch.Tensor              # (B,) per-row max_new_tokens
+    eos: torch.Tensor                 # (B, STOP_SLOTS) stop ids, -1 unused
+    temp: torch.Tensor                # (B,) temperature (0 = greedy)
+    top_k: torch.Tensor               # (B,) top-k cutoff (0 = off)
+    top_p: torch.Tensor               # (B,) nucleus mass (1 = off)
+    seed: torch.Tensor                # (B,) per-request PRNG seed
+    # host-side: does any live row sample?  Greedy-only batches run the
+    # argmax tick and never draw noise.
+    sampling: bool = False
+
+    @property
+    def capacity(self) -> int:
+        return self.emitted.shape[1]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """One device->host copy (the flush points of the serving loop)."""
+    return t.cpu().numpy()
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class InferenceEngine:
+    """Bucketed prompt prefill and the fused decode tick over one model.
+
+    ``device`` defaults to ``"cuda"`` and raises without a card unless
+    the caller passes ``device="cpu"``; ``params`` are moved there (a
+    no-op when they already live on it)."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict,
+                 ladder: Optional[BucketLadder] = None, pad_id: int = 0,
+                 sample_candidates: Optional[int] = None,
+                 device=None) -> None:
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device)
+        self.ladder = ladder if ladder is not None else BucketLadder()
+        self.pad_id = pad_id
+        if sample_candidates is None:
+            sample_candidates = DEFAULT_SAMPLE_CANDIDATES
+        if sample_candidates < 1:
+            raise ValueError(f"sample_candidates must be >= 1, got "
+                             f"{sample_candidates}")
+        self.sample_candidates = sample_candidates
+        self.kv_slab = KVSlabManager()
+        self._next_gen_id = 0
+
+    def _tensor(self, values, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values), dtype=dtype,
+                               device=self.device)
+
+    # ------------------------------------------------------------------
+    # Resumable generation primitives
+    # ------------------------------------------------------------------
+    def prefill_batch(self, token_lists: Sequence[Sequence[int]], *,
+                      max_len: int, max_new_tokens, eos_id=None,
+                      cap_new: Optional[int] = None,
+                      sampling: Optional[Sequence[GenerationParams]] = None
+                      ) -> GenState:
+        """Prompt pass producing a :class:`GenState` whose cache holds
+        the prompt KV parts (for a paged splice).  ``max_new_tokens`` /
+        ``eos_id`` may be scalars or per-request sequences; ``sampling``
+        carries each row's temperature / top-k / top-p / seed / extra
+        stop ids (None is greedy)."""
+        n = len(token_lists)
+        lens = [len(t) for t in token_lists]
+        prompt_b = self.ladder.seq_bucket(max(lens))
+        batch_b = self.ladder.batch_bucket(n)
+        budgets = list(max_new_tokens) if hasattr(max_new_tokens, "__len__") \
+            else [int(max_new_tokens)] * n
+        eos_ids = list(eos_id) if hasattr(eos_id, "__len__") \
+            else [eos_id] * n
+        if max(lens[i] + budgets[i] for i in range(n)) > max_len:
+            raise ValueError(f"prompt+budget exceeds max_len {max_len}")
+        cap = cap_new if cap_new is not None else max(max(budgets), 1)
+        if cap < max(budgets):
+            raise ValueError(f"cap_new={cap} cannot hold a "
+                             f"max_new_tokens={max(budgets)} budget")
+        toks = np.full((batch_b, prompt_b), self.pad_id, np.int64)
+        for i, t in enumerate(token_lists):
+            toks[i, :len(t)] = t
+        true_lens = np.array(lens + [1] * (batch_b - n), np.int32)
+        logits, parts = prefill(self.cfg, self.params,
+                                self._tensor(toks, torch.int64),
+                                true_lengths=self._tensor(true_lens,
+                                                          torch.int32))
+        cache = {"k": parts["k"], "v": parts["v"], "len": parts["len"],
+                 "pos_offset": torch.zeros((batch_b,), dtype=torch.int32,
+                                           device=self.device)}
+        return self._finish_gen_state(logits, cache, n, batch_b, budgets,
+                                      eos_ids, cap, sampling)
+
+    def _finish_gen_state(self, logits, cache, n: int, batch_b: int,
+                          budgets: Sequence[int], eos_ids: Sequence,
+                          cap: int,
+                          sampling: Optional[
+                              Sequence[GenerationParams]] = None
+                          ) -> GenState:
+        """Seed the per-row control state (first token — sampled with
+        each row's params at step 0 — emission buffer, budget, stops,
+        done) around an already-populated cache."""
+        specs = list(sampling) if sampling is not None else []
+        specs += [GenerationParams(max_new_tokens=0)] * (batch_b -
+                                                         len(specs))
+        over = [i for i, p in enumerate(specs)
+                if len(p.stop) > STOP_SLOTS - 1]
+        if over:
+            raise ValueError(f"rows {over}: at most {STOP_SLOTS - 1} "
+                             "extra stop ids per request")
+        temp = self._tensor([p.temperature for p in specs], torch.float32)
+        top_k = self._tensor([p.top_k for p in specs], torch.int32)
+        top_p = self._tensor([p.top_p for p in specs], torch.float32)
+        seed = self._tensor([p.seed for p in specs], torch.int32)
+        stops = np.full((batch_b, STOP_SLOTS), -1, np.int32)
+        for i, e in enumerate(eos_ids):
+            if e is not None:
+                stops[i, 0] = e
+        for i, p in enumerate(specs):
+            for j, t in enumerate(p.stop):
+                stops[i, 1 + j] = t
+        eos = self._tensor(stops, torch.int32)
+        use_sampling = any(p.temperature > 0 for p in specs)
+        if use_sampling:
+            # first generated token: drawn at step 0 with the row's key
+            cur = sample_tokens(
+                logits, temperature=temp, top_k=top_k, top_p=top_p,
+                seed=seed, step=torch.zeros_like(seed),
+                candidates=self.sample_candidates)
+        else:
+            cur = torch.argmax(logits, dim=-1).to(torch.int32)
+        budget = self._tensor(list(budgets) + [0] * (batch_b - n),
+                              torch.int32)
+        emitted = torch.zeros((batch_b, cap), dtype=torch.int32,
+                              device=self.device)
+        emitted[:, 0] = cur
+        counts = torch.clamp(budget, max=1)
+        done = (counts >= budget) | \
+            ((cur[:, None] == eos).any(dim=-1) & (counts > 0))
+        return GenState(cache, cur, emitted, counts, done, budget, eos,
+                        temp, top_k, top_p, seed, sampling=use_sampling)
+
+    def decode_step_batch(self, state: GenState) -> GenState:
+        """One decode tick for every live row of ``state``, on device;
+        finished rows are frozen (no KV advance, no emission).
+        Greedy-only states take the argmax; states with sampled rows run
+        the sampling kernel (greedy rows still get the argmax)."""
+        cache = state.cache
+        if "block_tables" not in cache:
+            raise ValueError("decode needs a paged cache: splice the "
+                             "prefill parts into a pool first")
+        prev_len = cache["len"]
+        logits, cache2 = decode_step(self.cfg, self.params, cache,
+                                     state.cur)
+        if state.sampling:
+            nxt = sample_tokens(logits, temperature=state.temp,
+                                top_k=state.top_k, top_p=state.top_p,
+                                seed=state.seed, step=state.counts,
+                                candidates=self.sample_candidates)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        done = state.done
+        cache2["len"] = torch.where(done, prev_len, cache2["len"])
+        col = torch.clamp(state.counts, max=state.capacity - 1).long()
+        written = state.emitted.scatter(1, col[:, None], nxt[:, None])
+        emitted = torch.where(done[:, None], state.emitted, written)
+        counts = torch.where(done, state.counts, state.counts + 1)
+        done2 = done | (counts >= state.budget) | \
+            (nxt[:, None] == state.eos).any(dim=-1)
+        cur = torch.where(done, state.cur, nxt)
+        return replace(state, cache=cache2, cur=cur, emitted=emitted,
+                       counts=counts, done=done2)
+
+    def read_out(self, state: GenState,
+                 token_lists: Sequence[Sequence[int]]) -> List[List[int]]:
+        """ONE host transfer for the whole batch: prompt + emitted."""
+        em = _host(state.emitted)
+        cnt = _host(state.counts)
+        return [list(t) + [int(x) for x in em[i, :cnt[i]]]
+                for i, t in enumerate(token_lists)]
+
+    def own_pool(self, state: GenState, max_len: int,
+                 block_size: int = DEFAULT_KV_BLOCK) -> GenState:
+        """Move a prefilled state's prompt KV into a private paged pool:
+        row b owns the contiguous run of ``ceil(max_len / block_size)``
+        blocks after the trash block."""
+        parts = state.cache
+        nl, b, s = parts["k"].shape[:3]
+        mb = -(-max_len // block_size)
+        cache = make_paged_cache(self.cfg, b, 1 + b * mb, block_size, mb,
+                                 parts["k"].dtype, self.device)
+        rows = torch.arange(b, dtype=torch.int32, device=self.device)
+        cache["block_tables"] = 1 + rows[:, None] * mb + \
+            torch.arange(mb, dtype=torch.int32, device=self.device)[None]
+        flat = (block_size * (1 + rows.long() * mb))[:, None] + \
+            torch.arange(s, device=self.device)[None]
+        for key in ("k", "v"):
+            pool = cache[key].view((nl, -1) + cache[key].shape[3:])
+            pool[:, flat.reshape(-1)] = parts[key].reshape(
+                (nl, b * s) + parts[key].shape[3:])
+        cache["len"] = parts["len"].clone()
+        cache["pos_offset"] = parts["pos_offset"].clone()
+        return replace(state, cache=cache)
+
+    def generate(self, token_lists: Sequence[Sequence[int]],
+                 max_new_tokens: int = 16,
+                 eos_id: Optional[int] = None) -> List[List[int]]:
+        """Greedy decode over a ragged batch (right-padded; per-request
+        last-token gather), with its own paged pool.  Tokens accumulate
+        on the device and transfer once at the end."""
+        lens = [len(t) for t in token_lists]
+        seq_b = self.ladder.seq_bucket(max(lens) + max_new_tokens)
+        per_tok = kv_bytes_per_token(self.cfg)
+        # negative ids: a namespace disjoint from serving req_ids
+        req_ids = [-(self._next_gen_id + i + 1)
+                   for i in range(len(token_lists))]
+        self._next_gen_id += len(token_lists)
+        try:
+            for rid, ln in zip(req_ids, lens):
+                self.kv_slab.allocate(rid, per_tok * seq_b,
+                                      tokens=ln + max_new_tokens)
+            if max_new_tokens == 0:
+                return [list(t) for t in token_lists]
+            state = self.prefill_batch(token_lists, max_len=seq_b,
+                                       max_new_tokens=max_new_tokens,
+                                       eos_id=eos_id)
+            state = self.own_pool(state, seq_b)
+            for _ in range(max_new_tokens - 1):
+                state = self.decode_step_batch(state)
+            return self.read_out(state, token_lists)
+        finally:
+            for rid in req_ids:
+                if self.kv_slab.has_region(rid):
+                    self.kv_slab.free(rid)
+            self.kv_slab.gc()
+
+    def warmup(self) -> Dict[str, float]:
+        """One throwaway greedy request per sequence bucket (a prompt
+        one token short of the bucket plus one decode tick), so library
+        handles and allocator pools exist before the first real
+        request."""
+        t0 = time.perf_counter()
+        for bucket in self.ladder.seq_buckets:
+            self.generate([[self.pad_id] * max(bucket - 2, 1)],
+                          max_new_tokens=2)
+        return {"buckets": len(self.ladder.seq_buckets),
+                "seconds": time.perf_counter() - t0}
+
+
+class ContinuousEngine(PipelineBackend):
+    """Iteration-level continuous batching over a persistent slot cache
+    and one paged KV pool.
+
+    ``max_slots`` sequences decode concurrently in one tick; newly
+    admitted prefills splice into free slots between ticks.  K/V live in
+    one preallocated pool of ``block_size``-token blocks managed by a
+    :class:`BlockTableManager`: blocks covering the prompt are allocated
+    at admission and appended as decoding crosses block boundaries, the
+    rest of a request's budget is reserved, and a sequence's blocks are
+    freed the moment it hits EOS or its budget.
+    """
+
+    def __init__(self, engine: InferenceEngine, max_slots: int = 8,
+                 max_len: Optional[int] = None, cap_new: int = 64,
+                 clock: Callable[[], float] = time.monotonic, *,
+                 block_size: int = DEFAULT_KV_BLOCK,
+                 num_blocks: Optional[int] = None, **options) -> None:
+        missing = [k for k in options if k in NOT_PORTED_OPTIONS]
+        if missing:
+            raise ValueError(f"{missing}: the port's engine serves the "
+                             "paged layout with whole-prompt prefill; "
+                             "these options are not ported yet")
+        if options:
+            raise TypeError(f"unexpected options {sorted(options)}")
+        cfg = engine.cfg
+        if cfg.num_codebooks or cfg.family != "dense":
+            raise ValueError("ContinuousEngine serves dense single-codebook "
+                             "token models")
+        self.engine = engine
+        self.max_slots = max_slots
+        self.cap_new = cap_new
+        self.clock = clock
+        self.block_size = block_size
+        if max_len is None:
+            max_len = engine.ladder.seq_buckets[-1]
+        if max_len % block_size:
+            raise ValueError(f"max_len {max_len} must be a multiple of "
+                             f"block_size {block_size}")
+        bad = [b for b in engine.ladder.seq_buckets if b % block_size]
+        if bad:
+            raise ValueError(f"ladder buckets {bad} not multiples of "
+                             f"block_size {block_size}")
+        self.max_len = max_len
+        self.max_blocks = max_len // block_size
+        # num_blocks=None: the pool is sized at the FIRST prefill to
+        # max_slots x that admission's bucket (+ the trash block)
+        self.block_table: Optional[BlockTableManager] = None
+        if num_blocks is not None:
+            self.block_table = sanitizer.make_block_manager(num_blocks,
+                                                            block_size)
+        self.prefill_tokens = 0      # tokens run through prefill
+        self.prefill_dispatches = 0  # prefill passes issued
+        self.sessions: List[Optional[Session]] = [None] * max_slots
+        self.state: Optional[GenState] = None
+        # next KV write position per slot (mirrors the device cache's
+        # len; advanced conservatively, so a row that finished on device
+        # between host syncs may hold one extra block until the sync)
+        self._slot_len: List[int] = [0] * max_slots
+        # blocks a live request will still append (reserved at admission,
+        # so mid-decode appends can never fail)
+        self._reserved: Dict[int, int] = {}
+        self.decode_ticks = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.engine.device
+
+    def _index(self, values: Sequence[int]) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(values, np.int64),
+                               device=self.device)
+
+    # -- PipelineBackend -------------------------------------------------
+    def free_slots(self) -> int:
+        return sum(1 for s in self.sessions if s is None)
+
+    def observe_metrics(self, m) -> None:
+        """Tick-boundary gauges (host-side bookkeeping only)."""
+        m.gauge("engine.prefill_tokens").set(self.prefill_tokens)
+        m.gauge("engine.prefill_dispatches").set(self.prefill_dispatches)
+        m.gauge("engine.decode_ticks").set(self.decode_ticks)
+        for k, v in self.engine.kv_slab.metrics().items():
+            m.gauge("slab." + k).set(v)
+        if self.block_table is not None:
+            for k, v in self.block_table.metrics().items():
+                m.gauge("kv." + k).set(v)
+            m.gauge("kv.reserved_blocks").set(sum(self._reserved.values()))
+
+    def free_kv_tokens(self) -> Optional[int]:
+        """Token capacity of blocks neither held nor reserved; unbounded
+        until the pool exists."""
+        if self.block_table is None:
+            return None
+        free = self.block_table.free_blocks - sum(self._reserved.values())
+        return max(free, 0) * self.block_size
+
+    def kv_demand(self, session: Session) -> int:
+        return max(block_round(session.total_len, self.block_size),
+                   self.block_size)
+
+    def validate(self, session: Session) -> None:
+        """Reject un-servable sessions at submit time."""
+        if session.prompt is None:
+            raise ValueError(f"session {session.req_id} has no prompt "
+                             "tokens")
+        if session.max_new_tokens > self.cap_new:
+            raise ValueError(
+                f"session {session.req_id}: max_new_tokens="
+                f"{session.max_new_tokens} exceeds cap_new={self.cap_new}")
+        if session.temperature < 0:
+            raise ValueError(f"session {session.req_id}: temperature "
+                             "must be >= 0")
+        if not 0.0 < session.top_p <= 1.0:
+            raise ValueError(f"session {session.req_id}: top_p must be "
+                             "in (0, 1]")
+        if len(session.stop) > STOP_SLOTS - 1:
+            raise ValueError(
+                f"session {session.req_id}: at most {STOP_SLOTS - 1} "
+                f"extra stop ids (got {len(session.stop)})")
+        if self.engine.kv_slab.has_region(session.req_id):
+            raise ValueError(f"session {session.req_id}: req_id already "
+                             "in flight")
+        if session.total_len > self.max_len:
+            raise ValueError(
+                f"session {session.req_id}: prompt+budget="
+                f"{session.total_len} exceeds max_len {self.max_len}")
+        if self.block_table is not None:
+            demand = self.block_table.blocks_needed(session.total_len)
+            if demand > self.block_table.num_blocks - 1:
+                raise ValueError(
+                    f"session {session.req_id}: needs {demand} KV blocks "
+                    f"but the pool holds {self.block_table.num_blocks - 1}")
+
+    def check_invariants(self, pipeline) -> None:
+        """Sanitizer cross-check of engine accounting against the
+        pipeline's live set: slot<->session bijection, block
+        conservation and shadow refcounts, reservation balance, and the
+        leak check at idle."""
+        seen_slots: Dict[int, int] = {}
+        for s in pipeline.live:
+            slot = s.slot
+            if not 0 <= slot < self.max_slots or \
+                    self.sessions[slot] is not s:
+                raise sanitizer.SanitizerError(
+                    f"slot<->session bijection broken: live session "
+                    f"{s.req_id} claims slot {slot} but the engine maps "
+                    "it elsewhere")
+            if slot in seen_slots:
+                raise sanitizer.SanitizerError(
+                    f"slot {slot} shared by sessions "
+                    f"{seen_slots[slot]} and {s.req_id}")
+            seen_slots[slot] = s.req_id
+        occupied = {i for i, s in enumerate(self.sessions) if s is not None}
+        stray = occupied - set(seen_slots)
+        if stray:
+            held = [self.sessions[i].req_id for i in sorted(stray)]
+            raise sanitizer.SanitizerError(
+                f"slots {sorted(stray)} hold sessions {held} the "
+                "pipeline no longer tracks")
+        btm = self.block_table
+        if btm is None:
+            return
+        resv = sum(self._reserved.values())
+        if resv > btm.free_blocks:
+            raise sanitizer.SanitizerError(
+                f"reservation balance broken: {resv} blocks reserved "
+                f"but only {btm.free_blocks} free")
+        stray_resv = set(self._reserved) - {s.req_id for s in pipeline.live}
+        if stray_resv:
+            raise sanitizer.SanitizerError(
+                f"reservations held for sessions {sorted(stray_resv)} "
+                "that are not live")
+        if isinstance(btm, sanitizer.SanitizedBlockTableManager):
+            btm.check_conservation()
+            if pipeline.idle():
+                btm.check_idle(live_requests=())
+
+    def prefill_batch(self, sessions: List[Session],
+                      padded_len: int) -> None:
+        eng = self.engine
+        # everything that can fail is checked BEFORE any device-state or
+        # slab mutation — a partial prefill must not poison the slot cache
+        over = [s.req_id for s in sessions
+                if s.max_new_tokens > self.cap_new]
+        if over:
+            raise ValueError(
+                f"sessions {over} exceed the emission buffer "
+                f"(max_new_tokens > cap_new={self.cap_new}); raise "
+                f"cap_new or lower the budget")
+        dup = [s.req_id for s in sessions
+               if eng.kv_slab.has_region(s.req_id)]
+        if dup:
+            raise ValueError(f"req_ids {dup} already hold KV regions "
+                             "(duplicate in-flight submission?)")
+        need = eng.ladder.seq_bucket(max(s.total_len for s in sessions))
+        self._ensure_state(need)
+        slots = [i for i, s in enumerate(self.sessions) if s is None]
+        slots = slots[:len(sessions)]
+        if len(slots) != len(sessions):
+            raise RuntimeError("admitted beyond free slots")
+        btm = self.block_table
+        want = sum(btm.blocks_needed(s.total_len) for s in sessions)
+        deficit = want + sum(self._reserved.values()) - btm.free_blocks
+        if deficit > 0:
+            raise ValueError(
+                f"prefill batch needs {want} fresh KV blocks beyond "
+                f"reservations, pool has {btm.free_blocks} free — the "
+                "admission planner should have vetoed this batch")
+        try:
+            rows = eng.prefill_batch(
+                [list(s.prompt) for s in sessions], max_len=need,
+                max_new_tokens=[s.max_new_tokens for s in sessions],
+                eos_id=[s.eos_id for s in sessions], cap_new=self.cap_new,
+                sampling=[s.params for s in sessions])
+            self._splice_paged(rows, slots, sessions)
+            self.prefill_dispatches += 1
+            self.prefill_tokens += sum(s.seq_len for s in sessions)
+        except Exception:
+            # free whatever tables the batch got, and neutralize their
+            # device rows (trash-block tables, done) so freed blocks can
+            # be reallocated without a stale row writing into them
+            bad_slots: List[int] = []
+            for i, s in enumerate(sessions):
+                if btm.has_request(s.req_id):
+                    bad_slots.append(slots[i])
+                    btm.free(s.req_id)
+                    self._reserved.pop(s.req_id, None)
+            if bad_slots:
+                idx = self._index(bad_slots)
+                self.state.cache["block_tables"][idx] = 0
+                self.state.done[idx] = True
+            raise
+        now = self.clock()
+        per_tok = kv_bytes_per_token(eng.cfg)
+        for slot, s in zip(slots, sessions):
+            self.sessions[slot] = s
+            self._slot_len[slot] = s.seq_len
+            eng.kv_slab.allocate(s.req_id, max(per_tok * s.total_len, 1),
+                                 tokens=s.total_len)
+            s.start_decode(now, slot=slot)
+        # a budget-1 or instant-EOS prompt may be done already
+        self._sync()
+        self._publish_stream()     # the prefill's seed token streams too
+
+    def decode_tick(self, sessions: List[Session]) -> None:
+        self._append_blocks()
+        self.state = self.engine.decode_step_batch(self.state)
+        self.decode_ticks += 1
+        self._sync()
+        self._publish_stream()
+
+    def _publish_stream(self) -> None:
+        """Incremental token delivery for streaming sessions: one small
+        host read of the counts/emitted buffers per tick, and none when
+        no occupied slot streams."""
+        wanted = [(slot, s) for slot, s in enumerate(self.sessions)
+                  if s is not None and s.stream]
+        if not wanted:
+            return
+        counts = _host(self.state.counts)
+        emitted = _host(self.state.emitted)
+        for slot, s in wanted:
+            s.generated = [int(x) for x in emitted[slot, :counts[slot]]]
+
+    def warmup(self) -> Dict[str, float]:
+        """Throwaway requests through the engine (see
+        :meth:`InferenceEngine.warmup`); the pool is untouched."""
+        return self.engine.warmup()
+
+    def cancel_session(self, session: Session) -> None:
+        """Tear down a mid-decode session NOW: publish its partial
+        generation (one row read), release its slab region and block
+        table, clear its reservation, and neutralize the device row
+        (done, table -> trash) so its freed blocks can be reallocated
+        without the stale row writing into them."""
+        slot = session.slot
+        if slot < 0 or self.sessions[slot] is not session:
+            raise ValueError(f"session {session.req_id} holds no decode "
+                             "slot")
+        st = self.state
+        counts = int(_host(st.counts[slot]))
+        emitted = _host(st.emitted[slot])
+        session.generated = [int(x) for x in emitted[:counts]]
+        self.engine.kv_slab.free(session.req_id)
+        self.engine.kv_slab.gc()
+        self.block_table.free(session.req_id)
+        self._reserved.pop(session.req_id, None)
+        self.sessions[slot] = None
+        self._slot_len[slot] = 0
+        st.cache["block_tables"][slot] = 0
+        st.done[slot] = True
+
+    # -- internals -------------------------------------------------------
+    def _ensure_state(self, need_len: int) -> None:
+        if self.state is not None:
+            return      # pool and tables are fixed-shape for life
+        eng = self.engine
+        b = self.max_slots
+        if self.block_table is None:
+            self.block_table = sanitizer.make_block_manager(
+                b * (need_len // self.block_size) + 1, self.block_size)
+        cache = make_paged_cache(eng.cfg, b, self.block_table.num_blocks,
+                                 self.block_size, self.max_blocks,
+                                 torch.float32, self.device)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        self.state = GenState(
+            cache=cache,
+            cur=zeros((b,), torch.int32),
+            emitted=zeros((b, self.cap_new), torch.int32),
+            counts=zeros((b,), torch.int32),
+            done=torch.ones((b,), dtype=torch.bool, device=self.device),
+            budget=zeros((b,), torch.int32),
+            eos=torch.full((b, STOP_SLOTS), -1, dtype=torch.int32,
+                           device=self.device),
+            temp=zeros((b,), torch.float32),
+            top_k=zeros((b,), torch.int32),
+            top_p=torch.ones((b,), dtype=torch.float32, device=self.device),
+            seed=zeros((b,), torch.int32))
+
+    def _splice_paged(self, rows: GenState, slots: List[int],
+                      sessions: List[Session]) -> None:
+        """Allocate block tables for newly admitted sessions and scatter
+        their prompt KV from the prefill parts into the pool (one scatter
+        for the whole batch); existing rows' blocks are untouched."""
+        btm = self.block_table
+        bs = self.block_size
+        st = self.state
+        k = len(slots)
+        flat: List[np.ndarray] = []
+        src_rows: List[np.ndarray] = []
+        table_rows = np.zeros((k, self.max_blocks), np.int32)
+        s_pad = rows.cache["k"].shape[2]
+        for i, s in enumerate(sessions):
+            # blocks covering the prompt plus the first decode write; the
+            # rest of the budget is reserved and appended mid-decode
+            bids = btm.allocate(s.req_id, min(s.seq_len + 1, s.total_len))
+            self._reserved[s.req_id] = max(
+                btm.blocks_needed(s.total_len) - len(bids), 0)
+            sanitizer.check_write(btm, s.req_id,
+                                  bids[:(s.seq_len - 1) // bs + 1])
+            pos = np.arange(s.seq_len)
+            flat.append(np.asarray(bids, np.int64)[pos // bs] * bs +
+                        pos % bs)
+            src_rows.append(i * s_pad + pos)
+            table_rows[i, :len(bids)] = bids
+        fidx = self._index(np.concatenate(flat))
+        sidx = self._index(np.concatenate(src_rows))
+        cache = st.cache
+        for key in ("k", "v"):
+            pool = cache[key]
+            nl = pool.shape[0]
+            part = rows.cache[key]
+            src = part.reshape((nl, -1) + part.shape[3:])[:, sidx]
+            pool.view((nl, -1) + pool.shape[3:])[:, fidx] = src.to(pool.dtype)
+        idx = self._index(slots)
+        cache["block_tables"][idx] = torch.as_tensor(table_rows,
+                                                     device=self.device)
+        for key in ("len", "pos_offset"):
+            cache[key][idx] = rows.cache[key][:k]
+        for name in ("cur", "emitted", "counts", "done", "budget", "eos",
+                     "temp", "top_k", "top_p", "seed"):
+            getattr(st, name)[idx] = getattr(rows, name)[:k]
+        # sticky: once a sampled row joins, the sampling tick serves the
+        # whole slot cache (greedy rows keep their argmax values)
+        st.sampling = st.sampling or rows.sampling
+
+    def _append_blocks(self) -> None:
+        """Before a decode tick: every occupied slot is about to write KV
+        at its current length — append a pool block to any row crossing
+        a block boundary and publish it in the device block table."""
+        btm = self.block_table
+        upd_slots: List[int] = []
+        upd_idx: List[int] = []
+        upd_bid: List[int] = []
+        for slot, s in enumerate(self.sessions):
+            if s is None:
+                continue
+            pos = self._slot_len[slot]
+            if pos >= s.total_len:
+                continue      # budget exhausted; row is (about to be) done
+            fresh = btm.ensure(s.req_id, pos + 1)
+            if fresh:
+                self._reserved[s.req_id] = max(
+                    self._reserved[s.req_id] - len(fresh), 0)
+                base = btm.blocks_of(s.req_id) - len(fresh)
+                for off, bid in enumerate(fresh):
+                    upd_slots.append(slot)
+                    upd_idx.append(base + off)
+                    upd_bid.append(bid)
+            self._slot_len[slot] = pos + 1
+        if upd_slots:
+            tables = self.state.cache["block_tables"]
+            tables[self._index(upd_slots), self._index(upd_idx)] = \
+                torch.as_tensor(np.asarray(upd_bid, np.int32),
+                                device=self.device)
+
+    def _sync(self) -> None:
+        """Flush: read the (tiny) stop flags; only when an occupied slot
+        newly finished is the token buffer transferred."""
+        st = self.state
+        done = _host(st.done)
+        if not any(done[slot] for slot, s in enumerate(self.sessions)
+                   if s is not None):
+            return
+        counts = _host(st.counts)
+        emitted = _host(st.emitted)
+        now = self.clock()
+        freed_slots: List[int] = []
+        for slot, s in enumerate(self.sessions):
+            if s is None or not done[slot]:
+                continue
+            s.generated = [int(x) for x in emitted[slot, :counts[slot]]]
+            s.result = list(s.prompt or []) + s.generated
+            s.finish(now)
+            self.engine.kv_slab.free(s.req_id)
+            self.block_table.free(s.req_id)
+            self._reserved.pop(s.req_id, None)
+            self.sessions[slot] = None
+            self._slot_len[slot] = 0
+            freed_slots.append(slot)
+        if freed_slots:
+            self.engine.kv_slab.gc()
+            # point freed rows at the trash block: their device rows keep
+            # writing at a frozen position until re-admission, and the
+            # freed physical blocks may be re-assigned
+            st.cache["block_tables"][self._index(freed_slots)] = 0
+
+    @property
+    def live_tokens(self) -> int:
+        return self.engine.kv_slab.live_tokens

@@ -1,0 +1,195 @@
+"""The port's Hopper kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and skips without one (the kernels
+have no CPU mode); the file imports torch and numpy only, so it runs on a
+machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Inputs are f32 unless a test says otherwise; the kernels and the plain
+versions then differ only in summation order, hence the 1e-4 tolerances.
+Sampling is compared token for token on shared noise.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import cuda_lib, ops, ref
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the Hopper kernels have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+def _gen(dev, seed=0):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+@pytest.mark.parametrize("rms", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_norm_matches_plain(cuda, rms, dtype):
+    g = _gen(cuda)
+    x = torch.randn((64, 2048), generator=g, device=cuda).to(dtype)
+    res = torch.randn((64, 2048), generator=g, device=cuda).to(dtype)
+    bias = torch.randn((2048,), generator=g, device=cuda).to(dtype)
+    gamma = (torch.rand((2048,), generator=g, device=cuda) + 0.5).to(dtype)
+    beta = torch.randn((2048,), generator=g, device=cuda).to(dtype)
+    # bf16 output: one ulp at |y| <= 8 is 3e-2
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=3e-2)
+    if rms:
+        y, s = ops.fused_rmsnorm(x, gamma, bias, res, return_residual=True)
+        y_ref, s_ref = ref.rmsnorm_ref(x, gamma, bias, res,
+                                       return_residual=True)
+    else:
+        y, s = ops.fused_layernorm(x, gamma, beta, bias, res,
+                                   return_residual=True)
+        y_ref, s_ref = ref.layernorm_ref(x, gamma, beta, bias, res,
+                                         return_residual=True)
+    torch.testing.assert_close(y, y_ref, **tol)
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(100, 100), (37, 100)])
+def test_cuda_flash_attention_matches_plain(cuda, causal, sq, sk):
+    g = _gen(cuda)
+    q = torch.randn((2, 8, sq, 128), generator=g, device=cuda)
+    k = torch.randn((2, 4, sk, 128), generator=g, device=cuda)
+    v = torch.randn((2, 4, sk, 128), generator=g, device=cuda)
+    lengths = torch.tensor([sk, sk - 20], dtype=torch.int32, device=cuda)
+    got = ops.flash_attention(q, k, v, lengths, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, lengths, causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_flash_attention_reads_strided_layout(cuda):
+    g = _gen(cuda)
+    q = torch.randn((2, 70, 16, 128), generator=g, device=cuda)
+    k = torch.randn((2, 70, 8, 128), generator=g, device=cuda)
+    v = torch.randn((2, 70, 8, 128), generator=g, device=cuda)
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2))
+    want = ops.flash_attention(q.transpose(1, 2).contiguous(),
+                               k.transpose(1, 2).contiguous(),
+                               v.transpose(1, 2).contiguous())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _paged(dev, b=8, h=16, kv=8, dh=128, bs=16, mb=16, seed=5):
+    rng = np.random.default_rng(seed)
+    nb = b * mb + 1
+    lengths = rng.integers(1, mb * bs + 1, b).astype(np.int32)
+    lengths[0] = 1
+    perm = rng.permutation(np.arange(1, nb))
+    tables = np.zeros((b, mb), np.int32)
+    used = 0
+    for i, ln in enumerate(lengths):
+        n = -(-int(ln) // bs)
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    kp = rng.standard_normal((nb, bs, kv, dh)).astype(np.float32)
+    vp = rng.standard_normal((nb, bs, kv, dh)).astype(np.float32)
+    kp[0] = vp[0] = np.nan                       # unwritten trash block
+    q = rng.standard_normal((b, h, dh)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev)
+            for a in (q, kp, vp, tables, lengths)]
+
+
+@pytest.mark.parametrize("h,kv", [(16, 8), (8, 8), (32, 4)])
+def test_cuda_paged_decode_matches_plain(cuda, h, kv):
+    q, kp, vp, tables, lengths = _paged(cuda, h=h, kv=kv)
+    got = ops.flash_decode_paged(q, kp, vp, tables, lengths)
+    # the plain version gathers whole blocks, trash included: give it a
+    # finite trash block (the kernel never reads it)
+    kp[0] = vp[0] = 0
+    want = ref.flash_decode_paged_ref(q, kp, vp, tables, lengths)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows,vocab,cands", [(8, 92544, 64), (3, 300, 16),
+                                              (1, 5000, 64)])
+def test_cuda_sample_matches_plain(cuda, rows, vocab, cands):
+    rng = np.random.default_rng(vocab)
+    logits = (3 * rng.standard_normal((rows, vocab))).astype(np.float32)
+    logits[0, 10:14] = logits[0].max() + 1       # ties at the top
+    temp = np.resize(np.array([0.7, 0.0, 1.3, -1.0], np.float32), rows)
+    top_k = np.resize(np.array([0, 5, 1000, 3], np.int32), rows)
+    top_p = np.resize(np.array([0.9, 1.0, 0.8, 0.5], np.float32), rows)
+    gumbel = rng.gumbel(size=(rows, cands)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (logits, temp, top_k, top_p, gumbel)]
+    got = ops.fused_sample(*args)
+    want = ref.sample_ref(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_cuda_paged_decode_clamps_lengths_past_the_table(cuda):
+    """A length above MB * BS reads the row's whole table and nothing past
+    it, as the plain version does: the last row's overrun would leave the
+    tables' buffer, the first row's would reach the next row's table."""
+    rng = np.random.default_rng(9)
+    b, h, kv, dh, bs, mb = 3, 16, 8, 128, 16, 4
+    nb = b * mb + 1
+    tables = (rng.permutation(np.arange(1, nb)).reshape(b, mb)
+              .astype(np.int32))
+    lengths = np.array([mb * bs + 5, 7, 4 * mb * bs], np.int32)
+    kp = rng.standard_normal((nb, bs, kv, dh)).astype(np.float32)
+    vp = rng.standard_normal((nb, bs, kv, dh)).astype(np.float32)
+    q = rng.standard_normal((b, h, dh)).astype(np.float32)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (q, kp, vp, tables, lengths)]
+    got = ops.flash_decode_paged(*args)
+    want = ref.flash_decode_paged_ref(*args)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_cuda_kernels_count_launches(cuda):
+    q, kp, vp, tables, lengths = _paged(cuda, b=2, mb=4)
+    cuda_lib.reset_launches()
+    ops.flash_decode_paged(q, kp, vp, tables, lengths)
+    ops.flash_decode_paged(q, kp, vp, tables, lengths)
+    assert cuda_lib.LAUNCHES["flash_decode_paged"] == 2
+
+
+def test_cuda_serving_matches_generate_alone(cuda):
+    """Smoke-depth model at the full head dim (the kernels are built for
+    dh = 128) on the card: continuous batching with mid-decode arrivals
+    equals ``generate`` of each prompt alone, every kernel of the path
+    launches, and nothing leaks."""
+    import dataclasses
+
+    from repro_torch.api import GenerationParams, TurboClient
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime.bucketing import BucketLadder
+    from repro_torch.runtime.engine import ContinuousEngine, InferenceEngine
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), d_head=128)
+    engine = InferenceEngine(
+        cfg, init_params(cfg, device=cuda),
+        ladder=BucketLadder(seq_buckets=(32, 64, 128), batch_buckets=(4,)),
+        device=cuda)
+    client = TurboClient(ContinuousEngine(engine, max_slots=4, cap_new=16))
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, 256, n)]
+               for n in (5, 40, 17, 60, 9, 33)]
+    cuda_lib.reset_launches()
+    handles = [client.submit(p, GenerationParams(max_new_tokens=12))
+               for p in prompts[:4]]
+    client.pump(max_ticks=3)
+    handles.append(client.submit(prompts[4], GenerationParams(
+        max_new_tokens=12, temperature=0.8, seed=3)))
+    handles.append(client.submit(prompts[5],
+                                 GenerationParams(max_new_tokens=12)))
+    results = [h.result() for h in handles]
+    for name in ("norm", "flash_attention", "flash_decode_paged", "sample"):
+        assert cuda_lib.LAUNCHES[name] > 0, name
+    for i in (0, 1, 2, 3, 5):
+        alone = engine.generate([prompts[i]], max_new_tokens=12)[0]
+        assert alone == results[i]
+    assert client.backend.block_table.used_blocks == 0
+    assert engine.kv_slab.live_bytes == 0
