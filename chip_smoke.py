@@ -21,7 +21,18 @@ Phases, each printing one JSON line:
    path launched;
 5. profile_decode: eight rows decoding at full width, the host time per
    tick and, from ``torch.profiler``, the device's busy time by kernel
-   family and its idle share.
+   family and its idle share;
+6. classify: the paper's one-shot classification service at full width
+   (``InferenceEngine.warmup`` into a bucketed cost table, then 64
+   Poisson requests of 5 to 500 tokens through
+   ``ServingSystem(execute=engine.execute_requests)`` under the dp, naive
+   and nobatch policies), each served batch's last-token logits held
+   against ``classify`` of each request alone, and the launch counters:
+   24 masked-softmax launches per executed batch, no flash attention;
+7. serve_contiguous: the serve phase's workload through
+   ``kv_layout="contiguous"``, every greedy stream against
+   ``engine.generate`` alone, 24 contiguous-decode launches per decode
+   tick and no paged-decode launch.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -33,6 +44,7 @@ plain versions is a full f32 product.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -276,6 +288,164 @@ def check_paged_decode(dev, gen, results):
         replaces="src/repro/kernels/flash_decode.py:207")
 
 
+def softmax_case(dev, gen, label: str, lengths, c: int,
+                 dtype: torch.dtype) -> dict:
+    """One shape of the masked softmax: kernel against its plain version,
+    exact zeros past each length, and the times of kernel, plain version
+    and torch.softmax of the pre-masked input."""
+    from repro_torch.kernels import ref, softmax
+    r = lengths.numel()
+    x = (4 * torch.randn((r, c), generator=gen, device=dev)).to(dtype)
+    scale = 1 / math.sqrt(128)
+
+    def kernel():
+        return softmax.softmax_cuda(x, lengths, scale=scale)
+
+    def plain():
+        return ref.softmax_ref(x, lengths, scale)
+    valid = torch.arange(c, device=dev)[None, :] < lengths[:, None]
+    x_masked = torch.where(valid, x.float() * scale, float("-inf"))
+
+    def library():
+        return torch.softmax(x_masked, dim=-1)
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 \
+        else dict(atol=1e-5, rtol=8e-3)
+    err = check_close(f"fused_softmax {label}", out, want, **tol)
+    if bool((out[~valid] != 0).any()):
+        raise AssertionError(f"fused_softmax {label}: a column past its "
+                             "row's length is not exactly zero")
+    iters = 50 if r > 4096 else 200
+    k_ms, p_ms, l_ms = (time_ms(kernel, iters), time_ms(plain, iters),
+                        time_ms(library, iters))
+    # what the function needs: the columns below min(length, C) read
+    # once, every column written once (zeros past the length), lengths
+    live = int(lengths.clamp(0, c).sum())
+    nbytes = (live + r * c) * x.element_size() + r * 4
+    b_ms, b_by = bound_ms(nbytes, 5.0 * live, H100_F32_FLOPS)
+    return {"phase": "kernel_check", "kernel": "fused_softmax",
+            "case": label, "shape": [r, c], "dtype": str(dtype),
+            "tolerance": {**tol, "why": "f32 math in both; the row sum is "
+                          "taken in another order (bf16: one ulp of the "
+                          "rounded output)"},
+            "zeros_past_length": "exact",
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms,
+            "library": "torch.softmax of the pre-masked, pre-scaled input",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_counts": "live columns read, whole rows written",
+            "share_of_bound": b_ms / k_ms}
+
+
+def check_softmax(dev, gen, results):
+    """The masked softmax at the classify shape (B 16, H 16, S 512, causal
+    row lengths), at S 1024, and on rows of length 0 and past C."""
+    def causal(bh: int, s: int):        # the rows of a (B*H, S, S) score
+        return torch.arange(1, s + 1, dtype=torch.int32,
+                            device=dev).repeat(bh)
+
+    def ragged(c: int):
+        lengths = torch.randint(-2, 2 * c, (4096,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        lengths[:8] = torch.tensor([0, 0, c, c + 1, 5 * c, 1, -1, 7],
+                                   dtype=torch.int32)
+        return lengths
+    lines = [softmax_case(dev, gen, "classify B16 H16 S512",
+                          causal(16 * 16, 512), 512, torch.float32),
+             softmax_case(dev, gen, "B4 H16 S1024", causal(4 * 16, 1024),
+                          1024, torch.float32),
+             softmax_case(dev, gen, "ragged C300, lengths 0 and > C",
+                          ragged(300), 300, torch.float32),
+             softmax_case(dev, gen, "ragged bf16 C512, lengths 0 and > C",
+                          ragged(512), 512, torch.bfloat16)]
+    for line in lines:
+        emit(line)
+    # the kernels line reports the classify shape and the worst error
+    results["fused_softmax"] = dict(
+        lines[0], max_abs_err=max(ln["max_abs_err"] for ln in lines),
+        route="cuda", source="src/repro_torch/csrc/softmax.cu",
+        replaces="src/repro/kernels/softmax.py:42")
+
+
+def check_contiguous_decode(dev, gen, results):
+    """Contiguous decode on a strided view of a (B, S, KV, dh) cache whose
+    positions past each length are NaN, against its plain version, and
+    bit for bit against the paged kernel on the same keys."""
+    from repro_torch.kernels import flash_decode, ref
+    import torch.nn.functional as F
+    b, h, kv, dh, s, bs = 8, 16, 8, 128, 1024, 16
+    lengths = torch.linspace(1, s, b, device=dev).round().to(torch.int32)
+    q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
+    kc = torch.randn((b, s, kv, dh), generator=gen, device=dev)
+    vc = torch.randn((b, s, kv, dh), generator=gen, device=dev)
+    past = torch.arange(s, device=dev)[None, :] >= lengths[:, None]
+    kc[past] = float("nan")            # never written, never to be read
+    vc[past] = float("nan")
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)     # (B, KV, S, dh)
+    # the plain version multiplies masked weights (0) into V: give it the
+    # same keys with a finite tail
+    k0 = kc.masked_fill(past[:, :, None, None], 0).transpose(1, 2)
+    v0 = vc.masked_fill(past[:, :, None, None], 0).transpose(1, 2)
+    tol = dict(atol=4e-3, rtol=4e-3)   # a few bf16 ulps of the output
+
+    def kernel():
+        return flash_decode.flash_decode_cuda(q, k, v, lengths)
+
+    def plain():
+        return ref.flash_decode_ref(q, k0, v0, lengths)
+    mask = ~past[:, None, None, :]
+    qf = q.float()[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qf, k0, v0, attn_mask=mask,
+                                              enable_gqa=True)
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = check_close("flash_decode", out, want, **tol)
+    # the same keys in a pool: row r owns blocks 1 + r * MB ... in order
+    mb = s // bs
+    pool_k = torch.cat([torch.zeros((1, bs, kv, dh), device=dev),
+                        kc.reshape(b * mb, bs, kv, dh)])
+    pool_v = torch.cat([torch.zeros((1, bs, kv, dh), device=dev),
+                        vc.reshape(b * mb, bs, kv, dh)])
+    tables = (1 + torch.arange(b * mb, device=dev, dtype=torch.int32)
+              ).reshape(b, mb)
+    paged = flash_decode.flash_decode_paged_cuda(q, pool_k, pool_v, tables,
+                                                 lengths)
+    torch.cuda.synchronize()
+    bit_diff = max_err(out, paged)
+    if not torch.equal(out, paged):
+        raise AssertionError(f"flash_decode: differs from the paged kernel "
+                             f"on the same keys (max abs {bit_diff})")
+    k_ms, p_ms, l_ms = (time_ms(kernel, 200), time_ms(plain, 20),
+                        time_ms(library, 50))
+    live = int(lengths.sum())
+    nbytes = 2 * live * kv * dh * 4 + 2 * b * h * dh * 2 + b * 4
+    flops = 4.0 * h * dh * live
+    b_ms, b_by = bound_ms(nbytes, flops, H100_F32_FLOPS)
+    line = {"phase": "kernel_check", "kernel": "flash_decode",
+            "shape": {"B": b, "H": h, "KV": kv, "dh": dh, "S": s,
+                      "lengths": lengths.tolist(),
+                      "layout": "strided (B, KV, S, dh) view of a "
+                                "(B, S, KV, dh) cache, NaN past each length"},
+            "dtype": "q bfloat16, cache float32",
+            "tolerance": {**tol, "why": "the cache is f32 and the kernel "
+                          "keeps f32 throughout; the plain version rounds "
+                          "the softmax weights to q's bf16, and both round "
+                          "the output to bf16: a few of its ulps apart"},
+            "max_abs_err": err, "max_abs_diff_vs_paged_kernel": bit_diff,
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "library": "F.scaled_dot_product_attention (f32 q, bool mask, "
+                       "enable_gqa)",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "gbytes_per_s": nbytes / (k_ms * 1e-3) / 1e9}
+    emit(line)
+    results["flash_decode"] = dict(
+        line, route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode.py:81")
+
+
 def check_sample(dev, gen, results):
     from repro_torch.kernels import ref, sampling
     from repro_torch.runtime.sampling import gumbel_noise
@@ -323,7 +493,9 @@ def check_sample(dev, gen, results):
 # ---------------------------------------------------------------------------
 
 
-def serve(dev, card: str):
+def serve(dev, card: str, layout: str = "paged"):
+    """The generative path over the paged pool (phase 4) or the contiguous
+    slot cache (phase 7, ``layout="contiguous"``)."""
     from repro_torch.api import GenerationParams, TurboClient
     from repro_torch.kernels import cuda_lib
     rng = np.random.default_rng(SEED)
@@ -333,11 +505,15 @@ def serve(dev, card: str):
     # the decode tick's matrix products at the serving batch's shape, so
     # its greedy stream can be held bit for bit against the served one
     # (cuBLAS may pick another kernel, and round otherwise, at batch 1).
-    # The pool holds every slot at the top bucket, plus the trash block.
+    # The pool holds every slot at the top bucket, plus the trash block;
+    # the contiguous slot cache is sized at the first admission and grows
+    # to the top bucket.
+    layout_kw = dict(num_blocks=8 * 1024 // 16 + 1) if layout == "paged" \
+        else dict(kv_layout="contiguous")
     client = TurboClient.from_arch(
         "internlm2-1.8b", smoke=False, device=dev, seq_buckets=buckets,
         batch_buckets=(8,), max_slots=8, cap_new=64, init_seed=SEED,
-        num_blocks=8 * 1024 // 16 + 1)
+        **layout_kw)
     engine = client.backend.engine
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -369,13 +545,22 @@ def serve(dev, card: str):
     launches = dict(cuda_lib.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
 
-    for kname in ("norm", "flash_attention", "flash_decode_paged",
-                  "sample"):
+    decode = "flash_decode_paged" if layout == "paged" else "flash_decode"
+    for kname in ("norm", "flash_attention", decode, "sample"):
         if launches.get(kname, 0) <= 0:
             raise AssertionError(f"kernel {kname} never launched on the "
                                  f"serving path: {launches}")
     ce = client.backend
-    if ce.block_table.used_blocks != 0:
+    if layout == "contiguous":
+        per_tick = engine.cfg.num_layers
+        if launches[decode] != per_tick * ce.decode_ticks or \
+                launches.get("flash_decode_paged", 0):
+            raise AssertionError(
+                f"contiguous serving: {launches[decode]} contiguous decode "
+                f"launches over {ce.decode_ticks} ticks (expected "
+                f"{per_tick} per tick) and "
+                f"{launches.get('flash_decode_paged', 0)} paged")
+    elif ce.block_table.used_blocks != 0:
         raise AssertionError(f"{ce.block_table.used_blocks} KV blocks "
                              "leaked after drain")
     if engine.kv_slab.live_bytes != 0:
@@ -405,8 +590,9 @@ def serve(dev, card: str):
                 "prompt")
         greedy_checked += 1
     ttft = sorted(h.ttft for h in handles)
-    emit({"phase": "serve", "model": "internlm2-1.8b (full width, 24 "
-          "layers, bf16 weights from a seed, f32 KV pool)",
+    emit({"phase": "serve" if layout == "paged" else "serve_contiguous",
+          "model": "internlm2-1.8b (full width, 24 layers, bf16 weights "
+          "from a seed, f32 KV)", "kv_layout": layout,
           "card": card, "requests": len(handles),
           "sampled": sum(1 for _, p in specs if p.temperature > 0),
           "greedy_equal_to_generate_alone": greedy_checked,
@@ -417,8 +603,183 @@ def serve(dev, card: str):
           "peak_mem_gib": peak / 2 ** 30, "stack_build_s": build_s,
           "decode_ticks": ce.decode_ticks,
           "prefill_dispatches": ce.prefill_dispatches,
+          "kv_cache_gib": sum(ce.state.cache[k].numel() * 4
+                              for k in ("k", "v")) / 2 ** 30,
           "launches": launches})
     return client, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the paper's one-shot classification service at full width
+# ---------------------------------------------------------------------------
+
+#: how far a request's last-token logits may move between its served batch
+#: and a batch of its own, in bf16 ulps at the row's largest |logit|: the
+#: activations are bf16 through 24 layers, and the two runs pad to other
+#: shapes, so cuBLAS picks other kernels and rounds otherwise (five replays
+#: on an H100 moved them by 2.5 to 2.75 such ulps)
+CLASSIFY_LOGIT_ULPS = 4
+#: requests whose class is held against their class alone: those whose
+#: top-2 margin alone exceeds twice the tolerance (random weights give
+#: many near ties, so the check walks the dp batches until it has these)
+CLASSIFY_CLASSES_HELD = 16
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 numbers at magnitude ``x`` (8-bit mantissa)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def replay(system, requests) -> float:
+    """Submit each request at its Poisson arrival time (on the serving
+    system's monotonic clock) and step the system whenever work is
+    queued; returns the wall seconds from the first arrival slot to the
+    last response."""
+    from repro_torch.core import Request
+    t0 = time.monotonic()
+    i = 0
+    while i < len(requests) or not system.pipeline.idle():
+        while i < len(requests) and \
+                t0 + requests[i].arrival_time <= time.monotonic():
+            r = requests[i]
+            system.submit(Request(r.req_id, r.seq_len, t0 + r.arrival_time,
+                                  r.payload))
+            i += 1
+        if system.pipeline.idle():
+            time.sleep(max(t0 + requests[i].arrival_time - time.monotonic(),
+                           0.0))
+            continue
+        system.step()
+    return time.monotonic() - t0
+
+
+def classify_phase(dev, card: str, n_requests: int = 64):
+    """launch/serve.py's first phase at full width: warm the cost table,
+    then serve the same Poisson request list under each policy, and hold
+    served batches against each request classified alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import (BucketedCostModel, ServingConfig,
+                                  ServingSystem)
+    from repro_torch.data import LengthDistribution, RequestGenerator
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import init_params
+    from repro_torch.runtime.bucketing import BucketLadder
+    from repro_torch.runtime.engine import InferenceEngine
+    cfg = get_config("internlm2-1.8b")
+    ladder = BucketLadder(seq_buckets=(32, 64, 128, 256, 512),
+                          batch_buckets=(1, 2, 4, 8, 16, 32))
+    engine = InferenceEngine(cfg, init_params(cfg, seed=SEED, device=dev),
+                             ladder=ladder, device=dev)
+    t0 = time.perf_counter()
+    table = engine.warmup(lengths=(32, 128, 512), batches=(1, 4, 16))
+    warm_s = time.perf_counter() - t0
+    cost = BucketedCostModel(table, buckets=ladder.seq_buckets)
+    rate = 200.0
+    requests = RequestGenerator(
+        rate=rate, lengths=LengthDistribution("uniform", 5, 500),
+        vocab_size=cfg.vocab_size, seed=0).generate(
+            2 * n_requests / rate)[:n_requests]
+    if len(requests) != n_requests:
+        raise AssertionError(f"the generator gave {len(requests)} requests")
+    emit({"phase": "classify_cost_table", "card": card, "warmup_s": warm_s,
+          "seconds_by_len_and_batch": [[ln, b, t] for (ln, b), t
+                                       in sorted(table.table.items())]})
+    served, logs, softmax_launches = {}, {}, {}
+    for policy in ("dp", "naive", "nobatch"):
+        system = ServingSystem(execute=engine.execute_requests,
+                               cost_model=cost,
+                               config=ServingConfig(policy=policy,
+                                                    max_batch_size=20))
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        wall = replay(system, requests)
+        launches = dict(cuda_lib.LAUNCHES)
+        batches = list(system.pipeline.batch_log)
+        if launches.get("softmax", 0) != cfg.num_layers * len(batches) or \
+                launches.get("flash_attention", 0):
+            raise AssertionError(
+                f"classify ({policy}): {launches} over {len(batches)} "
+                f"batches; expected {cfg.num_layers} softmax launches per "
+                "batch and no flash attention")
+        resp = system.responses
+        if len(resp) != n_requests or any(r.result is None for r in resp):
+            raise AssertionError(f"classify ({policy}): {len(resp)} "
+                                 "responses, or one without a result")
+        if any(not 0 <= r.result < cfg.vocab_size for r in resp):
+            raise AssertionError(f"classify ({policy}): class out of range")
+        lats = sorted(r.latency for r in resp)
+        served[policy] = {r.req_id: r.result for r in resp}
+        logs[policy] = batches
+        softmax_launches[policy] = launches["softmax"]
+        emit({"phase": "classify", "policy": policy, "card": card,
+              "requests": n_requests, "offered_rate_per_s": rate,
+              "lengths": "uniform 5-500", "wall_s": wall,
+              "resp_per_s": n_requests / wall,
+              "latency_p50_s": float(np.percentile(lats, 50)),
+              "latency_p99_s": float(np.percentile(lats, 99)),
+              "batches": len(batches),
+              "batch_sizes": [len(b) for b in batches],
+              "padded_lens": sorted({r.padded_len for r in resp}),
+              "launches": launches})
+    agree = {p: sum(served[p][i] == served["dp"][i] for i in served["dp"])
+             for p in ("naive", "nobatch")}
+
+    # the dp run's batches again, each as it was served (same members,
+    # same buckets), against every member classified alone
+    by_id = {r.req_id: r for r in requests}
+    order = sorted(logs["dp"], key=len, reverse=True)
+    checked, held, near_ties, worst, worst_ulps = 0, 0, 0, 0.0, 0.0
+    for batch in order:
+        logits = engine.classify_logits(
+            [by_id[i].payload for i in batch]).float()
+        preds = logits.argmax(dim=-1).tolist()
+        if preds != [served["dp"][i] for i in batch]:
+            raise AssertionError("classify: the served batch, run again, "
+                                 "gives other predictions")
+        for row, rid in zip(logits, batch):
+            alone = engine.classify_logits([by_id[rid].payload])[0].float()
+            diff = float((row - alone).abs().max())
+            tol = CLASSIFY_LOGIT_ULPS * bf16_ulp(float(alone.abs().max()))
+            worst = max(worst, diff)
+            worst_ulps = max(worst_ulps, diff / (tol / CLASSIFY_LOGIT_ULPS))
+            if diff > tol:
+                raise AssertionError(
+                    f"classify: request {rid}'s logits move by {diff:.4g} "
+                    f"between its batch of {len(batch)} and a batch of its "
+                    f"own (tolerance {tol:.4g})")
+            # each logit may move by tol: the class is held where the top
+            # two are further apart than two moves
+            top2 = alone.topk(2).values
+            if float(top2[0] - top2[1]) > 2 * tol:
+                if int(row.argmax()) != int(alone.argmax()):
+                    raise AssertionError(f"classify: request {rid}'s class "
+                                         "differs from its class alone")
+                held += 1
+            else:
+                near_ties += 1
+            checked += 1
+        # on through the dp batches until 16 classes have been held
+        if held >= CLASSIFY_CLASSES_HELD:
+            break
+    if held < CLASSIFY_CLASSES_HELD:
+        raise AssertionError(
+            f"classify: only {held} of {checked} requests have a top-2 "
+            f"margin clear of the tolerance; {CLASSIFY_CLASSES_HELD} are "
+            "needed to hold the class")
+    emit({"phase": "classify_batched_vs_alone", "card": card,
+          "requests_checked": checked, "classes_held": held,
+          "dp_batches_checked": order.index(batch) + 1,
+          "largest_batch_checked": len(order[0]),
+          "max_abs_logit_diff": worst,
+          "max_diff_in_bf16_ulps_of_the_row_max": worst_ulps,
+          "tolerance": {"bf16_ulps_of_the_row_max": CLASSIFY_LOGIT_ULPS,
+                        "why": "bf16 activations; the batch and the request "
+                        "alone pad to other shapes and round otherwise"},
+          "near_ties_not_held_to_equal_class": near_ties,
+          "near_tie": "top-2 margin of the row alone within twice the "
+                      "tolerance",
+          "predictions_equal_to_dp": agree})
+    return softmax_launches["dp"]
 
 
 # ---------------------------------------------------------------------------
@@ -493,6 +854,13 @@ def profile_decode(client, card: str, ticks: int = 10) -> None:
           "top_host_ops_self_time": top(host, 10)})
 
 
+def release_memory() -> None:
+    """Free what a finished phase left (its client holds reference
+    cycles), so the next phase's peak memory is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -531,12 +899,23 @@ def main() -> int:
     check_flash_attention(dev, gen, checks)
     check_paged_decode(dev, gen, checks)
     check_sample(dev, gen, checks)
+    check_softmax(dev, gen, checks)
+    check_contiguous_decode(dev, gen, checks)
 
+    # each path runs with the launch counters set to 0 just before it,
+    # and each kernel's launches are read from the path that runs it
     client, launches = serve(dev, card)
     profile_decode(client, card)
+    del client
+    release_memory()
+    launches["softmax"] = classify_phase(dev, card)
+    release_memory()
+    _, launches_c = serve(dev, card, layout="contiguous")
+    launches["flash_decode"] = launches_c["flash_decode"]
     names = {"fused_norm": "norm", "flash_attention": "flash_attention",
              "flash_decode_paged": "flash_decode_paged",
-             "fused_sample": "sample"}
+             "fused_sample": "sample", "fused_softmax": "softmax",
+             "flash_decode": "flash_decode"}
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     kernels = []

@@ -236,8 +236,8 @@ class TurboClient:
         # and allocator pools, not compiled cells).  Opt-in here (tests
         # build many cheap clients).
         self.warmup_stats: Optional[dict] = None
-        if warmup and hasattr(backend, "warmup"):
-            self.warmup_stats = backend.warmup()
+        if warmup and hasattr(backend, "warmup_aot"):
+            self.warmup_stats = backend.warmup_aot()
         if auto_pump == "thread":
             self._pump_thread = threading.Thread(
                 target=self._pump_loop, daemon=True,
@@ -262,7 +262,8 @@ class TurboClient:
         """Build the whole serving stack from an arch name: reduced
         (``smoke=True``) or full config, fresh params drawn from
         ``init_seed`` on ``device``, a bucketed InferenceEngine, and a
-        paged-KV ContinuousEngine backend.  ``device`` defaults to
+        ContinuousEngine backend (paged KV unless ``backend_kw`` asks for
+        ``kv_layout="contiguous"``).  ``device`` defaults to
         ``"cuda"``; without a card the call raises unless the caller
         passes ``device="cpu"``.  One client serves one replica."""
         from repro_torch.configs import get_config, get_smoke_config

@@ -4,13 +4,24 @@ Semantics follow the paper's Eq. 2: ``cached_cost[len][batch]`` is the
 *per-request* cost of running one inference at (len, batch); the latency of
 a batch of size b is ``cached_cost[len][b] * b``.
 
-The port keeps :class:`AnalyticCostModel`, a roofline model (compute
-and memory terms plus a fixed launch overhead).  The admission planner
-only needs relative costs to order and veto batches.
+Three implementations (copied from the JAX package):
+
+- :class:`TableCostModel` — built by a warm-up phase that measures the real
+  engine "under all possible batch sizes and sequence lengths" (§5), with
+  bilinear interpolation in (len, batch) for unseen points and lazy
+  refinement from live measurements;
+- :class:`BucketedCostModel` — wraps another model with the engine's
+  sequence buckets, so cost is a step function of length;
+- :class:`AnalyticCostModel` — an H100 roofline model (compute and memory
+  terms plus a fixed launch overhead), for when nothing has been measured:
+  the admission planner only needs relative costs to order and veto
+  batches.
 """
 from __future__ import annotations
 
+import bisect
 from dataclasses import dataclass
+from typing import Dict, List, Sequence, Tuple
 
 # NVIDIA H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3)
 PEAK_FLOPS_BF16 = 989e12
@@ -88,3 +99,97 @@ class AnalyticCostModel(CostModel):
         memory = (self.weight_bytes + self.bytes_per_token * batch +
                   kv_read) / (self.hbm_bw * self.chips)
         return max(compute, memory) + self.overhead
+
+
+class TableCostModel(CostModel):
+    """Warm-up table + bilinear interpolation (paper §5, both strategies:
+    dense warm-up for small parameter spaces, sampled+interpolated for
+    large ones; `observe` implements the lazy live refinement)."""
+
+    def __init__(self, table: Dict[Tuple[int, int], float]) -> None:
+        if not table:
+            raise ValueError("empty cost table")
+        self.table = dict(table)
+        self._rebuild()
+
+    def _rebuild(self) -> None:
+        self.lengths = sorted({k[0] for k in self.table})
+        self.batches = sorted({k[1] for k in self.table})
+
+    @classmethod
+    def warmup(cls, measure, lengths: Sequence[int],
+               batches: Sequence[int]) -> "TableCostModel":
+        """measure(seq_len, batch) -> seconds (full-batch latency)."""
+        table = {(l, b): float(measure(l, b))
+                 for l in lengths for b in batches}
+        return cls(table)
+
+    def observe(self, seq_len: int, batch: int, latency: float,
+                ema: float = 0.3) -> None:
+        key = (seq_len, batch)
+        if key in self.table:
+            self.table[key] = (1 - ema) * self.table[key] + ema * latency
+        else:
+            self.table[key] = latency
+            self._rebuild()
+
+    def _nearest(self, grid: List[int], x: int) -> Tuple[int, int, float]:
+        """Bracketing grid points and interpolation weight."""
+        i = bisect.bisect_left(grid, x)
+        if i == 0:
+            return grid[0], grid[0], 0.0
+        if i >= len(grid):
+            return grid[-1], grid[-1], 0.0
+        lo, hi = grid[i - 1], grid[i]
+        if lo == hi:
+            return lo, hi, 0.0
+        w = (x - lo) / (hi - lo)
+        return lo, hi, w
+
+    def latency(self, seq_len: int, batch: int) -> float:
+        l0, l1, wl = self._nearest(self.lengths, seq_len)
+        b0, b1, wb = self._nearest(self.batches, batch)
+
+        def at(l, b):
+            if (l, b) in self.table:
+                return self.table[(l, b)]
+            # fall back to nearest available in batch dim
+            cands = [bb for bb in self.batches if (l, bb) in self.table]
+            bb = min(cands, key=lambda x: abs(x - b))
+            return self.table[(l, bb)] * (b / bb)
+        v00, v01 = at(l0, b0), at(l0, b1)
+        v10, v11 = at(l1, b0), at(l1, b1)
+        v0 = v00 * (1 - wb) + v01 * wb
+        v1 = v10 * (1 - wb) + v11 * wb
+        lat = v0 * (1 - wl) + v1 * wl
+        # extrapolate beyond grid linearly in tokens
+        if seq_len > self.lengths[-1]:
+            lat *= seq_len / self.lengths[-1]
+        if batch > self.batches[-1]:
+            lat *= batch / self.batches[-1]
+        return lat
+
+
+@dataclass
+class BucketedCostModel(CostModel):
+    """Beyond-paper: accounts for length bucketing — the engine pads
+    seq_len up to the next bucket, so cost is a step function of length.
+    Wrapping the base model with the *actual executed* shape makes the DP
+    scheduler bucket-aware (it then prefers batches that share a bucket)."""
+    base: CostModel
+    buckets: Sequence[int] = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+    def bucket_of(self, seq_len: int) -> int:
+        for b in self.buckets:
+            if seq_len <= b:
+                return b
+        return self.buckets[-1]
+
+    def latency(self, seq_len: int, batch: int) -> float:
+        return self.base.latency(self.bucket_of(seq_len), batch)
+
+    def decode_latency(self, batch: int, context_len: int = 0) -> float:
+        # decode executes a length-1 step regardless of bucketing; only
+        # the KV context the step streams is bucket-padded
+        ctx = self.bucket_of(context_len) if context_len else 0
+        return self.base.decode_latency(batch, ctx)

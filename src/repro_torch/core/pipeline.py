@@ -14,7 +14,8 @@ One-shot (classification) sessions finish at prefill, which makes the
 request-granularity system of the paper a special case of this loop.
 
 This is the port's copy of the JAX package's pipeline, cut to what the
-port serves: DP-planned prefill admission and decode ticks.  Chunked and
+port serves: prefill admission planned by the configured policy (the
+paper's DP scheduler or a baseline) and decode ticks.  Chunked and
 packed prefill are not ported yet.
 
 The pipeline is execution-agnostic: a :class:`PipelineBackend` runs the
@@ -26,16 +27,28 @@ from __future__ import annotations
 import itertools
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.cost_model import CostModel
-from repro_torch.core.scheduler import BatchPlan, dp_schedule
+from repro_torch.core.scheduler import (BatchPlan, dp_schedule,
+                                       naive_schedule, nobatch_schedule)
 from repro_torch.obs import Observability
 from repro_torch.runtime.session import Session, SessionState
 
 # NOTE: repro_torch.runtime.sanitizer is imported lazily (it subclasses
 # kv_cache.BlockTableManager, and kv_cache -> core.cost_model ->
 # core/__init__ -> this module would make the import circular).
+
+
+def plan_for_policy(policy: str, lengths: Sequence[int], cost: CostModel,
+                    max_batch_size: Optional[int]) -> BatchPlan:
+    if policy == "nobatch":
+        return nobatch_schedule(lengths, cost)
+    if policy == "naive":
+        return naive_schedule(lengths, cost, max_batch_size)
+    if policy == "dp":
+        return dp_schedule(lengths, cost, max_batch_size)
+    raise ValueError(f"unknown policy {policy!r}")
 
 
 class PipelineBackend:
@@ -106,6 +119,7 @@ class PipelineBackend:
 
 @dataclass
 class PipelineConfig:
+    policy: str = "dp"                  # nobatch | naive | dp
     strategy: str = "hungry"            # hungry | lazy
     max_batch_size: int = 20
     lazy_timeout: float = 5e-3          # lazy: flush after this wait
@@ -349,8 +363,9 @@ class ServingPipeline:
         decoding = self._decoding()
         if not decoding or len(decoding) < self.config.min_decode_batch:
             return ("plan", cand, None)
-        plan = dp_schedule([s.seq_len for s in cand], self.cost,
-                           self.config.max_batch_size)
+        plan = plan_for_policy(
+            self.config.policy, [s.seq_len for s in cand], self.cost,
+            self.config.max_batch_size)
         if not self._prefill_worthwhile(
                 [cand[i] for i in plan.batches[0]]):
             if record:
@@ -545,8 +560,9 @@ class ServingPipeline:
         """The classic admission round: plan over ``cand`` (reusing the
         plan the veto already priced, when there is one), dispatch."""
         if plan is None:
-            plan = dp_schedule([s.seq_len for s in cand], self.cost,
-                               self.config.max_batch_size)
+            plan = plan_for_policy(self.config.policy,
+                                   [s.seq_len for s in cand], self.cost,
+                                   self.config.max_batch_size)
         batches = plan.batches
         # with decodes in flight, dispatch ONE batch per tick: the
         # two-phase veto bounded the stall of a single prefill pass,

@@ -1,9 +1,11 @@
-"""Paged split-K decode attention: the Hopper kernel's wrapper.
+"""Split-K decode attention over a paged pool or a contiguous cache: the
+Hopper kernel's wrappers.
 
-Replaces the JAX package's `flash_decode_paged_pallas`
-(src/repro/kernels/flash_decode.py).  The kernel is
-``csrc/flash_decode.cu``; its plain version is
-:func:`repro_torch.kernels.ref.flash_decode_paged_ref`, re-exported here.
+Replace the JAX package's `flash_decode_paged_pallas` and
+`flash_decode_pallas` (src/repro/kernels/flash_decode.py).  Both launch
+``csrc/flash_decode.cu``; their plain versions are
+:func:`repro_torch.kernels.ref.flash_decode_paged_ref` and
+:func:`~repro_torch.kernels.ref.flash_decode_ref`, re-exported here.
 """
 from __future__ import annotations
 
@@ -13,9 +15,10 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.ref import flash_decode_paged_ref
+from repro_torch.kernels.ref import flash_decode_paged_ref, flash_decode_ref
 
-__all__ = ["flash_decode_paged_cuda", "flash_decode_paged_ref"]
+__all__ = ["flash_decode_cuda", "flash_decode_paged_cuda",
+           "flash_decode_paged_ref", "flash_decode_ref"]
 
 # what the kernel is instantiated for (csrc/flash_decode.cu)
 HEAD_DIM = 128
@@ -24,6 +27,9 @@ Q_DTYPES = (torch.float32, torch.bfloat16)
 #: logical KV blocks per split (128 positions at the block size of 16),
 #: kSplitBlocks in csrc/flash_decode.cu
 BLOCKS_PER_SPLIT = 8
+#: keys per split of the contiguous layout (kSplitKeys): the keys of 8
+#: blocks of 16, so both layouts split a row at the same keys
+SPLIT_KEYS = 128
 
 
 def num_splits(max_blocks: int) -> int:
@@ -32,6 +38,75 @@ def num_splits(max_blocks: int) -> int:
     order whatever the batch or the table's width, and choosing the count
     reads nothing back from the device."""
     return max(1, -(-max_blocks // BLOCKS_PER_SPLIT))
+
+
+def _check_heads(name: str, q: torch.Tensor, kv: int, dh: int) -> None:
+    h = q.shape[1]
+    if kv == 0 or h % kv or h // kv not in GROUPS:
+        raise ValueError(f"{name}: H/KV = {h}/{kv} must be one of {GROUPS}")
+    if dh != HEAD_DIM:
+        raise ValueError(f"{name}: head dim {dh} is not {HEAD_DIM}")
+
+
+def _launch_scratch(q: torch.Tensor, splits: int):
+    """The kernel's per-split partials and the output."""
+    b, h, dh = q.shape
+    out = torch.empty_like(q)
+    part_o = torch.empty((b, h, splits, dh), dtype=torch.float32,
+                         device=q.device)
+    part_m = torch.empty((b, h, splits), dtype=torch.float32,
+                         device=q.device)
+    return out, part_o, part_m, torch.empty_like(part_m)
+
+
+def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: Optional[torch.Tensor] = None, *,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,H,dh) f32 or bf16, contiguous; k, v: (B,KV,S,dh) f32 views
+    with one shared layout, any strides with the head dim unit-stride and
+    every dh-vector 16-byte aligned (the cache's (B,S,KV,dh) layer slice
+    transposed is such a view: it is read in place, never copied);
+    lengths: (B,) int32 valid kv lengths (None = S; a length past S reads
+    the whole cache).  Returns (B,H,dh) in q's dtype."""
+    name = "flash_decode"
+    cuda_lib.require_cuda(name, q, k, v, lengths)
+    b, h, dh = q.shape
+    kv, s = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (b, kv, s, dh) or v.shape != k.shape:
+        raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not "
+                         f"fit q {tuple(q.shape)}")
+    _check_heads(name, q, kv, dh)
+    if q.dtype not in Q_DTYPES or k.dtype != torch.float32 or \
+            v.dtype != torch.float32:
+        raise ValueError(f"{name}: q must be f32 or bf16 and k/v f32, "
+                         f"got {q.dtype} / {k.dtype} / {v.dtype}")
+    if k.stride() != v.stride() or k.stride(3) != 1 or \
+            any(st % 4 for st in k.stride()[:3]):
+        raise ValueError(f"{name}: k and v must share one layout with a "
+                         f"unit-stride head dim and 16-byte rows, got "
+                         f"strides {k.stride()} / {v.stride()}")
+    if not q.is_contiguous():
+        raise ValueError(f"{name}: q must be contiguous")
+    lib = cuda_lib.library()
+    if lengths is None:
+        lengths = torch.full((b,), s, dtype=torch.int32, device=q.device)
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,) or \
+            not lengths.is_contiguous():
+        raise ValueError(f"{name}: lengths must be (B,) int32")
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    splits = max(1, -(-s // SPLIT_KEYS))
+    out, part_o, part_m, part_l = _launch_scratch(q, splits)
+    if b == 0:
+        return out
+    sb, sh, ss = k.stride()[:3]
+    rc = lib.repro_contiguous_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+        out.data_ptr(), b, kv, h // kv, dh, s, sb, sh, ss, splits,
+        float(scale), cuda_lib.DTYPE_CODES[q.dtype], cuda_lib.stream_ptr(q))
+    cuda_lib.check(rc, name)
+    cuda_lib.count_launch("flash_decode")
+    return out
 
 
 def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
@@ -51,10 +126,7 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if tuple(k_pool.shape) != (nb, bs, kv, dh) or v_pool.shape != k_pool.shape:
         raise ValueError(f"{name}: pool shape {tuple(k_pool.shape)} does "
                          f"not fit q {tuple(q.shape)}")
-    if kv == 0 or h % kv or h // kv not in GROUPS:
-        raise ValueError(f"{name}: H/KV = {h}/{kv} must be one of {GROUPS}")
-    if dh != HEAD_DIM:
-        raise ValueError(f"{name}: head dim {dh} is not {HEAD_DIM}")
+    _check_heads(name, q, kv, dh)
     if q.dtype not in Q_DTYPES or k_pool.dtype != torch.float32 or \
             v_pool.dtype != torch.float32:
         raise ValueError(f"{name}: q must be f32 or bf16 and the pool f32, "
@@ -72,14 +144,9 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
             raise ValueError(f"{name}: inputs must be contiguous")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     splits = num_splits(mb)
-    out = torch.empty_like(q)
+    out, part_o, part_m, part_l = _launch_scratch(q, splits)
     if b == 0:
         return out
-    part_o = torch.empty((b, h, splits, dh), dtype=torch.float32,
-                         device=q.device)
-    part_m = torch.empty((b, h, splits), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
     rc = lib.repro_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), part_o.data_ptr(),

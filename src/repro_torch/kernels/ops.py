@@ -17,6 +17,7 @@ from repro_torch.kernels import flash_decode as _fd
 from repro_torch.kernels import layernorm as _ln
 from repro_torch.kernels import ref
 from repro_torch.kernels import sampling as _smp
+from repro_torch.kernels import softmax as _sm
 
 
 def on_cpu(name: str, *tensors: Optional[torch.Tensor]) -> bool:
@@ -29,6 +30,14 @@ def on_cpu(name: str, *tensors: Optional[torch.Tensor]) -> bool:
         return False
     raise ValueError(f"{name}: tensors on {sorted(kinds)}; expected all on "
                      "the CPU or all on CUDA")
+
+
+def fused_softmax(x, lengths=None, *, scale: float = 1.0):
+    """Masked scaled softmax over the last dim of (R, C) ``x``; columns
+    at or past each row's length are zero."""
+    if on_cpu("fused_softmax", x, lengths):
+        return ref.softmax_ref(x, lengths, scale)
+    return _sm.softmax_cuda(x, lengths, scale=scale)
 
 
 def fused_rmsnorm(x, gamma, bias=None, residual=None, *, eps: float = 1e-6,
@@ -66,6 +75,14 @@ def flash_attention(q, k, v, lengths=None, *, causal: bool = True,
         return ref.flash_attention_ref(q, k, v, lengths, causal, scale)
     return _fa.flash_attention_cuda(q, k, v, lengths, causal=causal,
                                     scale=scale)
+
+
+def flash_decode(q, k, v, lengths=None, *, scale: Optional[float] = None):
+    """Split-K decode attention over a contiguous cache: q (B,H,dh); k, v
+    (B,KV,S,dh), strided views allowed -> (B,H,dh)."""
+    if on_cpu("flash_decode", q, k, v, lengths):
+        return ref.flash_decode_ref(q, k, v, lengths, scale)
+    return _fd.flash_decode_cuda(q, k, v, lengths, scale=scale)
 
 
 def flash_decode_paged(q, k_pool, v_pool, block_tables, lengths=None, *,

@@ -14,6 +14,24 @@ from typing import Optional
 import torch
 
 
+def softmax_ref(x: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                scale: float = 1.0) -> torch.Tensor:
+    """Masked scaled softmax over the last dim. x: (R, C); lengths: (R,)
+    valid columns (a length past C keeps every column).  x is scaled in
+    f32; a row with no valid column gives zeros, not NaN; the output has
+    x's dtype."""
+    xf = x.float() * scale
+    if lengths is not None:
+        col = torch.arange(x.shape[-1], device=x.device)[None, :]
+        xf = torch.where(col < lengths.to(x.device)[:, None], xf,
+                         float("-inf"))
+    m = xf.max(dim=-1, keepdim=True).values
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    e = torch.exp(xf - m)
+    s = torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    return (e / s).to(x.dtype)
+
+
 def layernorm_ref(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
                   residual: Optional[torch.Tensor] = None,
@@ -123,6 +141,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = (e / den).to(q.dtype)
     out = torch.einsum("bkgqs,bksd->bkgqd", w.float(), v.float())
     return out.to(q.dtype).reshape(b, h, sq, dh)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """Decode attention over a contiguous cache. q: (B,H,dh); k,v:
+    (B,KV,S,dh), any strides; lengths: (B,) valid kv lengths (None = S).
+    GQA folds H onto KV.  As the JAX package's ``ops.flash_decode`` on
+    its ``xla`` path: the attention reference with one query."""
+    out = flash_attention_ref(q[:, :, None, :], k, v, lengths,
+                              causal=False, scale=scale)
+    return out[:, :, 0]
 
 
 def flash_decode_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,

@@ -1,8 +1,9 @@
 """The port's dense decoder (`repro_torch.models.transformer`), its layers
 and the weight bridge from the JAX package."""
 from repro_torch.models.transformer import (decode_step, forward_hidden,
-                                            init_params, make_paged_cache,
+                                            init_params, logits_at,
+                                            make_cache, make_paged_cache,
                                             prefill)
 
-__all__ = ["decode_step", "forward_hidden", "init_params",
-           "make_paged_cache", "prefill"]
+__all__ = ["decode_step", "forward_hidden", "init_params", "logits_at",
+           "make_cache", "make_paged_cache", "prefill"]

@@ -5,7 +5,9 @@ Counterparts of `repro.models.layers` with the same names, the same
 parameter dicts and the same einsum layouts (``wq`` (d, H, dh), ``wo``
 (H, dh, d), ``w_gate``/``w_up`` (d, f), ``tok`` (1, V, d)).  The norms go
 through the fused norm kernel (`repro_torch.kernels.ops`); the large
-matrix products are plain ``torch.matmul``.
+matrix products are plain ``torch.matmul``.  ``attention_naive`` is the
+paper's attention (batched GEMM, the fused mask + softmax kernel, batched
+GEMM).
 """
 from __future__ import annotations
 
@@ -184,6 +186,36 @@ def attention_output(p: Params, attn: torch.Tensor) -> torch.Tensor:
     h, k, d = p["wo"].shape
     b, s = attn.shape[:2]
     return torch.matmul(attn.reshape(b, s, h * k), p["wo"].reshape(h * k, d))
+
+
+def attention_naive(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, *, causal: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
+    """q: (B,Sq,H,dh), k/v: (B,Sk,KV,dh) -> (B,Sq,H,dh).
+
+    The scores are one ``torch.matmul`` in the activation dtype over a
+    grouped (B, KV, G, ...) view of q (GQA without copying K), cast to
+    f32; the masked, scaled softmax is the fused softmax kernel over the
+    (B*H*Sq, Sk) rows, the causal mask given as each row's length
+    ``q_pos + 1`` (key j is kept iff j <= q_pos, as the JAX package masks
+    ``kpos <= qpos``); the weights are cast to q's dtype and multiplied
+    with V."""
+    b, sq, h, dh = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, dh).permute(0, 2, 3, 1, 4)
+    scores = torch.matmul(qg, k.permute(0, 2, 3, 1)[:, :, None])
+    if causal:
+        lengths = torch.arange(q_offset + 1, q_offset + sq + 1,
+                               dtype=torch.int32, device=q.device)
+        lengths = lengths.repeat(b * h)
+    else:
+        lengths = None
+    w = ops.fused_softmax(scores.float().reshape(-1, sk), lengths,
+                          scale=1.0 / math.sqrt(dh))
+    w = w.to(q.dtype).reshape(b, kvh, g, sq, sk)
+    out = torch.matmul(w, v.permute(0, 2, 1, 3)[:, :, None])
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
 # ---------------------------------------------------------------------------

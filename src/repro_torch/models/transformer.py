@@ -1,17 +1,24 @@
-"""The port's dense decoder: init, prompt prefill and paged decode.
+"""The port's dense decoder: init, prompt prefill and decode over a paged
+or a contiguous KV cache.
 
 Counterpart of `repro.models.transformer` for the dense family, with the
 same parameter tree (per-layer tensors stacked on a leading ``L`` dim)
-and the same paged KV layout: one pool ``(L, NB, BS, KV, dh)`` shared by
-every sequence, reached through per-row block tables whose entry 0 is the
-trash block.  PyTorch runs eagerly, so the layer loop is a Python loop;
-the pool is updated in place (the JAX package rebuilds it functionally
-and donates the old buffer), which keeps one copy of the KV on the card.
+and the same two KV layouts: the paged pool ``(L, NB, BS, KV, dh)``
+shared by every sequence, reached through per-row block tables whose
+entry 0 is the trash block, and the contiguous slot cache
+``(L, B, S, KV, dh)``, one ``S``-long stripe per row.  PyTorch runs
+eagerly, so the layer loop is a Python loop; caches are updated in place
+(the JAX package rebuilds them functionally and donates the old buffer),
+which keeps one copy of the KV on the card.
 
-Where the JAX package's prefill takes ``attention_naive`` and its paged
-decode gathers the pool (``_paged_gather`` + ``attention_decode``), the
-port calls its flash-attention and paged-decode kernels; every norm goes
-through the fused norm kernel, and ``h + attn_out -> norm2`` is one launch.
+Prefill attention takes one of two routes (``attn``): ``"naive"``, the
+paper's attention through the fused softmax kernel
+(`repro_torch.models.layers.attention_naive`, which the JAX package runs
+below its chunked threshold), or ``"flash"``, the flash-attention
+kernel.  Decode attention is the paged or the contiguous split-K decode
+kernel where the JAX package gathers the cache and runs the jnp
+``attention_decode``.  Every norm goes through the fused norm kernel,
+and ``h + attn_out -> norm2`` is one launch.
 """
 from __future__ import annotations
 
@@ -107,60 +114,105 @@ def make_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
     }
 
 
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype: torch.dtype = torch.float32,
+               device=None) -> Dict[str, torch.Tensor]:
+    """An empty contiguous decode cache: ``k``/``v`` (L, B, max_len, KV,
+    dh), one stripe per row, plus ``len`` and ``pos_offset`` (B,)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {
+        "len": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "pos_offset": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+    }
+
+
+#: prefill attention routes of `forward_hidden`
+ATTN_ROUTES = ("flash", "naive")
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    *, collect_cache: bool = False,
-                   cache_dtype: torch.dtype = torch.float32):
+                   cache_dtype: torch.dtype = torch.float32,
+                   cache_len: Optional[int] = None, attn: str = "flash"):
     """Causal pass over right-padded prompts.  Returns ``(h_final,
     parts)``; with ``collect_cache`` parts holds every layer's k/v as
-    (L, B, S, KV, dh) in ``cache_dtype``, else None."""
+    (L, B, max(S, cache_len), KV, dh) in ``cache_dtype``, zero past S,
+    else None.  ``attn`` picks the attention route: ``"flash"`` (the
+    flash-attention kernel, the generative prefill's) or ``"naive"``
+    (scores, the fused softmax kernel, weights times V: the
+    classification path's, as the JAX package's ``_attn`` picks below
+    its chunked threshold)."""
     _check_family(cfg)
+    if attn not in ATTN_ROUTES:
+        raise ValueError(f"attn={attn!r}: expected one of {ATTN_ROUTES}")
     b, s = tokens.shape
     h = L.embed_tokens(cfg, params["embed"], tokens)
     positions = L.positions_for(cfg, (b, s), device=tokens.device)
     parts = None
     if collect_cache:
-        shape = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.head_dim)
-        parts = {"k": torch.empty(shape, dtype=cache_dtype,
-                                  device=tokens.device),
-                 "v": torch.empty(shape, dtype=cache_dtype,
-                                  device=tokens.device)}
+        width = max(s, cache_len or 0)
+        shape = (cfg.num_layers, b, width, cfg.num_kv_heads, cfg.head_dim)
+        alloc = torch.zeros if width > s else torch.empty
+        parts = {"k": alloc(shape, dtype=cache_dtype, device=tokens.device),
+                 "v": alloc(shape, dtype=cache_dtype, device=tokens.device)}
     for i in range(cfg.num_layers):
         blk = layer_params(params, i)
         hn = L.apply_norm(cfg, blk["norm1"], h)
         q, k, v = L.qkv_project(cfg, blk["attn"], hn, positions)
-        attn = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                   v.transpose(1, 2), causal=True)
-        out = L.attention_output(blk["attn"], attn.transpose(1, 2))
+        if attn == "naive":
+            a = L.attention_naive(cfg, q, k, v, causal=True)
+        else:
+            a = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2),
+                                    causal=True).transpose(1, 2)
+        out = L.attention_output(blk["attn"], a)
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
         h = h + L.apply_ffn(cfg, blk["ffn"], hn2)
         if parts is not None:
-            parts["k"][i] = k
-            parts["v"][i] = v
+            parts["k"][i, :, :s] = k
+            parts["v"][i, :, :s] = v
     h = L.apply_norm(cfg, params["final_norm"], h)
     return h, parts
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
+            max_len: Optional[int] = None,
             true_lengths: Optional[torch.Tensor] = None,
             cache_dtype: torch.dtype = torch.float32
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prompt pass over right-padded ``tokens`` (B, S).  Returns the
-    logits at each row's last real token (B, V) and the prompt KV parts
-    ``{"k", "v"}`` (L, B, S, KV, dh) plus ``"len"`` (B,) int32, for the
-    engine to scatter into paged blocks."""
+    logits at each row's last real token (B, V) and a contiguous cache:
+    ``k``/``v`` (L, B, max(S, max_len), KV, dh), zero past S, with
+    ``len`` (each row's true length) and ``pos_offset`` (B,) int32.  The
+    engine decodes it in place or splices it into a slot cache or a
+    paged pool."""
     bsz, seq = tokens.shape
-    h, parts = forward_hidden(cfg, params, tokens, collect_cache=True,
-                              cache_dtype=cache_dtype)
+    h, cache = forward_hidden(cfg, params, tokens, collect_cache=True,
+                              cache_dtype=cache_dtype, cache_len=max_len)
     if true_lengths is None:
         lens = torch.full((bsz,), seq, dtype=torch.int32,
                           device=tokens.device)
     else:
         lens = true_lengths.to(device=tokens.device, dtype=torch.int32)
-    idx = (lens - 1).long()
-    h_last = h[torch.arange(bsz, device=tokens.device), idx][:, None]
-    logits = L.lm_logits(cfg, params["embed"], h_last)[:, 0]
-    parts["len"] = lens
-    return logits, parts
+    logits = logits_at(cfg, params, h, lens - 1)
+    cache["len"] = lens
+    cache["pos_offset"] = torch.zeros_like(lens)
+    return logits, cache
+
+
+def logits_at(cfg: ModelConfig, params: Params, h: torch.Tensor,
+              idx: torch.Tensor) -> torch.Tensor:
+    """Logits (B, V) at position ``idx[b]`` of each row of ``h`` (B, S,
+    d): the rows are gathered first, so the vocabulary-wide head runs
+    over B rows, not B * S."""
+    rows = torch.arange(h.shape[0], device=h.device)
+    h_last = h[rows, idx.to(h.device).long()][:, None]
+    return L.lm_logits(cfg, params["embed"], h_last)[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -171,21 +223,54 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 def decode_step(cfg: ModelConfig, params: Params,
                 cache: Dict[str, torch.Tensor], tokens_t: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One decode step over a paged cache.  tokens_t: (B,).  Writes each
-    row's new K/V at ``cache['len']`` into the pool IN PLACE and returns
-    ``(logits (B, V), cache')`` where ``cache'`` shares the pool and
-    tables and has ``len + 1``."""
+    """One decode step over a paged cache (``block_tables`` present) or a
+    contiguous one.  tokens_t: (B,).  Writes each row's new K/V at
+    ``cache['len']`` IN PLACE and returns ``(logits (B, V), cache')``
+    where ``cache'`` shares the K/V (and tables) and has ``len + 1``."""
     _check_family(cfg)
-    if "block_tables" not in cache:
-        raise ValueError("the port decodes the paged KV layout only")
     h = L.embed_tokens(cfg, params["embed"], tokens_t[:, None])  # (B,1,d)
     pos = cache["len"] + cache["pos_offset"]
-    h = _decode_attn_paged(cfg, params, cache, h, pos[:, None])
+    if "block_tables" in cache:
+        h = _decode_attn_paged(cfg, params, cache, h, pos[:, None])
+    else:
+        h = _decode_attn(cfg, params, cache, h, pos[:, None])
     h = L.apply_norm(cfg, params["final_norm"], h)
     logits = L.lm_logits(cfg, params["embed"], h)[:, 0]
     new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
     return logits, new_cache
+
+
+def _write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
+              k: torch.Tensor, v: torch.Tensor, index) -> None:
+    """Write one new token per row into one layer's contiguous cache, in
+    place.  k_cache: (B, S, KV, dh); k: (B, 1, KV, dh); index: (rows,
+    write positions) for advanced indexing."""
+    k_cache[index] = k[:, 0].to(k_cache.dtype)
+    v_cache[index] = v[:, 0].to(v_cache.dtype)
+
+
+def _decode_attn(cfg, params, cache, h, positions):
+    """Decode layers over the contiguous cache: each layer attends to
+    ``len + 1`` keys through the contiguous decode kernel, which reads
+    the layer's (B, S, KV, dh) slice as a strided (B, KV, S, dh) view."""
+    lens = cache["len"]
+    # each row writes at its length, clamped to S - 1 as the JAX
+    # package's dynamic_update_slice clamps it
+    rows = torch.arange(lens.shape[0], device=lens.device)
+    index = (rows, torch.clamp(lens, 0, cache["k"].shape[2] - 1).long())
+    for i in range(cfg.num_layers):
+        blk = layer_params(params, i)
+        k_c, v_c = cache["k"][i], cache["v"][i]
+        hn = L.apply_norm(cfg, blk["norm1"], h)
+        q, k, v = L.qkv_project(cfg, blk["attn"], hn, positions)
+        _write_kv(k_c, v_c, k, v, index)
+        attn = ops.flash_decode(q[:, 0], k_c.transpose(1, 2),
+                                v_c.transpose(1, 2), lens + 1)
+        out = L.attention_output(blk["attn"], attn[:, None])
+        hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
+        h = h + L.apply_ffn(cfg, blk["ffn"], hn2)
+    return h
 
 
 def _paged_write_kv(k_pool: torch.Tensor, v_pool: torch.Tensor,

@@ -1,8 +1,13 @@
 """InferenceEngine and ContinuousEngine of the port.
 
-Counterparts of `repro.runtime.engine` for the paged-KV serving path:
+Counterparts of `repro.runtime.engine`:
 
-- :class:`InferenceEngine` runs bucketed prompt prefill
+- :class:`InferenceEngine` runs the paper's one-shot classification
+  (:meth:`~InferenceEngine.classify`, the ``execute`` callable of
+  `repro_torch.core.serving.ServingSystem`) and its warm-up, which
+  measures classify over a grid into the DP scheduler's
+  ``cached_cost`` table (:meth:`~InferenceEngine.warmup`); and, for
+  generation, bucketed prompt prefill
   (:meth:`~InferenceEngine.prefill_batch`) and the fused decode tick
   (:meth:`~InferenceEngine.decode_step_batch`: one decode step, token
   selection, emission and stop flags) over a device-resident
@@ -10,13 +15,15 @@ Counterparts of `repro.runtime.engine` for the paged-KV serving path:
   tokens accumulate on the device and move once per flush.  Where the
   JAX package compiles one cell per bucket, the port runs eagerly.
 - :class:`ContinuousEngine` layers iteration-level continuous batching
-  on top: a persistent slot cache over ONE paged KV pool that newly
-  admitted prefills splice into while other rows are mid-decode.  It
-  implements `repro_torch.core.pipeline.PipelineBackend`.
+  on top: a persistent slot cache that newly admitted prefills splice
+  into while other rows are mid-decode, over ONE paged KV pool
+  (``kv_layout="paged"``, the default) or a contiguous stripe per slot
+  (``"contiguous"``).  It implements
+  `repro_torch.core.pipeline.PipelineBackend`.
 
-The port serves the paged layout with whole-prompt prefill.  Packed and
-chunked prefill, the prefix cache and the contiguous layout are not
-ported yet; the constructor refuses their options.
+The port serves whole-prompt prefill.  Packed and chunked prefill and
+the prefix cache are not ported yet; the constructor refuses their
+options.
 """
 from __future__ import annotations
 
@@ -28,9 +35,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.cost_model import block_round
+from repro_torch.core.cost_model import TableCostModel, block_round
 from repro_torch.core.pipeline import PipelineBackend
-from repro_torch.models import decode_step, make_paged_cache, prefill
+from repro_torch.core.serving import Request
+from repro_torch.models import (decode_step, forward_hidden, logits_at,
+                                make_cache, make_paged_cache, prefill)
 from repro_torch.runtime import sanitizer
 from repro_torch.runtime.bucketing import BucketLadder
 from repro_torch.runtime.device import resolve_device
@@ -46,8 +55,10 @@ from repro_torch.runtime.session import GenerationParams, Session
 STOP_SLOTS = 4
 
 # ContinuousEngine options of the JAX package not ported yet
-NOT_PORTED_OPTIONS = ("kv_layout", "prefix_cache", "packed_prefill",
-                       "chunked_prefill", "prefill_chunk_tokens")
+NOT_PORTED_OPTIONS = ("prefix_cache", "packed_prefill", "chunked_prefill",
+                      "prefill_chunk_tokens")
+
+KV_LAYOUTS = ("paged", "contiguous")
 
 
 @dataclass
@@ -56,10 +67,10 @@ class GenState:
     cache, the last token per row, the emission buffer, per-row stop
     bookkeeping and sampling params.
 
-    ``cache`` is either the prompt KV parts a prefill produced
-    (``k``/``v`` (L, B, S, KV, dh), ``len``, ``pos_offset``) or a paged
-    decode cache (``k``/``v`` pools, ``block_tables``, ``len``,
-    ``pos_offset``); only the latter decodes."""
+    ``cache`` is a contiguous decode cache (``k``/``v`` (L, B, S, KV,
+    dh), ``len``, ``pos_offset``; a prefill produces one) or a paged one
+    (``k``/``v`` pools, ``block_tables``, ``len``, ``pos_offset``); both
+    decode."""
     cache: Dict[str, torch.Tensor]
     cur: torch.Tensor                 # (B,) last token
     emitted: torch.Tensor             # (B, cap) generated tokens
@@ -121,18 +132,86 @@ class InferenceEngine:
                                device=self.device)
 
     # ------------------------------------------------------------------
+    # One-shot classification (the paper's BERT-style service)
+    # ------------------------------------------------------------------
+    def _pad_batch(self, token_lists: Sequence[Sequence[int]]):
+        """Right-pad a ragged batch to its (sequence, batch) bucket:
+        tokens (batch_b, seq_b) and each row's last real index (0 for
+        the padding rows), on the device."""
+        lens = [len(t) for t in token_lists]
+        seq_b = self.ladder.seq_bucket(max(lens))
+        batch_b = self.ladder.batch_bucket(len(token_lists))
+        toks = np.full((batch_b, seq_b), self.pad_id, np.int64)
+        for i, t in enumerate(token_lists):
+            toks[i, :len(t)] = t
+        last = np.array([n - 1 for n in lens] + [0] * (batch_b - len(lens)),
+                        np.int32)
+        return self._tensor(toks, torch.int64), self._tensor(last,
+                                                             torch.int32)
+
+    def classify_logits(self, token_lists: Sequence[Sequence[int]]
+                        ) -> torch.Tensor:
+        """Last-token logits (n, V) of a variable-length batch, on the
+        device: one causal pass at the batch's bucket through the naive
+        attention route (scores, the fused softmax kernel, weights times
+        V — the JAX package's ``_attn`` choice below its chunked
+        threshold), then the head over each row's last real token."""
+        toks, last = self._pad_batch(token_lists)
+        h, _ = forward_hidden(self.cfg, self.params, toks, attn="naive")
+        return logits_at(self.cfg, self.params, h, last)[:len(token_lists)]
+
+    def classify(self, token_lists: Sequence[Sequence[int]]) -> List[int]:
+        """Last-token classification over a variable-length batch (the
+        paper's BERT-based service): host ints, so the call returns only
+        once the card has finished the batch."""
+        logits = self.classify_logits(token_lists)
+        return [int(p) for p in _host(torch.argmax(logits, dim=-1))]
+
+    def execute_requests(self, requests: List[Request], padded_len: int
+                         ) -> List[int]:
+        """ServingSystem adapter: requests carry token payloads."""
+        return self.classify([r.payload for r in requests])
+
+    # ------------------------------------------------------------------
+    # Warm-up (paper §5: builds cached_cost)
+    # ------------------------------------------------------------------
+    def warmup(self, lengths: Optional[Sequence[int]] = None,
+               batches: Optional[Sequence[int]] = None,
+               repeats: int = 3) -> TableCostModel:
+        """Time ``classify`` at every (length, batch) of the grid (the
+        first four sequence and batch buckets by default) into the DP
+        scheduler's cost table."""
+        lengths = list(lengths or self.ladder.seq_buckets[:4])
+        batches = list(batches or self.ladder.batch_buckets[:4])
+
+        def measure(seq_len: int, batch: int) -> float:
+            token_lists = [[1] * seq_len for _ in range(batch)]
+            self.classify(token_lists)      # allocator pools, handles
+            # classify returns host ints, so each call has waited for
+            # the card: the host clock brackets the device work
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                self.classify(token_lists)
+            return (time.perf_counter() - t0) / repeats
+
+        return TableCostModel.warmup(measure, lengths, batches)
+
+    # ------------------------------------------------------------------
     # Resumable generation primitives
     # ------------------------------------------------------------------
     def prefill_batch(self, token_lists: Sequence[Sequence[int]], *,
                       max_len: int, max_new_tokens, eos_id=None,
                       cap_new: Optional[int] = None,
-                      sampling: Optional[Sequence[GenerationParams]] = None
-                      ) -> GenState:
-        """Prompt pass producing a :class:`GenState` whose cache holds
-        the prompt KV parts (for a paged splice).  ``max_new_tokens`` /
-        ``eos_id`` may be scalars or per-request sequences; ``sampling``
-        carries each row's temperature / top-k / top-p / seed / extra
-        stop ids (None is greedy)."""
+                      sampling: Optional[Sequence[GenerationParams]] = None,
+                      prompt_kv_only: bool = False) -> GenState:
+        """Prompt pass producing a :class:`GenState` over a contiguous
+        cache of ``max_len`` positions (which decodes in place, or
+        splices into a slot cache).  With ``prompt_kv_only`` the cache
+        holds just the prompt bucket's positions, for a caller that
+        copies them into a paged pool.  ``max_new_tokens`` / ``eos_id``
+        may be scalars or per-request sequences; ``sampling`` carries
+        each row's temperature / top-k / top-p / seed / extra stop ids
+        (None is greedy)."""
         n = len(token_lists)
         lens = [len(t) for t in token_lists]
         prompt_b = self.ladder.seq_bucket(max(lens))
@@ -151,13 +230,11 @@ class InferenceEngine:
         for i, t in enumerate(token_lists):
             toks[i, :len(t)] = t
         true_lens = np.array(lens + [1] * (batch_b - n), np.int32)
-        logits, parts = prefill(self.cfg, self.params,
+        logits, cache = prefill(self.cfg, self.params,
                                 self._tensor(toks, torch.int64),
+                                max_len=None if prompt_kv_only else max_len,
                                 true_lengths=self._tensor(true_lens,
                                                           torch.int32))
-        cache = {"k": parts["k"], "v": parts["v"], "len": parts["len"],
-                 "pos_offset": torch.zeros((batch_b,), dtype=torch.int32,
-                                           device=self.device)}
         return self._finish_gen_state(logits, cache, n, batch_b, budgets,
                                       eos_ids, cap, sampling)
 
@@ -216,9 +293,6 @@ class InferenceEngine:
         Greedy-only states take the argmax; states with sampled rows run
         the sampling kernel (greedy rows still get the argmax)."""
         cache = state.cache
-        if "block_tables" not in cache:
-            raise ValueError("decode needs a paged cache: splice the "
-                             "prefill parts into a pool first")
         prev_len = cache["len"]
         logits, cache2 = decode_step(self.cfg, self.params, cache,
                                      state.cur)
@@ -293,7 +367,7 @@ class InferenceEngine:
                 return [list(t) for t in token_lists]
             state = self.prefill_batch(token_lists, max_len=seq_b,
                                        max_new_tokens=max_new_tokens,
-                                       eos_id=eos_id)
+                                       eos_id=eos_id, prompt_kv_only=True)
             state = self.own_pool(state, seq_b)
             for _ in range(max_new_tokens - 1):
                 state = self.decode_step_batch(state)
@@ -304,70 +378,72 @@ class InferenceEngine:
                     self.kv_slab.free(rid)
             self.kv_slab.gc()
 
-    def warmup(self) -> Dict[str, float]:
-        """One throwaway greedy request per sequence bucket (a prompt
-        one token short of the bucket plus one decode tick), so library
-        handles and allocator pools exist before the first real
-        request."""
-        t0 = time.perf_counter()
-        for bucket in self.ladder.seq_buckets:
-            self.generate([[self.pad_id] * max(bucket - 2, 1)],
-                          max_new_tokens=2)
-        return {"buckets": len(self.ladder.seq_buckets),
-                "seconds": time.perf_counter() - t0}
-
 
 class ContinuousEngine(PipelineBackend):
-    """Iteration-level continuous batching over a persistent slot cache
-    and one paged KV pool.
+    """Iteration-level continuous batching over a persistent slot cache.
 
     ``max_slots`` sequences decode concurrently in one tick; newly
-    admitted prefills splice into free slots between ticks.  K/V live in
-    one preallocated pool of ``block_size``-token blocks managed by a
-    :class:`BlockTableManager`: blocks covering the prompt are allocated
-    at admission and appended as decoding crosses block boundaries, the
-    rest of a request's budget is reserved, and a sequence's blocks are
-    freed the moment it hits EOS or its budget.
+    admitted prefills splice into free slots between ticks, and a
+    sequence's KV is freed the moment it hits EOS or its budget.  Two KV
+    layouts, selected by ``kv_layout``:
+
+    - ``"paged"`` (default): K/V live in one preallocated pool of
+      ``block_size``-token blocks managed by a :class:`BlockTableManager`.
+      Blocks covering the prompt are allocated at admission and appended
+      as decoding crosses block boundaries, the rest of a request's
+      budget is reserved, and a prefill that cannot get blocks is vetoed
+      at admission.
+    - ``"contiguous"``: the slot cache holds one ``max_len`` stripe per
+      slot, sized at the first admission (or by ``max_len``) and grown by
+      padding the sequence axis when a longer request arrives; the
+      JAX package's equivalence baseline for the paged pool, and the
+      layout SSM / hybrid families need.
     """
 
     def __init__(self, engine: InferenceEngine, max_slots: int = 8,
                  max_len: Optional[int] = None, cap_new: int = 64,
                  clock: Callable[[], float] = time.monotonic, *,
+                 kv_layout: str = "paged",
                  block_size: int = DEFAULT_KV_BLOCK,
                  num_blocks: Optional[int] = None, **options) -> None:
         missing = [k for k in options if k in NOT_PORTED_OPTIONS]
         if missing:
-            raise ValueError(f"{missing}: the port's engine serves the "
-                             "paged layout with whole-prompt prefill; "
-                             "these options are not ported yet")
+            raise ValueError(f"{missing}: the port's engine serves "
+                             "whole-prompt prefill; these options are not "
+                             "ported yet")
         if options:
             raise TypeError(f"unexpected options {sorted(options)}")
         cfg = engine.cfg
         if cfg.num_codebooks or cfg.family != "dense":
             raise ValueError("ContinuousEngine serves dense single-codebook "
                              "token models")
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
         self.engine = engine
         self.max_slots = max_slots
         self.cap_new = cap_new
         self.clock = clock
+        self.kv_layout = kv_layout
         self.block_size = block_size
-        if max_len is None:
-            max_len = engine.ladder.seq_buckets[-1]
-        if max_len % block_size:
-            raise ValueError(f"max_len {max_len} must be a multiple of "
-                             f"block_size {block_size}")
-        bad = [b for b in engine.ladder.seq_buckets if b % block_size]
-        if bad:
-            raise ValueError(f"ladder buckets {bad} not multiples of "
-                             f"block_size {block_size}")
-        self.max_len = max_len
-        self.max_blocks = max_len // block_size
-        # num_blocks=None: the pool is sized at the FIRST prefill to
-        # max_slots x that admission's bucket (+ the trash block)
         self.block_table: Optional[BlockTableManager] = None
-        if num_blocks is not None:
-            self.block_table = sanitizer.make_block_manager(num_blocks,
-                                                            block_size)
+        if kv_layout == "paged":
+            if max_len is None:
+                max_len = engine.ladder.seq_buckets[-1]
+            if max_len % block_size:
+                raise ValueError(f"max_len {max_len} must be a multiple "
+                                 f"of block_size {block_size}")
+            bad = [b for b in engine.ladder.seq_buckets if b % block_size]
+            if bad:
+                raise ValueError(f"ladder buckets {bad} not multiples of "
+                                 f"block_size {block_size}")
+            self.max_blocks = max_len // block_size
+            # num_blocks=None: the pool is sized at the FIRST prefill to
+            # max_slots x that admission's bucket (+ the trash block)
+            if num_blocks is not None:
+                self.block_table = sanitizer.make_block_manager(
+                    num_blocks, block_size)
+        # contiguous: None until the first prefill sizes the slot cache
+        self.max_len = max_len
         self.prefill_tokens = 0      # tokens run through prefill
         self.prefill_dispatches = 0  # prefill passes issued
         self.sessions: List[Optional[Session]] = [None] * max_slots
@@ -414,6 +490,8 @@ class ContinuousEngine(PipelineBackend):
         return max(free, 0) * self.block_size
 
     def kv_demand(self, session: Session) -> int:
+        if self.kv_layout != "paged":
+            return session.total_len
         return max(block_round(session.total_len, self.block_size),
                    self.block_size)
 
@@ -439,10 +517,16 @@ class ContinuousEngine(PipelineBackend):
         if self.engine.kv_slab.has_region(session.req_id):
             raise ValueError(f"session {session.req_id}: req_id already "
                              "in flight")
-        if session.total_len > self.max_len:
+        if self.kv_layout == "paged" or (self.state is None and
+                                         self.max_len is not None):
+            ceiling = self.max_len
+        else:
+            # the contiguous slot cache grows up to the top ladder bucket
+            ceiling = self.engine.ladder.seq_buckets[-1]
+        if session.total_len > ceiling:
             raise ValueError(
                 f"session {session.req_id}: prompt+budget="
-                f"{session.total_len} exceeds max_len {self.max_len}")
+                f"{session.total_len} exceeds max_len {ceiling}")
         if self.block_table is not None:
             demand = self.block_table.blocks_needed(session.total_len)
             if demand > self.block_table.num_blocks - 1:
@@ -452,9 +536,9 @@ class ContinuousEngine(PipelineBackend):
 
     def check_invariants(self, pipeline) -> None:
         """Sanitizer cross-check of engine accounting against the
-        pipeline's live set: slot<->session bijection, block
-        conservation and shadow refcounts, reservation balance, and the
-        leak check at idle."""
+        pipeline's live set: the slot<->session bijection (both layouts),
+        then for the paged pool block conservation and shadow refcounts,
+        reservation balance, and the leak check at idle."""
         seen_slots: Dict[int, int] = {}
         for s in pipeline.live:
             slot = s.slot
@@ -518,36 +602,31 @@ class ContinuousEngine(PipelineBackend):
         if len(slots) != len(sessions):
             raise RuntimeError("admitted beyond free slots")
         btm = self.block_table
-        want = sum(btm.blocks_needed(s.total_len) for s in sessions)
-        deficit = want + sum(self._reserved.values()) - btm.free_blocks
-        if deficit > 0:
-            raise ValueError(
-                f"prefill batch needs {want} fresh KV blocks beyond "
-                f"reservations, pool has {btm.free_blocks} free — the "
-                "admission planner should have vetoed this batch")
+        if btm is not None:
+            want = sum(btm.blocks_needed(s.total_len) for s in sessions)
+            deficit = want + sum(self._reserved.values()) - btm.free_blocks
+            if deficit > 0:
+                raise ValueError(
+                    f"prefill batch needs {want} fresh KV blocks beyond "
+                    f"reservations, pool has {btm.free_blocks} free — the "
+                    "admission planner should have vetoed this batch")
         try:
             rows = eng.prefill_batch(
-                [list(s.prompt) for s in sessions], max_len=need,
+                [list(s.prompt) for s in sessions],
+                max_len=need if btm is not None else self.max_len,
                 max_new_tokens=[s.max_new_tokens for s in sessions],
                 eos_id=[s.eos_id for s in sessions], cap_new=self.cap_new,
-                sampling=[s.params for s in sessions])
-            self._splice_paged(rows, slots, sessions)
+                sampling=[s.params for s in sessions],
+                prompt_kv_only=btm is not None)
+            if btm is not None:
+                self._splice_paged(rows, slots, sessions)
+            else:
+                self._splice(rows, slots)
             self.prefill_dispatches += 1
             self.prefill_tokens += sum(s.seq_len for s in sessions)
         except Exception:
-            # free whatever tables the batch got, and neutralize their
-            # device rows (trash-block tables, done) so freed blocks can
-            # be reallocated without a stale row writing into them
-            bad_slots: List[int] = []
-            for i, s in enumerate(sessions):
-                if btm.has_request(s.req_id):
-                    bad_slots.append(slots[i])
-                    btm.free(s.req_id)
-                    self._reserved.pop(s.req_id, None)
-            if bad_slots:
-                idx = self._index(bad_slots)
-                self.state.cache["block_tables"][idx] = 0
-                self.state.done[idx] = True
+            if btm is not None:
+                self._release_tables(sessions, slots)
             raise
         now = self.clock()
         per_tok = kv_bytes_per_token(eng.cfg)
@@ -561,8 +640,27 @@ class ContinuousEngine(PipelineBackend):
         self._sync()
         self._publish_stream()     # the prefill's seed token streams too
 
+    def _release_tables(self, sessions: List[Session],
+                        slots: List[int]) -> None:
+        """After a failed paged prefill: free whatever tables the batch
+        got, and neutralize their device rows (trash-block tables, done)
+        so freed blocks can be reallocated without a stale row writing
+        into them."""
+        btm = self.block_table
+        bad_slots: List[int] = []
+        for i, s in enumerate(sessions):
+            if btm.has_request(s.req_id):
+                bad_slots.append(slots[i])
+                btm.free(s.req_id)
+                self._reserved.pop(s.req_id, None)
+        if bad_slots:
+            idx = self._index(bad_slots)
+            self.state.cache["block_tables"][idx] = 0
+            self.state.done[idx] = True
+
     def decode_tick(self, sessions: List[Session]) -> None:
-        self._append_blocks()
+        if self.block_table is not None:
+            self._append_blocks()
         self.state = self.engine.decode_step_batch(self.state)
         self.decode_ticks += 1
         self._sync()
@@ -581,10 +679,20 @@ class ContinuousEngine(PipelineBackend):
         for slot, s in wanted:
             s.generated = [int(x) for x in emitted[slot, :counts[slot]]]
 
-    def warmup(self) -> Dict[str, float]:
-        """Throwaway requests through the engine (see
-        :meth:`InferenceEngine.warmup`); the pool is untouched."""
-        return self.engine.warmup()
+    def warmup_aot(self) -> Dict[str, float]:
+        """One throwaway greedy request per sequence bucket (a prompt one
+        token short of the bucket plus one decode tick) through the
+        engine's ``generate``, so library handles and allocator pools
+        exist before the first real request; the slot cache is
+        untouched.  The JAX package compiles its cells here; the port
+        runs eagerly and has none to compile."""
+        eng = self.engine
+        t0 = time.perf_counter()
+        for bucket in eng.ladder.seq_buckets:
+            eng.generate([[eng.pad_id] * max(bucket - 2, 1)],
+                         max_new_tokens=2)
+        return {"buckets": len(eng.ladder.seq_buckets),
+                "seconds": time.perf_counter() - t0}
 
     def cancel_session(self, session: Session) -> None:
         """Tear down a mid-decode session NOW: publish its partial
@@ -602,25 +710,38 @@ class ContinuousEngine(PipelineBackend):
         session.generated = [int(x) for x in emitted[:counts]]
         self.engine.kv_slab.free(session.req_id)
         self.engine.kv_slab.gc()
-        self.block_table.free(session.req_id)
-        self._reserved.pop(session.req_id, None)
+        if self.block_table is not None:
+            self.block_table.free(session.req_id)
+            self._reserved.pop(session.req_id, None)
+            st.cache["block_tables"][slot] = 0
         self.sessions[slot] = None
         self._slot_len[slot] = 0
-        st.cache["block_tables"][slot] = 0
         st.done[slot] = True
 
     # -- internals -------------------------------------------------------
     def _ensure_state(self, need_len: int) -> None:
         if self.state is not None:
-            return      # pool and tables are fixed-shape for life
+            if self.kv_layout == "contiguous" and need_len > self.max_len:
+                self._grow(need_len)
+            return      # the pool and tables are fixed-shape for life
         eng = self.engine
         b = self.max_slots
-        if self.block_table is None:
-            self.block_table = sanitizer.make_block_manager(
-                b * (need_len // self.block_size) + 1, self.block_size)
-        cache = make_paged_cache(eng.cfg, b, self.block_table.num_blocks,
-                                 self.block_size, self.max_blocks,
-                                 torch.float32, self.device)
+        if self.kv_layout == "paged":
+            if self.block_table is None:
+                self.block_table = sanitizer.make_block_manager(
+                    b * (need_len // self.block_size) + 1, self.block_size)
+            cache = make_paged_cache(eng.cfg, b,
+                                     self.block_table.num_blocks,
+                                     self.block_size, self.max_blocks,
+                                     torch.float32, self.device)
+        else:
+            if self.max_len is None:
+                self.max_len = need_len
+            if need_len > self.max_len:
+                raise ValueError(f"prompt+budget needs {need_len} > slot "
+                                 f"cache max_len {self.max_len}")
+            cache = make_cache(eng.cfg, b, self.max_len, torch.float32,
+                               self.device)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -638,6 +759,44 @@ class ContinuousEngine(PipelineBackend):
             top_k=zeros((b,), torch.int32),
             top_p=torch.ones((b,), dtype=torch.float32, device=self.device),
             seed=zeros((b,), torch.int32))
+
+    def _grow(self, need_len: int) -> None:
+        """Contiguous layout: re-make the slot cache with a longer
+        sequence axis (zero-padded), keeping every row's KV."""
+        cache = self.state.cache
+        for key in ("k", "v"):
+            old = cache[key]
+            shape = old.shape[:2] + (need_len,) + old.shape[3:]
+            new = torch.zeros(shape, dtype=old.dtype, device=old.device)
+            new[:, :, :old.shape[2]] = old
+            cache[key] = new
+        self.max_len = need_len
+
+    def _splice(self, rows: GenState, slots: List[int]) -> None:
+        """Contiguous layout: copy the first ``len(slots)`` rows of a
+        freshly prefilled state (a ``max_len`` cache) into the slot
+        cache's stripes, whole, so nothing of a slot's last occupant
+        survives."""
+        idx = self._index(slots)
+        k = len(slots)
+        cache = self.state.cache
+        for key in ("k", "v"):
+            cache[key][:, idx] = rows.cache[key][:, :k].to(cache[key].dtype)
+        self._splice_rows(rows, idx, k)
+
+    def _splice_rows(self, rows: GenState, idx: torch.Tensor,
+                     k: int) -> None:
+        """Write the first ``k`` rows' lengths and control leaves of
+        ``rows`` at slots ``idx`` (both layouts)."""
+        st = self.state
+        for key in ("len", "pos_offset"):
+            st.cache[key][idx] = rows.cache[key][:k]
+        for name in ("cur", "emitted", "counts", "done", "budget", "eos",
+                     "temp", "top_k", "top_p", "seed"):
+            getattr(st, name)[idx] = getattr(rows, name)[:k]
+        # sticky: once a sampled row joins, the sampling tick serves the
+        # whole slot cache (greedy rows keep their argmax values)
+        st.sampling = st.sampling or rows.sampling
 
     def _splice_paged(self, rows: GenState, slots: List[int],
                       sessions: List[Session]) -> None:
@@ -677,14 +836,7 @@ class ContinuousEngine(PipelineBackend):
         idx = self._index(slots)
         cache["block_tables"][idx] = torch.as_tensor(table_rows,
                                                      device=self.device)
-        for key in ("len", "pos_offset"):
-            cache[key][idx] = rows.cache[key][:k]
-        for name in ("cur", "emitted", "counts", "done", "budget", "eos",
-                     "temp", "top_k", "top_p", "seed"):
-            getattr(st, name)[idx] = getattr(rows, name)[:k]
-        # sticky: once a sampled row joins, the sampling tick serves the
-        # whole slot cache (greedy rows keep their argmax values)
-        st.sampling = st.sampling or rows.sampling
+        self._splice_rows(rows, idx, k)
 
     def _append_blocks(self) -> None:
         """Before a decode tick: every occupied slot is about to write KV
@@ -735,17 +887,19 @@ class ContinuousEngine(PipelineBackend):
             s.result = list(s.prompt or []) + s.generated
             s.finish(now)
             self.engine.kv_slab.free(s.req_id)
-            self.block_table.free(s.req_id)
-            self._reserved.pop(s.req_id, None)
+            if self.block_table is not None:
+                self.block_table.free(s.req_id)
+                self._reserved.pop(s.req_id, None)
             self.sessions[slot] = None
             self._slot_len[slot] = 0
             freed_slots.append(slot)
         if freed_slots:
             self.engine.kv_slab.gc()
-            # point freed rows at the trash block: their device rows keep
-            # writing at a frozen position until re-admission, and the
-            # freed physical blocks may be re-assigned
-            st.cache["block_tables"][self._index(freed_slots)] = 0
+            if self.block_table is not None:
+                # point freed rows at the trash block: their device rows
+                # keep writing at a frozen position until re-admission,
+                # and the freed physical blocks may be re-assigned
+                st.cache["block_tables"][self._index(freed_slots)] = 0
 
     @property
     def live_tokens(self) -> int:

@@ -7,7 +7,8 @@ machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Inputs are f32 unless a test says otherwise; the kernels and the plain
-versions then differ only in summation order, hence the 1e-4 tolerances.
+versions then differ only in summation order, hence the 1e-4 tolerances
+(1e-5 for the softmax, whose rows are short sums of values below 1).
 Sampling is compared token for token on shared noise.
 """
 import numpy as np
@@ -192,4 +193,147 @@ def test_cuda_serving_matches_generate_alone(cuda):
         alone = engine.generate([prompts[i]], max_new_tokens=12)[0]
         assert alone == results[i]
     assert client.backend.block_table.used_blocks == 0
+    assert engine.kv_slab.live_bytes == 0
+
+
+# ---------------------------------------------------------------------------
+# masked softmax
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cols", [1024, 512, 300, 7])
+def test_cuda_softmax_matches_plain(cuda, dtype, cols):
+    """Ragged lengths with empty rows and lengths past C, at the widest
+    row the kernel takes (1024) and widths off the 16-byte path; columns
+    past each length are exact zeros."""
+    rng = np.random.default_rng(cols)
+    rows = 300
+    x = torch.from_numpy(
+        (4 * rng.standard_normal((rows, cols))).astype(np.float32))
+    lengths = rng.integers(-2, 2 * cols + 2, rows).astype(np.int32)
+    lengths[:4] = [0, cols, cols + 1, 1]
+    x, lens = x.to(cuda, dtype), torch.from_numpy(lengths).to(cuda)
+    got = ops.fused_softmax(x, lens, scale=0.3)
+    want = ref.softmax_ref(x, lens, 0.3)
+    tol = dict(rtol=1e-5, atol=1e-6) if dtype == torch.float32 \
+        else dict(rtol=8e-3, atol=1e-6)       # one bf16 ulp
+    torch.testing.assert_close(got, want, **tol)
+    past = torch.arange(cols, device=cuda)[None, :] >= lens[:, None]
+    assert bool((got[past] == 0).all()) and bool(torch.isfinite(got).all())
+
+
+def test_cuda_softmax_without_lengths_matches_plain(cuda):
+    x = torch.randn((4096, 128), generator=_gen(cuda), device=cuda)
+    torch.testing.assert_close(ops.fused_softmax(x), ref.softmax_ref(x),
+                               rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# contiguous decode
+# ---------------------------------------------------------------------------
+
+def _contiguous(dev, b=6, h=16, kv=8, s=300, seed=3):
+    """q, a strided (B, KV, S, dh) view of a (B, S, KV, dh) cache whose
+    positions past each length are NaN, the same view with a zero tail,
+    and the lengths."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(1, s + 1, b).astype(np.int32)
+    lengths[0], lengths[-1] = 1, s
+    kc = rng.standard_normal((b, s, kv, 128)).astype(np.float32)
+    vc = rng.standard_normal((b, s, kv, 128)).astype(np.float32)
+    past = np.arange(s)[None, :] >= lengths[:, None]
+    kz, vz = kc.copy(), vc.copy()
+    kz[past] = vz[past] = 0
+    kc[past] = vc[past] = np.nan
+    q = rng.standard_normal((b, h, 128)).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (q, kc, vc, kz, vz, lengths)]
+    q, kc, vc, kz, vz, lens = t
+    return (q, kc.transpose(1, 2), vc.transpose(1, 2), kz.transpose(1, 2),
+            vz.transpose(1, 2), lens)
+
+
+@pytest.mark.parametrize("h,kv", [(16, 8), (8, 8), (32, 4)])
+def test_cuda_contiguous_decode_matches_plain(cuda, h, kv):
+    q, k, v, kz, vz, lens = _contiguous(cuda, h=h, kv=kv)
+    assert not k.is_contiguous()
+    got = ops.flash_decode(q, k, v, lens)
+    want = ref.flash_decode_ref(q, kz, vz, lens)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    over = torch.full_like(lens, 10 ** 6)          # past S: all of it
+    torch.testing.assert_close(ops.flash_decode(q, kz, vz, over),
+                               ref.flash_decode_ref(q, kz, vz, over),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_cuda_contiguous_decode_is_bit_equal_to_paged(cuda, qdtype):
+    """The same keys laid into a pool (row r owns blocks 1 + r * MB, in
+    order) give the same bits: both kernels split at 128 keys and merge
+    in the same order."""
+    b, s, bs = 6, 512, 16
+    q, k, v, _, _, lens = _contiguous(cuda, b=b, s=s)
+    q = q.to(qdtype)
+    mb = s // bs
+
+    def pool(x):
+        rows = x.transpose(1, 2).reshape(b * mb, bs, 8, 128)
+        return torch.cat([torch.zeros_like(rows[:1]), rows])
+    tables = (1 + torch.arange(b * mb, dtype=torch.int32, device=cuda)
+              ).reshape(b, mb)
+    got = ops.flash_decode(q, k, v, lens)
+    paged = ops.flash_decode_paged(q, pool(k), pool(v), tables, lens)
+    assert torch.equal(got, paged)
+
+
+def test_cuda_kernels_refuse_shapes_outside_the_built_set(cuda):
+    x = torch.randn((4, 1025), device=cuda)
+    with pytest.raises(ValueError, match="1 to 1024"):
+        ops.fused_softmax(x)
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        ops.fused_softmax(x[:, :64].half())
+    q, k, v, _, _, lens = _contiguous(cuda, b=2, s=40)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_decode(q[..., :64], k[..., :64], v[..., :64], lens)
+    with pytest.raises(ValueError, match="H/KV"):
+        ops.flash_decode(q[:, :12], k[:, :3], v[:, :3], lens)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        ops.flash_decode(q.half(), k, v, lens)
+    with pytest.raises(ValueError, match="one layout"):
+        ops.flash_decode(q, k, v.contiguous(), lens)
+
+
+def test_cuda_contiguous_serving_matches_generate_alone(cuda):
+    """The contiguous slot cache on the card: greedy streams equal
+    ``generate`` alone (which decodes through the paged kernel), and every
+    decode tick launches the contiguous kernel once per layer."""
+    import dataclasses
+
+    from repro_torch.api import GenerationParams, TurboClient
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime.bucketing import BucketLadder
+    from repro_torch.runtime.engine import ContinuousEngine, InferenceEngine
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), d_head=128)
+    engine = InferenceEngine(
+        cfg, init_params(cfg, device=cuda),
+        ladder=BucketLadder(seq_buckets=(32, 64, 128), batch_buckets=(4,)),
+        device=cuda)
+    ce = ContinuousEngine(engine, max_slots=4, cap_new=16,
+                          kv_layout="contiguous")
+    client = TurboClient(ce)
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(1, 256, n)]
+               for n in (5, 40, 17, 60, 9, 100)]
+    cuda_lib.reset_launches()
+    handles = [client.submit(p, GenerationParams(max_new_tokens=12))
+               for p in prompts[:4]]
+    client.pump(max_ticks=3)
+    handles += [client.submit(p, GenerationParams(max_new_tokens=12))
+                for p in prompts[4:]]
+    results = [h.result() for h in handles]
+    assert cuda_lib.LAUNCHES["flash_decode"] == \
+        cfg.num_layers * ce.decode_ticks
+    assert cuda_lib.LAUNCHES["flash_decode_paged"] == 0
+    for prompt, res in zip(prompts, results):
+        assert engine.generate([prompt], max_new_tokens=12)[0] == res
     assert engine.kv_slab.live_bytes == 0

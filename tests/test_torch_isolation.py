@@ -91,6 +91,11 @@ def _calls(monkeypatch, module, names, seen=None):
     return seen
 
 
+PLAIN = ["rmsnorm_ref", "layernorm_ref", "flash_attention_ref",
+         "flash_decode_paged_ref", "flash_decode_ref", "sample_ref",
+         "softmax_ref"]
+
+
 def _cases():
     x = torch.randn(4, 32)
     g = torch.ones(32)
@@ -107,6 +112,11 @@ def _cases():
         "flash_attention": (ops.flash_attention, (q, kv, kv)),
         "flash_decode_paged": (ops.flash_decode_paged,
                                (q[:, :, 0], pool, pool, tables, lens)),
+        "flash_decode": (ops.flash_decode,
+                         (q[:, :, 0].contiguous(), kv, kv, lens)),
+        "fused_softmax": (ops.fused_softmax,
+                          (x, torch.tensor([0, 5, 32, 40],
+                                           dtype=torch.int32))),
         "fused_sample": (ops.fused_sample,
                          (logits, rows, torch.zeros(2, dtype=torch.int32),
                           rows, torch.randn(2, 16))),
@@ -115,15 +125,14 @@ def _cases():
 
 @pytest.mark.parametrize("op", sorted(_cases()))
 def test_cuda_tensors_never_reach_a_plain_version(monkeypatch, op):
-    plain = _calls(monkeypatch, ref, ["rmsnorm_ref", "layernorm_ref",
-                                      "flash_attention_ref",
-                                      "flash_decode_paged_ref",
-                                      "sample_ref"])
+    plain = _calls(monkeypatch, ref, PLAIN)
     kernels = {}
     for module, name in ((ops._ln, "norm_cuda"),
                          (ops._fa, "flash_attention_cuda"),
                          (ops._fd, "flash_decode_paged_cuda"),
-                         (ops._smp, "sample_cuda")):
+                         (ops._fd, "flash_decode_cuda"),
+                         (ops._smp, "sample_cuda"),
+                         (ops._sm, "softmax_cuda")):
         _calls(monkeypatch, module, [name], kernels)
     fn, args = _cases()[op]
     assert fn(*[_cuda(a) for a in args]) == "kernel"
@@ -136,10 +145,7 @@ def test_cuda_tensors_never_reach_a_plain_version(monkeypatch, op):
 def test_cuda_tensor_raises_when_the_kernel_cannot_run(monkeypatch, op):
     """No toolkit and no card: the wrapper raises, it does not fall back
     to the plain version, and counts no launch."""
-    plain = _calls(monkeypatch, ref, ["rmsnorm_ref", "layernorm_ref",
-                                      "flash_attention_ref",
-                                      "flash_decode_paged_ref",
-                                      "sample_ref"])
+    plain = _calls(monkeypatch, ref, PLAIN)
     monkeypatch.setattr(cuda_lib, "_lib", None)
     monkeypatch.setattr(cuda_lib, "_nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))

@@ -5,7 +5,8 @@ Each plain version in `repro_torch.kernels.ref` (which `repro_torch.kernels
 `repro.kernels.ref` and with the Pallas kernel run in interpret mode, on
 the same numpy inputs.  Tolerances are f32: both sides compute in f32 and
 differ only in summation order (2e-5 relative / absolute).  Sampling is
-compared token for token on shared Gumbel noise.
+compared token for token on shared Gumbel noise; the masked softmax on
+bf16 input to one bf16 ulp of its output.
 
 The Hopper kernels themselves run only on a card: see
 ``tests/test_torch_cuda.py``.
@@ -17,7 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 
@@ -156,6 +157,80 @@ def test_paged_decode_plain_matches_reference_and_pallas(seed):
     pallas = jops.flash_decode_paged(*args, num_splits=2, impl="interpret")
     _close(got, want)
     _close(got, pallas)
+
+
+# ---------------------------------------------------------------------------
+# contiguous decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,kv,s", [(3, 4, 2, 48), (2, 8, 1, 40),
+                                      (4, 4, 4, 33)])
+def test_contiguous_decode_plain_matches_reference_and_pallas(b, h, kv, s):
+    """GQA / MQA / MHA with ragged lengths (one row of a single key, one
+    of the whole cache); the port reads the (B, S, KV, dh) cache layout
+    as a strided (B, KV, S, dh) view."""
+    rng = np.random.default_rng(b * 10 + s)
+    dh = 16
+    lengths = rng.integers(1, s + 1, b).astype(np.int32)
+    lengths[0], lengths[-1] = 1, s
+    q = rng.standard_normal((b, h, dh), np.float32)
+    kc = rng.standard_normal((b, s, kv, dh), np.float32)
+    vc = rng.standard_normal((b, s, kv, dh), np.float32)
+    got = ops.flash_decode(_t(q), _t(kc).transpose(1, 2),
+                           _t(vc).transpose(1, 2), _t(lengths))
+    args = [jnp.asarray(a) for a in (q, kc.swapaxes(1, 2),
+                                     vc.swapaxes(1, 2), lengths)]
+    want = jops.flash_decode(*args, impl="xla")
+    pallas = jops.flash_decode(*args, num_splits=2, block_k=8,
+                               impl="interpret")
+    _close(got, want, rtol=1e-5, atol=1e-5)
+    _close(got, pallas, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# masked softmax
+# ---------------------------------------------------------------------------
+
+def _softmax_case(seed, rows=24, cols=40):
+    rng = np.random.default_rng(seed)
+    x = (4 * rng.standard_normal((rows, cols))).astype(np.float32)
+    lengths = rng.integers(1, cols + 1, rows).astype(np.int32)
+    lengths[:3] = [0, cols + 7, cols]       # empty, past C, exactly C
+    return x, lengths
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.125])
+@pytest.mark.parametrize("with_lengths", [True, False])
+def test_softmax_plain_matches_reference_and_pallas_f32(scale,
+                                                        with_lengths):
+    x, lengths = _softmax_case(int(scale * 8) + with_lengths)
+    ln = lengths if with_lengths else None
+    got = ops.fused_softmax(_t(x), None if ln is None else _t(ln),
+                            scale=scale)
+    jx, jl = jnp.asarray(x), None if ln is None else jnp.asarray(ln)
+    want = jops.fused_softmax(jx, jl, scale=scale, impl="xla")
+    pallas = jops.fused_softmax(jx, jl, scale=scale, impl="interpret")
+    _close(got, want, rtol=1e-6, atol=1e-6)
+    _close(got, pallas, rtol=1e-6, atol=1e-6)
+    if with_lengths:
+        past = np.arange(x.shape[1])[None, :] >= lengths[:, None]
+        assert (got.numpy()[past] == 0).all()
+        assert (got.numpy()[0] == 0).all()       # the empty row: no NaN
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.3])
+def test_softmax_plain_matches_reference_and_pallas_bf16(scale):
+    x, lengths = _softmax_case(5)
+    xb = torch.from_numpy(x).bfloat16()
+    got = ops.fused_softmax(xb, _t(lengths), scale=scale)
+    assert got.dtype == torch.bfloat16
+    jx = jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16)
+    jl = jnp.asarray(lengths)
+    # one bf16 ulp: at most 2^-7 of the value
+    for impl in ("xla", "interpret"):
+        want = jops.fused_softmax(jx, jl, scale=scale, impl=impl)
+        _close(got.float(), np.asarray(want.astype(jnp.float32)),
+               rtol=2 ** -7, atol=0)
 
 
 # ---------------------------------------------------------------------------
