@@ -12,7 +12,10 @@ Phases, each printing one JSON line:
 3. kernels: hold every Hopper kernel against its plain PyTorch version at
    the full-width shapes of the serving path, with the tolerance stated,
    and time kernel, plain version and (where one PyTorch call computes
-   the same function) that library call;
+   the same function) that library call: ``ms`` from CUDA events around
+   back-to-back calls (host time included when the host is slower than
+   the card), ``device_ms`` and ``library_device_ms`` from the self
+   device time that ``torch.profiler`` records for the same loop;
 4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False)``
    (24 layers, d_model 2048, vocab 92544, bf16 weights from a seed, f32
    KV pool), serve a mixed greedy / sampled workload with mid-decode
@@ -21,7 +24,9 @@ Phases, each printing one JSON line:
    path launched;
 5. profile_decode: eight rows decoding at full width, the host time per
    tick and, from ``torch.profiler``, the device's busy time by kernel
-   family and its idle share;
+   family and its idle share; profile_prefill: one prefill of eight
+   prompts at the 1024 bucket, the same breakdown and the flash kernel's
+   share;
 6. classify: the paper's one-shot classification service at full width
    (``InferenceEngine.warmup`` into a bucketed cost table, then 64
    Poisson requests of 5 to 500 tokens through
@@ -71,6 +76,59 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_ops = flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def device_us(evt) -> float:
+    """An averaged profiler event's self device time in microseconds."""
+    us = getattr(evt, "self_device_time_total", None)
+    return us if us is not None else getattr(evt, "self_cuda_time_total", 0)
+
+
+def is_kernel(evt) -> bool:
+    """A device-side event (kernel, memset, copy): device time, no host
+    self time."""
+    return device_us(evt) > 0 and evt.self_cpu_time_total == 0
+
+
+def device_ms(fn, iters: int) -> dict:
+    """Device time per call of ``fn`` from torch.profiler over ``iters``
+    back-to-back calls, after one warm-up call: for each kernel the calls
+    launch, its mean self device time over the launches the trace
+    recorded times its launches per call, summed over the port's kernels
+    (names holding ``repro``) as ``port`` and over every kernel as
+    ``all``.  Averaging over recorded launches, not over ``iters``, keeps
+    a trace that lost events from reading low.  "not measured" where the
+    profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):     # the trace now and then comes back empty: retry
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        port = every = 0.0
+        for evt in prof.key_averages():
+            if is_kernel(evt):
+                per_call = device_us(evt) / evt.count * \
+                    max(1, round(evt.count / iters))
+                every += per_call
+                if "repro" in evt.key:
+                    port += per_call
+        if every > 0:
+            break
+    return {k: (us / 1e3 if us > 0 else "not measured")
+            for k, us in (("port", port), ("all", every))}
+
+
+def device_fields(kernel, library, iters: int) -> dict:
+    """``device_ms`` of a kernel check (its port kernels' own time) and,
+    where the check has a library call, ``library_device_ms`` (every
+    kernel that call launches)."""
+    out = {"device_ms": device_ms(kernel, iters)["port"]}
+    out["library_device_ms"] = (device_ms(library, iters)["all"]
+                                if library is not None else None)
+    return out
 
 
 def time_ms(fn, iters: int) -> float:
@@ -150,6 +208,7 @@ def norm_case(dev, gen, rms: bool, r: int, c: int, tol: dict) -> dict:
     iters = 200 if r == 8 else 50
     k_ms, p_ms, l_ms = (time_ms(kernel, iters), time_ms(plain, iters),
                         time_ms(library, iters))
+    dev_t = device_fields(kernel, library, iters)
     nbytes = (4 * r * c + (1 if rms else 3) * c) * 2
     b_ms, b_by = bound_ms(nbytes, 6 * r * c, H100_F32_FLOPS)
     return {"phase": "kernel_check", "kernel": "fused_norm",
@@ -160,7 +219,7 @@ def norm_case(dev, gen, rms: bool, r: int, c: int, tol: dict) -> dict:
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "library_ms": l_ms,
             "library": "F.rms_norm" if rms else "F.layer_norm",
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, **dev_t}
 
 
 def check_norm(dev, gen, results):
@@ -182,7 +241,8 @@ def check_norm(dev, gen, results):
 
 def flash_case(dev, gen, b: int, s: int, tol: dict) -> dict:
     """One causal prefill shape: kernel against its plain version, and the
-    times of kernel, plain version and SDPA."""
+    times of kernel, plain version and SDPA (CUDA events and device
+    time)."""
     from repro_torch.kernels import flash_attention, ref
     import torch.nn.functional as F
     h, kv, dh = 16, 8, 128
@@ -206,36 +266,85 @@ def flash_case(dev, gen, b: int, s: int, tol: dict) -> dict:
     iters = 20
     k_ms, p_ms, l_ms = (time_ms(kernel, iters), time_ms(plain, iters),
                         time_ms(library, iters))
+    dev_t = device_fields(kernel, library, iters)
     nbytes = b * s * dh * 2 * (2 * h + 2 * kv)
     flops = 4.0 * b * h * dh * s * (s + 1) / 2
     b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_FLOPS)
-    return {"phase": "kernel_check", "kernel": "flash_attention",
+    line = {"phase": "kernel_check", "kernel": "flash_attention",
             "shape": {"B": b, "S": s, "H": h, "KV": kv, "dh": dh},
             "dtype": "bfloat16", "causal": True,
             "tolerance": {**tol, "why": tol_why_attention()},
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "library_ms": l_ms, "library": "F.scaled_dot_product_attention",
-            "bound_ms": b_ms, "bound_by": b_by,
-            "tflops": flops / (k_ms * 1e-3) / 1e12}
+            "bound_ms": b_ms, "bound_by": b_by, **dev_t,
+            "tflops": flops / (k_ms * 1e-3) / 1e12,
+            "share_of_bound": b_ms / k_ms}
+    if isinstance(dev_t["device_ms"], float):
+        line["device_tflops"] = flops / (dev_t["device_ms"] * 1e-3) / 1e12
+    return line
+
+
+def flash_build_facts() -> dict:
+    """What the flash kernels compiled to: resident blocks per SM (CUDA
+    occupancy calculator), registers and spills (ptxas), and the
+    tensor-core (HMMA / HGMMA) and f32 FMA instructions in each body's
+    SASS (cuobjdump; "not measured" where the tool is missing)."""
+    import shutil
+    from repro_torch.kernels import cuda_lib
+    lib = cuda_lib.library()
+    facts = {}
+    for label, code, needle in (("bf16", 1, "flash_attention_bf16_kernel"),
+                                ("f32", 0, "flash_attention_kernel")):
+        blocks = lib.repro_flash_attention_blocks_per_sm(code)
+        if blocks < 0:
+            raise AssertionError(f"flash_attention {label}: occupancy query "
+                                 f"failed with CUDA error {-blocks}")
+        ptxas = {k: v for k, v in cuda_lib.BUILD_INFO["ptxas"].items()
+                 if needle in k}
+        facts[label] = {"blocks_per_sm": blocks,
+                        "ptxas": next(iter(ptxas.values()), "not measured")}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).exists():
+        sass = subprocess.run(
+            [tool, "-sass", str(cuda_lib.BUILD_INFO["path"])],
+            capture_output=True, text=True).stdout
+        for label, needle in (("bf16", "flash_attention_bf16_kernel"),
+                              ("f32", "flash_attention_kernel")):
+            facts[label]["sass"] = cuda_lib.sass_opcodes(
+                sass, needle, ("HMMA", "HGMMA", "FFMA", "MUFU", "LDSM"))
+    else:
+        for label in facts:
+            facts[label]["sass"] = "not measured: no cuobjdump"
+    tc_ops = facts["bf16"]["sass"]
+    if isinstance(tc_ops, dict) and tc_ops["HMMA"] + tc_ops["HGMMA"] == 0:
+        raise AssertionError("flash_attention bf16: no tensor-core "
+                             f"instruction in its SASS: {facts['bf16']}")
+    return facts
 
 
 def check_flash_attention(dev, gen, results):
-    tol = dict(atol=2e-2, rtol=2e-2)   # bf16 in/out; the plain version
-    # rounds the probabilities to bf16 before P.V, the kernel keeps f32
+    """The causal prefill kernel at the earlier slices' three shapes and
+    at the serve path's own (B 8, as ``batch_buckets=(8,)`` pads every
+    prefill, at each seq bucket); the kernels line reports B 2, S 1024."""
+    tol = dict(atol=2e-2, rtol=2e-2)   # bf16 in/out; see tol_why_attention
     entry = {}
-    for b, s in ((4, 128), (4, 512), (2, 1024)):
+    for b, s in ((4, 128), (4, 512), (2, 1024),
+                 (8, 128), (8, 256), (8, 512), (8, 1024)):
         line = flash_case(dev, gen, b, s, tol)
         emit(line)
-        if s == 1024:                 # the longest prompt bucket
+        if (b, s) == (2, 1024):
             entry = line
+    emit({"phase": "flash_attention_build", **flash_build_facts()})
     results["flash_attention"] = dict(
         entry, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91")
 
 
 def tol_why_attention() -> str:
-    return ("bf16 inputs and output; the plain version rounds the "
-            "softmax weights to bf16 before P.V, the kernel keeps them f32")
+    return ("bf16 inputs and output; the kernel rounds the unnormalised "
+            "probabilities to bf16 before P.V and divides by their f32 "
+            "sum after, the plain version rounds the normalised weights; "
+            "sums in other orders")
 
 
 def check_paged_decode(dev, gen, results):
@@ -267,6 +376,7 @@ def check_paged_decode(dev, gen, results):
     torch.cuda.synchronize()
     err = check_close("flash_decode_paged", out, want, **tol)
     k_ms, p_ms = time_ms(kernel, 200), time_ms(plain, 20)
+    dev_t = device_fields(kernel, None, 200)
     live = int(lengths.sum())
     nbytes = 2 * live * kv * dh * 4 + 2 * b * h * dh * 2 + b * mb * 4 + b * 4
     flops = 4.0 * h * dh * live
@@ -280,7 +390,7 @@ def check_paged_decode(dev, gen, results):
                           "the softmax weights to q's bf16, and both round "
                           "the output to bf16: a few of its ulps apart"},
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **dev_t,
             "gbytes_per_s": nbytes / (k_ms * 1e-3) / 1e9}
     emit(line)
     results["flash_decode_paged"] = dict(
@@ -319,6 +429,7 @@ def softmax_case(dev, gen, label: str, lengths, c: int,
     iters = 50 if r > 4096 else 200
     k_ms, p_ms, l_ms = (time_ms(kernel, iters), time_ms(plain, iters),
                         time_ms(library, iters))
+    dev_t = device_fields(kernel, library, iters)
     # what the function needs: the columns below min(length, C) read
     # once, every column written once (zeros past the length), lengths
     live = int(lengths.clamp(0, c).sum())
@@ -333,7 +444,7 @@ def softmax_case(dev, gen, label: str, lengths, c: int,
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "library_ms": l_ms,
             "library": "torch.softmax of the pre-masked, pre-scaled input",
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, **dev_t,
             "bound_counts": "live columns read, whole rows written",
             "share_of_bound": b_ms / k_ms}
 
@@ -420,6 +531,7 @@ def check_contiguous_decode(dev, gen, results):
                              f"on the same keys (max abs {bit_diff})")
     k_ms, p_ms, l_ms = (time_ms(kernel, 200), time_ms(plain, 20),
                         time_ms(library, 50))
+    dev_t = device_fields(kernel, library, 50)
     live = int(lengths.sum())
     nbytes = 2 * live * kv * dh * 4 + 2 * b * h * dh * 2 + b * 4
     flops = 4.0 * h * dh * live
@@ -438,7 +550,7 @@ def check_contiguous_decode(dev, gen, results):
             "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "library": "F.scaled_dot_product_attention (f32 q, bool mask, "
                        "enable_gqa)",
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, **dev_t,
             "gbytes_per_s": nbytes / (k_ms * 1e-3) / 1e9}
     emit(line)
     results["flash_decode"] = dict(
@@ -474,6 +586,7 @@ def check_sample(dev, gen, results):
                              f"the plain version: {out.tolist()} vs "
                              f"{want.tolist()}")
     k_ms, p_ms = time_ms(kernel, 50), time_ms(plain, 20)
+    dev_t = device_fields(kernel, None, 50)
     nbytes = b * v * 4 + b * c * 4 + b * 16
     b_ms, b_by = bound_ms(nbytes, 2.0 * b * v, H100_F32_FLOPS)
     line = {"phase": "kernel_check", "kernel": "fused_sample",
@@ -481,7 +594,7 @@ def check_sample(dev, gen, results):
             "tolerance": {"tokens": "exact", "why": "integer tokens; "
                           "both versions consume the same noise"},
             "max_abs_err": float(mismatch), "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **dev_t}
     emit(line)
     results["fused_sample"] = dict(
         line, route="cuda", source="src/repro_torch/csrc/sampling.cu",
@@ -551,6 +664,12 @@ def serve(dev, card: str, layout: str = "paged"):
             raise AssertionError(f"kernel {kname} never launched on the "
                                  f"serving path: {launches}")
     ce = client.backend
+    if launches["flash_attention"] != \
+            engine.cfg.num_layers * ce.prefill_dispatches:
+        raise AssertionError(
+            f"{launches['flash_attention']} flash-attention launches over "
+            f"{ce.prefill_dispatches} prefills (expected "
+            f"{engine.cfg.num_layers} per prefill)")
     if layout == "contiguous":
         per_tick = engine.cfg.num_layers
         if launches[decode] != per_tick * ce.decode_ticks or \
@@ -796,6 +915,20 @@ def kernel_family(name: str) -> str:
     return "other PyTorch kernels"
 
 
+def split_profile(prof):
+    """Device busy microseconds by kernel family, the device kernels and
+    the host ops (each as (us, count, name)) of a profiler run."""
+    busy_us, kernels, host = {}, [], []
+    for evt in prof.key_averages():
+        if is_kernel(evt):
+            fam = kernel_family(evt.key)
+            busy_us[fam] = busy_us.get(fam, 0.0) + device_us(evt)
+            kernels.append((device_us(evt), evt.count, evt.key))
+        elif evt.self_cpu_time_total > 0:
+            host.append((evt.self_cpu_time_total, evt.count, evt.key))
+    return busy_us, kernels, host
+
+
 def profile_decode(client, card: str, ticks: int = 10) -> None:
     """Eight greedy rows decoding at full width: host time per tick, and
     from torch.profiler the device's busy time by kernel family and its
@@ -818,17 +951,7 @@ def profile_decode(client, card: str, ticks: int = 10) -> None:
         client.pump(max_ticks=ticks)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, kernels, host = {}, [], []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0 and evt.self_cpu_time_total == 0:     # a device kernel
-            fam = kernel_family(evt.key)
-            busy_us[fam] = busy_us.get(fam, 0.0) + us
-            kernels.append((us, evt.count, evt.key))
-        elif evt.self_cpu_time_total > 0:
-            host.append((evt.self_cpu_time_total, evt.count, evt.key))
+    busy_us, kernels, host = split_profile(prof)
     for h in handles:
         h.cancel()
     busy_ms = sum(busy_us.values()) / 1e3
@@ -852,6 +975,72 @@ def profile_decode(client, card: str, ticks: int = 10) -> None:
           if busy_ms else "not measured: the profiler saw no device time",
           "top_device_kernels": top(kernels, 6),
           "top_host_ops_self_time": top(host, 10)})
+
+
+def profile_prefill(client, card: str) -> None:
+    """One prefill of eight prompts at the 1024 bucket (the serve path's
+    batch bucket) at full width under torch.profiler: wall time, the
+    device's busy time by kernel family and its idle share, and the flash
+    kernel's device time, share and rate over its 24 launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cuda_lib
+    engine = client.backend.engine
+    cfg = engine.cfg
+    rng = np.random.default_rng(SEED + 2)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (1000, 1010, 990, 1023, 900, 1020, 1015, 1005)]
+
+    def prefill():
+        return engine.prefill_batch(prompts, max_len=1024, max_new_tokens=1,
+                                    prompt_kv_only=True)
+    prefill()                                    # warm: same shapes
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = prefill()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(cuda_lib.LAUNCHES)
+    if launches.get("flash_attention", 0) != cfg.num_layers:
+        raise AssertionError(f"profile_prefill: {launches} (expected "
+                             f"{cfg.num_layers} flash-attention launches)")
+    first = state.cur[:len(prompts)]
+    if bool(((first < 0) | (first >= cfg.vocab_size)).any()):
+        raise AssertionError("profile_prefill: first token out of range")
+    del state
+    busy_us, kernels, host = split_profile(prof)
+    busy_ms = sum(busy_us.values()) / 1e3
+    flash_us = sum(us for us, _, name in kernels if "flash_attention" in name)
+    b, s, h, dh = 8, 1024, cfg.num_heads, cfg.head_dim
+    flops = cfg.num_layers * 4.0 * b * h * dh * s * (s + 1) / 2
+    emit({"phase": "profile_prefill", "card": card, "rows": b,
+          "bucket": s, "prompt_lens": [len(p) for p in prompts],
+          "wall_ms": wall_ms,
+          "note": "wall_ms is taken under the profiler, which slows the "
+                  "host; device times are the kernels' own",
+          "device_busy_ms": busy_ms if busy_ms else "not measured",
+          "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+          else "not measured",
+          "busy_ms_by_family": {k: v / 1e3 for k, v in
+                                sorted(busy_us.items())}
+          if busy_ms else "not measured: the profiler saw no device time",
+          "flash_attention": {
+              "launches": launches["flash_attention"],
+              "device_ms": flash_us / 1e3 if flash_us else "not measured",
+              "ms_per_launch": flash_us / 1e3 / cfg.num_layers
+              if flash_us else "not measured",
+              "share_of_busy": flash_us / 1e3 / busy_ms
+              if flash_us and busy_ms else "not measured",
+              "tflops": flops / (flash_us * 1e-6) / 1e12
+              if flash_us else "not measured"},
+          "kernel_launches": sum(c for _, c, _ in kernels),
+          "host_ops_self_ms": sum(u for u, _, _ in host) / 1e3,
+          "top_device_kernels": [
+              {"name": name[:80], "ms": us / 1e3, "calls": count}
+              for us, count, name in sorted(kernels, reverse=True)[:8]]})
 
 
 def release_memory() -> None:
@@ -890,7 +1079,11 @@ def main() -> int:
     cuda_lib.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": cuda_lib.BUILD_INFO.get("built"),
-          "library": Path(str(cuda_lib.BUILD_INFO["path"])).name})
+          "library": Path(str(cuda_lib.BUILD_INFO["path"])).name,
+          "ptxas_registers_and_spill_bytes": {
+              name: [u.get("registers"), u.get("spill_stores", 0) +
+                     u.get("spill_loads", 0)]
+              for name, u in cuda_lib.BUILD_INFO["ptxas"].items()}})
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -906,6 +1099,7 @@ def main() -> int:
     # and each kernel's launches are read from the path that runs it
     client, launches = serve(dev, card)
     profile_decode(client, card)
+    profile_prefill(client, card)
     del client
     release_memory()
     launches["softmax"] = classify_phase(dev, card)
@@ -917,7 +1111,8 @@ def main() -> int:
              "fused_sample": "sample", "fused_softmax": "softmax",
              "flash_decode": "flash_decode"}
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "device_ms",
+            "library_device_ms")
     kernels = []
     for name, counter in names.items():
         c = checks[name]

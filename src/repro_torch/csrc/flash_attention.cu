@@ -7,24 +7,73 @@
 // Bound: operations.  Causal prefill at S = 1024, dh = 128 does
 // 2 * 2 * S^2 / 2 * dh FLOPs per (row, head) against 4 * S * dh bytes of
 // q, k, v and output, about 256 FLOP per byte in bf16, close to the
-// tensor cores' ridge point; this first version does its products on the
-// f32 FMA units (no mma.sync / wgmma yet), so its ceiling is the card's
-// 67 TFLOP/s of f32 FMA, not 989 TFLOP/s of bf16 tensor-core math.
+// tensor cores' ridge point (295 FLOP per byte at 989 TFLOP/s and
+// 3.35 TB/s): the products have to run on the tensor cores.
 //
-// Design: one block of 256 threads per (row, head, 64-query tile).  The
-// block loops over 64-key tiles up to the causal diagonal and the row's
-// valid length, so tiles above the diagonal are never loaded.  The q tile,
-// the k tile (stored transposed), the v tile and the probability tile live
-// in shared memory as f32; each thread owns 4 query rows (the same rows in
-// the score micro-tile and in the output accumulator, so the rescale
-// factor never leaves registers) and keeps the running max, sum and its
-// dh / 16 output columns per row in registers.  Row reductions are
-// shuffles across the 16 threads that share a row.  GQA maps query head h
-// to KV head h / (H / KV).  Inputs are read at caller-given strides with a
-// contiguous last dim, so (B, S, H, dh) activations need no transpose.
+// bf16 (the serving path): both products as Hopper warpgroup MMAs
+// (wgmma, bf16 in, f32 accumulate).  One block is one warpgroup (4 warps)
+// serving 64 query rows of one query head; each warp owns 16 whole rows.
+// The q tile is loaded once and held in registers as wgmma A fragments.
+// K and V tiles of 64 keys are bf16 in shared memory in wgmma's 128-byte
+// swizzled layout (two 64-column halves, 16-byte chunks XORed with the
+// row mod 8), read by the tensor cores through matrix descriptors: K as a
+// K-major B operand of S = Q K^T (m64n64k16), V as an MN-major one of
+// O += P V (m64n128k16), so V needs no transpose.  The f32 scores are
+// masked only on the tile that holds the causal diagonal or the row's
+// length; the running max and sum stay in f32 in the registers of the
+// warp that owns the rows (quad shuffles); P is rounded to bf16 in
+// registers and fed as the A operand of P V (the wgmma accumulator layout
+// is its A layout).  Tile j's scores and tile j - 1's P V are issued
+// together, and the softmax of S_j runs while the tensor cores do
+// P_{j-1} V_{j-1}; S is zeroed by its first MMA and P alternates between
+// two register sets, so no instruction writes a register of a wgmma in
+// flight and ptxas keeps them asynchronous.  K and V are double-buffered
+// by 16-byte cp.async: tile j + 1 loads while tile j multiplies, one
+// barrier per tile.  Tiles above the diagonal or past the row's length
+// are never loaded; keys past the length inside the last tile are
+// zero-filled.  81 KB of shared memory and 237 registers a thread: two
+// blocks per SM.  The grid launches the longest causal query tiles first,
+// so the short ones fill the tail.  Rows must be 16-byte aligned (a
+// 16-byte-aligned base and (batch, head, seq) strides that are multiples
+// of 8 elements); a misaligned bf16 launch is refused.
+//
+// f32 (no serving path sends it; held to 1e-4 by the card tests, which
+// TF32 tensor cores would not meet): the first version's body on the f32
+// FMA units, ceiling 67 TFLOP/s.  One block of 256 threads per (row,
+// head, 64-query tile); q, K (transposed), V and the probabilities in f32
+// shared memory; each thread owns 4 query rows and dh / 16 output
+// columns.
+//
+// Both: GQA maps query head h to KV head h / (H / KV); inputs are read
+// at caller-given strides with a contiguous last dim, so (B, S, H, dh)
+// activations need no transpose; queries sit at the last Sq keys; a row
+// with no valid key gives 0.
+#include <atomic>
+
 #include "common.cuh"
 
 namespace repro {
+
+// Set a kernel's dynamic shared-memory limit once per device, not on
+// every launch.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, size_t bytes,
+                          std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// f32: FMA body
+// ---------------------------------------------------------------------------
 
 constexpr int kFlashThreads = 256;
 constexpr int kBQ = 64;  // query rows per block
@@ -203,14 +252,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
+cudaError_t set_fma_smem() {
+  static std::atomic<unsigned long long> done{0};   // devices already set
+  return set_smem_once(flash_attention_kernel<T, DH>, FlashSmem<DH>::kBytes,
+                       done);
+}
+
+template <typename T, int DH>
 cudaError_t launch_flash(const void* q, const void* k, const void* v,
                          const void* lengths, void* out, int batch, int heads,
                          int kv_heads, int sq, int sk, const long long* st,
                          int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = FlashSmem<DH>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  cudaError_t err = set_fma_smem<T, DH>();
   if (err != cudaSuccess) return err;
   dim3 grid((sq + kBQ - 1) / kBQ, heads, batch);
   flash_attention_kernel<T, DH><<<grid, kFlashThreads, smem, stream>>>(
@@ -222,6 +276,478 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor-core body (wgmma, cp.async)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;            // one warpgroup
+constexpr int kBQ = 64;                  // query rows per block (wgmma M)
+constexpr int kBK = 64;                  // keys per tile
+constexpr int kDH = 128;
+constexpr int kChunks = kDH / 8;         // 16-byte chunks per row
+constexpr int kTileBytes = 64 * kDH * 2; // one 64-row bf16 tile, 16 KB
+// q (then the output), two stages of K and of V, and slack to align the
+// tiles to the 1024 bytes of the 128-byte swizzle pattern
+constexpr size_t kSmemBytes = 5 * kTileBytes + 1024;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Byte offset of (row, 16-byte chunk) in a 64 x kDH tile laid out for
+// wgmma's 128-byte swizzle: two 64-column halves of 8 KB, each 64 rows of
+// 128 bytes whose 16-byte chunks are XORed with the row (mod 8).
+__device__ __forceinline__ uint32_t sw128(int row, int chunk) {
+  return (chunk >> 3) * 8192 + row * 128 + (((chunk & 7) ^ (row & 7)) << 4);
+}
+
+// 16 bytes global -> shared; `bytes` 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for this thread's copies and make them visible to wgmma's reads
+// (the async proxy); a barrier then publishes them to the block.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// 2^x in one MUFU.EX2 (relative error about 2^-22, far below the bf16
+// rounding of P; 2^-inf = 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two floats as bf16x2, the first in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// wgmma shared-memory matrix descriptor for a 128-byte-swizzled operand:
+// start address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across an
+// asynchronous wgmma.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// S (64 x 64 keys, f32) += A (64 x 16 of q, registers) * K^T, K (64 keys x
+// 16 dh) read from shared memory as a K-major B operand.
+__device__ __forceinline__ void wgmma_s(float (&d)[8][4],
+    const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
+// O (64 x 128 dh, f32) += A (64 x 16 keys of P, registers) * V, V (16 keys x
+// 128 dh) read from shared memory as an MN-major (transposed) B operand.
+__device__ __forceinline__ void wgmma_o(float (&d)[16][4],
+    const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The descriptors of one K tile at shared address `kt` as the B operand
+// of S = Q K^T, one per 16 dh: K-major, 8-row groups 1024 bytes apart, the
+// two dh halves 8 KB apart.  Like every register a wgmma reads, they are
+// set before the wgmma fence (the empty asm pins them there).
+__device__ __forceinline__ void k_descs(uint64_t (&d)[kDH / 16],
+                                        uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < kDH / 16; ++kk) {
+    d[kk] = smem_desc(kt + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
+    asm volatile("" : "+l"(d[kk]));
+  }
+}
+
+// The descriptors of one V tile at shared address `vt` as the B operand of
+// O += P V, one per 16 keys: MN-major, the two dh halves 8 KB apart,
+// 8-key groups 1024 bytes apart.
+__device__ __forceinline__ void v_descs(uint64_t (&d)[kBK / 16],
+                                        uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    d[kk] = smem_desc(vt + kk * 2048, 8192, 1024);
+    asm volatile("" : "+l"(d[kk]));
+  }
+}
+
+// S = Q K^T for one tile of 64 keys, as one wgmma group; the first step
+// overwrites S (scale-d 0), so no other instruction writes S before it.
+__device__ __forceinline__ void scores(float (&s)[kBK / 8][4],
+                                       const uint32_t (&qf)[kDH / 16][4],
+                                       const uint64_t (&dk)[kDH / 16]) {
+#pragma unroll
+  for (int kk = 0; kk < kDH / 16; ++kk) wgmma_s(s, qf[kk], dk[kk], kk > 0);
+  wgmma_commit();
+}
+
+// O += P V for one tile of 64 keys, as one wgmma group.
+__device__ __forceinline__ void accumulate(float (&o)[kDH / 8][4],
+                                           const uint32_t (&pa)[kBK / 16][4],
+                                           const uint64_t (&dv)[kBK / 16]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) wgmma_o(o, pa[kk], dv[kk]);
+  wgmma_commit();
+}
+
+// The online softmax of one thread's two rows (g and g + 8 of its warp's
+// 16): running max and sum in f32, in the base-2 domain of the scaled
+// scores.
+struct Rows {
+  float m[2];
+  float l[2];
+  int warp_q0;     // key position of the warp's first row
+  int g, tig;      // the rows g, g + 8 and columns 2 tig, 2 tig + 1
+  int kv_len;
+  int causal;
+  float scale_log2;
+
+  // Scale and mask the S tile whose first key is k0 (masking only where
+  // the tile holds the diagonal or the row's length), update max and sum,
+  // turn S into P as bf16 A fragments and give the factor that rescales
+  // the output accumulated so far.
+  __device__ __forceinline__ void softmax(float (&s)[kBK / 8][4],
+                                          uint32_t (&pa)[kBK / 16][4],
+                                          float (&alpha)[2], int k0) {
+    const bool edge =
+        (causal && k0 + kBK - 1 > warp_q0) || k0 + kBK > kv_len;
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (edge) {
+          const int key = k0 + n * 8 + 2 * tig + (e & 1);
+          const int qpos = warp_q0 + g + (e >> 1) * 8;
+          if (key >= kv_len || (causal && key > qpos)) x = neg_inf();
+        }
+        s[n][e] = x;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = neg_inf();
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float base = m_new == neg_inf() ? 0.f : m_new;  // all masked
+      alpha[i] = fast_exp2(m[i] - base);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < kBK / 8; ++n) {
+        s[n][2 * i] = fast_exp2(s[n][2 * i] - base);     // masked: 0
+        s[n][2 * i + 1] = fast_exp2(s[n][2 * i + 1] - base);
+        sum += s[n][2 * i] + s[n][2 * i + 1];
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l[i] = l[i] * alpha[i] + sum;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+  }
+};
+
+// Start copying rows [row0, row0 + 64) of a (rows, kDH) operand with row
+// stride `stride` into a swizzled tile at shared address `tile`; rows at
+// or past `limit` are zero-filled and never read.
+__device__ __forceinline__ void load_tile(uint32_t tile, const bf16* g,
+                                          long long stride, int row0,
+                                          int limit) {
+#pragma unroll
+  for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int row = row0 + r;
+    const bool ok = row < limit;
+    const bf16* src = ok ? g + row * stride + c * 8 : g;
+    cp_async_16(tile + sw128(r, c), src, ok ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_bf16_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const int* __restrict__ lengths,
+                            bf16* __restrict__ out, int heads, int kv_heads,
+                            int sq, int sk, long long q_sb, long long q_sh,
+                            long long q_ss, long long k_sb, long long k_sh,
+                            long long k_ss, long long v_sb, long long v_sh,
+                            long long v_ss, long long o_sb, long long o_sh,
+                            long long o_ss, int causal, float scale_log2) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(tc_smem));
+  const uint32_t qs = (raw + 1023) & ~1023u;    // q, then the output
+  unsigned char* qs_ptr = tc_smem + (qs - raw);
+  const uint32_t ks = qs + kTileBytes;          // K stages 0, 1
+  const uint32_t vs = ks + 2 * kTileBytes;      // V stages 0, 1
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;   // longest causal tiles first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;     // fragment row group, pair
+  const int kvh = h / (heads / kv_heads);
+  const int q0 = qt * kBQ;
+  const int offset = sk - sq;                  // key position of query 0
+  const int kv_len = lengths != nullptr ? min(lengths[b], sk) : sk;
+  int last_key = kv_len - 1;
+  if (causal) last_key = min(last_key, offset + min(q0 + kBQ, sq) - 1);
+  const int n_tiles = last_key >= 0 ? last_key / kBK + 1 : 0;
+
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + kvh * k_sh;
+  const bf16* vb = v + b * v_sb + kvh * v_sh;
+
+  load_tile(qs, qb, q_ss, q0, sq);
+  if (n_tiles > 0) load_tile(ks, kb, k_ss, 0, kv_len);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this warp's 16 query rows as A fragments, one per 16 columns of dh
+  uint32_t qf[kDH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kDH / 16; ++kk)
+    ldsm_x4(qs + sw128(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)),
+            qf[kk]);
+
+  // per thread: rows g and g + 8 of the warp's 16, columns 2 tig, 2 tig + 1
+  // of every 8-wide n tile (the wgmma accumulator layout)
+  Rows rows{{neg_inf(), neg_inf()}, {0.f, 0.f}, offset + q0 + warp * 16, g,
+            tig, kv_len, causal, scale_log2};
+  float o[kDH / 8][4];
+#pragma unroll
+  for (int d = 0; d < kDH / 8; ++d)
+    o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float s[kBK / 8][4];
+  uint32_t p0[kBK / 16][4], p1[kBK / 16][4];   // P of even, odd tiles
+  float alpha[2];
+  uint64_t dk[kDH / 16], dv[kBK / 16];
+
+  if (n_tiles > 0) {                            // S_0 and P_0
+    if (n_tiles > 1) load_tile(ks + kTileBytes, kb, k_ss, kBK, kv_len);
+    load_tile(vs, vb, v_ss, 0, kv_len);
+    cp_async_commit();                          // K_1, V_0
+    k_descs(dk, ks);
+    wgmma_fence();
+    scores(s, qf, dk);
+    wgmma_wait<0>();
+    fence_regs(s);
+    rows.softmax(s, p0, alpha, 0);
+  }
+  // tile j: S_j and P_{j-1} V_{j-1} in flight together, the softmax of
+  // S_j running while the tensor cores do P_{j-1} V_{j-1}.  P alternates
+  // between two register sets (P_{j-1} in `p_in`, P_j into `p_out`), so
+  // no instruction writes a register of the wgmma in flight.
+  auto step = [&](int j, const uint32_t (&p_in)[kBK / 16][4],
+                  uint32_t (&p_out)[kBK / 16][4]) {
+    cp_async_wait_all();
+    __syncthreads();       // K_j, V_{j-1} landed; all warps are past S_{j-1}
+    if (j + 1 < n_tiles)   // and P_{j-2} V_{j-2}, whose stages these reuse
+      load_tile(ks + ((j + 1) & 1) * kTileBytes, kb, k_ss, (j + 1) * kBK,
+                kv_len);
+    load_tile(vs + (j & 1) * kTileBytes, vb, v_ss, j * kBK, kv_len);
+    cp_async_commit();                          // K_{j+1}, V_j
+    k_descs(dk, ks + (j & 1) * kTileBytes);
+    v_descs(dv, vs + ((j - 1) & 1) * kTileBytes);
+    fence_regs(o);
+    wgmma_fence();
+    scores(s, qf, dk);
+    accumulate(o, p_in, dv);
+    wgmma_wait<1>();
+    fence_regs(s);
+    rows.softmax(s, p_out, alpha, j * kBK);
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int d = 0; d < kDH / 8; ++d) {
+      o[d][0] *= alpha[0];
+      o[d][1] *= alpha[0];
+      o[d][2] *= alpha[1];
+      o[d][3] *= alpha[1];
+    }
+  };
+  // the last P V: P_{n-1} lies in p[(n - 1) & 1]
+  auto last = [&](const uint32_t (&p_in)[kBK / 16][4]) {
+    cp_async_wait_all();
+    __syncthreads();
+    v_descs(dv, vs + ((n_tiles - 1) & 1) * kTileBytes);
+    fence_regs(o);
+    wgmma_fence();
+    accumulate(o, p_in, dv);
+    wgmma_wait<0>();
+    fence_regs(o);
+  };
+  for (int j = 1; j < n_tiles; j += 2) {
+    step(j, p0, p1);
+    if (j + 1 < n_tiles) step(j + 1, p1, p0);
+  }
+  if (n_tiles > 0) {
+    if ((n_tiles - 1) & 1)
+      last(p1);
+    else
+      last(p0);
+  }
+
+  // normalise, stage the warp's rows in the q tile (each warp reads and
+  // writes only its own 16 rows there), then 16-byte stores
+  const float inv0 = 1.f / (rows.l[0] == 0.f ? 1.f : rows.l[0]);
+  const float inv1 = 1.f / (rows.l[1] == 0.f ? 1.f : rows.l[1]);
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int d = 0; d < kDH / 8; ++d) {
+    *reinterpret_cast<uint32_t*>(qs_ptr + sw128(r0, d) + 4 * tig) =
+        pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
+    *reinterpret_cast<uint32_t*>(qs_ptr + sw128(r0 + 8, d) + 4 * tig) =
+        pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
+  }
+  __syncthreads();
+  bf16* ob = out + b * o_sb + h * o_sh;
+#pragma unroll
+  for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    if (q0 + r < sq)
+      *reinterpret_cast<uint4*>(ob + (q0 + r) * o_ss + c * 8) =
+          *reinterpret_cast<const uint4*>(qs_ptr + sw128(r, c));
+  }
+}
+
+cudaError_t set_bf16_smem() {
+  static std::atomic<unsigned long long> done{0};   // devices already set
+  return set_smem_once(flash_attention_bf16_kernel, kSmemBytes, done);
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
+                              const void* lengths, void* out, int batch,
+                              int heads, int kv_heads, int sq, int sk,
+                              const long long* st, int causal, float scale,
+                              cudaStream_t stream) {
+  // every row a 16-byte-aligned run of 128 elements: cp.async and the
+  // 16-byte output stores need it
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return cudaErrorMisalignedAddress;
+  for (int i = 0; i < 12; ++i)
+    if (st[i] % 8 != 0) return cudaErrorMisalignedAddress;
+  cudaError_t err = set_bf16_smem();
+  if (err != cudaSuccess) return err;
+  dim3 grid(heads, batch, (sq + kBQ - 1) / kBQ);
+  flash_attention_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int*>(lengths),
+      static_cast<bf16*>(out), heads, kv_heads, sq, sk, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace repro
 
 // q: (batch, heads, sq, dh), k, v: (batch, kv_heads, sk, dh) and out:
@@ -229,6 +755,8 @@ cudaError_t launch_flash(const void* q, const void* k, const void* v,
 // element strides in `strides` (12 values: q, k, v, out) with a
 // contiguous last dim; lengths: (batch,) int32 valid kv lengths, or null.
 // Queries sit at the last sq key positions.  dh is 128, the model's.
+// bf16 runs on the tensor cores and needs 16-byte-aligned rows
+// (cudaErrorMisalignedAddress otherwise); f32 runs the FMA body.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, const void* lengths,
                                      void* out, int batch, int heads,
@@ -242,8 +770,32 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
         q, k, v, lengths, out, batch, heads, kv_heads, sq, sk, strides,
         causal, scale, s));
   if (dtype == repro::kBFloat16)
-    return static_cast<int>(repro::launch_flash<__nv_bfloat16, 128>(
+    return static_cast<int>(repro::tc::launch_flash_bf16(
         q, k, v, lengths, out, batch, heads, kv_heads, sq, sk, strides,
         causal, scale, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Resident blocks per SM of the flash kernel for `dtype` at its launch
+// shape (threads, dynamic shared memory), from the CUDA occupancy
+// calculator; a negative CUDA error code on failure.
+extern "C" int repro_flash_attention_blocks_per_sm(int dtype) {
+  int blocks = 0;
+  cudaError_t err;
+  if (dtype == repro::kFloat32) {
+    err = repro::set_fma_smem<float, 128>();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, repro::flash_attention_kernel<float, 128>,
+          repro::kFlashThreads, repro::FlashSmem<128>::kBytes);
+  } else if (dtype == repro::kBFloat16) {
+    err = repro::tc::set_bf16_smem();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, repro::tc::flash_attention_bf16_kernel,
+        repro::tc::kThreads, repro::tc::kSmemBytes);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

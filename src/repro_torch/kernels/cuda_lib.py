@@ -11,6 +11,11 @@ an unchanged one loads at once.  Nothing here runs at import time.
 ``LAUNCHES`` counts kernel launches per wrapper name: each wrapper adds
 one where it launches its kernel, and nowhere else, so a run can show
 which kernels its path went through.
+
+``nvcc`` runs with ``-Xptxas -v``; its report (registers, spills per
+kernel) is kept beside the library and parsed by :func:`ptxas_usage`,
+and :func:`sass_opcodes` counts instructions in ``cuobjdump -sass``
+output, so a run can show what each kernel compiled to.
 """
 from __future__ import annotations
 
@@ -18,13 +23,14 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -34,7 +40,7 @@ SOURCES = ("norm.cu", "flash_attention.cu", "flash_decode.cu",
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel launches per wrapper, since the last reset
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
@@ -50,6 +56,7 @@ _SIGNATURES = {
     "repro_norm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _F, _I, _P],
+    "repro_flash_attention_blocks_per_sm": [_I],
     "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _I, _F, _I, _P],
     "repro_contiguous_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -61,7 +68,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-#: how the library was obtained: {"seconds", "path", "built"}
+#: how the library was obtained: {"seconds", "path", "built", "ptxas"}
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -114,6 +121,7 @@ def _compile(out: Path) -> None:
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" +
                                "\n".join(logs))
+        out.with_suffix(".ptxas.txt").write_text("\n".join(logs))
         lib_tmp = Path(tmp) / out.name
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib_tmp),
@@ -136,12 +144,15 @@ def library() -> ctypes.CDLL:
         if built:
             _compile(path)
         lib = ctypes.CDLL(str(path))
+        report = path.with_suffix(".ptxas.txt")
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         BUILD_INFO.update(seconds=time.perf_counter() - t0, path=str(path),
-                          built=built)
+                          built=built,
+                          ptxas=ptxas_usage(report.read_text())
+                          if report.exists() else {})
         _lib = lib
         return lib
 
@@ -172,3 +183,58 @@ def require_cuda(name: str, *tensors: Optional[torch.Tensor],
         dev = t.device
         if aligned and t.data_ptr() % 16:
             raise ValueError(f"{name}: tensor data must be 16-byte aligned")
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name), what ``ptxas -v`` reported: registers,
+    spill stores and loads (bytes) and static shared memory (bytes)."""
+    usage: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            usage.setdefault(fn, {})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:                      # a non-entry function's block: skip it
+            fn = m.group(1) if m.group(1) in usage else None
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[fn].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[fn]["registers"] = int(m[1])
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            usage[fn]["static_smem_bytes"] = int(m[1])
+    return usage
+
+
+# "/*0ab0*/  @!P0 HMMA.16816.F32.BF16 R24, ..." -> "HMMA.16816.F32.BF16"
+_SASS_OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)")
+
+
+def sass_opcodes(sass: str, function: str,
+                 opcodes: Iterable[str]) -> Dict[str, int]:
+    """How many instructions of each opcode (its first dotted part, e.g.
+    ``HMMA`` for ``HMMA.16816.F32.BF16``) the functions whose mangled name
+    contains ``function`` hold, in ``cuobjdump -sass`` output."""
+    counts = {op: 0 for op in opcodes}
+    inside = False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            inside = function in m.group(1)
+            continue
+        if not inside:
+            continue
+        m = _SASS_OP.search(line)
+        if m and m.group(1).split(".")[0] in counts:
+            counts[m.group(1).split(".")[0]] += 1
+    return counts

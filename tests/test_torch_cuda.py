@@ -81,6 +81,87 @@ def test_cuda_flash_attention_reads_strided_layout(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# bf16 runs the tensor-core body.  The kernel rounds the unnormalised
+# probabilities to bf16 before P.V and divides by their f32 sum after, the
+# plain version rounds the normalised weights, and both round the output
+# to bf16: they sit a bf16 ulp or two apart (an ulp is 1.6e-2 at
+# |x| in [2, 4)), hence 2e-2, the tolerance chip_smoke.py holds them to.
+BF16_ATTN_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def _bf16_attention(dev, b, h, kv, sq, sk, seed=0):
+    g = _gen(dev, seed)
+    return [torch.randn(shape, generator=g, device=dev).bfloat16()
+            for shape in ((b, h, sq, 128), (b, kv, sk, 128),
+                          (b, kv, sk, 128))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(100, 100), (37, 100), (1024, 1024)])
+def test_cuda_flash_attention_bf16_matches_plain(cuda, causal, sq, sk):
+    """H/KV = 2 and ragged lengths, one of them 0 (that row gives 0)."""
+    q, k, v = _bf16_attention(cuda, 3, 8, 4, sq, sk)
+    lengths = torch.tensor([sk, sk - 20, 0], dtype=torch.int32, device=cuda)
+    got = ops.flash_attention(q, k, v, lengths, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, lengths, causal)
+    assert not bool(got[2].any())
+    torch.testing.assert_close(got, want, **BF16_ATTN_TOL)
+
+
+@pytest.mark.parametrize("h,kv", [(8, 8), (8, 2), (6, 2)])
+def test_cuda_flash_attention_bf16_gqa_groups(cuda, h, kv):
+    """Groups of 1, 4 and 3 query heads per KV head (query head h reads
+    KV head h / (H / KV))."""
+    q, k, v = _bf16_attention(cuda, 2, h, kv, 200, 200, seed=h * kv)
+    lengths = torch.tensor([200, 131], dtype=torch.int32, device=cuda)
+    got = ops.flash_attention(q, k, v, lengths)
+    want = ref.flash_attention_ref(q, k, v, lengths)
+    torch.testing.assert_close(got, want, **BF16_ATTN_TOL)
+
+
+def test_cuda_flash_attention_bf16_reads_strided_layout(cuda):
+    g = _gen(cuda)
+    q, k, v = [torch.randn((2, 70, n, 128), generator=g,
+                           device=cuda).bfloat16() for n in (16, 8, 8)]
+    lengths = torch.tensor([70, 45], dtype=torch.int32, device=cuda)
+    got = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), lengths)
+    want = ops.flash_attention(q.transpose(1, 2).contiguous(),
+                               k.transpose(1, 2).contiguous(),
+                               v.transpose(1, 2).contiguous(), lengths)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_cuda_flash_attention_bf16_row_is_batch_invariant(cuda):
+    """A row computed inside a batch of 8 equals the same row alone, bit
+    for bit: the serve path's greedy streams are held against generate()
+    alone."""
+    g = _gen(cuda, 3)
+    q, k, v = [torch.randn((8, 300, n, 128), generator=g,
+                           device=cuda).bfloat16().transpose(1, 2)
+               for n in (16, 8, 8)]
+    lengths = torch.tensor([300, 1, 257, 64, 0, 299, 128, 200],
+                           dtype=torch.int32, device=cuda)
+    full = ops.flash_attention(q, k, v, lengths)
+    for i in range(8):
+        alone = ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                    lengths[i:i + 1])
+        assert torch.equal(full[i:i + 1], alone), i
+
+
+def test_cuda_flash_attention_bf16_refuses_misaligned_rows(cuda):
+    """The tensor-core body copies 16-byte chunks: a row that does not
+    start on 16 bytes is refused (no fallback to another body)."""
+    q, k, v = _bf16_attention(cuda, 1, 2, 1, 16, 16)
+    buf = torch.zeros(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(q.shape)
+    shifted.copy_(q)
+    cuda_lib.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops.flash_attention(shifted, k, v)
+    assert cuda_lib.LAUNCHES["flash_attention"] == 0
+
+
 def _paged(dev, b=8, h=16, kv=8, dh=128, bs=16, mb=16, seed=5):
     rng = np.random.default_rng(seed)
     nb = b * mb + 1
