@@ -15,7 +15,11 @@ Phases, each printing one JSON line:
    the same function) that library call: ``ms`` from CUDA events around
    back-to-back calls (host time included when the host is slower than
    the card), ``device_ms`` and ``library_device_ms`` from the self
-   device time that ``torch.profiler`` records for the same loop;
+   device time that ``torch.profiler`` records for the same loop; the
+   two decode kernels' ``device_ms`` with the L2 flushed before every
+   call, as the decode tick finds it (``device_ms_warm_l2`` back to
+   back), at a spread of lengths and at full load, and what they
+   compiled to (``flash_decode_build``);
 4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False)``
    (24 layers, d_model 2048, vocab 92544, bf16 weights from a seed, f32
    KV pool), serve a mixed greedy / sampled workload with mid-decode
@@ -90,7 +94,7 @@ def is_kernel(evt) -> bool:
     return device_us(evt) > 0 and evt.self_cpu_time_total == 0
 
 
-def device_ms(fn, iters: int) -> dict:
+def device_ms(fn, iters: int, before=None) -> dict:
     """Device time per call of ``fn`` from torch.profiler over ``iters``
     back-to-back calls, after one warm-up call: for each kernel the calls
     launch, its mean self device time over the launches the trace
@@ -98,13 +102,16 @@ def device_ms(fn, iters: int) -> dict:
     (names holding ``repro``) as ``port`` and over every kernel as
     ``all``.  Averaging over recorded launches, not over ``iters``, keeps
     a trace that lost events from reading low.  "not measured" where the
-    profiler shows no device time."""
+    profiler shows no device time.  ``before``, where given, runs before
+    each call (an L2 flush); only ``port`` is then the calls' own."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(2):     # the trace now and then comes back empty: retry
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if before is not None:
+                    before()
                 fn()
             torch.cuda.synchronize()
         port = every = 0.0
@@ -119,6 +126,20 @@ def device_ms(fn, iters: int) -> dict:
             break
     return {k: (us / 1e3 if us > 0 else "not measured")
             for k, us in (("port", port), ("all", every))}
+
+
+_L2_FLUSH = []
+
+
+def l2_flush():
+    """A call that reads 256 MB, five times the H100's 50 MB L2, so the
+    next kernel finds its inputs in device memory, as a decode layer does
+    after the ~120 MB of weights the tick reads between two attention
+    calls.  Its kernel's name holds no ``repro``."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.ones(64 << 20, device="cuda"))
+    buf = _L2_FLUSH[0]
+    return lambda: buf.sum()
 
 
 def device_fields(kernel, library, iters: int) -> dict:
@@ -347,12 +368,56 @@ def tol_why_attention() -> str:
             "sums in other orders")
 
 
-def check_paged_decode(dev, gen, results):
+DECODE_TOL = dict(atol=4e-3, rtol=4e-3)    # a few bf16 ulps of the output
+DECODE_TOL_WHY = ("the cache is f32 and the kernel keeps f32 throughout; "
+                  "the plain version rounds the softmax weights to q's "
+                  "bf16, and both round the output to bf16: a few of its "
+                  "ulps apart")
+#: the decode checks' cases: the serve-like spread of lengths (the
+#: kernels line's), and the full load
+DECODE_CASES = (("lengths 1..1024", "spread"),
+                ("full load, every row 1024", "full"))
+
+
+def decode_lengths(dev, b: int, s: int, which) -> torch.Tensor:
+    """``which``: "spread" (1 to S evenly), "full" (every row S), or the
+    B lengths themselves."""
+    if which == "full":
+        return torch.full((b,), s, dtype=torch.int32, device=dev)
+    if which == "spread":
+        return torch.linspace(1, s, b, device=dev).round().to(torch.int32)
+    return torch.tensor(which, dtype=torch.int32, device=dev)
+
+
+def decode_timing(kernel, nbytes: int, flops: float, iters: int) -> dict:
+    """A decode kernel's times and bound: ``ms`` from CUDA events over
+    back-to-back calls (host time included); ``device_ms`` its own device
+    time with the L2 flushed before every call, as the decode tick finds
+    it; ``device_ms_warm_l2`` back to back, the inputs left in L2 by the
+    call before (how PR 14 timed it)."""
+    b_ms, b_by = bound_ms(nbytes, flops, H100_F32_FLOPS)
+    cold = device_ms(kernel, iters, before=l2_flush())["port"]
+    warm = device_ms(kernel, iters)["port"]
+    line = {"ms": time_ms(kernel, iters), "device_ms": cold,
+            "device_ms_warm_l2": warm, "bound_ms": b_ms, "bound_by": b_by,
+            "bound_counts": "live K and V rows read once, q read, output "
+                            "written, tables and lengths read"}
+    if isinstance(cold, float):
+        line["share_of_bound"] = b_ms / cold
+        line["gbytes_per_s"] = nbytes / (cold * 1e-3) / 1e9
+    if isinstance(warm, float):
+        line["share_of_bound_warm_l2"] = b_ms / warm
+    return line
+
+
+def paged_decode_case(dev, gen, label: str, which) -> dict:
+    """The paged decode kernel at B 8, H 16, KV 8, BS 16, MB 64 over a
+    pool of randomly placed blocks: against its plain version, then
+    timed (``decode_timing``)."""
     from repro_torch.kernels import flash_decode, ref
     b, h, kv, dh, bs, mb = 8, 16, 8, 128, 16, 64
     nb = b * mb + 1
-    lengths = torch.linspace(1, mb * bs, b, device=dev).round().to(
-        torch.int32)
+    lengths = decode_lengths(dev, b, mb * bs, which)
     perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
     tables = torch.zeros((b, mb), dtype=torch.int32, device=dev)
     used = 0
@@ -363,7 +428,6 @@ def check_paged_decode(dev, gen, results):
     q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
     k_pool = torch.randn((nb, bs, kv, dh), generator=gen, device=dev)
     v_pool = torch.randn((nb, bs, kv, dh), generator=gen, device=dev)
-    tol = dict(atol=4e-3, rtol=4e-3)   # a few bf16 ulps of the output
 
     def kernel():
         return flash_decode.flash_decode_paged_cuda(q, k_pool, v_pool,
@@ -374,28 +438,79 @@ def check_paged_decode(dev, gen, results):
                                           lengths)
     out, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = check_close("flash_decode_paged", out, want, **tol)
-    k_ms, p_ms = time_ms(kernel, 200), time_ms(plain, 20)
-    dev_t = device_fields(kernel, None, 200)
+    err = check_close(f"flash_decode_paged {label}", out, want,
+                      **DECODE_TOL)
     live = int(lengths.sum())
     nbytes = 2 * live * kv * dh * 4 + 2 * b * h * dh * 2 + b * mb * 4 + b * 4
-    flops = 4.0 * h * dh * live
-    b_ms, b_by = bound_ms(nbytes, flops, H100_F32_FLOPS)
     line = {"phase": "kernel_check", "kernel": "flash_decode_paged",
+            "case": label,
             "shape": {"B": b, "H": h, "KV": kv, "dh": dh, "BS": bs,
                       "MB": mb, "lengths": lengths.tolist()},
             "dtype": "q bfloat16, pool float32",
-            "tolerance": {**tol, "why": "the pool is f32 and the kernel "
-                          "keeps f32 throughout; the plain version rounds "
-                          "the softmax weights to q's bf16, and both round "
-                          "the output to bf16: a few of its ulps apart"},
-            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **dev_t,
-            "gbytes_per_s": nbytes / (k_ms * 1e-3) / 1e9}
-    emit(line)
+            "tolerance": {**DECODE_TOL, "why": DECODE_TOL_WHY},
+            "max_abs_err": err,
+            **decode_timing(kernel, nbytes, 4.0 * h * dh * live, 200),
+            "plain_ms": time_ms(plain, 20),
+            "library_ms": None, "library_device_ms": None}
+    return line
+
+
+def check_paged_decode(dev, gen, results):
+    lines = [paged_decode_case(dev, gen, label, which)
+             for label, which in DECODE_CASES]
+    for line in lines:
+        emit(line)
     results["flash_decode_paged"] = dict(
-        line, route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+        lines[0], max_abs_err=max(ln["max_abs_err"] for ln in lines),
+        route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
         replaces="src/repro/kernels/flash_decode.py:207")
+
+
+def flash_decode_build_facts() -> dict:
+    """What the decode kernels compiled to, per (layout, q dtype, group):
+    registers and spills (ptxas), static and dynamic shared memory and
+    resident blocks per SM (CUDA occupancy calculator); and, for the
+    serve path's instantiation (paged, bf16 q, G 2), the async copies
+    (LDGSTS), shuffles and exp units in its SASS (cuobjdump)."""
+    import shutil
+    from repro_torch.kernels import cuda_lib
+    lib = cuda_lib.library()
+    ring = lib.repro_flash_decode_ring_bytes()
+    facts = {}
+    for layout, rows, paged in (("paged", "PagedRows", 1),
+                                ("contiguous", "StridedRows", 0)):
+        for dtype, code, mangled in (("f32", 0, "decode_kernelIf"),
+                                     ("bf16", 1, "decode_kernelI13__nv_")):
+            for g in (1, 2, 8):
+                blocks = lib.repro_flash_decode_blocks_per_sm(code, g, paged)
+                if blocks < 1:
+                    raise AssertionError(
+                        f"flash_decode {layout} {dtype} G {g}: occupancy "
+                        f"query gave {blocks}")
+                ptxas = next((u for name, u in
+                              cuda_lib.BUILD_INFO["ptxas"].items()
+                              if mangled in name and f"Li{g}E" in name and
+                              rows in name), {})
+                facts[f"{layout} {dtype} G{g}"] = {
+                    "blocks_per_sm": blocks,
+                    "registers": ptxas.get("registers", "not measured"),
+                    "spill_bytes": ptxas.get("spill_stores", 0) +
+                    ptxas.get("spill_loads", 0),
+                    "smem_bytes": ring + ptxas.get("static_smem_bytes", 0)}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).exists():
+        sass = subprocess.run(
+            [tool, "-sass", str(cuda_lib.BUILD_INFO["path"])],
+            capture_output=True, text=True).stdout
+        facts["sass_paged_bf16_G2"] = cuda_lib.sass_opcodes(
+            sass, "decode_kernelI13__nv_bfloat16Li2ENS_9PagedRows",
+            ("LDGSTS", "SHFL", "MUFU", "FFMA", "ATOMG", "RED"))
+        if facts["sass_paged_bf16_G2"]["LDGSTS"] == 0:
+            raise AssertionError("flash_decode: no cp.async (LDGSTS) in "
+                                 "the paged kernel's SASS")
+    else:
+        facts["sass_paged_bf16_G2"] = "not measured: no cuobjdump"
+    return facts
 
 
 def softmax_case(dev, gen, label: str, lengths, c: int,
@@ -479,14 +594,15 @@ def check_softmax(dev, gen, results):
         replaces="src/repro/kernels/softmax.py:42")
 
 
-def check_contiguous_decode(dev, gen, results):
-    """Contiguous decode on a strided view of a (B, S, KV, dh) cache whose
-    positions past each length are NaN, against its plain version, and
-    bit for bit against the paged kernel on the same keys."""
+def contiguous_decode_case(dev, gen, label: str, which) -> dict:
+    """Contiguous decode at B 8, H 16, KV 8, S 1024 on a strided view of a
+    (B, S, KV, dh) cache whose positions past each length are NaN: against
+    its plain version, bit for bit against the paged kernel on the same
+    keys, then timed (``decode_timing``), with SDPA beside it."""
     from repro_torch.kernels import flash_decode, ref
     import torch.nn.functional as F
     b, h, kv, dh, s, bs = 8, 16, 8, 128, 1024, 16
-    lengths = torch.linspace(1, s, b, device=dev).round().to(torch.int32)
+    lengths = decode_lengths(dev, b, s, which)
     q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
     kc = torch.randn((b, s, kv, dh), generator=gen, device=dev)
     vc = torch.randn((b, s, kv, dh), generator=gen, device=dev)
@@ -498,7 +614,6 @@ def check_contiguous_decode(dev, gen, results):
     # same keys with a finite tail
     k0 = kc.masked_fill(past[:, :, None, None], 0).transpose(1, 2)
     v0 = vc.masked_fill(past[:, :, None, None], 0).transpose(1, 2)
-    tol = dict(atol=4e-3, rtol=4e-3)   # a few bf16 ulps of the output
 
     def kernel():
         return flash_decode.flash_decode_cuda(q, k, v, lengths)
@@ -513,7 +628,7 @@ def check_contiguous_decode(dev, gen, results):
                                               enable_gqa=True)
     out, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = check_close("flash_decode", out, want, **tol)
+    err = check_close(f"flash_decode {label}", out, want, **DECODE_TOL)
     # the same keys in a pool: row r owns blocks 1 + r * MB ... in order
     mb = s // bs
     pool_k = torch.cat([torch.zeros((1, bs, kv, dh), device=dev),
@@ -527,34 +642,38 @@ def check_contiguous_decode(dev, gen, results):
     torch.cuda.synchronize()
     bit_diff = max_err(out, paged)
     if not torch.equal(out, paged):
-        raise AssertionError(f"flash_decode: differs from the paged kernel "
-                             f"on the same keys (max abs {bit_diff})")
-    k_ms, p_ms, l_ms = (time_ms(kernel, 200), time_ms(plain, 20),
-                        time_ms(library, 50))
-    dev_t = device_fields(kernel, library, 50)
+        raise AssertionError(f"flash_decode {label}: differs from the "
+                             f"paged kernel on the same keys (max abs "
+                             f"{bit_diff})")
+    del pool_k, pool_v
     live = int(lengths.sum())
     nbytes = 2 * live * kv * dh * 4 + 2 * b * h * dh * 2 + b * 4
-    flops = 4.0 * h * dh * live
-    b_ms, b_by = bound_ms(nbytes, flops, H100_F32_FLOPS)
-    line = {"phase": "kernel_check", "kernel": "flash_decode",
+    return {"phase": "kernel_check", "kernel": "flash_decode",
+            "case": label,
             "shape": {"B": b, "H": h, "KV": kv, "dh": dh, "S": s,
                       "lengths": lengths.tolist(),
                       "layout": "strided (B, KV, S, dh) view of a "
                                 "(B, S, KV, dh) cache, NaN past each length"},
             "dtype": "q bfloat16, cache float32",
-            "tolerance": {**tol, "why": "the cache is f32 and the kernel "
-                          "keeps f32 throughout; the plain version rounds "
-                          "the softmax weights to q's bf16, and both round "
-                          "the output to bf16: a few of its ulps apart"},
+            "tolerance": {**DECODE_TOL, "why": DECODE_TOL_WHY},
             "max_abs_err": err, "max_abs_diff_vs_paged_kernel": bit_diff,
-            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            **decode_timing(kernel, nbytes, 4.0 * h * dh * live, 200),
+            "plain_ms": time_ms(plain, 20),
+            "library_ms": time_ms(library, 50),
+            "library_device_ms": device_ms(library, 50)["all"],
             "library": "F.scaled_dot_product_attention (f32 q, bool mask, "
-                       "enable_gqa)",
-            "bound_ms": b_ms, "bound_by": b_by, **dev_t,
-            "gbytes_per_s": nbytes / (k_ms * 1e-3) / 1e9}
-    emit(line)
+                       "enable_gqa), back to back (warm L2)"}
+
+
+def check_contiguous_decode(dev, gen, results):
+    lines = [contiguous_decode_case(dev, gen, label, which)
+             for label, which in DECODE_CASES]
+    for line in lines:
+        emit(line)
+    emit({"phase": "flash_decode_build", **flash_decode_build_facts()})
     results["flash_decode"] = dict(
-        line, route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
+        lines[0], max_abs_err=max(ln["max_abs_err"] for ln in lines),
+        route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
         replaces="src/repro/kernels/flash_decode.py:81")
 
 

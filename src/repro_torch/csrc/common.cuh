@@ -10,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace repro {
 
 // dtype codes shared with repro_torch/kernels/cuda_lib.py
@@ -70,10 +72,52 @@ __device__ __forceinline__ void store_vec(T* __restrict__ p, const float* in) {
   *reinterpret_cast<V*>(p) = raw;
 }
 
+// Set a kernel's dynamic shared-memory limit once per device, not on
+// every launch.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, size_t bytes,
+                          std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Sum N values (a power of 2, at most 32) over the warp at once: each
+// halving step sends half of a lane's values to its partner and keeps the
+// other half, so log2(N) steps of N/2, N/4, ... shuffles and then plain
+// steps leave lane l holding the sum of value l / (32 / N), all lanes of
+// a group with the same bits.  Clobbers v.
+template <int N>
+__device__ __forceinline__ float warp_sum_many(float (&v)[N], int lane) {
+  static_assert(N >= 1 && N <= 32 && (N & (N - 1)) == 0, "N: 1, 2, ..., 32");
+  int o = 16;
+#pragma unroll
+  for (int n = N; n > 1; n >>= 1, o >>= 1) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float give = upper ? v[i] : v[i + n / 2];
+      const float keep = upper ? v[i + n / 2] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, give, o);
+    }
+  }
+  float s = v[0];
+#pragma unroll
+  for (; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
 }
 
 // (value, index) ordering of lax.top_k / argmax: larger value first,

@@ -48,28 +48,9 @@
 // at caller-given strides with a contiguous last dim, so (B, S, H, dh)
 // activations need no transpose; queries sit at the last Sq keys; a row
 // with no valid key gives 0.
-#include <atomic>
-
 #include "common.cuh"
 
 namespace repro {
-
-// Set a kernel's dynamic shared-memory limit once per device, not on
-// every launch.
-template <typename Kernel>
-cudaError_t set_smem_once(Kernel kernel, size_t bytes,
-                          std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 // ---------------------------------------------------------------------------
 // f32: FMA body

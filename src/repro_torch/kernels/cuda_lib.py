@@ -57,10 +57,12 @@ _SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _F, _I, _P],
     "repro_flash_attention_blocks_per_sm": [_I],
-    "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _I, _F, _I, _P],
-    "repro_contiguous_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _L, _L, _L, _I, _F, _I, _P],
+    "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _F, _I, _P],
+    "repro_contiguous_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _L, _L, _L, _I, _F, _I, _P],
+    "repro_flash_decode_blocks_per_sm": [_I, _I, _I],
+    "repro_flash_decode_ring_bytes": [],
     "repro_sample": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _I, _P],
     "repro_softmax": [_P, _P, _P, _I, _I, _F, _I, _I, _P],

@@ -10,7 +10,7 @@ Replace the JAX package's `flash_decode_paged_pallas` and
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,15 +48,32 @@ def _check_heads(name: str, q: torch.Tensor, kv: int, dh: int) -> None:
         raise ValueError(f"{name}: head dim {dh} is not {HEAD_DIM}")
 
 
-def _launch_scratch(q: torch.Tensor, splits: int):
-    """The kernel's per-split partials and the output."""
+#: per (device, stream): the zeroed int32 tickets of the in-launch split
+#: merge, one per (row, KV head); the kernel leaves them 0 again
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _tickets(q: torch.Tensor, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed tickets for q's device and current stream,
+    allocated once and grown on demand (the kernel resets what it takes,
+    so a captured launch finds them zero on replay)."""
+    key = (q.device, cuda_lib.stream_ptr(q))
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, 1024, 2 * buf.numel() if buf is not None else 0)
+        buf = torch.zeros(size, dtype=torch.int32, device=q.device)
+        _TICKETS[key] = buf
+    return buf
+
+
+def _launch_buffers(q: torch.Tensor, kv: int, splits: int):
+    """The output, one scratch of per-split partials (unnormalised output,
+    max and sum of each query head) and the tickets."""
     b, h, dh = q.shape
     out = torch.empty_like(q)
-    part_o = torch.empty((b, h, splits, dh), dtype=torch.float32,
-                         device=q.device)
-    part_m = torch.empty((b, h, splits), dtype=torch.float32,
-                         device=q.device)
-    return out, part_o, part_m, torch.empty_like(part_m)
+    part = torch.empty(b * kv * splits * (h // kv) * (dh + 2),
+                       dtype=torch.float32, device=q.device)
+    return out, part, _tickets(q, b * kv)
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,14 +112,14 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: lengths must be (B,) int32")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     splits = max(1, -(-s // SPLIT_KEYS))
-    out, part_o, part_m, part_l = _launch_scratch(q, splits)
+    out, part, tickets = _launch_buffers(q, kv, splits)
     if b == 0:
         return out
     sb, sh, ss = k.stride()[:3]
     rc = lib.repro_contiguous_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        out.data_ptr(), b, kv, h // kv, dh, s, sb, sh, ss, splits,
+        part.data_ptr(), tickets.data_ptr(), out.data_ptr(), b, kv,
+        h // kv, dh, s, sb, sh, ss, splits,
         float(scale), cuda_lib.DTYPE_CODES[q.dtype], cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, name)
     cuda_lib.count_launch("flash_decode")
@@ -144,14 +161,14 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
             raise ValueError(f"{name}: inputs must be contiguous")
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     splits = num_splits(mb)
-    out, part_o, part_m, part_l = _launch_scratch(q, splits)
+    out, part, tickets = _launch_buffers(q, kv, splits)
     if b == 0:
         return out
     rc = lib.repro_paged_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), part_o.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), b, kv,
-        h // kv, dh, bs, mb, splits, float(scale),
+        block_tables.data_ptr(), lengths.data_ptr(), part.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(), b, kv, h // kv, dh, bs, mb,
+        splits, float(scale),
         cuda_lib.DTYPE_CODES[q.dtype], cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, name)
     cuda_lib.count_launch("flash_decode_paged")

@@ -418,3 +418,118 @@ def test_cuda_contiguous_serving_matches_generate_alone(cuda):
     for prompt, res in zip(prompts, results):
         assert engine.generate([prompt], max_new_tokens=12)[0] == res
     assert engine.kv_slab.live_bytes == 0
+
+
+# ---------------------------------------------------------------------------
+# decode: the edges of the staged key tiles and of the splits, and the
+# split merge inside the launch
+# ---------------------------------------------------------------------------
+
+#: lengths at the edges of a 32-key tile, a 16-key pool block and a
+#: 128-key split, and the empty row
+EDGE_LENGTHS = (0, 1, 15, 16, 17, 127, 128, 129, 1024)
+
+
+def _decode_rows(dev, lengths, group, qdtype, seed=11, s=1024, kv=8,
+                 bs=16):
+    """q of H = KV * group heads; a (B, S, KV, dh) cache NaN past each
+    length, seen as the kernel's strided (B, KV, S, dh) view; the same
+    view with a zero tail for the plain version; the same keys in a pool
+    (row r owns blocks 1 + r * S / BS, in order, block 0 NaN) with its
+    tables; the lengths."""
+    rng = np.random.default_rng(seed)
+    b = len(lengths)
+    lens = np.asarray(lengths, np.int32)
+    kc = rng.standard_normal((b, s, kv, 128)).astype(np.float32)
+    vc = rng.standard_normal((b, s, kv, 128)).astype(np.float32)
+    past = np.arange(s)[None, :] >= lens[:, None]
+    kz, vz = kc.copy(), vc.copy()
+    kz[past] = vz[past] = 0
+    kc[past] = vc[past] = np.nan
+    q = rng.standard_normal((b, kv * group, 128)).astype(np.float32)
+    q, kc, vc, kz, vz, lens = [torch.from_numpy(a).to(dev)
+                               for a in (q, kc, vc, kz, vz, lens)]
+    mb = s // bs
+
+    def pool(x):
+        blocks = x.reshape(b * mb, bs, kv, 128)
+        return torch.cat([torch.full_like(blocks[:1], float("nan")),
+                          blocks])
+    tables = (1 + torch.arange(b * mb, dtype=torch.int32, device=dev)
+              ).reshape(b, mb)
+    return dict(q=q.to(qdtype), k=kc.transpose(1, 2), v=vc.transpose(1, 2),
+                kz=kz.transpose(1, 2), vz=vz.transpose(1, 2),
+                k_pool=pool(kc), v_pool=pool(vc), tables=tables, lens=lens)
+
+
+def _decode(layout, d, rows=slice(None)):
+    """The layout's kernel on the rows ``rows`` of ``_decode_rows`` (q,
+    tables and lengths copied, as the wrappers take 16-byte-aligned
+    data; the cache stays a strided view)."""
+    q, lens = d["q"][rows].clone(), d["lens"][rows].clone()
+    if layout == "paged":
+        return ops.flash_decode_paged(q, d["k_pool"], d["v_pool"],
+                                      d["tables"][rows].clone(), lens)
+    return ops.flash_decode(q, d["k"][rows], d["v"][rows], lens)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_edge_lengths_match_plain(cuda, layout, group, qdtype):
+    d = _decode_rows(cuda, EDGE_LENGTHS, group, qdtype)
+    got = _decode(layout, d)
+    want = ref.flash_decode_ref(d["q"], d["kz"], d["vz"], d["lens"])
+    assert bool((got[0] == 0).all())               # the empty row
+    # bf16 q: the plain version rounds the softmax weights to bf16 and
+    # both round the output, a few of its ulps (as chip_smoke.py states)
+    tol = dict(rtol=1e-4, atol=1e-4) if qdtype == torch.float32 \
+        else dict(rtol=4e-3, atol=4e-3)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_row_alone_equals_row_in_batch(cuda, layout):
+    """A row's splits, tiles and merge order depend on its keys only, so
+    it gives the same bits alone and in a batch of 8."""
+    d = _decode_rows(cuda, (1, 17, 128, 129, 300, 777, 1000, 1024), 2,
+                     torch.bfloat16)
+    batch = _decode(layout, d)
+    for r in range(8):
+        assert torch.equal(_decode(layout, d, slice(r, r + 1))[0], batch[r])
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_repeated_calls_give_same_bits(cuda, layout):
+    """The last block of a (row, KV head) resets its ticket, so 50 calls
+    in a row merge the same way and leave the tickets at 0."""
+    from repro_torch.kernels import flash_decode
+    d = _decode_rows(cuda, (1, 129, 500, 1024, 1024, 640), 2, torch.float32)
+    first = _decode(layout, d)
+    for _ in range(50):
+        assert torch.equal(_decode(layout, d), first)
+    torch.cuda.synchronize()
+    for buf in flash_decode._TICKETS.values():
+        assert int(buf.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_is_one_launch_per_call(cuda, layout):
+    """Splits are merged inside the launch: one device kernel per call."""
+    from torch.profiler import ProfilerActivity, profile
+    d = _decode_rows(cuda, (1, 300, 1024), 2, torch.bfloat16)
+    _decode(layout, d)
+    torch.cuda.synchronize()
+    calls = 5
+    for _ in range(2):         # the trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                _decode(layout, d)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA and
+                 "repro" in e.name]
+        if names:
+            break
+    assert len(names) == calls, names
+    assert all("decode_kernel" in n for n in names), names
