@@ -16,21 +16,29 @@ Phases, each printing one JSON line:
    back-to-back calls (host time included when the host is slower than
    the card), ``device_ms`` and ``library_device_ms`` from the self
    device time that ``torch.profiler`` records for the same loop; the
-   two decode kernels' ``device_ms`` with the L2 flushed before every
-   call, as the decode tick finds it (``device_ms_warm_l2`` back to
-   back), at a spread of lengths and at full load, and what they
-   compiled to (``flash_decode_build``);
+   norm, sampling and decode kernels' ``device_ms`` with the L2 flushed
+   before every call (``device_ms_warm_l2`` back to back); the norm at
+   the decode tick's 8 rows and a prefill's 8192, beside the empty
+   ``repro_floor`` kernel's device time; the sampler on f32 and bf16
+   logits with ties at rank C and a row of fewer than C finite values;
+   and what the norm, sampling and decode kernels compiled to
+   (``norm_build``, ``sample_build``, ``flash_decode_build``);
 4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False)``
    (24 layers, d_model 2048, vocab 92544, bf16 weights from a seed, f32
    KV pool), serve a mixed greedy / sampled workload with mid-decode
    arrivals, check every greedy stream against ``engine.generate`` of
-   its prompt alone, the leak invariants, and that every kernel of the
-   path launched;
-5. profile_decode: eight rows decoding at full width, the host time per
-   tick and, from ``torch.profiler``, the device's busy time by kernel
-   family and its idle share; profile_prefill: one prefill of eight
-   prompts at the 1024 bucket, the same breakdown and the flash kernel's
-   share;
+   its prompt alone and every sampled stream against the request served
+   again alone with its seed, the leak invariants, and that every kernel
+   of the path launched;
+5. profile_decode and profile_decode_sampled: eight greedy or sampled
+   rows decoding at full width, the host time per tick and, from
+   ``torch.profiler``, the device's busy time by kernel family and its
+   idle share (the sampled window also the sample kernel's device time
+   and what ``gumbel_noise`` launches); profile_prefill: one prefill of
+   eight prompts at the 1024 bucket, the same breakdown and the flash
+   kernel's share.  Each window's count of the port's kernels in the
+   trace is held against the launch counters; busy totals read "not
+   measured" where the trace lost kernels;
 6. classify: the paper's one-shot classification service at full width
    (``InferenceEngine.warmup`` into a bucketed cost table, then 64
    Poisson requests of 5 to 500 tokens through
@@ -187,9 +195,56 @@ def check_close(name: str, got, want, atol: float, rtol: float) -> float:
 # ---------------------------------------------------------------------------
 
 
+def cold_with_writeback_ms(kernel, iters: int):
+    """Device time a call adds to an L2 flush: (flush, call) pairs minus
+    the flush alone, over every kernel.  The flush only reads, so a call's
+    writes still dirty in the L2 when it ends reach device memory during
+    the next flush; this counts them, which ``device_ms`` with the L2
+    flushed does not."""
+    flush = l2_flush()
+
+    def pair():
+        flush()
+        return kernel()
+    both = device_ms(pair, iters)["all"]
+    alone = device_ms(flush, iters)["all"]
+    if isinstance(both, float) and isinstance(alone, float):
+        return both - alone
+    return "not measured"
+
+
+def cold_warm(kernel, nbytes: int, flops: float, peak_flops: float,
+              iters: int, writeback: bool = False) -> dict:
+    """A kernel's device time with the L2 flushed before every call
+    (``device_ms``) and back to back (``device_ms_warm_l2``), beside its
+    bound; with ``writeback``, also cold with its writes' trip to device
+    memory counted (``device_ms_cold_writeback``)."""
+    b_ms, b_by = bound_ms(nbytes, flops, peak_flops)
+    cold = device_ms(kernel, iters, before=l2_flush())["port"]
+    warm = device_ms(kernel, iters)["port"]
+    line = {"device_ms": cold, "device_ms_warm_l2": warm, "bound_ms": b_ms,
+            "bound_by": b_by}
+    if isinstance(cold, float):
+        line["share_of_bound"] = b_ms / cold
+    if isinstance(warm, float):
+        line["share_of_bound_warm_l2"] = b_ms / warm
+    if writeback:
+        wb = cold_with_writeback_ms(kernel, iters)
+        line["device_ms_cold_writeback"] = wb
+        if isinstance(wb, float) and wb > 0:
+            line["share_of_bound_cold_writeback"] = b_ms / wb
+    return line
+
+
+NORM_TOL = dict(atol=3e-2, rtol=2e-2)   # bf16 output: ~2 ulp at |y| <= 4
+#: the norm checks' rows: the decode tick's 8 and a B 8 x 1024 prefill's
+NORM_ROWS = (8, 8192)
+
+
 def norm_case(dev, gen, rms: bool, r: int, c: int, tol: dict) -> dict:
-    """One shape of the fused norm: kernel against its plain version, and
-    the times of kernel, plain version and library call."""
+    """One shape of the fused norm: kernel against its plain version (the
+    updated residual bit for bit), and the times of kernel, plain version
+    and library call; the kernel's device time cold and warm."""
     from repro_torch.kernels import layernorm, ref
     import torch.nn.functional as F
     x = torch.randn((r, c), generator=gen, device=dev).bfloat16()
@@ -224,33 +279,90 @@ def norm_case(dev, gen, rms: bool, r: int, c: int, tol: dict) -> dict:
     y, s = kernel()
     y_ref, s_ref = plain()
     torch.cuda.synchronize()
-    err = max(check_close("norm y", y, y_ref, **tol),
-              check_close("norm residual", s, s_ref, atol=1e-2, rtol=8e-3))
-    iters = 200 if r == 8 else 50
+    err = check_close("norm y", y, y_ref, **tol)
+    if not torch.equal(s, s_ref):
+        raise AssertionError(f"norm residual: not bit-equal to the plain "
+                             f"version (max abs {max_err(s, s_ref)})")
+    iters = 200 if r <= 64 else 50
     k_ms, p_ms, l_ms = (time_ms(kernel, iters), time_ms(plain, iters),
                         time_ms(library, iters))
-    dev_t = device_fields(kernel, library, iters)
     nbytes = (4 * r * c + (1 if rms else 3) * c) * 2
-    b_ms, b_by = bound_ms(nbytes, 6 * r * c, H100_F32_FLOPS)
     return {"phase": "kernel_check", "kernel": "fused_norm",
             "mode": "rms" if rms else "layernorm",
             "shape": [r, c], "dtype": "bfloat16",
             "tolerance": {**tol, "why": "bf16 output; kernel and plain "
-                          "version sum the row in other orders"},
+                          "version sum the row in other orders; the "
+                          "updated residual bit for bit"},
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "library_ms": l_ms,
-            "library": "F.rms_norm" if rms else "F.layer_norm",
-            "bound_ms": b_ms, "bound_by": b_by, **dev_t}
+            "library": ("F.rms_norm" if rms else "F.layer_norm") +
+            " of the pre-summed row (half the bytes: no residual read, "
+            "no residual written)",
+            **cold_warm(kernel, nbytes, 6 * r * c, H100_F32_FLOPS, iters,
+                        writeback=r > 64),
+            "library_device_ms": device_ms(library, iters)["all"],
+            "bound_counts": "x and residual read, y and residual written, "
+                            "gamma (and beta, bias) read once"}
+
+
+def floor_device_ms(blocks: int, threads: int, iters: int = 200):
+    """Device time of the empty ``repro_floor`` kernel on (blocks,
+    threads): the floor under any launch of that shape."""
+    from repro_torch.kernels import cuda_lib
+    lib = cuda_lib.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        cuda_lib.check(lib.repro_floor(blocks, threads, stream),
+                       "repro_floor")
+    return device_ms(launch, iters)["port"]
+
+
+def norm_build_facts() -> dict:
+    """What the norm bodies on the port's paths compiled to: registers
+    and spills (ptxas) and resident blocks per SM."""
+    from repro_torch.kernels import cuda_lib, layernorm
+    lib = cuda_lib.library()
+    facts = {}
+    for label, dtype, code, mangled in (
+            ("bf16 C2048", torch.bfloat16, 1, "I13__nv_bfloat16"),
+            ("f32 C2048", torch.float32, 0, "If")):
+        plan = layernorm.norm_plan(2048, dtype)
+        needle = (f"norm_kernel{mangled}Li{plan.threads}E"
+                  f"Li{plan.vectors}E")
+        ptxas = next((u for name, u in cuda_lib.BUILD_INFO["ptxas"].items()
+                      if needle in name), {})
+        blocks = lib.repro_norm_blocks_per_sm(code, plan.threads,
+                                              plan.vectors)
+        if blocks < 1:
+            raise AssertionError(f"fused_norm {label}: occupancy query gave "
+                                 f"{blocks}")
+        facts[label] = {"threads_per_row": plan.threads,
+                        "vectors_per_thread": plan.vectors,
+                        "blocks_per_sm": blocks,
+                        "registers": ptxas.get("registers", "not measured"),
+                        "spill_bytes": ptxas.get("spill_stores", 0) +
+                        ptxas.get("spill_loads", 0)}
+    return facts
 
 
 def check_norm(dev, gen, results):
-    tol = dict(atol=3e-2, rtol=2e-2)   # bf16 output: ~2 ulp at |y| <= 4
     lines = []
     for rms in (True, False):
-        for r in (8, 4096):
-            line = norm_case(dev, gen, rms, r, 2048, tol)
-            emit(line)
-            lines.append(line)
+        for r in NORM_ROWS:
+            lines.append(norm_case(dev, gen, rms, r, 2048, NORM_TOL))
+    # the floor under the decode tick's launch: the same grid, no work
+    from repro_torch.kernels import layernorm
+    floor = floor_device_ms(
+        NORM_ROWS[0], layernorm.norm_plan(2048, torch.bfloat16).threads)
+    for line in lines:
+        if line["shape"][0] == 8:
+            line["floor_device_ms"] = floor
+            if isinstance(floor, float) and \
+                    isinstance(line["device_ms"], float):
+                line["device_ms_above_floor"] = line["device_ms"] - floor
+        emit(line)
+    emit({"phase": "norm_build", **norm_build_facts()})
     # the kernels line reports the decode-tick shape of the main path (RMS
     # mode, R = 8) and the worst error over both modes and both shapes
     entry = dict(lines[0])
@@ -395,18 +507,12 @@ def decode_timing(kernel, nbytes: int, flops: float, iters: int) -> dict:
     time with the L2 flushed before every call, as the decode tick finds
     it; ``device_ms_warm_l2`` back to back, the inputs left in L2 by the
     call before (how PR 14 timed it)."""
-    b_ms, b_by = bound_ms(nbytes, flops, H100_F32_FLOPS)
-    cold = device_ms(kernel, iters, before=l2_flush())["port"]
-    warm = device_ms(kernel, iters)["port"]
-    line = {"ms": time_ms(kernel, iters), "device_ms": cold,
-            "device_ms_warm_l2": warm, "bound_ms": b_ms, "bound_by": b_by,
+    line = {"ms": time_ms(kernel, iters),
+            **cold_warm(kernel, nbytes, flops, H100_F32_FLOPS, iters),
             "bound_counts": "live K and V rows read once, q read, output "
                             "written, tables and lengths read"}
-    if isinstance(cold, float):
-        line["share_of_bound"] = b_ms / cold
-        line["gbytes_per_s"] = nbytes / (cold * 1e-3) / 1e9
-    if isinstance(warm, float):
-        line["share_of_bound_warm_l2"] = b_ms / warm
+    if isinstance(line["device_ms"], float):
+        line["gbytes_per_s"] = nbytes / (line["device_ms"] * 1e-3) / 1e9
     return line
 
 
@@ -677,12 +783,23 @@ def check_contiguous_decode(dev, gen, results):
         replaces="src/repro/kernels/flash_decode.py:81")
 
 
-def check_sample(dev, gen, results):
-    from repro_torch.kernels import ref, sampling
+def sample_inputs(dev, gen, dtype: torch.dtype):
+    """The sampling check's eight rows at B 8, V 92544, C 64: two greedy
+    rows; row 1 with ten ties at the top; row 2 with 40 ties at the top
+    and the C-th rank inside a run of 60 more ties (spread over the row,
+    so over every block of its cluster); row 5 with 20 finite values and
+    the rest -inf, fewer than C."""
     from repro_torch.runtime.sampling import gumbel_noise
     b, v, c = 8, 92544, 64
     logits = 3 * torch.randn((b, v), generator=gen, device=dev)
     logits[1, 100:110] = logits[1].max() + 1     # a tie at the top
+    spread = torch.randperm(v, generator=gen, device=dev)
+    logits[2, spread[:40]] = 30.0                # exact in bf16 too
+    logits[2, spread[40:100]] = 25.0             # ranks 41..100 tie
+    logits[5] = float("-inf")
+    logits[5, spread[100:120]] = 3 * torch.randn((20,), generator=gen,
+                                                 device=dev)
+    logits = logits.to(dtype)
     temp = torch.tensor([0.0, 0.7, 1.0, 1.3, 0.0, 0.9, 0.5, 2.0],
                         device=dev)
     top_k = torch.tensor([0, 0, 40, 5, 0, 100, 1, 0], dtype=torch.int32,
@@ -691,32 +808,93 @@ def check_sample(dev, gen, results):
                          device=dev)
     seed = torch.arange(b, dtype=torch.int32, device=dev) + 11
     gumbel = gumbel_noise(seed, torch.full_like(seed, 3), c)
+    return logits, temp, top_k, top_p, gumbel
+
+
+def sample_case(dev, gen, dtype: torch.dtype) -> dict:
+    """The fused sampler at B 8, V 92544, C 64 with ``dtype`` logits:
+    every token against the plain version, then its device time cold and
+    warm (the LM head has just written the logits, so the tick finds them
+    in L2)."""
+    from repro_torch.kernels import ref, sampling
+    args = sample_inputs(dev, gen, dtype)
+    logits, _, _, _, gumbel = args
+    b, v = logits.shape
+    c = gumbel.shape[-1]
 
     def kernel():
-        return sampling.sample_cuda(logits, temp, top_k, top_p, gumbel)
+        return sampling.sample_cuda(*args)
 
     def plain():
-        return ref.sample_ref(logits, temp, top_k, top_p, gumbel)
+        return ref.sample_ref(*args)
     out, want = kernel(), plain()
     torch.cuda.synchronize()
     mismatch = int((out != want).sum())
     if mismatch:
-        raise AssertionError(f"fused_sample: {mismatch} rows differ from "
-                             f"the plain version: {out.tolist()} vs "
+        raise AssertionError(f"fused_sample {dtype}: {mismatch} rows differ "
+                             f"from the plain version: {out.tolist()} vs "
                              f"{want.tolist()}")
-    k_ms, p_ms = time_ms(kernel, 50), time_ms(plain, 20)
-    dev_t = device_fields(kernel, None, 50)
-    nbytes = b * v * 4 + b * c * 4 + b * 16
-    b_ms, b_by = bound_ms(nbytes, 2.0 * b * v, H100_F32_FLOPS)
-    line = {"phase": "kernel_check", "kernel": "fused_sample",
-            "shape": {"B": b, "V": v, "C": c}, "dtype": "float32",
+    nbytes = b * v * logits.element_size() + b * c * 4 + b * 16
+    return {"phase": "kernel_check", "kernel": "fused_sample",
+            "shape": {"B": b, "V": v, "C": c}, "dtype": str(dtype),
+            "rows": "greedy 0 and 4; ties at the top in 1; the C-th rank "
+                    "inside a run of ties in 2; 20 finite values in 5",
             "tolerance": {"tokens": "exact", "why": "integer tokens; "
                           "both versions consume the same noise"},
-            "max_abs_err": float(mismatch), "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **dev_t}
-    emit(line)
+            "tokens": out.tolist(),
+            "max_abs_err": float(mismatch), "ms": time_ms(kernel, 50),
+            "plain_ms": time_ms(plain, 20), "library_ms": None,
+            "library_device_ms": None,
+            **cold_warm(kernel, nbytes, 2.0 * b * v, H100_F32_FLOPS, 50),
+            "bound_counts": "logits read once, noise and per-row "
+                            "parameters read, tokens written"}
+
+
+def sample_build_facts() -> dict:
+    """What the sampling kernel compiled to (ptxas registers, spills,
+    static shared memory) and what a launch at V 92544, C 64 gets: its
+    dynamic shared memory, resident blocks per SM and the most clusters
+    the card runs at once."""
+    import ctypes
+
+    from repro_torch.kernels import cuda_lib, sampling
+    lib = cuda_lib.library()
+    plan = sampling.sample_plan(8, 92544, 64)
+    facts = {"cluster": plan.cluster, "slice_len": plan.slice_len,
+             "dynamic_smem_bytes": plan.smem_bytes,
+             "digit_bits": sampling.DIGIT_BITS}
+    for label, code, mangled in (("f32", 0, "sample_kernelIfE"),
+                                 ("bf16", 1, "sample_kernelI13__nv_")):
+        blocks, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        cuda_lib.check(lib.repro_sample_occupancy(
+            code, plan.smem_bytes, ctypes.byref(blocks),
+            ctypes.byref(clusters)), "repro_sample_occupancy")
+        if blocks.value < 1 or clusters.value < 1:
+            raise AssertionError(f"fused_sample {label}: {blocks.value} "
+                                 f"blocks per SM, {clusters.value} clusters")
+        ptxas = next((u for name, u in cuda_lib.BUILD_INFO["ptxas"].items()
+                      if mangled in name), {})
+        facts[label] = {"blocks_per_sm": blocks.value,
+                        "max_active_clusters": clusters.value,
+                        "registers": ptxas.get("registers", "not measured"),
+                        "spill_bytes": ptxas.get("spill_stores", 0) +
+                        ptxas.get("spill_loads", 0),
+                        "static_smem_bytes": ptxas.get("static_smem_bytes",
+                                                       0)}
+    return facts
+
+
+def check_sample(dev, gen, results):
+    """f32 logits (the earlier slices' check) and bf16, as the LM head
+    writes them on the serve path; the kernels line reports bf16."""
+    lines = [sample_case(dev, gen, dtype)
+             for dtype in (torch.float32, torch.bfloat16)]
+    for line in lines:
+        emit(line)
+    emit({"phase": "sample_build", **sample_build_facts()})
     results["fused_sample"] = dict(
-        line, route="cuda", source="src/repro_torch/csrc/sampling.cu",
+        lines[1], max_abs_err=max(ln["max_abs_err"] for ln in lines),
+        route="cuda", source="src/repro_torch/csrc/sampling.cu",
         replaces="src/repro/kernels/sampling.py:83")
 
 
@@ -776,26 +954,32 @@ def serve(dev, card: str, layout: str = "paged"):
     serve_s = time.perf_counter() - t_serve
     launches = dict(cuda_lib.LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
+    ce = client.backend
+    ticks, prefills = ce.decode_ticks, ce.prefill_dispatches
 
     decode = "flash_decode_paged" if layout == "paged" else "flash_decode"
     for kname in ("norm", "flash_attention", decode, "sample"):
         if launches.get(kname, 0) <= 0:
             raise AssertionError(f"kernel {kname} never launched on the "
                                  f"serving path: {launches}")
-    ce = client.backend
-    if launches["flash_attention"] != \
-            engine.cfg.num_layers * ce.prefill_dispatches:
+    if launches["flash_attention"] != engine.cfg.num_layers * prefills:
         raise AssertionError(
             f"{launches['flash_attention']} flash-attention launches over "
-            f"{ce.prefill_dispatches} prefills (expected "
+            f"{prefills} prefills (expected "
             f"{engine.cfg.num_layers} per prefill)")
+    # two norms a layer and the final one, in every decode tick and prefill
+    norms_per_step = 2 * engine.cfg.num_layers + 1
+    if launches["norm"] != norms_per_step * (ticks + prefills):
+        raise AssertionError(f"{launches['norm']} norm launches over {ticks} "
+                             f"ticks and {prefills} prefills (expected "
+                             f"{norms_per_step} each)")
     if layout == "contiguous":
         per_tick = engine.cfg.num_layers
-        if launches[decode] != per_tick * ce.decode_ticks or \
+        if launches[decode] != per_tick * ticks or \
                 launches.get("flash_decode_paged", 0):
             raise AssertionError(
                 f"contiguous serving: {launches[decode]} contiguous decode "
-                f"launches over {ce.decode_ticks} ticks (expected "
+                f"launches over {ticks} ticks (expected "
                 f"{per_tick} per tick) and "
                 f"{launches.get('flash_decode_paged', 0)} paged")
     elif ce.block_table.used_blocks != 0:
@@ -827,6 +1011,20 @@ def serve(dev, card: str, layout: str = "paged"):
                 f"{first_diff - len(prompt)} of a {len(prompt)}-token "
                 "prompt")
         greedy_checked += 1
+    # a sampled stream depends on its own seed alone: served again alone
+    # (the same batch bucket, so the same shapes), it gives the same tokens
+    sampled_checked = 0
+    for (prompt, params), res in zip(specs, results):
+        if params.temperature <= 0:
+            continue
+        alone = client.submit(prompt, params).result()
+        if alone != res:
+            first_diff = next(i for i, (a, b) in enumerate(zip(alone, res))
+                              if a != b)
+            raise AssertionError(
+                f"sampled stream (seed {params.seed}) differs from the "
+                f"request served alone at token {first_diff - len(prompt)}")
+        sampled_checked += 1
     ttft = sorted(h.ttft for h in handles)
     emit({"phase": "serve" if layout == "paged" else "serve_contiguous",
           "model": "internlm2-1.8b (full width, 24 layers, bf16 weights "
@@ -834,13 +1032,15 @@ def serve(dev, card: str, layout: str = "paged"):
           "card": card, "requests": len(handles),
           "sampled": sum(1 for _, p in specs if p.temperature > 0),
           "greedy_equal_to_generate_alone": greedy_checked,
+          "sampled_equal_to_served_alone": sampled_checked,
           "generated_tokens": gen_tokens, "serve_s": serve_s,
           "tok_per_s": gen_tokens / serve_s,
           "ttft_p50_s": float(np.percentile(ttft, 50)),
           "ttft_p99_s": float(np.percentile(ttft, 99)),
           "peak_mem_gib": peak / 2 ** 30, "stack_build_s": build_s,
-          "decode_ticks": ce.decode_ticks,
-          "prefill_dispatches": ce.prefill_dispatches,
+          "decode_ticks": ticks, "prefill_dispatches": prefills,
+          "norm_launches": {"decode": norms_per_step * ticks,
+                            "prefill": norms_per_step * prefills},
           "kv_cache_gib": sum(ce.state.cache[k].numel() * 4
                               for k in ("k", "v")) / 2 ** 30,
           "launches": launches})
@@ -1036,64 +1236,175 @@ def kernel_family(name: str) -> str:
 
 def split_profile(prof):
     """Device busy microseconds by kernel family, the device kernels and
-    the host ops (each as (us, count, name)) of a profiler run."""
-    busy_us, kernels, host = {}, [], []
+    the host ops (each as (us, count, name)) of a profiler run: device
+    work from the trace's own events, host ops from the averaged view's
+    self times."""
+    busy_us, by_name, host = {}, {}, []
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = evt.time_range.elapsed_us()
+            fam = kernel_family(evt.name)
+            busy_us[fam] = busy_us.get(fam, 0.0) + us
+            total, count = by_name.get(evt.name, (0.0, 0))
+            by_name[evt.name] = (total + us, count + 1)
     for evt in prof.key_averages():
-        if is_kernel(evt):
-            fam = kernel_family(evt.key)
-            busy_us[fam] = busy_us.get(fam, 0.0) + device_us(evt)
-            kernels.append((device_us(evt), evt.count, evt.key))
-        elif evt.self_cpu_time_total > 0:
+        if not is_kernel(evt) and evt.self_cpu_time_total > 0:
             host.append((evt.self_cpu_time_total, evt.count, evt.key))
+    kernels = [(us, count, name) for name, (us, count) in by_name.items()]
     return busy_us, kernels, host
 
 
-def profile_decode(client, card: str, ticks: int = 10) -> None:
-    """Eight greedy rows decoding at full width: host time per tick, and
-    from torch.profiler the device's busy time by kernel family and its
-    idle share over the window."""
+#: each launch counter's kernel, by the parts of its name in a trace
+PORT_KERNELS = {"norm": ("norm_kernel",),
+                "flash_attention": ("flash_attention",),
+                "flash_decode_paged": ("decode_kernel", "PagedRows"),
+                "flash_decode": ("decode_kernel", "StridedRows"),
+                "sample": ("sample_kernel",), "softmax": ("softmax",)}
+
+
+def cross_check(prof, kernels, launches: dict) -> dict:
+    """The profiler's count of each of the port's kernels (in the trace's
+    events, and in its averaged view) against the wrappers' launch
+    counters over the same window: each counted launch is one kernel, so
+    a shortfall in the trace means it lost events and its busy totals
+    read low."""
+    averaged = [(evt.count, evt.key) for evt in prof.key_averages()
+                if is_kernel(evt)]
+    by_kernel = {}
+    for name, parts in PORT_KERNELS.items():
+        seen = sum(count for _, count, key in kernels
+                   if all(p in key for p in parts))
+        if seen or launches.get(name, 0):
+            by_kernel[name] = {
+                "trace": seen, "counted": launches.get(name, 0),
+                "averaged_view": sum(count for count, key in averaged
+                                     if all(p in key for p in parts))}
+    seen = sum(v["trace"] for v in by_kernel.values())
+    counted = sum(launches.values())
+    return {"profiler_port_kernels": seen, "launch_counters": counted,
+            "by_kernel": by_kernel,
+            "trace_complete": all(v["trace"] >= v["counted"]
+                                  for v in by_kernel.values())}
+
+
+def busy_or_not_measured(value, check: dict):
+    """A busy total, or why it is not given."""
+    if not check["trace_complete"]:
+        return (f"not measured: the trace holds "
+                f"{check['profiler_port_kernels']} of "
+                f"{check['launch_counters']} counted port launches")
+    return value if value else "not measured: the profiler saw no device time"
+
+
+def gumbel_noise_cost(rows: int, cands: int, calls: int) -> dict:
+    """What ``gumbel_noise`` alone launches for ``rows`` rows of ``cands``
+    values: device kernels, device time and host self-time per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime.sampling import gumbel_noise
+    seed = torch.arange(rows, dtype=torch.int32, device="cuda") + 1000
+    step = torch.zeros_like(seed)
+    gumbel_noise(seed, step, cands)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            gumbel_noise(seed, step + i, cands)
+        torch.cuda.synchronize()
+    _, kernels, host = split_profile(prof)
+    return {"kernels_per_call": sum(c for _, c, _ in kernels) / calls,
+            "device_ms_per_call": sum(u for u, _, _ in kernels) / 1e3
+            / calls,
+            "host_self_ms_per_call": sum(u for u, _, _ in host) / 1e3 / calls}
+
+
+def profile_decode(client, card: str, ticks: int = 10,
+                   sampled: bool = False) -> None:
+    """Eight rows decoding at full width, greedy or (``sampled``) with
+    temperature, top-k and top-p: host time per tick, and from
+    torch.profiler the device's busy time by kernel family and its idle
+    share over the window, cross-checked against the launch counters; a
+    sampled window also gives the sample kernel's device time and what
+    the Gumbel noise launches per tick."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.api import GenerationParams
-    rng = np.random.default_rng(SEED + 1)
+    from repro_torch.kernels import cuda_lib
+    rng = np.random.default_rng(SEED + (3 if sampled else 1))
     vocab = client.backend.engine.cfg.vocab_size
-    handles = [client.submit([int(t) for t in rng.integers(1, vocab, n)],
-                             GenerationParams(max_new_tokens=64))
-               for n in (100, 200, 300, 400, 500, 600, 700, 800)]
+    ce = client.backend
+    if any(s is not None for s in ce.sessions):
+        raise AssertionError("profile_decode: a slot is still live")
+    # the engine's sampling flag is sticky for the life of its state (as
+    # the reference's); with every slot free, clear it, so greedy rows run
+    # the greedy tick and not the sampling one the serve phase left on
+    ce.state.sampling = False
+    params = [GenerationParams(max_new_tokens=64, temperature=0.8, top_k=50,
+                               top_p=0.95, seed=2000 + i) if sampled
+              else GenerationParams(max_new_tokens=64) for i in range(8)]
+    handles = [client.submit([int(t) for t in rng.integers(1, vocab, n)], p)
+               for n, p in zip((100, 200, 300, 400, 500, 600, 700, 800),
+                               params)]
     while client.pipeline.queue:                 # admit all eight
         client.pump(max_ticks=1)
     client.pump(max_ticks=2)                     # settle into decode
     torch.cuda.synchronize()
+    cuda_lib.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         client.pump(max_ticks=ticks)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(cuda_lib.LAUNCHES)
     busy_us, kernels, host = split_profile(prof)
     for h in handles:
         h.cancel()
     busy_ms = sum(busy_us.values()) / 1e3
+    check = cross_check(prof, kernels, launches)
+    complete = check["trace_complete"] and busy_ms > 0
 
     def top(rows, n):
         return [{"name": name[:80], "ms_per_tick": us / 1e3 / ticks,
                  "calls_per_tick": count / ticks}
                 for us, count, name in sorted(rows, reverse=True)[:n]]
-    emit({"phase": "profile_decode", "card": card, "rows": len(handles),
-          "ticks": ticks, "tick_ms": wall_ms / ticks,
-          "note": "tick_ms is taken under the profiler, which slows the "
-                  "host; device times are the kernels' own",
-          "device_busy_ms_per_tick": (busy_ms / ticks) if busy_ms else None,
-          "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
-          else None,
-          "kernel_launches_per_tick": sum(c for _, c, _ in kernels) / ticks,
-          "host_ops_self_ms_per_tick": sum(u for u, _, _ in host) / 1e3
-          / ticks,
-          "busy_ms_per_tick_by_family": {
-              k: v / 1e3 / ticks for k, v in sorted(busy_us.items())}
-          if busy_ms else "not measured: the profiler saw no device time",
-          "top_device_kernels": top(kernels, 6),
-          "top_host_ops_self_time": top(host, 10)})
+    line = {"phase": "profile_decode_sampled" if sampled else
+            "profile_decode", "card": card, "rows": len(handles),
+            "ticks": ticks, "tick_ms": wall_ms / ticks,
+            "note": "tick_ms is taken under the profiler, which slows the "
+                    "host; device times are the kernels' own" +
+                    ("" if sampled else "; the served mix runs the sampled "
+                     "tick once a sampled request has been admitted (the "
+                     "flag is sticky): this greedy tick is what an "
+                     "all-greedy engine runs"),
+            "launch_cross_check": check, "launches": launches,
+            "device_busy_ms_per_tick": busy_or_not_measured(
+                busy_ms / ticks, check),
+            "device_idle_share": (1 - busy_ms / wall_ms) if complete
+            else busy_or_not_measured(None, check),
+            "kernel_launches_per_tick": sum(c for _, c, _ in kernels) / ticks,
+            "host_ops_self_ms_per_tick": sum(u for u, _, _ in host) / 1e3
+            / ticks,
+            "busy_ms_per_tick_by_family": {
+                k: v / 1e3 / ticks for k, v in sorted(busy_us.items())}
+            if complete else busy_or_not_measured(None, check),
+            "top_device_kernels": top(kernels, 6),
+            "top_host_ops_self_time": top(host, 10)}
+    if not sampled and launches.get("sample", 0):
+        raise AssertionError(f"profile_decode: {launches} (a greedy "
+                             "window launched the sampler)")
+    if sampled:
+        if launches.get("sample", 0) != ticks:
+            raise AssertionError(f"profile_decode_sampled: {launches} over "
+                                 f"{ticks} ticks (expected one sample "
+                                 "launch per tick)")
+        sample_us = sum(us for us, _, name in kernels if "sample_kernel" in
+                        name)
+        line["sample_kernel_device_ms_per_tick"] = (
+            sample_us / 1e3 / ticks if sample_us else "not measured")
+        line["gumbel_noise_alone"] = gumbel_noise_cost(len(handles), 64,
+                                                       ticks)
+    emit(line)
 
 
 def profile_prefill(client, card: str) -> None:
@@ -1132,6 +1443,8 @@ def profile_prefill(client, card: str) -> None:
     del state
     busy_us, kernels, host = split_profile(prof)
     busy_ms = sum(busy_us.values()) / 1e3
+    check = cross_check(prof, kernels, launches)
+    complete = check["trace_complete"] and busy_ms > 0
     flash_us = sum(us for us, _, name in kernels if "flash_attention" in name)
     b, s, h, dh = 8, 1024, cfg.num_heads, cfg.head_dim
     flops = cfg.num_layers * 4.0 * b * h * dh * s * (s + 1) / 2
@@ -1140,19 +1453,20 @@ def profile_prefill(client, card: str) -> None:
           "wall_ms": wall_ms,
           "note": "wall_ms is taken under the profiler, which slows the "
                   "host; device times are the kernels' own",
-          "device_busy_ms": busy_ms if busy_ms else "not measured",
-          "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
-          else "not measured",
+          "launch_cross_check": check, "launches": launches,
+          "device_busy_ms": busy_or_not_measured(busy_ms, check),
+          "device_idle_share": (1 - busy_ms / wall_ms) if complete
+          else busy_or_not_measured(None, check),
           "busy_ms_by_family": {k: v / 1e3 for k, v in
                                 sorted(busy_us.items())}
-          if busy_ms else "not measured: the profiler saw no device time",
+          if complete else busy_or_not_measured(None, check),
           "flash_attention": {
               "launches": launches["flash_attention"],
               "device_ms": flash_us / 1e3 if flash_us else "not measured",
               "ms_per_launch": flash_us / 1e3 / cfg.num_layers
               if flash_us else "not measured",
               "share_of_busy": flash_us / 1e3 / busy_ms
-              if flash_us and busy_ms else "not measured",
+              if flash_us and complete else "not measured",
               "tflops": flops / (flash_us * 1e-6) / 1e12
               if flash_us else "not measured"},
           "kernel_launches": sum(c for _, c, _ in kernels),
@@ -1218,6 +1532,7 @@ def main() -> int:
     # and each kernel's launches are read from the path that runs it
     client, launches = serve(dev, card)
     profile_decode(client, card)
+    profile_decode(client, card, sampled=True)
     profile_prefill(client, card)
     del client
     release_memory()

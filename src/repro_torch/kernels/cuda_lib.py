@@ -53,7 +53,10 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "repro_norm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "repro_norm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I,
+                   _P],
+    "repro_norm_blocks_per_sm": [_I, _I, _I],
+    "repro_floor": [_I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _F, _I, _P],
     "repro_flash_attention_blocks_per_sm": [_I],
@@ -63,8 +66,8 @@ _SIGNATURES = {
                                 _I, _L, _L, _L, _I, _F, _I, _P],
     "repro_flash_decode_blocks_per_sm": [_I, _I, _I],
     "repro_flash_decode_ring_bytes": [],
-    "repro_sample": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _I, _I, _P],
+    "repro_sample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "repro_sample_occupancy": [_I, _I, _P, _P],
     "repro_softmax": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
 }
 

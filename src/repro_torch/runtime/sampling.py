@@ -130,15 +130,20 @@ def sample_tokens(logits: torch.Tensor, *, temperature: torch.Tensor,
                   candidates: int = 0) -> torch.Tensor:
     """One token per row from per-row sampling params.
 
-    logits: (B, V) float; temperature/top_p: (B,) f32; top_k: (B,)
-    int32 (0 disables); seed, step: (B,) int32 — ``step`` is the index of
-    the token being drawn.  Returns (B,) int32; rows with
-    ``temperature <= 0`` return the plain argmax.  ``candidates`` bounds
-    the candidate set (<= 0 means :data:`DEFAULT_SAMPLE_CANDIDATES`).
+    logits: (B, V) float (f32 and bf16 reach the kernel as they are);
+    temperature/top_p: (B,) f32; top_k: (B,) int32 (0 disables); seed,
+    step: (B,) int32 — ``step`` is the index of the token being drawn.
+    Returns (B,) int32; rows with ``temperature <= 0`` return the plain
+    argmax.  ``candidates`` bounds the candidate set (<= 0 means
+    :data:`DEFAULT_SAMPLE_CANDIDATES`).
     """
     if candidates <= 0:
         candidates = DEFAULT_SAMPLE_CANDIDATES
     cands = min(candidates, logits.shape[-1])
     gumbel = gumbel_noise(seed, step, cands)
-    return ops.fused_sample(logits.float().contiguous(), temperature,
-                            top_k, top_p, gumbel)
+    # the kernel reads f32 or bf16 logits as the LM head wrote them and
+    # scales in f32, as the plain version does after its exact upcast
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        logits = logits.float()
+    return ops.fused_sample(logits.contiguous(), temperature, top_k, top_p,
+                            gumbel)

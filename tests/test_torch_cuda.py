@@ -30,29 +30,56 @@ def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
+def _norm_inputs(dev, rows, cols, dtype, seed=0):
+    g = _gen(dev, seed)
+    x = torch.randn((rows, cols), generator=g, device=dev).to(dtype)
+    res = torch.randn((rows, cols), generator=g, device=dev).to(dtype)
+    bias = torch.randn((cols,), generator=g, device=dev).to(dtype)
+    gamma = (torch.rand((cols,), generator=g, device=dev) + 0.5).to(dtype)
+    beta = torch.randn((cols,), generator=g, device=dev).to(dtype)
+    return x, res, bias, gamma, beta
+
+
+def _norm(rms, x, res, bias, gamma, beta, fn=ops):
+    if rms:
+        return fn.fused_rmsnorm(x, gamma, bias, res, return_residual=True)
+    return fn.fused_layernorm(x, gamma, beta, bias, res,
+                              return_residual=True)
+
+
+# 2048: a block of 256 (bf16) or 512 (f32) threads a row, a vector each;
+# 64: a warp a row, half its lanes idle; 4096 and 12288: 2 to 6 vectors a
+# thread
+@pytest.mark.parametrize("cols", [2048, 64, 4096, 12288])
 @pytest.mark.parametrize("rms", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_norm_matches_plain(cuda, rms, dtype):
-    g = _gen(cuda)
-    x = torch.randn((64, 2048), generator=g, device=cuda).to(dtype)
-    res = torch.randn((64, 2048), generator=g, device=cuda).to(dtype)
-    bias = torch.randn((2048,), generator=g, device=cuda).to(dtype)
-    gamma = (torch.rand((2048,), generator=g, device=cuda) + 0.5).to(dtype)
-    beta = torch.randn((2048,), generator=g, device=cuda).to(dtype)
+def test_cuda_norm_matches_plain(cuda, rms, dtype, cols):
+    x, res, bias, gamma, beta = _norm_inputs(cuda, 64, cols, dtype)
     # bf16 output: one ulp at |y| <= 8 is 3e-2
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
         else dict(rtol=2e-2, atol=3e-2)
+    y, s = _norm(rms, x, res, bias, gamma, beta)
     if rms:
-        y, s = ops.fused_rmsnorm(x, gamma, bias, res, return_residual=True)
         y_ref, s_ref = ref.rmsnorm_ref(x, gamma, bias, res,
                                        return_residual=True)
     else:
-        y, s = ops.fused_layernorm(x, gamma, beta, bias, res,
-                                   return_residual=True)
         y_ref, s_ref = ref.layernorm_ref(x, gamma, beta, bias, res,
                                          return_residual=True)
     torch.testing.assert_close(y, y_ref, **tol)
     torch.testing.assert_close(s, s_ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("rms", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_norm_row_alone_equals_row_in_batch(cuda, rms, dtype):
+    """A row's bits do not depend on R: each row of a batch of 8192 (a B 8
+    x 1024 prefill) equals the same row normalised alone."""
+    x, res, bias, gamma, beta = _norm_inputs(cuda, 8192, 2048, dtype,
+                                             seed=4)
+    y, s = _norm(rms, x, res, bias, gamma, beta)
+    for i in (0, 1, 4097, 8191):
+        y1, s1 = _norm(rms, x[i:i + 1], res[i:i + 1], bias, gamma, beta)
+        assert torch.equal(y1[0], y[i]) and torch.equal(s1[0], s[i]), i
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -193,21 +220,110 @@ def test_cuda_paged_decode_matches_plain(cuda, h, kv):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("rows,vocab,cands", [(8, 92544, 64), (3, 300, 16),
-                                              (1, 5000, 64)])
-def test_cuda_sample_matches_plain(cuda, rows, vocab, cands):
-    rng = np.random.default_rng(vocab)
-    logits = (3 * rng.standard_normal((rows, vocab))).astype(np.float32)
-    logits[0, 10:14] = logits[0].max() + 1       # ties at the top
+def _sample_args(dev, logits, seed=0):
+    """Per-row parameters cycling through a sampled row, a greedy one, a
+    sampled row with a large top-k and a negative temperature (greedy),
+    with noise from numpy."""
+    rows, _ = logits.shape
+    cands = min(64, logits.shape[1])
+    rng = np.random.default_rng(seed)
     temp = np.resize(np.array([0.7, 0.0, 1.3, -1.0], np.float32), rows)
     top_k = np.resize(np.array([0, 5, 1000, 3], np.int32), rows)
     top_p = np.resize(np.array([0.9, 1.0, 0.8, 0.5], np.float32), rows)
     gumbel = rng.gumbel(size=(rows, cands)).astype(np.float32)
-    args = [torch.from_numpy(a).to(cuda)
-            for a in (logits, temp, top_k, top_p, gumbel)]
+    return [logits.to(dev)] + [torch.from_numpy(a).to(dev)
+                               for a in (temp, top_k, top_p, gumbel)]
+
+
+def _all_sampled(args):
+    """The same inputs with every row sampled at temperature 1."""
+    return [args[0], torch.ones_like(args[1])] + args[2:]
+
+
+# V 1001 and 12: the cluster of 8 does not divide the row, and the rows
+# do not allow 16-byte loads; V 12 is below one vector a block
+@pytest.mark.parametrize("rows,vocab,cands", [(8, 92544, 64), (3, 300, 16),
+                                              (1, 5000, 64), (4, 1001, 64),
+                                              (2, 12, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sample_matches_plain(cuda, rows, vocab, cands, dtype):
+    rng = np.random.default_rng(vocab)
+    logits = (3 * rng.standard_normal((rows, vocab))).astype(np.float32)
+    logits[0, 1:5] = logits[0].max() + 1         # ties at the top
+    args = _sample_args(cuda, torch.from_numpy(logits).to(dtype), vocab)
+    args[4] = args[4][:, :cands].contiguous()
     got = ops.fused_sample(*args)
     want = ref.sample_ref(*args)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sample_ties_straddle_rank_c(cuda, dtype):
+    """The C-th rank falls inside a run of equal values spread over every
+    block of the cluster: the lower indices are kept, as the stable sort
+    of the plain version keeps them.  Row 1 ties from rank 41 to 100 at
+    one value; row 0's scaled values tie after the division too."""
+    rng = np.random.default_rng(7)
+    v = 92544
+    logits = (3 * rng.standard_normal((4, v))).astype(np.float32)
+    spread = rng.permutation(v)
+    logits[1, spread[:40]] = 30.0
+    logits[1, spread[40:100]] = 25.0
+    logits[0, spread[:200]] = 20.0
+    args = _all_sampled(_sample_args(cuda, torch.from_numpy(logits).to(
+        dtype)))
+    args[2] = torch.zeros_like(args[2])          # no top-k: all 64 kept
+    args[3] = torch.ones_like(args[3])
+    torch.testing.assert_close(ops.fused_sample(*args),
+                               ref.sample_ref(*args), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sample_row_with_fewer_finite_values_than_c(cuda, dtype):
+    rng = np.random.default_rng(8)
+    v = 92544
+    logits = np.full((3, v), -np.inf, np.float32)
+    for r, n in enumerate((20, 1, 63)):
+        logits[r, rng.choice(v, n, replace=False)] = rng.standard_normal(n)
+    args = _all_sampled(_sample_args(cuda, torch.from_numpy(logits).to(
+        dtype)))
+    torch.testing.assert_close(ops.fused_sample(*args),
+                               ref.sample_ref(*args), rtol=0, atol=0)
+
+
+def test_cuda_sample_is_one_launch_per_call(cuda):
+    """One kernel per call, greedy and sampled rows alike, and no other
+    device work (no scratch to clear)."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(9)
+    logits = torch.from_numpy((3 * rng.standard_normal((8, 92544))).astype(
+        np.float32)).bfloat16()
+    args = _sample_args(cuda, logits)
+    ops.fused_sample(*args)
+    torch.cuda.synchronize()
+    calls = 5
+    for _ in range(2):         # the trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ops.fused_sample(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == calls, names
+    assert all("sample_kernel" in n for n in names), names
+
+
+def test_cuda_sample_repeated_calls_give_same_tokens(cuda):
+    rng = np.random.default_rng(10)
+    logits = torch.from_numpy((3 * rng.standard_normal((8, 92544))).astype(
+        np.float32)).bfloat16()
+    args = _all_sampled(_sample_args(cuda, logits))
+    first = ops.fused_sample(*args)
+    for _ in range(50):
+        assert torch.equal(ops.fused_sample(*args), first)
+    torch.testing.assert_close(first, ref.sample_ref(*args), rtol=0, atol=0)
 
 
 def test_cuda_paged_decode_clamps_lengths_past_the_table(cuda):
