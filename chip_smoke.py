@@ -21,24 +21,38 @@ Phases, each printing one JSON line:
    the decode tick's 8 rows and a prefill's 8192, beside the empty
    ``repro_floor`` kernel's device time; the sampler on f32 and bf16
    logits with ties at rank C and a row of fewer than C finite values;
-   and what the norm, sampling and decode kernels compiled to
-   (``norm_build``, ``sample_build``, ``flash_decode_build``);
+   the flash kernel's packed mode (segment ids and positions) on eight
+   segments of 1024, on mixed lengths padded to their pack bucket and on
+   segments after prefix keys, against SDPA with the dense mask, case
+   (a) beside the causal kernel at B 8 x 1024 (the same visible pairs;
+   fails above 1.5 times its device time, or where its rows differ from
+   the causal kernel's by a bit); and what the norm, sampling,
+   decode and packed kernels compiled to (``norm_build``,
+   ``sample_build``, ``flash_decode_build``,
+   ``flash_attention_packed_build``);
 4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False)``
    (24 layers, d_model 2048, vocab 92544, bf16 weights from a seed, f32
    KV pool), serve a mixed greedy / sampled workload with mid-decode
-   arrivals, check every greedy stream against ``engine.generate`` of
-   its prompt alone and every sampled stream against the request served
-   again alone with its seed, the leak invariants, and that every kernel
-   of the path launched;
+   arrivals through the default packed admission (one packed flash
+   launch per layer per pack, each pack's occupancy), check every greedy
+   stream against ``engine.generate`` of its prompt alone and every
+   sampled stream against the request served again alone with its seed
+   (a divergence passes only where the alone run's margin at the first
+   differing step and the served token's gap there, ``draw_margins``,
+   are below twice the largest logit drift between a packed pass and
+   each prompt's own prefill, which the phase prints and holds to
+   ``PACKED_LOGIT_ULPS``), the leak invariants, and that every kernel of
+   the path launched;
 5. profile_decode and profile_decode_sampled: eight greedy or sampled
    rows decoding at full width, the host time per tick and, from
    ``torch.profiler``, the device's busy time by kernel family and its
    idle share (the sampled window also the sample kernel's device time
    and what ``gumbel_noise`` launches); profile_prefill: one prefill of
    eight prompts at the 1024 bucket, the same breakdown and the flash
-   kernel's share.  Each window's count of the port's kernels in the
-   trace is held against the launch counters; busy totals read "not
-   measured" where the trace lost kernels;
+   kernel's share; profile_prefill_packed: the same prompts as one pack.
+   Each window's count of the port's kernels in the trace is held against
+   the launch counters; busy totals read "not measured" where the trace
+   lost kernels, beside the busy time of the kernels it holds;
 6. classify: the paper's one-shot classification service at full width
    (``InferenceEngine.warmup`` into a bucketed cost table, then 64
    Poisson requests of 5 to 500 tokens through
@@ -47,9 +61,9 @@ Phases, each printing one JSON line:
    against ``classify`` of each request alone, and the launch counters:
    24 masked-softmax launches per executed batch, no flash attention;
 7. serve_contiguous: the serve phase's workload through
-   ``kv_layout="contiguous"``, every greedy stream against
-   ``engine.generate`` alone, 24 contiguous-decode launches per decode
-   tick and no paged-decode launch.
+   ``kv_layout="contiguous"`` (per-group prefill through the causal
+   kernel), every stream equal to the request alone, 24 contiguous-decode
+   launches per decode tick and no paged-decode launch.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -470,6 +484,205 @@ def check_flash_attention(dev, gen, results):
     emit({"phase": "flash_attention_build", **flash_build_facts()})
     results["flash_attention"] = dict(
         entry, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:91")
+
+
+#: the packed-mode checks' packs: (label, fresh lengths, prefix lengths,
+#: pack width, prefix width): eight tile-aligned segments of 1024 (flat
+#: 8192); mixed lengths with a one-token segment and boundaries inside
+#: tiles, padded to their pack bucket; segments after 128, 256 and no
+#: prefix keys (the prefix region padded to its bucket)
+PACKED_CASES = (
+    ("a: 8 x 1024", (1024,) * 8, (0,) * 8, 8192, 0),
+    ("b: mixed 1..1024", (1, 64, 200, 333, 512, 700, 960, 1024), (0,) * 8,
+     4096, 0),
+    ("c: prefix 128, 256, 0", (300, 500, 700), (128, 256, 0), 2048, 512),
+)
+#: the packed kernel's device time in case (a) against the causal kernel's
+#: at B 8 x 1024 (the same visible pairs): above this, tiles are not
+#: being skipped
+PACKED_OVER_CAUSAL_LIMIT = 1.5
+
+
+def packed_inputs(dev, gen, fresh, prefix, width, pre_width, h=16, kv=8):
+    """bf16 q (1, H, width, 128), k and v (1, KV, pre_width + width, 128)
+    as views of (1, S, heads, 128) activations, and the segment ids and
+    positions (q_seg, k_seg, q_pos, k_pos) of the pack."""
+    from repro_torch.runtime.engine import segment_labels
+    q_seg, q_pos = segment_labels(fresh, prefix, width)
+    p_seg, p_pos = segment_labels(prefix, [0] * len(prefix), pre_width)
+    ids = [torch.from_numpy(a).to(dev) for a in
+           (q_seg, np.concatenate([p_seg, q_seg]), q_pos,
+            np.concatenate([p_pos, q_pos]))]
+    q, k, v = [torch.randn((1, n, heads, 128), generator=gen,
+                           device=dev).bfloat16().transpose(1, 2)
+               for n, heads in ((width, h), (pre_width + width, kv),
+                                (pre_width + width, kv))]
+    return q, k, v, ids
+
+
+def packed_mask(ids) -> torch.Tensor:
+    """The (Sq, Sk) visibility of a pack: one id and k_pos <= q_pos, or the
+    query's own key."""
+    q_seg, k_seg, q_pos, k_pos = ids
+    sq, sk = q_seg.numel(), k_seg.numel()
+    keys = torch.arange(sk, device=q_seg.device)
+    own = keys[None, :] - (sk - sq) == torch.arange(sq, device=q_seg.device
+                                                    )[:, None]
+    return ((q_seg[:, None] == k_seg[None, :]) &
+            (k_pos[None, :] <= q_pos[:, None])) | own
+
+
+def packed_case(dev, gen, label, fresh, prefix, width, pre_width) -> dict:
+    """One pack: the packed mode against its plain version on real rows
+    (padding rows finite), and the times of kernel, plain version and
+    SDPA with the dense boolean mask; the bound counts the visible pairs
+    of the real rows."""
+    from repro_torch.kernels import flash_attention, ref
+    import torch.nn.functional as F
+    h, kv, dh = 16, 8, 128
+    q, k, v, ids = packed_inputs(dev, gen, fresh, prefix, width, pre_width)
+    mask = packed_mask(ids)
+
+    def kernel():
+        return flash_attention.flash_attention_packed_cuda(q, k, v, *ids)
+
+    def plain():
+        return ref.flash_attention_packed_ref(q, k, v, *ids)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+    tol = dict(atol=2e-2, rtol=2e-2)
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    real = ids[0] >= 0
+    err = check_close(f"flash_attention_packed {label}", out[:, :, real],
+                      want[:, :, real], **tol)
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"flash_attention_packed {label}: a padding "
+                             "row is not finite")
+    del want
+    pairs = int(mask[real].sum())
+    sq, sk = width, pre_width + width
+    nbytes = 2 * (2 * sq * h * dh + 2 * sk * kv * dh) + 4 * 2 * (sq + sk)
+    flops = 4.0 * dh * h * pairs
+    b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_FLOPS)
+    iters = 20
+    k_ms, p_ms, l_ms = (time_ms(kernel, iters), time_ms(plain, 3),
+                        time_ms(library, iters))
+    dev_t = device_fields(kernel, library, iters)
+    line = {"phase": "kernel_check", "kernel": "flash_attention_packed",
+            "case": label,
+            "shape": {"H": h, "KV": kv, "dh": dh, "Sq": sq, "Sk": sk,
+                      "segments": list(fresh), "prefix": list(prefix),
+                      "flat": int(real.sum())},
+            "dtype": "bfloat16",
+            "tolerance": {**tol, "why": tol_why_attention() +
+                          "; real rows only (padding rows finite)"},
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": l_ms,
+            "library": "F.scaled_dot_product_attention with the dense "
+                       "boolean (Sq, Sk) mask (a yardstick, not on the path)",
+            "visible_pairs": pairs, "dense_pairs": sq * sk,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_counts": "4 dh H flops a visible pair of a real row; "
+                            "q, k, v, ids read once, output written once",
+            **dev_t, "share_of_bound": b_ms / k_ms}
+    if isinstance(dev_t["device_ms"], float):
+        line["device_tflops"] = flops / (dev_t["device_ms"] * 1e-3) / 1e12
+        line["device_share_of_bound"] = b_ms / dev_t["device_ms"]
+    if label.startswith("a"):
+        line["against_causal"] = packed_against_causal(
+            dev, gen, q, k, v, out, fresh, dev_t["device_ms"], k_ms, iters)
+    return line
+
+
+def packed_against_causal(dev, gen, q, k, v, packed_out, fresh,
+                          packed_device_ms, packed_ms, iters) -> dict:
+    """Case (a) beside the causal kernel at B 8 x 1024 on the same rows
+    (the same visible pairs): their times, and whether the packed rows
+    equal the causal ones bit for bit (each segment starts on a tile)."""
+    from repro_torch.kernels import flash_attention
+    b, s = len(fresh), fresh[0]
+
+    def rows(t):             # (1, heads, B * S, dh) -> (B, heads, S, dh)
+        return t[0].reshape(t.shape[1], b, s, 128).transpose(0, 1)
+
+    qb, kb, vb = rows(q), rows(k), rows(v)
+
+    def causal():
+        return flash_attention.flash_attention_cuda(qb, kb, vb, causal=True)
+    out = causal()
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(out, rows(packed_out)))
+    c_ms = time_ms(causal, iters)
+    c_dev = device_ms(causal, iters)["port"]
+    if isinstance(packed_device_ms, float) and isinstance(c_dev, float):
+        ratio, by = packed_device_ms / c_dev, "device_ms"
+    else:
+        ratio, by = packed_ms / c_ms, "ms"
+    flops = 4.0 * b * 16 * 128 * s * (s + 1) / 2
+    nbytes = b * s * 128 * 2 * (2 * 16 + 2 * 8)
+    return {"causal_shape": {"B": b, "S": s}, "causal_ms": c_ms,
+            "causal_device_ms": c_dev,
+            "causal_bound_ms": bound_ms(nbytes, flops, H100_BF16_FLOPS)[0],
+            "packed_over_causal": ratio, "compared_by": by,
+            "limit": PACKED_OVER_CAUSAL_LIMIT,
+            "bit_equal_to_causal": equal}
+
+
+def packed_build_facts() -> dict:
+    """What the packed mode compiled to: resident blocks per SM, ptxas
+    registers and spills, and its tensor-core instructions in SASS."""
+    import shutil
+    from repro_torch.kernels import cuda_lib
+    lib = cuda_lib.library()
+    blocks = lib.repro_flash_attention_packed_blocks_per_sm()
+    if blocks < 1:
+        raise AssertionError(f"flash_attention_packed: occupancy query gave "
+                             f"{blocks}")
+    needle = "flash_attention_packed_kernel"
+    facts = {"blocks_per_sm": blocks,
+             "ptxas": next((u for name, u in cuda_lib.BUILD_INFO["ptxas"]
+                            .items() if needle in name), "not measured")}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).exists():
+        sass = subprocess.run(
+            [tool, "-sass", str(cuda_lib.BUILD_INFO["path"])],
+            capture_output=True, text=True).stdout
+        facts["sass"] = cuda_lib.sass_opcodes(
+            sass, needle, ("HGMMA", "LDGSTS", "MUFU", "BAR"))
+        if facts["sass"]["HGMMA"] == 0:
+            raise AssertionError("flash_attention_packed: no wgmma (HGMMA) "
+                                 "in its SASS")
+    else:
+        facts["sass"] = "not measured: no cuobjdump"
+    return facts
+
+
+def check_flash_attention_packed(dev, gen, results):
+    """The packed mode on cases (a) to (c); the kernels line reports case
+    (a) with the worst error over the three."""
+    lines = []
+    for case in PACKED_CASES:
+        lines.append(packed_case(dev, gen, *case))
+        emit(lines[-1])
+        release_memory()
+    ratio = lines[0]["against_causal"]["packed_over_causal"]
+    if ratio > PACKED_OVER_CAUSAL_LIMIT:
+        raise AssertionError(
+            f"flash_attention_packed: {ratio:.2f}x the causal kernel's time "
+            f"on the same visible pairs (limit {PACKED_OVER_CAUSAL_LIMIT}): "
+            "key tiles are not skipped")
+    if not lines[0]["against_causal"]["bit_equal_to_causal"]:
+        raise AssertionError(
+            "flash_attention_packed: case (a)'s rows differ from the causal "
+            "kernel's on the same tile-aligned segments")
+    emit({"phase": "flash_attention_packed_build", **packed_build_facts()})
+    results["flash_attention_packed"] = dict(
+        lines[0], max_abs_err=max(ln["max_abs_err"] for ln in lines),
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91")
 
 
@@ -903,6 +1116,138 @@ def check_sample(dev, gen, results):
 # ---------------------------------------------------------------------------
 
 
+def own_prefill_logits(engine, tokens) -> torch.Tensor:
+    """Last-token logits (V,) of ``tokens`` prefilled alone, in f32."""
+    from repro_torch.models import prefill
+    logits, _ = prefill(engine.cfg, engine.params,
+                        torch.tensor([tokens], device=engine.device))
+    return logits[0].float()
+
+
+#: how far a prompt's last-token logits from a packed pass may lie from
+#: its own prefill's, in bf16 ulps at the row's largest |logit|: the
+#: bound the classify phase holds a request's logits to between its
+#: served batch and a batch of its own (bf16 activations through 24
+#: layers, products at other shapes)
+PACKED_LOGIT_ULPS = 4
+
+
+def packed_logit_drift(engine, prompts) -> tuple:
+    """The largest |logit| difference between each prompt's last-token
+    logits from a packed pass (the prompts packed in groups of 8, the
+    top batch bucket) and from its own prefill, and the largest in bf16
+    ulps of the row's largest |logit|; fails where one passes
+    ``PACKED_LOGIT_ULPS``."""
+    cfg = engine.cfg
+    no_kv = torch.zeros((cfg.num_layers, 0, cfg.num_kv_heads, cfg.head_dim),
+                        device=engine.device)
+    no_ids = torch.zeros((0,), dtype=torch.int32, device=engine.device)
+    worst, worst_ulps = 0.0, 0.0
+    for at in range(0, len(prompts), 8):
+        group = prompts[at:at + 8]
+        logits, _ = engine.prefill_packed_flat(group, [0] * len(group),
+                                               no_kv, no_kv, no_ids, no_ids)
+        for i, p in enumerate(group):
+            got, own = logits[i].float(), own_prefill_logits(engine, p)
+            d = float((got - own).abs().max())
+            ulps = d / bf16_ulp(float(own.abs().max()))
+            if not ulps <= PACKED_LOGIT_ULPS or \
+                    not bool(torch.isfinite(got).all()):
+                raise AssertionError(
+                    f"packed prefill: prompt {at + i} ({len(p)} tokens) "
+                    f"logits {d:.3g} ({ulps:.2f} bf16 ulps of the row's "
+                    f"largest) from its own prefill's (limit "
+                    f"{PACKED_LOGIT_ULPS})")
+            worst, worst_ulps = max(worst, d), max(worst_ulps, ulps)
+    return worst, worst_ulps
+
+
+def draw_margins(logits, params, step: int, served: int):
+    """How far the draw at ``step`` from ``logits`` (V,) lies from changing,
+    and from giving the token ``served`` instead, both on the scale of a
+    greedy top-2 gap (in logits / T for a sampled draw): twice the least
+    move of every logit under which it can happen.
+
+    Greedy: the top-2 gap, and the gap between the top logit and the
+    served token's.  Sampled: the draw takes, among the kept ranks (top k,
+    then the nucleus), the rank whose scaled value plus its Gumbel noise
+    is largest; the noise belongs to the rank.  A move of every value by
+    at most e moves each rank's value by at most e, so the winner changes
+    only where (1) a token next to it in rank order comes within 2e and
+    takes its rank, (2) another kept rank's value plus noise comes within
+    2e of the winner's, or (3) the nucleus cut crosses the winner, or a
+    rank that would then beat it: a rank's exclusive mass moves past
+    top_p only where e reaches half the distance of their log-odds.  The
+    served token is drawn only where it can take some rank q (half their
+    value gap) that is kept and beats every other kept rank.  Where one
+    event needs several conditions, its move is their largest, a lower
+    bound: a divergence whose served gap is at or above the limit is one
+    that no smaller move explains."""
+    x = logits.double().cpu()
+    if params.temperature <= 0:
+        top = x.topk(2).values
+        return float(top[0] - top[1]), float(top[0] - x[served])
+    from repro_torch.runtime.sampling import (DEFAULT_SAMPLE_CANDIDATES,
+                                              gumbel_noise)
+    c = DEFAULT_SAMPLE_CANDIDATES
+    seed = torch.tensor([params.seed], dtype=torch.int32)
+    noise = gumbel_noise(seed, torch.full_like(seed, step), c)[0].double()
+    # the sampler scales in f32 and orders ties by index
+    scaled = (logits.float() / params.temperature).double().cpu()
+    vals = torch.sort(scaled, descending=True, stable=True).values
+    k = params.top_k if 0 < params.top_k <= c else c
+    probs = torch.softmax(vals[:k], dim=-1)
+    mass = torch.cumsum(probs, 0) - probs          # exclusive, rank order
+    kept = [bool(m < params.top_p) for m in mass]
+    pert = [float(v) for v in vals[:k] + noise[:k]]
+    win = max((r for r in range(k) if kept[r]), key=lambda r: pert[r])
+    logit_p = math.log(params.top_p / (1 - params.top_p)) \
+        if params.top_p < 1 else None
+
+    def cut(r: int) -> float:        # the nucleus crosses rank r
+        m = float(mass[r])
+        if logit_p is None or m <= 0:
+            return math.inf
+        m = min(m, 1 - 1e-12)
+        return 0.5 * abs(math.log(m / (1 - m)) - logit_p)
+
+    def beats(r: int) -> float:      # rank r's value + noise passes the rest
+        rest = [pert[q] for q in range(k) if q != r and kept[q]]
+        return max(0.0, (max(rest, default=-math.inf) - pert[r]) / 2)
+
+    events = [(float(vals[win]) - float(vals[win + 1])) / 2, cut(win)]
+    if win > 0:
+        events.append((float(vals[win - 1]) - float(vals[win])) / 2)
+    events += [max(0.0 if kept[r] else cut(r), (pert[win] - pert[r]) / 2)
+               for r in range(k) if r != win]
+    v_t = float(scaled[served])
+    reach = [max(abs(float(vals[q]) - v_t) / 2, 0.0 if kept[q] else cut(q),
+                 beats(q)) for q in range(k)]
+    return 2 * min(events), 2 * min(reach)
+
+
+def explain_divergence(engine, prompt, params, alone, served,
+                       dlogit: float) -> dict:
+    """Where a served stream leaves the request run alone: the first
+    differing step, the alone run's margin there and the served token's
+    gap (``draw_margins``), from a prefill of the prompt and the alone
+    run's tokens before it.  ``within_rule``: the margin is below twice
+    the packed pass's logit drift (the step is a near tie that rounding
+    may flip), and so is the served token's gap (rounding of that size
+    can give the token that was served)."""
+    n = len(prompt)
+    step = next(i for i, (a, b) in enumerate(zip(alone[n:], served[n:]))
+                if a != b)
+    logits = own_prefill_logits(engine, alone[:n + step])
+    margin, served_gap = draw_margins(logits, params, step, served[n + step])
+    limit = 2 * dlogit / (params.temperature if params.temperature > 0
+                          else 1.0)
+    return {"prompt_len": n, "sampled": params.temperature > 0,
+            "first_differing_step": step, "alone_margin": margin,
+            "served_token_gap": served_gap, "limit": limit,
+            "within_rule": margin < limit and served_gap < limit}
+
+
 def serve(dev, card: str, layout: str = "paged"):
     """The generative path over the paged pool (phase 4) or the contiguous
     slot cache (phase 7, ``layout="contiguous"``)."""
@@ -956,17 +1301,29 @@ def serve(dev, card: str, layout: str = "paged"):
     peak = torch.cuda.max_memory_allocated(dev)
     ce = client.backend
     ticks, prefills = ce.decode_ticks, ce.prefill_dispatches
+    packs = list(ce.pack_log) if layout == "paged" else []
 
+    # the paged layout admits through packed prefill (the default), the
+    # contiguous one per group through the causal kernel
     decode = "flash_decode_paged" if layout == "paged" else "flash_decode"
-    for kname in ("norm", "flash_attention", decode, "sample"):
+    attention = "flash_attention_packed" if layout == "paged" \
+        else "flash_attention"
+    for kname in ("norm", attention, decode, "sample"):
         if launches.get(kname, 0) <= 0:
             raise AssertionError(f"kernel {kname} never launched on the "
                                  f"serving path: {launches}")
-    if launches["flash_attention"] != engine.cfg.num_layers * prefills:
+    if launches[attention] != engine.cfg.num_layers * prefills:
         raise AssertionError(
-            f"{launches['flash_attention']} flash-attention launches over "
-            f"{prefills} prefills (expected "
-            f"{engine.cfg.num_layers} per prefill)")
+            f"{launches[attention]} {attention} launches over {prefills} "
+            f"prefills (expected {engine.cfg.num_layers} per prefill)")
+    other = "flash_attention" if layout == "paged" \
+        else "flash_attention_packed"
+    if launches.get(other, 0):
+        raise AssertionError(f"{layout} serving launched {other}: "
+                             f"{launches}")
+    if layout == "paged" and not 0 < ce.pack_dispatches == prefills:
+        raise AssertionError(f"paged serving: {ce.pack_dispatches} packed "
+                             f"of {prefills} prefill dispatches")
     # two norms a layer and the final one, in every decode tick and prefill
     norms_per_step = 2 * engine.cfg.num_layers + 1
     if launches["norm"] != norms_per_step * (ticks + prefills):
@@ -997,34 +1354,26 @@ def serve(dev, card: str, layout: str = "paged"):
             raise AssertionError(f"request {h.req_id}: bad result shape")
         if any(not 0 <= t < vocab for t in out):
             raise AssertionError(f"request {h.req_id}: token out of range")
-    greedy_checked = 0
+    # packed prefill runs the products at other shapes than a prompt's own
+    # prefill, so its logits may round otherwise: how far, on these prompts
+    packed_dlogit, packed_ulps = packed_logit_drift(
+        engine, [p for p, _ in specs]) if layout == "paged" else (0.0, 0.0)
+    # greedy streams against generate() alone; sampled streams depend on
+    # their own seed alone, so against the request served again alone
+    greedy_checked, sampled_checked, divergences = 0, 0, []
     for (prompt, params), res in zip(specs, results):
         if params.temperature > 0:
-            continue
-        alone = engine.generate([prompt],
-                                max_new_tokens=params.max_new_tokens)[0]
+            alone = client.submit(prompt, params).result()
+        else:
+            alone = engine.generate([prompt],
+                                    max_new_tokens=params.max_new_tokens)[0]
         if alone != res:
-            first_diff = next(i for i, (a, b) in enumerate(zip(alone, res))
-                              if a != b)
-            raise AssertionError(
-                f"greedy stream differs from generate() alone at token "
-                f"{first_diff - len(prompt)} of a {len(prompt)}-token "
-                "prompt")
-        greedy_checked += 1
-    # a sampled stream depends on its own seed alone: served again alone
-    # (the same batch bucket, so the same shapes), it gives the same tokens
-    sampled_checked = 0
-    for (prompt, params), res in zip(specs, results):
-        if params.temperature <= 0:
-            continue
-        alone = client.submit(prompt, params).result()
-        if alone != res:
-            first_diff = next(i for i, (a, b) in enumerate(zip(alone, res))
-                              if a != b)
-            raise AssertionError(
-                f"sampled stream (seed {params.seed}) differs from the "
-                f"request served alone at token {first_diff - len(prompt)}")
-        sampled_checked += 1
+            divergences.append(explain_divergence(
+                engine, prompt, params, alone, res, packed_dlogit))
+        if params.temperature > 0:
+            sampled_checked += alone == res
+        else:
+            greedy_checked += alone == res
     ttft = sorted(h.ttft for h in handles)
     emit({"phase": "serve" if layout == "paged" else "serve_contiguous",
           "model": "internlm2-1.8b (full width, 24 layers, bf16 weights "
@@ -1033,6 +1382,14 @@ def serve(dev, card: str, layout: str = "paged"):
           "sampled": sum(1 for _, p in specs if p.temperature > 0),
           "greedy_equal_to_generate_alone": greedy_checked,
           "sampled_equal_to_served_alone": sampled_checked,
+          "divergences": divergences,
+          "packed_vs_own_prefill_max_abs_dlogit": packed_dlogit,
+          "packed_vs_own_prefill_bf16_ulps": {
+              "max": packed_ulps, "limit": PACKED_LOGIT_ULPS},
+          "pack_dispatches": len(packs),
+          "packs": [{"segments": n, "flat": flat, "bucket": bucket,
+                     "occupancy": flat / bucket}
+                    for n, flat, bucket in packs],
           "generated_tokens": gen_tokens, "serve_s": serve_s,
           "tok_per_s": gen_tokens / serve_s,
           "ttft_p50_s": float(np.percentile(ttft, 50)),
@@ -1044,6 +1401,11 @@ def serve(dev, card: str, layout: str = "paged"):
           "kv_cache_gib": sum(ce.state.cache[k].numel() * 4
                               for k in ("k", "v")) / 2 ** 30,
           "launches": launches})
+    beyond = [d for d in divergences if not d["within_rule"]]
+    if beyond:
+        raise AssertionError(f"{len(beyond)} served streams differ from the "
+                             f"request alone beyond the margin rule: "
+                             f"{beyond}")
     return client, launches
 
 
@@ -1256,7 +1618,8 @@ def split_profile(prof):
 
 #: each launch counter's kernel, by the parts of its name in a trace
 PORT_KERNELS = {"norm": ("norm_kernel",),
-                "flash_attention": ("flash_attention",),
+                "flash_attention": ("flash_attention_bf16_kernel",),
+                "flash_attention_packed": ("flash_attention_packed_kernel",),
                 "flash_decode_paged": ("decode_kernel", "PagedRows"),
                 "flash_decode": ("decode_kernel", "StridedRows"),
                 "sample": ("sample_kernel",), "softmax": ("softmax",)}
@@ -1296,6 +1659,27 @@ def busy_or_not_measured(value, check: dict):
     return value if value else "not measured: the profiler saw no device time"
 
 
+def in_trace(busy_us: dict, per: int, check: dict, wall_ms: float,
+             flash_us: float = 0.0) -> dict:
+    """Where the trace lost a port launch: the busy time, by kernel family
+    and in all, of the kernels it does hold (per tick where ``per`` is the
+    window's ticks), the idle share they leave (an upper bound: the lost
+    kernels' time is not in it) and, given ``flash_us``, the flash
+    kernel's share of their busy time, labelled as such; nothing where
+    the trace is complete."""
+    if check["trace_complete"]:
+        return {}
+    busy = sum(busy_us.values())
+    out = {"all": busy / 1e3 / per,
+           **{k: v / 1e3 / per for k, v in sorted(busy_us.items())},
+           "idle_share_at_most": 1 - busy / 1e3 / wall_ms,
+           "holds": f"{check['profiler_port_kernels']} of "
+                    f"{check['launch_counters']} counted port launches"}
+    if flash_us:
+        out["flash_share"] = flash_us / busy
+    return {"busy_ms_of_the_kernels_in_the_trace": out}
+
+
 def gumbel_noise_cost(rows: int, cands: int, calls: int) -> dict:
     """What ``gumbel_noise`` alone launches for ``rows`` rows of ``cands``
     values: device kernels, device time and host self-time per call."""
@@ -1318,6 +1702,28 @@ def gumbel_noise_cost(rows: int, cands: int, calls: int) -> dict:
             "host_self_ms_per_call": sum(u for u, _, _ in host) / 1e3 / calls}
 
 
+def traced_window(run):
+    """``run()`` under torch.profiler with the launch counters set to 0
+    just before it.  Returns the profiler, the window's wall milliseconds,
+    its launches, the split profile, the cross-check and ``run``'s
+    result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cuda_lib
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(cuda_lib.LAUNCHES)
+    split = split_profile(prof)
+    check = cross_check(prof, split[1], launches)
+    return prof, wall_ms, launches, split, check, result
+
+
 def profile_decode(client, card: str, ticks: int = 10,
                    sampled: bool = False) -> None:
     """Eight rows decoding at full width, greedy or (``sampled``) with
@@ -1326,10 +1732,7 @@ def profile_decode(client, card: str, ticks: int = 10,
     share over the window, cross-checked against the launch counters; a
     sampled window also gives the sample kernel's device time and what
     the Gumbel noise launches per tick."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.api import GenerationParams
-    from repro_torch.kernels import cuda_lib
     rng = np.random.default_rng(SEED + (3 if sampled else 1))
     vocab = client.backend.engine.cfg.vocab_size
     ce = client.backend
@@ -1348,20 +1751,11 @@ def profile_decode(client, card: str, ticks: int = 10,
     while client.pipeline.queue:                 # admit all eight
         client.pump(max_ticks=1)
     client.pump(max_ticks=2)                     # settle into decode
-    torch.cuda.synchronize()
-    cuda_lib.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        client.pump(max_ticks=ticks)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(cuda_lib.LAUNCHES)
-    busy_us, kernels, host = split_profile(prof)
+    prof, wall_ms, launches, (busy_us, kernels, host), check, _ = \
+        traced_window(lambda: client.pump(max_ticks=ticks))
     for h in handles:
         h.cancel()
     busy_ms = sum(busy_us.values()) / 1e3
-    check = cross_check(prof, kernels, launches)
     complete = check["trace_complete"] and busy_ms > 0
 
     def top(rows, n):
@@ -1388,6 +1782,7 @@ def profile_decode(client, card: str, ticks: int = 10,
             "busy_ms_per_tick_by_family": {
                 k: v / 1e3 / ticks for k, v in sorted(busy_us.items())}
             if complete else busy_or_not_measured(None, check),
+            **in_trace(busy_us, ticks, check, wall_ms),
             "top_device_kernels": top(kernels, 6),
             "top_host_ops_self_time": top(host, 10)}
     if not sampled and launches.get("sample", 0):
@@ -1407,49 +1802,64 @@ def profile_decode(client, card: str, ticks: int = 10,
     emit(line)
 
 
-def profile_prefill(client, card: str) -> None:
-    """One prefill of eight prompts at the 1024 bucket (the serve path's
-    batch bucket) at full width under torch.profiler: wall time, the
-    device's busy time by kernel family and its idle share, and the flash
-    kernel's device time, share and rate over its 24 launches."""
-    from torch.profiler import ProfilerActivity, profile
+#: profile_prefill's eight prompts (the 1024 bucket), packed too by
+#: profile_prefill_packed
+PROFILE_PREFILL_LENS = (1000, 1010, 990, 1023, 900, 1020, 1015, 1005)
 
-    from repro_torch.kernels import cuda_lib
+
+def profile_prefill(client, card: str, packed: bool = False) -> None:
+    """One prefill of eight prompts at full width under torch.profiler:
+    at the 1024 bucket, eight rows of it (the per-group path), or
+    (``packed``) the same prompts as one pack of 7963 tokens in the 8192
+    pack bucket (the paged path's default).  Wall time, the device's busy
+    time by kernel family and its idle share, and the flash kernel's
+    device time, share and rate over its 24 launches."""
     engine = client.backend.engine
     cfg = engine.cfg
     rng = np.random.default_rng(SEED + 2)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
-               for n in (1000, 1010, 990, 1023, 900, 1020, 1015, 1005)]
+               for n in PROFILE_PREFILL_LENS]
+    kname = "flash_attention_packed" if packed else "flash_attention"
+    no_kv = torch.zeros((cfg.num_layers, 0, cfg.num_kv_heads, cfg.head_dim),
+                        device=engine.device)
+    no_ids = torch.zeros((0,), dtype=torch.int32, device=engine.device)
 
     def prefill():
-        return engine.prefill_batch(prompts, max_len=1024, max_new_tokens=1,
-                                    prompt_kv_only=True)
+        if packed:
+            return engine.prefill_packed_flat(prompts, [0] * len(prompts),
+                                              no_kv, no_kv, no_ids,
+                                              no_ids)[0]
+        state = engine.prefill_batch(prompts, max_len=1024, max_new_tokens=1,
+                                     prompt_kv_only=True)
+        return state.cur
     prefill()                                    # warm: same shapes
-    torch.cuda.synchronize()
-    cuda_lib.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state = prefill()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(cuda_lib.LAUNCHES)
-    if launches.get("flash_attention", 0) != cfg.num_layers:
+    prof, wall_ms, launches, (busy_us, kernels, host), check, out = \
+        traced_window(prefill)
+    if launches.get(kname, 0) != cfg.num_layers:
         raise AssertionError(f"profile_prefill: {launches} (expected "
-                             f"{cfg.num_layers} flash-attention launches)")
-    first = state.cur[:len(prompts)]
+                             f"{cfg.num_layers} {kname} launches)")
+    first = out[:len(prompts)].argmax(dim=-1) if packed else \
+        out[:len(prompts)]
     if bool(((first < 0) | (first >= cfg.vocab_size)).any()):
         raise AssertionError("profile_prefill: first token out of range")
-    del state
-    busy_us, kernels, host = split_profile(prof)
+    if packed and not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError("profile_prefill_packed: non-finite logits")
+    del out
     busy_ms = sum(busy_us.values()) / 1e3
-    check = cross_check(prof, kernels, launches)
     complete = check["trace_complete"] and busy_ms > 0
-    flash_us = sum(us for us, _, name in kernels if "flash_attention" in name)
+    needle = PORT_KERNELS[kname][0]
+    flash_us = sum(us for us, _, name in kernels if needle in name)
     b, s, h, dh = 8, 1024, cfg.num_heads, cfg.head_dim
-    flops = cfg.num_layers * 4.0 * b * h * dh * s * (s + 1) / 2
-    emit({"phase": "profile_prefill", "card": card, "rows": b,
-          "bucket": s, "prompt_lens": [len(p) for p in prompts],
+    flat = sum(PROFILE_PREFILL_LENS)
+    # the work the prompts need: each one's causal pairs
+    pairs = sum(n * (n + 1) / 2 for n in PROFILE_PREFILL_LENS) if packed \
+        else b * s * (s + 1) / 2
+    flops = cfg.num_layers * 4.0 * h * dh * pairs
+    emit({"phase": "profile_prefill_packed" if packed else "profile_prefill",
+          "card": card, "rows": 1 if packed else b,
+          "bucket": engine.ladder.pack_bucket(flat) if packed else s,
+          "flat_tokens": flat if packed else b * s,
+          "prompt_lens": [len(p) for p in prompts],
           "wall_ms": wall_ms,
           "note": "wall_ms is taken under the profiler, which slows the "
                   "host; device times are the kernels' own",
@@ -1460,8 +1870,9 @@ def profile_prefill(client, card: str) -> None:
           "busy_ms_by_family": {k: v / 1e3 for k, v in
                                 sorted(busy_us.items())}
           if complete else busy_or_not_measured(None, check),
-          "flash_attention": {
-              "launches": launches["flash_attention"],
+          **in_trace(busy_us, 1, check, wall_ms, flash_us),
+          kname: {
+              "launches": launches[kname],
               "device_ms": flash_us / 1e3 if flash_us else "not measured",
               "ms_per_launch": flash_us / 1e3 / cfg.num_layers
               if flash_us else "not measured",
@@ -1523,6 +1934,7 @@ def main() -> int:
     checks = {}
     check_norm(dev, gen, checks)
     check_flash_attention(dev, gen, checks)
+    check_flash_attention_packed(dev, gen, checks)
     check_paged_decode(dev, gen, checks)
     check_sample(dev, gen, checks)
     check_softmax(dev, gen, checks)
@@ -1534,13 +1946,17 @@ def main() -> int:
     profile_decode(client, card)
     profile_decode(client, card, sampled=True)
     profile_prefill(client, card)
+    profile_prefill(client, card, packed=True)
     del client
     release_memory()
     launches["softmax"] = classify_phase(dev, card)
     release_memory()
+    # the contiguous layout admits per group: the causal kernel's path
     _, launches_c = serve(dev, card, layout="contiguous")
     launches["flash_decode"] = launches_c["flash_decode"]
+    launches["flash_attention"] = launches_c["flash_attention"]
     names = {"fused_norm": "norm", "flash_attention": "flash_attention",
+             "flash_attention_packed": "flash_attention_packed",
              "flash_decode_paged": "flash_decode_paged",
              "fused_sample": "sample", "fused_softmax": "softmax",
              "flash_decode": "flash_decode"}

@@ -69,6 +69,17 @@ class CostModel:
         models that see KV traffic should override."""
         return self.latency(1, batch)
 
+    def packed_prefill_latency(self, flat_tokens: int,
+                               segments: int = 1) -> float:
+        """One *packed* prefill dispatch: ``segments`` independent
+        prompts concatenated into a single flat sequence of
+        ``flat_tokens`` tokens, priced as ONE launch over the flat tokens
+        (a single-row prefill), so packing N segments amortizes N-1
+        per-dispatch overheads.  ``segments`` is accepted for models whose
+        per-segment cost is not purely token-proportional."""
+        del segments
+        return self.prefill_latency(max(int(flat_tokens), 1), 1)
+
 
 @dataclass
 class AnalyticCostModel(CostModel):

@@ -15,8 +15,11 @@ request-granularity system of the paper a special case of this loop.
 
 This is the port's copy of the JAX package's pipeline, cut to what the
 port serves: prefill admission planned by the configured policy (the
-paper's DP scheduler or a baseline) and decode ticks.  Chunked and
-packed prefill are not ported yet.
+paper's DP scheduler or a baseline) and decode ticks.  A backend that
+packs (``supports_packed_prefill``) serves each admission group as one
+flat dispatch, and the two-phase veto prices it so
+(``CostModel.packed_prefill_latency``).  Chunked prefill, and with it the
+pack turn that mixes chunks into packs, is not ported yet.
 
 The pipeline is execution-agnostic: a :class:`PipelineBackend` runs the
 work.  `repro_torch.runtime.engine.ContinuousEngine` backs it with a
@@ -66,6 +69,12 @@ class PipelineBackend:
 
     def decode_tick(self, sessions: List[Session]) -> None:
         raise NotImplementedError
+
+    def supports_packed_prefill(self) -> bool:
+        """Whether ``prefill_batch`` serves an admission group as ONE
+        packed dispatch over the flat tokens (so the admission veto must
+        price it that way)."""
+        return False
 
     def free_slots(self) -> Optional[int]:
         """Decode slots available for new admissions; None = unbounded."""
@@ -135,6 +144,9 @@ class PipelineConfig:
     # always admit while the decode batch is below this size (prefills
     # are cheap to amortize into an underfull decode batch)
     min_decode_batch: int = 1
+    # packed prefill: a backend that can pack (paged KV) dispatches each
+    # admission group as ONE flat segment-id prefill
+    packed_prefill: bool = True
 
 
 @dataclass
@@ -329,10 +341,20 @@ class ServingPipeline:
         decoding = self._decoding()
         if not decoding or len(decoding) < self.config.min_decode_batch:
             return True
-        stall = self.cost.prefill_latency(
-            max(s.seq_len for s in batch), len(batch))
+        if self._pack_enabled():
+            # a packed admission executes as ONE flat dispatch over the
+            # group's total tokens: price the stall it actually imposes
+            stall = self.cost.packed_prefill_latency(
+                sum(s.seq_len for s in batch), len(batch))
+        else:
+            stall = self.cost.prefill_latency(
+                max(s.seq_len for s in batch), len(batch))
         return stall <= self.config.prefill_stall_factor * \
             self._decode_tick_cost(decoding)
+
+    def _pack_enabled(self) -> bool:
+        return bool(self.config.packed_prefill and
+                    self.backend.supports_packed_prefill())
 
     def _admission_decision(self, record: bool = False):
         """What an admission round would do right now:

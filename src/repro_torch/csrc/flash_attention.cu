@@ -1,8 +1,10 @@
 // Tiled (flash) attention with an online softmax for Hopper: causal
-// prompt prefill.
+// prompt prefill, and the segment-masked attention of a packed prefill.
 //
 // Replaces the JAX package's Pallas kernel `flash_attention_pallas`
-// (src/repro/kernels/flash_attention.py, body `_flash_kernel`).
+// (src/repro/kernels/flash_attention.py, body `_flash_kernel`), and in
+// its packed mode computes the JAX package's `attention_packed`
+// (src/repro/models/layers.py), which has no Pallas kernel of its own.
 //
 // Bound: operations.  Causal prefill at S = 1024, dh = 128 does
 // 2 * 2 * S^2 / 2 * dh FLOPs per (row, head) against 4 * S * dh bytes of
@@ -31,7 +33,7 @@
 // by 16-byte cp.async: tile j + 1 loads while tile j multiplies, one
 // barrier per tile.  Tiles above the diagonal or past the row's length
 // are never loaded; keys past the length inside the last tile are
-// zero-filled.  81 KB of shared memory and 237 registers a thread: two
+// zero-filled.  81 KB of shared memory and 222 registers a thread: two
 // blocks per SM.  The grid launches the longest causal query tiles first,
 // so the short ones fill the tail.  Rows must be 16-byte aligned (a
 // 16-byte-aligned base and (batch, head, seq) strides that are multiples
@@ -48,6 +50,33 @@
 // at caller-given strides with a contiguous last dim, so (B, S, H, dh)
 // activations need no transpose; queries sit at the last Sq keys; a row
 // with no valid key gives 0.
+//
+// Packed mode (bf16 only): one flat row of many segments, each a run of
+// fresh tokens with its own segment id and per-token positions, after an
+// optional region of cached prefix keys labelled the same way.  Key j is
+// visible to query i iff both carry one id and k_pos[j] <= q_pos[i], or j
+// is i's own key.  The wgmma body is the causal one; what changes is
+// which key tiles a query tile visits and where it masks.  Each block
+// first plans: it reads its 64 query rows' ids and positions, then its
+// warps scan every key tile's 64 ids and positions (coalesced loads, two
+// warp votes a tile) and the block keeps, in order, every tile whose
+// keys meet the query rows' range of ids at or below their largest
+// position, or that holds a query row's own key.  The work so scales
+// with the visible pairs, sum of len * (len + 1) / 2 over the segments
+// (plus prefix times fresh), not with Sq * Sk; the scan itself reads
+// 8 * Sk bytes a block from L2.  A visited tile is masked unless every
+// key and every query row of it carry one id and every key position is at
+// or below every query position, so a segment boundary inside a tile
+// takes the masked path.
+// A masked tile's keep bits (32 a thread) are worked out from its ids and
+// positions, staged in shared memory by cp.async with its K tile, while
+// the tensor cores run the tile's products.  A query tile of padding only does
+// no key work and writes zeros (no real query sees a padding key, and no
+// padding row is read back).  The plan and the staged ids take 7.5 KB of
+// shared memory on top of the causal kernel's 81 KB, and ptxas gives the
+// mode 255 registers a thread: still two blocks per SM.
+#include <climits>
+
 #include "common.cuh"
 
 namespace repro {
@@ -470,28 +499,69 @@ struct Rows {
   float l[2];
   int warp_q0;     // key position of the warp's first row
   int g, tig;      // the rows g, g + 8 and columns 2 tig, 2 tig + 1
-  int kv_len;
+  int kv_len;      // keys at or past it are masked
   int causal;
   float scale_log2;
 
-  // Scale and mask the S tile whose first key is k0 (masking only where
-  // the tile holds the diagonal or the row's length), update max and sum,
+  // Packed mode: which of this thread's 32 scores of the tile at k0 are
+  // kept, bit 4 n + e for element e of n tile n: key j is kept for row i
+  // iff it has i's id and a position at or below i's, or it is i's own
+  // key.  Computed from the tile's ids and positions staged in shared
+  // memory while the tensor cores run the tile's products; q_seg and
+  // q_pos are the block's 64 query rows' (shared memory), warp_row0 the
+  // warp's first row among them.
+  __device__ __forceinline__ uint32_t packed_keep(
+      int k0, const int* k_seg, const int* k_pos, const int* q_seg,
+      const int* q_pos, int warp_row0) const {
+    const int r0 = warp_row0 + g;
+    const int seg_r[2] = {q_seg[r0], q_seg[r0 + 8]};
+    const int pos_r[2] = {q_pos[r0], q_pos[r0 + 8]};
+    uint32_t bits = 0;
+#pragma unroll
+    for (int n = 0; n < kBK / 8; ++n) {
+      const int col = n * 8 + 2 * tig;
+      const int2 ks = *reinterpret_cast<const int2*>(k_seg + col);
+      const int2 kp = *reinterpret_cast<const int2*>(k_pos + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + col + (e & 1);
+        const int i = e >> 1;
+        const int sg = e & 1 ? ks.y : ks.x;
+        const int ps = e & 1 ? kp.y : kp.x;
+        const bool keep = key < kv_len &&
+            ((sg == seg_r[i] && ps <= pos_r[i]) || key == warp_q0 + g + 8 * i);
+        bits |= static_cast<uint32_t>(keep) << (4 * n + e);
+      }
+    }
+    return bits;
+  }
+
+  // Scale and mask the S tile whose first key is k0, update max and sum,
   // turn S into P as bf16 A fragments and give the factor that rescales
-  // the output accumulated so far.
+  // the output accumulated so far.  Causal mode masks only where the tile
+  // holds the diagonal or the row's length; packed mode only where the
+  // block's plan marked the tile, by its keep bits (`keep`, all set on an
+  // unmasked tile; `packed_keep`).
+  template <bool kPacked>
   __device__ __forceinline__ void softmax(float (&s)[kBK / 8][4],
                                           uint32_t (&pa)[kBK / 16][4],
-                                          float (&alpha)[2], int k0) {
-    const bool edge =
-        (causal && k0 + kBK - 1 > warp_q0) || k0 + kBK > kv_len;
+                                          float (&alpha)[2], int k0,
+                                          uint32_t keep) {
+    const bool edge = kPacked ? keep != ~0u
+        : (causal && k0 + kBK - 1 > warp_q0) || k0 + kBK > kv_len;
 #pragma unroll
     for (int n = 0; n < kBK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[n][e] * scale_log2;
         if (edge) {
-          const int key = k0 + n * 8 + 2 * tig + (e & 1);
-          const int qpos = warp_q0 + g + (e >> 1) * 8;
-          if (key >= kv_len || (causal && key > qpos)) x = neg_inf();
+          if constexpr (kPacked) {
+            if (!((keep >> (4 * n + e)) & 1u)) x = neg_inf();
+          } else {
+            const int key = k0 + n * 8 + 2 * tig + (e & 1);
+            const int qpos = warp_q0 + g + (e >> 1) * 8;   // the row's key
+            if (key >= kv_len || (causal && key > qpos)) x = neg_inf();
+          }
         }
         s[n][e] = x;
       }
@@ -544,6 +614,190 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* g,
     cp_async_16(tile + sw128(r, c), src, ok ? 16 : 0);
   }
 }
+
+// ---------------------------------------------------------------------------
+// Packed mode: the plan of visited key tiles
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxTiles = 2048;             // key tiles a packed launch holds
+constexpr uint16_t kMaskedTile = 0x8000;    // plan entry: mask this tile
+constexpr int kScanBatch = 32;              // key tiles a warp scans at once
+
+// The segment ids and positions of a packed launch (int32, 16-byte
+// aligned): q_seg, q_pos (Sq,), k_seg, k_pos (Sk,).
+struct Packed {
+  const int* q_seg;
+  const int* q_pos;
+  const int* k_seg;
+  const int* k_pos;
+};
+
+// Packed mode's shared memory after the five tiles: the ids and positions
+// of the two staged key tiles (staged with K) and of the block's query
+// rows, and the plan.
+struct PackedSmem {
+  int k_seg[2][kBK];
+  int k_pos[2][kBK];
+  int q_seg[kBQ];
+  int q_pos[kBQ];
+  int tiles;                 // visited tiles
+  uint16_t list[kMaxTiles];  // visited key tiles in order, kMaskedTile flagged
+  uint8_t flag[kMaxTiles];   // per key tile: 0 skipped, 1 masked, 2 unmasked
+};
+constexpr size_t kPackedSmemBytes = kSmemBytes + sizeof(PackedSmem);
+
+// Which key tiles the block's query rows [q0, q0 + 64) visit, worked out
+// from the ids and positions themselves, so no order of the key slots is
+// assumed.  A tile is visited when one of its keys can be seen by a query
+// row: its id lies in the rows' [min, max] of real ids and its position
+// is at or below the largest position of the rows with that id (exact
+// for the lowest and highest id, the rows' largest position for any id
+// between), or when it holds a query row's own key (the self-key rule).
+// It is left unmasked only when every key in it and every query row carry
+// one id and every key's position is at or below every query's.
+//
+// Each warp loads the query rows and the ids and positions of its first
+// kScanBatch tiles at once (16-byte loads, two tiles a load), and reduces
+// the rows itself (warp reductions): a global round trip takes
+// microseconds beside the co-resident block's traffic, so the plan makes
+// one (two past 8192 keys), and one barrier.  Two ballots flag two tiles,
+// and warp 0 compacts the flags in tile order.  Returns the number of
+// visited tiles: 0 when the query rows are all padding.
+__device__ int plan_tiles(PackedSmem& p, const Packed& pk, int q0, int sq,
+                          int sk, int offset) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int n_tiles = (sk + kBK - 1) / kBK;
+  // step i of a batch: lane l holds keys 4l .. 4l + 3 of tiles t0 + 2i
+  // and t0 + 2i + 1 (lanes 0-15 the first, 16-31 the second): one 16-byte
+  // load of ids and one of positions, 512 contiguous bytes a warp
+  int4 seg[kScanBatch / 2], pos[kScanBatch / 2];
+  auto fetch = [&](int t0) {       // keys past sk read as padding
+#pragma unroll
+    for (int i = 0; i < kScanBatch / 2; ++i) {
+      const int key = (t0 + 2 * i) * kBK + 4 * lane;
+      seg[i] = make_int4(-1, -1, -1, -1);
+      pos[i] = make_int4(0, 0, 0, 0);
+      if (key + 3 < sk) {
+        seg[i] = __ldg(reinterpret_cast<const int4*>(pk.k_seg + key));
+        pos[i] = __ldg(reinterpret_cast<const int4*>(pk.k_pos + key));
+      } else {                     // the last, partial run of keys
+        if (key < sk) {
+          seg[i].x = __ldg(pk.k_seg + key);
+          pos[i].x = __ldg(pk.k_pos + key);
+        }
+        if (key + 1 < sk) {
+          seg[i].y = __ldg(pk.k_seg + key + 1);
+          pos[i].y = __ldg(pk.k_pos + key + 1);
+        }
+        if (key + 2 < sk) {
+          seg[i].z = __ldg(pk.k_seg + key + 2);
+          pos[i].z = __ldg(pk.k_pos + key + 2);
+        }
+      }
+    }
+  };
+  // every warp summarises the query rows itself (lane l: rows l, l + 32),
+  // so no barrier stands between the summary and the votes
+  int s[2], ps[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + lane + 32 * i;
+    s[i] = r < sq ? pk.q_seg[r] : -1;
+    ps[i] = r < sq ? pk.q_pos[r] : 0;
+  }
+  int t0 = (tid >> 5) * kScanBatch;
+  fetch(t0);
+  if (tid < 32) {                  // warp 0 keeps the rows for the masks
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      p.q_seg[lane + 32 * i] = s[i];
+      p.q_pos[lane + 32 * i] = ps[i];
+    }
+  }
+  const bool real0 = s[0] >= 0, real1 = s[1] >= 0;
+  const int real = __reduce_add_sync(0xffffffffu, int(real0) + int(real1));
+  if (real == 0) return 0;
+  const int id_lo = __reduce_min_sync(0xffffffffu,
+      min(real0 ? s[0] : INT_MAX, real1 ? s[1] : INT_MAX));
+  const int id_hi = __reduce_max_sync(0xffffffffu, max(s[0], s[1]));
+  const int pos_lo = __reduce_min_sync(0xffffffffu,
+      min(real0 ? ps[0] : INT_MAX, real1 ? ps[1] : INT_MAX));
+  const int pos_hi = __reduce_max_sync(0xffffffffu,
+      max(real0 ? ps[0] : INT_MIN, real1 ? ps[1] : INT_MIN));
+  const int pos_hi_lo = __reduce_max_sync(0xffffffffu,
+      max(real0 && s[0] == id_lo ? ps[0] : INT_MIN,
+          real1 && s[1] == id_lo ? ps[1] : INT_MIN));
+  const int pos_hi_hi = __reduce_max_sync(0xffffffffu,
+      max(real0 && s[0] == id_hi ? ps[0] : INT_MIN,
+          real1 && s[1] == id_hi ? ps[1] : INT_MIN));
+  const bool one_id = real == kBQ && id_lo == id_hi;
+  const int diag_lo = (offset + q0) / kBK;
+  const int diag_hi = (offset + min(q0 + kBQ, sq) - 1) / kBK;
+  auto meets = [&](int sg, int ps) {
+    const int top = sg == id_lo ? pos_hi_lo : sg == id_hi ? pos_hi_hi : pos_hi;
+    return sg >= id_lo && sg <= id_hi && ps <= top;
+  };
+  auto below = [&](int sg, int ps) { return sg == id_lo && ps <= pos_lo; };
+  for (;;) {
+#pragma unroll
+    for (int i = 0; i < kScanBatch / 2; ++i) {
+      const int4 sg = seg[i], ps = pos[i];
+      const bool any = meets(sg.x, ps.x) || meets(sg.y, ps.y) ||
+                       meets(sg.z, ps.z) || meets(sg.w, ps.w);
+      const bool all = below(sg.x, ps.x) && below(sg.y, ps.y) &&
+                       below(sg.z, ps.z) && below(sg.w, ps.w);
+      const unsigned any_bits = __ballot_sync(0xffffffffu, any);
+      const unsigned all_bits = __ballot_sync(0xffffffffu, all);
+      if (lane < 2) {              // lane h flags tile t0 + 2i + h
+        const int t = t0 + 2 * i + lane;
+        const unsigned half = lane ? 0xffff0000u : 0x0000ffffu;
+        if (t < n_tiles) {
+          const bool own = t >= diag_lo && t <= diag_hi;
+          const bool full = one_id && (all_bits & half) == half;
+          p.flag[t] = (any_bits & half) || own ? (full ? 2 : 1) : 0;
+        }
+      }
+    }
+    t0 += kThreads / 32 * kScanBatch;
+    if (t0 >= n_tiles) break;
+    fetch(t0);
+  }
+  __syncthreads();
+  if (tid < 32) {
+    int n = 0;
+    for (int base = 0; base < n_tiles; base += 32) {
+      const int t = base + tid;
+      const int f = t < n_tiles ? p.flag[t] : 0;
+      const unsigned hit = __ballot_sync(0xffffffffu, f != 0);
+      if (f)
+        p.list[n + __popc(hit & ((1u << tid) - 1))] =
+            static_cast<uint16_t>(t | (f == 1 ? kMaskedTile : 0));
+      n += __popc(hit);
+    }
+    if (tid == 0) p.tiles = n;
+  }
+  __syncthreads();
+  return p.tiles;
+}
+
+// Start copying the ids and positions of the key tile at k0 to shared
+// addresses `seg` and `pos` (16 chunks of 16 bytes each); keys at or past
+// sk are zero-filled and masked by the softmax.
+__device__ __forceinline__ void load_ids(uint32_t seg, uint32_t pos,
+                                         const Packed& pk, int k0, int sk) {
+  if (threadIdx.x < 2 * kBK / 4) {
+    const int c = threadIdx.x & (kBK / 4 - 1);
+    const bool ids = threadIdx.x < kBK / 4;
+    const int* src = ids ? pk.k_seg : pk.k_pos;
+    const int key = k0 + 4 * c;
+    const int bytes = 4 * max(0, min(4, sk - key));
+    cp_async_16((ids ? seg : pos) + 16 * c, bytes ? src + key : src, bytes);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The causal kernel, and the packed mode's (the same wgmma pipeline)
+// ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
@@ -615,7 +869,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     scores(s, qf, dk);
     wgmma_wait<0>();
     fence_regs(s);
-    rows.softmax(s, p0, alpha, 0);
+    rows.softmax<false>(s, p0, alpha, 0, ~0u);
   }
   // tile j: S_j and P_{j-1} V_{j-1} in flight together, the softmax of
   // S_j running while the tensor cores do P_{j-1} V_{j-1}.  P alternates
@@ -638,7 +892,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     accumulate(o, p_in, dv);
     wgmma_wait<1>();
     fence_regs(s);
-    rows.softmax(s, p_out, alpha, j * kBK);
+    rows.softmax<false>(s, p_out, alpha, j * kBK, ~0u);
     wgmma_wait<0>();
     fence_regs(o);
 #pragma unroll
@@ -695,13 +949,205 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   }
 }
 
+// The packed mode: one flat row (batch 1) of segments, queries at the
+// last sq keys.  The causal kernel's pipeline over the planned key tiles,
+// in a body of its own: sharing one templated body moved the causal
+// kernel's instruction schedule and slowed it.
+__global__ void __launch_bounds__(kThreads, 2)
+flash_attention_packed_kernel(const bf16* __restrict__ q,
+                              const bf16* __restrict__ k,
+                              const bf16* __restrict__ v,
+                              bf16* __restrict__ out, int heads,
+                              int kv_heads, int sq, int sk, long long q_sh,
+                              long long q_ss, long long k_sh, long long k_ss,
+                              long long v_sh, long long v_ss, long long o_sh,
+                              long long o_ss, float scale_log2, Packed pk) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(tc_smem));
+  const uint32_t qs = (raw + 1023) & ~1023u;    // q, then the output
+  unsigned char* qs_ptr = tc_smem + (qs - raw);
+  const uint32_t ks = qs + kTileBytes;          // K stages 0, 1
+  const uint32_t vs = ks + 2 * kTileBytes;      // V stages 0, 1
+  const uint32_t ids = vs + 2 * kTileBytes;     // the PackedSmem
+  PackedSmem* plan = reinterpret_cast<PackedSmem*>(qs_ptr + 5 * kTileBytes);
+
+  const int h = blockIdx.x;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;     // fragment row group, pair
+  const int kvh = h / (heads / kv_heads);
+  const int q0 = qt * kBQ;
+  const int offset = sk - sq;                  // key position of query 0
+
+  const bf16* qb = q + h * q_sh;
+  const bf16* kb = k + kvh * k_sh;
+  const bf16* vb = v + kvh * v_sh;
+
+  load_tile(qs, qb, q_ss, q0, sq);
+  cp_async_commit();                 // q lands while the plan is made
+  const int n_tiles = plan_tiles(*plan, pk, q0, sq, sk, offset);
+  if (n_tiles == 0) {                // padding rows only: no key work, zeros
+    bf16* ob = out + h * o_sh;
+    cp_async_wait_all();
+#pragma unroll
+    for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / kChunks, c = idx % kChunks;
+      if (q0 + r < sq)
+        *reinterpret_cast<uint4*>(ob + (q0 + r) * o_ss + c * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  // the j-th visited key tile: its first key, and whether it is masked
+  auto tile_k0 = [&](int j) { return (plan->list[j] & ~kMaskedTile) * kBK; };
+  auto tile_masked = [&](int j) {
+    return (plan->list[j] & kMaskedTile) != 0;
+  };
+  // K of visited tile j and its ids and positions into stage j & 1
+  auto load_keys = [&](int j) {
+    const int st = j & 1;
+    load_tile(ks + st * kTileBytes, kb, k_ss, tile_k0(j), sk);
+    load_ids(ids + st * kBK * 4, ids + (2 + st) * kBK * 4, pk, tile_k0(j),
+             sk);
+  };
+  load_keys(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  // this warp's 16 query rows as A fragments, one per 16 columns of dh
+  uint32_t qf[kDH / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kDH / 16; ++kk)
+    ldsm_x4(qs + sw128(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)),
+            qf[kk]);
+
+  Rows rows{{neg_inf(), neg_inf()}, {0.f, 0.f}, offset + q0 + warp * 16, g,
+            tig, sk, 1, scale_log2};
+  // visited tile j's keep bits, all set where it is unmasked
+  auto keep_bits = [&](int j) -> uint32_t {
+    return tile_masked(j) ? rows.packed_keep(tile_k0(j), plan->k_seg[j & 1],
+                                             plan->k_pos[j & 1], plan->q_seg,
+                                             plan->q_pos, warp * 16)
+                          : ~0u;
+  };
+  float o[kDH / 8][4];
+#pragma unroll
+  for (int d = 0; d < kDH / 8; ++d)
+    o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float s[kBK / 8][4];
+  uint32_t p0[kBK / 16][4], p1[kBK / 16][4];   // P of even, odd tiles
+  float alpha[2];
+  uint64_t dk[kDH / 16], dv[kBK / 16];
+
+  {                                             // S_0 and P_0
+    if (n_tiles > 1) load_keys(1);
+    load_tile(vs, vb, v_ss, tile_k0(0), sk);
+    cp_async_commit();                          // K_1, V_0
+    k_descs(dk, ks);
+    wgmma_fence();
+    scores(s, qf, dk);
+    const uint32_t keep = keep_bits(0);
+    wgmma_wait<0>();
+    fence_regs(s);
+    rows.softmax<true>(s, p0, alpha, tile_k0(0), keep);
+  }
+  // tile j as in the causal kernel, the keep bits worked out while the
+  // tensor cores run S_j and P_{j-1} V_{j-1}
+  auto step = [&](int j, const uint32_t (&p_in)[kBK / 16][4],
+                  uint32_t (&p_out)[kBK / 16][4]) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (j + 1 < n_tiles) load_keys(j + 1);
+    load_tile(vs + (j & 1) * kTileBytes, vb, v_ss, tile_k0(j), sk);
+    cp_async_commit();                          // K_{j+1}, V_j
+    k_descs(dk, ks + (j & 1) * kTileBytes);
+    v_descs(dv, vs + ((j - 1) & 1) * kTileBytes);
+    fence_regs(o);
+    wgmma_fence();
+    scores(s, qf, dk);
+    accumulate(o, p_in, dv);
+    const uint32_t keep = keep_bits(j);
+    wgmma_wait<1>();
+    fence_regs(s);
+    rows.softmax<true>(s, p_out, alpha, tile_k0(j), keep);
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int d = 0; d < kDH / 8; ++d) {
+      o[d][0] *= alpha[0];
+      o[d][1] *= alpha[0];
+      o[d][2] *= alpha[1];
+      o[d][3] *= alpha[1];
+    }
+  };
+  // the last P V: P_{n-1} lies in p[(n - 1) & 1]
+  auto last = [&](const uint32_t (&p_in)[kBK / 16][4]) {
+    cp_async_wait_all();
+    __syncthreads();
+    v_descs(dv, vs + ((n_tiles - 1) & 1) * kTileBytes);
+    fence_regs(o);
+    wgmma_fence();
+    accumulate(o, p_in, dv);
+    wgmma_wait<0>();
+    fence_regs(o);
+  };
+  for (int j = 1; j < n_tiles; j += 2) {
+    step(j, p0, p1);
+    if (j + 1 < n_tiles) step(j + 1, p1, p0);
+  }
+  if ((n_tiles - 1) & 1)
+    last(p1);
+  else
+    last(p0);
+
+  // normalise, stage the warp's rows in the q tile, then 16-byte stores
+  const float inv0 = 1.f / (rows.l[0] == 0.f ? 1.f : rows.l[0]);
+  const float inv1 = 1.f / (rows.l[1] == 0.f ? 1.f : rows.l[1]);
+  const int r0 = warp * 16 + g;
+#pragma unroll
+  for (int d = 0; d < kDH / 8; ++d) {
+    *reinterpret_cast<uint32_t*>(qs_ptr + sw128(r0, d) + 4 * tig) =
+        pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
+    *reinterpret_cast<uint32_t*>(qs_ptr + sw128(r0 + 8, d) + 4 * tig) =
+        pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
+  }
+  __syncthreads();
+  bf16* ob = out + h * o_sh;
+#pragma unroll
+  for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kChunks, c = idx % kChunks;
+    if (q0 + r < sq)
+      *reinterpret_cast<uint4*>(ob + (q0 + r) * o_ss + c * 8) =
+          *reinterpret_cast<const uint4*>(qs_ptr + sw128(r, c));
+  }
+}
+
 cudaError_t set_bf16_smem() {
   static std::atomic<unsigned long long> done{0};   // devices already set
   return set_smem_once(flash_attention_bf16_kernel, kSmemBytes, done);
 }
 
+cudaError_t set_packed_smem() {
+  static std::atomic<unsigned long long> done{0};   // devices already set
+  return set_smem_once(flash_attention_packed_kernel, kPackedSmemBytes, done);
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// every row a 16-byte-aligned run of 128 elements: cp.async and the
+// 16-byte output stores need it
+inline bool rows_aligned(const void* q, const void* k, const void* v,
+                         const void* out, const long long* st) {
+  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
+    return false;
+  for (int i = 0; i < 12; ++i)
+    if (st[i] % 8 != 0) return false;
+  return true;
 }
 
 cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
@@ -709,12 +1155,7 @@ cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
                               int heads, int kv_heads, int sq, int sk,
                               const long long* st, int causal, float scale,
                               cudaStream_t stream) {
-  // every row a 16-byte-aligned run of 128 elements: cp.async and the
-  // 16-byte output stores need it
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out))
-    return cudaErrorMisalignedAddress;
-  for (int i = 0; i < 12; ++i)
-    if (st[i] % 8 != 0) return cudaErrorMisalignedAddress;
+  if (!rows_aligned(q, k, v, out, st)) return cudaErrorMisalignedAddress;
   cudaError_t err = set_bf16_smem();
   if (err != cudaSuccess) return err;
   dim3 grid(heads, batch, (sq + kBQ - 1) / kBQ);
@@ -724,6 +1165,27 @@ cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
       static_cast<bf16*>(out), heads, kv_heads, sq, sk, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal,
       scale * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_flash_packed(const void* q, const void* k, const void* v,
+                                const Packed& pk, void* out, int heads,
+                                int kv_heads, int sq, int sk,
+                                const long long* st, float scale,
+                                cudaStream_t stream) {
+  if (!rows_aligned(q, k, v, out, st) || !aligned16(pk.q_seg) ||
+      !aligned16(pk.q_pos) || !aligned16(pk.k_seg) || !aligned16(pk.k_pos))
+    return cudaErrorMisalignedAddress;
+  if (sk < sq || (sk + kBK - 1) / kBK > kMaxTiles) return cudaErrorInvalidValue;
+  cudaError_t err = set_packed_smem();
+  if (err != cudaSuccess) return err;
+  dim3 grid(heads, 1, (sq + kBQ - 1) / kBQ);
+  flash_attention_packed_kernel<<<grid, kThreads, kPackedSmemBytes,
+                                  stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), heads, kv_heads,
+      sq, sk, st[1], st[2], st[4], st[5], st[7], st[8], st[10], st[11],
+      scale * kLog2e, pk);
   return cudaGetLastError();
 }
 
@@ -757,6 +1219,30 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The packed mode (the JAX package's attention_packed): q (1, heads, sq,
+// dh), k, v (1, kv_heads, sk, dh) with sq <= sk <= 2048 * 64, out (1,
+// heads, sq, dh), strided as above (the batch strides are not read);
+// q_seg, q_pos (sq,) and k_seg, k_pos (sk,) int32, 16-byte aligned, the
+// segment id (negative: padding) and the position within the segment of
+// each query and key.  Key j is visible to query i iff both carry one id
+// and k_pos[j] <= q_pos[i], or j is i's own key (j - (sk - sq) == i).  A
+// query tile of padding only gives zeros.  bf16 and dh 128 only.
+extern "C" int repro_flash_attention_packed(
+    const void* q, const void* k, const void* v, const void* q_seg,
+    const void* q_pos, const void* k_seg, const void* k_pos, void* out,
+    int heads, int kv_heads, int sq, int sk, int dh,
+    const long long* strides, float scale, int dtype, void* stream) {
+  if (dh != 128 || dtype != repro::kBFloat16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const repro::tc::Packed pk{static_cast<const int*>(q_seg),
+                             static_cast<const int*>(q_pos),
+                             static_cast<const int*>(k_seg),
+                             static_cast<const int*>(k_pos)};
+  return static_cast<int>(repro::tc::launch_flash_packed(
+      q, k, v, pk, out, heads, kv_heads, sq, sk, strides, scale,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // Resident blocks per SM of the flash kernel for `dtype` at its launch
 // shape (threads, dynamic shared memory), from the CUDA occupancy
 // calculator; a negative CUDA error code on failure.
@@ -778,5 +1264,16 @@ extern "C" int repro_flash_attention_blocks_per_sm(int dtype) {
   } else {
     err = cudaErrorInvalidValue;
   }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// The same for the packed mode's kernel.
+extern "C" int repro_flash_attention_packed_blocks_per_sm() {
+  int blocks = 0;
+  cudaError_t err = repro::tc::set_packed_smem();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, repro::tc::flash_attention_packed_kernel,
+        repro::tc::kThreads, repro::tc::kPackedSmemBytes);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

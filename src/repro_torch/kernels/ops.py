@@ -77,6 +77,19 @@ def flash_attention(q, k, v, lengths=None, *, causal: bool = True,
                                     scale=scale)
 
 
+def flash_attention_packed(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
+                           scale: Optional[float] = None):
+    """Segment-masked attention of a packed prefill: q (1,H,Sq,dh); k, v
+    (1,KV,Sk,dh), the queries at the last Sq keys; segment ids and
+    positions (Sq,) / (Sk,) int32 -> (1,H,Sq,dh)."""
+    if on_cpu("flash_attention_packed", q, k, v, q_seg, k_seg, q_pos,
+              k_pos):
+        return ref.flash_attention_packed_ref(q, k, v, q_seg, k_seg, q_pos,
+                                              k_pos, scale)
+    return _fa.flash_attention_packed_cuda(q, k, v, q_seg, k_seg, q_pos,
+                                           k_pos, scale=scale)
+
+
 def flash_decode(q, k, v, lengths=None, *, scale: Optional[float] = None):
     """Split-K decode attention over a contiguous cache: q (B,H,dh); k, v
     (B,KV,S,dh), strided views allowed -> (B,H,dh)."""

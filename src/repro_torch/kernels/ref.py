@@ -143,6 +143,42 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).reshape(b, h, sq, dh)
 
 
+def flash_attention_packed_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, q_seg: torch.Tensor,
+                               k_seg: torch.Tensor, q_pos: torch.Tensor,
+                               k_pos: torch.Tensor,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """Segment-masked attention of a packed prefill, as the JAX package's
+    ``attention_packed``.  q: (1,H,Sq,dh); k,v: (1,KV,Sk,dh) with Sk >= Sq,
+    the queries lining up with the last Sq keys; q_seg, q_pos: (Sq,) and
+    k_seg, k_pos: (Sk,) int32 segment ids (negative = padding) and
+    positions within the segment.
+
+    Key j is visible to query i iff ``q_seg[i] == k_seg[j]`` and
+    ``k_pos[j] <= q_pos[i]``, or j is i's own fresh key (``j - (Sk - Sq)
+    == i``), which keeps every padding row finite.  GQA folds H onto KV;
+    the softmax runs in f32."""
+    b, h, sq, dh = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    if b != 1 or sk < sq:
+        raise ValueError(f"packed attention takes one flat row with Sk >= "
+                         f"Sq, got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    g = h // kv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = q[0].reshape(kv, g, sq, dh).float()
+    s = torch.einsum("kgqd,ksd->kgqs", qg, k[0].float()) * scale
+    same = q_seg[:, None] == k_seg[None, :]
+    causal = k_pos[None, :] <= q_pos[:, None]
+    keys = torch.arange(sk, device=q.device)
+    self_key = (keys[None, :] - (sk - sq)) == \
+        torch.arange(sq, device=q.device)[:, None]
+    s = torch.where((same & causal) | self_key, s, float("-inf"))
+    e = torch.exp(s - s.max(dim=-1, keepdim=True).values)
+    w = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    out = torch.einsum("kgqs,ksd->kgqd", w.float(), v[0].float())
+    return out.to(q.dtype).reshape(1, h, sq, dh)
+
+
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None) -> torch.Tensor:

@@ -218,6 +218,24 @@ def attention_naive(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
+def attention_packed(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, *, q_seg: torch.Tensor,
+                     k_seg: torch.Tensor, q_pos: torch.Tensor,
+                     k_pos: torch.Tensor) -> torch.Tensor:
+    """Segment-masked causal attention of a packed prefill: q (1,Sq,H,dh)
+    holds every segment's fresh tokens back to back, k/v (1,Sk,KV,dh) each
+    segment's cached prefix followed by the fresh keys (the last Sq keys
+    line up with the queries); ``q_seg`` / ``k_seg`` (Sq,) / (Sk,) carry
+    the segment id per slot (negative = padding) and ``q_pos`` / ``k_pos``
+    the position within the segment.  Key j is visible to query i iff both
+    sit in one segment and ``k_pos[j] <= q_pos[i]``, or j is i's own fresh
+    key.  Through the packed mode of the flash kernel; -> (1,Sq,H,dh)."""
+    out = ops.flash_attention_packed(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), q_seg, k_seg, q_pos,
+                                     k_pos)
+    return out.transpose(1, 2)
+
+
 # ---------------------------------------------------------------------------
 # Feed-forward
 # ---------------------------------------------------------------------------

@@ -15,9 +15,10 @@ Prefill attention takes one of two routes (``attn``): ``"naive"``, the
 paper's attention through the fused softmax kernel
 (`repro_torch.models.layers.attention_naive`, which the JAX package runs
 below its chunked threshold), or ``"flash"``, the flash-attention
-kernel.  Decode attention is the paged or the contiguous split-K decode
-kernel where the JAX package gathers the cache and runs the jnp
-``attention_decode``.  Every norm goes through the fused norm kernel,
+kernel.  :func:`prefill_packed` prefills many independent segments in
+one flat row through the flash kernel's segment-masked mode.  Decode
+attention is the paged or the contiguous split-K decode kernel where the
+JAX package gathers the cache and runs the jnp ``attention_decode``.  Every norm goes through the fused norm kernel,
 and ``h + attn_out -> norm2`` is one launch.
 """
 from __future__ import annotations
@@ -203,6 +204,65 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     cache["len"] = lens
     cache["pos_offset"] = torch.zeros_like(lens)
     return logits, cache
+
+
+def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   seg_ids: torch.Tensor, positions: torch.Tensor,
+                   last_idx: torch.Tensor, prefix_k: torch.Tensor,
+                   prefix_v: torch.Tensor, prefix_seg: torch.Tensor,
+                   prefix_pos: torch.Tensor, *,
+                   cache_dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Prefill many independent sequences in ONE pass.
+
+    ``tokens`` (1, P) concatenates every segment's fresh (uncached)
+    tokens back to back, right-padded to the pack bucket; ``seg_ids``
+    (P,) int32 carries the owning segment per slot (negative = padding)
+    and ``positions`` (P,) the absolute position within that segment (a
+    segment resuming after ``off`` cached tokens contributes ``off..``).
+    ``prefix_k`` / ``prefix_v`` (L, P_pre, KV, dh) concatenate every
+    segment's cached prefix KV, labelled by ``prefix_seg`` / ``prefix_pos``
+    (P_pre,) the same way, and go before the fresh keys of every layer;
+    ``P_pre == 0`` is the all-cold case.  Attention is causal within
+    segments (`repro_torch.models.layers.attention_packed`), so each
+    segment computes what its own prefill would have.
+
+    Returns ``(logits, {"k", "v"})``: logits (N, V) gathered at
+    ``last_idx`` (N,), each segment's last fresh token (padding entries
+    point anywhere harmless), and the suffix-only K/V (L, P, KV, dh) in
+    ``cache_dtype`` for the caller to scatter into per-segment blocks."""
+    _check_family(cfg)
+    p = tokens.shape[1]
+    h = L.embed_tokens(cfg, params["embed"], tokens)
+    pos_in = positions[None]
+    use_prefix = prefix_k.shape[1] > 0
+    if use_prefix:
+        k_seg = torch.cat([prefix_seg, seg_ids])
+        k_pos = torch.cat([prefix_pos, positions])
+    else:
+        k_seg, k_pos = seg_ids, positions
+    shape = (cfg.num_layers, p, cfg.num_kv_heads, cfg.head_dim)
+    parts = {"k": torch.empty(shape, dtype=cache_dtype, device=h.device),
+             "v": torch.empty(shape, dtype=cache_dtype, device=h.device)}
+    for i in range(cfg.num_layers):
+        blk = layer_params(params, i)
+        hn = L.apply_norm(cfg, blk["norm1"], h)
+        q, k, v = L.qkv_project(cfg, blk["attn"], hn, pos_in)
+        if use_prefix:
+            k_all = torch.cat([prefix_k[i][None].to(k.dtype), k], dim=1)
+            v_all = torch.cat([prefix_v[i][None].to(v.dtype), v], dim=1)
+        else:
+            k_all, v_all = k, v
+        a = L.attention_packed(cfg, q, k_all, v_all, q_seg=seg_ids,
+                               k_seg=k_seg, q_pos=positions, k_pos=k_pos)
+        out = L.attention_output(blk["attn"], a)
+        hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
+        h = h + L.apply_ffn(cfg, blk["ffn"], hn2)
+        parts["k"][i] = k[0]
+        parts["v"][i] = v[0]
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    h_last = h[:, last_idx.to(h.device).long()]
+    return L.lm_logits(cfg, params["embed"], h_last)[0], parts
 
 
 def logits_at(cfg: ModelConfig, params: Params, h: torch.Tensor,

@@ -26,6 +26,20 @@ class BucketLadder:
         raise ValueError(
             f"seq_len {seq_len} exceeds max bucket {self.seq_buckets[-1]}")
 
+    def pack_bucket(self, flat_tokens: int) -> int:
+        """Bucket for a packed-prefill flat token count.  Packs concatenate
+        many segments, so the flat length may exceed the top seq bucket;
+        the ladder keeps doubling past it so the set of shapes stays
+        logarithmic instead of per-length."""
+        t = max(int(flat_tokens), 1)
+        for b in self.seq_buckets:
+            if t <= b:
+                return b
+        b = self.seq_buckets[-1]
+        while b < t:
+            b *= 2
+        return b
+
     def batch_bucket(self, batch: int) -> int:
         for b in self.batch_buckets:
             if batch <= b:

@@ -21,15 +21,21 @@ Counterparts of `repro.runtime.engine`:
   (``"contiguous"``).  It implements
   `repro_torch.core.pipeline.PipelineBackend`.
 
-The port serves whole-prompt prefill.  Packed and chunked prefill and
-the prefix cache are not ported yet; the constructor refuses their
-options.
+On the paged layout every admission group is prefilled as ONE packed
+dispatch (:meth:`ContinuousEngine.prefill_pack`, the JAX package's
+default): the prompts are concatenated into one flat row with segment ids
+and per-token positions, prefilled once through the flash kernel's
+segment-masked mode and scattered into each session's own blocks.
+``packed_prefill=False`` and the contiguous layout keep the per-group
+path.  Chunked prefill and the prefix cache are not ported yet; the
+constructor refuses their options.
 """
 from __future__ import annotations
 
+import collections
 import time
 from dataclasses import dataclass, replace
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +45,8 @@ from repro_torch.core.cost_model import TableCostModel, block_round
 from repro_torch.core.pipeline import PipelineBackend
 from repro_torch.core.serving import Request
 from repro_torch.models import (decode_step, forward_hidden, logits_at,
-                                make_cache, make_paged_cache, prefill)
+                                make_cache, make_paged_cache, prefill,
+                                prefill_packed)
 from repro_torch.runtime import sanitizer
 from repro_torch.runtime.bucketing import BucketLadder
 from repro_torch.runtime.device import resolve_device
@@ -55,8 +62,12 @@ from repro_torch.runtime.session import GenerationParams, Session
 STOP_SLOTS = 4
 
 # ContinuousEngine options of the JAX package not ported yet
-NOT_PORTED_OPTIONS = ("prefix_cache", "packed_prefill", "chunked_prefill",
+NOT_PORTED_OPTIONS = ("prefix_cache", "chunked_prefill",
                       "prefill_chunk_tokens")
+
+#: packed dispatches whose (segments, flat tokens, pack bucket) the
+#: ContinuousEngine keeps in ``pack_log``
+PACK_LOG_LEN = 1024
 
 KV_LAYOUTS = ("paged", "contiguous")
 
@@ -89,6 +100,21 @@ class GenState:
     @property
     def capacity(self) -> int:
         return self.emitted.shape[1]
+
+
+def segment_labels(lengths: Sequence[int], offsets: Sequence[int],
+                   width: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Segment ids and positions (each (width,) int32) of a packed row:
+    segment i's ``lengths[i]`` slots back to back, at positions
+    ``offsets[i]..``, then padding (id -1, position 0) up to ``width``."""
+    seg = np.full((width,), -1, np.int32)
+    pos = np.zeros((width,), np.int32)
+    at = 0
+    for i, (n, off) in enumerate(zip(lengths, offsets)):
+        seg[at:at + n] = i
+        pos[at:at + n] = np.arange(off, off + n)
+        at += n
+    return seg, pos
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -237,6 +263,52 @@ class InferenceEngine:
                                                           torch.int32))
         return self._finish_gen_state(logits, cache, n, batch_b, budgets,
                                       eos_ids, cap, sampling)
+
+    def prefill_packed_flat(self, suffixes: Sequence[Sequence[int]],
+                            offsets: Sequence[int], prefix_k: torch.Tensor,
+                            prefix_v: torch.Tensor, prefix_seg: torch.Tensor,
+                            prefix_pos: torch.Tensor):
+        """ONE device pass prefilling many independent segments.
+
+        ``suffixes[i]`` is segment i's fresh (uncached) tokens and
+        ``offsets[i]`` how many of its tokens are already cached: the
+        segment's queries run at positions ``offsets[i]..`` against its own
+        prefix slots in ``prefix_k`` / ``prefix_v`` (L, P_pre, KV, dh: every
+        segment's cached prefix concatenated, labelled by ``prefix_seg`` /
+        ``prefix_pos``).  Everything is padded here to the (pack, prefix,
+        segment) buckets, so the card sees a bounded set of shapes.
+
+        Returns ``(logits, parts)``: per-segment last-token logits (seg_b,
+        V), rows past ``len(suffixes)`` padding, and the flat suffix KV
+        (L, pack_b, KV, dh) laid out as the concatenated suffixes, for
+        per-segment scatter into paged blocks."""
+        lens = [len(x) for x in suffixes]
+        if min(lens) < 1:
+            raise ValueError("every packed segment needs >= 1 fresh token")
+        flat = sum(lens)
+        pack_b = self.ladder.pack_bucket(flat)
+        seg_ids, positions = segment_labels(lens, offsets, pack_b)
+        toks = np.full((1, pack_b), self.pad_id, np.int64)
+        toks[0, :flat] = np.concatenate([np.asarray(x) for x in suffixes])
+        last_idx = np.zeros((self.ladder.batch_bucket(len(lens)),), np.int32)
+        last_idx[:len(lens)] = np.cumsum(lens) - 1
+        pre = int(prefix_k.shape[1])
+        pre_b = self.ladder.pack_bucket(pre) if pre else 0
+        if pre_b > pre:
+            pad = pre_b - pre
+            zeros = prefix_k.new_zeros((prefix_k.shape[0], pad) +
+                                       tuple(prefix_k.shape[2:]))
+            prefix_k = torch.cat([prefix_k, zeros], dim=1)
+            prefix_v = torch.cat([prefix_v, zeros], dim=1)
+            prefix_seg = torch.cat([prefix_seg, prefix_seg.new_full((pad,),
+                                                                    -1)])
+            prefix_pos = torch.cat([prefix_pos, prefix_pos.new_zeros(pad)])
+        return prefill_packed(
+            self.cfg, self.params, self._tensor(toks, torch.int64),
+            self._tensor(seg_ids, torch.int32),
+            self._tensor(positions, torch.int32),
+            self._tensor(last_idx, torch.int32), prefix_k, prefix_v,
+            prefix_seg, prefix_pos, cache_dtype=torch.float32)
 
     def _finish_gen_state(self, logits, cache, n: int, batch_b: int,
                           budgets: Sequence[int], eos_ids: Sequence,
@@ -398,6 +470,11 @@ class ContinuousEngine(PipelineBackend):
       padding the sequence axis when a longer request arrives; the
       JAX package's equivalence baseline for the paged pool, and the
       layout SSM / hybrid families need.
+
+    With ``packed_prefill=True`` (the default, as in the JAX package) the
+    paged layout prefills each admission group as one packed dispatch
+    (:meth:`prefill_pack`); ``False`` keeps the per-group path, the
+    equivalence baseline the packed path is tested against.
     """
 
     def __init__(self, engine: InferenceEngine, max_slots: int = 8,
@@ -405,12 +482,13 @@ class ContinuousEngine(PipelineBackend):
                  clock: Callable[[], float] = time.monotonic, *,
                  kv_layout: str = "paged",
                  block_size: int = DEFAULT_KV_BLOCK,
-                 num_blocks: Optional[int] = None, **options) -> None:
+                 num_blocks: Optional[int] = None,
+                 packed_prefill: bool = True, **options) -> None:
         missing = [k for k in options if k in NOT_PORTED_OPTIONS]
         if missing:
-            raise ValueError(f"{missing}: the port's engine serves "
-                             "whole-prompt prefill; these options are not "
-                             "ported yet")
+            raise ValueError(f"{missing}: the port's engine serves whole "
+                             "prompts, packed or per group; these options "
+                             "are not ported yet")
         if options:
             raise TypeError(f"unexpected options {sorted(options)}")
         cfg = engine.cfg
@@ -446,6 +524,17 @@ class ContinuousEngine(PipelineBackend):
         self.max_len = max_len
         self.prefill_tokens = 0      # tokens run through prefill
         self.prefill_dispatches = 0  # prefill passes issued
+        # packed prefill: many segments per dispatch (paged layout only)
+        self.packed_prefill = packed_prefill
+        self.pack_dispatches = 0     # ... of which were packed
+        self.pack_segments = 0       # segments across all packed ones
+        #: (segments, flat tokens, pack bucket) of the latest packed
+        #: dispatches; flat / bucket is the pack's occupancy
+        self.pack_log: Deque[Tuple[int, int, int]] = collections.deque(
+            maxlen=PACK_LOG_LEN)
+        # pack ledger: req_id -> pool blocks the most recent packed
+        # dispatch scattered into (check_invariants audits ownership)
+        self._last_pack: Dict[int, List[int]] = {}
         self.sessions: List[Optional[Session]] = [None] * max_slots
         self.state: Optional[GenState] = None
         # next KV write position per slot (mirrors the device cache's
@@ -573,6 +662,20 @@ class ContinuousEngine(PipelineBackend):
             raise sanitizer.SanitizerError(
                 f"reservations held for sessions {sorted(stray_resv)} "
                 "that are not live")
+        # pack ledger: every block the most recent packed dispatch wrote
+        # must still be owned by the segment it was written for (a freed
+        # or re-assigned block would mean the pack scattered into memory
+        # another request now owns); a freed session's entry is dropped
+        # with its table
+        for req, blocks in self._last_pack.items():
+            if not btm.has_request(req):
+                continue
+            owned = set(btm.block_table(req))
+            stray_blocks = [b for b in blocks if b not in owned]
+            if stray_blocks:
+                raise sanitizer.SanitizerError(
+                    f"pack ledger: session {req} no longer owns blocks "
+                    f"{stray_blocks} its packed prefill scattered into")
         if isinstance(btm, sanitizer.SanitizedBlockTableManager):
             btm.check_conservation()
             if pipeline.idle():
@@ -580,6 +683,10 @@ class ContinuousEngine(PipelineBackend):
 
     def prefill_batch(self, sessions: List[Session],
                       padded_len: int) -> None:
+        if self.supports_packed_prefill():
+            # one flat dispatch for the whole admission group
+            self.prefill_pack(sessions)
+            return
         eng = self.engine
         # everything that can fail is checked BEFORE any device-state or
         # slab mutation — a partial prefill must not poison the slot cache
@@ -639,6 +746,164 @@ class ContinuousEngine(PipelineBackend):
         # a budget-1 or instant-EOS prompt may be done already
         self._sync()
         self._publish_stream()     # the prefill's seed token streams too
+
+    # -- packed prefill --------------------------------------------------
+    def supports_packed_prefill(self) -> bool:
+        """Packed prefill concatenates many segments into one flat
+        dispatch and scatters per-segment KV into paged blocks, so it
+        needs the paged layout (and the option on)."""
+        return self.kv_layout == "paged" and self.packed_prefill
+
+    def pack_bucket(self, flat_tokens: int) -> int:
+        """Pack bucket a flat token count pads to (the pack occupancy's
+        denominator)."""
+        return self.engine.ladder.pack_bucket(flat_tokens)
+
+    def prefill_pack(self, admissions: List[Session],
+                     chunks: Sequence = (),
+                     decoding: Optional[List[Session]] = None) -> None:
+        """ONE packed dispatch serving a whole admission group: the
+        prompts concatenated with segment ids and per-token positions,
+        prefilled once (`InferenceEngine.prefill_packed_flat`), then
+        scattered into each session's own block table in one scatter
+        (`sanitizer.check_write` on every segment's exact block range),
+        and the decode rows, seeded from each segment's last-token logits,
+        spliced into the slot cache together.
+
+        ``chunks`` (resumable-prefill chunk advances) and ``decoding`` (a
+        decode tick fused behind a pack that splices nothing) belong to
+        chunked prefill, which is not ported yet: they raise."""
+        eng = self.engine
+        if not self.supports_packed_prefill():
+            raise ValueError("packed prefill requires kv_layout='paged' "
+                             "with packed_prefill enabled")
+        if chunks:
+            raise ValueError("prefill_pack: resumable chunks belong to "
+                             "chunked prefill, which is not ported yet")
+        if decoding is not None and admissions:
+            raise ValueError("prefill_pack: a decode tick fuses only behind "
+                             "a pack that splices nothing")
+        if not admissions:
+            return
+        # the segment-id row caps at the ladder's top batch bucket; a
+        # group composed past it splits into ladder-sized packs
+        cap = eng.ladder.batch_buckets[-1]
+        if len(admissions) > cap:
+            for at in range(0, len(admissions), cap):
+                self.prefill_pack(admissions[at:at + cap])
+            return
+        # ---- pre-checks (nothing mutated before they pass) -------------
+        over = [s.req_id for s in admissions
+                if s.max_new_tokens > self.cap_new]
+        if over:
+            raise ValueError(
+                f"sessions {over} exceed the emission buffer "
+                f"(max_new_tokens > cap_new={self.cap_new}); raise "
+                f"cap_new or lower the budget")
+        dup = [s.req_id for s in admissions
+               if eng.kv_slab.has_region(s.req_id)]
+        if dup:
+            raise ValueError(f"req_ids {dup} already hold KV regions "
+                             "(duplicate in-flight submission?)")
+        self._ensure_state(eng.ladder.seq_bucket(
+            max(s.total_len for s in admissions)))
+        slots = [i for i, s in enumerate(self.sessions)
+                 if s is None][:len(admissions)]
+        if len(slots) != len(admissions):
+            raise RuntimeError("admitted beyond free slots")
+        btm = self.block_table
+        want = sum(btm.blocks_needed(s.total_len) for s in admissions)
+        if want + sum(self._reserved.values()) > btm.free_blocks:
+            raise ValueError(
+                f"packed prefill needs {want} fresh KV blocks beyond "
+                f"reservations, pool has {btm.free_blocks} free — the "
+                "admission planner should have vetoed this pack")
+        suffixes = [list(s.prompt) for s in admissions]
+        cache = self.state.cache
+        nl = cache["k"].shape[0]
+        no_prefix = cache["k"].new_zeros((nl, 0) + cache["k"].shape[3:])
+        no_ids = torch.zeros((0,), dtype=torch.int32, device=self.device)
+        bs = self.block_size
+        try:
+            # ---- THE dispatch --------------------------------------------
+            logits, parts = eng.prefill_packed_flat(
+                suffixes, [0] * len(suffixes), no_prefix, no_prefix, no_ids,
+                no_ids)
+            # ---- tables, and every segment's scatter target --------------
+            # blocks covering the prompt plus the first decode write; the
+            # rest of the budget is reserved and appended mid-decode
+            seg_bids: List[List[int]] = []
+            for s in admissions:
+                bids = btm.allocate(s.req_id, min(s.seq_len + 1, s.total_len))
+                self._reserved[s.req_id] = max(
+                    btm.blocks_needed(s.total_len) - len(bids), 0)
+                seg_bids.append(bids)
+            tgt: List[np.ndarray] = []
+            pack_ledger: Dict[int, List[int]] = {}
+            written: set = set()
+            table_rows = np.zeros((len(admissions), self.max_blocks),
+                                  np.int32)
+            for i, (s, bids) in enumerate(zip(admissions, seg_bids)):
+                seg_blocks = bids[:(s.seq_len - 1) // bs + 1]
+                sanitizer.check_write(btm, s.req_id, seg_blocks)
+                overlap = [b for b in seg_blocks if b in written]
+                if overlap:
+                    raise sanitizer.SanitizerError(
+                        f"pack segments overlap on blocks {overlap} "
+                        f"(session {s.req_id}) — cross-request KV "
+                        "corruption")
+                written.update(seg_blocks)
+                pack_ledger[s.req_id] = list(seg_blocks)
+                pos = np.arange(s.seq_len)
+                tgt.append(np.asarray(bids, np.int64)[pos // bs] * bs +
+                           pos % bs)
+                table_rows[i, :len(bids)] = bids
+            # ---- ONE scatter: the flat pack lines up with the
+            # concatenated per-segment targets -----------------------------
+            flat = sum(len(x) for x in suffixes)
+            fidx = self._index(np.concatenate(tgt))
+            for key in ("k", "v"):
+                pool = cache[key]
+                pool.view((nl, -1) + pool.shape[3:])[:, fidx] = \
+                    parts[key][:, :flat].to(pool.dtype)
+            # ---- splice the decode rows ----------------------------------
+            n = len(admissions)
+            batch_b = eng.ladder.batch_bucket(n)
+            ctl = {"len": eng._tensor([s.seq_len for s in admissions] +
+                                      [1] * (batch_b - n), torch.int32),
+                   "pos_offset": torch.zeros((batch_b,), dtype=torch.int32,
+                                             device=self.device)}
+            rows = eng._finish_gen_state(
+                logits[:batch_b], ctl, n, batch_b,
+                budgets=[s.max_new_tokens for s in admissions],
+                eos_ids=[s.eos_id for s in admissions], cap=self.cap_new,
+                sampling=[s.params for s in admissions])
+            idx = self._index(slots)
+            cache["block_tables"][idx] = torch.as_tensor(table_rows,
+                                                         device=self.device)
+            self._splice_rows(rows, idx, n)
+        except Exception:
+            # free whatever tables the pack got and neutralize their rows
+            self._release_tables(admissions, slots)
+            raise
+        # ---- host bookkeeping --------------------------------------------
+        self._last_pack = pack_ledger
+        self.prefill_dispatches += 1
+        self.pack_dispatches += 1
+        self.pack_segments += n
+        self.prefill_tokens += flat
+        self.pack_log.append((n, flat, eng.ladder.pack_bucket(flat)))
+        now = self.clock()
+        per_tok = kv_bytes_per_token(eng.cfg)
+        for slot, s in zip(slots, admissions):
+            self.sessions[slot] = s
+            self._slot_len[slot] = s.seq_len
+            eng.kv_slab.allocate(s.req_id, max(per_tok * s.total_len, 1),
+                                 tokens=s.total_len)
+            s.start_decode(now, slot=slot)
+        # a budget-1 or instant-EOS prompt may be done already
+        self._sync()
+        self._publish_stream()
 
     def _release_tables(self, sessions: List[Session],
                         slots: List[int]) -> None:
@@ -714,6 +979,7 @@ class ContinuousEngine(PipelineBackend):
             self.block_table.free(session.req_id)
             self._reserved.pop(session.req_id, None)
             st.cache["block_tables"][slot] = 0
+        self._last_pack.pop(session.req_id, None)
         self.sessions[slot] = None
         self._slot_len[slot] = 0
         st.done[slot] = True
@@ -890,6 +1156,7 @@ class ContinuousEngine(PipelineBackend):
             if self.block_table is not None:
                 self.block_table.free(s.req_id)
                 self._reserved.pop(s.req_id, None)
+            self._last_pack.pop(s.req_id, None)
             self.sessions[slot] = None
             self._slot_len[slot] = 0
             freed_slots.append(slot)

@@ -189,6 +189,112 @@ def test_cuda_flash_attention_bf16_refuses_misaligned_rows(cuda):
     assert cuda_lib.LAUNCHES["flash_attention"] == 0
 
 
+# ---------------------------------------------------------------------------
+# flash attention, packed mode (segment ids and positions)
+# ---------------------------------------------------------------------------
+
+#: (fresh lengths, prefix lengths, pack width, prefix width): eight
+#: tile-aligned segments of 1024; mixed lengths with a one-token segment,
+#: boundaries inside tiles and padding (whole padding tiles at the end);
+#: segments after 128, 256 and no prefix keys, the prefix region padded
+PACKED_CASES = {
+    "8x1024": ((1024,) * 8, (0,) * 8, 8192, 0),
+    "mixed": ((1, 64, 200, 333, 512, 700, 960, 1024), (0,) * 8, 4096, 0),
+    "prefix": ((300, 500, 700), (128, 256, 0), 2048, 512),
+}
+
+
+def _packed(dev, fresh, prefix, width, pre_width, h=16, kv=8, seed=0):
+    """bf16 q (1, H, width, 128) and k, v (1, KV, pre_width + width, 128)
+    as strided views of (1, S, heads, 128) activations, and the segment
+    ids and positions (q_seg, k_seg, q_pos, k_pos) of the pack."""
+    from repro_torch.runtime.engine import segment_labels
+    q_seg, q_pos = segment_labels(fresh, prefix, width)
+    p_seg, p_pos = segment_labels(prefix, [0] * len(prefix), pre_width)
+    ids = [torch.from_numpy(a).to(dev) for a in
+           (q_seg, np.concatenate([p_seg, q_seg]), q_pos,
+            np.concatenate([p_pos, q_pos]))]
+    g = _gen(dev, seed)
+    q, k, v = [torch.randn((1, n, heads, 128), generator=g,
+                           device=dev).bfloat16().transpose(1, 2)
+               for n, heads in ((width, h), (pre_width + width, kv),
+                                (pre_width + width, kv))]
+    return q, k, v, ids
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_cuda_flash_attention_packed_matches_plain(cuda, case):
+    """The packed mode against its plain version on real rows; every
+    padding row finite, and a query tile of padding only exactly 0."""
+    q, k, v, ids = _packed(cuda, *PACKED_CASES[case])
+    cuda_lib.reset_launches()
+    got = ops.flash_attention_packed(q, k, v, *ids)
+    assert cuda_lib.LAUNCHES["flash_attention_packed"] == 1
+    want = ref.flash_attention_packed_ref(q, k, v, *ids)
+    real = ids[0] >= 0
+    torch.testing.assert_close(got[:, :, real], want[:, :, real],
+                               **BF16_ATTN_TOL)
+    assert bool(torch.isfinite(got.float()).all())
+    flat = int(real.sum())
+    tail = (flat + 63) // 64 * 64           # first tile of padding only
+    assert not bool(got[:, :, tail:].any())
+
+
+def test_cuda_flash_attention_packed_segment_alone_equals_segment_in_pack(
+        cuda):
+    """A segment starting on a 64-key tile boundary gives the same bits in
+    a pack as packed alone, and as the causal kernel on it alone: the same
+    tiles are visited and masked alike (an extra visited tile adds exact
+    zeros).  A segment starting inside a tile agrees with itself alone
+    within the bf16 tolerance only: its keys fall into other tiles, so the
+    online softmax groups its sums otherwise."""
+    fresh = (256, 100, 192, 64)           # starts 0, 256, 356, 548
+    q, k, v, ids = _packed(cuda, fresh, (0,) * 4, 640, 0, seed=9)
+    full = ops.flash_attention_packed(q, k, v, *ids)
+    at = 0
+    for n in fresh:
+        rows = slice(at, at + n)
+        width = (n + 63) // 64 * 64
+        one = torch.zeros(width, dtype=torch.int32, device=cuda)
+        one[n:] = -1
+        pos = torch.arange(width, dtype=torch.int32, device=cuda)
+        pos[n:] = 0
+        qa, ka, va = [torch.zeros((1, width, t.shape[1], 128),
+                                  dtype=t.dtype, device=cuda)
+                      for t in (q, k, v)]
+        for dst, src in ((qa, q), (ka, k), (va, v)):
+            dst[:, :n] = src[:, :, rows].transpose(1, 2)
+        qa, ka, va = qa.transpose(1, 2), ka.transpose(1, 2), \
+            va.transpose(1, 2)
+        alone = ops.flash_attention_packed(qa, ka, va, one, one, pos, pos)
+        if at % 64 == 0:
+            assert torch.equal(full[:, :, rows], alone[:, :, :n]), at
+            causal = ops.flash_attention(q[:, :, rows], k[:, :, rows],
+                                         v[:, :, rows], causal=True)
+            assert torch.equal(full[:, :, rows], causal), at
+        else:
+            torch.testing.assert_close(full[:, :, rows], alone[:, :, :n],
+                                       **BF16_ATTN_TOL)
+        at += n
+
+
+def test_cuda_flash_attention_packed_refuses_f32_and_misaligned_rows(cuda):
+    """The packed mode is built for bf16 only, and copies 16-byte chunks:
+    f32 and a row that does not start on 16 bytes are refused, with no
+    launch and no fallback."""
+    q, k, v, ids = _packed(cuda, (40, 24), (0, 0), 64, 0, h=2, kv=1)
+    cuda_lib.reset_launches()
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.flash_attention_packed(q.float(), k.float(), v.float(), *ids)
+    qc = q.contiguous()
+    buf = torch.zeros(qc.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = buf[1:].view(qc.shape)
+    shifted.copy_(qc)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops.flash_attention_packed(shifted, k, v, *ids)
+    assert cuda_lib.LAUNCHES["flash_attention_packed"] == 0
+
+
 def _paged(dev, b=8, h=16, kv=8, dh=128, bs=16, mb=16, seed=5):
     rng = np.random.default_rng(seed)
     nb = b * mb + 1
@@ -356,9 +462,11 @@ def test_cuda_kernels_count_launches(cuda):
 
 def test_cuda_serving_matches_generate_alone(cuda):
     """Smoke-depth model at the full head dim (the kernels are built for
-    dh = 128) on the card: continuous batching with mid-decode arrivals
-    equals ``generate`` of each prompt alone, every kernel of the path
-    launches, and nothing leaks."""
+    dh = 128) on the card, in f32 over the per-group prefill (the packed
+    mode is bf16 only: test_cuda_packed_serving_one_launch_per_layer_per_
+    pack): continuous batching with mid-decode arrivals equals
+    ``generate`` of each prompt alone, every kernel of the path launches,
+    and nothing leaks."""
     import dataclasses
 
     from repro_torch.api import GenerationParams, TurboClient
@@ -371,7 +479,8 @@ def test_cuda_serving_matches_generate_alone(cuda):
         cfg, init_params(cfg, device=cuda),
         ladder=BucketLadder(seq_buckets=(32, 64, 128), batch_buckets=(4,)),
         device=cuda)
-    client = TurboClient(ContinuousEngine(engine, max_slots=4, cap_new=16))
+    client = TurboClient(ContinuousEngine(engine, max_slots=4, cap_new=16,
+                                          packed_prefill=False))
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(1, 256, n)]
                for n in (5, 40, 17, 60, 9, 33)]
@@ -391,6 +500,57 @@ def test_cuda_serving_matches_generate_alone(cuda):
         assert alone == results[i]
     assert client.backend.block_table.used_blocks == 0
     assert engine.kv_slab.live_bytes == 0
+
+
+def test_cuda_packed_serving_one_launch_per_layer_per_pack(cuda):
+    """The default (packed) admission path at the smoke depth in bf16 with
+    the full head dim: every admission group is one packed dispatch, one
+    packed-mode flash launch per layer and none of the causal one, no
+    leak; and each prompt's last-token logits from one packed pass agree
+    with its own prefill within a few bf16 ulps (the products run at
+    other shapes and round otherwise)."""
+    import dataclasses
+
+    from repro_torch.api import GenerationParams, TurboClient
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, prefill
+    from repro_torch.runtime.bucketing import BucketLadder
+    from repro_torch.runtime.engine import ContinuousEngine, InferenceEngine
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), d_head=128,
+                              dtype="bfloat16")
+    engine = InferenceEngine(
+        cfg, init_params(cfg, device=cuda),
+        ladder=BucketLadder(seq_buckets=(64, 128), batch_buckets=(4,)),
+        device=cuda)
+    ce = ContinuousEngine(engine, max_slots=4, cap_new=16)
+    client = TurboClient(ce)
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(1, 256, n)]
+               for n in (5, 40, 17, 60, 9, 100)]
+    cuda_lib.reset_launches()
+    handles = [client.submit(p, GenerationParams(max_new_tokens=12))
+               for p in prompts[:4]]
+    client.pump(max_ticks=3)
+    handles += [client.submit(p, GenerationParams(max_new_tokens=12))
+                for p in prompts[4:]]
+    results = [h.result() for h in handles]
+    assert ce.pack_dispatches == ce.prefill_dispatches > 0
+    assert cuda_lib.LAUNCHES["flash_attention_packed"] == \
+        cfg.num_layers * ce.pack_dispatches
+    assert cuda_lib.LAUNCHES["flash_attention"] == 0
+    assert all(len(r) == len(p) + 12 for r, p in zip(results, prompts))
+    assert ce.block_table.used_blocks == 0
+    assert engine.kv_slab.live_bytes == 0
+    no_kv = torch.zeros((cfg.num_layers, 0, cfg.num_kv_heads, 128),
+                        device=cuda)
+    no_ids = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    logits, _ = engine.prefill_packed_flat(prompts[:4], [0] * 4, no_kv,
+                                           no_kv, no_ids, no_ids)
+    for i, p in enumerate(prompts[:4]):
+        alone, _ = prefill(cfg, engine.params,
+                           torch.tensor([p], device=cuda))
+        torch.testing.assert_close(logits[i].float(), alone[0].float(),
+                                   rtol=2e-2, atol=5e-2)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
 Both stacks serve the smoke config of InternLM2-1.8B on the same weights
 (the reference's `init_params`, carried over by the bridge) on the CPU
-in f32: the reference is `TurboClient` over
-``ContinuousEngine(..., packed_prefill=False)``, the path the port
-serves; the port is `repro_torch.api.TurboClient`.  Streams are compared
+in f32: the reference is `TurboClient` over its `ContinuousEngine`, the
+port is `repro_torch.api.TurboClient`.  Here both run the per-group
+prefill (``packed_prefill=False``); the packed default is held against
+the reference's in tests/test_torch_packed.py.  Streams are compared
 exactly: greedy tokens are argmaxes, and sampled tokens draw bit-equal
 noise (tests/test_torch_sampling.py).  The sanitizer is on (pytest turns
 it on), so every block write is checked and leaks raise.
@@ -77,9 +78,10 @@ def test_client_streams_match_reference_token_for_token(weights):
         JaxInferenceEngine(jcfg, jparams, ladder=JaxLadder(**LADDER)),
         max_slots=4, cap_new=24, packed_prefill=False)
     _, want = _serve(JaxClient(jce, warmup=False), JaxParams, work)
-    ce = _port(tparams)
+    ce = _port(tparams, packed_prefill=False)
     handles, got = _serve(TurboClient(ce), GenerationParams, work)
     assert got == want
+    assert ce.pack_dispatches == 0
     streamed = [h.tokens() for h in handles]
     assert streamed == [r[len(p):] for r, (p, _) in zip(got, work)]
     assert ce.block_table.used_blocks == 0
@@ -159,23 +161,42 @@ def test_sanitizer_catches_a_write_into_a_foreign_block(weights):
     a.result()
 
 
-@pytest.mark.parametrize("option", ["prefix_cache", "packed_prefill",
+@pytest.mark.parametrize("option", ["prefix_cache",
+                                    "chunked_prefill+prefix_cache",
                                     "chunked_prefill", "kv_layout"])
 def test_engine_refuses_options_not_ported_yet(weights, option):
-    """Options the port does not serve raise.  Both KV layouts of the JAX
-    package are ported, so for ``kv_layout`` only a layout neither
-    package has is refused."""
+    """Options the port does not serve raise, alone or together.  Both KV
+    layouts of the JAX package are ported, so for ``kv_layout`` only a
+    layout neither package has is refused; ``packed_prefill`` is ported
+    (test_engine_accepts_packed_prefill_and_refuses_chunks)."""
     _, _, tparams = weights
-    value = "ring" if option == "kv_layout" else True
+    kw = ({"kv_layout": "ring"} if option == "kv_layout"
+          else {o: True for o in option.split("+")})
     with pytest.raises(ValueError,
                        match="not ported yet|unknown kv_layout 'ring'"):
-        _port(tparams, **{option: value})
+        _port(tparams, **kw)
+
+
+def test_engine_accepts_packed_prefill_and_refuses_chunks(weights):
+    """``packed_prefill=True`` is the default and is accepted; the chunk
+    half of ``prefill_pack`` belongs to chunked prefill and raises."""
+    _, _, tparams = weights
+    ce = _port(tparams, packed_prefill=True)
+    assert ce.supports_packed_prefill() and _port(tparams).packed_prefill
+    client = TurboClient(ce)
+    h = client.submit(list(range(1, 12)), GenerationParams(max_new_tokens=4))
+    client.pump(max_ticks=1)
+    live = next(s for s in ce.sessions if s is not None)
+    with pytest.raises(ValueError, match="chunked prefill"):
+        ce.prefill_pack([], chunks=[(live, 8)])
+    h.result()
+    assert ce.pack_dispatches == 1 and ce.block_table.used_blocks == 0
 
 
 def test_port_pipeline_takes_the_per_group_prefill_path(weights):
     _, _, tparams = weights
-    ce = _port(tparams)
-    assert not hasattr(ce, "supports_packed_prefill")
+    ce = _port(tparams, packed_prefill=False)
+    assert not ce.supports_packed_prefill()
     client = TurboClient(ce)
     _serve(client, GenerationParams, _workload(5, n=6))
     assert ce.prefill_dispatches >= 2
