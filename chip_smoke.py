@@ -21,7 +21,9 @@ Phases, each printing one JSON line:
    the decode tick's 8 rows and a prefill's 8192, beside the empty
    ``repro_floor`` kernel's device time; the sampler on f32 and bf16
    logits with ties at rank C and a row of fewer than C finite values;
-   the flash kernel's packed mode (segment ids and positions) on eight
+   the causal flash kernel in suffix alignment (B 8, 256 queries after
+   768 cached keys, beside SDPA with a lower-right causal mask); the
+   flash kernel's packed mode (segment ids and positions) on eight
    segments of 1024, on mixed lengths padded to their pack bucket and on
    segments after prefix keys, against SDPA with the dense mask, case
    (a) beside the causal kernel at B 8 x 1024 (the same visible pairs;
@@ -43,13 +45,28 @@ Phases, each printing one JSON line:
    each prompt's own prefill, which the phase prints and holds to
    ``PACKED_LOGIT_ULPS``), the leak invariants, and that every kernel of
    the path launched;
+4b. serve_prefix_chunked: the same model with ``prefix_cache=True`` and
+   chunked prefill (256-token chunk turns) at batch buckets (1, 2, 4, 8):
+   16 requests (10 sharing a 512-token system prompt, 2 a 520-token
+   prefix that ends inside a block, 4 cold prompts of 700 to 1000
+   tokens, 4 sampled) with mid-decode arrivals, once through the packed
+   admission (hits and chunks as prefix keys of the packs) and once per
+   group (the causal kernel in suffix alignment): cache hits, copies,
+   chunked prefills, a pack carrying a chunk and suffix-aligned launches
+   all above 0, the pool after the drain held by the cache alone, and
+   every stream against the request alone under the margin rule, with
+   the drift of a packed pass, a suffix pass and a decode step at batch
+   8 against batch 1;
 5. profile_decode and profile_decode_sampled: eight greedy or sampled
    rows decoding at full width, the host time per tick and, from
    ``torch.profiler``, the device's busy time by kernel family and its
    idle share (the sampled window also the sample kernel's device time
    and what ``gumbel_noise`` launches); profile_prefill: one prefill of
    eight prompts at the 1024 bucket, the same breakdown and the flash
-   kernel's share; profile_prefill_packed: the same prompts as one pack.
+   kernel's share; profile_prefill_packed: the same prompts as one pack;
+   profile_prefill_suffix: the same prompts with their first 768 tokens
+   served from a paged pool (gathered in the window), 24 suffix-aligned
+   causal launches.
    Each window's count of the port's kernels in the trace is held against
    the launch counters; busy totals read "not measured" where the trace
    lost kernels, beside the busy time of the kernels it holds;
@@ -431,6 +448,69 @@ def flash_case(dev, gen, b: int, s: int, tol: dict) -> dict:
     return line
 
 
+#: the suffix-aligned check (PERF.md row 4c): B 8 rows of Sq queries
+#: after ``cached`` keys served from the prefix cache
+SUFFIX_CASE = dict(b=8, sq=256, cached=768)
+
+
+def flash_suffix_case(dev, gen, b: int, sq: int, cached: int,
+                      tol: dict) -> dict:
+    """The causal kernel in suffix alignment: queries as the last Sq of
+    Sk = cached + Sq keys (a prefix-cache hit's or a chunk's suffix
+    prefill), against its plain version, beside SDPA with a lower-right
+    causal mask.  The bound counts the pairs the rows see: each query
+    its cached keys and the suffix keys up to its own."""
+    from repro_torch.kernels import flash_attention, ref
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    h, kv, dh = 16, 8, 128
+    sk = cached + sq
+    q = torch.randn((b, sq, h, dh), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, sk, kv, dh), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, sk, kv, dh), generator=gen, device=dev).bfloat16()
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    bias = causal_lower_right(sq, sk)
+
+    def kernel():
+        return flash_attention.flash_attention_cuda(qt, kt, vt, causal=True)
+
+    def plain():
+        return ref.flash_attention_ref(qt, kt, vt, causal=True)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
+                                              enable_gqa=True)
+    out, want = kernel(), plain()
+    err = check_close("flash_attention (suffix)", out, want, **tol)
+    lib_err = max_err(library(), want)
+    torch.cuda.synchronize()
+    iters = 20
+    k_ms, p_ms, l_ms = (time_ms(kernel, iters), time_ms(plain, iters),
+                        time_ms(library, iters))
+    dev_t = device_fields(kernel, library, iters)
+    pairs = sq * cached + sq * (sq + 1) / 2
+    nbytes = 2 * b * dh * (2 * sq * h + 2 * sk * kv)
+    flops = 4.0 * b * h * dh * pairs
+    b_ms, b_by = bound_ms(nbytes, flops, H100_BF16_FLOPS)
+    line = {"phase": "kernel_check", "kernel": "flash_attention",
+            "case": "4c: suffix alignment",
+            "shape": {"B": b, "Sq": sq, "Sk": sk, "cached": cached, "H": h,
+                      "KV": kv, "dh": dh},
+            "dtype": "bfloat16", "causal": "lower right (queries at the "
+            "last Sq keys)",
+            "tolerance": {**tol, "why": tol_why_attention()},
+            "max_abs_err": err, "library_max_abs_err": lib_err,
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "library": "F.scaled_dot_product_attention with "
+                       "causal_lower_right(Sq, Sk), enable_gqa",
+            "visible_pairs": b * pairs, "bound_ms": b_ms, "bound_by": b_by,
+            **dev_t, "share_of_bound": b_ms / k_ms}
+    if isinstance(dev_t["device_ms"], float):
+        line["device_tflops"] = flops / (dev_t["device_ms"] * 1e-3) / 1e12
+        line["device_share_of_bound"] = b_ms / dev_t["device_ms"]
+    return line
+
+
 def flash_build_facts() -> dict:
     """What the flash kernels compiled to: resident blocks per SM (CUDA
     occupancy calculator), registers and spills (ptxas), and the
@@ -470,9 +550,11 @@ def flash_build_facts() -> dict:
 
 
 def check_flash_attention(dev, gen, results):
-    """The causal prefill kernel at the earlier slices' three shapes and
-    at the serve path's own (B 8, as ``batch_buckets=(8,)`` pads every
-    prefill, at each seq bucket); the kernels line reports B 2, S 1024."""
+    """The causal prefill kernel at the earlier slices' three shapes, at
+    the serve path's own (B 8, as ``batch_buckets=(8,)`` pads every
+    prefill, at each seq bucket) and in suffix alignment (``SUFFIX_CASE``,
+    row 4c); the kernels line reports B 2, S 1024 with the suffix case
+    beside it, and the worse error of the two."""
     tol = dict(atol=2e-2, rtol=2e-2)   # bf16 in/out; see tol_why_attention
     entry = {}
     for b, s in ((4, 128), (4, 512), (2, 1024),
@@ -481,10 +563,16 @@ def check_flash_attention(dev, gen, results):
         emit(line)
         if (b, s) == (2, 1024):
             entry = line
+    suffix = flash_suffix_case(dev, gen, tol=tol, **SUFFIX_CASE)
+    emit(suffix)
     emit({"phase": "flash_attention_build", **flash_build_facts()})
     results["flash_attention"] = dict(
         entry, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:91")
+        replaces="src/repro/kernels/flash_attention.py:91",
+        max_abs_err=max(entry["max_abs_err"], suffix["max_abs_err"]),
+        suffix_alignment={k: suffix[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "device_ms", "library_device_ms", "bound_ms", "bound_by")})
 
 
 #: the packed-mode checks' packs: (label, fresh lengths, prefix lengths,
@@ -1410,6 +1498,284 @@ def serve(dev, card: str, layout: str = "paged"):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: the prefix cache and chunked prefill at full width
+# ---------------------------------------------------------------------------
+
+#: serve_prefix_chunked's chunk size: the tokens one chunk turn prefills
+PREFIX_CHUNK_TOKENS = 256
+
+
+def prefix_chunked_workload(vocab: int, rng) -> list:
+    """(kind, prompt, params) of serve_prefix_chunked's 16 requests in
+    arrival order: 10 share one 512-token system prompt (suffixes of 16
+    to 400 tokens), 2 share a 520-token prefix that ends 8 tokens into a
+    block (the second's hit copies that block), 4 are cold prompts of
+    700 to 1000 tokens; every fourth request samples."""
+    from repro_torch.api import GenerationParams
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+    system, mid = toks(512), toks(520)
+    kinds = [("system", 16), ("cold", 700), ("mid-block", 40),
+             ("system", 400), ("system", 64), ("cold", 820),
+             ("system", 250), ("mid-block", 150), ("system", 33),
+             ("system", 180), ("cold", 1000), ("system", 300),
+             ("system", 97), ("cold", 910), ("system", 128),
+             ("system", 211)]
+    out = []
+    for i, (kind, n) in enumerate(kinds):
+        prompt = system + toks(n) if kind == "system" else \
+            mid + toks(n) if kind == "mid-block" else toks(n)
+        sampled = i % 4 == 1
+        params = GenerationParams(
+            max_new_tokens=min(int(rng.integers(32, 65)), 1024 - len(prompt)),
+            temperature=0.8 if sampled else 0.0,
+            top_k=50 if sampled else 0, top_p=0.95 if sampled else 1.0,
+            seed=3000 + i)
+        out.append((kind, prompt, params))
+    return out
+
+
+def suffix_logit_drift(engine, prompts, seams) -> tuple:
+    """The largest |logit| difference between each prompt's last-token
+    logits from a suffix pass after ``seams[i]`` tokens (over the prefix
+    KV of its own prefill of those tokens, as a cache hit or a chunk
+    seam gives it) and from its own prefill of the whole prompt, and the
+    largest in bf16 ulps of the row's largest |logit|; fails where one
+    passes ``PACKED_LOGIT_ULPS``."""
+    from repro_torch.models import prefill, prefill_suffix
+    cfg = engine.cfg
+    worst, worst_ulps = 0.0, 0.0
+    for p, c in zip(prompts, seams):
+        t = torch.tensor([p], device=engine.device)
+        _, pre = prefill(cfg, engine.params, t[:, :c])
+        got, _ = prefill_suffix(cfg, engine.params, t[:, c:], pre["k"],
+                                pre["v"], prefix_len=c)
+        got, own = got[0].float(), own_prefill_logits(engine, p)
+        d = float((got - own).abs().max())
+        ulps = d / bf16_ulp(float(own.abs().max()))
+        if not ulps <= PACKED_LOGIT_ULPS or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(
+                f"suffix prefill: a {len(p)}-token prompt after {c} cached "
+                f"tokens: logits {d:.3g} ({ulps:.2f} bf16 ulps of the row's "
+                f"largest) from its own prefill's (limit "
+                f"{PACKED_LOGIT_ULPS})")
+        worst, worst_ulps = max(worst, d), max(worst_ulps, ulps)
+    return worst, worst_ulps
+
+
+def decode_shape_drift(engine, prompts) -> tuple:
+    """The largest |logit| difference of one decode step of each of eight
+    prompts decoded together (batch bucket 8, as the served slot cache
+    decodes) and alone (batch bucket 1, as ``generate`` of one prompt
+    does), from the same last token; and the largest in bf16 ulps."""
+    from repro_torch.models import decode_step
+    cfg = engine.cfg
+    st = engine.own_pool(engine.prefill_batch(
+        prompts, max_len=1024, max_new_tokens=1, prompt_kv_only=True), 1024)
+    together, _ = decode_step(cfg, engine.params, st.cache, st.cur)
+    worst, worst_ulps = 0.0, 0.0
+    for i, p in enumerate(prompts):
+        one = engine.own_pool(engine.prefill_batch(
+            [p], max_len=1024, max_new_tokens=1, prompt_kv_only=True), 1024)
+        alone, _ = decode_step(cfg, engine.params, one.cache,
+                               st.cur[i:i + 1].clone())
+        a, b = alone[0].float(), together[i].float()
+        d = float((a - b).abs().max())
+        worst = max(worst, d)
+        worst_ulps = max(worst_ulps, d / bf16_ulp(float(a.abs().max())))
+    return worst, worst_ulps
+
+
+def serve_prefix_chunked(dev, card: str) -> dict:
+    """Phase 4b: full-width InternLM2-1.8B with the prefix cache and
+    chunked prefill (``PREFIX_CHUNK_TOKENS`` a chunk turn) at the JAX
+    package's default batch buckets (1, 2, 4, 8), over the paged pool,
+    once through the default packed admission (chunks and hits ride the
+    packs as prefix keys) and once per group (``packed_prefill=False``:
+    hits and chunks run the causal kernel in suffix alignment).  Checks:
+    cache hits, copy-on-write copies and chunked prefills in both runs,
+    a pack carrying a chunk, suffix-aligned causal launches, every
+    kernel of each run, the pool after the drain (every block free or
+    held by the cache alone), and every stream against the request alone
+    under the margin rule, with the drift of a packed pass, a suffix
+    pass and a decode step at batch 8 against batch 1 beside it.
+    Returns the per-group run's launches."""
+    from repro_torch.api import TurboClient
+    from repro_torch.core import PipelineConfig
+    from repro_torch.kernels import cuda_lib
+    rng = np.random.default_rng(SEED + 5)
+    out, alone_runs, drift = {}, {}, None
+    for mode in ("packed", "per_group"):
+        t0 = time.perf_counter()
+        client = TurboClient.from_arch(
+            "internlm2-1.8b", smoke=False, device=dev,
+            seq_buckets=(128, 256, 512, 1024), batch_buckets=(1, 2, 4, 8),
+            max_slots=8, cap_new=64, init_seed=SEED, prefix_cache=True,
+            num_blocks=8 * 1024 // 16 + 1,
+            packed_prefill=mode == "packed",
+            config=PipelineConfig(chunked_prefill=True,
+                                  prefill_chunk_tokens=PREFIX_CHUNK_TOKENS))
+        ce, pipe = client.backend, client.pipeline
+        engine = ce.engine
+        cfg = engine.cfg
+        if mode == "packed":
+            specs = prefix_chunked_workload(cfg.vocab_size, rng)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_lib.reset_launches()
+        t_serve = time.perf_counter()
+        handles = [client.submit(p, g) for _, p, g in specs[:4]]
+        client.pump(max_ticks=6)                 # admissions, decodes
+        handles += [client.submit(p, g) for _, p, g in specs[4:]]
+        results = [h.result() for h in handles]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t_serve
+        launches = dict(cuda_lib.LAUNCHES)
+        suffix_launches = cuda_lib.LAUNCH_SHAPES[("flash_attention",
+                                                  "suffix")]
+        peak = torch.cuda.max_memory_allocated(dev)
+        stats, prefix = pipe.stats, ce.prefix_stats()
+        ticks, prefills = ce.decode_ticks, ce.prefill_dispatches
+        # ---- the path's counters --------------------------------------
+        if not (prefix["hits"] > 0 and prefix["cow_blocks"] > 0 and
+                stats.chunked_prefills > 0):
+            raise AssertionError(f"serve_prefix_chunked {mode}: prefix "
+                                 f"{prefix}, {stats.chunked_prefills} "
+                                 "chunked prefills")
+        attention = "flash_attention_packed" if mode == "packed" \
+            else "flash_attention"
+        other = "flash_attention" if mode == "packed" \
+            else "flash_attention_packed"
+        for kname in ("norm", attention, "flash_decode_paged", "sample"):
+            if launches.get(kname, 0) <= 0:
+                raise AssertionError(f"serve_prefix_chunked {mode}: kernel "
+                                     f"{kname} never launched: {launches}")
+        if launches.get(other, 0) or \
+                launches[attention] != cfg.num_layers * prefills:
+            raise AssertionError(
+                f"serve_prefix_chunked {mode}: {launches} over {prefills} "
+                f"prefill passes (expected {cfg.num_layers} {attention} "
+                f"launches each, no {other})")
+        norms_per_step = 2 * cfg.num_layers + 1
+        if launches["norm"] != norms_per_step * (ticks + prefills) or \
+                launches["flash_decode_paged"] != cfg.num_layers * ticks:
+            raise AssertionError(
+                f"serve_prefix_chunked {mode}: {launches} over {ticks} "
+                f"ticks and {prefills} prefill passes")
+        chunk_segments = ce.pack_segments - (stats.admitted -
+                                             stats.chunked_prefills)
+        packs = list(ce.pack_log)
+        if mode == "packed" and (ce.pack_dispatches != prefills or
+                                 chunk_segments <= 0):
+            raise AssertionError(
+                f"serve_prefix_chunked packed: {ce.pack_dispatches} packs "
+                f"of {prefills} passes, {chunk_segments} chunk segments")
+        if mode == "per_group" and suffix_launches <= 0:
+            raise AssertionError("serve_prefix_chunked per_group: the "
+                                 "causal kernel never ran with Sk > Sq")
+        # ---- the pool after the drain ----------------------------------
+        btm = ce.block_table
+        if any(btm.has_request(h.req_id) for h in handles) or \
+                btm.used_blocks != ce.prefix_cache.cached_blocks or \
+                ce.prefix_cache.evictable_blocks() != btm.used_blocks or \
+                ce._reserved or ce._chunk_slots or \
+                engine.kv_slab.live_bytes:
+            raise AssertionError(
+                f"serve_prefix_chunked {mode}: after the drain the pool "
+                f"holds {btm.used_blocks} blocks, the cache "
+                f"{ce.prefix_cache.cached_blocks} "
+                f"({ce.prefix_cache.evictable_blocks()} evictable)")
+        for (_, prompt, params), res in zip(specs, results):
+            if res[:len(prompt)] != prompt or \
+                    len(res) - len(prompt) != params.max_new_tokens or \
+                    any(not 0 <= t < cfg.vocab_size
+                        for t in res[len(prompt):]):
+                raise AssertionError(f"serve_prefix_chunked {mode}: bad "
+                                     "result")
+        # ---- streams against the request alone -------------------------
+        prompts = [p for _, p, _ in specs]
+        if drift is None:
+            seams = [h.session.cached_tokens or PREFIX_CHUNK_TOKENS
+                     for h in handles]
+            drift = {"packed": packed_logit_drift(engine, prompts),
+                     "suffix": suffix_logit_drift(engine, prompts, seams),
+                     "decode_b8_vs_b1": decode_shape_drift(engine,
+                                                           prompts[:8])}
+        dlogit = max(d for d, _ in drift.values())
+        greedy_eq, sampled_eq, divergences = 0, 0, []
+        for i, ((kind, prompt, params), res) in enumerate(zip(specs,
+                                                              results)):
+            if i not in alone_runs:
+                alone_runs[i] = client.submit(prompt, params).result() \
+                    if params.temperature > 0 else engine.generate(
+                        [prompt], max_new_tokens=params.max_new_tokens)[0]
+            alone = alone_runs[i]
+            if alone != res:
+                divergences.append(dict(explain_divergence(
+                    engine, prompt, params, alone, res, dlogit),
+                    kind=kind, request=i))
+            if params.temperature > 0:
+                sampled_eq += alone == res
+            else:
+                greedy_eq += alone == res
+        ttft = sorted(h.ttft for h in handles)
+        gen_tokens = sum(len(r) - len(p) for r, p in zip(results, prompts))
+        m = pipe.obs.metrics
+        line = {"phase": "serve_prefix_chunked", "mode": mode, "card": card,
+                "model": "internlm2-1.8b (full width, 24 layers, bf16 "
+                         "weights from a seed, f32 KV)",
+                "batch_buckets": [1, 2, 4, 8],
+                "chunk_tokens": PREFIX_CHUNK_TOKENS,
+                "requests": len(handles),
+                "kinds": {k: sum(1 for s in specs if s[0] == k)
+                          for k in ("system", "mid-block", "cold")},
+                "sampled": sum(1 for s in specs if s[2].temperature > 0),
+                "greedy_equal_to_generate_alone": greedy_eq,
+                "sampled_equal_to_served_alone": sampled_eq,
+                "divergences": divergences,
+                "drift_max_abs_dlogit_and_bf16_ulps": drift,
+                "drift_limit_ulps": PACKED_LOGIT_ULPS,
+                "prefix_stats": prefix,
+                "cached_tokens": [h.session.cached_tokens for h in handles],
+                "chunked_prefills": stats.chunked_prefills,
+                "chunk_ticks": stats.chunk_ticks,
+                "pack_wait_vetoes": m.counter("pipeline.veto.pack_wait").value,
+                "capacity_vetoes": m.counter("pipeline.veto.capacity").value,
+                "pack_dispatches": ce.pack_dispatches,
+                "pack_chunk_segments": chunk_segments if mode == "packed"
+                else None,
+                "packs": [{"segments": n, "flat": flat, "bucket": bucket}
+                          for n, flat, bucket in packs],
+                "suffix_aligned_flash_launches": suffix_launches,
+                "prefill_passes": prefills, "decode_ticks": ticks,
+                "generated_tokens": gen_tokens, "serve_s": serve_s,
+                "tok_per_s": gen_tokens / serve_s,
+                "ttft_p50_s": float(np.percentile(ttft, 50)),
+                "ttft_p99_s": float(np.percentile(ttft, 99)),
+                "peak_mem_gib": peak / 2 ** 30,
+                "peak_mem_note": "the serve window's peak, the gathered "
+                                 "prefix KV (f32, every layer) included",
+                "stack_build_s": build_s, "launches": launches,
+                "cache_after_drain": {
+                    "pool_blocks_held": btm.used_blocks,
+                    "cached_blocks": ce.prefix_cache.cached_blocks,
+                    "evictable": ce.prefix_cache.evictable_blocks()}}
+        emit(line)
+        beyond = [d for d in divergences if not d["within_rule"]]
+        if beyond:
+            raise AssertionError(
+                f"serve_prefix_chunked {mode}: {len(beyond)} streams differ "
+                f"from the request alone beyond the margin rule: {beyond}")
+        out[mode] = launches
+        del client, ce, pipe, engine, handles
+        release_memory()
+    return out["per_group"]
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the paper's one-shot classification service at full width
 # ---------------------------------------------------------------------------
 
@@ -1807,36 +2173,65 @@ def profile_decode(client, card: str, ticks: int = 10,
 PROFILE_PREFILL_LENS = (1000, 1010, 990, 1023, 900, 1020, 1015, 1005)
 
 
-def profile_prefill(client, card: str, packed: bool = False) -> None:
+#: profile_prefill_suffix: the prompt tokens served from the cache
+PROFILE_SUFFIX_CACHED = 768
+
+
+def profile_prefill(client, card: str, mode: str = "full") -> None:
     """One prefill of eight prompts at full width under torch.profiler:
-    at the 1024 bucket, eight rows of it (the per-group path), or
-    (``packed``) the same prompts as one pack of 7963 tokens in the 8192
-    pack bucket (the paged path's default).  Wall time, the device's busy
-    time by kernel family and its idle share, and the flash kernel's
-    device time, share and rate over its 24 launches."""
+    at the 1024 bucket, eight rows of it (``"full"``, the per-group
+    path); the same prompts as one pack of 7963 tokens in the 8192 pack
+    bucket (``"packed"``, the paged path's default); or (``"suffix"``)
+    their first ``PROFILE_SUFFIX_CACHED`` tokens served from the cache:
+    the window gathers that prefix KV from a paged pool and prefills the
+    rest, eight rows at the 256 bucket, the causal kernel in suffix
+    alignment.  Wall time, the device's busy time by kernel family and
+    its idle share, and the flash kernel's device time, share and rate
+    over its 24 launches."""
     engine = client.backend.engine
     cfg = engine.cfg
     rng = np.random.default_rng(SEED + 2)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
                for n in PROFILE_PREFILL_LENS]
+    packed = mode == "packed"
     kname = "flash_attention_packed" if packed else "flash_attention"
     no_kv = torch.zeros((cfg.num_layers, 0, cfg.num_kv_heads, cfg.head_dim),
                         device=engine.device)
     no_ids = torch.zeros((0,), dtype=torch.int32, device=engine.device)
+    cached = PROFILE_SUFFIX_CACHED
+    if mode == "suffix":
+        # the prefixes' KV in a paged pool (their 1024 bucket's blocks
+        # a row), read back through the first cached / 16 of each table
+        pool = engine.own_pool(engine.prefill_batch(
+            [p[:cached] for p in prompts], max_len=1024,
+            max_new_tokens=1, prompt_kv_only=True), 1024).cache
+        tables = pool["block_tables"][:, :cached // 16].long()
+        flat = (cfg.num_layers, len(prompts), cached, cfg.num_kv_heads,
+                cfg.head_dim)
 
     def prefill():
         if packed:
             return engine.prefill_packed_flat(prompts, [0] * len(prompts),
                                               no_kv, no_kv, no_ids,
                                               no_ids)[0]
+        if mode == "suffix":
+            pk = pool["k"][:, tables].reshape(flat)
+            pv = pool["v"][:, tables].reshape(flat)
+            return engine.prefill_suffix_batch(
+                prompts, prefix_k=pk, prefix_v=pv, prefix_len=cached,
+                max_new_tokens=1).cur
         state = engine.prefill_batch(prompts, max_len=1024, max_new_tokens=1,
                                      prompt_kv_only=True)
         return state.cur
     prefill()                                    # warm: same shapes
+    from repro_torch.kernels import cuda_lib
     prof, wall_ms, launches, (busy_us, kernels, host), check, out = \
         traced_window(prefill)
-    if launches.get(kname, 0) != cfg.num_layers:
-        raise AssertionError(f"profile_prefill: {launches} (expected "
+    suffix_launches = cuda_lib.LAUNCH_SHAPES[("flash_attention", "suffix")]
+    if launches.get(kname, 0) != cfg.num_layers or \
+            suffix_launches != (cfg.num_layers if mode == "suffix" else 0):
+        raise AssertionError(f"profile_prefill {mode}: {launches}, "
+                             f"{suffix_launches} suffix-aligned (expected "
                              f"{cfg.num_layers} {kname} launches)")
     first = out[:len(prompts)].argmax(dim=-1) if packed else \
         out[:len(prompts)]
@@ -1851,13 +2246,20 @@ def profile_prefill(client, card: str, packed: bool = False) -> None:
     flash_us = sum(us for us, _, name in kernels if needle in name)
     b, s, h, dh = 8, 1024, cfg.num_heads, cfg.head_dim
     flat = sum(PROFILE_PREFILL_LENS)
-    # the work the prompts need: each one's causal pairs
+    if mode == "suffix":
+        s = engine.ladder.seq_bucket(max(PROFILE_PREFILL_LENS) - cached)
+    # the work the prompts need: each one's causal pairs (packed), or the
+    # padded rows' (per group): s queries after ``cached`` keys
     pairs = sum(n * (n + 1) / 2 for n in PROFILE_PREFILL_LENS) if packed \
-        else b * s * (s + 1) / 2
+        else b * (s * (s + 1) / 2 + (s * cached if mode == "suffix" else 0))
     flops = cfg.num_layers * 4.0 * h * dh * pairs
-    emit({"phase": "profile_prefill_packed" if packed else "profile_prefill",
+    emit({"phase": {"full": "profile_prefill",
+                    "packed": "profile_prefill_packed",
+                    "suffix": "profile_prefill_suffix"}[mode],
           "card": card, "rows": 1 if packed else b,
           "bucket": engine.ladder.pack_bucket(flat) if packed else s,
+          "cached_tokens": cached if mode == "suffix" else 0,
+          "suffix_aligned_flash_launches": suffix_launches,
           "flat_tokens": flat if packed else b * s,
           "prompt_lens": [len(p) for p in prompts],
           "wall_ms": wall_ms,
@@ -1946,8 +2348,12 @@ def main() -> int:
     profile_decode(client, card)
     profile_decode(client, card, sampled=True)
     profile_prefill(client, card)
-    profile_prefill(client, card, packed=True)
+    profile_prefill(client, card, mode="packed")
+    profile_prefill(client, card, mode="suffix")
     del client
+    release_memory()
+    # the prefix cache and chunked prefill: packed, then per group
+    serve_prefix_chunked(dev, card)
     release_memory()
     launches["softmax"] = classify_phase(dev, card)
     release_memory()

@@ -157,9 +157,10 @@ class RequestHandle:
             raise RuntimeError(f"request {self.req_id} failed: {s.error}")
 
     def cancel(self) -> bool:
-        """Tear the request down in whatever state it is in — queued or
-        mid-decode.  Every block and slot it had is released.  Returns
-        False if it had already finished."""
+        """Tear the request down in whatever state it is in — queued,
+        mid-(chunked-)prefill, or mid-decode.  Every block / slot /
+        shared-prefix hold it had is released.  Returns False if it had
+        already finished."""
         return self._client._cancel(self.session)
 
     # internal: the client's token callback appends here
@@ -251,6 +252,7 @@ class TurboClient:
                   max_slots: int = 8, cap_new: int = 64,
                   seq_buckets: Sequence[int] = (32, 64, 128),
                   batch_buckets: Sequence[int] = (1, 2, 4, 8),
+                  prefix_cache: bool = False,
                   cost_model: Optional[CostModel] = None,
                   config: Optional[PipelineConfig] = None,
                   init_seed: int = 0,
@@ -263,7 +265,8 @@ class TurboClient:
         (``smoke=True``) or full config, fresh params drawn from
         ``init_seed`` on ``device``, a bucketed InferenceEngine, and a
         ContinuousEngine backend (paged KV unless ``backend_kw`` asks for
-        ``kv_layout="contiguous"``).  ``device`` defaults to
+        ``kv_layout="contiguous"``; ``prefix_cache=True`` shares prompt
+        prefixes across requests over the paged pool).  ``device`` defaults to
         ``"cuda"``; without a card the call raises unless the caller
         passes ``device="cpu"``.  One client serves one replica."""
         from repro_torch.configs import get_config, get_smoke_config
@@ -280,7 +283,8 @@ class TurboClient:
             batch_buckets=tuple(batch_buckets)),
             sample_candidates=sample_candidates, device=dev)
         backend = ContinuousEngine(engine, max_slots=max_slots,
-                                   cap_new=cap_new, **backend_kw)
+                                   cap_new=cap_new,
+                                   prefix_cache=prefix_cache, **backend_kw)
         return cls(backend, cost_model=cost_model, config=config,
                    auto_pump=auto_pump, warmup=warmup, trace=trace)
 

@@ -47,6 +47,47 @@ def block_round(tokens: int, block_size: int) -> int:
     return blocks_for_tokens(tokens, block_size) * block_size
 
 
+def chunk_tokens_for_budget(cost: "CostModel", budget: float,
+                            quantum: int, cap: int) -> int:
+    """Chunked-prefill chunk size: the largest multiple of ``quantum``
+    whose single-row prefill cost fits within ``budget`` seconds — the
+    caller prices the budget as ``prefill_stall_factor`` decode ticks of
+    the current batch, the same stall bound the two-phase admission veto
+    enforces (chunking turns that all-or-nothing veto into a per-chunk
+    guarantee).
+
+    ``quantum`` is the backend's progress granule (the paged-KV block
+    size, so chunk seams land on block boundaries and every distinct
+    query offset is a reusable cell); the result is always at
+    least one quantum — a budget too small for any progress would
+    otherwise starve prefill forever.  ``cap`` bounds the search (the
+    longest admissible prompt: a bigger chunk could never be
+    dispatched).  Deterministic in its inputs, so the port and the JAX
+    package size chunks identically given the same cost model.
+    """
+    if quantum <= 0:
+        raise ValueError(f"quantum must be positive, got {quantum}")
+    c = quantum
+    while c + quantum <= cap and \
+            cost.prefill_latency(c + quantum, 1) <= budget:
+        c += quantum
+    return c
+
+
+def prefix_fresh_blocks(total_tokens: int, cached_tokens: int,
+                        block_size: int) -> int:
+    """Fresh blocks a request consumes when ``cached_tokens`` of its
+    prompt are served from a shared prefix cache.
+
+    Only *whole* shared blocks are free: a cached prefix ending mid-block
+    still costs that block (the request copy-on-writes it before its
+    suffix lands there).  The engine and the admission planner must both
+    charge this same number.
+    """
+    return blocks_for_tokens(total_tokens, block_size) - \
+        max(int(cached_tokens), 0) // block_size
+
+
 class CostModel:
     def latency(self, seq_len: int, batch: int) -> float:
         raise NotImplementedError

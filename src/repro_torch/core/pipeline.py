@@ -13,17 +13,29 @@ batching, cf. the LLM-serving survey's iteration-level scheduling): each
 One-shot (classification) sessions finish at prefill, which makes the
 request-granularity system of the paper a special case of this loop.
 
-This is the port's copy of the JAX package's pipeline, cut to what the
-port serves: prefill admission planned by the configured policy (the
-paper's DP scheduler or a baseline) and decode ticks.  A backend that
-packs (``supports_packed_prefill``) serves each admission group as one
-flat dispatch, and the two-phase veto prices it so
-(``CostModel.packed_prefill_latency``).  Chunked prefill, and with it the
-pack turn that mixes chunks into packs, is not ported yet.
+**Chunked prefill** (``PipelineConfig.chunked_prefill``) bounds the
+decode stall a long prompt imposes: instead of one monolithic prompt
+pass, an admitted long prompt becomes a *resumable* PREFILL that
+advances one decode-tick-sized chunk per tick (chunk cost budgeted to
+``prefill_stall_factor`` decode ticks by
+:func:`repro_torch.core.cost_model.chunk_tokens_for_budget`), alternating
+with decode ticks so every in-flight sequence keeps emitting between
+chunks.  KV for the whole prompt is charged at admission (the chunks
+can then never starve mid-prompt); the session splices into the decode
+batch only after its final chunk.  The classic all-or-nothing two-phase
+veto is the degenerate single-chunk case — prompts that fit one chunk
+still go through the planned, veto-guarded batch path.
 
-The pipeline is execution-agnostic: a :class:`PipelineBackend` runs the
-work.  `repro_torch.runtime.engine.ContinuousEngine` backs it with a
-live model and wall clock.
+**Packed prefill** (``PipelineConfig.packed_prefill``, on a backend
+that packs) serves each admission group, and each chunk turn's pack
+group — every resumable prefill's next chunk plus queued short prompts —
+as ONE flat segment-id dispatch, and the two-phase veto prices it so
+(``CostModel.packed_prefill_latency``).
+
+This is the port's copy of the JAX package's pipeline.  It is
+execution-agnostic: a :class:`PipelineBackend` runs the work, and
+`repro_torch.runtime.engine.ContinuousEngine` backs it with a live model
+and wall clock.
 """
 from __future__ import annotations
 
@@ -32,9 +44,9 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.core.cost_model import CostModel
+from repro_torch.core.cost_model import CostModel, chunk_tokens_for_budget
 from repro_torch.core.scheduler import (BatchPlan, dp_schedule,
-                                       naive_schedule, nobatch_schedule)
+                                        naive_schedule, nobatch_schedule)
 from repro_torch.obs import Observability
 from repro_torch.runtime.session import Session, SessionState
 
@@ -70,12 +82,6 @@ class PipelineBackend:
     def decode_tick(self, sessions: List[Session]) -> None:
         raise NotImplementedError
 
-    def supports_packed_prefill(self) -> bool:
-        """Whether ``prefill_batch`` serves an admission group as ONE
-        packed dispatch over the flat tokens (so the admission veto must
-        price it that way)."""
-        return False
-
     def free_slots(self) -> Optional[int]:
         """Decode slots available for new admissions; None = unbounded."""
         return None
@@ -105,6 +111,83 @@ class PipelineBackend:
         """Raise ValueError for a session this backend can never serve
         (checked at submit time, before any state transition)."""
 
+    # -- chunked prefill (optional capability) ---------------------------
+    def supports_chunked_prefill(self) -> bool:
+        """Whether this backend implements the resumable chunk-prefill
+        primitives below.  The pipeline only engages chunking when both
+        the config asks for it and the backend can serve it."""
+        return False
+
+    def chunk_quantum(self) -> int:
+        """Progress granule for chunked prefill, in tokens.  Paged
+        backends return their KV block size so chunk seams land on block
+        boundaries."""
+        return 16
+
+    def begin_prefill_chunks(self, session: Session) -> None:
+        """Admit ``session`` (already in PREFILL) for chunked prefill:
+        reserve its decode slot and its WHOLE prompt's KV up front —
+        ``session.prefilled_tokens`` may start above 0 when a prompt
+        prefix is served from a shared cache.  No model work happens
+        here; ``prefill_chunk`` does the passes."""
+        raise NotImplementedError
+
+    def prefill_chunk(self, session: Session, upto: int) -> None:
+        """Advance ``session``'s resumable prefill to prompt position
+        ``upto`` (one chunk), updating ``session.prefilled_tokens``.
+        When ``upto == session.seq_len`` this is the final chunk: the
+        backend must splice the session into the decode batch (DECODE)
+        or finish it (one-shot / instant EOS)."""
+        raise NotImplementedError
+
+    def abort_chunked(self, session: Session) -> None:
+        """Release everything ``begin_prefill_chunks``/``prefill_chunk``
+        hold for a session whose chunked prefill failed terminally."""
+
+    # -- packed prefill (optional capability) ----------------------------
+    def supports_packed_prefill(self) -> bool:
+        """Whether :meth:`prefill_pack` serves many segments (queued
+        admissions and resumable-prefill chunks) in ONE dispatch.  The
+        pipeline only composes pack groups when both the config asks
+        for it and the backend can serve them."""
+        return False
+
+    def pack_bucket(self, flat_tokens: int) -> int:
+        """Padded size of the packed dispatch a flat token count
+        executes as — the pack-occupancy histogram's denominator."""
+        return max(int(flat_tokens), 1)
+
+    def prefill_pack(self, admissions: List[Session],
+                     chunks: List[Tuple[Session, int]],
+                     decoding: Optional[List[Session]] = None) -> None:
+        """One packed dispatch over ``admissions`` (sessions already in
+        PREFILL, admitted whole) plus ``chunks`` (``(session, upto)``
+        next-chunk advances).  Admissions and final chunks must leave
+        in DECODE (or finished); ``decoding`` — only passed when
+        nothing in the pack splices — fuses a decode tick behind the
+        pack the way :meth:`chunk_decode_tick` does."""
+        raise NotImplementedError
+
+    # -- fused chunk+decode (optional capability) ------------------------
+    def supports_fused_chunk_decode(self) -> bool:
+        """Whether :meth:`chunk_decode_tick` runs a prefill chunk and a
+        decode tick as one combined dispatch.  Backends whose chunk and
+        decode work are independent device programs with no host sync
+        between them can fuse; the default says no and the pipeline
+        falls back to alternating ticks."""
+        return False
+
+    def chunk_decode_tick(self, session: Session, upto: int,
+                          decoding: List[Session]) -> None:
+        """Advance ``session``'s resumable prefill to ``upto`` AND run
+        one decode tick over ``decoding`` in a single dispatch — the
+        decode batch stops paying a full tick of stall per chunk.  Only
+        ever called for NON-final chunks (``upto < session.seq_len``),
+        so the freshly chunked session never splices mid-call.  The
+        default implementation is the unfused sequence."""
+        self.prefill_chunk(session, upto)
+        self.decode_tick(decoding)
+
     # -- invariant checking (optional capability) ------------------------
     def check_invariants(self, pipeline: "ServingPipeline") -> None:
         """Sanitizer hook, called at every tick boundary when the
@@ -119,8 +202,9 @@ class PipelineBackend:
         """Tear down a mid-DECODE session immediately: free its KV
         (blocks, slab region, reservations), release its decode slot,
         and neutralize any device-resident row.  QUEUED cancellation
-        needs no backend work; only backends with a decode phase must
-        implement this."""
+        needs no backend work and mid-chunked-prefill cancellation goes
+        through :meth:`abort_chunked`; only backends with a decode phase
+        must implement this."""
         raise NotImplementedError(
             f"{type(self).__name__} does not support mid-decode "
             "cancellation")
@@ -144,8 +228,25 @@ class PipelineConfig:
     # always admit while the decode batch is below this size (prefills
     # are cheap to amortize into an underfull decode batch)
     min_decode_batch: int = 1
-    # packed prefill: a backend that can pack (paged KV) dispatches each
-    # admission group as ONE flat segment-id prefill
+    # chunked prefill: mid-decode, a prompt longer than one chunk is
+    # admitted as a resumable PREFILL advancing one chunk per tick,
+    # alternating with decode ticks — its stall per decode token is one
+    # chunk's cost instead of the whole prompt's.  Chunk size is derived
+    # from prefill_stall_factor x the current decode tick cost unless
+    # prefill_chunk_tokens pins it explicitly.
+    chunked_prefill: bool = False
+    prefill_chunk_tokens: Optional[int] = None
+    # fuse each NON-final prefill chunk with the decode tick into one
+    # dispatch (backend capability permitting): on a chunk turn the
+    # decode batch advances too, so chunking a long prompt costs the
+    # in-flight sequences no extra inter-token latency and per-tick
+    # dispatch overhead is paid once instead of twice
+    fused_chunk_decode: bool = True
+    # packed prefill: compose pack GROUPS on chunk turns — every
+    # resumable prefill's next chunk (round-robin share of the token
+    # budget) plus queued short prompts filling the leftover — and
+    # dispatch them as ONE flat segment-id prefill (backend capability
+    # permitting), instead of advancing a single session per tick
     packed_prefill: bool = True
 
 
@@ -160,16 +261,19 @@ class PipelineStats:
     prefill_batches: int = 0
     admitted: int = 0
     deferred_prefills: int = 0          # two-phase regime said "keep decoding"
+    chunk_ticks: int = 0                # resumable-prefill chunk advances
+    chunked_prefills: int = 0           # sessions admitted via chunking
     cancelled: int = 0                  # sessions torn down by cancel()
 
 
 #: PipelineStats fields, in declaration order — each is mirrored by the
 #: registry counter ``pipeline.<field>``
 STAT_FIELDS = ("prefill_ticks", "decode_ticks", "prefill_batches",
-               "admitted", "deferred_prefills", "cancelled")
+               "admitted", "deferred_prefills", "chunk_ticks",
+               "chunked_prefills", "cancelled")
 
 #: admission-veto reasons counted per tick under ``pipeline.veto.<r>``
-VETO_REASONS = ("stall", "capacity", "trigger", "drain")
+VETO_REASONS = ("stall", "capacity", "trigger", "drain", "pack_wait")
 
 
 class ServingPipeline:
@@ -186,6 +290,7 @@ class ServingPipeline:
         self.clock = clock
         self.queue: List[Session] = []          # QUEUED, arrival order
         self.live: List[Session] = []           # DECODE in flight
+        self.chunking: List[Session] = []       # resumable PREFILL, FIFO
         self.finished: List[Session] = []
         # observability: the registry is the pipeline's ONE counter
         # system (``stats`` is a view over it); the optional trace
@@ -205,20 +310,36 @@ class ServingPipeline:
         self._hist_qwait = m.histogram("pipeline.queue_wait_seconds")
         self._g_queue = m.gauge("pipeline.queue_depth")
         self._g_batch = m.gauge("pipeline.decode_batch")
+        self._g_chunking = m.gauge("pipeline.chunking_depth")
+        # packed-prefill telemetry: dispatches vs segments served gives
+        # the packing ratio; occupancy is flat tokens over the padded
+        # pack bucket actually executed (1.0 = no padding waste)
+        self._c_pack_disp = m.counter("pipeline.pack.dispatches")
+        self._c_pack_segs = m.counter("pipeline.pack.segments")
+        self._hist_pack = m.histogram("pipeline.pack.occupancy")
         self._trace_ids = itertools.count(1)
         self._last_compile_count = 0
-        # did the last tick execute work (prefill/decode)?  The
+        # did the last tick execute work (prefill/chunk/decode)?  The
         # no-progress guard in drain() reads this instead of counters,
         # so it keeps working even under a disabled registry.
         self._tick_worked = False
         # token-emission callback (session, fresh_tokens): invoked after
         # every tick for each session whose host-visible generation grew
-        # — the `repro_torch.api` streaming handles hang off this.  Real-engine
-        # sessions publish incrementally only when `session.stream` is
-        # set; otherwise the whole generation arrives in one call at
-        # finish time.
+        # — the `repro_torch.api` streaming handles hang off this.
+        # Engine sessions publish incrementally only when
+        # `session.stream` is set; otherwise the whole generation arrives
+        # in one call at finish time.
         self.on_token: Optional[
             Callable[[Session, List[int]], None]] = None
+        # alternation flag: after a decode tick the next tick may advance
+        # a chunk; after a chunk tick decode runs again — so no decode
+        # token waits for more than one chunk of prefill work
+        self._chunk_turn = False
+        # pack-group rotation cursor: each pack turn starts its
+        # round-robin over ``chunking`` one session later, so a budget
+        # too small for every session's chunk still reaches all of them
+        # within a few turns (no FIFO-head starvation)
+        self._chunk_rr = 0
         # req-id composition of every executed prefill batch, in dispatch
         # order — lets tests assert real-vs-virtual scheduling equivalence
         self.batch_log: List[Tuple[int, ...]] = []
@@ -255,8 +376,9 @@ class ServingPipeline:
 
     def cancel(self, session: Session) -> bool:
         """Tear down ``session`` in whatever state it is in — QUEUED
-        (drop from the admission queue) or DECODE (free KV / slot via the
-        backend).
+        (drop from the admission queue), resumable PREFILL (release the
+        chunked prefill's reserved slot + blocks via the backend), or
+        DECODE (free KV / slot / shared-prefix holds via the backend).
         Tokens generated before the cancel stay on the session as a
         partial result.  Returns False when the session is already
         FINISHED (nothing to do), True when it was cancelled here."""
@@ -265,6 +387,9 @@ class ServingPipeline:
         was = session.state.value
         if session in self.queue:
             self.queue.remove(session)
+        elif session in self.chunking:
+            self.backend.abort_chunked(session)
+            self.chunking.remove(session)
         elif session in self.live:
             if session.state is SessionState.DECODE:
                 self.backend.cancel_session(session)
@@ -343,7 +468,7 @@ class ServingPipeline:
             return True
         if self._pack_enabled():
             # a packed admission executes as ONE flat dispatch over the
-            # group's total tokens: price the stall it actually imposes
+            # group's total tokens — price the stall it actually imposes
             stall = self.cost.packed_prefill_latency(
                 sum(s.seq_len for s in batch), len(batch))
         else:
@@ -352,14 +477,37 @@ class ServingPipeline:
         return stall <= self.config.prefill_stall_factor * \
             self._decode_tick_cost(decoding)
 
+    # -- chunked prefill -------------------------------------------------
+    def _chunk_enabled(self) -> bool:
+        return self.config.chunked_prefill and \
+            self.backend.supports_chunked_prefill()
+
     def _pack_enabled(self) -> bool:
         return bool(self.config.packed_prefill and
                     self.backend.supports_packed_prefill())
 
+    def _chunk_tokens(self) -> int:
+        """Tokens the next prefill chunk may cover: a whole number of
+        backend quanta whose cost fits the decode-stall budget (see
+        cost_model.chunk_tokens_for_budget), or the explicit override."""
+        cfg = self.config
+        quantum = self.backend.chunk_quantum()
+        if cfg.prefill_chunk_tokens is not None:
+            return max(cfg.prefill_chunk_tokens, 1)
+        decoding = self._decoding()
+        cap = max((s.seq_len for s in self.queue + self.chunking),
+                  default=quantum)
+        if not decoding:
+            return max(cap, quantum)     # nothing to stall
+        budget = cfg.prefill_stall_factor * self._decode_tick_cost(decoding)
+        return chunk_tokens_for_budget(self.cost, budget, quantum,
+                                       max(cap, quantum))
+
     def _admission_decision(self, record: bool = False):
         """What an admission round would do right now:
         ``None`` (nothing to admit), ``"defer"`` (two-phase veto),
-        or ``("plan", cand, plan)`` (dispatch
+        ``("chunk", session, None)`` (begin a resumable chunked prefill
+        for the queue head), or ``("plan", cand, plan)`` (dispatch
         ``plan``'s batches over ``cand``; plan is None when the idle
         path skipped the veto and the dispatcher should plan itself).
         Pure unless ``record`` (tick-internal): real scheduling rounds
@@ -369,7 +517,8 @@ class ServingPipeline:
         is answerable from the registry."""
         if not self.queue:
             return None
-        if self.config.admission == "drain" and self.live:
+        if self.config.admission == "drain" and (self.live or
+                                                 self.chunking):
             if record:
                 self._veto["drain"].inc()
             return None
@@ -385,6 +534,20 @@ class ServingPipeline:
         decoding = self._decoding()
         if not decoding or len(decoding) < self.config.min_decode_batch:
             return ("plan", cand, None)
+        if self._chunk_enabled():
+            chunk = self._chunk_tokens()
+            if cand[0].seq_len > chunk:
+                # the queue head needs chunking: admit it alone into the
+                # resumable-prefill queue (its stall is then per-chunk)
+                return ("chunk", cand[0], None)
+            # plan only over prompts that fit one chunk; a long prompt
+            # mid-queue waits for its own chunked admission (FIFO)
+            short = []
+            for s in cand:
+                if s.seq_len > chunk:
+                    break
+                short.append(s)
+            cand = short
         plan = plan_for_policy(
             self.config.policy, [s.seq_len for s in cand], self.cost,
             self.config.max_batch_size)
@@ -409,30 +572,67 @@ class ServingPipeline:
     # The loop
     # ------------------------------------------------------------------
     def tick(self) -> List[Session]:
-        """One scheduler iteration: a prefill admission round OR one
-        decode step over every in-flight sequence.  Returns the sessions
-        that finished during this tick."""
+        """One scheduler iteration: a resumable-prefill chunk advance, a
+        prefill admission round, OR one decode step over every in-flight
+        sequence.  Returns the sessions that finished during this tick."""
         done: List[Session] = []
         self._tick_worked = False
         t0 = self.clock()
         kind: Optional[str] = None
         decoding = self._decoding()
-        decision = self._admission_decision(record=True)
-        if decision == "defer":
-            self._stat["deferred_prefills"].inc()
-            decision = None
-        if decision is not None:
-            _, cand, plan = decision
-            self._dispatch_prefills(cand, done, plan)
-            kind = "prefill"
-        elif decoding:
-            self.backend.decode_tick(decoding)
-            now = self.clock()
-            for s in decoding:
-                s.token_times.append(now)
-            self._observe_decode(decoding, now)
-            self._stat["decode_ticks"].inc()
-            kind = "decode"
+        if self.chunking and (self._chunk_turn or not decoding):
+            # a chunk's turn: advance the oldest resumable prefill by one
+            # budget-sized chunk; the next tick goes back to decode.
+            # With packed prefill the turn serves a whole PACK GROUP —
+            # every resumable prefill's next chunk plus queued short
+            # prompts — in one dispatch.  When the backend can fuse, a
+            # NON-final chunk and the decode tick run as ONE dispatch —
+            # the decode batch advances too, so chunking costs it no
+            # stalled tick
+            self._chunk_turn = False
+            if self._pack_enabled():
+                fused = self._advance_pack(done, decoding)
+            else:
+                fused = self._advance_chunk(done, decoding)
+            self._stat["chunk_ticks"].inc()
+            kind = "chunk"
+            if fused:
+                now = self.clock()
+                for s in decoding:
+                    s.token_times.append(now)
+                self._observe_decode(decoding, now)
+                self._stat["decode_ticks"].inc()
+                kind = "chunk+decode"
+        else:
+            decision = self._admission_decision(record=True)
+            if decision == "defer":
+                self._stat["deferred_prefills"].inc()
+                decision = None
+            if decision is not None and decision[0] == "plan" and \
+                    self._pack_enabled() and self.chunking and \
+                    decision[1][0].seq_len <= self._chunk_tokens() // 2:
+                # resumable prefills are in flight and the queue head
+                # fits the next pack's admission room: let the shorts
+                # ride that pack turn instead of paying their own
+                # dispatch here — the decode batch advances meanwhile
+                self._veto["pack_wait"].inc()
+                decision = None
+            if decision is not None:
+                dkind, payload, plan = decision
+                if dkind == "chunk":
+                    self._begin_chunked(payload, done)
+                else:
+                    self._dispatch_prefills(payload, done, plan)
+                kind = "prefill"
+            elif decoding:
+                self.backend.decode_tick(decoding)
+                now = self.clock()
+                for s in decoding:
+                    s.token_times.append(now)
+                self._observe_decode(decoding, now)
+                self._stat["decode_ticks"].inc()
+                self._chunk_turn = True
+                kind = "decode"
         # unified sweep: collect everything that finished this tick —
         # decode completions AND sessions the backend's sync marked
         # finished during a prefill tick
@@ -501,6 +701,7 @@ class ServingPipeline:
         m = self.obs.metrics
         self._g_queue.set(len(self.queue))
         self._g_batch.set(len(self.live))
+        self._g_chunking.set(len(self.chunking))
         observe = getattr(self.backend, "observe_metrics", None)
         if observe is not None:
             observe(m)
@@ -537,7 +738,7 @@ class ServingPipeline:
         slot<->session bijection, reservation balance — see
         `ContinuousEngine.check_invariants`)."""
         from repro_torch.runtime.sanitizer import SanitizerError
-        for s in self.live + done:
+        for s in self.live + self.chunking + done:
             prev = self._stream_hwm.get(s.req_id, 0)
             if s.streamed < prev:
                 raise SanitizerError(
@@ -646,17 +847,235 @@ class ServingPipeline:
         self._stat["prefill_ticks"].inc()
         self._stat["admitted"].inc(len(admitted))
 
+    def _begin_chunked(self, session: Session,
+                       done: List[Session]) -> None:
+        """Admit one long prompt as a resumable chunked prefill: charge
+        its whole-prompt KV and decode slot now, then run its first
+        chunk — so the admission tick does real prefill work."""
+        session.start_prefill(self.clock(), batch_size=1,
+                              padded_len=session.seq_len)
+        self._hist_qwait.observe(session.prefill_time -
+                                 session.arrival_time)
+        trace = self.obs.trace
+        if trace is not None:
+            trace.req_event(session, "admit", session.prefill_time,
+                            batch=1, chunked=True)
+        try:
+            self.backend.begin_prefill_chunks(session)
+        except Exception as exc:
+            if not session.is_finished:
+                session.error = str(exc)
+                session.finish(self.clock())
+            self.queue.remove(session)
+            done.append(session)
+            self.finished.append(session)
+            self._emit_finished([session])
+            raise
+        self.queue.remove(session)
+        self.chunking.append(session)
+        self.batch_log.append((session.req_id,))
+        self._stat["prefill_batches"].inc()
+        self._stat["admitted"].inc()
+        self._stat["chunked_prefills"].inc()
+        if self._pack_enabled():
+            self._advance_pack(done)
+        else:
+            self._advance_chunk(done)
+        self._stat["chunk_ticks"].inc()
+        # this tick DID chunk work: a pending chunk turn from an earlier
+        # decode tick is consumed, decode runs before the next chunk
+        self._chunk_turn = False
+
+    def _advance_chunk(self, done: List[Session],
+                       decoding: Optional[List[Session]] = None) -> bool:
+        """One chunk of progress for the oldest resumable prefill; on
+        its final chunk the backend splices the session into decode and
+        it leaves the chunk queue.  Returns True when the chunk was
+        fused with a decode tick (``decoding`` advanced too): non-final
+        chunks only — a final chunk splices a fresh row into the decode
+        batch, which must not advance before its first timestamped tick
+        — and only when both config and backend support the fusion."""
+        s = self.chunking[0]
+        prev = s.prefilled_tokens
+        upto = min(prev + self._chunk_tokens(), s.seq_len)
+        fused = bool(decoding) and upto < s.seq_len and \
+            self.config.fused_chunk_decode and \
+            self.backend.supports_fused_chunk_decode()
+        try:
+            if fused:
+                self.backend.chunk_decode_tick(s, upto, decoding)
+            else:
+                self.backend.prefill_chunk(s, upto)
+        except Exception as exc:
+            if not s.is_finished:
+                s.error = str(exc)
+                s.finish(self.clock())
+            self.backend.abort_chunked(s)
+            self.chunking.remove(s)
+            done.append(s)
+            self.finished.append(s)
+            self._emit_finished([s])
+            raise
+        trace = self.obs.trace
+        if trace is not None:
+            trace.req_event(s, "prefill", self.clock(),
+                            upto=s.prefilled_tokens,
+                            fresh=s.prefilled_tokens - prev,
+                            cached=s.cached_tokens)
+        if s.prefilled_tokens < s.seq_len:
+            return fused                 # mid-prompt; resume next turn
+        self.chunking.remove(s)
+        if s.is_finished:
+            done.append(s)
+        elif s.state is SessionState.DECODE:
+            self._record_splice(s)
+            self.live.append(s)
+        else:
+            raise RuntimeError(f"backend left session {s.req_id} in "
+                               f"{s.state} after its final chunk")
+        return fused
+
+    def _advance_pack(self, done: List[Session],
+                      decoding: Optional[List[Session]] = None) -> bool:
+        """One PACK GROUP of prefill progress: the chunk-turn token
+        budget is split round-robin over every resumable prefill (each
+        gets a quantum-aligned share, starting one session later every
+        turn so none starves), queued prompts that fit the leftover
+        budget are pulled in as whole-prompt admissions, and the whole
+        group runs as ONE packed dispatch.  Replaces the one-chunk-per-
+        tick turn: N waiting segments no longer cost N dispatches and
+        N decode stalls.  Returns True when the pack was fused with a
+        decode tick (non-splicing packs only, like ``_advance_chunk``).
+        """
+        budget = self._chunk_tokens()
+        quantum = self.backend.chunk_quantum()
+        # queued prompts claim part of the budget as whole admissions
+        # FIRST — half when resumable prefills also need the turn, all
+        # of it otherwise.  This is what makes the pack pay off: the
+        # shorts that would have cost their own prefill dispatch on the
+        # alternate tick ride the chunk turn instead (same stall bound:
+        # the pack is ONE dispatch priced over its flat tokens).
+        admissions: List[Session] = []
+        if self.queue and self._trigger():
+            room = budget if not self.chunking else budget // 2
+            for s in self._admissible():
+                if len(admissions) >= self.config.max_batch_size:
+                    break
+                if s.seq_len > room:
+                    break            # FIFO: nobody overtakes the head
+                admissions.append(s)
+                room -= s.seq_len
+        used_adm = sum(s.seq_len for s in admissions)
+        chunks: List[Tuple[Session, int]] = []
+        used = 0
+        if self.chunking:
+            rot = self._chunk_rr % len(self.chunking)
+            self._chunk_rr += 1
+            order = self.chunking[rot:] + self.chunking[:rot]
+            left = max(budget - used_adm, quantum)
+            share = max((left // len(order)) // quantum * quantum,
+                        quantum)
+            for s in order:
+                if chunks and used + quantum > left:
+                    break            # rotation reaches it next turn
+                upto = min(s.prefilled_tokens + share, s.seq_len)
+                chunks.append((s, upto))
+                used += upto - s.prefilled_tokens
+        if not chunks and not admissions:
+            return False
+        finals = [s for s, upto in chunks if upto == s.seq_len]
+        fused = bool(decoding) and not admissions and not finals and \
+            self.config.fused_chunk_decode and \
+            self.backend.supports_fused_chunk_decode()
+        trace = self.obs.trace
+        prev = {s.req_id: s.prefilled_tokens for s, _ in chunks}
+        now = self.clock()
+        for s in admissions:
+            s.start_prefill(now, batch_size=len(admissions),
+                            padded_len=s.seq_len)
+            self._hist_qwait.observe(now - s.arrival_time)
+            if trace is not None:
+                trace.req_event(s, "admit", now, batch=len(admissions),
+                                packed=True)
+        try:
+            self.backend.prefill_pack(admissions, chunks,
+                                      decoding if fused else None)
+        except Exception as exc:
+            # the dispatch is atomic: fail the WHOLE group terminally.
+            # Chunk members still hold slots/blocks from
+            # begin_prefill_chunks — abort those; admissions were swept
+            # by the backend before the raise.
+            group = [s for s, _ in chunks] + admissions
+            for s in group:
+                if not s.is_finished:
+                    s.error = str(exc)
+                    s.finish(self.clock())
+            for s, _ in chunks:
+                self.backend.abort_chunked(s)
+                self.chunking.remove(s)
+            self.queue = [s for s in self.queue if s not in admissions]
+            done.extend(group)
+            self.finished.extend(group)
+            self._emit_finished(group)
+            raise
+        nseg = len(chunks) + len(admissions)
+        flat = used + sum(s.seq_len for s in admissions)
+        self._c_pack_disp.inc()
+        self._c_pack_segs.inc(nseg)
+        self._hist_pack.observe(flat / self.backend.pack_bucket(flat))
+        now = self.clock()
+        for s, upto in chunks:
+            if trace is not None:
+                trace.req_event(s, "prefill", now,
+                                upto=s.prefilled_tokens,
+                                fresh=upto - prev[s.req_id],
+                                cached=s.cached_tokens, packed_n=nseg)
+            if s.prefilled_tokens < s.seq_len:
+                continue             # mid-prompt; resumes next turn
+            self.chunking.remove(s)
+            if s.is_finished:
+                done.append(s)
+            elif s.state is SessionState.DECODE:
+                self._record_splice(s)
+                self.live.append(s)
+            else:
+                raise RuntimeError(f"backend left session {s.req_id} in "
+                                   f"{s.state} after its final chunk")
+        if admissions:
+            self.batch_log.append(tuple(s.req_id for s in admissions))
+            self._stat["prefill_batches"].inc()
+            self._stat["admitted"].inc(len(admissions))
+            admitted = {id(s) for s in admissions}
+            self.queue = [s for s in self.queue if id(s) not in admitted]
+            for s in admissions:
+                if trace is not None:
+                    trace.req_event(s, "prefill", now, upto=s.seq_len,
+                                    cached=s.cached_tokens,
+                                    fresh=s.seq_len - s.cached_tokens,
+                                    packed_n=nseg)
+                if s.is_finished:
+                    done.append(s)
+                elif s.state is SessionState.DECODE:
+                    self._record_splice(s)
+                    self.live.append(s)
+                else:
+                    raise RuntimeError(
+                        f"backend left session {s.req_id} in "
+                        f"{s.state} after packed admission")
+        return fused
+
     def idle(self) -> bool:
-        return not self.queue and not self.live
+        return not self.queue and not self.live and not self.chunking
 
     def depth(self) -> int:
-        """Live-session count — queued + decoding."""
-        return len(self.queue) + len(self.live)
+        """Live-session count — queued + mid-chunked-prefill + decoding.
+        The cluster tier's least-loaded router scores replicas on this."""
+        return len(self.queue) + len(self.chunking) + len(self.live)
 
     def drain(self) -> List[Session]:
         """Tick until nothing is queued or in flight.  Breaks instead of
         spinning when the pipeline can make no further progress: if a
-        tick executed nothing (no prefill / decode, nothing
+        tick executed nothing (no prefill / chunk / decode, nothing
         finished) and the clock did not move, the pipeline state is
         bit-identical to before the tick — every future tick would
         repeat it, so waiting cannot help.  Under a wall clock a lazy
@@ -673,7 +1092,7 @@ class ServingPipeline:
                 continue
             # _tick_worked (not a registry counter, which a disabled
             # registry pins at zero) says whether the tick executed any
-            # prefill / decode work
+            # prefill / chunk / decode work
             if not self._tick_worked and (
                     self.clock() == t_before
                     or self.config.strategy == "hungry"):

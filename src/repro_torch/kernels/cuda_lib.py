@@ -10,7 +10,9 @@ an unchanged one loads at once.  Nothing here runs at import time.
 
 ``LAUNCHES`` counts kernel launches per wrapper name: each wrapper adds
 one where it launches its kernel, and nowhere else, so a run can show
-which kernels its path went through.
+which kernels its path went through.  ``LAUNCH_SHAPES`` counts the same
+launches again by a shape class where a wrapper names one (the flash
+kernel's suffix-aligned calls, Sk > Sq).
 
 ``nvcc`` runs with ``-Xptxas -v``; its report (registers, spills per
 kernel) is kept beside the library and parsed by :func:`ptxas_usage`,
@@ -44,6 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: kernel launches per wrapper, since the last reset
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
+#: the same launches by (wrapper, shape class), where a wrapper gives one
+LAUNCH_SHAPES: "collections.Counter[tuple]" = collections.Counter()
 
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -82,10 +86,13 @@ BUILD_INFO: Dict[str, object] = {}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    LAUNCH_SHAPES.clear()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, shape: Optional[str] = None) -> None:
     LAUNCHES[name] += 1
+    if shape is not None:
+        LAUNCH_SHAPES[(name, shape)] += 1
 
 
 def _nvcc() -> str:

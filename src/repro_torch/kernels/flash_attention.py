@@ -77,7 +77,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(causal), float(scale), cuda_lib.DTYPE_CODES[q.dtype],
         cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, name)
-    cuda_lib.count_launch("flash_attention")
+    # queries aligned as the last Sq of more keys: a suffix prefill
+    cuda_lib.count_launch("flash_attention",
+                          "suffix" if sk > sq else None)
     return out
 
 

@@ -15,8 +15,11 @@ Prefill attention takes one of two routes (``attn``): ``"naive"``, the
 paper's attention through the fused softmax kernel
 (`repro_torch.models.layers.attention_naive`, which the JAX package runs
 below its chunked threshold), or ``"flash"``, the flash-attention
-kernel.  :func:`prefill_packed` prefills many independent segments in
-one flat row through the flash kernel's segment-masked mode.  Decode
+kernel.  :func:`prefill_suffix` resumes a prompt after cached tokens
+(the prefix cache's hits and chunked prefill's chunks) through the
+flash kernel's causal mode, the queries aligned as the last keys, and
+:func:`prefill_packed` prefills many independent segments in one flat
+row through the flash kernel's segment-masked mode.  Decode
 attention is the paged or the contiguous split-K decode kernel where the
 JAX package gathers the cache and runs the jnp ``attention_decode``.  Every norm goes through the fused norm kernel,
 and ``h + attn_out -> norm2`` is one launch.
@@ -204,6 +207,69 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     cache["len"] = lens
     cache["pos_offset"] = torch.zeros_like(lens)
     return logits, cache
+
+
+def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   prefix_k: torch.Tensor, prefix_v: torch.Tensor, *,
+                   prefix_len: int,
+                   true_lengths: Optional[torch.Tensor] = None,
+                   cache_dtype: torch.dtype = torch.float32
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Resume a prompt pass after ``prefix_len`` cached tokens (the
+    prefix cache's suffix prefill, and the per-chunk pass of chunked
+    prefill: each chunk resumes at the previous chunk's seam, with the
+    prefix KV read back from the request's own paged blocks).
+
+    ``tokens`` (B, S_suffix) holds the right-padded *uncached* remainder
+    of each prompt; ``prefix_k`` / ``prefix_v`` (L, B, prefix_len, KV,
+    dh) is the prefix KV gathered from the paged pool (f32 there, cast to
+    the activations' dtype here).  Queries run at positions
+    ``prefix_len ..`` and each layer attends over [prefix, suffix]
+    through the flash kernel's causal mode with Sk = ``prefix_len`` +
+    S_suffix: the kernel aligns the queries as the last Sq keys, which
+    continues the causal mask across the seam.  Every row's padding keys
+    sit after all of its real keys, so no per-row length is needed.
+    ``prefix_len == 0`` (the first chunk of a cold prompt) is a plain
+    prompt pass.
+
+    Returns ``(last-token logits (B, V), {"k", "v"})`` where k/v are the
+    *suffix-only* parts (L, B, S_suffix, KV, dh) in ``cache_dtype``: the
+    caller scatters them into its own (copy-on-write) blocks, and the
+    shared prefix blocks are never written."""
+    _check_family(cfg)
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
+    bsz, seq = tokens.shape
+    h = L.embed_tokens(cfg, params["embed"], tokens)
+    positions = L.positions_for(cfg, (bsz, seq), offset=prefix_len,
+                                device=tokens.device)
+    shape = (cfg.num_layers, bsz, seq, cfg.num_kv_heads, cfg.head_dim)
+    parts = {"k": torch.empty(shape, dtype=cache_dtype, device=h.device),
+             "v": torch.empty(shape, dtype=cache_dtype, device=h.device)}
+    for i in range(cfg.num_layers):
+        blk = layer_params(params, i)
+        hn = L.apply_norm(cfg, blk["norm1"], h)
+        q, k, v = L.qkv_project(cfg, blk["attn"], hn, positions)
+        if prefix_len:
+            k_all = torch.cat([prefix_k[i].to(k.dtype), k], dim=1)
+            v_all = torch.cat([prefix_v[i].to(v.dtype), v], dim=1)
+        else:
+            k_all, v_all = k, v
+        a = ops.flash_attention(q.transpose(1, 2), k_all.transpose(1, 2),
+                                v_all.transpose(1, 2),
+                                causal=True).transpose(1, 2)
+        out = L.attention_output(blk["attn"], a)
+        hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
+        h = h + L.apply_ffn(cfg, blk["ffn"], hn2)
+        parts["k"][i] = k
+        parts["v"][i] = v
+    h = L.apply_norm(cfg, params["final_norm"], h)
+    if true_lengths is None:
+        last = torch.full((bsz,), seq - 1, dtype=torch.int32,
+                          device=h.device)
+    else:
+        last = true_lengths.to(device=h.device, dtype=torch.int32) - 1
+    return logits_at(cfg, params, h, last), parts
 
 
 def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

@@ -9,7 +9,8 @@ from repro_torch.runtime.session import (GenerationParams, Session,
 
 __all__ = ["BlockTableManager", "BucketLadder", "ContinuousEngine",
            "GenerationParams", "InferenceEngine", "KVSlabManager",
-           "Session", "SessionState", "kv_bytes_per_token"]
+           "PrefixMatch", "RadixPrefixCache", "Session", "SessionState",
+           "kv_bytes_per_token"]
 
 _LAZY = {
     "BlockTableManager": ("repro_torch.runtime.kv_cache",
@@ -18,6 +19,9 @@ _LAZY = {
     "ContinuousEngine": ("repro_torch.runtime.engine", "ContinuousEngine"),
     "InferenceEngine": ("repro_torch.runtime.engine", "InferenceEngine"),
     "KVSlabManager": ("repro_torch.runtime.kv_cache", "KVSlabManager"),
+    "PrefixMatch": ("repro_torch.runtime.prefix_cache", "PrefixMatch"),
+    "RadixPrefixCache": ("repro_torch.runtime.prefix_cache",
+                         "RadixPrefixCache"),
     "kv_bytes_per_token": ("repro_torch.runtime.kv_cache",
                            "kv_bytes_per_token"),
 }

@@ -27,8 +27,11 @@ default): the prompts are concatenated into one flat row with segment ids
 and per-token positions, prefilled once through the flash kernel's
 segment-masked mode and scattered into each session's own blocks.
 ``packed_prefill=False`` and the contiguous layout keep the per-group
-path.  Chunked prefill and the prefix cache are not ported yet; the
-constructor refuses their options.
+path.  The paged layout also serves the JAX package's prefix cache
+(``prefix_cache=True``: radix-matched prompt prefixes shared across
+requests, copy-on-write tails, LRU eviction) and chunked prefill (the
+resumable PREFILL primitives the pipeline's ``chunked_prefill`` drives,
+chunks packed beside admissions).
 """
 from __future__ import annotations
 
@@ -46,13 +49,14 @@ from repro_torch.core.pipeline import PipelineBackend
 from repro_torch.core.serving import Request
 from repro_torch.models import (decode_step, forward_hidden, logits_at,
                                 make_cache, make_paged_cache, prefill,
-                                prefill_packed)
+                                prefill_packed, prefill_suffix)
 from repro_torch.runtime import sanitizer
 from repro_torch.runtime.bucketing import BucketLadder
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.kv_cache import (DEFAULT_KV_BLOCK,
-                                          BlockTableManager, KVSlabManager,
-                                          kv_bytes_per_token)
+                                          BlockExhausted, BlockTableManager,
+                                          KVSlabManager, kv_bytes_per_token)
+from repro_torch.runtime.prefix_cache import PrefixMatch, RadixPrefixCache
 from repro_torch.runtime.sampling import (DEFAULT_SAMPLE_CANDIDATES,
                                           sample_tokens)
 from repro_torch.runtime.session import GenerationParams, Session
@@ -60,10 +64,6 @@ from repro_torch.runtime.session import GenerationParams, Session
 # stop-id slots per row in GenState.eos: column 0 is the request's eos_id,
 # the rest hold extra GenerationParams.stop ids (-1 = unused)
 STOP_SLOTS = 4
-
-# ContinuousEngine options of the JAX package not ported yet
-NOT_PORTED_OPTIONS = ("prefix_cache", "chunked_prefill",
-                      "prefill_chunk_tokens")
 
 #: packed dispatches whose (segments, flat tokens, pack bucket) the
 #: ContinuousEngine keeps in ``pack_log``
@@ -261,6 +261,62 @@ class InferenceEngine:
                                 max_len=None if prompt_kv_only else max_len,
                                 true_lengths=self._tensor(true_lens,
                                                           torch.int32))
+        return self._finish_gen_state(logits, cache, n, batch_b, budgets,
+                                      eos_ids, cap, sampling)
+
+    def prefill_suffix_batch(self, token_lists: Sequence[Sequence[int]], *,
+                             prefix_k: torch.Tensor, prefix_v: torch.Tensor,
+                             prefix_len: int, max_new_tokens, eos_id=None,
+                             cap_new: Optional[int] = None,
+                             sampling: Optional[
+                                 Sequence[GenerationParams]] = None
+                             ) -> GenState:
+        """Resumable suffix prefill: like :meth:`prefill_batch`, but the
+        first ``prefix_len`` tokens of every prompt are served from
+        ``prefix_k`` / ``prefix_v`` (prefix KV gathered from the paged
+        pool, (L, n, prefix_len, KV, dh)) and only the remaining suffix
+        runs through the model, at positions offset by the prefix.
+
+        The returned state's cache holds ONLY the suffix KV (k/v: (L, B,
+        suffix bucket, KV, dh)) with ``len`` already at the FULL prompt
+        lengths; it is meant for the continuous engine's paged splice,
+        which scatters the suffix into the request's own blocks — never
+        into the shared prefix blocks."""
+        n = len(token_lists)
+        suffixes = [list(t)[prefix_len:] for t in token_lists]
+        lens = [len(x) for x in suffixes]
+        if min(lens) < 1:
+            raise ValueError("every prompt must keep >= 1 uncached token "
+                             "(the last position's logits seed decoding)")
+        suffix_b = self.ladder.seq_bucket(max(lens))
+        batch_b = self.ladder.batch_bucket(n)
+        budgets = list(max_new_tokens) if hasattr(max_new_tokens, "__len__") \
+            else [int(max_new_tokens)] * n
+        eos_ids = list(eos_id) if hasattr(eos_id, "__len__") \
+            else [eos_id] * n
+        cap = cap_new if cap_new is not None else max(max(budgets), 1)
+        if cap < max(budgets):
+            raise ValueError(f"cap_new={cap} cannot hold a "
+                             f"max_new_tokens={max(budgets)} budget")
+        toks = np.full((batch_b, suffix_b), self.pad_id, np.int64)
+        for i, t in enumerate(suffixes):
+            toks[i, :len(t)] = t
+        true_lens = np.array(lens + [1] * (batch_b - n), np.int32)
+        if prefix_k.shape[1] < batch_b:
+            pad = prefix_k.new_zeros(
+                (prefix_k.shape[0], batch_b - prefix_k.shape[1]) +
+                tuple(prefix_k.shape[2:]))
+            prefix_k = torch.cat([prefix_k, pad], dim=1)
+            prefix_v = torch.cat([prefix_v, pad], dim=1)
+        logits, parts = prefill_suffix(
+            self.cfg, self.params, self._tensor(toks, torch.int64),
+            prefix_k, prefix_v, prefix_len=prefix_len,
+            true_lengths=self._tensor(true_lens, torch.int32))
+        cache = {"len": self._tensor([prefix_len + ln for ln in lens] +
+                                     [1] * (batch_b - n), torch.int32),
+                 "pos_offset": torch.zeros((batch_b,), dtype=torch.int32,
+                                           device=self.device),
+                 "k": parts["k"], "v": parts["v"]}
         return self._finish_gen_state(logits, cache, n, batch_b, budgets,
                                       eos_ids, cap, sampling)
 
@@ -472,9 +528,26 @@ class ContinuousEngine(PipelineBackend):
       layout SSM / hybrid families need.
 
     With ``packed_prefill=True`` (the default, as in the JAX package) the
-    paged layout prefills each admission group as one packed dispatch
+    paged layout prefills each admission group — and each pack group of
+    resumable-prefill chunks — as one packed dispatch
     (:meth:`prefill_pack`); ``False`` keeps the per-group path, the
     equivalence baseline the packed path is tested against.
+
+    ``prefix_cache=True`` (paged only) adds cross-request prompt-prefix
+    sharing: admissions are matched against a
+    :class:`~repro_torch.runtime.prefix_cache.RadixPrefixCache`, matched
+    blocks are mapped straight into the new request's table
+    (refcounted), only the uncached suffix is prefilled, a partially
+    valid matched block is copied on the device before the suffix writes
+    into it, a live sequence's first decode token copies its cached tail
+    block (copy-on-write), and unreferenced cached blocks are
+    LRU-evicted when admissions need the space.  Generated tokens are
+    the same with the cache on or off; only the prefill work and block
+    footprint shrink.
+
+    Chunked prefill (the pipeline's ``chunked_prefill``) runs through
+    :meth:`begin_prefill_chunks`, :meth:`prefill_chunk` and the chunk half
+    of :meth:`prefill_pack`, on the paged layout only.
     """
 
     def __init__(self, engine: InferenceEngine, max_slots: int = 8,
@@ -483,20 +556,17 @@ class ContinuousEngine(PipelineBackend):
                  kv_layout: str = "paged",
                  block_size: int = DEFAULT_KV_BLOCK,
                  num_blocks: Optional[int] = None,
-                 packed_prefill: bool = True, **options) -> None:
-        missing = [k for k in options if k in NOT_PORTED_OPTIONS]
-        if missing:
-            raise ValueError(f"{missing}: the port's engine serves whole "
-                             "prompts, packed or per group; these options "
-                             "are not ported yet")
-        if options:
-            raise TypeError(f"unexpected options {sorted(options)}")
+                 prefix_cache: bool = False,
+                 packed_prefill: bool = True) -> None:
         cfg = engine.cfg
         if cfg.num_codebooks or cfg.family != "dense":
             raise ValueError("ContinuousEngine serves dense single-codebook "
                              "token models")
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if prefix_cache and kv_layout != "paged":
+            raise ValueError("prefix_cache requires kv_layout='paged' "
+                             "(sharing happens at block granularity)")
         self.engine = engine
         self.max_slots = max_slots
         self.cap_new = cap_new
@@ -504,6 +574,8 @@ class ContinuousEngine(PipelineBackend):
         self.kv_layout = kv_layout
         self.block_size = block_size
         self.block_table: Optional[BlockTableManager] = None
+        self._prefix_enabled = prefix_cache
+        self.prefix_cache: Optional[RadixPrefixCache] = None
         if kv_layout == "paged":
             if max_len is None:
                 max_len = engine.ladder.seq_buckets[-1]
@@ -520,10 +592,13 @@ class ContinuousEngine(PipelineBackend):
             if num_blocks is not None:
                 self.block_table = sanitizer.make_block_manager(
                     num_blocks, block_size)
+                if prefix_cache:
+                    self.prefix_cache = RadixPrefixCache(self.block_table)
         # contiguous: None until the first prefill sizes the slot cache
         self.max_len = max_len
         self.prefill_tokens = 0      # tokens run through prefill
         self.prefill_dispatches = 0  # prefill passes issued
+        self.cow_blocks = 0          # copy-on-write block copies made
         # packed prefill: many segments per dispatch (paged layout only)
         self.packed_prefill = packed_prefill
         self.pack_dispatches = 0     # ... of which were packed
@@ -544,6 +619,9 @@ class ContinuousEngine(PipelineBackend):
         # blocks a live request will still append (reserved at admission,
         # so mid-decode appends can never fail)
         self._reserved: Dict[int, int] = {}
+        # chunked prefills in flight: req_id -> the decode slot reserved
+        # for it at admission (claimed when the final chunk splices)
+        self._chunk_slots: Dict[int, int] = {}
         self.decode_ticks = 0
 
     @property
@@ -556,33 +634,69 @@ class ContinuousEngine(PipelineBackend):
 
     # -- PipelineBackend -------------------------------------------------
     def free_slots(self) -> int:
-        return sum(1 for s in self.sessions if s is None)
+        return sum(1 for s in self.sessions if s is None) \
+            - len(self._chunk_slots)
+
+    def _open_slots(self) -> List[int]:
+        """Free slots, less those reserved for in-flight chunked
+        prefills: a final chunk will splice there, and a row spliced in
+        meanwhile would be overwritten mid-decode."""
+        taken = set(self._chunk_slots.values())
+        return [i for i, s in enumerate(self.sessions)
+                if s is None and i not in taken]
 
     def observe_metrics(self, m) -> None:
         """Tick-boundary gauges (host-side bookkeeping only)."""
         m.gauge("engine.prefill_tokens").set(self.prefill_tokens)
         m.gauge("engine.prefill_dispatches").set(self.prefill_dispatches)
         m.gauge("engine.decode_ticks").set(self.decode_ticks)
+        m.gauge("engine.cow_blocks").set(self.cow_blocks)
         for k, v in self.engine.kv_slab.metrics().items():
             m.gauge("slab." + k).set(v)
         if self.block_table is not None:
             for k, v in self.block_table.metrics().items():
                 m.gauge("kv." + k).set(v)
             m.gauge("kv.reserved_blocks").set(sum(self._reserved.values()))
+        if self.prefix_cache is not None:
+            for k, v in self.prefix_cache.metrics().items():
+                m.gauge("prefix." + k).set(v)
 
     def free_kv_tokens(self) -> Optional[int]:
-        """Token capacity of blocks neither held nor reserved; unbounded
-        until the pool exists."""
+        """Token capacity of blocks neither held nor reserved — the
+        admission budget the pipeline charges ``kv_demand`` against.
+        With the prefix cache on, cached blocks that eviction can
+        reclaim (held by the cache alone, with nothing held below them)
+        count as free.  Unbounded until the pool exists."""
         if self.block_table is None:
             return None
         free = self.block_table.free_blocks - sum(self._reserved.values())
+        if self.prefix_cache is not None:
+            free += self.prefix_cache.evictable_blocks()
         return max(free, 0) * self.block_size
 
     def kv_demand(self, session: Session) -> int:
+        """Tokens of KV capacity admitting ``session`` takes from what
+        :meth:`free_kv_tokens` reports: exactly what the admission will
+        draw (its fresh blocks, the tail copy included) plus the
+        reclaimable cached blocks its match pins, so the engine's own
+        capacity check never fails on a planned batch."""
         if self.kv_layout != "paged":
             return session.total_len
-        return max(block_round(session.total_len, self.block_size),
-                   self.block_size)
+        bs = self.block_size
+        demand = block_round(session.total_len, bs)
+        if self.prefix_cache is not None and session.prompt:
+            m = self.prefix_cache.match(list(session.prompt),
+                                        take_refs=False)
+            held = self.prefix_cache.reclaimable_blocks()
+            # a matched full block eviction could not reclaim costs no
+            # capacity; one it could was counted free by free_kv_tokens
+            # and the match pins it, so it stays charged
+            demand -= sum(1 for b in m.full_blocks if b not in held) * bs
+            if m.tail_block is not None and m.tail_block in held:
+                # the match pins a reclaimable tail block AND the copy
+                # takes a fresh one: both leave the reported capacity
+                demand += bs
+        return max(demand, bs)
 
     def validate(self, session: Session) -> None:
         """Reject un-servable sessions at submit time."""
@@ -625,9 +739,11 @@ class ContinuousEngine(PipelineBackend):
 
     def check_invariants(self, pipeline) -> None:
         """Sanitizer cross-check of engine accounting against the
-        pipeline's live set: the slot<->session bijection (both layouts),
-        then for the paged pool block conservation and shadow refcounts,
-        reservation balance, and the leak check at idle."""
+        pipeline's live set: the slot<->session bijection and the
+        chunk-slot ledger (both layouts), then for the paged pool block
+        conservation and shadow refcounts, reservation balance, the pack
+        ledger, and the leak check at idle (every used block accounted
+        for by the prefix cache)."""
         seen_slots: Dict[int, int] = {}
         for s in pipeline.live:
             slot = s.slot
@@ -649,6 +765,12 @@ class ContinuousEngine(PipelineBackend):
             raise sanitizer.SanitizerError(
                 f"slots {sorted(stray)} hold sessions {held} the "
                 "pipeline no longer tracks")
+        chunk_reqs = {s.req_id for s in pipeline.chunking}
+        if set(self._chunk_slots) != chunk_reqs:
+            raise sanitizer.SanitizerError(
+                f"chunk-slot ledger {sorted(self._chunk_slots)} does not "
+                f"match the pipeline's chunking queue "
+                f"{sorted(chunk_reqs)}")
         btm = self.block_table
         if btm is None:
             return
@@ -657,16 +779,18 @@ class ContinuousEngine(PipelineBackend):
             raise sanitizer.SanitizerError(
                 f"reservation balance broken: {resv} blocks reserved "
                 f"but only {btm.free_blocks} free")
-        stray_resv = set(self._reserved) - {s.req_id for s in pipeline.live}
+        allowed = {s.req_id for s in pipeline.live} | chunk_reqs
+        stray_resv = set(self._reserved) - allowed
         if stray_resv:
             raise sanitizer.SanitizerError(
                 f"reservations held for sessions {sorted(stray_resv)} "
-                "that are not live")
+                "that are neither live nor chunking")
         # pack ledger: every block the most recent packed dispatch wrote
         # must still be owned by the segment it was written for (a freed
         # or re-assigned block would mean the pack scattered into memory
-        # another request now owns); a freed session's entry is dropped
-        # with its table
+        # another request now owns).  A copy-on-write swaps the recorded
+        # id for the private copy; a freed session's entry is dropped
+        # with its table.
         for req, blocks in self._last_pack.items():
             if not btm.has_request(req):
                 continue
@@ -679,13 +803,129 @@ class ContinuousEngine(PipelineBackend):
         if isinstance(btm, sanitizer.SanitizedBlockTableManager):
             btm.check_conservation()
             if pipeline.idle():
-                btm.check_idle(live_requests=())
+                cache_blocks = self.prefix_cache.cached_blocks \
+                    if self.prefix_cache is not None else 0
+                btm.check_idle(live_requests=(), cache_blocks=cache_blocks)
+
+    # -- admission internals ---------------------------------------------
+    def _match(self, sessions: Sequence[Session]
+               ) -> Optional[List[PrefixMatch]]:
+        """Prefix matches of every session (None without the cache).
+        Matching takes refcount holds on every matched block up front, so
+        one session's LRU eviction can never reclaim blocks a sibling in
+        the same batch is about to share; every exit past this point
+        either adopts the holds into a table or releases them."""
+        if self.prefix_cache is None or not sessions:
+            return None
+        return [self.prefix_cache.match(list(s.prompt)) for s in sessions]
+
+    def _check_capacity(self, sessions: Sequence[Session],
+                        matches: Optional[List[PrefixMatch]], what: str,
+                        unit: str) -> None:
+        """The engine's own capacity check, before anything is mutated:
+        the fresh blocks the admissions take (matched full blocks are
+        covered) plus every reservation must fit the free list, after
+        evicting warm cache if needed.  On a deficit the matches are
+        released and the admission raises — the planner should have
+        vetoed it."""
+        btm = self.block_table
+        want = 0
+        for i, s in enumerate(sessions):
+            covered = len(matches[i].full_blocks) if matches else 0
+            want += btm.blocks_needed(s.total_len) - covered
+        deficit = want + sum(self._reserved.values()) - btm.free_blocks
+        if deficit > 0 and self.prefix_cache is not None:
+            deficit -= self.prefix_cache.evict(deficit)
+        if deficit > 0:
+            for m in matches or ():
+                self.prefix_cache.release(m)
+            raise ValueError(
+                f"{what} needs {want} fresh KV blocks beyond reservations, "
+                f"pool has {btm.free_blocks} free — the admission planner "
+                f"should have vetoed this {unit}")
+
+    def _adopt_match(self, m: Optional[PrefixMatch]
+                     ) -> Tuple[int, List[int]]:
+        """Turn a match's holds into the head of a new table: the full
+        blocks as they are, and a partially valid tail block copied on
+        the device into a private block first (copy-on-write: the suffix
+        writes into it).  Returns (cached tokens, prefix blocks)."""
+        if m is None:
+            return 0, []
+        btm = self.block_table
+        m.consumed = True            # holds transfer to the table
+        prefix_blocks = list(m.full_blocks)
+        if m.tail_block is not None:
+            try:
+                cow = btm.take(1)[0]
+            except BlockExhausted:
+                for b in prefix_blocks:
+                    btm.unref(b)
+                btm.unref(m.tail_block)
+                raise
+            self._copy_blocks([m.tail_block], [cow])
+            btm.unref(m.tail_block)
+            prefix_blocks.append(cow)
+            self.cow_blocks += 1
+        return m.cached_tokens, prefix_blocks
+
+    def _allocate(self, s: Session, tokens: int,
+                  prefix_blocks: List[int]) -> List[int]:
+        """``s``'s table: ``prefix_blocks`` then fresh blocks up to
+        ``tokens``; the rest of its budget is reserved."""
+        btm = self.block_table
+        try:
+            bids = btm.allocate(s.req_id, tokens,
+                                prefix_blocks=prefix_blocks)
+        except BlockExhausted:
+            for b in prefix_blocks:
+                btm.unref(b)
+            raise
+        self._reserved[s.req_id] = max(
+            btm.blocks_needed(s.total_len) - len(bids), 0)
+        return bids
+
+    def _copy_blocks(self, src: Sequence[int], dst: Sequence[int]) -> None:
+        """Copy whole pool blocks ``src[i] -> dst[i]`` (every layer, K and
+        V) on the device, in place.  The copy is queued on the pool's
+        stream, so it lands before any later scatter or decode write."""
+        cache = self.state.cache
+        si, di = self._index(src), self._index(dst)
+        for key in ("k", "v"):
+            pool = cache[key]
+            pool.index_copy_(1, di, pool.index_select(1, si))
+
+    def _scatter(self, fidx: np.ndarray, parts: Dict[str, torch.Tensor],
+                 sidx: Optional[np.ndarray] = None) -> None:
+        """Write prefilled KV into the pool at flat slots ``fidx``
+        (block * block_size + offset).  ``parts`` k/v are (L, N, KV, dh),
+        or (L, B, S, KV, dh) read at flat rows ``sidx`` of B * S."""
+        cache = self.state.cache
+        fi = self._index(fidx)
+        si = None if sidx is None else self._index(sidx)
+        for key in ("k", "v"):
+            pool = cache[key]
+            nl = pool.shape[0]
+            part = parts[key]
+            src = part.reshape((nl, -1) + tuple(part.shape[-2:]))
+            src = src[:, si] if si is not None else src[:, :len(fidx)]
+            pool.view((nl, -1) + pool.shape[3:])[:, fi] = src.to(pool.dtype)
+
+    def _publish_tables(self, slots: Sequence[int],
+                        tables: Sequence[Sequence[int]]) -> None:
+        """Write the device block-table rows of ``slots``."""
+        rows = np.zeros((len(slots), self.max_blocks), np.int32)
+        for i, bids in enumerate(tables):
+            rows[i, :len(bids)] = bids
+        self.state.cache["block_tables"][self._index(slots)] = \
+            torch.as_tensor(rows, device=self.device)
 
     def prefill_batch(self, sessions: List[Session],
                       padded_len: int) -> None:
         if self.supports_packed_prefill():
-            # one flat dispatch for the whole admission group
-            self.prefill_pack(sessions)
+            # one flat dispatch for the whole admission group, prefix
+            # hits included
+            self.prefill_pack(sessions, [])
             return
         eng = self.engine
         # everything that can fail is checked BEFORE any device-state or
@@ -704,36 +944,58 @@ class ContinuousEngine(PipelineBackend):
                              "(duplicate in-flight submission?)")
         need = eng.ladder.seq_bucket(max(s.total_len for s in sessions))
         self._ensure_state(need)
-        slots = [i for i, s in enumerate(self.sessions) if s is None]
-        slots = slots[:len(sessions)]
+        slots = self._open_slots()[:len(sessions)]
         if len(slots) != len(sessions):
             raise RuntimeError("admitted beyond free slots")
         btm = self.block_table
+        matches = self._match(sessions)
         if btm is not None:
-            want = sum(btm.blocks_needed(s.total_len) for s in sessions)
-            deficit = want + sum(self._reserved.values()) - btm.free_blocks
-            if deficit > 0:
-                raise ValueError(
-                    f"prefill batch needs {want} fresh KV blocks beyond "
-                    f"reservations, pool has {btm.free_blocks} free — the "
-                    "admission planner should have vetoed this batch")
+            self._check_capacity(sessions, matches, "prefill batch",
+                                 "batch")
+        # prefix-cache hits group by cached length (one suffix pass per
+        # distinct shared-prefix length); otherwise the whole right-padded
+        # group prefills at once
+        if matches is not None:
+            groups: Dict[int, List[int]] = {}
+            for i, m in enumerate(matches):
+                groups.setdefault(m.cached_tokens, []).append(i)
+            parts = list(groups.values())
+        else:
+            parts = [list(range(len(sessions)))]
         try:
-            rows = eng.prefill_batch(
-                [list(s.prompt) for s in sessions],
-                max_len=need if btm is not None else self.max_len,
-                max_new_tokens=[s.max_new_tokens for s in sessions],
-                eos_id=[s.eos_id for s in sessions], cap_new=self.cap_new,
-                sampling=[s.params for s in sessions],
-                prompt_kv_only=btm is not None)
-            if btm is not None:
-                self._splice_paged(rows, slots, sessions)
-            else:
-                self._splice(rows, slots)
-            self.prefill_dispatches += 1
-            self.prefill_tokens += sum(s.seq_len for s in sessions)
+            for part in parts:
+                p_sessions = [sessions[i] for i in part]
+                p_slots = [slots[i] for i in part]
+                p_matches = [matches[i] for i in part] \
+                    if matches is not None else None
+                cached = p_matches[0].cached_tokens if p_matches else 0
+                common = dict(
+                    max_new_tokens=[s.max_new_tokens for s in p_sessions],
+                    eos_id=[s.eos_id for s in p_sessions],
+                    cap_new=self.cap_new,
+                    sampling=[s.params for s in p_sessions])
+                if cached:
+                    pk, pv = self._gather_prefix(p_matches, cached)
+                    rows = eng.prefill_suffix_batch(
+                        [list(s.prompt) for s in p_sessions], prefix_k=pk,
+                        prefix_v=pv, prefix_len=cached, **common)
+                else:
+                    rows = eng.prefill_batch(
+                        [list(s.prompt) for s in p_sessions],
+                        max_len=need if btm is not None else self.max_len,
+                        prompt_kv_only=btm is not None, **common)
+                if btm is not None:
+                    self._splice_paged(rows, p_slots, p_sessions, p_matches)
+                else:
+                    self._splice(rows, p_slots)
+                self.prefill_dispatches += 1
+                self.prefill_tokens += sum(s.seq_len - cached
+                                           for s in p_sessions)
+                for s in p_sessions:
+                    s.cached_tokens = cached
         except Exception:
             if btm is not None:
-                self._release_tables(sessions, slots)
+                self._release_tables(sessions, slots, matches)
             raise
         now = self.clock()
         per_tok = kv_bytes_per_token(eng.cfg)
@@ -743,9 +1005,29 @@ class ContinuousEngine(PipelineBackend):
             eng.kv_slab.allocate(s.req_id, max(per_tok * s.total_len, 1),
                                  tokens=s.total_len)
             s.start_decode(now, slot=slot)
+        if self.prefix_cache is not None:
+            self._donate_prompts(sessions)
         # a budget-1 or instant-EOS prompt may be done already
         self._sync()
         self._publish_stream()     # the prefill's seed token streams too
+
+    # -- chunked prefill -------------------------------------------------
+    def supports_chunked_prefill(self) -> bool:
+        """Chunked prefill scatters each chunk's KV into the request's
+        own pool blocks, so it needs the paged layout (the contiguous
+        slot cache has no per-request home for a half-built prompt)."""
+        return self.kv_layout == "paged"
+
+    def supports_fused_chunk_decode(self) -> bool:
+        """Non-final prefill chunks are pure device work — gather the
+        prefix KV, run the suffix pass, scatter — with no host sync, so
+        the inherited ``chunk_decode_tick`` (chunk then decode tick)
+        queues both back to back and the decode batch never waits on the
+        chunk's completion."""
+        return self.kv_layout == "paged"
+
+    def chunk_quantum(self) -> int:
+        return self.block_size
 
     # -- packed prefill --------------------------------------------------
     def supports_packed_prefill(self) -> bool:
@@ -759,38 +1041,66 @@ class ContinuousEngine(PipelineBackend):
         denominator)."""
         return self.engine.ladder.pack_bucket(flat_tokens)
 
-    def prefill_pack(self, admissions: List[Session],
-                     chunks: Sequence = (),
-                     decoding: Optional[List[Session]] = None) -> None:
-        """ONE packed dispatch serving a whole admission group: the
-        prompts concatenated with segment ids and per-token positions,
-        prefilled once (`InferenceEngine.prefill_packed_flat`), then
-        scattered into each session's own block table in one scatter
-        (`sanitizer.check_write` on every segment's exact block range),
-        and the decode rows, seeded from each segment's last-token logits,
-        spliced into the slot cache together.
+    def _check_chunk(self, s: Session, upto: int) -> None:
+        off = s.prefilled_tokens
+        if s.req_id not in self._chunk_slots:
+            raise ValueError(f"session {s.req_id} has no chunked prefill "
+                             "in flight")
+        if not off < upto <= s.seq_len:
+            raise ValueError(f"chunk [{off}, {upto}) out of range for "
+                             f"prompt length {s.seq_len}")
 
-        ``chunks`` (resumable-prefill chunk advances) and ``decoding`` (a
-        decode tick fused behind a pack that splices nothing) belong to
-        chunked prefill, which is not ported yet: they raise."""
+    def _ensure_chunk_blocks(self, s: Session, upto: int) -> List[int]:
+        """Blocks covering the chunk (the final one also covers the
+        first decode write), drawn from the admission's reservation so
+        they cannot exhaust the pool.  Returns the session's table."""
+        btm = self.block_table
+        cover = min(s.seq_len + 1, s.total_len) if upto == s.seq_len \
+            else upto
+        fresh = btm.ensure(s.req_id, cover)
+        if fresh:
+            self._reserved[s.req_id] = max(
+                self._reserved[s.req_id] - len(fresh), 0)
+        return btm.block_table(s.req_id)
+
+    def prefill_pack(self, admissions: List[Session],
+                     chunks: Sequence[Tuple[Session, int]] = (),
+                     decoding: Optional[List[Session]] = None) -> None:
+        """ONE packed dispatch serving a whole pack group: ``admissions``
+        (newly planned sessions — whole prompts, or the uncached suffixes
+        of prefix-cache hits) and ``chunks`` (``(session, upto)``
+        next-chunk advances of resumable prefills), concatenated with
+        segment ids and per-token positions, prefilled once
+        (`InferenceEngine.prefill_packed_flat`, with every hit's and
+        chunk's prefix as prefix keys), then scattered into each
+        session's own block table in one scatter
+        (`sanitizer.check_write` on every segment's exact block range).
+        Admissions and final chunks seed their decode rows from their
+        segment's last-token logits and splice into the slot cache
+        together.
+
+        ``decoding`` (only legal when nothing in the pack splices) runs
+        the decode tick right behind the pack, as ``chunk_decode_tick``
+        does."""
         eng = self.engine
         if not self.supports_packed_prefill():
             raise ValueError("packed prefill requires kv_layout='paged' "
                              "with packed_prefill enabled")
-        if chunks:
-            raise ValueError("prefill_pack: resumable chunks belong to "
-                             "chunked prefill, which is not ported yet")
-        if decoding is not None and admissions:
-            raise ValueError("prefill_pack: a decode tick fuses only behind "
-                             "a pack that splices nothing")
-        if not admissions:
+        chunks = list(chunks)
+        if not admissions and not chunks:
             return
         # the segment-id row caps at the ladder's top batch bucket; a
         # group composed past it splits into ladder-sized packs
         cap = eng.ladder.batch_buckets[-1]
-        if len(admissions) > cap:
-            for at in range(0, len(admissions), cap):
-                self.prefill_pack(admissions[at:at + cap])
+        if len(admissions) + len(chunks) > cap:
+            work = [("a", s) for s in admissions] + \
+                [("c", c) for c in chunks]
+            for at in range(0, len(work), cap):
+                grp = work[at:at + cap]
+                last = at + cap >= len(work)
+                self.prefill_pack([w for k, w in grp if k == "a"],
+                                  [w for k, w in grp if k == "c"],
+                                  decoding if last else None)
             return
         # ---- pre-checks (nothing mutated before they pass) -------------
         over = [s.req_id for s in admissions
@@ -805,46 +1115,93 @@ class ContinuousEngine(PipelineBackend):
         if dup:
             raise ValueError(f"req_ids {dup} already hold KV regions "
                              "(duplicate in-flight submission?)")
-        self._ensure_state(eng.ladder.seq_bucket(
-            max(s.total_len for s in admissions)))
-        slots = [i for i, s in enumerate(self.sessions)
-                 if s is None][:len(admissions)]
+        for s, upto in chunks:
+            self._check_chunk(s, upto)
+        finals_due = any(upto == s.seq_len for s, upto in chunks)
+        if decoding is not None and (admissions or finals_due):
+            raise ValueError("prefill_pack: a decode tick fuses only behind "
+                             "a pack that splices nothing")
+        if admissions:
+            self._ensure_state(eng.ladder.seq_bucket(
+                max(s.total_len for s in admissions)))
+        slots = self._open_slots()[:len(admissions)]
         if len(slots) != len(admissions):
             raise RuntimeError("admitted beyond free slots")
         btm = self.block_table
-        want = sum(btm.blocks_needed(s.total_len) for s in admissions)
-        if want + sum(self._reserved.values()) > btm.free_blocks:
-            raise ValueError(
-                f"packed prefill needs {want} fresh KV blocks beyond "
-                f"reservations, pool has {btm.free_blocks} free — the "
-                "admission planner should have vetoed this pack")
-        suffixes = [list(s.prompt) for s in admissions]
+        matches = self._match(admissions)
+        if admissions:
+            self._check_capacity(admissions, matches, "packed prefill",
+                                 "pack")
+        chunk_tables = [self._ensure_chunk_blocks(s, upto)
+                        for s, upto in chunks]
+        # ---- segment descriptors: admissions first, then chunks -------
+        bs = self.block_size
+        suffixes: List[List[int]] = []
+        offsets: List[int] = []
+        pre_fidx: List[np.ndarray] = []
+        pre_seg: List[np.ndarray] = []
+        pre_pos: List[np.ndarray] = []
+
+        def add_prefix(seg: int, blocks: List[int], length: int) -> None:
+            pos = np.arange(length)
+            ids = np.asarray(blocks, np.int64)
+            pre_fidx.append(ids[pos // bs] * bs + pos % bs)
+            pre_seg.append(np.full((length,), seg, np.int32))
+            pre_pos.append(pos.astype(np.int32))
+
+        for i, s in enumerate(admissions):
+            cached = matches[i].cached_tokens if matches else 0
+            suffixes.append(list(s.prompt)[cached:])
+            offsets.append(cached)
+            if cached:
+                blocks = list(matches[i].full_blocks)
+                if matches[i].tail_block is not None:
+                    blocks.append(matches[i].tail_block)
+                add_prefix(i, blocks, cached)
+        for j, ((s, upto), table) in enumerate(zip(chunks, chunk_tables)):
+            off = s.prefilled_tokens
+            suffixes.append(list(s.prompt)[off:upto])
+            offsets.append(off)
+            if off:
+                add_prefix(len(admissions) + j, table, off)
+        # ---- every segment's prefix KV in one pool read ---------------
         cache = self.state.cache
         nl = cache["k"].shape[0]
-        no_prefix = cache["k"].new_zeros((nl, 0) + cache["k"].shape[3:])
-        no_ids = torch.zeros((0,), dtype=torch.int32, device=self.device)
-        bs = self.block_size
+        if pre_fidx:
+            gidx = self._index(np.concatenate(pre_fidx))
+            prefix_k, prefix_v = (
+                cache[key].view((nl, -1) + cache[key].shape[3:])[:, gidx]
+                for key in ("k", "v"))
+            prefix_seg = eng._tensor(np.concatenate(pre_seg), torch.int32)
+            prefix_pos = eng._tensor(np.concatenate(pre_pos), torch.int32)
+        else:
+            prefix_k = prefix_v = cache["k"].new_zeros(
+                (nl, 0) + cache["k"].shape[3:])
+            prefix_seg = prefix_pos = torch.zeros(
+                (0,), dtype=torch.int32, device=self.device)
         try:
             # ---- THE dispatch --------------------------------------------
             logits, parts = eng.prefill_packed_flat(
-                suffixes, [0] * len(suffixes), no_prefix, no_prefix, no_ids,
-                no_ids)
-            # ---- tables, and every segment's scatter target --------------
-            # blocks covering the prompt plus the first decode write; the
-            # rest of the budget is reserved and appended mid-decode
+                suffixes, offsets, prefix_k, prefix_v, prefix_seg,
+                prefix_pos)
+            del prefix_k, prefix_v
+            # ---- admission tables (prefix refs adopted, tail copied) and
+            # every segment's scatter target -------------------------------
             seg_bids: List[List[int]] = []
-            for s in admissions:
-                bids = btm.allocate(s.req_id, min(s.seq_len + 1, s.total_len))
-                self._reserved[s.req_id] = max(
-                    btm.blocks_needed(s.total_len) - len(bids), 0)
-                seg_bids.append(bids)
+            for i, s in enumerate(admissions):
+                _, prefix_blocks = self._adopt_match(
+                    matches[i] if matches is not None else None)
+                seg_bids.append(self._allocate(
+                    s, min(s.seq_len + 1, s.total_len), prefix_blocks))
+            seg_bids += chunk_tables
+            spans = [(s, off, s.seq_len)
+                     for s, off in zip(admissions, offsets)] + \
+                [(s, s.prefilled_tokens, upto) for s, upto in chunks]
             tgt: List[np.ndarray] = []
             pack_ledger: Dict[int, List[int]] = {}
             written: set = set()
-            table_rows = np.zeros((len(admissions), self.max_blocks),
-                                  np.int32)
-            for i, (s, bids) in enumerate(zip(admissions, seg_bids)):
-                seg_blocks = bids[:(s.seq_len - 1) // bs + 1]
+            for (s, off, end), bids in zip(spans, seg_bids):
+                seg_blocks = bids[off // bs:(end - 1) // bs + 1]
                 sanitizer.check_write(btm, s.req_id, seg_blocks)
                 overlap = [b for b in seg_blocks if b in written]
                 if overlap:
@@ -854,63 +1211,185 @@ class ContinuousEngine(PipelineBackend):
                         "corruption")
                 written.update(seg_blocks)
                 pack_ledger[s.req_id] = list(seg_blocks)
-                pos = np.arange(s.seq_len)
+                pos = np.arange(off, end)
                 tgt.append(np.asarray(bids, np.int64)[pos // bs] * bs +
                            pos % bs)
-                table_rows[i, :len(bids)] = bids
             # ---- ONE scatter: the flat pack lines up with the
             # concatenated per-segment targets -----------------------------
             flat = sum(len(x) for x in suffixes)
-            fidx = self._index(np.concatenate(tgt))
-            for key in ("k", "v"):
-                pool = cache[key]
-                pool.view((nl, -1) + pool.shape[3:])[:, fidx] = \
-                    parts[key][:, :flat].to(pool.dtype)
-            # ---- splice the decode rows ----------------------------------
-            n = len(admissions)
-            batch_b = eng.ladder.batch_bucket(n)
-            ctl = {"len": eng._tensor([s.seq_len for s in admissions] +
-                                      [1] * (batch_b - n), torch.int32),
-                   "pos_offset": torch.zeros((batch_b,), dtype=torch.int32,
-                                             device=self.device)}
-            rows = eng._finish_gen_state(
-                logits[:batch_b], ctl, n, batch_b,
-                budgets=[s.max_new_tokens for s in admissions],
-                eos_ids=[s.eos_id for s in admissions], cap=self.cap_new,
-                sampling=[s.params for s in admissions])
-            idx = self._index(slots)
-            cache["block_tables"][idx] = torch.as_tensor(table_rows,
-                                                         device=self.device)
-            self._splice_rows(rows, idx, n)
+            self._scatter(np.concatenate(tgt), parts)
+            # ---- splice decode rows: admissions + final chunks ------------
+            splicers: List[Tuple[int, int, Session]] = [
+                (i, slot, s) for i, (slot, s) in
+                enumerate(zip(slots, admissions))]
+            for j, (s, upto) in enumerate(chunks):
+                if upto == s.seq_len:
+                    splicers.append((len(admissions) + j,
+                                     self._chunk_slots[s.req_id], s))
+            if splicers:
+                ns = len(splicers)
+                batch_b = eng.ladder.batch_bucket(ns)
+                sel = self._index([seg for seg, _, _ in splicers] +
+                                  [0] * (batch_b - ns))
+                ctl = {"len": eng._tensor(
+                    [s.seq_len for _, _, s in splicers] +
+                    [1] * (batch_b - ns), torch.int32),
+                    "pos_offset": torch.zeros((batch_b,), dtype=torch.int32,
+                                              device=self.device)}
+                rows = eng._finish_gen_state(
+                    logits[sel], ctl, ns, batch_b,
+                    budgets=[s.max_new_tokens for _, _, s in splicers],
+                    eos_ids=[s.eos_id for _, _, s in splicers],
+                    cap=self.cap_new,
+                    sampling=[s.params for _, _, s in splicers])
+                self._publish_tables([slot for _, slot, _ in splicers],
+                                     [seg_bids[seg] for seg, _, _ in
+                                      splicers])
+                self._splice_rows(rows, self._index(
+                    [slot for _, slot, _ in splicers]), ns)
         except Exception:
-            # free whatever tables the pack got and neutralize their rows
-            self._release_tables(admissions, slots)
+            # free the admissions' tables and holds and neutralize their
+            # rows; chunk sessions keep their reservations — the pipeline
+            # aborts them explicitly
+            self._release_tables(admissions, slots, matches)
             raise
         # ---- host bookkeeping --------------------------------------------
         self._last_pack = pack_ledger
         self.prefill_dispatches += 1
         self.pack_dispatches += 1
-        self.pack_segments += n
+        self.pack_segments += len(suffixes)
         self.prefill_tokens += flat
-        self.pack_log.append((n, flat, eng.ladder.pack_bucket(flat)))
+        self.pack_log.append((len(suffixes), flat,
+                              eng.ladder.pack_bucket(flat)))
         now = self.clock()
         per_tok = kv_bytes_per_token(eng.cfg)
-        for slot, s in zip(slots, admissions):
+        for i, (slot, s) in enumerate(zip(slots, admissions)):
+            s.cached_tokens = offsets[i]
             self.sessions[slot] = s
             self._slot_len[slot] = s.seq_len
             eng.kv_slab.allocate(s.req_id, max(per_tok * s.total_len, 1),
                                  tokens=s.total_len)
             s.start_decode(now, slot=slot)
+        finals: List[Session] = []
+        for s, upto in chunks:
+            s.prefilled_tokens = upto
+            if upto == s.seq_len:
+                slot = self._chunk_slots.pop(s.req_id)
+                self.sessions[slot] = s
+                self._slot_len[slot] = s.seq_len
+                s.start_decode(now, slot=slot)
+                finals.append(s)
+        if self.prefix_cache is not None and (admissions or finals):
+            self._donate_prompts(list(admissions) + finals)
+        if admissions or finals:
+            # a budget-1 or instant-EOS prompt may be done already
+            self._sync()
+            self._publish_stream()
+        if decoding is not None:
+            self.decode_tick(decoding)
+
+    def begin_prefill_chunks(self, session: Session) -> None:
+        """Reserve everything the resumable prefill will need — a decode
+        slot and blocks/reservations covering the WHOLE prompt + first
+        decode write — before any chunk runs, so no chunk can fail on
+        capacity mid-prompt.  With the prefix cache on, the matched
+        prefix maps in here (tail copy-on-write included) and
+        ``session.prefilled_tokens`` starts at the cached length: the
+        chunks only cover the uncached remainder."""
+        if self.kv_layout != "paged":
+            raise ValueError("chunked prefill requires kv_layout='paged'")
+        eng = self.engine
+        if eng.kv_slab.has_region(session.req_id):
+            raise ValueError(f"req_id {session.req_id} already holds a "
+                             "KV region (duplicate in-flight submission?)")
+        self._ensure_state(eng.ladder.seq_bucket(session.total_len))
+        free = self._open_slots()
+        if not free:
+            raise RuntimeError("chunked admission beyond free slots")
+        matches = self._match([session])
+        self._check_capacity([session], matches, "chunked prefill",
+                             "session")
+        cached, prefix_blocks = self._adopt_match(
+            matches[0] if matches else None)
+        self._allocate(session, max(cached, 1), prefix_blocks)
+        self._chunk_slots[session.req_id] = free[0]
+        per_tok = kv_bytes_per_token(eng.cfg)
+        eng.kv_slab.allocate(session.req_id,
+                             max(per_tok * session.total_len, 1),
+                             tokens=session.total_len)
+        session.cached_tokens = cached
+        session.prefilled_tokens = cached
+
+    def prefill_chunk(self, session: Session, upto: int) -> None:
+        """One resumable-prefill pass over prompt positions
+        ``[prefilled_tokens, upto)``: gather the already-built prefix KV
+        from the session's own blocks, run the suffix pass at that
+        offset (causal attention continued across the chunk seam), and
+        scatter the chunk's KV into the session's blocks.  The final
+        chunk (``upto == seq_len``) seeds the decode row from its
+        last-token logits and splices it into the reserved slot."""
+        eng = self.engine
+        req = session.req_id
+        off = session.prefilled_tokens
+        self._check_chunk(session, upto)
+        final = upto == session.seq_len
+        bids = self._ensure_chunk_blocks(session, upto)
+        pk, pv = self._gather_own_prefix(req, off)
+        rows = eng.prefill_suffix_batch(
+            [list(session.prompt)[:upto]], prefix_k=pk, prefix_v=pv,
+            prefix_len=off, max_new_tokens=[session.max_new_tokens],
+            eos_id=[session.eos_id], cap_new=self.cap_new,
+            sampling=[session.params])
+        del pk, pv
+        bs = self.block_size
+        # sanitizer: the chunk scatters into exactly these blocks
+        sanitizer.check_write(self.block_table, req,
+                              bids[off // bs:(upto - 1) // bs + 1])
+        pos = np.arange(off, upto)
+        self._scatter(np.asarray(bids, np.int64)[pos // bs] * bs + pos % bs,
+                      rows.cache, pos - off)
+        session.prefilled_tokens = upto
+        self.prefill_dispatches += 1
+        self.prefill_tokens += upto - off
+        if not final:
+            return
+        # final chunk: claim the reserved slot and splice the control row
+        slot = self._chunk_slots.pop(req)
+        self._publish_tables([slot], [bids])
+        self._splice_rows(rows, self._index([slot]), 1)
+        self.sessions[slot] = session
+        self._slot_len[slot] = session.seq_len
+        session.start_decode(self.clock(), slot=slot)
+        if self.prefix_cache is not None:
+            self._donate_prompts([session])
         # a budget-1 or instant-EOS prompt may be done already
         self._sync()
         self._publish_stream()
 
-    def _release_tables(self, sessions: List[Session],
-                        slots: List[int]) -> None:
+    def abort_chunked(self, session: Session) -> None:
+        """Drop every hold a failed (or cancelled) chunked prefill still
+        has.  Its slot was never claimed and its block-table row was
+        never published, so freeing the blocks is safe — no device row
+        can write into them.  Matched shared-prefix blocks were adopted
+        into the table at ``begin_prefill_chunks``, so ``free`` unrefs
+        them back to the trie without disturbing other holders."""
+        req = session.req_id
+        if self.block_table is not None:
+            self.block_table.free(req)
+        self._reserved.pop(req, None)
+        self._chunk_slots.pop(req, None)
+        self._last_pack.pop(req, None)
+        if self.engine.kv_slab.has_region(req):
+            self.engine.kv_slab.free(req)
+            self.engine.kv_slab.gc()
+
+    def _release_tables(self, sessions: List[Session], slots: List[int],
+                        matches: Optional[List[PrefixMatch]] = None
+                        ) -> None:
         """After a failed paged prefill: free whatever tables the batch
-        got, and neutralize their device rows (trash-block tables, done)
-        so freed blocks can be reallocated without a stale row writing
-        into them."""
+        got, give back match holds never adopted, and neutralize their
+        device rows (trash-block tables, done) so freed blocks can be
+        reallocated without a stale row writing into them."""
         btm = self.block_table
         bad_slots: List[int] = []
         for i, s in enumerate(sessions):
@@ -918,7 +1397,9 @@ class ContinuousEngine(PipelineBackend):
                 bad_slots.append(slots[i])
                 btm.free(s.req_id)
                 self._reserved.pop(s.req_id, None)
-        if bad_slots:
+            if matches is not None:
+                self.prefix_cache.release(matches[i])
+        if bad_slots and self.state is not None:
             idx = self._index(bad_slots)
             self.state.cache["block_tables"][idx] = 0
             self.state.done[idx] = True
@@ -962,9 +1443,11 @@ class ContinuousEngine(PipelineBackend):
     def cancel_session(self, session: Session) -> None:
         """Tear down a mid-decode session NOW: publish its partial
         generation (one row read), release its slab region and block
-        table, clear its reservation, and neutralize the device row
-        (done, table -> trash) so its freed blocks can be reallocated
-        without the stale row writing into them."""
+        table (shared prefix blocks just lose one holder — sibling
+        sequences and the prefix trie keep theirs), clear its
+        reservation, and neutralize the device row (done, table -> trash)
+        so its freed blocks can be reallocated without the stale row
+        writing into them."""
         slot = session.slot
         if slot < 0 or self.sessions[slot] is not session:
             raise ValueError(f"session {session.req_id} holds no decode "
@@ -984,6 +1467,79 @@ class ContinuousEngine(PipelineBackend):
         self._slot_len[slot] = 0
         st.done[slot] = True
 
+    def _gather_own_prefix(self, req_id: int, length: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Prefix KV ``[0, length)`` gathered from the request's OWN
+        block table — the left side of a chunk seam (shape (L, 1,
+        length, KV, dh); length 0 yields empty tensors for the first
+        chunk of a cold prompt)."""
+        table = self.block_table.block_table(req_id)
+        nb = max(-(-length // self.block_size), 1)
+        ids = np.zeros((1, nb), np.int64)
+        ids[0, :min(len(table), nb)] = table[:nb]
+        return self._gather_blocks(ids, length)
+
+    def _gather_prefix(self, matches: List[PrefixMatch], cached: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The matched prefix KV of a suffix-prefill group: each
+        session's matched blocks gathered from the pool and trimmed to
+        the exact cached length, (L, B, cached, KV, dh)."""
+        ids = np.zeros((len(matches), -(-cached // self.block_size)),
+                       np.int64)
+        for i, m in enumerate(matches):
+            blocks = list(m.full_blocks)
+            if m.tail_block is not None:
+                blocks.append(m.tail_block)
+            ids[i, :len(blocks)] = blocks
+        return self._gather_blocks(ids, cached)
+
+    def _gather_blocks(self, ids: np.ndarray, length: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pool blocks ``ids`` (B, nb) as contiguous KV (L, B, length,
+        KV, dh): a copy, in the pool's dtype."""
+        idx = self._index(ids)
+        b, nb = ids.shape
+        out = []
+        for key in ("k", "v"):
+            pool = self.state.cache[key]
+            g = pool[:, idx]                   # (L, B, nb, BS, KV, dh)
+            out.append(g.reshape((pool.shape[0], b, nb * self.block_size) +
+                                 pool.shape[3:])[:, :, :length])
+        return out[0], out[1]
+
+    def _donate_prompts(self, sessions: List[Session]) -> None:
+        """Donate every admitted prompt to the trie.  A donated partial
+        tail makes the owner's first decode write copy-on-write, which
+        needs one extra block later — so the tail is donated only when
+        that block can be reserved NOW (evicting warm cache if needed);
+        otherwise only the full-block prefix is cached.  This keeps the
+        reservation invariant (free blocks always cover reservations)
+        without charging speculative COW blocks at admission."""
+        btm = self.block_table
+        bs = self.block_size
+        for s in sessions:
+            table = btm.block_table(s.req_id)
+            tokens = list(s.prompt)
+            donate_tail = bool(s.seq_len % bs) and s.max_new_tokens > 0
+            if donate_tail:
+                deficit = sum(self._reserved.values()) + 1 - \
+                    btm.free_blocks
+                if deficit > 0:
+                    self.prefix_cache.evict(deficit)
+                if sum(self._reserved.values()) + 1 <= btm.free_blocks:
+                    self._reserved[s.req_id] += 1
+                else:
+                    donate_tail = False
+            if not donate_tail and s.seq_len % bs:
+                tokens = tokens[:(s.seq_len // bs) * bs]
+            self.prefix_cache.insert(tokens, table)
+            if donate_tail:
+                tail = table[(s.seq_len - 1) // bs]
+                if btm.ref_count(tail) == 1:
+                    # tail deduped against an existing node: the owner
+                    # keeps writing its private block, no COW coming
+                    self._reserved[s.req_id] -= 1
+
     # -- internals -------------------------------------------------------
     def _ensure_state(self, need_len: int) -> None:
         if self.state is not None:
@@ -996,6 +1552,8 @@ class ContinuousEngine(PipelineBackend):
             if self.block_table is None:
                 self.block_table = sanitizer.make_block_manager(
                     b * (need_len // self.block_size) + 1, self.block_size)
+            if self._prefix_enabled and self.prefix_cache is None:
+                self.prefix_cache = RadixPrefixCache(self.block_table)
             cache = make_paged_cache(eng.cfg, b,
                                      self.block_table.num_blocks,
                                      self.block_size, self.max_blocks,
@@ -1065,53 +1623,53 @@ class ContinuousEngine(PipelineBackend):
         st.sampling = st.sampling or rows.sampling
 
     def _splice_paged(self, rows: GenState, slots: List[int],
-                      sessions: List[Session]) -> None:
+                      sessions: List[Session],
+                      matches: Optional[List[PrefixMatch]] = None) -> None:
         """Allocate block tables for newly admitted sessions and scatter
-        their prompt KV from the prefill parts into the pool (one scatter
-        for the whole batch); existing rows' blocks are untouched."""
-        btm = self.block_table
+        their prefilled KV from the prefill parts into the pool (one
+        scatter for the whole batch); existing rows' blocks are
+        untouched.  With prefix matches, a session's table opens with the
+        matched shared blocks (a partially valid tail copied first), and
+        only the uncached suffix KV is scattered."""
         bs = self.block_size
-        st = self.state
-        k = len(slots)
         flat: List[np.ndarray] = []
         src_rows: List[np.ndarray] = []
-        table_rows = np.zeros((k, self.max_blocks), np.int32)
+        tables: List[List[int]] = []
         s_pad = rows.cache["k"].shape[2]
         for i, s in enumerate(sessions):
+            cached, prefix_blocks = self._adopt_match(
+                matches[i] if matches is not None else None)
             # blocks covering the prompt plus the first decode write; the
             # rest of the budget is reserved and appended mid-decode
-            bids = btm.allocate(s.req_id, min(s.seq_len + 1, s.total_len))
-            self._reserved[s.req_id] = max(
-                btm.blocks_needed(s.total_len) - len(bids), 0)
-            sanitizer.check_write(btm, s.req_id,
-                                  bids[:(s.seq_len - 1) // bs + 1])
-            pos = np.arange(s.seq_len)
+            bids = self._allocate(s, min(s.seq_len + 1, s.total_len),
+                                  prefix_blocks)
+            sanitizer.check_write(self.block_table, s.req_id,
+                                  bids[cached // bs:(s.seq_len - 1) // bs +
+                                       1])
+            pos = np.arange(cached, s.seq_len)
             flat.append(np.asarray(bids, np.int64)[pos // bs] * bs +
                         pos % bs)
-            src_rows.append(i * s_pad + pos)
-            table_rows[i, :len(bids)] = bids
-        fidx = self._index(np.concatenate(flat))
-        sidx = self._index(np.concatenate(src_rows))
-        cache = st.cache
-        for key in ("k", "v"):
-            pool = cache[key]
-            nl = pool.shape[0]
-            part = rows.cache[key]
-            src = part.reshape((nl, -1) + part.shape[3:])[:, sidx]
-            pool.view((nl, -1) + pool.shape[3:])[:, fidx] = src.to(pool.dtype)
-        idx = self._index(slots)
-        cache["block_tables"][idx] = torch.as_tensor(table_rows,
-                                                     device=self.device)
-        self._splice_rows(rows, idx, k)
+            src_rows.append(i * s_pad + pos - cached)
+            tables.append(bids)
+        self._scatter(np.concatenate(flat), rows.cache,
+                      np.concatenate(src_rows))
+        self._publish_tables(slots, tables)
+        self._splice_rows(rows, self._index(slots), len(slots))
 
     def _append_blocks(self) -> None:
         """Before a decode tick: every occupied slot is about to write KV
         at its current length — append a pool block to any row crossing
-        a block boundary and publish it in the device block table."""
+        a block boundary and publish it in the device block table.  With
+        the prefix cache on, a row whose write position lands in a block
+        other holders also map (its own prompt tail donated to the trie,
+        e.g.) copies that block first: copy-on-write keeps shared prompt
+        KV immutable, and the copy is queued before the tick's write."""
         btm = self.block_table
         upd_slots: List[int] = []
         upd_idx: List[int] = []
         upd_bid: List[int] = []
+        cow_old: List[int] = []
+        cow_new: List[int] = []
         for slot, s in enumerate(self.sessions):
             if s is None:
                 continue
@@ -1127,7 +1685,28 @@ class ContinuousEngine(PipelineBackend):
                     upd_slots.append(slot)
                     upd_idx.append(base + off)
                     upd_bid.append(bid)
+            elif self.prefix_cache is not None:
+                bidx = pos // self.block_size
+                bid = btm.block_table(s.req_id)[bidx]
+                if btm.ref_count(bid) > 1:
+                    new = btm.copy_on_write(s.req_id, bidx)
+                    self._reserved[s.req_id] = max(
+                        self._reserved.get(s.req_id, 0) - 1, 0)
+                    self.cow_blocks += 1
+                    if s.req_id in self._last_pack:
+                        # the packed KV was copied with the block: the
+                        # ledger follows ownership to the private copy
+                        self._last_pack[s.req_id] = [
+                            new if b == bid else b
+                            for b in self._last_pack[s.req_id]]
+                    cow_old.append(bid)
+                    cow_new.append(new)
+                    upd_slots.append(slot)
+                    upd_idx.append(bidx)
+                    upd_bid.append(new)
             self._slot_len[slot] = pos + 1
+        if cow_old:
+            self._copy_blocks(cow_old, cow_new)
         if upd_slots:
             tables = self.state.cache["block_tables"]
             tables[self._index(upd_slots), self._index(upd_idx)] = \
@@ -1171,3 +1750,23 @@ class ContinuousEngine(PipelineBackend):
     @property
     def live_tokens(self) -> int:
         return self.engine.kv_slab.live_tokens
+
+    @property
+    def kv_footprint_tokens(self) -> int:
+        """Token capacity of the KV actually held: live paged blocks
+        (cached prefix blocks included — they occupy pool capacity until
+        evicted), or the contiguous slab's live reservations."""
+        if self.block_table is not None:
+            return self.block_table.footprint_tokens
+        return self.engine.kv_slab.live_tokens
+
+    def prefix_stats(self) -> Dict[str, int]:
+        """Prefix-cache telemetry plus engine-side integration counters
+        (empty when prefix caching is off or the pool does not exist
+        yet)."""
+        if self.prefix_cache is None:
+            return {}
+        out = self.prefix_cache.stats()
+        out["cow_blocks"] = self.cow_blocks
+        out["prefill_tokens"] = self.prefill_tokens
+        return out

@@ -12,14 +12,28 @@ per-token KV state for their whole lifetime; two managers account for it:
   KV form, at block granularity), and a sequence can grow past any initial
   length estimate by appending blocks — no cache re-materialization.
 
-The port serves the paged layout without a shared prefix
-cache, so the refcounts here only ever count one holder per block; they
-stay because the sanitizer's shadow counts check them.
+The cache hierarchy, bottom to top:
+
+  slab (`KVSlabManager`)          contiguous per-request byte regions
+    -> paged (`BlockTableManager`) one pool of refcounted token blocks,
+                                   per-request tables mapping logical ->
+                                   physical blocks
+      -> shared prefix (`repro_torch.runtime.prefix_cache.RadixPrefixCache`)
+                                   a radix trie over block-granular prompt
+                                   chunks that lets many requests map the
+                                   SAME physical blocks for a common
+                                   prompt prefix (copy-on-write on
+                                   divergence, LRU eviction of
+                                   unreferenced cached blocks)
+
+Refcounts are what make the top layer safe: a physical block is returned
+to the free list only when its last holder (request table or cached trie
+node) drops it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.cost_model import blocks_for_tokens
@@ -168,9 +182,12 @@ class BlockTableManager:
     each (request, logical block index) maps to, recycles freed blocks
     through a free list, and reports live-token / live-block footprint.
 
-    Every non-free block carries a **refcount** of its holders;
-    :meth:`free` and :meth:`unref` return a block to the free list when
-    the last holder lets go.
+    Every non-free block carries a **refcount**: how many holders (request
+    tables, cached prefix-trie nodes) currently map it.  Sharing a block
+    between two sequences — the prefix cache's whole point — is
+    :meth:`ref`; :meth:`free` and :meth:`unref` only return a block to the
+    free list when the last holder lets go.  A holder about to *write*
+    into a block with other holders must :meth:`copy_on_write` first.
     """
 
     def __init__(self, num_blocks: int,
@@ -239,6 +256,16 @@ class BlockTableManager:
         return blocks_for_tokens(tokens, self.block_size)
 
     # -- refcounts -------------------------------------------------------
+    def ref_count(self, block_id: int) -> int:
+        return self._refs[block_id]
+
+    def ref(self, block_id: int) -> None:
+        """Add a holder to an already-held block (prefix sharing)."""
+        if block_id <= 0 or self._refs[block_id] <= 0:
+            raise ValueError(f"block {block_id} is not held; only live "
+                             "blocks can gain holders")
+        self._refs[block_id] += 1
+
     def unref(self, block_id: int) -> bool:
         """Drop one holder; recycle the block when the last one lets go.
         Returns True iff the block went back to the free list."""
@@ -261,12 +288,26 @@ class BlockTableManager:
             self._refs[b] = 1
         return out
 
-    def allocate(self, req_id: int, tokens: int) -> List[int]:
+    def take(self, n: int) -> List[int]:
+        """Take ``n`` free blocks outside any table (each with one
+        holder: the caller).  Used for copy-on-write scratch blocks that
+        are adopted into a table via ``allocate(prefix_blocks=...)``."""
+        return self._take(n)
+
+    def allocate(self, req_id: int, tokens: int,
+                 prefix_blocks: Sequence[int] = ()) -> List[int]:
         """Admission-time allocation: a table covering ``tokens``.
-        Returns the physical block ids, in logical order."""
+
+        ``prefix_blocks`` are already-held blocks (shared prompt prefix
+        matched by the cache, or freshly taken COW copies) that become the
+        head of the table; the caller's hold on them transfers to the
+        table (no ref change here — ``free`` will unref them).  Fresh
+        blocks are taken for the remainder.  Returns the physical block
+        ids, in logical order."""
         if req_id in self._tables:
             raise KeyError(f"request {req_id} already has a block table")
-        blocks = self._take(max(self.blocks_needed(tokens), 1))
+        need = max(self.blocks_needed(tokens), 1) - len(prefix_blocks)
+        blocks = list(prefix_blocks) + self._take(max(need, 0))
         self._tables[req_id] = blocks
         self._tokens[req_id] = tokens
         return list(blocks)
@@ -282,9 +323,21 @@ class BlockTableManager:
         self._tokens[req_id] = max(self._tokens[req_id], tokens)
         return fresh
 
+    def copy_on_write(self, req_id: int, logical_idx: int) -> int:
+        """Replace table entry ``logical_idx`` with a fresh private block
+        (the caller device-copies the payload), dropping this table's hold
+        on the shared original.  Returns the new physical block id."""
+        table = self._tables[req_id]
+        new = self._take(1)[0]
+        old = table[logical_idx]
+        table[logical_idx] = new
+        self.unref(old)
+        return new
+
     def free(self, req_id: int) -> None:
-        """Release ``req_id``'s table: every block drops one holder and
-        returns to the free list when none is left.  A no-op for unknown or
+        """Release ``req_id``'s table: every block drops one holder; only
+        blocks with no other holder (no prefix-cache node, no sharing
+        sequence) return to the free list.  A no-op for unknown or
         already-freed ids, so engine error-path cleanup can sweep every
         session of a failed batch without tracking which ones got
         tables."""

@@ -12,11 +12,13 @@ those into a loud `SanitizerError` naming the block and the owning session:
   already hit zero (refcount corruption);
 - **write-to-unowned-block** — an engine KV scatter routed to a block
   outside the writer's table, or to trash block 0;
-- **aliasing** — a write to a block with other holders;
-- **leaks at drain** — tables outliving their session, or used blocks
-  at drain.
+- **COW aliasing** — a write to a block with other holders (the writer
+  should have gone through `copy_on_write` first);
+- **leaks at drain** — `take()`n blocks never adopted into a table, tables
+  outliving their session, or pool usage the prefix cache can't account for.
 
-Copied from the JAX package, without the prefix-cache and cluster hooks.
+Copied from the JAX package, without the cluster tier's pool-ownership
+check.
 
 Enablement (`enabled()`): `TURBO_SANITIZE=1` forces it on, `TURBO_SANITIZE=0`
 forces it off, unset means *on under pytest, off otherwise* — production
@@ -33,7 +35,7 @@ from __future__ import annotations
 
 import os
 import sys
-from typing import Dict, Iterable, List, Optional, Set
+from typing import Dict, Iterable, List, Optional, Sequence, Set
 
 from repro_torch.runtime.kv_cache import BlockTableManager
 
@@ -87,6 +89,8 @@ class SanitizedBlockTableManager(BlockTableManager):
         # divergence between the two is itself reported as corruption.
         self._shadow: List[int] = [0] * num_blocks
         self._shadow[0] = 1
+        # Blocks handed out by take() and not yet adopted by allocate().
+        self._pending: Set[int] = set()
         # Last holder that returned each block to the free list.
         self._last_release: Dict[int, str] = {}
         # Request ids whose table existed and was freed (double-free bait);
@@ -98,11 +102,13 @@ class SanitizedBlockTableManager(BlockTableManager):
         """Human-readable holder list for a block, for error reports."""
         out = [f"session {rid}" for rid, tbl in self._tables.items()
                if block_id in tbl]
+        if block_id in self._pending:
+            out.append("take() pending adoption")
         if block_id == 0:
             out.append("<trash sentinel>")
         extra = self._shadow[block_id] - len(out)
         if extra > 0:
-            out.append(f"{extra} anonymous holder(s)")
+            out.append(f"{extra} anonymous holder(s) (prefix-cache trie)")
         return out or ["nobody"]
 
     def _describe(self, block_id: int) -> str:
@@ -110,6 +116,19 @@ class SanitizedBlockTableManager(BlockTableManager):
                 f"held by {', '.join(self.owners_of(block_id))})")
 
     # -- refcount interception -------------------------------------------
+    def ref(self, block_id: int) -> None:
+        if block_id == 0:
+            raise SanitizerError("ref of trash block 0: the sentinel can "
+                                 "never gain holders")
+        if not (0 < block_id < self.num_blocks) or \
+                self._shadow[block_id] <= 0:
+            last = self._last_release.get(block_id, "never held")
+            raise SanitizerError(
+                f"ref of free block {block_id}: only live blocks can gain "
+                f"holders (last released by {last})")
+        super().ref(block_id)
+        self._shadow[block_id] += 1
+
     def unref(self, block_id: int, *, _holder: str = "caller") -> bool:
         if block_id == 0:
             raise SanitizerError("unref of trash block 0: the sentinel is "
@@ -140,10 +159,39 @@ class SanitizedBlockTableManager(BlockTableManager):
             self._shadow[b] = 1
         return out
 
-    def allocate(self, req_id: int, tokens: int) -> List[int]:
-        blocks = super().allocate(req_id, tokens)
+    def take(self, n: int) -> List[int]:
+        out = super().take(n)
+        self._pending.update(out)
+        return out
+
+    def allocate(self, req_id: int, tokens: int,
+                 prefix_blocks: Sequence[int] = ()) -> List[int]:
+        for b in prefix_blocks:
+            if b == 0:
+                raise SanitizerError(
+                    f"session {req_id} adopts trash block 0 as a prefix "
+                    "block")
+            if self._shadow[b] <= 0:
+                raise SanitizerError(
+                    f"session {req_id} adopts free block {b}: prefix "
+                    "blocks must already be held (last released by "
+                    f"{self._last_release.get(b, 'never held')})")
+        blocks = super().allocate(req_id, tokens, prefix_blocks)
         self._freed_tables.discard(req_id)
+        self._pending.difference_update(blocks)
         return blocks
+
+    def copy_on_write(self, req_id: int, logical_idx: int) -> int:
+        table = self._tables[req_id]
+        old = table[logical_idx]
+        if self._shadow[old] <= 0:
+            raise SanitizerError(
+                f"session {req_id} copy-on-write of freed block {old} at "
+                f"logical index {logical_idx}")
+        new = self._take(1)[0]
+        table[logical_idx] = new
+        self.unref(old, _holder=f"session {req_id} (copy-on-write)")
+        return new
 
     def free(self, req_id: int) -> None:
         blocks = self._tables.pop(req_id, None)
@@ -177,8 +225,8 @@ class SanitizedBlockTableManager(BlockTableManager):
                     f"{self._describe(b)}")
             if self._shadow[b] > 1:
                 raise SanitizerError(
-                    f"aliasing violation: session {req_id} writes "
-                    f"shared {self._describe(b)}")
+                    f"COW aliasing violation: session {req_id} writes "
+                    f"shared {self._describe(b)} without copy-on-write")
 
     def check_conservation(self) -> None:
         """Every block is either on the free list with refcount zero or
@@ -212,15 +260,25 @@ class SanitizedBlockTableManager(BlockTableManager):
                     raise SanitizerError(
                         f"session {rid} maps freed block {b}")
 
-    def check_idle(self, live_requests: Iterable[int] = ()) -> None:
-        """Leak check at drain: with no live sessions, no block may be
-        in use."""
+    def check_idle(self, live_requests: Iterable[int] = (),
+                   cache_blocks: int = 0) -> None:
+        """Leak check at drain: with no live sessions, every used block
+        must be accounted for by the prefix cache."""
         live = set(live_requests)
         for rid, tbl in self._tables.items():
             if rid not in live:
                 raise SanitizerError(
                     f"leaked block table: session {rid} still holds "
                     f"blocks {tbl} after drain")
-        if not self._tables and self.used_blocks:
+        if self._pending:
+            b = min(self._pending)
             raise SanitizerError(
-                f"{self.used_blocks} block(s) leaked at drain")
+                f"leaked block(s) {sorted(self._pending)}: taken via "
+                f"take() but never adopted into a table or freed "
+                f"(first: block {b}, held by "
+                f"{', '.join(self.owners_of(b))})")
+        if not self._tables and self.used_blocks != cache_blocks:
+            raise SanitizerError(
+                f"{self.used_blocks - cache_blocks} block(s) leaked at "
+                f"drain: pool holds {self.used_blocks}, prefix cache "
+                f"accounts for {cache_blocks}")

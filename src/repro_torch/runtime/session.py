@@ -56,7 +56,11 @@ class GenerationParams:
 
 class SessionState(enum.Enum):
     QUEUED = "queued"        # waiting in the admission queue
-    PREFILL = "prefill"      # admitted; its prompt pass is running
+    # PREFILL is *resumable*: under chunked prefill a session stays here
+    # across many ticks while ``prefilled_tokens`` walks up its prompt,
+    # one decode-tick-sized chunk at a time; the classic whole-prompt
+    # pass is the single-chunk special case.
+    PREFILL = "prefill"
     DECODE = "decode"        # holds a KV slot; advances one token per tick
     FINISHED = "finished"    # response ready, KV freed
 
@@ -124,12 +128,23 @@ class Session:
     prefill_time: Optional[float] = None
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
+    # chunked-prefill progress: prompt tokens whose KV is already built.
+    # Stays 0 for whole-prompt prefills; under chunking it advances one
+    # chunk per PREFILL tick until it reaches seq_len (then the session
+    # splices into decode).  TTFT is first_token_time - arrival_time and
+    # is recorded at the first *generated* token — finishing the last
+    # chunk, not dispatching the first one.
+    prefilled_tokens: int = 0
     # host-visible emission timestamps (first entry = the prefill's seed
     # token, then one per decode tick); inter-token-latency telemetry for
     # the serving benchmarks — diffs of this list are the ITL samples.
     token_times: List[float] = field(default_factory=list)
-    # prompt tokens served from a KV cache instead of the prefill pass
-    # (telemetry; always 0 until the port has a prefix cache)
+    # prefix-sharing hooks: cohort whose prompts open with the same
+    # ``shared_prefix_len`` tokens (workloads may mark these; the engine
+    # matches actual token ids instead), and the cached tokens the
+    # serving backend actually reused at prefill (telemetry).
+    prefix_group: Optional[int] = None
+    shared_prefix_len: int = 0
     cached_tokens: int = 0
 
     # -- constructors ----------------------------------------------------
@@ -183,8 +198,8 @@ class Session:
         self.slot = -1
 
     def cancel(self, now: float) -> None:
-        """Terminal cancellation from ANY live state (QUEUED, PREFILL,
-        DECODE).  Unlike :meth:`finish` this is not a normal
+        """Terminal cancellation from ANY live state (QUEUED, resumable
+        PREFILL, DECODE).  Unlike :meth:`finish` this is not a normal
         transition — it marks the session cancelled and force-finishes
         it; the serving backend has already released every resource the
         session held.  Tokens generated before the cancel stay in

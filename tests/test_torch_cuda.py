@@ -135,6 +135,20 @@ def test_cuda_flash_attention_bf16_matches_plain(cuda, causal, sq, sk):
     torch.testing.assert_close(got, want, **BF16_ATTN_TOL)
 
 
+@pytest.mark.parametrize("sq,sk", [(256, 1293), (512, 3584)])
+def test_cuda_flash_attention_bf16_suffix_alignment(cuda, sq, sk):
+    """Queries as the last Sq of Sk keys, as a suffix prefill after Sk - Sq
+    cached tokens gives them: at an offset off the 64-key tile (1037) and
+    on it (3072), with the full width's 16 heads over 8 KV heads.  Each
+    call counts as one suffix-aligned launch."""
+    q, k, v = _bf16_attention(cuda, 2, 16, 8, sq, sk, seed=5)
+    cuda_lib.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert cuda_lib.LAUNCH_SHAPES[("flash_attention", "suffix")] == 1
+    want = ref.flash_attention_ref(q, k, v, None, True)
+    torch.testing.assert_close(got, want, **BF16_ATTN_TOL)
+
+
 @pytest.mark.parametrize("h,kv", [(8, 8), (8, 2), (6, 2)])
 def test_cuda_flash_attention_bf16_gqa_groups(cuda, h, kv):
     """Groups of 1, 4 and 3 query heads per KV head (query head h reads
@@ -809,3 +823,46 @@ def test_cuda_decode_is_one_launch_per_call(cuda, layout):
             break
     assert len(names) == calls, names
     assert all("decode_kernel" in n for n in names), names
+
+
+def test_cuda_cow_copy_then_decode_write_keeps_the_cached_block(cuda):
+    """The prefix cache on the card (smoke depth at the full head dim, f32,
+    per-group prefill): a prompt whose partial tail block is donated to
+    the cache copies that block before its first decode write, and a
+    second prompt diverging inside the cached tail copies it at
+    admission.  The cached block's bytes are the same after both
+    requests' decode writes, and both streams equal ``generate`` of the
+    prompt alone."""
+    import dataclasses
+
+    from repro_torch.api import GenerationParams, TurboClient
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime.bucketing import BucketLadder
+    from repro_torch.runtime.engine import ContinuousEngine, InferenceEngine
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), d_head=128)
+    engine = InferenceEngine(
+        cfg, init_params(cfg, device=cuda),
+        ladder=BucketLadder(seq_buckets=(32, 64, 128), batch_buckets=(4,)),
+        device=cuda)
+    ce = ContinuousEngine(engine, max_slots=4, cap_new=16,
+                          packed_prefill=False, prefix_cache=True)
+    client = TurboClient(ce)
+    p1 = list(range(1, 21))                  # a block and 4 tokens
+    h1 = client.submit(p1, GenerationParams(max_new_tokens=8))
+    client.pump(max_ticks=1)                 # prefill: the tail is donated
+    tail = ce.block_table.block_table(h1.req_id)[1]
+    assert ce.block_table.ref_count(tail) == 2
+    before = {key: ce.state.cache[key][:, tail].clone()
+              for key in ("k", "v")}
+    r1 = h1.result()
+    assert ce.cow_blocks == 1                # the first decode write
+    p2 = p1[:18] + [99, 98, 97]              # diverges inside the tail
+    r2 = client.submit(p2, GenerationParams(max_new_tokens=8)).result()
+    assert ce.cow_blocks >= 2                # the admission's copy
+    for key in ("k", "v"):
+        assert torch.equal(ce.state.cache[key][:, tail], before[key])
+    assert r1 == engine.generate([p1], max_new_tokens=8)[0]
+    assert r2 == engine.generate([p2], max_new_tokens=8)[0]
+    btm = ce.block_table
+    assert btm.used_blocks == ce.prefix_cache.cached_blocks

@@ -165,21 +165,33 @@ def test_sanitizer_catches_a_write_into_a_foreign_block(weights):
                                     "chunked_prefill+prefix_cache",
                                     "chunked_prefill", "kv_layout"])
 def test_engine_refuses_options_not_ported_yet(weights, option):
-    """Options the port does not serve raise, alone or together.  Both KV
-    layouts of the JAX package are ported, so for ``kv_layout`` only a
-    layout neither package has is refused; ``packed_prefill`` is ported
-    (test_engine_accepts_packed_prefill_and_refuses_chunks)."""
-    _, _, tparams = weights
-    kw = ({"kv_layout": "ring"} if option == "kv_layout"
-          else {o: True for o in option.split("+")})
-    with pytest.raises(ValueError,
-                       match="not ported yet|unknown kv_layout 'ring'"):
+    """The port's engine refuses exactly what the JAX package's refuses:
+    ``prefix_cache`` on the contiguous layout (sharing is per block),
+    ``chunked_prefill`` as an engine option (it is the pipeline's, in
+    `PipelineConfig`), and a layout neither package has.  Every option of
+    the JAX package's engine is ported; ``prefix_cache`` on the paged
+    layout is accepted."""
+    jcfg, jparams, tparams = weights
+    if option == "kv_layout":
+        kw, err = {"kv_layout": "ring"}, ValueError
+    elif option == "prefix_cache":
+        kw, err = {"prefix_cache": True, "kv_layout": "contiguous"}, \
+            ValueError
+    else:
+        kw, err = {o: True for o in option.split("+")}, TypeError
+    jeng = JaxInferenceEngine(jcfg, jparams, ladder=JaxLadder(**LADDER))
+    with pytest.raises(err):
+        JaxContinuousEngine(jeng, max_slots=4, cap_new=24, **kw)
+    with pytest.raises(err, match="kv_layout|unexpected keyword"):
         _port(tparams, **kw)
+    if option == "prefix_cache":
+        assert _port(tparams, prefix_cache=True)._prefix_enabled
 
 
 def test_engine_accepts_packed_prefill_and_refuses_chunks(weights):
-    """``packed_prefill=True`` is the default and is accepted; the chunk
-    half of ``prefill_pack`` belongs to chunked prefill and raises."""
+    """``packed_prefill=True`` is the default and is accepted; a chunk in
+    ``prefill_pack`` for a session with no chunked prefill in flight (a
+    decoding one here) raises, as in the JAX package."""
     _, _, tparams = weights
     ce = _port(tparams, packed_prefill=True)
     assert ce.supports_packed_prefill() and _port(tparams).packed_prefill
@@ -187,7 +199,7 @@ def test_engine_accepts_packed_prefill_and_refuses_chunks(weights):
     h = client.submit(list(range(1, 12)), GenerationParams(max_new_tokens=4))
     client.pump(max_ticks=1)
     live = next(s for s in ce.sessions if s is not None)
-    with pytest.raises(ValueError, match="chunked prefill"):
+    with pytest.raises(ValueError, match="no chunked prefill in flight"):
         ce.prefill_pack([], chunks=[(live, 8)])
     h.result()
     assert ce.pack_dispatches == 1 and ce.block_table.used_blocks == 0

@@ -47,6 +47,16 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_scan_covers_the_serving_modules():
+    """The scan above reads every module of the port, the prefix cache
+    and the chunked-prefill path among them."""
+    names = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {"runtime/prefix_cache.py", "runtime/engine.py",
+            "runtime/kv_cache.py", "runtime/sanitizer.py",
+            "core/pipeline.py", "models/transformer.py"} <= names
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     from repro_torch.api import TurboClient
     from repro_torch.configs import get_smoke_config
