@@ -32,9 +32,11 @@ Phases, each printing one JSON line:
    decode and packed kernels compiled to (``norm_build``,
    ``sample_build``, ``flash_decode_build``,
    ``flash_attention_packed_build``);
-4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False)``
-   (24 layers, d_model 2048, vocab 92544, bf16 weights from a seed, f32
-   KV pool), serve a mixed greedy / sampled workload with mid-decode
+4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False,
+   warmup=True)`` (24 layers, d_model 2048, vocab 92544, bf16 weights from
+   a seed, f32 KV pool; ``warmup_aot`` captures both decode-tick cells as
+   CUDA graphs, and no cell may be captured while serving), serve a
+   mixed greedy / sampled workload with mid-decode
    arrivals through the default packed admission (one packed flash
    launch per layer per pack, each pack's occupancy), check every greedy
    stream against ``engine.generate`` of its prompt alone and every
@@ -58,10 +60,13 @@ Phases, each printing one JSON line:
    the drift of a packed pass, a suffix pass and a decode step at batch
    8 against batch 1;
 5. profile_decode and profile_decode_sampled: eight greedy or sampled
-   rows decoding at full width, the host time per tick and, from
-   ``torch.profiler``, the device's busy time by kernel family and its
-   idle share (the sampled window also the sample kernel's device time
-   and what ``gumbel_noise`` launches); profile_prefill: one prefill of
+   rows decoding at full width, in a window of graphed ticks and one of
+   the eager ``decode_step_batch`` on a copy of the same rows: the host
+   time per tick, the host's launch calls per tick (at most 10 for a
+   graphed tick) and, from ``torch.profiler``, the device kernels per
+   tick, the device's busy time by kernel family and its idle share (the
+   sampled windows also the sample kernel's device time and what
+   ``gumbel_noise`` launches); profile_prefill: one prefill of
    eight prompts at the 1024 bucket, the same breakdown and the flash
    kernel's share; profile_prefill_packed: the same prompts as one pack;
    profile_prefill_suffix: the same prompts with their first 768 tokens
@@ -79,7 +84,9 @@ Phases, each printing one JSON line:
    24 masked-softmax launches per executed batch, no flash attention;
 7. serve_contiguous: the serve phase's workload through
    ``kv_layout="contiguous"`` (per-group prefill through the causal
-   kernel), every stream equal to the request alone, 24 contiguous-decode
+   kernel) from a slot cache of 1024 positions, plus a 1200-token prompt
+   arriving mid-decode that grows it to 2048 and re-captures the tick's
+   cell, every stream equal to the request alone, 24 contiguous-decode
    launches per decode tick and no paged-decode launch.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
@@ -1342,24 +1349,38 @@ def serve(dev, card: str, layout: str = "paged"):
     from repro_torch.api import GenerationParams, TurboClient
     from repro_torch.kernels import cuda_lib
     rng = np.random.default_rng(SEED)
-    buckets = (128, 256, 512, 1024)
     t0 = time.perf_counter()
     # one batch bucket, the slot count: generate() of one prompt then runs
     # the decode tick's matrix products at the serving batch's shape, so
     # its greedy stream can be held bit for bit against the served one
     # (cuBLAS may pick another kernel, and round otherwise, at batch 1).
-    # The pool holds every slot at the top bucket, plus the trash block;
-    # the contiguous slot cache is sized at the first admission and grows
-    # to the top bucket.
-    layout_kw = dict(num_blocks=8 * 1024 // 16 + 1) if layout == "paged" \
-        else dict(kv_layout="contiguous")
+    # The pool holds every slot at the top bucket, plus the trash block.
+    # The contiguous slot cache starts at 1024 positions (warmup_aot
+    # builds it there) and grows to the 2048 bucket when the long prompt
+    # arrives mid-decode, dropping and re-capturing its tick's cell.
+    if layout == "paged":
+        buckets = (128, 256, 512, 1024)
+        layout_kw = dict(num_blocks=8 * 1024 // 16 + 1)
+    else:
+        buckets = (128, 256, 512, 1024, 2048)
+        layout_kw = dict(kv_layout="contiguous", max_len=1024)
+    # warmup=True: the client runs warmup_aot before serving, which on the
+    # card captures both decode-tick cells as CUDA graphs
     client = TurboClient.from_arch(
         "internlm2-1.8b", smoke=False, device=dev, seq_buckets=buckets,
         batch_buckets=(8,), max_slots=8, cap_new=64, init_seed=SEED,
-        **layout_kw)
+        warmup=True, **layout_kw)
     engine = client.backend.engine
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    warm = dict(client.warmup_stats)
+    cells = client.backend.tick_cells
+    if warm["compile_count"] != 2 or len(cells) != 2:
+        raise AssertionError(f"warmup_aot captured {warm} ({len(cells)} "
+                             "cells held); expected both tick cells")
+    captures0, warm_ticks0 = engine.compile_count, cells.warm_ticks
+    warm_capture_s = cells.capture_seconds
+    pool_after_warmup = cells.pool_bytes()
     vocab = engine.cfg.vocab_size
     plens = [64, 960, 200, 512, 90, 700, 130, 333, 1000 - 64, 77, 480, 256,
              150, 600]
@@ -1374,6 +1395,11 @@ def serve(dev, card: str, layout: str = "paged"):
             seed=1000 + i)
         prompt = [int(t) for t in rng.integers(1, vocab, n)]
         specs.append((prompt, params))
+    if layout == "contiguous":
+        # arrives mid-decode and needs the 2048 bucket: the slot cache
+        # grows past its 1024 positions
+        specs.append(([int(t) for t in rng.integers(1, vocab, 1200)],
+                       GenerationParams(max_new_tokens=48, seed=1099)))
     first, later = specs[:8], specs[8:]
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1390,6 +1416,17 @@ def serve(dev, card: str, layout: str = "paged"):
     ce = client.backend
     ticks, prefills = ce.decode_ticks, ce.prefill_dispatches
     packs = list(ce.pack_log) if layout == "paged" else []
+    # cells captured while serving, and the eager ticks run to warm them
+    captured = engine.compile_count - captures0
+    warm_ticks = cells.warm_ticks - warm_ticks0
+    if layout == "paged" and captured:
+        raise AssertionError(f"paged serving captured {captured} tick "
+                             "cells after warmup_aot")
+    if layout == "contiguous" and not (ce.max_len == 2048 and captured):
+        raise AssertionError(f"contiguous serving: slot cache of "
+                             f"{ce.max_len} positions, {captured} cells "
+                             "captured while serving (expected a grow to "
+                             "2048 and its re-capture)")
 
     # the paged layout admits through packed prefill (the default), the
     # contiguous one per group through the causal kernel
@@ -1412,20 +1449,24 @@ def serve(dev, card: str, layout: str = "paged"):
     if layout == "paged" and not 0 < ce.pack_dispatches == prefills:
         raise AssertionError(f"paged serving: {ce.pack_dispatches} packed "
                              f"of {prefills} prefill dispatches")
-    # two norms a layer and the final one, in every decode tick and prefill
+    # two norms a layer and the final one, in every decode tick (each
+    # replay adds what its capture recorded), every eager tick that warmed
+    # a capture, and every prefill
     norms_per_step = 2 * engine.cfg.num_layers + 1
-    if launches["norm"] != norms_per_step * (ticks + prefills):
+    steps = ticks + warm_ticks + prefills
+    if launches["norm"] != norms_per_step * steps:
         raise AssertionError(f"{launches['norm']} norm launches over {ticks} "
-                             f"ticks and {prefills} prefills (expected "
+                             f"ticks, {warm_ticks} warm-up ticks and "
+                             f"{prefills} prefills (expected "
                              f"{norms_per_step} each)")
     if layout == "contiguous":
         per_tick = engine.cfg.num_layers
-        if launches[decode] != per_tick * ticks or \
+        if launches[decode] != per_tick * (ticks + warm_ticks) or \
                 launches.get("flash_decode_paged", 0):
             raise AssertionError(
                 f"contiguous serving: {launches[decode]} contiguous decode "
-                f"launches over {ticks} ticks (expected "
-                f"{per_tick} per tick) and "
+                f"launches over {ticks} ticks and {warm_ticks} warm-up "
+                f"ticks (expected {per_tick} per tick) and "
                 f"{launches.get('flash_decode_paged', 0)} paged")
     elif ce.block_table.used_blocks != 0:
         raise AssertionError(f"{ce.block_table.used_blocks} KV blocks "
@@ -1483,6 +1524,15 @@ def serve(dev, card: str, layout: str = "paged"):
           "ttft_p50_s": float(np.percentile(ttft, 50)),
           "ttft_p99_s": float(np.percentile(ttft, 99)),
           "peak_mem_gib": peak / 2 ** 30, "stack_build_s": build_s,
+          "warmup_aot": warm,
+          "tick_cells": {
+              "capture_s_by_warmup_aot": warm_capture_s,
+              "captured_while_serving": captured,
+              "warm_up_ticks_while_serving": warm_ticks,
+              "capture_s_all": cells.capture_seconds,
+              "graph_pool_bytes_after_warmup": pool_after_warmup,
+              "graph_pool_bytes": cells.pool_bytes(),
+              "slot_cache_positions": ce.max_len},
           "decode_ticks": ticks, "prefill_dispatches": prefills,
           "norm_launches": {"decode": norms_per_step * ticks,
                             "prefill": norms_per_step * prefills},
@@ -1614,12 +1664,13 @@ def serve_prefix_chunked(dev, card: str) -> dict:
             seq_buckets=(128, 256, 512, 1024), batch_buckets=(1, 2, 4, 8),
             max_slots=8, cap_new=64, init_seed=SEED, prefix_cache=True,
             num_blocks=8 * 1024 // 16 + 1,
-            packed_prefill=mode == "packed",
+            packed_prefill=mode == "packed", warmup=True,
             config=PipelineConfig(chunked_prefill=True,
                                   prefill_chunk_tokens=PREFIX_CHUNK_TOKENS))
         ce, pipe = client.backend, client.pipeline
         engine = ce.engine
         cfg = engine.cfg
+        captures0 = engine.compile_count
         if mode == "packed":
             specs = prefix_chunked_workload(cfg.vocab_size, rng)
         torch.cuda.synchronize()
@@ -1640,6 +1691,12 @@ def serve_prefix_chunked(dev, card: str) -> dict:
         stats, prefix = pipe.stats, ce.prefix_stats()
         ticks, prefills = ce.decode_ticks, ce.prefill_dispatches
         # ---- the path's counters --------------------------------------
+        if client.warmup_stats["compile_count"] != 2 or \
+                engine.compile_count != captures0:
+            raise AssertionError(
+                f"serve_prefix_chunked {mode}: warmup_aot "
+                f"{client.warmup_stats}, {engine.compile_count - captures0} "
+                "tick cells captured while serving")
         if not (prefix["hits"] > 0 and prefix["cow_blocks"] > 0 and
                 stats.chunked_prefills > 0):
             raise AssertionError(f"serve_prefix_chunked {mode}: prefix "
@@ -1730,6 +1787,7 @@ def serve_prefix_chunked(dev, card: str) -> dict:
                 "batch_buckets": [1, 2, 4, 8],
                 "chunk_tokens": PREFIX_CHUNK_TOKENS,
                 "requests": len(handles),
+                "warmup_aot": client.warmup_stats,
                 "kinds": {k: sum(1 for s in specs if s[0] == k)
                           for k in ("system", "mid-block", "cold")},
                 "sampled": sum(1 for s in specs if s[2].temperature > 0),
@@ -2090,18 +2148,99 @@ def traced_window(run):
     return prof, wall_ms, launches, split, check, result
 
 
+#: the host's kernel and graph launch calls, by their names in a trace
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+               "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def host_launch_calls(prof) -> dict:
+    """The window's kernel and graph launch API calls, by name."""
+    calls = {}
+    for evt in prof.key_averages():
+        if evt.key in LAUNCH_APIS:
+            calls[evt.key] = calls.get(evt.key, 0) + evt.count
+    return calls
+
+
+def decode_window(run, ticks: int) -> dict:
+    """``run`` (``ticks`` decode ticks) once on the host clock alone and
+    once under the profiler: wall time per tick both ways, host time per
+    tick, the host's launch calls per tick, the device kernels per tick,
+    the device's busy time (by kernel family) and idle share, the trace
+    held against the launch counters."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms, launches, (busy_us, kernels, host), check, _ = \
+        traced_window(run)
+    busy_ms = sum(busy_us.values()) / 1e3
+    complete = check["trace_complete"] and busy_ms > 0
+    calls = host_launch_calls(prof)
+
+    def top(rows, n):
+        return [{"name": name[:80], "ms_per_tick": us / 1e3 / ticks,
+                 "calls_per_tick": count / ticks}
+                for us, count, name in sorted(rows, reverse=True)[:n]]
+    return {"ticks": ticks, "tick_ms_unprofiled": plain_ms / ticks,
+            "tick_ms": wall_ms / ticks,
+            "host_launch_calls_per_tick": sum(calls.values()) / ticks,
+            "host_launch_calls": calls,
+            "launch_cross_check": check, "launches": launches,
+            "device_busy_ms_per_tick": busy_or_not_measured(
+                busy_ms / ticks, check),
+            "device_idle_share": (1 - busy_ms / wall_ms) if complete
+            else busy_or_not_measured(None, check),
+            "kernel_launches_per_tick": sum(c for _, c, _ in kernels) / ticks,
+            "host_ops_self_ms_per_tick": sum(u for u, _, _ in host) / 1e3
+            / ticks,
+            "busy_ms_per_tick_by_family": {
+                k: v / 1e3 / ticks for k, v in sorted(busy_us.items())}
+            if complete else busy_or_not_measured(None, check),
+            **in_trace(busy_us, ticks, check, wall_ms),
+            "top_device_kernels": top(kernels, 6),
+            "top_host_ops_self_time": top(host, 10),
+            "_sample_us": sum(us for us, _, name in kernels
+                              if "sample_kernel" in name)}
+
+
+def eager_ticks(engine, state, ticks: int):
+    """The eager tick before graphs: ``ticks`` calls of
+    ``decode_step_batch`` on ``state``, each followed by the host reads
+    the engine makes after a tick of streamed rows (the stop flags, the
+    counts and the tokens)."""
+    for _ in range(ticks):
+        state = engine.decode_step_batch(state)
+        state.done.cpu()
+        state.counts.cpu()
+        state.emitted.cpu()
+    return state
+
+
+#: a graphed decode window's most host launch calls per tick
+GRAPHED_LAUNCH_CALLS_PER_TICK = 10
+
+
 def profile_decode(client, card: str, ticks: int = 10,
                    sampled: bool = False) -> None:
     """Eight rows decoding at full width, greedy or (``sampled``) with
-    temperature, top-k and top-p: host time per tick, and from
-    torch.profiler the device's busy time by kernel family and its idle
-    share over the window, cross-checked against the launch counters; a
-    sampled window also gives the sample kernel's device time and what
-    the Gumbel noise launches per tick."""
+    temperature, top-k and top-p, in two windows of the same host: the
+    engine's graphed tick (one replay of the captured cell a tick, through
+    the client) and then the eager ``InferenceEngine.decode_step_batch``
+    on a copy of the same eight rows.  Each window gives the host time per
+    tick and its launch calls, and from torch.profiler the device kernels
+    per tick, the device's busy time by kernel family and its idle share,
+    cross-checked against the launch counters; a sampled window also
+    gives the sample kernel's device time and what the Gumbel noise
+    launches per tick."""
     from repro_torch.api import GenerationParams
+    from repro_torch.runtime.engine import GenState
+    from repro_torch.runtime.graphs import CONTROL
     rng = np.random.default_rng(SEED + (3 if sampled else 1))
     vocab = client.backend.engine.cfg.vocab_size
     ce = client.backend
+    engine = ce.engine
     if any(s is not None for s in ce.sessions):
         raise AssertionError("profile_decode: a slot is still live")
     # the engine's sampling flag is sticky for the life of its state (as
@@ -2117,55 +2256,62 @@ def profile_decode(client, card: str, ticks: int = 10,
     while client.pipeline.queue:                 # admit all eight
         client.pump(max_ticks=1)
     client.pump(max_ticks=2)                     # settle into decode
-    prof, wall_ms, launches, (busy_us, kernels, host), check, _ = \
-        traced_window(lambda: client.pump(max_ticks=ticks))
+    name = "profile_decode_sampled" if sampled else "profile_decode"
+    compiles = engine.compile_count
+    graphed = decode_window(lambda: client.pump(max_ticks=ticks), ticks)
+    if engine.compile_count != compiles:
+        raise AssertionError("profile_decode: the graphed window captured "
+                             "a cell")
+    if any(h.session.is_finished for h in handles):
+        raise AssertionError(f"{name}: a row finished inside the window")
+    st = ce.state
+    copy = GenState(cache={k: v.clone() for k, v in st.cache.items()},
+                    **{n: getattr(st, n).clone() for n in CONTROL},
+                    sampling=st.sampling)
     for h in handles:
         h.cancel()
-    busy_ms = sum(busy_us.values()) / 1e3
-    complete = check["trace_complete"] and busy_ms > 0
-
-    def top(rows, n):
-        return [{"name": name[:80], "ms_per_tick": us / 1e3 / ticks,
-                 "calls_per_tick": count / ticks}
-                for us, count, name in sorted(rows, reverse=True)[:n]]
-    line = {"phase": "profile_decode_sampled" if sampled else
-            "profile_decode", "card": card, "rows": len(handles),
-            "ticks": ticks, "tick_ms": wall_ms / ticks,
+    eager = decode_window(lambda: eager_ticks(engine, copy, ticks), ticks)
+    del copy
+    for label, w in (("graphed", graphed), ("eager", eager)):
+        if not sampled and w["launches"].get("sample", 0):
+            raise AssertionError(f"{name}: {w['launches']} (a greedy "
+                                 f"{label} window launched the sampler)")
+        if sampled and w["launches"].get("sample", 0) != ticks:
+            raise AssertionError(f"{name}: {label} window {w['launches']} "
+                                 f"over {ticks} ticks (expected one sample "
+                                 "launch per tick)")
+        sample_us = w.pop("_sample_us")
+        if sampled:
+            w["sample_kernel_device_ms_per_tick"] = (
+                sample_us / 1e3 / ticks if sample_us else "not measured")
+    if graphed["launches"] != eager["launches"]:
+        raise AssertionError(f"{name}: the graphed window counted "
+                             f"{graphed['launches']}, the eager one "
+                             f"{eager['launches']}")
+    line = {"phase": name, "card": card, "rows": len(handles),
             "note": "tick_ms is taken under the profiler, which slows the "
-                    "host; device times are the kernels' own" +
+                    "host, tick_ms_unprofiled on the host clock alone (the "
+                    "same ticks' count, run just before); device times are "
+                    "the kernels' own; the eager "
+                    "window runs decode_step_batch on a copy of the same "
+                    "rows, with the engine's host reads after each tick" +
                     ("" if sampled else "; the served mix runs the sampled "
                      "tick once a sampled request has been admitted (the "
                      "flag is sticky): this greedy tick is what an "
                      "all-greedy engine runs"),
-            "launch_cross_check": check, "launches": launches,
-            "device_busy_ms_per_tick": busy_or_not_measured(
-                busy_ms / ticks, check),
-            "device_idle_share": (1 - busy_ms / wall_ms) if complete
-            else busy_or_not_measured(None, check),
-            "kernel_launches_per_tick": sum(c for _, c, _ in kernels) / ticks,
-            "host_ops_self_ms_per_tick": sum(u for u, _, _ in host) / 1e3
-            / ticks,
-            "busy_ms_per_tick_by_family": {
-                k: v / 1e3 / ticks for k, v in sorted(busy_us.items())}
-            if complete else busy_or_not_measured(None, check),
-            **in_trace(busy_us, ticks, check, wall_ms),
-            "top_device_kernels": top(kernels, 6),
-            "top_host_ops_self_time": top(host, 10)}
-    if not sampled and launches.get("sample", 0):
-        raise AssertionError(f"profile_decode: {launches} (a greedy "
-                             "window launched the sampler)")
+            "graphed": graphed, "eager": eager,
+            "tick_speedup": eager["tick_ms"] / graphed["tick_ms"],
+            "tick_speedup_unprofiled": eager["tick_ms_unprofiled"] /
+            graphed["tick_ms_unprofiled"]}
     if sampled:
-        if launches.get("sample", 0) != ticks:
-            raise AssertionError(f"profile_decode_sampled: {launches} over "
-                                 f"{ticks} ticks (expected one sample "
-                                 "launch per tick)")
-        sample_us = sum(us for us, _, name in kernels if "sample_kernel" in
-                        name)
-        line["sample_kernel_device_ms_per_tick"] = (
-            sample_us / 1e3 / ticks if sample_us else "not measured")
         line["gumbel_noise_alone"] = gumbel_noise_cost(len(handles), 64,
                                                        ticks)
     emit(line)
+    if graphed["host_launch_calls_per_tick"] > GRAPHED_LAUNCH_CALLS_PER_TICK:
+        raise AssertionError(
+            f"{name}: {graphed['host_launch_calls_per_tick']} host launch "
+            f"calls a graphed tick (at most "
+            f"{GRAPHED_LAUNCH_CALLS_PER_TICK}): {graphed['host_launch_calls']}")
 
 
 #: profile_prefill's eight prompts (the 1024 bucket), packed too by

@@ -233,9 +233,9 @@ class TurboClient:
         self._pump_error: Optional[BaseException] = None
         self._pump_thread: Optional[threading.Thread] = None
         # warmup: one throwaway request per ladder bucket through the
-        # engine (the port runs eagerly, so this warms library handles
-        # and allocator pools, not compiled cells).  Opt-in here (tests
-        # build many cheap clients).
+        # engine, then the slot state at its top size and, on the card,
+        # both decode-tick cells captured as CUDA graphs before the pump
+        # starts.  Opt-in here (tests build many cheap clients).
         self.warmup_stats: Optional[dict] = None
         if warmup and hasattr(backend, "warmup_aot"):
             self.warmup_stats = backend.warmup_aot()

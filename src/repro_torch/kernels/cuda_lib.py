@@ -12,7 +12,10 @@ an unchanged one loads at once.  Nothing here runs at import time.
 one where it launches its kernel, and nowhere else, so a run can show
 which kernels its path went through.  ``LAUNCH_SHAPES`` counts the same
 launches again by a shape class where a wrapper names one (the flash
-kernel's suffix-aligned calls, Sk > Sq).
+kernel's suffix-aligned calls, Sk > Sq).  A launch recorded into a CUDA
+graph runs nothing when it is recorded: it is counted into the open
+:func:`recording` instead, and :func:`add_launches` adds that record once
+per replay of the graph.
 
 ``nvcc`` runs with ``-Xptxas -v``; its report (registers, spills per
 kernel) is kept beside the library and parsed by :func:`ptxas_usage`,
@@ -22,6 +25,7 @@ output, so a run can show what each kernel compiled to.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -84,15 +88,46 @@ _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
 
 
+#: the launches of the capture in progress, by (wrapper, shape class)
+_recording: "Optional[collections.Counter[tuple]]" = None
+
+
 def reset_launches() -> None:
     LAUNCHES.clear()
     LAUNCH_SHAPES.clear()
 
 
 def count_launch(name: str, shape: Optional[str] = None) -> None:
-    LAUNCHES[name] += 1
-    if shape is not None:
-        LAUNCH_SHAPES[(name, shape)] += 1
+    if torch.cuda.is_current_stream_capturing():
+        if _recording is None:
+            raise RuntimeError(f"{name}: launch captured into a CUDA graph "
+                               "outside cuda_lib.recording()")
+        _recording[(name, shape)] += 1
+        return
+    add_launches({(name, shape): 1})
+
+
+def add_launches(counts: Dict[tuple, int]) -> None:
+    """Count launches given by (wrapper, shape class or None): a graph
+    replay adds what its capture recorded."""
+    for (name, shape), n in counts.items():
+        LAUNCHES[name] += n
+        if shape is not None:
+            LAUNCH_SHAPES[(name, shape)] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the launches recorded while a CUDA graph is captured, by
+    (wrapper, shape class): what one replay of the graph launches."""
+    global _recording
+    if _recording is not None:
+        raise RuntimeError("a launch recording is already open")
+    _recording = collections.Counter()
+    try:
+        yield _recording
+    finally:
+        _recording = None
 
 
 def _nvcc() -> str:

@@ -53,15 +53,23 @@ def _check_heads(name: str, q: torch.Tensor, kv: int, dh: int) -> None:
 _TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _tickets(q: torch.Tensor, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed tickets for q's device and current stream,
-    allocated once and grown on demand (the kernel resets what it takes,
-    so a captured launch finds them zero on replay)."""
-    key = (q.device, cuda_lib.stream_ptr(q))
+def reserve_tickets(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed tickets for ``device`` and its current
+    stream, allocated once and grown on demand (the kernel resets what it
+    takes, so a captured launch finds them zero on replay).  A graph
+    reserves them on its capture stream before the capture and keeps the
+    buffer it got: a later growth replaces the table's entry, never the
+    memory the graph launches with."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
     buf = _TICKETS.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"flash_decode: {n} merge tickets needed under CUDA graph "
+                f"capture, {0 if buf is None else buf.numel()} reserved "
+                "for the capture stream (reserve_tickets before capture)")
         size = max(n, 1024, 2 * buf.numel() if buf is not None else 0)
-        buf = torch.zeros(size, dtype=torch.int32, device=q.device)
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
         _TICKETS[key] = buf
     return buf
 
@@ -73,7 +81,7 @@ def _launch_buffers(q: torch.Tensor, kv: int, splits: int):
     out = torch.empty_like(q)
     part = torch.empty(b * kv * splits * (h // kv) * (dh + 2),
                        dtype=torch.float32, device=q.device)
-    return out, part, _tickets(q, b * kv)
+    return out, part, reserve_tickets(q.device, b * kv)
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

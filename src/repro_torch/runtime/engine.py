@@ -13,13 +13,18 @@ Counterparts of `repro.runtime.engine`:
   selection, emission and stop flags) over a device-resident
   :class:`GenState`.  No tick reads anything back to the host; emitted
   tokens accumulate on the device and move once per flush.  Where the
-  JAX package compiles one cell per bucket, the port runs eagerly.
+  JAX package compiles the tick, one cell per ``sampling`` flag, the
+  port captures its in-place form (:meth:`~InferenceEngine.
+  decode_step_inplace`) as one CUDA graph per cell
+  (`repro_torch.runtime.graphs`); prefill and classify run eagerly.
 - :class:`ContinuousEngine` layers iteration-level continuous batching
   on top: a persistent slot cache that newly admitted prefills splice
   into while other rows are mid-decode, over ONE paged KV pool
   (``kv_layout="paged"``, the default) or a contiguous stripe per slot
   (``"contiguous"``).  It implements
-  `repro_torch.core.pipeline.PipelineBackend`.
+  `repro_torch.core.pipeline.PipelineBackend`.  On the card each of its
+  decode ticks replays one captured graph; on the CPU the same in-place
+  tick runs eagerly.
 
 On the paged layout every admission group is prefilled as ONE packed
 dispatch (:meth:`ContinuousEngine.prefill_pack`, the JAX package's
@@ -53,6 +58,7 @@ from repro_torch.models import (decode_step, forward_hidden, logits_at,
 from repro_torch.runtime import sanitizer
 from repro_torch.runtime.bucketing import BucketLadder
 from repro_torch.runtime.device import resolve_device
+from repro_torch.runtime.graphs import TickCells
 from repro_torch.runtime.kv_cache import (DEFAULT_KV_BLOCK,
                                           BlockExhausted, BlockTableManager,
                                           KVSlabManager, kv_bytes_per_token)
@@ -70,6 +76,11 @@ STOP_SLOTS = 4
 PACK_LOG_LEN = 1024
 
 KV_LAYOUTS = ("paged", "contiguous")
+
+#: the ContinuousEngine's serving counters, which a warm-up leaves as it
+#: found them
+SERVING_COUNTERS = ("prefill_tokens", "prefill_dispatches", "decode_ticks",
+                    "cow_blocks", "pack_dispatches", "pack_segments")
 
 
 @dataclass
@@ -151,6 +162,9 @@ class InferenceEngine:
                              f"{sample_candidates}")
         self.sample_candidates = sample_candidates
         self.kv_slab = KVSlabManager()
+        #: decode-tick cells captured as CUDA graphs (the port compiles
+        #: nothing else; the JAX package counts its jitted cells here)
+        self.compile_count = 0
         self._next_gen_id = 0
 
     def _tensor(self, values, dtype) -> torch.Tensor:
@@ -443,6 +457,17 @@ class InferenceEngine:
         return replace(state, cache=cache2, cur=cur, emitted=emitted,
                        counts=counts, done=done2)
 
+    def decode_step_inplace(self, state: GenState) -> None:
+        """:meth:`decode_step_batch` written back into ``state``'s own
+        tensors (``cur``, ``emitted``, ``counts``, ``done`` and the cache's
+        ``len``; the KV write is in place already), so the tensors the tick
+        reads are the tensors it writes: the form a CUDA graph captures
+        and replays."""
+        out = self.decode_step_batch(state)
+        state.cache["len"].copy_(out.cache["len"])
+        for name in ("cur", "emitted", "counts", "done"):
+            getattr(state, name).copy_(getattr(out, name))
+
     def read_out(self, state: GenState,
                  token_lists: Sequence[Sequence[int]]) -> List[List[int]]:
         """ONE host transfer for the whole batch: prompt + emitted."""
@@ -552,6 +577,7 @@ class ContinuousEngine(PipelineBackend):
 
     def __init__(self, engine: InferenceEngine, max_slots: int = 8,
                  max_len: Optional[int] = None, cap_new: int = 64,
+                 sync_every: int = 1,
                  clock: Callable[[], float] = time.monotonic, *,
                  kv_layout: str = "paged",
                  block_size: int = DEFAULT_KV_BLOCK,
@@ -570,6 +596,10 @@ class ContinuousEngine(PipelineBackend):
         self.engine = engine
         self.max_slots = max_slots
         self.cap_new = cap_new
+        # host syncs (the stop-flag read) every sync_every decode ticks;
+        # a row that finishes between them is frozen on the device
+        self.sync_every = sync_every
+        self._since_sync = 0
         self.clock = clock
         self.kv_layout = kv_layout
         self.block_size = block_size
@@ -623,6 +653,9 @@ class ContinuousEngine(PipelineBackend):
         # for it at admission (claimed when the final chunk splices)
         self._chunk_slots: Dict[int, int] = {}
         self.decode_ticks = 0
+        #: the decode tick's CUDA graphs, one cell per sampling flag
+        self.tick_cells = TickCells(engine.decode_step_inplace)
+        self.warmup_stats: Optional[Dict[str, float]] = None
 
     @property
     def device(self) -> torch.device:
@@ -647,6 +680,7 @@ class ContinuousEngine(PipelineBackend):
 
     def observe_metrics(self, m) -> None:
         """Tick-boundary gauges (host-side bookkeeping only)."""
+        m.gauge("engine.compile_count").set(self.engine.compile_count)
         m.gauge("engine.prefill_tokens").set(self.prefill_tokens)
         m.gauge("engine.prefill_dispatches").set(self.prefill_dispatches)
         m.gauge("engine.decode_ticks").set(self.decode_ticks)
@@ -1407,10 +1441,23 @@ class ContinuousEngine(PipelineBackend):
     def decode_tick(self, sessions: List[Session]) -> None:
         if self.block_table is not None:
             self._append_blocks()
-        self.state = self.engine.decode_step_batch(self.state)
+        self._run_tick()
         self.decode_ticks += 1
-        self._sync()
+        self._since_sync += 1
+        if self._since_sync >= self.sync_every:
+            self._sync()
         self._publish_stream()
+
+    def _run_tick(self) -> None:
+        """One in-place decode tick of the slot state: on the card a
+        replay of its cell's graph (captured here on first use, like the
+        JAX package's first-hit compile), on the CPU the same tick run
+        eagerly."""
+        if self.device.type == "cuda":
+            if self.tick_cells.run(self.state):
+                self.engine.compile_count += 1
+        else:
+            self.engine.decode_step_inplace(self.state)
 
     def _publish_stream(self) -> None:
         """Incremental token delivery for streaming sessions: one small
@@ -1426,19 +1473,42 @@ class ContinuousEngine(PipelineBackend):
             s.generated = [int(x) for x in emitted[slot, :counts[slot]]]
 
     def warmup_aot(self) -> Dict[str, float]:
-        """One throwaway greedy request per sequence bucket (a prompt one
-        token short of the bucket plus one decode tick) through the
-        engine's ``generate``, so library handles and allocator pools
-        exist before the first real request; the slot cache is
-        untouched.  The JAX package compiles its cells here; the port
-        runs eagerly and has none to compile."""
+        """Warm the serving path before the first request, as the JAX
+        package's ``warmup_aot`` compiles it: one throwaway greedy round
+        per sequence bucket (a prompt two tokens short of the bucket and
+        one decode tick) through the engine's ``generate``, so library
+        handles and allocator pools exist; then the slot state at the top
+        size (``max_len``, else the top bucket) with every slot free, and
+        on the card both decode-tick cells of the layout captured, so no
+        request pays a capture.  The serving counters are saved and
+        restored, and the sampling flag is left off.  Returns
+        ``{"compile_count", "warmup_seconds", "rounds"}``: the cells
+        captured (0 on the CPU), the seconds, the generate rounds."""
         eng = self.engine
         t0 = time.perf_counter()
+        compiles0 = eng.compile_count
+        saved = {k: getattr(self, k) for k in SERVING_COUNTERS}
         for bucket in eng.ladder.seq_buckets:
             eng.generate([[eng.pad_id] * max(bucket - 2, 1)],
                          max_new_tokens=2)
-        return {"buckets": len(eng.ladder.seq_buckets),
-                "seconds": time.perf_counter() - t0}
+        top = self.max_len if self.max_len is not None \
+            else eng.ladder.seq_buckets[-1]
+        self._ensure_state(top)
+        try:
+            if self.device.type == "cuda":
+                for sampling in (False, True):
+                    self.state.sampling = sampling
+                    if self.tick_cells.cell(self.state)[2]:
+                        eng.compile_count += 1
+        finally:
+            self.state.sampling = False
+            for k, v in saved.items():
+                setattr(self, k, v)
+        self.warmup_stats = {
+            "compile_count": eng.compile_count - compiles0,
+            "warmup_seconds": time.perf_counter() - t0,
+            "rounds": len(eng.ladder.seq_buckets)}
+        return self.warmup_stats
 
     def cancel_session(self, session: Session) -> None:
         """Tear down a mid-decode session NOW: publish its partial
@@ -1716,6 +1786,7 @@ class ContinuousEngine(PipelineBackend):
     def _sync(self) -> None:
         """Flush: read the (tiny) stop flags; only when an occupied slot
         newly finished is the token buffer transferred."""
+        self._since_sync = 0
         st = self.state
         done = _host(st.done)
         if not any(done[slot] for slot, s in enumerate(self.sessions)

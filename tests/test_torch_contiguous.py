@@ -185,6 +185,12 @@ def test_client_warmup_runs_the_engine_warmup_aot(weights):
     _, _, tparams = weights
     ce = _port(tparams, kv_layout="contiguous")
     client = TurboClient(ce, warmup=True)
-    assert client.warmup_stats["buckets"] == len(LADDER["seq_buckets"])
-    assert ce.state is None                   # the slot cache is untouched
+    stats = client.warmup_stats
+    assert set(stats) == {"compile_count", "warmup_seconds", "rounds"}
+    assert stats["rounds"] == len(LADDER["seq_buckets"])
+    assert stats["compile_count"] == 0        # no graph on the CPU
+    # the slot cache at the top bucket, every slot free
+    assert ce.max_len == LADDER["seq_buckets"][-1]
+    assert tuple(ce.state.cache["k"].shape[1:3]) == (4, ce.max_len)
+    assert bool(ce.state.done.all()) and not ce.state.sampling
     assert not hasattr(ce.engine, "warmup_aot")

@@ -676,7 +676,9 @@ def test_cuda_kernels_refuse_shapes_outside_the_built_set(cuda):
 def test_cuda_contiguous_serving_matches_generate_alone(cuda):
     """The contiguous slot cache on the card: greedy streams equal
     ``generate`` alone (which decodes through the paged kernel), and every
-    decode tick launches the contiguous kernel once per layer."""
+    decode tick launches the contiguous kernel once per layer, as does
+    the eager tick that warms each first-use capture of the tick's
+    graph."""
     import dataclasses
 
     from repro_torch.api import GenerationParams, TurboClient
@@ -703,7 +705,7 @@ def test_cuda_contiguous_serving_matches_generate_alone(cuda):
                 for p in prompts[4:]]
     results = [h.result() for h in handles]
     assert cuda_lib.LAUNCHES["flash_decode"] == \
-        cfg.num_layers * ce.decode_ticks
+        cfg.num_layers * (ce.decode_ticks + ce.tick_cells.warm_ticks)
     assert cuda_lib.LAUNCHES["flash_decode_paged"] == 0
     for prompt, res in zip(prompts, results):
         assert engine.generate([prompt], max_new_tokens=12)[0] == res
@@ -866,3 +868,188 @@ def test_cuda_cow_copy_then_decode_write_keeps_the_cached_block(cuda):
     assert r2 == engine.generate([p2], max_new_tokens=8)[0]
     btm = ce.block_table
     assert btm.used_blocks == ce.prefix_cache.cached_blocks
+
+
+# ---------------------------------------------------------------------------
+# the decode tick as CUDA graphs: replays against the eager tick
+# ---------------------------------------------------------------------------
+
+def _graph_engine(dev, **kw):
+    """Smoke depth at the full head dim, f32, per-group prefill (the
+    packed mode is bf16 only), 4 slots."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime.bucketing import BucketLadder
+    from repro_torch.runtime.engine import ContinuousEngine, InferenceEngine
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), d_head=128)
+    engine = InferenceEngine(
+        cfg, init_params(cfg, device=dev),
+        ladder=BucketLadder(seq_buckets=(32, 64, 128), batch_buckets=(4,)),
+        device=dev)
+    return ContinuousEngine(engine, max_slots=4, cap_new=24,
+                            packed_prefill=False, **kw)
+
+
+def _clone_state(state):
+    from repro_torch.runtime.engine import GenState
+    from repro_torch.runtime.graphs import CONTROL
+    return GenState(cache={k: v.clone() for k, v in state.cache.items()},
+                    **{n: getattr(state, n).clone() for n in CONTROL},
+                    sampling=state.sampling)
+
+
+def _check_every_replay(ce):
+    """Hold every tick's replay against ``decode_step_batch`` on a copy
+    of the state, bit for bit; returns the list of ticks seen as
+    (sampling, slot cache positions, captured)."""
+    cells, eng = ce.tick_cells, ce.engine
+    real = cells.run
+    seen = []
+
+    # the paged pool's trash block takes the KV writes of every free or
+    # finished row, several rows to one slot, in no fixed order: it is
+    # never read, and left out
+    kv = slice(1, None) if "block_tables" in ce.state.cache else slice(None)
+
+    def checked(state):
+        want = eng.decode_step_batch(_clone_state(state))
+        captured = real(state)
+        assert torch.equal(state.cache["len"], want.cache["len"])
+        for key in ("k", "v"):
+            assert torch.equal(state.cache[key][:, kv],
+                               want.cache[key][:, kv]), \
+                f"tick {len(seen)}: the graph's cache {key} differs"
+        for name in ("cur", "emitted", "counts", "done"):
+            assert torch.equal(getattr(state, name), getattr(want, name)), \
+                f"tick {len(seen)}: the graph's {name} differs"
+        seen.append((state.sampling, ce.max_len, captured))
+        return captured
+
+    cells.run = checked
+    return seen
+
+
+def _graph_workload(rng, sampled, n=10, first_len=None):
+    from repro_torch.api import GenerationParams
+    shared = [(7 * i) % 200 + 3 for i in range(20)]   # a block and 4
+    out = []
+    for i in range(n):
+        if i % 3 == 0:
+            prompt = shared + [int(t) for t in rng.integers(1, 256, 1 + i)]
+        else:
+            prompt = [int(t) for t in rng.integers(1, 256,
+                                                   int(rng.integers(2, 30)))]
+        budget = int(rng.integers(14, 25))
+        if first_len is not None and i < 4:
+            prompt = prompt[:first_len // 2]
+            budget = min(budget, first_len - len(prompt))
+        out.append((prompt, GenerationParams(
+            max_new_tokens=budget,
+            temperature=0.9 if sampled and i % 2 else 0.0,
+            top_k=20, top_p=0.9, seed=500 + i)))
+    return out
+
+
+@pytest.mark.parametrize("layout,sampled", [("paged", False),
+                                            ("paged", True),
+                                            ("contiguous", False)])
+def test_cuda_graph_tick_is_bit_equal_to_the_eager_tick(cuda, layout,
+                                                        sampled):
+    """Served with cells captured by ``warmup_aot``: every tick's replay
+    leaves the state bit-equal to ``decode_step_batch`` on a copy of it,
+    over admissions, finishes, block appends and copy-on-write (the paged
+    layout with the prefix cache) between ticks; no cell is captured
+    while serving."""
+    from repro_torch.api import TurboClient
+    kw = dict(prefix_cache=True) if layout == "paged" \
+        else dict(kv_layout="contiguous")
+    ce = _graph_engine(cuda, **kw)
+    client = TurboClient(ce, warmup=True)
+    assert client.warmup_stats["compile_count"] == 2 == len(ce.tick_cells)
+    seen = _check_every_replay(ce)
+    work = _graph_workload(np.random.default_rng(20 + sampled), sampled)
+    handles = [client.submit(p, g) for p, g in work[:4]]
+    client.pump(max_ticks=4)
+    handles += [client.submit(p, g) for p, g in work[4:]]
+    results = [h.result() for h in handles]
+    assert len(seen) >= 32
+    assert not any(c for _, _, c in seen)
+    assert ce.engine.compile_count == 2
+    assert any(s for s, _, _ in seen) == sampled
+    if layout == "paged":
+        assert ce.cow_blocks > 0
+    assert [len(r) for r in results] == \
+        [len(p) + g.max_new_tokens for p, g in work]
+
+
+def test_cuda_graph_contiguous_grow_recaptures_its_cell(cuda):
+    """The contiguous slot cache at 64 positions grows to the 128 bucket
+    when a long prompt arrives mid-decode: both cells captured on the old
+    cache are dropped, the next tick captures its cell anew (counted in
+    ``compile_count``), and every replay stays bit-equal to the eager
+    tick."""
+    from repro_torch.api import GenerationParams, TurboClient
+    ce = _graph_engine(cuda, kv_layout="contiguous", max_len=64)
+    client = TurboClient(ce, warmup=True)
+    assert ce.max_len == 64 and len(ce.tick_cells) == 2
+    seen = _check_every_replay(ce)
+    rng = np.random.default_rng(23)
+    work = _graph_workload(rng, False, n=6, first_len=64)
+    handles = [client.submit(p, g) for p, g in work[:4]]
+    client.pump(max_ticks=4)
+    long_prompt = [int(t) for t in rng.integers(1, 256, 80)]
+    handles.append(client.submit(long_prompt,
+                                 GenerationParams(max_new_tokens=20)))
+    handles += [client.submit(p, g) for p, g in work[4:]]
+    results = [h.result() for h in handles]
+    assert ce.max_len == 128
+    grew = [i for i, (_, n, _) in enumerate(seen) if n == 128]
+    assert grew and seen[grew[0]][2] and not any(
+        c for i, (_, _, c) in enumerate(seen) if i != grew[0])
+    assert ce.engine.compile_count == 3 and len(ce.tick_cells) == 1
+    assert results[4] == ce.engine.generate([long_prompt],
+                                            max_new_tokens=20)[0]
+
+
+def test_cuda_graph_replays_count_one_eager_tick_each(cuda):
+    """N replays add N times what one eager tick of the same state
+    launches, by wrapper; the merge tickets the cells launch with are
+    still the capture stream's buffer, never reallocated, and zero."""
+    from repro_torch.kernels import flash_decode
+    ce = _graph_engine(cuda)
+    ce.warmup_aot()
+    cells = ce.tick_cells
+    key = (ce.state.cur.device, cells._stream.cuda_stream)
+    tickets = flash_decode._TICKETS[key]
+    for sampling in (False, True):
+        ce.state.sampling = sampling
+        cuda_lib.reset_launches()
+        ce.engine.decode_step_inplace(_clone_state(ce.state))
+        eager = dict(cuda_lib.LAUNCHES)
+        cuda_lib.reset_launches()
+        for _ in range(5):
+            assert not cells.run(ce.state)
+        assert dict(cuda_lib.LAUNCHES) == {k: 5 * v for k, v in
+                                           eager.items()}
+        assert eager["sample" if sampling else "norm"] > 0
+    torch.cuda.synchronize()
+    cell, _, _ = cells.cell(ce.state)
+    assert flash_decode._TICKETS[key] is tickets
+    assert cell.tickets.data_ptr() == tickets.data_ptr()
+    assert int(tickets.abs().sum()) == 0
+
+
+def test_cuda_tickets_too_few_under_capture_raise(cuda):
+    """A capture whose stream has no merge tickets reserved raises; it
+    does not allocate them inside the graph."""
+    from repro_torch.kernels import flash_decode
+    q, kp, vp, tables, lengths = _paged(cuda, b=2, mb=4)
+    stream = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="merge tickets"):
+        with cuda_lib.recording():
+            with torch.cuda.graph(graph, stream=stream):
+                ops.flash_decode_paged(q, kp, vp, tables, lengths)
+    assert (q.device, stream.cuda_stream) not in flash_decode._TICKETS
