@@ -34,8 +34,11 @@ Phases, each printing one JSON line:
    ``flash_attention_packed_build``);
 4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False,
    warmup=True)`` (24 layers, d_model 2048, vocab 92544, bf16 weights from
-   a seed, f32 KV pool; ``warmup_aot`` captures both decode-tick cells as
-   CUDA graphs, and no cell may be captured while serving), serve a
+   a seed, f32 KV pool; ``warmup_aot`` walks the reference's rounds and
+   captures each prefill cell it reaches and both decode-tick cells as
+   CUDA graphs, and no cell may be captured while serving; the phase
+   prints the cells by kind, their capture seconds, the graph pools' and
+   static buffers' bytes and the peak memory), serve a
    mixed greedy / sampled workload with mid-decode
    arrivals through the default packed admission (one packed flash
    launch per layer per pack, each pack's occupancy), check every greedy
@@ -58,7 +61,8 @@ Phases, each printing one JSON line:
    all above 0, the pool after the drain held by the cache alone, and
    every stream against the request alone under the margin rule, with
    the drift of a packed pass, a suffix pass and a decode step at batch
-   8 against batch 1;
+   8 against batch 1, and the suffix and packed cells captured while
+   serving (the reference keys a suffix cell by the exact cached length);
 5. profile_decode and profile_decode_sampled: eight greedy or sampled
    rows decoding at full width, in a window of graphed ticks and one of
    the eager ``decode_step_batch`` on a copy of the same rows: the host
@@ -66,18 +70,23 @@ Phases, each printing one JSON line:
    graphed tick) and, from ``torch.profiler``, the device kernels per
    tick, the device's busy time by kernel family and its idle share (the
    sampled windows also the sample kernel's device time and what
-   ``gumbel_noise`` launches); profile_prefill: one prefill of
-   eight prompts at the 1024 bucket, the same breakdown and the flash
-   kernel's share; profile_prefill_packed: the same prompts as one pack;
-   profile_prefill_suffix: the same prompts with their first 768 tokens
-   served from a paged pool (gathered in the window), 24 suffix-aligned
-   causal launches.
+   ``gumbel_noise`` launches); profile_prefill: prefills of eight
+   prompts at the 1024 bucket, in a window through the engine's cell (a
+   graph replay) and one through the eager public method on the same
+   prompts, the same breakdown per prefill (at most 64 host launch calls
+   a graphed prefill), the graphed logits and KV bit-equal to the eager
+   ones, and the flash kernel's share; profile_prefill_packed: the same
+   prompts as one pack; profile_prefill_suffix: the same prompts with
+   their first 768 tokens served from a paged pool (gathered in the
+   window), 24 suffix-aligned causal launches a prefill.
    Each window's count of the port's kernels in the trace is held against
    the launch counters; busy totals read "not measured" where the trace
    lost kernels, beside the busy time of the kernels it holds;
 6. classify: the paper's one-shot classification service at full width
-   (``InferenceEngine.warmup`` into a bucketed cost table, then 64
-   Poisson requests of 5 to 500 tokens through
+   (``InferenceEngine.warmup`` into a bucketed cost table, which
+   captures its grid's classify cells, then every other cell a batch of
+   at most 20 reaches, then 64 Poisson requests of 5 to 500 tokens
+   through
    ``ServingSystem(execute=engine.execute_requests)`` under the dp, naive
    and nobatch policies), each served batch's last-token logits held
    against ``classify`` of each request alone, and the launch counters:
@@ -87,7 +96,8 @@ Phases, each printing one JSON line:
    kernel) from a slot cache of 1024 positions, plus a 1200-token prompt
    arriving mid-decode that grows it to 2048 and re-captures the tick's
    cell, every stream equal to the request alone, 24 contiguous-decode
-   launches per decode tick and no paged-decode launch.
+   launches per decode tick and no paged-decode launch, and the per-group
+   prefill cells the grow makes new captured while serving.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -1343,6 +1353,36 @@ def explain_divergence(engine, prompt, params, alone, served,
             "within_rule": margin < limit and served_gap < limit}
 
 
+def cell_kind(key) -> str:
+    """The kind of a classify or prefill cell, from its key."""
+    if isinstance(key[0], str):
+        return {"sfx": "suffix", "pack": "packed"}[key[0]]
+    return "classify" if len(key) == 2 else "per_group"
+
+
+def cell_stats(engine, since: dict = None) -> dict:
+    """The classify and prefill cells the engine holds (every key asked
+    for is captured on the card): their number by kind, the seconds their
+    first calls and captures took, the graph pool's and the static
+    buffers' bytes; after ``since`` (an earlier result) also the keys
+    captured since and their seconds."""
+    tables = (engine.prefill_cells, engine.classify_cells)
+    keys = [k for t in tables for k in t.keys()]
+    kinds = {}
+    for k in keys:
+        kinds[cell_kind(k)] = kinds.get(cell_kind(k), 0) + 1
+    out = {"cells_by_kind": kinds,
+           "capture_s": sum(t.capture_seconds for t in tables),
+           "graph_pool_bytes": engine.cell_arena.pool_bytes(),
+           "static_buffer_bytes": engine.cell_arena.buffer_bytes(),
+           "keys": [list(k) for k in keys]}
+    if since is not None:
+        seen = {tuple(k) for k in since["keys"]}
+        out["captured_since"] = [list(k) for k in keys if k not in seen]
+        out["capture_s_since"] = out["capture_s"] - since["capture_s"]
+    return out
+
+
 def serve(dev, card: str, layout: str = "paged"):
     """The generative path over the paged pool (phase 4) or the contiguous
     slot cache (phase 7, ``layout="contiguous"``)."""
@@ -1365,7 +1405,8 @@ def serve(dev, card: str, layout: str = "paged"):
         buckets = (128, 256, 512, 1024, 2048)
         layout_kw = dict(kv_layout="contiguous", max_len=1024)
     # warmup=True: the client runs warmup_aot before serving, which on the
-    # card captures both decode-tick cells as CUDA graphs
+    # card captures the prefill cells it walks and both decode-tick cells
+    # as CUDA graphs
     client = TurboClient.from_arch(
         "internlm2-1.8b", smoke=False, device=dev, seq_buckets=buckets,
         batch_buckets=(8,), max_slots=8, cap_new=64, init_seed=SEED,
@@ -1375,10 +1416,14 @@ def serve(dev, card: str, layout: str = "paged"):
     build_s = time.perf_counter() - t0
     warm = dict(client.warmup_stats)
     cells = client.backend.tick_cells
-    if warm["compile_count"] != 2 or len(cells) != 2:
+    warm_cells = cell_stats(engine)
+    if len(cells) != 2 or warm["compile_count"] != \
+            2 + engine.prefill_cells.captures:
         raise AssertionError(f"warmup_aot captured {warm} ({len(cells)} "
-                             "cells held); expected both tick cells")
-    captures0, warm_ticks0 = engine.compile_count, cells.warm_ticks
+                             f"tick cells, {engine.prefill_cells.captures} "
+                             "prefill cells); expected both tick cells and "
+                             "the prefill cells it walked")
+    captures0, warm_ticks0 = cells.captures, cells.warm_ticks
     warm_capture_s = cells.capture_seconds
     pool_after_warmup = cells.pool_bytes()
     vocab = engine.cfg.vocab_size
@@ -1417,11 +1462,13 @@ def serve(dev, card: str, layout: str = "paged"):
     ticks, prefills = ce.decode_ticks, ce.prefill_dispatches
     packs = list(ce.pack_log) if layout == "paged" else []
     # cells captured while serving, and the eager ticks run to warm them
-    captured = engine.compile_count - captures0
+    captured = cells.captures - captures0
     warm_ticks = cells.warm_ticks - warm_ticks0
-    if layout == "paged" and captured:
-        raise AssertionError(f"paged serving captured {captured} tick "
-                             "cells after warmup_aot")
+    served_cells = cell_stats(engine, warm_cells)
+    if layout == "paged" and (captured or served_cells["captured_since"]):
+        raise AssertionError(
+            f"paged serving captured {captured} tick cells and prefill "
+            f"cells {served_cells['captured_since']} after warmup_aot")
     if layout == "contiguous" and not (ce.max_len == 2048 and captured):
         raise AssertionError(f"contiguous serving: slot cache of "
                              f"{ce.max_len} positions, {captured} cells "
@@ -1523,8 +1570,17 @@ def serve(dev, card: str, layout: str = "paged"):
           "tok_per_s": gen_tokens / serve_s,
           "ttft_p50_s": float(np.percentile(ttft, 50)),
           "ttft_p99_s": float(np.percentile(ttft, 99)),
-          "peak_mem_gib": peak / 2 ** 30, "stack_build_s": build_s,
-          "warmup_aot": warm,
+          "peak_mem_gib": peak / 2 ** 30,
+          "peak_mem_note": "the serve window's peak, the cells' pools and "
+                           "static buffers included",
+          "stack_build_s": build_s, "warmup_aot": warm,
+          "prefill_cells": {
+              "by_warmup_aot": warm_cells["cells_by_kind"],
+              "capture_s_by_warmup_aot": warm_cells["capture_s"],
+              "captured_while_serving": served_cells["captured_since"],
+              "capture_s_while_serving": served_cells["capture_s_since"],
+              "graph_pool_bytes": served_cells["graph_pool_bytes"],
+              "static_buffer_bytes": served_cells["static_buffer_bytes"]},
           "tick_cells": {
               "capture_s_by_warmup_aot": warm_capture_s,
               "captured_while_serving": captured,
@@ -1670,7 +1726,8 @@ def serve_prefix_chunked(dev, card: str) -> dict:
         ce, pipe = client.backend, client.pipeline
         engine = ce.engine
         cfg = engine.cfg
-        captures0 = engine.compile_count
+        tick_captures0 = ce.tick_cells.captures
+        warm_cells = cell_stats(engine)
         if mode == "packed":
             specs = prefix_chunked_workload(cfg.vocab_size, rng)
         torch.cuda.synchronize()
@@ -1691,12 +1748,16 @@ def serve_prefix_chunked(dev, card: str) -> dict:
         stats, prefix = pipe.stats, ce.prefix_stats()
         ticks, prefills = ce.decode_ticks, ce.prefill_dispatches
         # ---- the path's counters --------------------------------------
-        if client.warmup_stats["compile_count"] != 2 or \
-                engine.compile_count != captures0:
+        served_cells = cell_stats(engine, warm_cells)
+        if len(ce.tick_cells) != 2 or \
+                client.warmup_stats["compile_count"] != \
+                2 + sum(warm_cells["cells_by_kind"].values()) or \
+                ce.tick_cells.captures != tick_captures0:
             raise AssertionError(
                 f"serve_prefix_chunked {mode}: warmup_aot "
-                f"{client.warmup_stats}, {engine.compile_count - captures0} "
-                "tick cells captured while serving")
+                f"{client.warmup_stats}, "
+                f"{ce.tick_cells.captures - tick_captures0} tick cells "
+                "captured while serving")
         if not (prefix["hits"] > 0 and prefix["cow_blocks"] > 0 and
                 stats.chunked_prefills > 0):
             raise AssertionError(f"serve_prefix_chunked {mode}: prefix "
@@ -1815,7 +1876,22 @@ def serve_prefix_chunked(dev, card: str) -> dict:
                 "ttft_p99_s": float(np.percentile(ttft, 99)),
                 "peak_mem_gib": peak / 2 ** 30,
                 "peak_mem_note": "the serve window's peak, the gathered "
-                                 "prefix KV (f32, every layer) included",
+                                 "prefix KV (f32, every layer), the cells' "
+                                 "pools and static buffers included",
+                "prefill_cells": {
+                    "by_warmup_aot": warm_cells["cells_by_kind"],
+                    "capture_s_by_warmup_aot": warm_cells["capture_s"],
+                    "captured_while_serving": served_cells[
+                        "captured_since"],
+                    "captured_while_serving_by_kind": {
+                        kind: sum(1 for k in served_cells["captured_since"]
+                                  if cell_kind(k) == kind)
+                        for kind in ("suffix", "packed", "per_group")},
+                    "capture_s_while_serving": served_cells[
+                        "capture_s_since"],
+                    "graph_pool_bytes": served_cells["graph_pool_bytes"],
+                    "static_buffer_bytes": served_cells[
+                        "static_buffer_bytes"]},
                 "stack_build_s": build_s, "launches": launches,
                 "cache_after_drain": {
                     "pool_blocks_held": btm.used_blocks,
@@ -1894,9 +1970,19 @@ def classify_phase(dev, card: str, n_requests: int = 64):
                           batch_buckets=(1, 2, 4, 8, 16, 32))
     engine = InferenceEngine(cfg, init_params(cfg, seed=SEED, device=dev),
                              ladder=ladder, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     table = engine.warmup(lengths=(32, 128, 512), batches=(1, 4, 16))
     warm_s = time.perf_counter() - t0
+    warm_cells = cell_stats(engine)
+    # every other cell a batch of at most 20 can reach, captured before
+    # the policies run, so each policy serves from graphs alone
+    t0 = time.perf_counter()
+    for seq_b in ladder.seq_buckets:
+        for batch_b in [b for b in ladder.batch_buckets if b < 20] + [20]:
+            engine.classify([[1] * seq_b] * batch_b)
+    fill_s = time.perf_counter() - t0
+    ready_cells = cell_stats(engine, warm_cells)
     cost = BucketedCostModel(table, buckets=ladder.seq_buckets)
     rate = 200.0
     requests = RequestGenerator(
@@ -1907,7 +1993,12 @@ def classify_phase(dev, card: str, n_requests: int = 64):
         raise AssertionError(f"the generator gave {len(requests)} requests")
     emit({"phase": "classify_cost_table", "card": card, "warmup_s": warm_s,
           "seconds_by_len_and_batch": [[ln, b, t] for (ln, b), t
-                                       in sorted(table.table.items())]})
+                                       in sorted(table.table.items())],
+          "cells_by_warmup": len(warm_cells["keys"]),
+          "cells_captured_after_it": len(ready_cells["captured_since"]),
+          "their_s": fill_s,
+          "graph_pool_bytes": ready_cells["graph_pool_bytes"],
+          "static_buffer_bytes": ready_cells["static_buffer_bytes"]})
     served, logs, softmax_launches = {}, {}, {}
     for policy in ("dp", "naive", "nobatch"):
         system = ServingSystem(execute=engine.execute_requests,
@@ -1915,10 +2006,13 @@ def classify_phase(dev, card: str, n_requests: int = 64):
                                config=ServingConfig(policy=policy,
                                                     max_batch_size=20))
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         cuda_lib.reset_launches()
+        before = cell_stats(engine)
         wall = replay(system, requests)
         launches = dict(cuda_lib.LAUNCHES)
         batches = list(system.pipeline.batch_log)
+        captured = cell_stats(engine, before)["captured_since"]
         if launches.get("softmax", 0) != cfg.num_layers * len(batches) or \
                 launches.get("flash_attention", 0):
             raise AssertionError(
@@ -1944,6 +2038,8 @@ def classify_phase(dev, card: str, n_requests: int = 64):
               "batches": len(batches),
               "batch_sizes": [len(b) for b in batches],
               "padded_lens": sorted({r.padded_len for r in resp}),
+              "cells_captured_while_serving": captured,
+              "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
               "launches": launches})
     agree = {p: sum(served[p][i] == served["dp"][i] for i in served["dp"])
              for p in ("naive", "nobatch")}
@@ -2322,20 +2418,94 @@ PROFILE_PREFILL_LENS = (1000, 1010, 990, 1023, 900, 1020, 1015, 1005)
 #: profile_prefill_suffix: the prompt tokens served from the cache
 PROFILE_SUFFIX_CACHED = 768
 
+#: prefills a profile_prefill window runs
+PREFILL_REPS = 3
+#: a graphed prefill's most host launch calls (one graph launch, the
+#: uploads' and the first token's small kernels, a gather)
+GRAPHED_LAUNCH_CALLS_PER_PREFILL = 64
+
+
+def prefill_window(run, reps: int) -> dict:
+    """``run`` (one prefill) ``reps`` times on the host clock alone, then
+    under the profiler: wall time per prefill both ways, the host's
+    launch calls per prefill, the device kernels per prefill, the
+    device's busy time (by kernel family) and idle share, the trace held
+    against the launch counters."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    prof, wall_ms, launches, (busy_us, kernels, host), check, out = \
+        traced_window(lambda: [run() for _ in range(reps)][-1])
+    busy_ms = sum(busy_us.values()) / 1e3
+    complete = check["trace_complete"] and busy_ms > 0
+    calls = host_launch_calls(prof)
+    return {"prefills": reps, "wall_ms_unprofiled": plain_ms / reps,
+            "wall_ms": wall_ms / reps,
+            "host_launch_calls_per_prefill": sum(calls.values()) / reps,
+            "host_launch_calls": calls,
+            "launch_cross_check": check, "launches": launches,
+            "device_kernels_per_prefill": sum(c for _, c, _ in kernels)
+            / reps,
+            "device_busy_ms": busy_or_not_measured(busy_ms / reps, check),
+            "device_idle_share": (1 - busy_ms / wall_ms) if complete
+            else busy_or_not_measured(None, check),
+            "busy_ms_by_family": {k: v / 1e3 / reps for k, v in
+                                  sorted(busy_us.items())}
+            if complete else busy_or_not_measured(None, check),
+            **in_trace(busy_us, reps, check, wall_ms),
+            "host_ops_self_ms": sum(u for u, _, _ in host) / 1e3 / reps,
+            "top_device_kernels": [
+                {"name": name[:80], "ms": us / 1e3 / reps,
+                 "calls": count / reps}
+                for us, count, name in sorted(kernels, reverse=True)[:8]],
+            "_kernels": kernels, "_out": out}
+
+
+def cell_outputs(engine, run) -> dict:
+    """What ``run`` (one prefill) got from its cell call, copied."""
+    seen = []
+    real = engine._run_cell
+
+    def spy(*args):
+        outs = real(*args)
+        seen.append({k: v.clone() for k, v in outs.items()})
+        return outs
+
+    engine._run_cell = spy
+    try:
+        run()
+    finally:
+        del engine._run_cell
+    return seen[-1]
+
 
 def profile_prefill(client, card: str, mode: str = "full") -> None:
-    """One prefill of eight prompts at full width under torch.profiler:
-    at the 1024 bucket, eight rows of it (``"full"``, the per-group
-    path); the same prompts as one pack of 7963 tokens in the 8192 pack
-    bucket (``"packed"``, the paged path's default); or (``"suffix"``)
-    their first ``PROFILE_SUFFIX_CACHED`` tokens served from the cache:
-    the window gathers that prefix KV from a paged pool and prefills the
-    rest, eight rows at the 256 bucket, the causal kernel in suffix
-    alignment.  Wall time, the device's busy time by kernel family and
-    its idle share, and the flash kernel's device time, share and rate
-    over its 24 launches."""
+    """One prefill of eight prompts at full width, in two windows of the
+    same host: through the engine's cell (the graph replay the
+    continuous engine runs, captured here at its first call where
+    ``warmup_aot`` did not walk it) and through the public eager method,
+    the same cell body on tensors of its own.  At the 1024 bucket, eight
+    rows of it (``"full"``, the per-group path); the same prompts as one
+    pack of 7963 tokens in the 8192 pack bucket (``"packed"``, the paged
+    path's default); or (``"suffix"``) their first
+    ``PROFILE_SUFFIX_CACHED`` tokens served from the cache: each prefill
+    gathers that prefix KV from a paged pool (straight into the cell's
+    inputs when graphed) and prefills the rest, eight rows at the 256
+    bucket, the causal kernel in suffix alignment.  Each window gives
+    the wall time per prefill, the host's launch calls, the device
+    kernels, the device's busy time by kernel family and its idle share,
+    the trace held against the launch counters; the graphed cell's
+    logits and KV must equal the eager body's bit for bit, and a graphed
+    prefill may make at most ``GRAPHED_LAUNCH_CALLS_PER_PREFILL`` host
+    launch calls.  Then the flash kernel's device time, share and rate
+    over its 24 launches a prefill."""
+    from repro_torch.runtime.graphs import Fill
     engine = client.backend.engine
     cfg = engine.cfg
+    cells = engine.prefill_cells
     rng = np.random.default_rng(SEED + 2)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
                for n in PROFILE_PREFILL_LENS]
@@ -2354,44 +2524,82 @@ def profile_prefill(client, card: str, mode: str = "full") -> None:
         tables = pool["block_tables"][:, :cached // 16].long()
         flat = (cfg.num_layers, len(prompts), cached, cfg.num_kv_heads,
                 cfg.head_dim)
+        slots = ((tables * 16)[:, :, None] +
+                 torch.arange(16, device=engine.device)).reshape(-1)
 
-    def prefill():
+        def gather(key):
+            src = pool[key].view((cfg.num_layers, -1) + pool[key].shape[3:])
+            return Fill(flat, src.dtype, lambda t: torch.index_select(
+                src, 1, slots, out=t.view((cfg.num_layers, -1) +
+                                          src.shape[2:])))
+
+    def prefill(graphed: bool):
+        table = cells if graphed else None
         if packed:
-            return engine.prefill_packed_flat(prompts, [0] * len(prompts),
-                                              no_kv, no_kv, no_ids,
-                                              no_ids)[0]
+            return engine._prefill_packed_flat(
+                prompts, [0] * len(prompts), table, no_kv, no_kv, no_ids,
+                no_ids)[0]
         if mode == "suffix":
-            pk = pool["k"][:, tables].reshape(flat)
-            pv = pool["v"][:, tables].reshape(flat)
-            return engine.prefill_suffix_batch(
-                prompts, prefix_k=pk, prefix_v=pv, prefix_len=cached,
-                max_new_tokens=1).cur
-        state = engine.prefill_batch(prompts, max_len=1024, max_new_tokens=1,
-                                     prompt_kv_only=True)
-        return state.cur
-    prefill()                                    # warm: same shapes
+            if graphed:
+                pk, pv = gather("k"), gather("v")
+            else:
+                pk = pool["k"][:, tables].reshape(flat)
+                pv = pool["v"][:, tables].reshape(flat)
+            return engine._prefill_suffix_batch(
+                prompts, table, prefix_k=pk, prefix_v=pv,
+                prefix_len=cached, max_new_tokens=1).cur
+        return engine._prefill_batch(prompts, table, max_len=1024,
+                                     max_new_tokens=1,
+                                     prompt_kv_only=True).cur
+
+    captures0, seconds0 = cells.captures, cells.capture_seconds
+    prefill(True)               # captures the cell where it is missing
+    prefill(False)              # allocator pools for the eager body
+    captured = cells.captures - captures0
+    graphed_out = cell_outputs(engine, lambda: prefill(True))
+    eager_out = cell_outputs(engine, lambda: prefill(False))
+    unequal = [k for k in eager_out
+               if not torch.equal(graphed_out[k], eager_out[k])]
+    if unequal:
+        raise AssertionError(f"profile_prefill {mode}: the graphed cell's "
+                             f"{unequal} differ from the eager body's")
+    del graphed_out, eager_out
     from repro_torch.kernels import cuda_lib
-    prof, wall_ms, launches, (busy_us, kernels, host), check, out = \
-        traced_window(prefill)
-    suffix_launches = cuda_lib.LAUNCH_SHAPES[("flash_attention", "suffix")]
-    if launches.get(kname, 0) != cfg.num_layers or \
-            suffix_launches != (cfg.num_layers if mode == "suffix" else 0):
-        raise AssertionError(f"profile_prefill {mode}: {launches}, "
-                             f"{suffix_launches} suffix-aligned (expected "
-                             f"{cfg.num_layers} {kname} launches)")
-    first = out[:len(prompts)].argmax(dim=-1) if packed else \
-        out[:len(prompts)]
-    if bool(((first < 0) | (first >= cfg.vocab_size)).any()):
-        raise AssertionError("profile_prefill: first token out of range")
-    if packed and not bool(torch.isfinite(out.float()).all()):
-        raise AssertionError("profile_prefill_packed: non-finite logits")
-    del out
-    busy_ms = sum(busy_us.values()) / 1e3
-    complete = check["trace_complete"] and busy_ms > 0
+    windows = {}
+    for label in ("graphed", "eager"):
+        w = prefill_window(lambda: prefill(label == "graphed"),
+                           PREFILL_REPS)
+        suffix = cuda_lib.LAUNCH_SHAPES[("flash_attention", "suffix")]
+        want = cfg.num_layers * PREFILL_REPS
+        if w["launches"].get(kname, 0) != want or \
+                suffix != (want if mode == "suffix" else 0):
+            raise AssertionError(
+                f"profile_prefill {mode} {label}: {w['launches']}, "
+                f"{suffix} suffix-aligned (expected {cfg.num_layers} "
+                f"{kname} launches a prefill)")
+        out = w.pop("_out")
+        first = out[:len(prompts)].argmax(dim=-1) if packed else \
+            out[:len(prompts)]
+        if bool(((first < 0) | (first >= cfg.vocab_size)).any()):
+            raise AssertionError(f"profile_prefill {mode}: first token out "
+                                 "of range")
+        if packed and not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"profile_prefill {mode}: non-finite "
+                                 "logits")
+        windows[label] = w
+    graphed, eager = windows["graphed"], windows["eager"]
+    if graphed["launches"] != eager["launches"]:
+        raise AssertionError(f"profile_prefill {mode}: the graphed window "
+                             f"counted {graphed['launches']}, the eager "
+                             f"one {eager['launches']}")
+    kernels = graphed.pop("_kernels")
+    eager.pop("_kernels")
+    busy = graphed["device_busy_ms"]
     needle = PORT_KERNELS[kname][0]
-    flash_us = sum(us for us, _, name in kernels if needle in name)
+    flash_us = sum(us for us, _, name in kernels if needle in name) \
+        / PREFILL_REPS
     b, s, h, dh = 8, 1024, cfg.num_heads, cfg.head_dim
-    flat = sum(PROFILE_PREFILL_LENS)
+    flat_tokens = sum(PROFILE_PREFILL_LENS)
     if mode == "suffix":
         s = engine.ladder.seq_bucket(max(PROFILE_PREFILL_LENS) - cached)
     # the work the prompts need: each one's causal pairs (packed), or the
@@ -2403,36 +2611,37 @@ def profile_prefill(client, card: str, mode: str = "full") -> None:
                     "packed": "profile_prefill_packed",
                     "suffix": "profile_prefill_suffix"}[mode],
           "card": card, "rows": 1 if packed else b,
-          "bucket": engine.ladder.pack_bucket(flat) if packed else s,
+          "bucket": engine.ladder.pack_bucket(flat_tokens) if packed else s,
           "cached_tokens": cached if mode == "suffix" else 0,
-          "suffix_aligned_flash_launches": suffix_launches,
-          "flat_tokens": flat if packed else b * s,
+          "flat_tokens": flat_tokens if packed else b * s,
           "prompt_lens": [len(p) for p in prompts],
-          "wall_ms": wall_ms,
+          "cell": {"captured_here": captured,
+                   "capture_s": cells.capture_seconds - seconds0,
+                   "graphed_equal_to_eager": "logits and KV, bit for bit"},
           "note": "wall_ms is taken under the profiler, which slows the "
-                  "host; device times are the kernels' own",
-          "launch_cross_check": check, "launches": launches,
-          "device_busy_ms": busy_or_not_measured(busy_ms, check),
-          "device_idle_share": (1 - busy_ms / wall_ms) if complete
-          else busy_or_not_measured(None, check),
-          "busy_ms_by_family": {k: v / 1e3 for k, v in
-                                sorted(busy_us.items())}
-          if complete else busy_or_not_measured(None, check),
-          **in_trace(busy_us, 1, check, wall_ms, flash_us),
+                  "host, wall_ms_unprofiled on the host clock alone (the "
+                  "same prefills, run just before); device times are the "
+                  "kernels' own; the eager window runs the public method "
+                  "(the cell body on tensors of its own) on the same "
+                  "prompts",
+          "graphed": graphed, "eager": eager,
+          "speedup_unprofiled": eager["wall_ms_unprofiled"] /
+          graphed["wall_ms_unprofiled"],
           kname: {
-              "launches": launches[kname],
+              "launches_per_prefill": cfg.num_layers,
               "device_ms": flash_us / 1e3 if flash_us else "not measured",
               "ms_per_launch": flash_us / 1e3 / cfg.num_layers
               if flash_us else "not measured",
-              "share_of_busy": flash_us / 1e3 / busy_ms
-              if flash_us and complete else "not measured",
+              "share_of_busy": flash_us / 1e3 / busy
+              if flash_us and isinstance(busy, float) else "not measured",
               "tflops": flops / (flash_us * 1e-6) / 1e12
-              if flash_us else "not measured"},
-          "kernel_launches": sum(c for _, c, _ in kernels),
-          "host_ops_self_ms": sum(u for u, _, _ in host) / 1e3,
-          "top_device_kernels": [
-              {"name": name[:80], "ms": us / 1e3, "calls": count}
-              for us, count, name in sorted(kernels, reverse=True)[:8]]})
+              if flash_us else "not measured"}})
+    calls = graphed["host_launch_calls_per_prefill"]
+    if calls > GRAPHED_LAUNCH_CALLS_PER_PREFILL:
+        raise AssertionError(
+            f"profile_prefill {mode}: {calls} host launch calls a graphed "
+            f"prefill (at most {GRAPHED_LAUNCH_CALLS_PER_PREFILL}): "
+            f"{graphed['host_launch_calls']}")
 
 
 def release_memory() -> None:

@@ -139,14 +139,36 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 ATTN_ROUTES = ("flash", "naive")
 
 
+def _kv_parts(shape: Tuple[int, ...], dtype: torch.dtype,
+              device: torch.device,
+              kv_out: Optional[Dict[str, torch.Tensor]],
+              zeros: bool = False) -> Dict[str, torch.Tensor]:
+    """The k/v tensors a prefill writes its cache into: ``kv_out``'s
+    ``k`` and ``v`` where given (a graph's static outputs), which must
+    have ``shape`` and ``dtype``, else new ones (zeroed with ``zeros``)."""
+    if kv_out is None:
+        alloc = torch.zeros if zeros else torch.empty
+        return {key: alloc(shape, dtype=dtype, device=device)
+                for key in ("k", "v")}
+    for key in ("k", "v"):
+        t = kv_out[key]
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"kv_out[{key!r}] is {tuple(t.shape)} "
+                             f"{t.dtype}; the cache is {tuple(shape)} "
+                             f"{dtype}")
+    return {"k": kv_out["k"], "v": kv_out["v"]}
+
+
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    *, collect_cache: bool = False,
                    cache_dtype: torch.dtype = torch.float32,
-                   cache_len: Optional[int] = None, attn: str = "flash"):
+                   cache_len: Optional[int] = None, attn: str = "flash",
+                   kv_out: Optional[Dict[str, torch.Tensor]] = None):
     """Causal pass over right-padded prompts.  Returns ``(h_final,
     parts)``; with ``collect_cache`` parts holds every layer's k/v as
     (L, B, max(S, cache_len), KV, dh) in ``cache_dtype``, zero past S,
-    else None.  ``attn`` picks the attention route: ``"flash"`` (the
+    written into ``kv_out``'s tensors where given, else None.  ``attn``
+    picks the attention route: ``"flash"`` (the
     flash-attention kernel, the generative prefill's) or ``"naive"``
     (scores, the fused softmax kernel, weights times V: the
     classification path's, as the JAX package's ``_attn`` picks below
@@ -161,9 +183,11 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     if collect_cache:
         width = max(s, cache_len or 0)
         shape = (cfg.num_layers, b, width, cfg.num_kv_heads, cfg.head_dim)
-        alloc = torch.zeros if width > s else torch.empty
-        parts = {"k": alloc(shape, dtype=cache_dtype, device=tokens.device),
-                 "v": alloc(shape, dtype=cache_dtype, device=tokens.device)}
+        parts = _kv_parts(shape, cache_dtype, tokens.device, kv_out,
+                          zeros=width > s)
+        if kv_out is not None and width > s:
+            for t in parts.values():
+                t[:, :, s:].zero_()
     for i in range(cfg.num_layers):
         blk = layer_params(params, i)
         hn = L.apply_norm(cfg, blk["norm1"], h)
@@ -187,17 +211,19 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             max_len: Optional[int] = None,
             true_lengths: Optional[torch.Tensor] = None,
-            cache_dtype: torch.dtype = torch.float32
+            cache_dtype: torch.dtype = torch.float32,
+            kv_out: Optional[Dict[str, torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prompt pass over right-padded ``tokens`` (B, S).  Returns the
     logits at each row's last real token (B, V) and a contiguous cache:
-    ``k``/``v`` (L, B, max(S, max_len), KV, dh), zero past S, with
-    ``len`` (each row's true length) and ``pos_offset`` (B,) int32.  The
-    engine decodes it in place or splices it into a slot cache or a
-    paged pool."""
+    ``k``/``v`` (L, B, max(S, max_len), KV, dh), zero past S (written
+    into ``kv_out``'s where given), with ``len`` (each row's true length)
+    and ``pos_offset`` (B,) int32.  The engine decodes it in place or
+    splices it into a slot cache or a paged pool."""
     bsz, seq = tokens.shape
     h, cache = forward_hidden(cfg, params, tokens, collect_cache=True,
-                              cache_dtype=cache_dtype, cache_len=max_len)
+                              cache_dtype=cache_dtype, cache_len=max_len,
+                              kv_out=kv_out)
     if true_lengths is None:
         lens = torch.full((bsz,), seq, dtype=torch.int32,
                           device=tokens.device)
@@ -213,7 +239,8 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    prefix_k: torch.Tensor, prefix_v: torch.Tensor, *,
                    prefix_len: int,
                    true_lengths: Optional[torch.Tensor] = None,
-                   cache_dtype: torch.dtype = torch.float32
+                   cache_dtype: torch.dtype = torch.float32,
+                   kv_out: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Resume a prompt pass after ``prefix_len`` cached tokens (the
     prefix cache's suffix prefill, and the per-chunk pass of chunked
@@ -233,9 +260,10 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     prompt pass.
 
     Returns ``(last-token logits (B, V), {"k", "v"})`` where k/v are the
-    *suffix-only* parts (L, B, S_suffix, KV, dh) in ``cache_dtype``: the
-    caller scatters them into its own (copy-on-write) blocks, and the
-    shared prefix blocks are never written."""
+    *suffix-only* parts (L, B, S_suffix, KV, dh) in ``cache_dtype``
+    (``kv_out``'s tensors where given): the caller scatters them into its
+    own (copy-on-write) blocks, and the shared prefix blocks are never
+    written."""
     _check_family(cfg)
     if prefix_len < 0:
         raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
@@ -244,8 +272,7 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     positions = L.positions_for(cfg, (bsz, seq), offset=prefix_len,
                                 device=tokens.device)
     shape = (cfg.num_layers, bsz, seq, cfg.num_kv_heads, cfg.head_dim)
-    parts = {"k": torch.empty(shape, dtype=cache_dtype, device=h.device),
-             "v": torch.empty(shape, dtype=cache_dtype, device=h.device)}
+    parts = _kv_parts(shape, cache_dtype, h.device, kv_out)
     for i in range(cfg.num_layers):
         blk = layer_params(params, i)
         hn = L.apply_norm(cfg, blk["norm1"], h)
@@ -277,7 +304,8 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    last_idx: torch.Tensor, prefix_k: torch.Tensor,
                    prefix_v: torch.Tensor, prefix_seg: torch.Tensor,
                    prefix_pos: torch.Tensor, *,
-                   cache_dtype: torch.dtype = torch.float32
+                   cache_dtype: torch.dtype = torch.float32,
+                   kv_out: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill many independent sequences in ONE pass.
 
@@ -296,7 +324,8 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     Returns ``(logits, {"k", "v"})``: logits (N, V) gathered at
     ``last_idx`` (N,), each segment's last fresh token (padding entries
     point anywhere harmless), and the suffix-only K/V (L, P, KV, dh) in
-    ``cache_dtype`` for the caller to scatter into per-segment blocks."""
+    ``cache_dtype`` (``kv_out``'s tensors where given) for the caller to
+    scatter into per-segment blocks."""
     _check_family(cfg)
     p = tokens.shape[1]
     h = L.embed_tokens(cfg, params["embed"], tokens)
@@ -308,8 +337,7 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     else:
         k_seg, k_pos = seg_ids, positions
     shape = (cfg.num_layers, p, cfg.num_kv_heads, cfg.head_dim)
-    parts = {"k": torch.empty(shape, dtype=cache_dtype, device=h.device),
-             "v": torch.empty(shape, dtype=cache_dtype, device=h.device)}
+    parts = _kv_parts(shape, cache_dtype, h.device, kv_out)
     for i in range(cfg.num_layers):
         blk = layer_params(params, i)
         hn = L.apply_norm(cfg, blk["norm1"], h)

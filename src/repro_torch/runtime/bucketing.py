@@ -1,8 +1,10 @@
 """Length bucketing (copied from the JAX package): the engine pads each
-batch up to a (sequence bucket, batch bucket) cell.  The port runs
-eagerly, so a bucket is not a compiled executable here; it keeps the set
-of shapes the card sees small and fixed, and the paged pool's block size
-divides every bucket.
+batch up to a (sequence bucket, batch bucket) cell.  As in the JAX
+package, the buckets are the keys of compiled cells: on the card each
+classify and prefill key is one captured CUDA graph
+(`repro_torch.runtime.graphs.CellTable`), so the ladder bounds how many
+graphs an engine holds, and the paged pool's block size divides every
+bucket.
 """
 from __future__ import annotations
 

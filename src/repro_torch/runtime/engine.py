@@ -13,18 +13,23 @@ Counterparts of `repro.runtime.engine`:
   selection, emission and stop flags) over a device-resident
   :class:`GenState`.  No tick reads anything back to the host; emitted
   tokens accumulate on the device and move once per flush.  Where the
-  JAX package compiles the tick, one cell per ``sampling`` flag, the
-  port captures its in-place form (:meth:`~InferenceEngine.
-  decode_step_inplace`) as one CUDA graph per cell
-  (`repro_torch.runtime.graphs`); prefill and classify run eagerly.
+  JAX package compiles its cells, the port captures CUDA graphs
+  (`repro_torch.runtime.graphs`), keyed as the reference keys its
+  cells: the classify, per-group prefill, suffix and packed prefill
+  cells (``classify_cells``, ``prefill_cells``) and, one per
+  ``sampling`` flag, the in-place form of the tick
+  (:meth:`~InferenceEngine.decode_step_inplace`).  The public prefill
+  and classify-logits methods run the same cell bodies eagerly on
+  tensors of their own.
 - :class:`ContinuousEngine` layers iteration-level continuous batching
   on top: a persistent slot cache that newly admitted prefills splice
   into while other rows are mid-decode, over ONE paged KV pool
   (``kv_layout="paged"``, the default) or a contiguous stripe per slot
   (``"contiguous"``).  It implements
   `repro_torch.core.pipeline.PipelineBackend`.  On the card each of its
-  decode ticks replays one captured graph; on the CPU the same in-place
-  tick runs eagerly.
+  prefills and decode ticks replays one captured graph (``warmup_aot``
+  captures them before serving, by the reference's walk); on the CPU
+  the same functions run eagerly.
 
 On the paged layout every admission group is prefilled as ONE packed
 dispatch (:meth:`ContinuousEngine.prefill_pack`, the JAX package's
@@ -41,6 +46,7 @@ chunks packed beside admissions).
 from __future__ import annotations
 
 import collections
+import functools
 import time
 from dataclasses import dataclass, replace
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
@@ -55,10 +61,10 @@ from repro_torch.core.serving import Request
 from repro_torch.models import (decode_step, forward_hidden, logits_at,
                                 make_cache, make_paged_cache, prefill,
                                 prefill_packed, prefill_suffix)
-from repro_torch.runtime import sanitizer
+from repro_torch.runtime import graphs, sanitizer
 from repro_torch.runtime.bucketing import BucketLadder
 from repro_torch.runtime.device import resolve_device
-from repro_torch.runtime.graphs import TickCells
+from repro_torch.runtime.graphs import CellArena, CellTable, Fill, TickCells
 from repro_torch.runtime.kv_cache import (DEFAULT_KV_BLOCK,
                                           BlockExhausted, BlockTableManager,
                                           KVSlabManager, kv_bytes_per_token)
@@ -139,6 +145,17 @@ def _to_device(tree, device: torch.device):
     return tree.to(device)
 
 
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    return [tree]
+
+
+def _per_row(value, n: int) -> list:
+    """A scalar repeated ``n`` times, or the per-row sequence given."""
+    return list(value) if hasattr(value, "__len__") else [value] * n
+
+
 class InferenceEngine:
     """Bucketed prompt prefill and the fused decode tick over one model.
 
@@ -162,9 +179,18 @@ class InferenceEngine:
                              f"{sample_candidates}")
         self.sample_candidates = sample_candidates
         self.kv_slab = KVSlabManager()
-        #: decode-tick cells captured as CUDA graphs (the port compiles
-        #: nothing else; the JAX package counts its jitted cells here)
+        #: cells captured as CUDA graphs, as the JAX package counts its
+        #: jitted cells here: the classify and prefill cells below and the
+        #: ContinuousEngine's decode-tick cells (0 on the CPU)
         self.compile_count = 0
+        arena = CellArena(self.device)
+        #: the reference's ``_classify_cache``: (seq bucket, batch bucket)
+        self.classify_cells = CellTable(arena, self._weight_pointers)
+        #: the reference's ``_prefill_cache``: (max_len, batch bucket,
+        #: prompt bucket), ("sfx", prefix_len, suffix bucket, batch
+        #: bucket) and ("pack", pack bucket, prefix bucket, segment slots)
+        self.prefill_cells = CellTable(arena, self._weight_pointers)
+        self.cell_arena = arena
         self._next_gen_id = 0
 
     def _tensor(self, values, dtype) -> torch.Tensor:
@@ -172,12 +198,74 @@ class InferenceEngine:
                                device=self.device)
 
     # ------------------------------------------------------------------
+    # Cells: the JAX package's compiled classify and prefill cells
+    # ------------------------------------------------------------------
+    def _weight_pointers(self) -> Tuple[int, ...]:
+        return tuple(t.data_ptr() for t in _leaves(self.params))
+
+    def _run_cell(self, table: Optional[CellTable], key, body,
+                  inputs: Dict[str, graphs.Value],
+                  outputs: Dict[str, graphs.Spec]
+                  ) -> Dict[str, torch.Tensor]:
+        """``body`` through ``table``'s cell ``key`` (on the card a graph
+        replay whose outputs live until the next cell call of this
+        engine, captured at first use and counted in ``compile_count``),
+        or with ``table`` None eagerly, on tensors of its own: the public
+        methods, whose results a caller may keep."""
+        if table is None:
+            return graphs.run_eager(body, inputs, outputs, self.device)
+        before = table.captures
+        outs = table.run(key, body, inputs, outputs)
+        self.compile_count += table.captures - before
+        return outs
+
+    def _logits_spec(self, rows: int) -> graphs.Spec:
+        return (rows, self.cfg.vocab_size), self.params["embed"]["tok"].dtype
+
+    def _kv_spec(self, *dims: int) -> Dict[str, graphs.Spec]:
+        """k/v outputs (L, *dims, KV, dh) in f32, the reference's
+        ``cache_dtype``."""
+        cfg = self.cfg
+        shape = (cfg.num_layers,) + dims + (cfg.num_kv_heads, cfg.head_dim)
+        return {"k": (shape, torch.float32), "v": (shape, torch.float32)}
+
+    # The cell bodies: pure functions of device tensors, each writing its
+    # outputs (the reference's ``run`` / ``pf`` bodies)
+    def _classify_body(self, ins, outs) -> None:
+        h, _ = forward_hidden(self.cfg, self.params, ins["tokens"],
+                              attn="naive")
+        outs["logits"].copy_(logits_at(self.cfg, self.params, h,
+                                       ins["last_idx"]))
+
+    def _prefill_body(self, max_len: int, ins, outs) -> None:
+        logits, _ = prefill(self.cfg, self.params, ins["tokens"],
+                            max_len=max_len,
+                            true_lengths=ins["true_lengths"], kv_out=outs)
+        outs["logits"].copy_(logits)
+
+    def _suffix_body(self, prefix_len: int, ins, outs) -> None:
+        logits, _ = prefill_suffix(
+            self.cfg, self.params, ins["tokens"], ins["prefix_k"],
+            ins["prefix_v"], prefix_len=prefix_len,
+            true_lengths=ins["true_lengths"], kv_out=outs)
+        outs["logits"].copy_(logits)
+
+    def _packed_body(self, ins, outs) -> None:
+        logits, _ = prefill_packed(
+            self.cfg, self.params, ins["tokens"], ins["seg_ids"],
+            ins["positions"], ins["last_idx"], ins["prefix_k"],
+            ins["prefix_v"], ins["prefix_seg"], ins["prefix_pos"],
+            kv_out=outs)
+        outs["logits"].copy_(logits)
+
+    # ------------------------------------------------------------------
     # One-shot classification (the paper's BERT-style service)
     # ------------------------------------------------------------------
-    def _pad_batch(self, token_lists: Sequence[Sequence[int]]):
-        """Right-pad a ragged batch to its (sequence, batch) bucket:
-        tokens (batch_b, seq_b) and each row's last real index (0 for
-        the padding rows), on the device."""
+    def _classify(self, token_lists: Sequence[Sequence[int]],
+                  table: Optional[CellTable]) -> torch.Tensor:
+        """Last-token logits (batch bucket, V) of a variable-length batch
+        right-padded to its (sequence, batch) bucket, through cell
+        (seq_b, batch_b); the rows past the batch are padding."""
         lens = [len(t) for t in token_lists]
         seq_b = self.ladder.seq_bucket(max(lens))
         batch_b = self.ladder.batch_bucket(len(token_lists))
@@ -186,26 +274,30 @@ class InferenceEngine:
             toks[i, :len(t)] = t
         last = np.array([n - 1 for n in lens] + [0] * (batch_b - len(lens)),
                         np.int32)
-        return self._tensor(toks, torch.int64), self._tensor(last,
-                                                             torch.int32)
+        outs = self._run_cell(table, (seq_b, batch_b), self._classify_body,
+                              {"tokens": toks, "last_idx": last},
+                              {"logits": self._logits_spec(batch_b)})
+        return outs["logits"]
 
     def classify_logits(self, token_lists: Sequence[Sequence[int]]
                         ) -> torch.Tensor:
         """Last-token logits (n, V) of a variable-length batch, on the
-        device: one causal pass at the batch's bucket through the naive
-        attention route (scores, the fused softmax kernel, weights times
-        V — the JAX package's ``_attn`` choice below its chunked
-        threshold), then the head over each row's last real token."""
-        toks, last = self._pad_batch(token_lists)
-        h, _ = forward_hidden(self.cfg, self.params, toks, attn="naive")
-        return logits_at(self.cfg, self.params, h, last)[:len(token_lists)]
+        device, on tensors of their own: one causal pass at the batch's
+        bucket through the naive attention route (scores, the fused
+        softmax kernel, weights times V — the JAX package's ``_attn``
+        choice below its chunked threshold), then the head over each
+        row's last real token.  The same function as :meth:`classify`'s
+        cell, run eagerly."""
+        return self._classify(token_lists, None)[:len(token_lists)]
 
     def classify(self, token_lists: Sequence[Sequence[int]]) -> List[int]:
         """Last-token classification over a variable-length batch (the
-        paper's BERT-based service): host ints, so the call returns only
-        once the card has finished the batch."""
-        logits = self.classify_logits(token_lists)
-        return [int(p) for p in _host(torch.argmax(logits, dim=-1))]
+        paper's BERT-based service) through its (seq bucket, batch
+        bucket) cell: host ints, so the call returns only once the card
+        has finished the batch."""
+        logits = self._classify(token_lists, self.classify_cells)
+        return [int(p) for p in _host(torch.argmax(
+            logits[:len(token_lists)], dim=-1))]
 
     def execute_requests(self, requests: List[Request], padded_len: int
                          ) -> List[int]:
@@ -220,13 +312,14 @@ class InferenceEngine:
                repeats: int = 3) -> TableCostModel:
         """Time ``classify`` at every (length, batch) of the grid (the
         first four sequence and batch buckets by default) into the DP
-        scheduler's cost table."""
+        scheduler's cost table: the first call of a grid point captures
+        its cell on the card, the timed repeats replay it."""
         lengths = list(lengths or self.ladder.seq_buckets[:4])
         batches = list(batches or self.ladder.batch_buckets[:4])
 
         def measure(seq_len: int, batch: int) -> float:
             token_lists = [[1] * seq_len for _ in range(batch)]
-            self.classify(token_lists)      # allocator pools, handles
+            self.classify(token_lists)      # capture (compile) + first run
             # classify returns host ints, so each call has waited for
             # the card: the host clock brackets the device work
             t0 = time.perf_counter()
@@ -237,8 +330,19 @@ class InferenceEngine:
         return TableCostModel.warmup(measure, lengths, batches)
 
     # ------------------------------------------------------------------
-    # Resumable generation primitives
+    # Resumable generation primitives.  The public methods return tensors
+    # of their own (the cell bodies run eagerly); the ContinuousEngine
+    # calls the underscored ones with ``self.prefill_cells``.
     # ------------------------------------------------------------------
+    def _budgets(self, n: int, max_new_tokens, eos_id,
+                 cap_new: Optional[int]) -> Tuple[list, list, int]:
+        budgets = [int(b) for b in _per_row(max_new_tokens, n)]
+        cap = cap_new if cap_new is not None else max(max(budgets), 1)
+        if cap < max(budgets):
+            raise ValueError(f"cap_new={cap} cannot hold a "
+                             f"max_new_tokens={max(budgets)} budget")
+        return budgets, _per_row(eos_id, n), cap
+
     def prefill_batch(self, token_lists: Sequence[Sequence[int]], *,
                       max_len: int, max_new_tokens, eos_id=None,
                       cap_new: Optional[int] = None,
@@ -252,31 +356,45 @@ class InferenceEngine:
         may be scalars or per-request sequences; ``sampling`` carries
         each row's temperature / top-k / top-p / seed / extra stop ids
         (None is greedy)."""
+        return self._prefill_batch(
+            token_lists, None, max_len=max_len,
+            max_new_tokens=max_new_tokens, eos_id=eos_id, cap_new=cap_new,
+            sampling=sampling, prompt_kv_only=prompt_kv_only)
+
+    def _prefill_batch(self, token_lists: Sequence[Sequence[int]],
+                       table: Optional[CellTable], *, max_len: int,
+                       max_new_tokens, eos_id=None,
+                       cap_new: Optional[int] = None,
+                       sampling: Optional[Sequence[GenerationParams]] = None,
+                       prompt_kv_only: bool = False) -> GenState:
+        """:meth:`prefill_batch` through cell (max_len, batch bucket,
+        prompt bucket).  A ``prompt_kv_only`` pass computes what
+        ``max_len`` = the prompt bucket does, and is keyed so."""
         n = len(token_lists)
         lens = [len(t) for t in token_lists]
         prompt_b = self.ladder.seq_bucket(max(lens))
         batch_b = self.ladder.batch_bucket(n)
-        budgets = list(max_new_tokens) if hasattr(max_new_tokens, "__len__") \
-            else [int(max_new_tokens)] * n
-        eos_ids = list(eos_id) if hasattr(eos_id, "__len__") \
-            else [eos_id] * n
+        budgets, eos_ids, cap = self._budgets(n, max_new_tokens, eos_id,
+                                              cap_new)
         if max(lens[i] + budgets[i] for i in range(n)) > max_len:
             raise ValueError(f"prompt+budget exceeds max_len {max_len}")
-        cap = cap_new if cap_new is not None else max(max(budgets), 1)
-        if cap < max(budgets):
-            raise ValueError(f"cap_new={cap} cannot hold a "
-                             f"max_new_tokens={max(budgets)} budget")
         toks = np.full((batch_b, prompt_b), self.pad_id, np.int64)
         for i, t in enumerate(token_lists):
             toks[i, :len(t)] = t
         true_lens = np.array(lens + [1] * (batch_b - n), np.int32)
-        logits, cache = prefill(self.cfg, self.params,
-                                self._tensor(toks, torch.int64),
-                                max_len=None if prompt_kv_only else max_len,
-                                true_lengths=self._tensor(true_lens,
-                                                          torch.int32))
-        return self._finish_gen_state(logits, cache, n, batch_b, budgets,
-                                      eos_ids, cap, sampling)
+        width = prompt_b if prompt_kv_only else max(prompt_b, max_len)
+        outs = self._run_cell(
+            table, (width, batch_b, prompt_b),
+            functools.partial(self._prefill_body, width),
+            {"tokens": toks, "true_lengths": true_lens},
+            {"logits": self._logits_spec(batch_b),
+             **self._kv_spec(batch_b, width)})
+        cache = {"k": outs["k"], "v": outs["v"],
+                 "len": self._tensor(true_lens, torch.int32),
+                 "pos_offset": torch.zeros((batch_b,), dtype=torch.int32,
+                                           device=self.device)}
+        return self._finish_gen_state(outs["logits"], cache, n, batch_b,
+                                      budgets, eos_ids, cap, sampling)
 
     def prefill_suffix_batch(self, token_lists: Sequence[Sequence[int]], *,
                              prefix_k: torch.Tensor, prefix_v: torch.Tensor,
@@ -296,6 +414,23 @@ class InferenceEngine:
         lengths; it is meant for the continuous engine's paged splice,
         which scatters the suffix into the request's own blocks — never
         into the shared prefix blocks."""
+        return self._prefill_suffix_batch(
+            token_lists, None, prefix_k=prefix_k, prefix_v=prefix_v,
+            prefix_len=prefix_len, max_new_tokens=max_new_tokens,
+            eos_id=eos_id, cap_new=cap_new, sampling=sampling)
+
+    def _prefill_suffix_batch(self, token_lists: Sequence[Sequence[int]],
+                              table: Optional[CellTable], *,
+                              prefix_k: graphs.Value,
+                              prefix_v: graphs.Value, prefix_len: int,
+                              max_new_tokens, eos_id=None,
+                              cap_new: Optional[int] = None,
+                              sampling: Optional[
+                                  Sequence[GenerationParams]] = None
+                              ) -> GenState:
+        """:meth:`prefill_suffix_batch` through cell ("sfx", prefix_len,
+        suffix bucket, batch bucket); the prefix KV (L, n, prefix_len,
+        KV, dh) may be a Fill that gathers it straight into the cell."""
         n = len(token_lists)
         suffixes = [list(t)[prefix_len:] for t in token_lists]
         lens = [len(x) for x in suffixes]
@@ -304,35 +439,27 @@ class InferenceEngine:
                              "(the last position's logits seed decoding)")
         suffix_b = self.ladder.seq_bucket(max(lens))
         batch_b = self.ladder.batch_bucket(n)
-        budgets = list(max_new_tokens) if hasattr(max_new_tokens, "__len__") \
-            else [int(max_new_tokens)] * n
-        eos_ids = list(eos_id) if hasattr(eos_id, "__len__") \
-            else [eos_id] * n
-        cap = cap_new if cap_new is not None else max(max(budgets), 1)
-        if cap < max(budgets):
-            raise ValueError(f"cap_new={cap} cannot hold a "
-                             f"max_new_tokens={max(budgets)} budget")
+        budgets, eos_ids, cap = self._budgets(n, max_new_tokens, eos_id,
+                                              cap_new)
         toks = np.full((batch_b, suffix_b), self.pad_id, np.int64)
         for i, t in enumerate(suffixes):
             toks[i, :len(t)] = t
         true_lens = np.array(lens + [1] * (batch_b - n), np.int32)
-        if prefix_k.shape[1] < batch_b:
-            pad = prefix_k.new_zeros(
-                (prefix_k.shape[0], batch_b - prefix_k.shape[1]) +
-                tuple(prefix_k.shape[2:]))
-            prefix_k = torch.cat([prefix_k, pad], dim=1)
-            prefix_v = torch.cat([prefix_v, pad], dim=1)
-        logits, parts = prefill_suffix(
-            self.cfg, self.params, self._tensor(toks, torch.int64),
-            prefix_k, prefix_v, prefix_len=prefix_len,
-            true_lengths=self._tensor(true_lens, torch.int32))
+        outs = self._run_cell(
+            table, ("sfx", prefix_len, suffix_b, batch_b),
+            functools.partial(self._suffix_body, prefix_len),
+            {"tokens": toks, "true_lengths": true_lens,
+             "prefix_k": graphs.padded(prefix_k, 1, batch_b),
+             "prefix_v": graphs.padded(prefix_v, 1, batch_b)},
+            {"logits": self._logits_spec(batch_b),
+             **self._kv_spec(batch_b, suffix_b)})
         cache = {"len": self._tensor([prefix_len + ln for ln in lens] +
                                      [1] * (batch_b - n), torch.int32),
                  "pos_offset": torch.zeros((batch_b,), dtype=torch.int32,
                                            device=self.device),
-                 "k": parts["k"], "v": parts["v"]}
-        return self._finish_gen_state(logits, cache, n, batch_b, budgets,
-                                      eos_ids, cap, sampling)
+                 "k": outs["k"], "v": outs["v"]}
+        return self._finish_gen_state(outs["logits"], cache, n, batch_b,
+                                      budgets, eos_ids, cap, sampling)
 
     def prefill_packed_flat(self, suffixes: Sequence[Sequence[int]],
                             offsets: Sequence[int], prefix_k: torch.Tensor,
@@ -352,33 +479,41 @@ class InferenceEngine:
         V), rows past ``len(suffixes)`` padding, and the flat suffix KV
         (L, pack_b, KV, dh) laid out as the concatenated suffixes, for
         per-segment scatter into paged blocks."""
+        return self._prefill_packed_flat(suffixes, offsets, None, prefix_k,
+                                         prefix_v, prefix_seg, prefix_pos)
+
+    def _prefill_packed_flat(self, suffixes: Sequence[Sequence[int]],
+                             offsets: Sequence[int],
+                             table: Optional[CellTable],
+                             prefix_k: graphs.Value, prefix_v: graphs.Value,
+                             prefix_seg: graphs.Value,
+                             prefix_pos: graphs.Value):
+        """:meth:`prefill_packed_flat` through cell ("pack", pack bucket,
+        prefix bucket, segment slots); the prefix inputs (P_pre wide) may
+        be host arrays, or Fills that gather straight into the cell."""
         lens = [len(x) for x in suffixes]
         if min(lens) < 1:
             raise ValueError("every packed segment needs >= 1 fresh token")
         flat = sum(lens)
         pack_b = self.ladder.pack_bucket(flat)
+        seg_b = self.ladder.batch_bucket(len(lens))
         seg_ids, positions = segment_labels(lens, offsets, pack_b)
         toks = np.full((1, pack_b), self.pad_id, np.int64)
         toks[0, :flat] = np.concatenate([np.asarray(x) for x in suffixes])
-        last_idx = np.zeros((self.ladder.batch_bucket(len(lens)),), np.int32)
+        last_idx = np.zeros((seg_b,), np.int32)
         last_idx[:len(lens)] = np.cumsum(lens) - 1
-        pre = int(prefix_k.shape[1])
+        pre = graphs.spec(prefix_k)[0][1]
         pre_b = self.ladder.pack_bucket(pre) if pre else 0
-        if pre_b > pre:
-            pad = pre_b - pre
-            zeros = prefix_k.new_zeros((prefix_k.shape[0], pad) +
-                                       tuple(prefix_k.shape[2:]))
-            prefix_k = torch.cat([prefix_k, zeros], dim=1)
-            prefix_v = torch.cat([prefix_v, zeros], dim=1)
-            prefix_seg = torch.cat([prefix_seg, prefix_seg.new_full((pad,),
-                                                                    -1)])
-            prefix_pos = torch.cat([prefix_pos, prefix_pos.new_zeros(pad)])
-        return prefill_packed(
-            self.cfg, self.params, self._tensor(toks, torch.int64),
-            self._tensor(seg_ids, torch.int32),
-            self._tensor(positions, torch.int32),
-            self._tensor(last_idx, torch.int32), prefix_k, prefix_v,
-            prefix_seg, prefix_pos, cache_dtype=torch.float32)
+        outs = self._run_cell(
+            table, ("pack", pack_b, pre_b, seg_b), self._packed_body,
+            {"tokens": toks, "seg_ids": seg_ids, "positions": positions,
+             "last_idx": last_idx,
+             "prefix_k": graphs.padded(prefix_k, 1, pre_b),
+             "prefix_v": graphs.padded(prefix_v, 1, pre_b),
+             "prefix_seg": graphs.padded(prefix_seg, 0, pre_b, -1),
+             "prefix_pos": graphs.padded(prefix_pos, 0, pre_b)},
+            {"logits": self._logits_spec(seg_b), **self._kv_spec(pack_b)})
+        return outs["logits"], {"k": outs["k"], "v": outs["v"]}
 
     def _finish_gen_state(self, logits, cache, n: int, batch_b: int,
                           budgets: Sequence[int], eos_ids: Sequence,
@@ -656,6 +791,8 @@ class ContinuousEngine(PipelineBackend):
         #: the decode tick's CUDA graphs, one cell per sampling flag
         self.tick_cells = TickCells(engine.decode_step_inplace)
         self.warmup_stats: Optional[Dict[str, float]] = None
+        # warm-up sessions' req_ids: far below any serving or generate id
+        self._warm_id = -(10 ** 9)
 
     @property
     def device(self) -> torch.device:
@@ -1010,12 +1147,14 @@ class ContinuousEngine(PipelineBackend):
                     sampling=[s.params for s in p_sessions])
                 if cached:
                     pk, pv = self._gather_prefix(p_matches, cached)
-                    rows = eng.prefill_suffix_batch(
-                        [list(s.prompt) for s in p_sessions], prefix_k=pk,
-                        prefix_v=pv, prefix_len=cached, **common)
-                else:
-                    rows = eng.prefill_batch(
+                    rows = eng._prefill_suffix_batch(
                         [list(s.prompt) for s in p_sessions],
+                        eng.prefill_cells, prefix_k=pk, prefix_v=pv,
+                        prefix_len=cached, **common)
+                else:
+                    rows = eng._prefill_batch(
+                        [list(s.prompt) for s in p_sessions],
+                        eng.prefill_cells,
                         max_len=need if btm is not None else self.max_len,
                         prompt_kv_only=btm is not None, **common)
                 if btm is not None:
@@ -1177,11 +1316,9 @@ class ContinuousEngine(PipelineBackend):
         pre_pos: List[np.ndarray] = []
 
         def add_prefix(seg: int, blocks: List[int], length: int) -> None:
-            pos = np.arange(length)
-            ids = np.asarray(blocks, np.int64)
-            pre_fidx.append(ids[pos // bs] * bs + pos % bs)
+            pre_fidx.append(self._slots(blocks, 0, length))
             pre_seg.append(np.full((length,), seg, np.int32))
-            pre_pos.append(pos.astype(np.int32))
+            pre_pos.append(np.arange(length, dtype=np.int32))
 
         for i, s in enumerate(admissions):
             cached = matches[i].cached_tokens if matches else 0
@@ -1198,27 +1335,19 @@ class ContinuousEngine(PipelineBackend):
             offsets.append(off)
             if off:
                 add_prefix(len(admissions) + j, table, off)
-        # ---- every segment's prefix KV in one pool read ---------------
-        cache = self.state.cache
-        nl = cache["k"].shape[0]
-        if pre_fidx:
-            gidx = self._index(np.concatenate(pre_fidx))
-            prefix_k, prefix_v = (
-                cache[key].view((nl, -1) + cache[key].shape[3:])[:, gidx]
-                for key in ("k", "v"))
-            prefix_seg = eng._tensor(np.concatenate(pre_seg), torch.int32)
-            prefix_pos = eng._tensor(np.concatenate(pre_pos), torch.int32)
-        else:
-            prefix_k = prefix_v = cache["k"].new_zeros(
-                (nl, 0) + cache["k"].shape[3:])
-            prefix_seg = prefix_pos = torch.zeros(
-                (0,), dtype=torch.int32, device=self.device)
+        # ---- every segment's prefix KV in one pool read, straight into
+        # the cell's inputs ----------------------------------------------
+        no_ids = np.zeros((0,), np.int32)
+        pre_slots = np.concatenate(pre_fidx) if pre_fidx else no_ids
+        prefix_k, prefix_v = self._prefix_fills(pre_slots,
+                                                (len(pre_slots),))
+        prefix_seg = np.concatenate(pre_seg) if pre_seg else no_ids
+        prefix_pos = np.concatenate(pre_pos) if pre_pos else no_ids
         try:
             # ---- THE dispatch --------------------------------------------
-            logits, parts = eng.prefill_packed_flat(
-                suffixes, offsets, prefix_k, prefix_v, prefix_seg,
-                prefix_pos)
-            del prefix_k, prefix_v
+            logits, parts = eng._prefill_packed_flat(
+                suffixes, offsets, eng.prefill_cells, prefix_k, prefix_v,
+                prefix_seg, prefix_pos)
             # ---- admission tables (prefix refs adopted, tail copied) and
             # every segment's scatter target -------------------------------
             seg_bids: List[List[int]] = []
@@ -1245,9 +1374,7 @@ class ContinuousEngine(PipelineBackend):
                         "corruption")
                 written.update(seg_blocks)
                 pack_ledger[s.req_id] = list(seg_blocks)
-                pos = np.arange(off, end)
-                tgt.append(np.asarray(bids, np.int64)[pos // bs] * bs +
-                           pos % bs)
+                tgt.append(self._slots(bids, off, end))
             # ---- ONE scatter: the flat pack lines up with the
             # concatenated per-segment targets -----------------------------
             flat = sum(len(x) for x in suffixes)
@@ -1368,20 +1495,20 @@ class ContinuousEngine(PipelineBackend):
         self._check_chunk(session, upto)
         final = upto == session.seq_len
         bids = self._ensure_chunk_blocks(session, upto)
-        pk, pv = self._gather_own_prefix(req, off)
-        rows = eng.prefill_suffix_batch(
-            [list(session.prompt)[:upto]], prefix_k=pk, prefix_v=pv,
-            prefix_len=off, max_new_tokens=[session.max_new_tokens],
+        # the left side of the chunk seam, from the request's own blocks
+        pk, pv = self._prefix_fills(self._slots(bids, 0, off), (1, off))
+        rows = eng._prefill_suffix_batch(
+            [list(session.prompt)[:upto]], eng.prefill_cells, prefix_k=pk,
+            prefix_v=pv, prefix_len=off,
+            max_new_tokens=[session.max_new_tokens],
             eos_id=[session.eos_id], cap_new=self.cap_new,
             sampling=[session.params])
-        del pk, pv
         bs = self.block_size
         # sanitizer: the chunk scatters into exactly these blocks
         sanitizer.check_write(self.block_table, req,
                               bids[off // bs:(upto - 1) // bs + 1])
-        pos = np.arange(off, upto)
-        self._scatter(np.asarray(bids, np.int64)[pos // bs] * bs + pos % bs,
-                      rows.cache, pos - off)
+        self._scatter(self._slots(bids, off, upto), rows.cache,
+                      np.arange(upto - off))
         session.prefilled_tokens = upto
         self.prefill_dispatches += 1
         self.prefill_tokens += upto - off
@@ -1473,42 +1600,140 @@ class ContinuousEngine(PipelineBackend):
             s.generated = [int(x) for x in emitted[slot, :counts[slot]]]
 
     def warmup_aot(self) -> Dict[str, float]:
-        """Warm the serving path before the first request, as the JAX
-        package's ``warmup_aot`` compiles it: one throwaway greedy round
-        per sequence bucket (a prompt two tokens short of the bucket and
-        one decode tick) through the engine's ``generate``, so library
-        handles and allocator pools exist; then the slot state at the top
-        size (``max_len``, else the top bucket) with every slot free, and
-        on the card both decode-tick cells of the layout captured, so no
-        request pays a capture.  The serving counters are saved and
-        restored, and the sampling flag is left off.  Returns
+        """Capture every reachable serving-path cell before the first
+        request, as the JAX package's ``warmup_aot`` compiles them, by the
+        reference's walk: throwaway sessions (far-negative req_ids, prefix
+        cache suspended) through the real ``prefill_batch`` /
+        ``decode_tick``:
+
+        1. the slot state at its top size (``max_len``, else the top
+           bucket), so later admissions keep its tensors;
+        2. one sampled round per reachable (seq bucket, prompt bucket,
+           admission size): each prefill cell of the admission path, and
+           the eager splice and first-token sampling at every size;
+        3. a greedy round per admission size, then one greedy and one
+           sampled decode round (the two tick cells);
+        4. on the packed path, one pack with prefix keys (the cell a
+           resumable chunk's first pack needs) and one pack of one-token
+           segments per admission size (the smallest pack bucket).
+
+        On the card each first use captures its cell (prefill cells in
+        ``engine.prefill_cells``, the two tick cells, by the decode
+        rounds, in ``tick_cells``), and each capture counts in
+        ``compile_count``; on the CPU the same rounds run eagerly.  The serving counters and ``pack_log`` are
+        saved and restored, and the sampling flag is left off.  Returns
         ``{"compile_count", "warmup_seconds", "rounds"}``: the cells
-        captured (0 on the CPU), the seconds, the generate rounds."""
+        captured (0 on the CPU), the seconds and the rounds walked."""
         eng = self.engine
+        ladder = eng.ladder
         t0 = time.perf_counter()
         compiles0 = eng.compile_count
-        saved = {k: getattr(self, k) for k in SERVING_COUNTERS}
-        for bucket in eng.ladder.seq_buckets:
-            eng.generate([[eng.pad_id] * max(bucket - 2, 1)],
-                         max_new_tokens=2)
         top = self.max_len if self.max_len is not None \
-            else eng.ladder.seq_buckets[-1]
-        self._ensure_state(top)
+            else ladder.seq_buckets[-1]
+        saved = {k: getattr(self, k) for k in SERVING_COUNTERS}
+        pack_log = list(self.pack_log)
+        prefix_was, pc = self._prefix_enabled, self.prefix_cache
+        self._prefix_enabled, self.prefix_cache = False, None
+        rounds = 0
         try:
-            if self.device.type == "cuda":
-                for sampling in (False, True):
-                    self.state.sampling = sampling
-                    if self.tick_cells.cell(self.state)[2]:
-                        eng.compile_count += 1
-        finally:
+            self._ensure_state(top)
+            seqs = [b for b in ladder.seq_buckets if b <= top]
+            sizes = [n for n in range(1, self.max_slots + 1)
+                     if n <= ladder.batch_buckets[-1]]
+            cells = []
+            for need in seqs:
+                below = [b for b in seqs if b < need]
+                prev = below[-1] if below else 0
+                for pb in [b for b in seqs if b <= need]:
+                    if pb == need:
+                        plen, budget = need - 1, 1
+                    else:
+                        plen = pb
+                        budget = prev + 1 - plen
+                        if budget > self.cap_new:
+                            plen = prev + 1 - self.cap_new
+                            budget = self.cap_new
+                    if plen < 1 or budget < 1 or budget > self.cap_new \
+                            or ladder.seq_bucket(plen) != pb:
+                        continue
+                    cells.append((plen, budget))
+            for plen, budget in cells:
+                for n in sizes:
+                    if self.block_table is not None:
+                        bn = self.block_table.blocks_needed(plen + budget)
+                        if bn * n > self.block_table.num_blocks - 1:
+                            continue
+                    self._warm_round(plen, budget, n, temperature=0.8)
+                    rounds += 1
             self.state.sampling = False
+            plen = max(seqs[0] - 3, 1)
+            for n in sizes:
+                self._warm_round(plen, 1, n, temperature=0.0)
+                rounds += 1
+            n = min(2, self.max_slots)
+            for temp in (0.0, 0.8):
+                self._warm_round(plen, 3, n, temperature=temp)
+                rounds += 1
+            if self.supports_packed_prefill():
+                cache = self.state.cache
+                shape = (cache["k"].shape[0],) + tuple(cache["k"].shape[3:])
+                bs = self.block_size
+                pre = torch.zeros((shape[0], 2 * bs) + shape[1:],
+                                  dtype=cache["k"].dtype, device=self.device)
+                eng._prefill_packed_flat(
+                    [[1] * bs, [2] * bs], [bs, bs], eng.prefill_cells, pre,
+                    pre, np.repeat(np.arange(2, dtype=np.int32), bs),
+                    np.tile(np.arange(bs, dtype=np.int32), 2))
+                rounds += 1
+                zero = pre[:, :0]
+                no_ids = np.zeros((0,), np.int32)
+                for n in sizes:
+                    eng._prefill_packed_flat([[1]] * n, [0] * n,
+                                             eng.prefill_cells, zero, zero,
+                                             no_ids, no_ids)
+                    rounds += 1
+        finally:
+            # every warm row is done; a greedy admission must get the
+            # greedy tick back
+            if self.state is not None:
+                self.state.sampling = False
             for k, v in saved.items():
                 setattr(self, k, v)
+            self.pack_log.clear()
+            self.pack_log.extend(pack_log)
+            self._prefix_enabled = prefix_was
+            if prefix_was:
+                self.prefix_cache = pc if pc is not None else \
+                    RadixPrefixCache(self.block_table)
         self.warmup_stats = {
             "compile_count": eng.compile_count - compiles0,
             "warmup_seconds": time.perf_counter() - t0,
-            "rounds": len(eng.ladder.seq_buckets)}
+            "rounds": rounds}
         return self.warmup_stats
+
+    def _warm_round(self, plen: int, budget: int, n: int, *,
+                    temperature: float) -> None:
+        """One throwaway admission: ``n`` sessions of ``plen`` prompt
+        tokens decoding ``budget`` tokens, run to completion so every
+        slot frees again."""
+        bucket = self.engine.ladder.seq_bucket(plen)
+        sessions = []
+        for j in range(n):
+            rid = self._warm_id
+            self._warm_id -= 1
+            prompt = [(7 * j + i) % 17 + 1 for i in range(plen)]
+            s = Session.from_params(rid, prompt, GenerationParams(
+                max_new_tokens=budget, temperature=temperature,
+                seed=j + 1))
+            s.start_prefill(0.0, n, bucket)
+            sessions.append(s)
+        self.prefill_batch(sessions, bucket)
+        for _ in range((budget + 2) * max(self.sync_every, 1) + 4):
+            if all(s.is_finished for s in sessions):
+                break
+            self.decode_tick(sessions)
+        else:
+            raise RuntimeError("warmup round failed to converge")
 
     def cancel_session(self, session: Session) -> None:
         """Tear down a mid-decode session NOW: publish its partial
@@ -1537,45 +1762,44 @@ class ContinuousEngine(PipelineBackend):
         self._slot_len[slot] = 0
         st.done[slot] = True
 
-    def _gather_own_prefix(self, req_id: int, length: int
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Prefix KV ``[0, length)`` gathered from the request's OWN
-        block table — the left side of a chunk seam (shape (L, 1,
-        length, KV, dh); length 0 yields empty tensors for the first
-        chunk of a cold prompt)."""
-        table = self.block_table.block_table(req_id)
-        nb = max(-(-length // self.block_size), 1)
-        ids = np.zeros((1, nb), np.int64)
-        ids[0, :min(len(table), nb)] = table[:nb]
-        return self._gather_blocks(ids, length)
+    def _slots(self, blocks: Sequence[int], start: int,
+               end: int) -> np.ndarray:
+        """Flat pool slots (block * block_size + offset) of positions
+        ``[start, end)`` of a request whose table is ``blocks``."""
+        bs = self.block_size
+        pos = np.arange(start, end)
+        return np.asarray(blocks, np.int64)[pos // bs] * bs + pos % bs
 
-    def _gather_prefix(self, matches: List[PrefixMatch], cached: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The matched prefix KV of a suffix-prefill group: each
-        session's matched blocks gathered from the pool and trimmed to
-        the exact cached length, (L, B, cached, KV, dh)."""
-        ids = np.zeros((len(matches), -(-cached // self.block_size)),
-                       np.int64)
-        for i, m in enumerate(matches):
-            blocks = list(m.full_blocks)
-            if m.tail_block is not None:
-                blocks.append(m.tail_block)
-            ids[i, :len(blocks)] = blocks
-        return self._gather_blocks(ids, cached)
-
-    def _gather_blocks(self, ids: np.ndarray, length: int
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Pool blocks ``ids`` (B, nb) as contiguous KV (L, B, length,
-        KV, dh): a copy, in the pool's dtype."""
-        idx = self._index(ids)
-        b, nb = ids.shape
-        out = []
+    def _prefix_fills(self, slots: np.ndarray, dims: Tuple[int, ...]
+                      ) -> Tuple[Fill, Fill]:
+        """The pool's KV at flat ``slots`` as two cell inputs (L, *dims,
+        KV, dh), where ``dims`` (rows, tokens a row) or (tokens,) hold
+        ``len(slots)`` positions in the order of ``slots``: each gathers
+        its pool's slots straight into the tensor it is given (one
+        ``index_select``, in the pool's dtype)."""
+        idx = self._index(slots)
+        fills = []
         for key in ("k", "v"):
             pool = self.state.cache[key]
-            g = pool[:, idx]                   # (L, B, nb, BS, KV, dh)
-            out.append(g.reshape((pool.shape[0], b, nb * self.block_size) +
-                                 pool.shape[3:])[:, :, :length])
-        return out[0], out[1]
+            src = pool.view((pool.shape[0], -1) + pool.shape[3:])
+            shape = (pool.shape[0],) + tuple(dims) + tuple(pool.shape[3:])
+
+            def write(t, src=src):
+                torch.index_select(src, 1, idx, out=t.view(
+                    (src.shape[0], len(slots)) + src.shape[2:]))
+            fills.append(Fill(shape, pool.dtype, write))
+        return fills[0], fills[1]
+
+    def _gather_prefix(self, matches: List[PrefixMatch], cached: int
+                       ) -> Tuple[Fill, Fill]:
+        """The matched prefix KV of a suffix-prefill group, (L, B,
+        cached, KV, dh): each session's matched blocks, read from the
+        pool up to the exact cached length."""
+        slots = [self._slots(list(m.full_blocks) +
+                             ([m.tail_block] if m.tail_block is not None
+                              else []), 0, cached) for m in matches]
+        return self._prefix_fills(np.concatenate(slots),
+                                  (len(matches), cached))
 
     def _donate_prompts(self, sessions: List[Session]) -> None:
         """Donate every admitted prompt to the trie.  A donated partial
@@ -1716,10 +1940,8 @@ class ContinuousEngine(PipelineBackend):
             sanitizer.check_write(self.block_table, s.req_id,
                                   bids[cached // bs:(s.seq_len - 1) // bs +
                                        1])
-            pos = np.arange(cached, s.seq_len)
-            flat.append(np.asarray(bids, np.int64)[pos // bs] * bs +
-                        pos % bs)
-            src_rows.append(i * s_pad + pos - cached)
+            flat.append(self._slots(bids, cached, s.seq_len))
+            src_rows.append(i * s_pad + np.arange(s.seq_len - cached))
             tables.append(bids)
         self._scatter(np.concatenate(flat), rows.cache,
                       np.concatenate(src_rows))

@@ -1,36 +1,66 @@
-"""CUDA graphs of the continuous engine's decode tick.
+"""CUDA graphs of the engine's compiled cells.
 
-The port's counterpart of the JAX package's compiled tick cells
-(`InferenceEngine._tick_fn` in src/repro/runtime/engine.py, kept in its
-``_decode_cache``): where the reference jits one tick per ``sampling``
-flag, the port captures the in-place tick
-(`repro_torch.runtime.engine.InferenceEngine.decode_step_inplace`) into
-one `torch.cuda.CUDAGraph` per cell and replays it, so the host issues
-one graph launch a tick instead of some two thousand kernel launches.
+The port's counterpart of the JAX package's compiled cells
+(src/repro/runtime/engine.py): where the reference jits a function once
+per cell key and reuses the executable, the port captures one
+`torch.cuda.CUDAGraph` per cell and replays it, so the host makes one
+graph launch where the eager function makes a thousand and more kernel
+launches.  Two kinds of cells:
 
-A cell is keyed by ``sampling`` and by the data pointer, shape, stride
-and dtype of every state tensor the tick touches.  A graph therefore
-never replays against other tensors than those it was captured on: when
-the state's tensors change (the contiguous layout's grow replaces
-``k``/``v``), every cell captured on the old ones is dropped, and the next
-tick captures its cell anew.  The cells share one memory pool and one
-capture stream.
+- :class:`TickCells`, the decode tick (the reference's ``_tick_fn``
+  cells in its ``_decode_cache``): the in-place tick
+  (`repro_torch.runtime.engine.InferenceEngine.decode_step_inplace`) per
+  ``sampling`` flag, keyed also by the data pointer, shape, stride and
+  dtype of every state tensor the tick touches.  A graph therefore never
+  replays against other tensors than those it was captured on: when the
+  state's tensors change (the contiguous layout's grow replaces
+  ``k``/``v``), every cell captured on the old ones is dropped, and the
+  next tick captures its cell anew.  Before a capture the tick runs once
+  on the capture stream, on a copy of the control tensors with every row
+  done, so cuBLAS's handle and workspace and the decode kernel's merge
+  tickets exist for that stream.  A done row writes KV only at its frozen
+  length, which is what the next real tick writes there anyway (or the
+  trash block, for a free slot), and the copy takes every other write.
+- :class:`CellTable`, pure functions of device tensors: the reference's
+  classify, per-group prefill, suffix and packed prefill cells
+  (``_classify_fn``, ``_prefill_fn``, ``_suffix_fn``, ``_packed_fn``),
+  each keyed by the reference's key tuple for its kind.  A call writes
+  the host-built inputs into the cell's static inputs and replays the
+  graph.  The first call of a key runs the function eagerly on the
+  capture stream with those inputs (so cuBLAS's handle and workspace
+  exist there), returns that result, and captures the cell for the next
+  call.  On the CPU a table only records the keys it was asked for and
+  runs the function eagerly on tensors of its own.
 
-Before a capture the tick runs once on the capture stream, on a copy of
-the control tensors with every row done, so cuBLAS's handle and
-workspace and the decode kernel's merge tickets exist for that stream.
-A done row writes KV only at its frozen length, which is what the next
-real tick writes there anyway (or the trash block, for a free slot), and
-the copy takes every other write.  The capture itself runs nothing.
-Nothing here falls back to the eager tick: a failed capture, a stale key
-or merge tickets too few under capture raise.
+Where the cells' memory lives (:class:`CellArena`, one per engine).  The
+graphs of one engine's tables share one pool, which holds only their
+intermediates: each capture reuses what the previous ones freed.  Static
+inputs and outputs are views at the start of one buffer per (input or
+output name, dtype), shared by every cell of the engine; a buffer too
+small for a new cell is replaced by one of at least twice its size, and
+the cells made on the old one keep it.  So the bytes held grow with the
+largest cell, not with the number of cells: the buffers of one name hold
+together less than twice the newest one, which holds less than twice
+the largest cell's need, whatever the number of cells.  The rule that
+follows: **an output is
+valid until the next call of any cell of the same engine.**  The
+continuous engine consumes each prefill's outputs (scatter, splice, the
+first token) before its next prefill; the engine's public methods run
+the same functions eagerly on tensors of their own.
+
+Nothing here falls back to the eager function: a failed capture, a
+stale key (the engine's weights are not those the graph was captured
+on), an input whose shape or dtype differs from the cell's, or merge
+tickets too few under capture raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import cuda_lib
@@ -118,11 +148,7 @@ class TickCells:
 
     def pool_bytes(self) -> int:
         """Device memory held by the cells' pool (its segments' bytes)."""
-        if self._pool is None:
-            return 0
-        pool = tuple(self._pool)
-        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                   if tuple(seg.get("segment_pool_id", ())) == pool)
+        return _pool_bytes(self._pool)
 
     def _capture(self, state, key: Tuple) -> TickCell:
         dev = state.cur.device
@@ -146,3 +172,239 @@ class TickCells:
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
         return TickCell(key, graph, dict(launches), tickets)
+
+
+# ---------------------------------------------------------------------------
+# Cells of pure functions of device tensors
+# ---------------------------------------------------------------------------
+
+#: (shape, dtype) of a cell's input or output
+Spec = Tuple[Tuple[int, ...], torch.dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class Fill:
+    """An input its caller writes itself, into the tensor it is given (a
+    gather from the paged pool straight into a cell's static input)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    write: Callable[[torch.Tensor], None]
+
+
+#: a cell input: a host array, a tensor, or a Fill
+Value = Union[np.ndarray, torch.Tensor, Fill]
+
+#: a cell's body: reads its inputs, writes every one of its outputs
+Body = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]], None]
+
+
+def spec(value: Value) -> Spec:
+    if isinstance(value, np.ndarray):
+        return tuple(value.shape), torch.from_numpy(value).dtype
+    return tuple(value.shape), value.dtype
+
+
+def write(dst: torch.Tensor, value: Value) -> None:
+    """Write ``value`` into ``dst``, whose shape and dtype it must have
+    (nothing is broadcast or cast)."""
+    if isinstance(value, Fill):
+        value.write(dst)
+        return
+    src = torch.from_numpy(value) if isinstance(value, np.ndarray) \
+        else value
+    if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+        raise ValueError(f"input of shape {tuple(src.shape)} {src.dtype} "
+                         f"for a tensor of {tuple(dst.shape)} {dst.dtype}")
+    dst.copy_(src)
+
+
+def padded(value: Value, dim: int, width: int, fill=0) -> Value:
+    """``value`` padded with ``fill`` along ``dim`` up to ``width``
+    (``value`` itself where it is that wide already)."""
+    shape, dtype = spec(value)
+    n = shape[dim]
+    if n == width:
+        return value
+    if isinstance(value, np.ndarray):
+        pad = [(0, 0)] * value.ndim
+        pad[dim] = (0, width - n)
+        return np.pad(value, pad, constant_values=fill)
+
+    def fill_in(t: torch.Tensor) -> None:
+        write(t.narrow(dim, 0, n), value)
+        t.narrow(dim, n, width - n).fill_(fill)
+
+    return Fill(shape[:dim] + (width,) + shape[dim + 1:], dtype, fill_in)
+
+
+def run_eager(body: Body, inputs: Dict[str, Value],
+              outputs: Dict[str, Spec],
+              device: torch.device) -> Dict[str, torch.Tensor]:
+    """``body`` run once, eagerly, on tensors of its own: the inputs on
+    ``device`` (a tensor there already is used as it is) and new
+    outputs."""
+    ins = {}
+    for name, value in inputs.items():
+        if isinstance(value, torch.Tensor) and value.device == device:
+            ins[name] = value
+            continue
+        shape, dtype = spec(value)
+        ins[name] = torch.empty(shape, dtype=dtype, device=device)
+        write(ins[name], value)
+    outs = {name: torch.empty(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in outputs.items()}
+    body(ins, outs)
+    return outs
+
+
+class CellArena:
+    """What one engine's cells share: the capture stream, the graph pool
+    (the cells' intermediates) and the static buffers, one per (input or
+    output name, dtype), that every cell's static tensors are views of."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.pool = None
+        self._buffers: Dict[Tuple[str, torch.dtype], torch.Tensor] = {}
+        self._held: List[torch.Tensor] = []
+
+    def open(self) -> None:
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+            self.pool = torch.cuda.graph_pool_handle()
+
+    def view(self, name: str, shape: Tuple[int, ...],
+             dtype: torch.dtype) -> torch.Tensor:
+        """A static tensor of ``shape`` at the start of ``name``'s
+        buffer, which grows to at least twice its size where it is too
+        small."""
+        need = math.prod(shape)
+        buf = self._buffers.get((name, dtype))
+        if buf is None or buf.numel() < need:
+            size = max(need, 2 * buf.numel() if buf is not None else 1)
+            buf = torch.empty((size,), dtype=dtype, device=self.device)
+            self._buffers[(name, dtype)] = buf
+            self._held.append(buf)
+        return buf[:need].view(shape)
+
+    def buffer_bytes(self) -> int:
+        """Device memory held by the static buffers, the replaced ones
+        that older cells still use included."""
+        return sum(b.numel() * b.element_size() for b in self._held)
+
+    def pool_bytes(self) -> int:
+        """Device memory held by the graph pool (its segments' bytes)."""
+        return _pool_bytes(self.pool)
+
+
+def _pool_bytes(pool) -> int:
+    if pool is None:
+        return 0
+    pool = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+@dataclasses.dataclass
+class Cell:
+    """One captured function: its key, its static inputs and outputs
+    (views of the arena's buffers), its graph, what one replay launches
+    and the weights it was captured on."""
+    key: Hashable
+    inputs: Dict[str, torch.Tensor]
+    outputs: Dict[str, torch.Tensor]
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    launches: Dict[tuple, int] = dataclasses.field(default_factory=dict)
+    weights: Tuple = ()
+
+    def check(self, inputs: Dict[str, Spec],
+              outputs: Dict[str, Spec]) -> None:
+        for what, got, have in (("input", inputs, self.inputs),
+                                ("output", outputs, self.outputs)):
+            want = {n: (tuple(t.shape), t.dtype) for n, t in have.items()}
+            if got != want:
+                raise ValueError(f"cell {self.key}: {what}s {got} differ "
+                                 f"from those it was made with, {want}")
+
+
+class CellTable:
+    """The cells of one engine for one family of keys (the reference's
+    ``_classify_cache`` or ``_prefill_cache``).  ``weights`` gives the
+    pointers of the tensors every cell reads besides its inputs (the
+    engine's parameters): a cell replays only against those it was
+    captured on."""
+
+    def __init__(self, arena: CellArena,
+                 weights: Callable[[], Tuple]) -> None:
+        self._arena = arena
+        self._weights = weights
+        self._cells: Dict[Hashable, Cell] = {}
+        #: every key asked for, with its number of calls (on the CPU too)
+        self.calls: Dict[Hashable, int] = {}
+        self.captures = 0            # cells captured
+        self.capture_seconds = 0.0   # first calls and captures, all cells
+
+    def __len__(self) -> int:
+        return len(self._cells)
+
+    def keys(self) -> List[Hashable]:
+        """The keys asked for, in the order of their first call."""
+        return list(self.calls)
+
+    def static_bytes(self) -> Dict[Hashable, int]:
+        """Each cell's static inputs and outputs, in bytes."""
+        return {key: sum(t.numel() * t.element_size() for t in
+                         list(c.inputs.values()) + list(c.outputs.values()))
+                for key, c in self._cells.items()}
+
+    def run(self, key: Hashable, body: Body, inputs: Dict[str, Value],
+            outputs: Dict[str, Spec]) -> Dict[str, torch.Tensor]:
+        """``body`` on ``inputs`` through cell ``key``: on the card its
+        graph's replay (the first call runs ``body`` eagerly on the
+        capture stream and captures it), on the CPU ``body`` itself.
+        Returns the outputs, on the card the cell's static ones."""
+        self.calls[key] = self.calls.get(key, 0) + 1
+        arena = self._arena
+        if arena.device.type != "cuda":
+            return run_eager(body, inputs, outputs, arena.device)
+        in_specs = {name: spec(v) for name, v in inputs.items()}
+        cell = self._cells.get(key)
+        if cell is None:
+            cell = Cell(key, {n: arena.view("in:" + n, *s)
+                              for n, s in in_specs.items()},
+                        {n: arena.view("out:" + n, *s)
+                         for n, s in outputs.items()})
+            self._cells[key] = cell
+        else:
+            cell.check(in_specs, dict(outputs))
+        if cell.graph is not None and self._weights() != cell.weights:
+            raise RuntimeError(f"stale cell {key}: the engine's weights are "
+                               "not those the graph was captured on")
+        for name, value in inputs.items():
+            write(cell.inputs[name], value)
+        if cell.graph is None:
+            self._capture(cell, body)
+        else:
+            cell.graph.replay()
+            cuda_lib.add_launches(cell.launches)
+        return cell.outputs
+
+    def _capture(self, cell: Cell, body: Body) -> None:
+        arena = self._arena
+        t0 = time.perf_counter()
+        arena.open()
+        main = torch.cuda.current_stream(arena.device)
+        arena.stream.wait_stream(main)
+        with torch.cuda.stream(arena.stream):
+            body(cell.inputs, cell.outputs)      # this call's result
+        graph = torch.cuda.CUDAGraph()
+        with cuda_lib.recording() as launches:
+            with torch.cuda.graph(graph, pool=arena.pool,
+                                  stream=arena.stream):
+                body(cell.inputs, cell.outputs)
+        main.wait_stream(arena.stream)
+        cell.graph, cell.launches = graph, dict(launches)
+        cell.weights = self._weights()
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0

@@ -182,12 +182,14 @@ def test_decode_step_batch_advances_a_prefilled_contiguous_state(weights):
 
 
 def test_client_warmup_runs_the_engine_warmup_aot(weights):
-    _, _, tparams = weights
+    jcfg, jparams, tparams = weights
     ce = _port(tparams, kv_layout="contiguous")
     client = TurboClient(ce, warmup=True)
     stats = client.warmup_stats
     assert set(stats) == {"compile_count", "warmup_seconds", "rounds"}
-    assert stats["rounds"] == len(LADDER["seq_buckets"])
+    # the reference's walk: as many rounds as its warm-up of the same
+    # configuration
+    assert stats["rounds"] == _jax(jcfg, jparams).warmup_aot()["rounds"]
     assert stats["compile_count"] == 0        # no graph on the CPU
     # the slot cache at the top bucket, every slot free
     assert ce.max_len == LADDER["seq_buckets"][-1]

@@ -967,7 +967,9 @@ def test_cuda_graph_tick_is_bit_equal_to_the_eager_tick(cuda, layout,
         else dict(kv_layout="contiguous")
     ce = _graph_engine(cuda, **kw)
     client = TurboClient(ce, warmup=True)
-    assert client.warmup_stats["compile_count"] == 2 == len(ce.tick_cells)
+    assert len(ce.tick_cells) == 2 == ce.tick_cells.captures
+    assert client.warmup_stats["compile_count"] == \
+        2 + ce.engine.prefill_cells.captures
     seen = _check_every_replay(ce)
     work = _graph_workload(np.random.default_rng(20 + sampled), sampled)
     handles = [client.submit(p, g) for p, g in work[:4]]
@@ -976,7 +978,10 @@ def test_cuda_graph_tick_is_bit_equal_to_the_eager_tick(cuda, layout,
     results = [h.result() for h in handles]
     assert len(seen) >= 32
     assert not any(c for _, _, c in seen)
-    assert ce.engine.compile_count == 2
+    # tick cells, and the prefill cells of the warm-up and of serving (a
+    # cache hit's suffix cell is keyed by its exact cached length)
+    assert ce.tick_cells.captures == 2
+    assert ce.engine.compile_count == 2 + ce.engine.prefill_cells.captures
     assert any(s for s, _, _ in seen) == sampled
     if layout == "paged":
         assert ce.cow_blocks > 0
@@ -1008,7 +1013,8 @@ def test_cuda_graph_contiguous_grow_recaptures_its_cell(cuda):
     grew = [i for i, (_, n, _) in enumerate(seen) if n == 128]
     assert grew and seen[grew[0]][2] and not any(
         c for i, (_, _, c) in enumerate(seen) if i != grew[0])
-    assert ce.engine.compile_count == 3 and len(ce.tick_cells) == 1
+    assert ce.tick_cells.captures == 3 and len(ce.tick_cells) == 1
+    assert ce.engine.compile_count == 3 + ce.engine.prefill_cells.captures
     assert results[4] == ce.engine.generate([long_prompt],
                                             max_new_tokens=20)[0]
 
@@ -1053,3 +1059,232 @@ def test_cuda_tickets_too_few_under_capture_raise(cuda):
             with torch.cuda.graph(graph, stream=stream):
                 ops.flash_decode_paged(q, kp, vp, tables, lengths)
     assert (q.device, stream.cuda_stream) not in flash_decode._TICKETS
+
+
+# ---------------------------------------------------------------------------
+# the classify and prefill cells as CUDA graphs: replays against the eager
+# bodies, the outputs' lifetime, stale keys, the memory they hold
+# ---------------------------------------------------------------------------
+
+def _cell_engine(dev, cfg=None, **ladder):
+    """Smoke depth at the full head dim in bf16 (the packed mode's
+    dtype)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime.bucketing import BucketLadder
+    from repro_torch.runtime.engine import InferenceEngine
+    if cfg is None:
+        cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"),
+                                  d_head=128, dtype="bfloat16")
+    ladder = ladder or dict(seq_buckets=(32, 64, 128),
+                            batch_buckets=(1, 2, 4))
+    return InferenceEngine(cfg, init_params(cfg, device=dev),
+                           ladder=BucketLadder(**ladder), device=dev)
+
+
+CELL_KINDS = ("classify", "per_group", "suffix", "packed")
+
+
+def _cell_call(engine, kind, seed, table):
+    """One call of ``kind``'s entry point (through ``table``, or the
+    eager public body with ``table`` None) on prompts drawn from
+    ``seed``: returns what the call returned."""
+    cfg = engine.cfg
+    rng = np.random.default_rng(seed)
+    prompts = [[int(t) for t in rng.integers(1, 256, n)]
+               for n in (50, 27, 90)]
+    if kind == "classify":
+        return engine._classify(prompts, table)
+    if kind == "per_group":
+        return engine._prefill_batch(prompts, table, max_len=128,
+                                     max_new_tokens=2)
+    shape = (cfg.num_layers, 3, 21, cfg.num_kv_heads, cfg.head_dim)
+    gen = _gen(engine.device, seed)
+    pk = torch.randn(shape, generator=gen, device=engine.device)
+    pv = torch.randn(shape, generator=gen, device=engine.device)
+    if kind == "suffix":
+        return engine._prefill_suffix_batch(
+            prompts, table, prefix_k=pk, prefix_v=pv, prefix_len=21,
+            max_new_tokens=2)
+    # three segments after 7 cached tokens each: 21 prefix keys
+    seg = np.repeat(np.arange(3, dtype=np.int32), 7)
+    pos = np.tile(np.arange(7, dtype=np.int32), 3)
+    return engine._prefill_packed_flat(prompts, [7, 7, 7], table,
+                                       pk[:, 0], pv[:, 0], seg, pos)
+
+
+def _cell_outputs(engine, fn):
+    """The outputs of the one cell call ``fn`` makes, copied."""
+    seen = []
+    real = engine._run_cell
+
+    def spy(*args):
+        outs = real(*args)
+        seen.append({k: v.clone() for k, v in outs.items()})
+        return outs
+
+    engine._run_cell = spy
+    try:
+        fn()
+    finally:
+        del engine._run_cell
+    assert len(seen) == 1
+    return seen[0]
+
+
+def _same(a, b):
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("kind", CELL_KINDS)
+def test_cuda_cell_replay_is_bit_equal_to_the_eager_body(cuda, kind):
+    """The first call of a key (the eager body on the capture stream)
+    and every replay after it give the eager public body's logits and KV
+    bit for bit, on other inputs between them too; the key is captured
+    once, counted in ``compile_count``, and each replay adds the launches
+    its capture recorded."""
+    engine = _cell_engine(cuda)
+    table = engine.classify_cells if kind == "classify" \
+        else engine.prefill_cells
+    want = [_cell_outputs(engine, lambda s=s: _cell_call(engine, kind, s,
+                                                          None))
+            for s in (0, 1)]
+    cuda_lib.reset_launches()
+    first = _cell_outputs(engine, lambda: _cell_call(engine, kind, 0, table))
+    eager_launches = dict(cuda_lib.LAUNCHES)
+    assert _same(first, want[0])
+    assert table.captures == 1 == engine.compile_count == len(table)
+    for seed in (1, 0, 1):
+        cuda_lib.reset_launches()
+        got = _cell_outputs(engine, lambda s=seed: _cell_call(
+            engine, kind, s, table))
+        assert _same(got, want[seed]), seed
+        assert dict(cuda_lib.LAUNCHES) == eager_launches
+    assert table.captures == 1 == engine.compile_count
+    assert table.calls[table.keys()[0]] == 4
+
+
+@pytest.mark.parametrize("kind", CELL_KINDS)
+def test_cuda_public_result_outlives_later_calls(cuda, kind):
+    """A public method's result is its own: later calls through the cell
+    and the public method, on other inputs, leave it as it was.  The
+    cell's own outputs are the next call's (valid until then)."""
+    engine = _cell_engine(cuda)
+    table = engine.classify_cells if kind == "classify" \
+        else engine.prefill_cells
+
+    def tensors(out):
+        if kind == "classify":
+            return {"logits": out}
+        if kind == "packed":
+            return {"logits": out[0], **out[1]}
+        return {"cur": out.cur, **out.cache}
+
+    kept = tensors(_cell_call(engine, kind, 0, None))
+    copies = {k: v.clone() for k, v in kept.items()}
+    graphed = tensors(_cell_call(engine, kind, 0, table))
+    graphed_copy = {k: v.clone() for k, v in graphed.items()}
+    for seed in (1, 2):
+        _cell_call(engine, kind, seed, table)
+        _cell_call(engine, kind, seed, None)
+    assert _same(kept, copies)
+    names = [k for k in graphed if k in ("logits", "k", "v")]
+    assert any(not torch.equal(graphed[k], graphed_copy[k]) for k in names)
+
+
+def test_cuda_cell_refuses_stale_weights_and_other_shapes(cuda):
+    """A captured cell raises where the engine's weights are not those it
+    was captured on, and where an input's shape or dtype differs from
+    the one the key was made with; nothing runs eagerly instead."""
+    from repro_torch.runtime.graphs import CellArena, CellTable
+    engine = _cell_engine(cuda)
+    _cell_call(engine, "classify", 0, engine.classify_cells)
+    engine.params = {k: (v if k != "final_norm" else
+                         {n: t.clone() for n, t in v.items()})
+                     for k, v in engine.params.items()}
+    cuda_lib.reset_launches()
+    with pytest.raises(RuntimeError, match="stale cell"):
+        _cell_call(engine, "classify", 0, engine.classify_cells)
+    assert not cuda_lib.LAUNCHES
+
+    table = CellTable(CellArena(cuda), lambda: ())
+
+    def body(ins, outs):
+        outs["y"].copy_(ins["x"] * 2)
+
+    out = table.run("k", body, {"x": np.arange(4, dtype=np.float32)},
+                    {"y": ((4,), torch.float32)})
+    assert out["y"].tolist() == [0.0, 2.0, 4.0, 6.0]
+    out = table.run("k", body, {"x": np.ones(4, np.float32)},
+                    {"y": ((4,), torch.float32)})
+    assert out["y"].tolist() == [2.0] * 4
+    with pytest.raises(ValueError, match="differ from those"):
+        table.run("k", body, {"x": np.ones(3, np.float32)},
+                  {"y": ((4,), torch.float32)})
+    with pytest.raises(ValueError, match="differ from those"):
+        table.run("k", body, {"x": np.ones(4, np.float64)},
+                  {"y": ((4,), torch.float32)})
+    assert table.captures == 1
+
+
+def test_cuda_cells_hold_memory_by_the_largest_cell(cuda):
+    """After ``warmup_aot`` at full width (depth cut to 2 layers) over
+    the serving ladder, the bytes the prefill cells hold (graph pool and
+    static buffers) stay below four times the largest cell's static
+    inputs and outputs plus twice what one eager run of that cell's
+    body needs beyond them: a bound from the largest cell, whatever the
+    number of cells."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime.engine import ContinuousEngine
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), num_layers=2)
+    engine = _cell_engine(cuda, cfg, seq_buckets=(128, 256, 512, 1024),
+                          batch_buckets=(1, 2, 4, 8))
+    ce = ContinuousEngine(engine, max_slots=8, cap_new=64)
+    stats = ce.warmup_aot()
+    table, arena = engine.prefill_cells, engine.cell_arena
+    sizes = table.static_bytes()
+    assert stats["compile_count"] == 2 + len(sizes) and len(sizes) >= 8
+    key = max(sizes, key=sizes.get)
+    assert key[:2] == ("pack", 8192)
+    # the largest cell's body run eagerly: its transient bytes
+    zero = torch.zeros((cfg.num_layers, 0, cfg.num_kv_heads,
+                        cfg.head_dim), device=cuda)
+    ids = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    out = engine.prefill_packed_flat([[1] * 1023] * 8, [0] * 8, zero, zero,
+                                     ids, ids)
+    torch.cuda.synchronize()
+    eager = torch.cuda.max_memory_allocated(cuda) - base
+    del out
+    held = arena.pool_bytes() + arena.buffer_bytes()
+    bound = 4 * sizes[key] + 2 * eager
+    assert held <= bound, (held, arena.pool_bytes(), arena.buffer_bytes(),
+                           sizes[key], eager, len(sizes))
+
+
+def test_cuda_cells_capture_from_the_pump_thread(cuda):
+    """With ``auto_pump="thread"`` the pump thread captures every prefill
+    and tick cell it first meets, while the caller only waits; the greedy
+    streams equal ``generate`` of each prompt alone (equal batch shapes,
+    f32 per group)."""
+    from repro_torch.api import GenerationParams, TurboClient
+    ce = _graph_engine(cuda)
+    eng = ce.engine
+    rng = np.random.default_rng(31)
+    prompts = [[int(t) for t in rng.integers(1, 256, n)]
+               for n in (5, 40, 17, 60, 9, 100)]
+    with TurboClient(ce, auto_pump="thread") as client:
+        handles = [client.submit(p, GenerationParams(max_new_tokens=12))
+                   for p in prompts]
+        results = [h.result(timeout=120) for h in handles]
+    assert eng.prefill_cells.captures > 0 and ce.tick_cells.captures > 0
+    assert eng.compile_count == \
+        eng.prefill_cells.captures + ce.tick_cells.captures
+    for prompt, res in zip(prompts, results):
+        assert eng.generate([prompt], max_new_tokens=12)[0] == res

@@ -281,22 +281,29 @@ def test_inplace_tick_is_bit_equal_to_decode_step_batch(weights, layout,
 def test_warmup_aot_returns_reference_keys_and_keeps_counters(weights,
                                                               layout):
     """After some serving, a warm-up returns what the reference's does
-    (``compile_count``, ``warmup_seconds``, ``rounds``), leaves every
+    (``compile_count``, ``warmup_seconds``, ``rounds``: as many rounds as
+    the reference's warm-up after the same serving), leaves every
     serving counter as it was and the sampling flag off; the streams
     after it equal ``generate`` alone.  On the CPU it captures nothing."""
-    _, _, tparams = weights
-    ce = ContinuousEngine(_engine(tparams), max_slots=4, cap_new=24,
-                          kv_layout=layout)
+    jcfg, jparams, tparams = weights
+    opts = dict(max_slots=4, cap_new=24, kv_layout=layout)
+    pipe = dict(policy="dp", max_batch_size=4)
+    ce = ContinuousEngine(_engine(tparams), **opts)
     client = TurboClient(ce, cost_model=AnalyticCostModel(**COST),
-                         config=PipelineConfig(policy="dp",
-                                               max_batch_size=4))
+                         config=PipelineConfig(**pipe))
+    jce = JaxContinuousEngine(JaxInferenceEngine(
+        jcfg, jparams, ladder=JaxLadder(**LADDER)), **opts)
+    jclient = JaxClient(jce, cost_model=JaxCostModel(**COST),
+                        config=JaxPipelineConfig(**pipe), warmup=False)
     work = _workload(9, n=5)
+    _serve(jclient, JaxParams, work)
     _serve(client, GenerationParams, work)
     before = {k: getattr(ce, k) for k in SERVING_COUNTERS}
     assert before["decode_ticks"] > 0
     stats = ce.warmup_aot()
     assert set(stats) == {"compile_count", "warmup_seconds", "rounds"}
-    assert stats["compile_count"] == 0 and stats["rounds"] == 2
+    assert stats["compile_count"] == 0
+    assert stats["rounds"] == jce.warmup_aot()["rounds"] > 2
     assert stats["warmup_seconds"] > 0 and ce.warmup_stats == stats
     assert {k: getattr(ce, k) for k in SERVING_COUNTERS} == before
     assert not ce.state.sampling and bool(ce.state.done.all())
@@ -344,4 +351,6 @@ def test_no_graph_on_the_cpu(weights):
     assert ce.engine.compile_count == 0
     assert len(ce.tick_cells) == 0 and ce.tick_cells.captures == 0
     assert ce.tick_cells.warm_ticks == 0
+    cells = ce.engine.prefill_cells
+    assert len(cells) == 0 and cells.captures == 0 and cells.keys()
     assert client.metrics()["gauges"]["engine.compile_count"] == 0
