@@ -25,23 +25,27 @@ Phases, each printing one JSON line:
    768 cached keys, beside SDPA with a lower-right causal mask); the
    flash kernel's packed mode (segment ids and positions) on eight
    segments of 1024, on mixed lengths padded to their pack bucket and on
-   segments after prefix keys, against SDPA with the dense mask, case
-   (a) beside the causal kernel at B 8 x 1024 (the same visible pairs;
-   fails above 1.5 times its device time, or where its rows differ from
-   the causal kernel's by a bit); and what the norm, sampling,
+   segments after prefix keys, against SDPA with the dense mask, each
+   over its pack's plan built before and timed apart, case (a) beside
+   the causal kernel at B 8 x 1024 (the same visible pairs; fails above
+   ``PACKED_OVER_CAUSAL_LIMIT`` times its device time, or where its rows
+   differ from the causal kernel's by a bit); the packed mode's plan
+   kernel on the three packs and on random ids and positions, equal to
+   its plain version entry for entry; and what the norm, sampling,
    decode and packed kernels compiled to (``norm_build``,
    ``sample_build``, ``flash_decode_build``,
    ``flash_attention_packed_build``);
-4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False,
-   warmup=True)`` (24 layers, d_model 2048, vocab 92544, bf16 weights from
-   a seed, f32 KV pool; ``warmup_aot`` walks the reference's rounds and
+4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False)``
+   (its default ``warmup=True``; 24 layers, d_model 2048, vocab 92544,
+   bf16 weights from a seed, f32 KV pool; ``warmup_aot`` walks the reference's rounds and
    captures each prefill cell it reaches and both decode-tick cells as
    CUDA graphs, and no cell may be captured while serving; the phase
    prints the cells by kind, their capture seconds, the graph pools' and
    static buffers' bytes and the peak memory), serve a
    mixed greedy / sampled workload with mid-decode
-   arrivals through the default packed admission (one packed flash
-   launch per layer per pack, each pack's occupancy), check every greedy
+   arrivals through the default packed admission (one plan launch per
+   pack, one packed flash launch per layer per pack, each pack's
+   occupancy), check every greedy
    stream against ``engine.generate`` of its prompt alone and every
    sampled stream against the request served again alone with its seed
    (a divergence passes only where the alone run's margin at the first
@@ -604,9 +608,11 @@ PACKED_CASES = (
     ("c: prefix 128, 256, 0", (300, 500, 700), (128, 256, 0), 2048, 512),
 )
 #: the packed kernel's device time in case (a) against the causal kernel's
-#: at B 8 x 1024 (the same visible pairs): above this, tiles are not
-#: being skipped
-PACKED_OVER_CAUSAL_LIMIT = 1.5
+#: at B 8 x 1024 (the same visible pairs), the plan apart (0.79 on an H100
+#: 80GB HBM3 at 700 W: the body shares each K and V tile between the two
+#: heads of a GQA pair): above this it has fallen behind the causal
+#: kernel, so tiles are not being skipped or the body lost its schedule
+PACKED_OVER_CAUSAL_LIMIT = 1.0
 
 
 def packed_inputs(dev, gen, fresh, prefix, width, pre_width, h=16, kv=8):
@@ -648,9 +654,14 @@ def packed_case(dev, gen, label, fresh, prefix, width, pre_width) -> dict:
     h, kv, dh = 16, 8, 128
     q, k, v, ids = packed_inputs(dev, gen, fresh, prefix, width, pre_width)
     mask = packed_mask(ids)
+    plan = flash_attention.flash_attention_packed_plan_cuda(*ids)
 
     def kernel():
-        return flash_attention.flash_attention_packed_cuda(q, k, v, *ids)
+        return flash_attention.flash_attention_packed_cuda(q, k, v, *ids,
+                                                           plan=plan)
+
+    def plan_kernel():
+        return flash_attention.flash_attention_packed_plan_cuda(*ids)
 
     def plain():
         return ref.flash_attention_packed_ref(q, k, v, *ids)
@@ -677,6 +688,10 @@ def packed_case(dev, gen, label, fresh, prefix, width, pre_width) -> dict:
     k_ms, p_ms, l_ms = (time_ms(kernel, iters), time_ms(plain, 3),
                         time_ms(library, iters))
     dev_t = device_fields(kernel, library, iters)
+    plan_t = {"ms": time_ms(plan_kernel, iters),
+              "device_ms": device_ms(plan_kernel, iters)["port"],
+              "bytes": plan.numel() * 4, "rows": plan.shape[0],
+              "visited_tiles": int(plan[:, 0].sum())}
     line = {"phase": "kernel_check", "kernel": "flash_attention_packed",
             "case": label,
             "shape": {"H": h, "KV": kv, "dh": dh, "Sq": sq, "Sk": sk,
@@ -693,7 +708,9 @@ def packed_case(dev, gen, label, fresh, prefix, width, pre_width) -> dict:
             "bound_ms": b_ms, "bound_by": b_by,
             "bound_counts": "4 dh H flops a visible pair of a real row; "
                             "q, k, v, ids read once, output written once",
-            **dev_t, "share_of_bound": b_ms / k_ms}
+            **dev_t, "share_of_bound": b_ms / k_ms,
+            "plan": plan_t, "times_exclude": "the plan, built once a "
+            "pack and timed apart under \"plan\""}
     if isinstance(dev_t["device_ms"], float):
         line["device_tflops"] = flops / (dev_t["device_ms"] * 1e-3) / 1e12
         line["device_share_of_bound"] = b_ms / dev_t["device_ms"]
@@ -738,8 +755,9 @@ def packed_against_causal(dev, gen, q, k, v, packed_out, fresh,
 
 
 def packed_build_facts() -> dict:
-    """What the packed mode compiled to: resident blocks per SM, ptxas
-    registers and spills, and its tensor-core instructions in SASS."""
+    """What the packed mode's attention body and its plan kernel compiled
+    to: resident blocks per SM, ptxas registers and spills, and the
+    body's tensor-core, TMA and barrier instructions in SASS."""
     import shutil
     from repro_torch.kernels import cuda_lib
     lib = cuda_lib.library()
@@ -747,22 +765,34 @@ def packed_build_facts() -> dict:
     if blocks < 1:
         raise AssertionError(f"flash_attention_packed: occupancy query gave "
                              f"{blocks}")
-    needle = "flash_attention_packed_kernel"
-    facts = {"blocks_per_sm": blocks,
-             "ptxas": next((u for name, u in cuda_lib.BUILD_INFO["ptxas"]
-                            .items() if needle in name), "not measured")}
+    facts = {}
+    for label, needle in (("body", "flash_attention_packed_kernel"),
+                          ("plan", "flash_packed_plan_kernel")):
+        ptxas = next((u for name, u in cuda_lib.BUILD_INFO["ptxas"].items()
+                      if needle in name), {})
+        facts[label] = {"registers": ptxas.get("registers", "not measured"),
+                        "spill_bytes": ptxas.get("spill_stores", 0) +
+                        ptxas.get("spill_loads", 0),
+                        "static_smem_bytes": ptxas.get("static_smem_bytes",
+                                                       0)}
+    facts["body"].update(
+        blocks_per_sm=blocks, threads=384,
+        registers_note="ptxas reports the launch's 168; setmaxnreg gives "
+                       "the producer warpgroup 24 and each consumer 240")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if Path(tool).exists():
         sass = subprocess.run(
             [tool, "-sass", str(cuda_lib.BUILD_INFO["path"])],
             capture_output=True, text=True).stdout
-        facts["sass"] = cuda_lib.sass_opcodes(
-            sass, needle, ("HGMMA", "LDGSTS", "MUFU", "BAR"))
-        if facts["sass"]["HGMMA"] == 0:
+        facts["body"]["sass"] = cuda_lib.sass_opcodes(
+            sass, "flash_attention_packed_kernel",
+            ("HGMMA", "UTMALDG", "LDGSTS", "SYNCS", "MUFU", "BAR"))
+        if facts["body"]["sass"]["HGMMA"] == 0 or \
+                facts["body"]["sass"]["UTMALDG"] == 0:
             raise AssertionError("flash_attention_packed: no wgmma (HGMMA) "
-                                 "in its SASS")
+                                 "or TMA load (UTMALDG) in its SASS")
     else:
-        facts["sass"] = "not measured: no cuobjdump"
+        facts["body"]["sass"] = "not measured: no cuobjdump"
     return facts
 
 
@@ -778,8 +808,7 @@ def check_flash_attention_packed(dev, gen, results):
     if ratio > PACKED_OVER_CAUSAL_LIMIT:
         raise AssertionError(
             f"flash_attention_packed: {ratio:.2f}x the causal kernel's time "
-            f"on the same visible pairs (limit {PACKED_OVER_CAUSAL_LIMIT}): "
-            "key tiles are not skipped")
+            f"on the same visible pairs (limit {PACKED_OVER_CAUSAL_LIMIT})")
     if not lines[0]["against_causal"]["bit_equal_to_causal"]:
         raise AssertionError(
             "flash_attention_packed: case (a)'s rows differ from the causal "
@@ -788,6 +817,92 @@ def check_flash_attention_packed(dev, gen, results):
     results["flash_attention_packed"] = dict(
         lines[0], max_abs_err=max(ln["max_abs_err"] for ln in lines),
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:91")
+
+
+#: random ids and positions the plan kernel is held to its plain version
+#: on, besides the three packs: (seed, Sq up to, extra keys up to)
+PLAN_RANDOM = [(seed, 2048, 1024) for seed in range(8)]
+
+
+def plan_layouts(dev, gen):
+    """(label, ids) of the plan check: the packs of ``PACKED_CASES`` and
+    ``PLAN_RANDOM``'s ids and positions drawn one by one."""
+    from repro_torch.runtime.engine import segment_labels
+    out = []
+    for label, fresh, prefix, width, pre_width in PACKED_CASES:
+        q_seg, q_pos = segment_labels(fresh, prefix, width)
+        p_seg, p_pos = segment_labels(prefix, [0] * len(prefix), pre_width)
+        out.append((label, [torch.from_numpy(a).to(dev) for a in (
+            q_seg, np.concatenate([p_seg, q_seg]), q_pos,
+            np.concatenate([p_pos, q_pos]))]))
+    for seed, sq_max, extra in PLAN_RANDOM:
+        rng = np.random.default_rng(SEED + seed)
+        sq = int(rng.integers(1, sq_max + 1))
+        sk = sq + int(rng.integers(0, extra + 1))
+        q_seg = rng.integers(-2, 6, sq).astype(np.int32)
+        q_pos = rng.integers(0, 200, sq).astype(np.int32)
+        k_seg = rng.integers(-2, 6, sk).astype(np.int32)
+        k_pos = rng.integers(0, 200, sk).astype(np.int32)
+        k_seg[sk - sq:], k_pos[sk - sq:] = q_seg, q_pos
+        out.append((f"random {seed}", [torch.from_numpy(a).to(dev) for a in
+                                       (q_seg, k_seg, q_pos, k_pos)]))
+    return out
+
+
+def check_flash_attention_packed_plan(dev, gen, results):
+    """The packed mode's plan kernel against its plain version, entry for
+    entry, on the packs of ``PACKED_CASES`` and on random layouts; times
+    at case (a), the 8192 pack of the serve path's profile.  Bound: the
+    bytes of the ids and positions read once and the plan written once
+    (the kernel reads the keys' ids and positions once a query tile,
+    from L2).  It replaces the part of the packed mode (the TPU kernel
+    ``flash_attention_pallas``'s counterpart) that each block planned
+    for itself."""
+    from repro_torch.kernels import flash_attention, ref
+    checked = []
+    for label, ids in plan_layouts(dev, gen):
+        got = flash_attention.flash_attention_packed_plan_cuda(*ids)
+        want = ref.flash_attention_packed_plan_ref(*ids)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).any(dim=1).sum())
+            raise AssertionError(f"flash_attention_packed_plan {label}: "
+                                 f"{bad} rows differ from the plain plan")
+        checked.append({"layout": label, "Sq": int(ids[0].numel()),
+                        "Sk": int(ids[1].numel()),
+                        "visited_tiles": int(got[:, 0].sum())})
+    ids = plan_layouts(dev, gen)[0][1]
+
+    def kernel():
+        return flash_attention.flash_attention_packed_plan_cuda(*ids)
+
+    def plain():
+        return ref.flash_attention_packed_plan_ref(*ids)
+    plan = kernel()
+    sq, sk = ids[0].numel(), ids[1].numel()
+    nbytes = 8 * (sq + sk) + plan.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, 0.0, H100_BF16_FLOPS)
+    iters = 20
+    k_ms, p_ms = time_ms(kernel, iters), time_ms(plain, 3)
+    line = {"phase": "kernel_check", "kernel": "flash_attention_packed_plan",
+            "case": PACKED_CASES[0][0], "shape": {"Sq": sq, "Sk": sk},
+            "plan_shape": list(plan.shape), "plan_bytes": plan.numel() * 4,
+            "layouts_checked": checked,
+            "tolerance": "exact: every entry equal to the plain plan's",
+            "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": None, "library_device_ms": None,
+            "library": "none: no PyTorch call computes a tile plan",
+            "device_ms": device_ms(kernel, iters)["port"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_counts": "q_seg, q_pos, k_seg, k_pos read once, the "
+                            "plan written once",
+            "share_of_bound": b_ms / k_ms}
+    if isinstance(line["device_ms"], float):
+        line["device_share_of_bound"] = b_ms / line["device_ms"]
+    emit(line)
+    results["flash_attention_packed_plan"] = dict(
+        line, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91")
 
 
@@ -1404,13 +1519,13 @@ def serve(dev, card: str, layout: str = "paged"):
     else:
         buckets = (128, 256, 512, 1024, 2048)
         layout_kw = dict(kv_layout="contiguous", max_len=1024)
-    # warmup=True: the client runs warmup_aot before serving, which on the
-    # card captures the prefill cells it walks and both decode-tick cells
-    # as CUDA graphs
+    # from_arch warms up by default, as the reference's does: the client
+    # runs warmup_aot before serving, which on the card captures the
+    # prefill cells it walks and both decode-tick cells as CUDA graphs
     client = TurboClient.from_arch(
         "internlm2-1.8b", smoke=False, device=dev, seq_buckets=buckets,
         batch_buckets=(8,), max_slots=8, cap_new=64, init_seed=SEED,
-        warmup=True, **layout_kw)
+        **layout_kw)
     engine = client.backend.engine
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1496,6 +1611,11 @@ def serve(dev, card: str, layout: str = "paged"):
     if layout == "paged" and not 0 < ce.pack_dispatches == prefills:
         raise AssertionError(f"paged serving: {ce.pack_dispatches} packed "
                              f"of {prefills} prefill dispatches")
+    # one plan a pack, read by every layer's packed launch
+    plans = launches.get("flash_attention_packed_plan", 0)
+    if plans != (prefills if layout == "paged" else 0):
+        raise AssertionError(f"{layout} serving: {plans} packed-plan "
+                             f"launches over {prefills} prefill dispatches")
     # two norms a layer and the final one, in every decode tick (each
     # replay adds what its capture recorded), every eager tick that warmed
     # a capture, and every prefill
@@ -1720,7 +1840,7 @@ def serve_prefix_chunked(dev, card: str) -> dict:
             seq_buckets=(128, 256, 512, 1024), batch_buckets=(1, 2, 4, 8),
             max_slots=8, cap_new=64, init_seed=SEED, prefix_cache=True,
             num_blocks=8 * 1024 // 16 + 1,
-            packed_prefill=mode == "packed", warmup=True,
+            packed_prefill=mode == "packed",
             config=PipelineConfig(chunked_prefill=True,
                                   prefill_chunk_tokens=PREFIX_CHUNK_TOKENS))
         ce, pipe = client.backend, client.pipeline
@@ -1771,12 +1891,14 @@ def serve_prefix_chunked(dev, card: str) -> dict:
             if launches.get(kname, 0) <= 0:
                 raise AssertionError(f"serve_prefix_chunked {mode}: kernel "
                                      f"{kname} never launched: {launches}")
+        plans = launches.get("flash_attention_packed_plan", 0)
         if launches.get(other, 0) or \
-                launches[attention] != cfg.num_layers * prefills:
+                launches[attention] != cfg.num_layers * prefills or \
+                plans != (prefills if mode == "packed" else 0):
             raise AssertionError(
                 f"serve_prefix_chunked {mode}: {launches} over {prefills} "
                 f"prefill passes (expected {cfg.num_layers} {attention} "
-                f"launches each, no {other})")
+                f"launches each and one plan a pack, no {other})")
         norms_per_step = 2 * cfg.num_layers + 1
         if launches["norm"] != norms_per_step * (ticks + prefills) or \
                 launches["flash_decode_paged"] != cfg.num_layers * ticks:
@@ -2140,6 +2262,7 @@ def split_profile(prof):
 PORT_KERNELS = {"norm": ("norm_kernel",),
                 "flash_attention": ("flash_attention_bf16_kernel",),
                 "flash_attention_packed": ("flash_attention_packed_kernel",),
+                "flash_attention_packed_plan": ("flash_packed_plan_kernel",),
                 "flash_decode_paged": ("decode_kernel", "PagedRows"),
                 "flash_decode": ("decode_kernel", "StridedRows"),
                 "sample": ("sample_kernel",), "softmax": ("softmax",)}
@@ -2571,12 +2694,14 @@ def profile_prefill(client, card: str, mode: str = "full") -> None:
                            PREFILL_REPS)
         suffix = cuda_lib.LAUNCH_SHAPES[("flash_attention", "suffix")]
         want = cfg.num_layers * PREFILL_REPS
+        plans = w["launches"].get("flash_attention_packed_plan", 0)
         if w["launches"].get(kname, 0) != want or \
-                suffix != (want if mode == "suffix" else 0):
+                suffix != (want if mode == "suffix" else 0) or \
+                plans != (PREFILL_REPS if packed else 0):
             raise AssertionError(
                 f"profile_prefill {mode} {label}: {w['launches']}, "
                 f"{suffix} suffix-aligned (expected {cfg.num_layers} "
-                f"{kname} launches a prefill)")
+                f"{kname} launches a prefill, and one plan a pack)")
         out = w.pop("_out")
         first = out[:len(prompts)].argmax(dim=-1) if packed else \
             out[:len(prompts)]
@@ -2692,6 +2817,7 @@ def main() -> int:
     check_norm(dev, gen, checks)
     check_flash_attention(dev, gen, checks)
     check_flash_attention_packed(dev, gen, checks)
+    check_flash_attention_packed_plan(dev, gen, checks)
     check_paged_decode(dev, gen, checks)
     check_sample(dev, gen, checks)
     check_softmax(dev, gen, checks)
@@ -2718,6 +2844,7 @@ def main() -> int:
     launches["flash_attention"] = launches_c["flash_attention"]
     names = {"fused_norm": "norm", "flash_attention": "flash_attention",
              "flash_attention_packed": "flash_attention_packed",
+             "flash_attention_packed_plan": "flash_attention_packed_plan",
              "flash_decode_paged": "flash_decode_paged",
              "fused_sample": "sample", "fused_softmax": "softmax",
              "flash_decode": "flash_decode"}

@@ -200,6 +200,10 @@ class TurboClient:
                  auto_pump: Union[str, bool] = "sync",
                  warmup: bool = False,
                  trace: Union[bool, TraceRecorder] = False) -> None:
+        if warmup not in (True, False):
+            raise ValueError("warmup must be True or False (the "
+                             "reference's 'background' warm-up is not "
+                             f"ported yet), got {warmup!r}")
         if auto_pump not in ("sync", "thread", False):
             raise ValueError("auto_pump must be 'sync', 'thread' or "
                              f"False, got {auto_pump!r}")
@@ -232,10 +236,14 @@ class TurboClient:
         self._closed = False
         self._pump_error: Optional[BaseException] = None
         self._pump_thread: Optional[threading.Thread] = None
-        # warmup: one throwaway request per ladder bucket through the
-        # engine, then the slot state at its top size and, on the card,
-        # both decode-tick cells captured as CUDA graphs before the pump
-        # starts.  Opt-in here (tests build many cheap clients).
+        # warmup: `warmup_aot` walks the reference's warm-up rounds
+        # (the slot state at its top size, one sampled round per
+        # reachable prefill cell and admission size, the greedy and
+        # sampled decode ticks, and on the packed path a pack with
+        # prefix keys and one per admission size), so on the card every
+        # reachable prefill and tick cell is captured as a CUDA graph
+        # before the pump starts.  Opt-in here; `from_arch` warms by
+        # default, as the reference's does.
         self.warmup_stats: Optional[dict] = None
         if warmup and hasattr(backend, "warmup_aot"):
             self.warmup_stats = backend.warmup_aot()
@@ -257,7 +265,7 @@ class TurboClient:
                   config: Optional[PipelineConfig] = None,
                   init_seed: int = 0,
                   auto_pump: Union[str, bool] = "sync",
-                  warmup: bool = False,
+                  warmup: bool = True,
                   sample_candidates: Optional[int] = None,
                   trace: Union[bool, TraceRecorder] = False,
                   **backend_kw) -> "TurboClient":
@@ -268,7 +276,10 @@ class TurboClient:
         ``kv_layout="contiguous"``; ``prefix_cache=True`` shares prompt
         prefixes across requests over the paged pool).  ``device`` defaults to
         ``"cuda"``; without a card the call raises unless the caller
-        passes ``device="cpu"``.  One client serves one replica."""
+        passes ``device="cpu"``.  ``warmup`` defaults to True, as the
+        reference's does: `ContinuousEngine.warmup_aot` captures every
+        reachable cell before the first request.  One client serves one
+        replica."""
         from repro_torch.configs import get_config, get_smoke_config
         from repro_torch.models import init_params
         from repro_torch.runtime.bucketing import BucketLadder

@@ -55,26 +55,41 @@
 // fresh tokens with its own segment id and per-token positions, after an
 // optional region of cached prefix keys labelled the same way.  Key j is
 // visible to query i iff both carry one id and k_pos[j] <= q_pos[i], or j
-// is i's own key.  The wgmma body is the causal one; what changes is
-// which key tiles a query tile visits and where it masks.  Each block
-// first plans: it reads its 64 query rows' ids and positions, then its
-// warps scan every key tile's 64 ids and positions (coalesced loads, two
-// warp votes a tile) and the block keeps, in order, every tile whose
-// keys meet the query rows' range of ids at or below their largest
-// position, or that holds a query row's own key.  The work so scales
-// with the visible pairs, sum of len * (len + 1) / 2 over the segments
-// (plus prefix times fresh), not with Sq * Sk; the scan itself reads
-// 8 * Sk bytes a block from L2.  A visited tile is masked unless every
-// key and every query row of it carry one id and every key position is at
-// or below every query position, so a segment boundary inside a tile
-// takes the masked path.
-// A masked tile's keep bits (32 a thread) are worked out from its ids and
-// positions, staged in shared memory by cp.async with its K tile, while
-// the tensor cores run the tile's products.  A query tile of padding only does
-// no key work and writes zeros (no real query sees a padding key, and no
-// padding row is read back).  The plan and the staged ids take 7.5 KB of
-// shared memory on top of the causal kernel's 81 KB, and ptxas gives the
-// mode 255 registers a thread: still two blocks per SM.
+// is i's own key.  Two launches:
+//
+// The plan (`flash_packed_plan_kernel`), once per pack: the ids and
+// positions are the same for every head and layer, so which key tiles a
+// query tile visits is worked out once and read by every attention
+// launch of the pack.  One block a query tile reads its 64 rows, lists
+// their distinct real ids each with its rows' largest position, and its
+// warps scan every key tile (two keys a lane, a few tiles' loads in
+// flight, two warp votes a tile): a tile is visited where one of its keys
+// is visible to a real row, or where it holds a row's own key; it is
+// unmasked only where all 64 rows are real and carry one id and all 64
+// keys carry that id at positions at or below every row's.  No order of
+// the key slots is assumed.  The row of the plan (int32, `packed plan
+// width` entries): the count, the visited tiles in ascending order, each
+// flagged kPlanMasked where masked, then -1.  Bound: bytes (the ids and
+// positions read once, (Sq / 64) * (Sk / 64 + 1) * 4 bytes of plan
+// written); each block reads the keys' 8 * Sk bytes from L2.
+//
+// The attention (`flash_attention_packed_kernel`): the causal kernel's
+// wgmma pipeline over the planned key tiles, warp-specialised for this
+// card.  One block serves one query tile of two query heads of one GQA
+// group: a producer warp keeps K and V tiles in flight by TMA
+// (cp.async.bulk.tensor, the 128-byte swizzle that wgmma reads) in a
+// two-stage mbarrier ring, and two consumer warpgroups, one a head, share
+// every staged tile, so K and V cross from L2 once for both heads.  The
+// producer holds 24 registers and the consumers 240 (setmaxnreg).  A
+// masked tile's ids and positions come by TMA with its K tile, and its
+// keep bits (32 a thread) are worked out while the tensor cores run the
+// tile's products.  A query tile of padding only does no key work and
+// writes zeros (no real query sees a padding key, and no padding row is
+// read back).  The work scales with the visible pairs, sum of len *
+// (len + 1) / 2 over the segments (plus prefix times fresh), not with
+// Sq * Sk.
+#include <cuda.h>
+
 #include <climits>
 
 #include "common.cuh"
@@ -616,12 +631,13 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* g,
 }
 
 // ---------------------------------------------------------------------------
-// Packed mode: the plan of visited key tiles
+// Packed mode: the plan of visited key tiles, once per pack
 // ---------------------------------------------------------------------------
 
-constexpr int kMaxTiles = 2048;             // key tiles a packed launch holds
-constexpr uint16_t kMaskedTile = 0x8000;    // plan entry: mask this tile
-constexpr int kScanBatch = 32;              // key tiles a warp scans at once
+constexpr int kMaxTiles = 2048;           // key tiles a packed launch holds
+constexpr int kPlanMasked = 1 << 16;      // plan entry flag: mask this tile
+constexpr int kPlanThreads = 256;
+constexpr int kPlanBatch = 4;             // key tiles a warp loads at once
 
 // The segment ids and positions of a packed launch (int32, 16-byte
 // aligned): q_seg, q_pos (Sq,), k_seg, k_pos (Sk,).
@@ -632,171 +648,192 @@ struct Packed {
   const int* k_pos;
 };
 
-// Packed mode's shared memory after the five tiles: the ids and positions
-// of the two staged key tiles (staged with K) and of the block's query
-// rows, and the plan.
-struct PackedSmem {
-  int k_seg[2][kBK];
-  int k_pos[2][kBK];
-  int q_seg[kBQ];
-  int q_pos[kBQ];
-  int tiles;                 // visited tiles
-  uint16_t list[kMaxTiles];  // visited key tiles in order, kMaskedTile flagged
-  uint8_t flag[kMaxTiles];   // per key tile: 0 skipped, 1 masked, 2 unmasked
-};
-constexpr size_t kPackedSmemBytes = kSmemBytes + sizeof(PackedSmem);
-
-// Which key tiles the block's query rows [q0, q0 + 64) visit, worked out
-// from the ids and positions themselves, so no order of the key slots is
-// assumed.  A tile is visited when one of its keys can be seen by a query
-// row: its id lies in the rows' [min, max] of real ids and its position
-// is at or below the largest position of the rows with that id (exact
-// for the lowest and highest id, the rows' largest position for any id
-// between), or when it holds a query row's own key (the self-key rule).
-// It is left unmasked only when every key in it and every query row carry
-// one id and every key's position is at or below every query's.
-//
-// Each warp loads the query rows and the ids and positions of its first
-// kScanBatch tiles at once (16-byte loads, two tiles a load), and reduces
-// the rows itself (warp reductions): a global round trip takes
-// microseconds beside the co-resident block's traffic, so the plan makes
-// one (two past 8192 keys), and one barrier.  Two ballots flag two tiles,
-// and warp 0 compacts the flags in tile order.  Returns the number of
-// visited tiles: 0 when the query rows are all padding.
-__device__ int plan_tiles(PackedSmem& p, const Packed& pk, int q0, int sq,
-                          int sk, int offset) {
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int n_tiles = (sk + kBK - 1) / kBK;
-  // step i of a batch: lane l holds keys 4l .. 4l + 3 of tiles t0 + 2i
-  // and t0 + 2i + 1 (lanes 0-15 the first, 16-31 the second): one 16-byte
-  // load of ids and one of positions, 512 contiguous bytes a warp
-  int4 seg[kScanBatch / 2], pos[kScanBatch / 2];
-  auto fetch = [&](int t0) {       // keys past sk read as padding
-#pragma unroll
-    for (int i = 0; i < kScanBatch / 2; ++i) {
-      const int key = (t0 + 2 * i) * kBK + 4 * lane;
-      seg[i] = make_int4(-1, -1, -1, -1);
-      pos[i] = make_int4(0, 0, 0, 0);
-      if (key + 3 < sk) {
-        seg[i] = __ldg(reinterpret_cast<const int4*>(pk.k_seg + key));
-        pos[i] = __ldg(reinterpret_cast<const int4*>(pk.k_pos + key));
-      } else {                     // the last, partial run of keys
-        if (key < sk) {
-          seg[i].x = __ldg(pk.k_seg + key);
-          pos[i].x = __ldg(pk.k_pos + key);
-        }
-        if (key + 1 < sk) {
-          seg[i].y = __ldg(pk.k_seg + key + 1);
-          pos[i].y = __ldg(pk.k_pos + key + 1);
-        }
-        if (key + 2 < sk) {
-          seg[i].z = __ldg(pk.k_seg + key + 2);
-          pos[i].z = __ldg(pk.k_pos + key + 2);
-        }
+// Row blockIdx.x of the plan: the key tiles that query rows [q0, q0 + 64)
+// visit (see the file's head for the rule and the row's layout).
+__global__ void __launch_bounds__(kPlanThreads)
+flash_packed_plan_kernel(Packed pk, int* __restrict__ plan, int sq, int sk,
+                         int width) {
+  __shared__ int row_seg[kBQ], row_pos[kBQ];
+  __shared__ int ids[kBQ], tops[kBQ];    // distinct real ids, largest pos
+  __shared__ int n_ids, n_real, pos_lo;
+  __shared__ uint8_t flag[kMaxTiles];    // 0 skipped, 1 masked, 2 unmasked
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * kBQ;
+  const int n_kt = (sk + kBK - 1) / kBK;
+  int* row = plan + static_cast<long long>(blockIdx.x) * width;
+  if (tid == 0) {
+    n_ids = 0;
+    n_real = 0;
+    pos_lo = INT_MAX;
+  }
+  if (tid < kBQ) {
+    const bool in = q0 + tid < sq;
+    row_seg[tid] = in ? pk.q_seg[q0 + tid] : -1;
+    row_pos[tid] = in ? pk.q_pos[q0 + tid] : 0;
+  }
+  __syncthreads();
+  if (tid < kBQ && row_seg[tid] >= 0) {  // the first row of each id lists it
+    const int sg = row_seg[tid];
+    int top = row_pos[tid];
+    bool first = true;
+    for (int r = 0; r < kBQ; ++r)
+      if (row_seg[r] == sg) {
+        first &= r >= tid;
+        top = max(top, row_pos[r]);
       }
-    }
-  };
-  // every warp summarises the query rows itself (lane l: rows l, l + 32),
-  // so no barrier stands between the summary and the votes
-  int s[2], ps[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = q0 + lane + 32 * i;
-    s[i] = r < sq ? pk.q_seg[r] : -1;
-    ps[i] = r < sq ? pk.q_pos[r] : 0;
-  }
-  int t0 = (tid >> 5) * kScanBatch;
-  fetch(t0);
-  if (tid < 32) {                  // warp 0 keeps the rows for the masks
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      p.q_seg[lane + 32 * i] = s[i];
-      p.q_pos[lane + 32 * i] = ps[i];
+    atomicAdd(&n_real, 1);
+    atomicMin(&pos_lo, row_pos[tid]);
+    if (first) {
+      const int at = atomicAdd(&n_ids, 1);
+      ids[at] = sg;
+      tops[at] = top;
     }
   }
-  const bool real0 = s[0] >= 0, real1 = s[1] >= 0;
-  const int real = __reduce_add_sync(0xffffffffu, int(real0) + int(real1));
-  if (real == 0) return 0;
-  const int id_lo = __reduce_min_sync(0xffffffffu,
-      min(real0 ? s[0] : INT_MAX, real1 ? s[1] : INT_MAX));
-  const int id_hi = __reduce_max_sync(0xffffffffu, max(s[0], s[1]));
-  const int pos_lo = __reduce_min_sync(0xffffffffu,
-      min(real0 ? ps[0] : INT_MAX, real1 ? ps[1] : INT_MAX));
-  const int pos_hi = __reduce_max_sync(0xffffffffu,
-      max(real0 ? ps[0] : INT_MIN, real1 ? ps[1] : INT_MIN));
-  const int pos_hi_lo = __reduce_max_sync(0xffffffffu,
-      max(real0 && s[0] == id_lo ? ps[0] : INT_MIN,
-          real1 && s[1] == id_lo ? ps[1] : INT_MIN));
-  const int pos_hi_hi = __reduce_max_sync(0xffffffffu,
-      max(real0 && s[0] == id_hi ? ps[0] : INT_MIN,
-          real1 && s[1] == id_hi ? ps[1] : INT_MIN));
-  const bool one_id = real == kBQ && id_lo == id_hi;
+  __syncthreads();
+  const int nid = n_ids;
+  if (nid == 0) {                        // padding rows only: no key work
+    for (int i = tid; i < width; i += kPlanThreads) row[i] = i == 0 ? 0 : -1;
+    return;
+  }
+  const bool one_id = n_real == kBQ && nid == 1;
+  const int id0 = ids[0], lo = pos_lo;
+  const int offset = sk - sq;             // key position of query 0
   const int diag_lo = (offset + q0) / kBK;
   const int diag_hi = (offset + min(q0 + kBQ, sq) - 1) / kBK;
-  auto meets = [&](int sg, int ps) {
-    const int top = sg == id_lo ? pos_hi_lo : sg == id_hi ? pos_hi_hi : pos_hi;
-    return sg >= id_lo && sg <= id_hi && ps <= top;
-  };
-  auto below = [&](int sg, int ps) { return sg == id_lo && ps <= pos_lo; };
-  for (;;) {
+  constexpr int kWarps = kPlanThreads / 32;
+  for (int t0 = warp * kPlanBatch; t0 < n_kt; t0 += kWarps * kPlanBatch) {
+    // lane l: keys 2l, 2l + 1 of tiles t0 .. t0 + kPlanBatch - 1, all
+    // loads in flight at once; keys past sk read as padding
+    int2 sg[kPlanBatch], ps[kPlanBatch];
 #pragma unroll
-    for (int i = 0; i < kScanBatch / 2; ++i) {
-      const int4 sg = seg[i], ps = pos[i];
-      const bool any = meets(sg.x, ps.x) || meets(sg.y, ps.y) ||
-                       meets(sg.z, ps.z) || meets(sg.w, ps.w);
-      const bool all = below(sg.x, ps.x) && below(sg.y, ps.y) &&
-                       below(sg.z, ps.z) && below(sg.w, ps.w);
-      const unsigned any_bits = __ballot_sync(0xffffffffu, any);
-      const unsigned all_bits = __ballot_sync(0xffffffffu, all);
-      if (lane < 2) {              // lane h flags tile t0 + 2i + h
-        const int t = t0 + 2 * i + lane;
-        const unsigned half = lane ? 0xffff0000u : 0x0000ffffu;
-        if (t < n_tiles) {
-          const bool own = t >= diag_lo && t <= diag_hi;
-          const bool full = one_id && (all_bits & half) == half;
-          p.flag[t] = (any_bits & half) || own ? (full ? 2 : 1) : 0;
-        }
+    for (int b = 0; b < kPlanBatch; ++b) {
+      const int key = (t0 + b) * kBK + 2 * lane;
+      sg[b] = make_int2(-1, -1);
+      ps[b] = make_int2(0, 0);
+      if (key + 1 < sk) {
+        sg[b] = __ldg(reinterpret_cast<const int2*>(pk.k_seg + key));
+        ps[b] = __ldg(reinterpret_cast<const int2*>(pk.k_pos + key));
+      } else if (key < sk) {
+        sg[b].x = __ldg(pk.k_seg + key);
+        ps[b].x = __ldg(pk.k_pos + key);
       }
     }
-    t0 += kThreads / 32 * kScanBatch;
-    if (t0 >= n_tiles) break;
-    fetch(t0);
+#pragma unroll
+    for (int b = 0; b < kPlanBatch; ++b) {
+      const int t = t0 + b;
+      const int key = t * kBK + 2 * lane;
+      bool seen = false;                  // ids are >= 0: padding never
+      for (int i = 0; i < nid; ++i)
+        seen |= (sg[b].x == ids[i] && ps[b].x <= tops[i]) ||
+                (sg[b].y == ids[i] && ps[b].y <= tops[i]);
+      const bool below = key + 1 < sk && sg[b].x == id0 && ps[b].x <= lo &&
+                         sg[b].y == id0 && ps[b].y <= lo;
+      const bool any = __any_sync(0xffffffffu, seen);
+      const bool all = __all_sync(0xffffffffu, below);
+      if (lane == 0 && t < n_kt) {
+        const bool own = t >= diag_lo && t <= diag_hi;
+        flag[t] = any || own ? (one_id && all ? 2 : 1) : 0;
+      }
+    }
   }
   __syncthreads();
-  if (tid < 32) {
+  if (warp == 0) {                       // compact the flags in tile order
     int n = 0;
-    for (int base = 0; base < n_tiles; base += 32) {
-      const int t = base + tid;
-      const int f = t < n_tiles ? p.flag[t] : 0;
+    for (int base = 0; base < n_kt; base += 32) {
+      const int t = base + lane;
+      const int f = t < n_kt ? flag[t] : 0;
       const unsigned hit = __ballot_sync(0xffffffffu, f != 0);
       if (f)
-        p.list[n + __popc(hit & ((1u << tid) - 1))] =
-            static_cast<uint16_t>(t | (f == 1 ? kMaskedTile : 0));
+        row[1 + n + __popc(hit & ((1u << lane) - 1))] =
+            t | (f == 1 ? kPlanMasked : 0);
       n += __popc(hit);
     }
-    if (tid == 0) p.tiles = n;
-  }
-  __syncthreads();
-  return p.tiles;
-}
-
-// Start copying the ids and positions of the key tile at k0 to shared
-// addresses `seg` and `pos` (16 chunks of 16 bytes each); keys at or past
-// sk are zero-filled and masked by the softmax.
-__device__ __forceinline__ void load_ids(uint32_t seg, uint32_t pos,
-                                         const Packed& pk, int k0, int sk) {
-  if (threadIdx.x < 2 * kBK / 4) {
-    const int c = threadIdx.x & (kBK / 4 - 1);
-    const bool ids = threadIdx.x < kBK / 4;
-    const int* src = ids ? pk.k_seg : pk.k_pos;
-    const int key = k0 + 4 * c;
-    const int bytes = 4 * max(0, min(4, sk - key));
-    cp_async_16((ids ? seg : pos) + 16 * c, bytes ? src + key : src, bytes);
+    if (lane == 0) row[0] = n;
+    for (int i = 1 + n + lane; i < width; i += 32) row[i] = -1;
   }
 }
 
 // ---------------------------------------------------------------------------
-// The causal kernel, and the packed mode's (the same wgmma pipeline)
+// Packed mode: TMA, mbarriers, named barriers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive on `bar` and expect `bytes` more of TMA traffic in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// One TMA box of a 3-d tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2}], [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(bar)
+      : "memory");
+}
+
+// Barrier `id` (1, 2: one a consumer warpgroup) over 128 threads.
+__device__ __forceinline__ void wg_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// load_tile for one warpgroup, `t` its thread (0..127).
+__device__ __forceinline__ void load_tile_wg(uint32_t tile, const bf16* g,
+                                             long long stride, int row0,
+                                             int limit, int t) {
+#pragma unroll
+  for (int i = 0; i < 64 * kChunks / 128; ++i) {
+    const int idx = t + i * 128;
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int row = row0 + r;
+    const bool ok = row < limit;
+    const bf16* src = ok ? g + row * stride + c * 8 : g;
+    cp_async_16(tile + sw128(r, c), src, ok ? 16 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The causal kernel
 // ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads, 2)
@@ -950,48 +987,120 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
 }
 
 // The packed mode: one flat row (batch 1) of segments, queries at the
-// last sq keys.  The causal kernel's pipeline over the planned key tiles,
-// in a body of its own: sharing one templated body moved the causal
+// last sq keys, over the key tiles of the pack's plan.  A body of its
+// own: sharing one templated body with the causal kernel moved the causal
 // kernel's instruction schedule and slowed it.
-__global__ void __launch_bounds__(kThreads, 2)
-flash_attention_packed_kernel(const bf16* __restrict__ q,
-                              const bf16* __restrict__ k,
-                              const bf16* __restrict__ v,
-                              bf16* __restrict__ out, int heads,
-                              int kv_heads, int sq, int sk, long long q_sh,
-                              long long q_ss, long long k_sh, long long k_ss,
-                              long long v_sh, long long v_ss, long long o_sh,
-                              long long o_ss, float scale_log2, Packed pk) {
+constexpr int kPkHeads = 2;                     // consumer warpgroups a block
+constexpr int kPkThreads = 128 * (1 + kPkHeads);  // and the producer's
+constexpr int kPkStages = 2;                    // K and V ring depth
+constexpr int kIdsBytes = 2 * kBK * 4;          // a key tile's ids, positions
+// shared memory, from the 1024-aligned base: q (then the output) of each
+// consumer, the K and V stages, the staged ids and positions, the query
+// rows' ids and positions, the plan entry of each K stage, the barriers
+constexpr int kPkK = kPkHeads * kTileBytes;
+constexpr int kPkV = kPkK + kPkStages * kTileBytes;
+constexpr int kPkIds = kPkV + kPkStages * kTileBytes;
+constexpr int kPkRows = kPkIds + kPkStages * kIdsBytes;
+constexpr int kPkEntry = kPkRows + 2 * kBQ * 4;
+constexpr int kPkBars = kPkEntry + 8 * kPkStages;
+constexpr size_t kPkSmemBytes = kPkBars + 4 * 8 * kPkStages + 1024;
+
+__global__ void __launch_bounds__(kPkThreads, 1)
+flash_attention_packed_kernel(const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_seg,
+                              const __grid_constant__ CUtensorMap tm_pos,
+                              const bf16* __restrict__ q,
+                              bf16* __restrict__ out,
+                              const int* __restrict__ q_seg,
+                              const int* __restrict__ q_pos,
+                              const int* __restrict__ plan, int plan_width,
+                              int heads, int kv_heads, int sq, int sk,
+                              long long q_sh, long long q_ss, long long o_sh,
+                              long long o_ss, float scale_log2) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(tc_smem));
-  const uint32_t qs = (raw + 1023) & ~1023u;    // q, then the output
-  unsigned char* qs_ptr = tc_smem + (qs - raw);
-  const uint32_t ks = qs + kTileBytes;          // K stages 0, 1
-  const uint32_t vs = ks + 2 * kTileBytes;      // V stages 0, 1
-  const uint32_t ids = vs + 2 * kTileBytes;     // the PackedSmem
-  PackedSmem* plan = reinterpret_cast<PackedSmem*>(qs_ptr + 5 * kTileBytes);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* base_ptr = tc_smem + (base - raw);
+  const uint32_t ks = base + kPkK, vs = base + kPkV, ids = base + kPkIds;
+  const uint32_t full_k = base + kPkBars, empty_k = full_k + 8 * kPkStages;
+  const uint32_t full_v = empty_k + 8 * kPkStages;
+  const uint32_t empty_v = full_v + 8 * kPkStages;
+  int* rseg = reinterpret_cast<int*>(base_ptr + kPkRows);  // the query rows'
+  int* rpos = rseg + kBQ;
+  int* entry = reinterpret_cast<int*>(base_ptr + kPkEntry);
 
-  const int h = blockIdx.x;
+  // the block's heads: kPkHeads query heads of KV head kvh (fewer where
+  // the group is not a multiple of kPkHeads)
+  const int group = heads / kv_heads;
+  const int pairs = (group + kPkHeads - 1) / kPkHeads;
+  const int kvh = blockIdx.x / pairs;
+  const int head0 = kvh * group + (blockIdx.x % pairs) * kPkHeads;
+  const int active = min(kPkHeads, (kvh + 1) * group - head0);
   const int qt = gridDim.z - 1 - blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;     // fragment row group, pair
-  const int kvh = h / (heads / kv_heads);
   const int q0 = qt * kBQ;
-  const int offset = sk - sq;                  // key position of query 0
+  const int* prow = plan + static_cast<long long>(qt) * plan_width;
+  const int n_tiles = __ldg(prow);
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
 
-  const bf16* qb = q + h * q_sh;
-  const bf16* kb = k + kvh * k_sh;
-  const bf16* vb = v + kvh * v_sh;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kPkStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 4 * active);   // one arrival a warp
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_v + 8 * s, 4 * active);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (wg == 0 && t < kBQ) {
+    rseg[t] = q0 + t < sq ? q_seg[q0 + t] : -1;
+    rpos[t] = q0 + t < sq ? q_pos[q0 + t] : 0;
+  } else if (wg > 0 && wg <= active && n_tiles > 0) {
+    load_tile_wg(base + (wg - 1) * kTileBytes, q + (head0 + wg - 1) * q_sh,
+                 q_ss, q0, sq, t);
+    cp_async_commit();
+  }
+  __syncthreads();
 
-  load_tile(qs, qb, q_ss, q0, sq);
-  cp_async_commit();                 // q lands while the plan is made
-  const int n_tiles = plan_tiles(*plan, pk, q0, sq, sk, offset);
-  if (n_tiles == 0) {                // padding rows only: no key work, zeros
-    bf16* ob = out + h * o_sh;
-    cp_async_wait_all();
+  if (wg == 0) {                 // the producer: one thread issues the TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (t != 0 || n_tiles == 0) return;
+    int e_next = __ldg(prow + 1);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int e = e_next;
+      if (j + 1 < n_tiles) e_next = __ldg(prow + 2 + j);
+      const int s = j % kPkStages, ph = (j / kPkStages) & 1;
+      const int k0 = (e & (kPlanMasked - 1)) * kBK;
+      const bool masked = (e & kPlanMasked) != 0;
+      mbar_wait(empty_k + 8 * s, ph ^ 1);
+      entry[s] = e;
+      mbar_expect_tx(full_k + 8 * s, kTileBytes + (masked ? kIdsBytes : 0));
+      tma_load_3d(ks + s * kTileBytes, &tm_k, 0, k0, kvh, full_k + 8 * s);
+      tma_load_3d(ks + s * kTileBytes + kTileBytes / 2, &tm_k, 64, k0, kvh,
+                  full_k + 8 * s);
+      if (masked) {
+        tma_load_1d(ids + s * kIdsBytes, &tm_seg, k0, full_k + 8 * s);
+        tma_load_1d(ids + s * kIdsBytes + kBK * 4, &tm_pos, k0,
+                    full_k + 8 * s);
+      }
+      mbar_wait(empty_v + 8 * s, ph ^ 1);
+      mbar_expect_tx(full_v + 8 * s, kTileBytes);
+      tma_load_3d(vs + s * kTileBytes, &tm_v, 0, k0, kvh, full_v + 8 * s);
+      tma_load_3d(vs + s * kTileBytes + kTileBytes / 2, &tm_v, 64, k0, kvh,
+                  full_v + 8 * s);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int w = wg - 1;
+  if (w >= active) return;
+  const uint32_t qs = base + w * kTileBytes;     // q, then the output
+  unsigned char* qs_ptr = base_ptr + w * kTileBytes;
+  bf16* ob = out + (head0 + w) * o_sh;
+  if (n_tiles == 0) {            // padding rows only: no key work, zeros
 #pragma unroll
-    for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
+    for (int i = 0; i < 64 * kChunks / 128; ++i) {
+      const int idx = t + i * 128;
       const int r = idx / kChunks, c = idx % kChunks;
       if (q0 + r < sq)
         *reinterpret_cast<uint4*>(ob + (q0 + r) * o_ss + c * 8) =
@@ -999,22 +1108,10 @@ flash_attention_packed_kernel(const bf16* __restrict__ q,
     }
     return;
   }
-  // the j-th visited key tile: its first key, and whether it is masked
-  auto tile_k0 = [&](int j) { return (plan->list[j] & ~kMaskedTile) * kBK; };
-  auto tile_masked = [&](int j) {
-    return (plan->list[j] & kMaskedTile) != 0;
-  };
-  // K of visited tile j and its ids and positions into stage j & 1
-  auto load_keys = [&](int j) {
-    const int st = j & 1;
-    load_tile(ks + st * kTileBytes, kb, k_ss, tile_k0(j), sk);
-    load_ids(ids + st * kBK * 4, ids + (2 + st) * kBK * 4, pk, tile_k0(j),
-             sk);
-  };
-  load_keys(0);
-  cp_async_commit();
+  const int warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tig = lane & 3;     // fragment row group, pair
   cp_async_wait_all();
-  __syncthreads();
+  wg_sync(1 + w);
 
   // this warp's 16 query rows as A fragments, one per 16 columns of dh
   uint32_t qf[kDH / 16][4];
@@ -1023,14 +1120,21 @@ flash_attention_packed_kernel(const bf16* __restrict__ q,
     ldsm_x4(qs + sw128(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)),
             qf[kk]);
 
-  Rows rows{{neg_inf(), neg_inf()}, {0.f, 0.f}, offset + q0 + warp * 16, g,
-            tig, sk, 1, scale_log2};
-  // visited tile j's keep bits, all set where it is unmasked
-  auto keep_bits = [&](int j) -> uint32_t {
-    return tile_masked(j) ? rows.packed_keep(tile_k0(j), plan->k_seg[j & 1],
-                                             plan->k_pos[j & 1], plan->q_seg,
-                                             plan->q_pos, warp * 16)
-                          : ~0u;
+  Rows rows{{neg_inf(), neg_inf()}, {0.f, 0.f}, (sk - sq) + q0 + warp * 16,
+            g, tig, sk, 1, scale_log2};
+  // the keep bits of the tile in K stage s with plan entry e: all set
+  // where it is unmasked
+  auto keep_bits = [&](int s, int e) -> uint32_t {
+    if (!(e & kPlanMasked)) return ~0u;
+    const int* kseg = reinterpret_cast<const int*>(base_ptr + kPkIds +
+                                                   s * kIdsBytes);
+    return rows.packed_keep((e & (kPlanMasked - 1)) * kBK, kseg, kseg + kBK,
+                            rseg, rpos, warp * 16);
+  };
+  // hand a stage back to the producer once every lane is done with it
+  auto release = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
   };
   float o[kDH / 8][4];
 #pragma unroll
@@ -1042,37 +1146,39 @@ flash_attention_packed_kernel(const bf16* __restrict__ q,
   uint64_t dk[kDH / 16], dv[kBK / 16];
 
   {                                             // S_0 and P_0
-    if (n_tiles > 1) load_keys(1);
-    load_tile(vs, vb, v_ss, tile_k0(0), sk);
-    cp_async_commit();                          // K_1, V_0
+    mbar_wait(full_k, 0);
+    const int e = entry[0];
     k_descs(dk, ks);
     wgmma_fence();
     scores(s, qf, dk);
-    const uint32_t keep = keep_bits(0);
+    const uint32_t keep = keep_bits(0, e);
     wgmma_wait<0>();
+    release(empty_k);
     fence_regs(s);
-    rows.softmax<true>(s, p0, alpha, tile_k0(0), keep);
+    rows.softmax<true>(s, p0, alpha, 0, keep);
   }
-  // tile j as in the causal kernel, the keep bits worked out while the
-  // tensor cores run S_j and P_{j-1} V_{j-1}
+  // visited tile j: S_j and P_{j-1} V_{j-1} in flight together, the keep
+  // bits worked out meanwhile, the softmax of S_j while the tensor cores
+  // do P_{j-1} V_{j-1}, each stage handed back as soon as it is read
   auto step = [&](int j, const uint32_t (&p_in)[kBK / 16][4],
                   uint32_t (&p_out)[kBK / 16][4]) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (j + 1 < n_tiles) load_keys(j + 1);
-    load_tile(vs + (j & 1) * kTileBytes, vb, v_ss, tile_k0(j), sk);
-    cp_async_commit();                          // K_{j+1}, V_j
-    k_descs(dk, ks + (j & 1) * kTileBytes);
-    v_descs(dv, vs + ((j - 1) & 1) * kTileBytes);
+    const int sk_j = j % kPkStages, sv = (j - 1) % kPkStages;
+    mbar_wait(full_k + 8 * sk_j, (j / kPkStages) & 1);
+    mbar_wait(full_v + 8 * sv, ((j - 1) / kPkStages) & 1);
+    const int e = entry[sk_j];
+    k_descs(dk, ks + sk_j * kTileBytes);
+    v_descs(dv, vs + sv * kTileBytes);
     fence_regs(o);
     wgmma_fence();
     scores(s, qf, dk);
     accumulate(o, p_in, dv);
-    const uint32_t keep = keep_bits(j);
+    const uint32_t keep = keep_bits(sk_j, e);
     wgmma_wait<1>();
+    release(empty_k + 8 * sk_j);
     fence_regs(s);
-    rows.softmax<true>(s, p_out, alpha, tile_k0(j), keep);
+    rows.softmax<true>(s, p_out, alpha, 0, keep);
     wgmma_wait<0>();
+    release(empty_v + 8 * sv);
     fence_regs(o);
 #pragma unroll
     for (int d = 0; d < kDH / 8; ++d) {
@@ -1084,9 +1190,9 @@ flash_attention_packed_kernel(const bf16* __restrict__ q,
   };
   // the last P V: P_{n-1} lies in p[(n - 1) & 1]
   auto last = [&](const uint32_t (&p_in)[kBK / 16][4]) {
-    cp_async_wait_all();
-    __syncthreads();
-    v_descs(dv, vs + ((n_tiles - 1) & 1) * kTileBytes);
+    const int sv = (n_tiles - 1) % kPkStages;
+    mbar_wait(full_v + 8 * sv, ((n_tiles - 1) / kPkStages) & 1);
+    v_descs(dv, vs + sv * kTileBytes);
     fence_regs(o);
     wgmma_fence();
     accumulate(o, p_in, dv);
@@ -1102,7 +1208,7 @@ flash_attention_packed_kernel(const bf16* __restrict__ q,
   else
     last(p0);
 
-  // normalise, stage the warp's rows in the q tile, then 16-byte stores
+  // normalise, stage the warp's rows in its q tile, then 16-byte stores
   const float inv0 = 1.f / (rows.l[0] == 0.f ? 1.f : rows.l[0]);
   const float inv1 = 1.f / (rows.l[1] == 0.f ? 1.f : rows.l[1]);
   const int r0 = warp * 16 + g;
@@ -1113,11 +1219,10 @@ flash_attention_packed_kernel(const bf16* __restrict__ q,
     *reinterpret_cast<uint32_t*>(qs_ptr + sw128(r0 + 8, d) + 4 * tig) =
         pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
   }
-  __syncthreads();
-  bf16* ob = out + h * o_sh;
+  wg_sync(1 + w);
 #pragma unroll
-  for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + i * kThreads;
+  for (int i = 0; i < 64 * kChunks / 128; ++i) {
+    const int idx = t + i * 128;
     const int r = idx / kChunks, c = idx % kChunks;
     if (q0 + r < sq)
       *reinterpret_cast<uint4*>(ob + (q0 + r) * o_ss + c * 8) =
@@ -1132,7 +1237,7 @@ cudaError_t set_bf16_smem() {
 
 cudaError_t set_packed_smem() {
   static std::atomic<unsigned long long> done{0};   // devices already set
-  return set_smem_once(flash_attention_packed_kernel, kPackedSmemBytes, done);
+  return set_smem_once(flash_attention_packed_kernel, kPkSmemBytes, done);
 }
 
 inline bool aligned16(const void* p) {
@@ -1168,24 +1273,106 @@ cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime's entry
+// point query (the library links no libcuda); null where it is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A (kv_heads, rows, 128) bf16 operand read through its (head, row)
+// element strides, in boxes of 64 rows by 64 columns (128 bytes) laid
+// out in the 128-byte swizzle: two boxes make one K or V tile.
+bool kv_map(EncodeTiled encode, CUtensorMap* map, const void* p, int rows,
+            int kv_heads, long long row_stride, long long head_stride) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kDH),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(kv_heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
+                                 static_cast<cuuint64_t>(head_stride) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(kBK), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(p), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An (n,) int32 vector in boxes of one key tile; keys past n read as 0.
+bool ids_map(EncodeTiled encode, CUtensorMap* map, const void* p, int n) {
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {4};
+  const cuuint32_t box[1] = {static_cast<cuuint32_t>(kBK)};
+  const cuuint32_t step[1] = {1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 1, const_cast<void*>(p),
+                dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_packed_plan(const Packed& pk, int* plan, int sq, int sk,
+                               int width, cudaStream_t stream) {
+  if (!aligned16(pk.q_seg) || !aligned16(pk.q_pos) || !aligned16(pk.k_seg) ||
+      !aligned16(pk.k_pos) || !aligned16(plan))
+    return cudaErrorMisalignedAddress;
+  const int n_kt = (sk + kBK - 1) / kBK;
+  if (sq < 1 || sk < sq || n_kt > kMaxTiles || width < n_kt + 1 || width % 4)
+    return cudaErrorInvalidValue;
+  flash_packed_plan_kernel<<<(sq + kBQ - 1) / kBQ, kPlanThreads, 0, stream>>>(
+      pk, plan, sq, sk, width);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_flash_packed(const void* q, const void* k, const void* v,
-                                const Packed& pk, void* out, int heads,
-                                int kv_heads, int sq, int sk,
-                                const long long* st, float scale,
+                                const Packed& pk, const int* plan, int width,
+                                void* out, int heads, int kv_heads, int sq,
+                                int sk, const long long* st, float scale,
                                 cudaStream_t stream) {
   if (!rows_aligned(q, k, v, out, st) || !aligned16(pk.q_seg) ||
-      !aligned16(pk.q_pos) || !aligned16(pk.k_seg) || !aligned16(pk.k_pos))
+      !aligned16(pk.q_pos) || !aligned16(pk.k_seg) || !aligned16(pk.k_pos) ||
+      !aligned16(plan))
     return cudaErrorMisalignedAddress;
-  if (sk < sq || (sk + kBK - 1) / kBK > kMaxTiles) return cudaErrorInvalidValue;
+  const int n_kt = (sk + kBK - 1) / kBK;
+  if (sq < 1 || sk < sq || n_kt > kMaxTiles || width < n_kt + 1)
+    return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tm_k, tm_v, tm_seg, tm_pos;
+  if (!kv_map(encode, &tm_k, k, sk, kv_heads, st[5], st[4]) ||
+      !kv_map(encode, &tm_v, v, sk, kv_heads, st[8], st[7]) ||
+      !ids_map(encode, &tm_seg, pk.k_seg, sk) ||
+      !ids_map(encode, &tm_pos, pk.k_pos, sk))
+    return cudaErrorInvalidValue;
   cudaError_t err = set_packed_smem();
   if (err != cudaSuccess) return err;
-  dim3 grid(heads, 1, (sq + kBQ - 1) / kBQ);
-  flash_attention_packed_kernel<<<grid, kThreads, kPackedSmemBytes,
-                                  stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), heads, kv_heads,
-      sq, sk, st[1], st[2], st[4], st[5], st[7], st[8], st[10], st[11],
-      scale * kLog2e, pk);
+  const int group = heads / kv_heads;
+  dim3 grid(kv_heads * ((group + kPkHeads - 1) / kPkHeads), 1,
+            (sq + kBQ - 1) / kBQ);
+  flash_attention_packed_kernel<<<grid, kPkThreads, kPkSmemBytes, stream>>>(
+      tm_k, tm_v, tm_seg, tm_pos, static_cast<const bf16*>(q),
+      static_cast<bf16*>(out), pk.q_seg, pk.q_pos, plan, width, heads,
+      kv_heads, sq, sk, st[1], st[2], st[10], st[11], scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -1219,19 +1406,39 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The packed mode's plan: q_seg, q_pos (sq,) and k_seg, k_pos (sk,)
+// int32, 16-byte aligned, sq <= sk <= 2048 * 64, the segment id
+// (negative: padding) and the position within the segment of each query
+// and key, queries at the last sq keys; plan: (ceil(sq / 64), width)
+// int32, width >= ceil(sk / 64) + 1 and a multiple of 4.  Row t: the
+// count of key tiles query tile t visits, those tiles in ascending
+// order (| 1 << 16 where masked), then -1.
+extern "C" int repro_flash_attention_packed_plan(
+    const void* q_seg, const void* q_pos, const void* k_seg,
+    const void* k_pos, void* plan, int sq, int sk, int width, void* stream) {
+  const repro::tc::Packed pk{static_cast<const int*>(q_seg),
+                             static_cast<const int*>(q_pos),
+                             static_cast<const int*>(k_seg),
+                             static_cast<const int*>(k_pos)};
+  return static_cast<int>(repro::tc::launch_packed_plan(
+      pk, static_cast<int*>(plan), sq, sk, width,
+      static_cast<cudaStream_t>(stream)));
+}
+
 // The packed mode (the JAX package's attention_packed): q (1, heads, sq,
-// dh), k, v (1, kv_heads, sk, dh) with sq <= sk <= 2048 * 64, out (1,
-// heads, sq, dh), strided as above (the batch strides are not read);
-// q_seg, q_pos (sq,) and k_seg, k_pos (sk,) int32, 16-byte aligned, the
-// segment id (negative: padding) and the position within the segment of
-// each query and key.  Key j is visible to query i iff both carry one id
-// and k_pos[j] <= q_pos[i], or j is i's own key (j - (sk - sq) == i).  A
-// query tile of padding only gives zeros.  bf16 and dh 128 only.
+// dh), k, v (1, kv_heads, sk, dh), out (1, heads, sq, dh), strided as
+// above (the batch strides are not read); the ids and positions as for
+// the plan, and the pack's plan (repro_flash_attention_packed_plan) of
+// row width `width`.  Key j is visible to query i iff both carry one id
+// and k_pos[j] <= q_pos[i], or j is i's own key (j - (sk - sq) == i),
+// within the key tiles the plan visits.  A query tile of padding only
+// gives zeros.  bf16 and dh 128 only.
 extern "C" int repro_flash_attention_packed(
     const void* q, const void* k, const void* v, const void* q_seg,
-    const void* q_pos, const void* k_seg, const void* k_pos, void* out,
-    int heads, int kv_heads, int sq, int sk, int dh,
-    const long long* strides, float scale, int dtype, void* stream) {
+    const void* q_pos, const void* k_seg, const void* k_pos,
+    const void* plan, int width, void* out, int heads, int kv_heads, int sq,
+    int sk, int dh, const long long* strides, float scale, int dtype,
+    void* stream) {
   if (dh != 128 || dtype != repro::kBFloat16)
     return static_cast<int>(cudaErrorInvalidValue);
   const repro::tc::Packed pk{static_cast<const int*>(q_seg),
@@ -1239,8 +1446,8 @@ extern "C" int repro_flash_attention_packed(
                              static_cast<const int*>(k_seg),
                              static_cast<const int*>(k_pos)};
   return static_cast<int>(repro::tc::launch_flash_packed(
-      q, k, v, pk, out, heads, kv_heads, sq, sk, strides, scale,
-      static_cast<cudaStream_t>(stream)));
+      q, k, v, pk, static_cast<const int*>(plan), width, out, heads,
+      kv_heads, sq, sk, strides, scale, static_cast<cudaStream_t>(stream)));
 }
 
 // Resident blocks per SM of the flash kernel for `dtype` at its launch
@@ -1274,6 +1481,6 @@ extern "C" int repro_flash_attention_packed_blocks_per_sm() {
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, repro::tc::flash_attention_packed_kernel,
-        repro::tc::kThreads, repro::tc::kPackedSmemBytes);
+        repro::tc::kPkThreads, repro::tc::kPkSmemBytes);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

@@ -68,8 +68,10 @@ _SIGNATURES = {
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _F, _I, _P],
     "repro_flash_attention_blocks_per_sm": [_I],
-    "repro_flash_attention_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                     _I, _I, _I, _P, _F, _I, _P],
+    "repro_flash_attention_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                     _I, _I, _I, _I, _I, _P, _F, _I, _P],
+    "repro_flash_attention_packed_plan": [_P, _P, _P, _P, _P, _I, _I, _I,
+                                          _P],
     "repro_flash_attention_packed_blocks_per_sm": [],
     "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _F, _I, _P],

@@ -78,16 +78,28 @@ def flash_attention(q, k, v, lengths=None, *, causal: bool = True,
 
 
 def flash_attention_packed(q, k, v, q_seg, k_seg, q_pos, k_pos, *,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           plan: Optional[torch.Tensor] = None):
     """Segment-masked attention of a packed prefill: q (1,H,Sq,dh); k, v
     (1,KV,Sk,dh), the queries at the last Sq keys; segment ids and
-    positions (Sq,) / (Sk,) int32 -> (1,H,Sq,dh)."""
+    positions (Sq,) / (Sk,) int32 -> (1,H,Sq,dh).  ``plan`` is the pack's
+    tile plan (:func:`flash_attention_packed_plan`); without one the card
+    builds it first (one more launch) and the CPU ignores the tiles."""
     if on_cpu("flash_attention_packed", q, k, v, q_seg, k_seg, q_pos,
-              k_pos):
+              k_pos, plan):
         return ref.flash_attention_packed_ref(q, k, v, q_seg, k_seg, q_pos,
-                                              k_pos, scale)
+                                              k_pos, scale, plan)
     return _fa.flash_attention_packed_cuda(q, k, v, q_seg, k_seg, q_pos,
-                                           k_pos, scale=scale)
+                                           k_pos, scale=scale, plan=plan)
+
+
+def flash_attention_packed_plan(q_seg, k_seg, q_pos, k_pos):
+    """The tile plan of a packed attention over these ids and positions
+    ((Sq,) / (Sk,) int32): one per pack, read by every head and layer."""
+    if on_cpu("flash_attention_packed_plan", q_seg, k_seg, q_pos, k_pos):
+        return ref.flash_attention_packed_plan_ref(q_seg, k_seg, q_pos,
+                                                   k_pos)
+    return _fa.flash_attention_packed_plan_cuda(q_seg, k_seg, q_pos, k_pos)
 
 
 def flash_decode(q, k, v, lengths=None, *, scale: Optional[float] = None):

@@ -143,11 +143,92 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype).reshape(b, h, sq, dh)
 
 
+#: query rows and keys per tile of the packed mode's plan
+PACKED_TILE = 64
+#: plan entry flag: the visited key tile is masked
+PLAN_MASKED = 1 << 16
+
+
+def packed_plan_width(sk: int) -> int:
+    """Entries per row of a packed plan over ``sk`` keys: the count and
+    one per key tile, rounded up to 16 bytes."""
+    n_kt = -(-sk // PACKED_TILE)
+    return -(-(n_kt + 1) // 4) * 4
+
+
+def flash_attention_packed_plan_ref(q_seg: torch.Tensor, k_seg: torch.Tensor,
+                                    q_pos: torch.Tensor,
+                                    k_pos: torch.Tensor) -> torch.Tensor:
+    """The tile plan of a packed attention: which key tiles each query
+    tile visits, as the plan kernel decides it.  ``q_seg``, ``q_pos``
+    (Sq,) and ``k_seg``, ``k_pos`` (Sk,) int32, Sk >= Sq, the queries at
+    the last Sq keys; tiles of ``PACKED_TILE`` rows and keys.
+
+    Returns (ceil(Sq / 64), `packed_plan_width` (Sk)) int32: row t holds
+    the count n of key tiles that query tile t visits, then those tiles in
+    ascending order, each ``PLAN_MASKED``-flagged where it is masked, then
+    -1.  A query tile with no real row (id >= 0) visits nothing.  Else a
+    key tile is visited where one of its keys is visible to a real row
+    (one id, ``k_pos <= q_pos``) or it holds a row's own key; it is
+    unmasked only where all 64 rows are real and carry one id, and all
+    64 keys carry that id at positions at or below every row's."""
+    t = PACKED_TILE
+    sq, sk = q_seg.shape[0], k_seg.shape[0]
+    if sk < sq:
+        raise ValueError(f"packed plan needs Sk >= Sq, got {sq}, {sk}")
+    n_qt, n_kt = -(-sq // t), -(-sk // t)
+    dev = q_seg.device
+    qs = torch.full((n_qt * t,), -1, dtype=torch.int64, device=dev)
+    qp = torch.zeros((n_qt * t,), dtype=torch.int64, device=dev)
+    qs[:sq], qp[:sq] = q_seg.long(), q_pos.long()
+    ks = torch.full((n_kt * t,), -1, dtype=torch.int64, device=dev)
+    kp = torch.zeros((n_kt * t,), dtype=torch.int64, device=dev)
+    ks[:sk], kp[:sk] = k_seg.long(), k_pos.long()
+    key_in = torch.arange(n_kt * t, device=dev) < sk
+    real = qs >= 0                       # padding slots past Sq are -1
+    seen = real[:, None] & key_in[None, :] & (qs[:, None] == ks[None, :]) \
+        & (kp[None, :] <= qp[:, None])
+    own = (torch.arange(n_kt * t, device=dev)[None, :] - (sk - sq)) == \
+        torch.arange(n_qt * t, device=dev)[:, None]
+    own &= (torch.arange(n_qt * t, device=dev) < sq)[:, None]
+    visited = (seen | own).reshape(n_qt, t, n_kt, t).any(3).any(1)
+    visited &= real.reshape(n_qt, t).any(1)[:, None]
+    rows_s, rows_p = qs.reshape(n_qt, t), qp.reshape(n_qt, t)
+    one_id = real.reshape(n_qt, t).all(1) & \
+        (rows_s == rows_s[:, :1]).all(1)
+    below = key_in[None, :] & (ks[None, :] == rows_s[:, :1]) & \
+        (kp[None, :] <= rows_p.min(1).values[:, None])
+    unmasked = one_id[:, None] & below.reshape(n_qt, n_kt, t).all(2)
+    plan = torch.full((n_qt, packed_plan_width(sk)), -1, dtype=torch.int32,
+                      device=dev)
+    for r in range(n_qt):
+        tiles = torch.nonzero(visited[r]).flatten()
+        entries = tiles + torch.where(unmasked[r, tiles], 0, PLAN_MASKED)
+        plan[r, 0] = tiles.numel()
+        plan[r, 1:1 + tiles.numel()] = entries.to(torch.int32)
+    return plan
+
+
+def packed_plan_visits(plan: torch.Tensor, sq: int,
+                       sk: int) -> torch.Tensor:
+    """(Sq, Sk) bool: the pairs whose key tile the plan visits for the
+    query's tile."""
+    t = PACKED_TILE
+    n_qt, n_kt = -(-sq // t), -(-sk // t)
+    tiles = torch.zeros((n_qt, n_kt), dtype=torch.bool, device=plan.device)
+    for r in range(n_qt):
+        n = int(plan[r, 0])
+        tiles[r, (plan[r, 1:1 + n] & (PLAN_MASKED - 1)).long()] = True
+    return tiles.repeat_interleave(t, 0).repeat_interleave(t, 1)[:sq, :sk]
+
+
 def flash_attention_packed_ref(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, q_seg: torch.Tensor,
                                k_seg: torch.Tensor, q_pos: torch.Tensor,
                                k_pos: torch.Tensor,
-                               scale: Optional[float] = None) -> torch.Tensor:
+                               scale: Optional[float] = None,
+                               plan: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Segment-masked attention of a packed prefill, as the JAX package's
     ``attention_packed``.  q: (1,H,Sq,dh); k,v: (1,KV,Sk,dh) with Sk >= Sq,
     the queries lining up with the last Sq keys; q_seg, q_pos: (Sq,) and
@@ -157,7 +238,10 @@ def flash_attention_packed_ref(q: torch.Tensor, k: torch.Tensor,
     Key j is visible to query i iff ``q_seg[i] == k_seg[j]`` and
     ``k_pos[j] <= q_pos[i]``, or j is i's own fresh key (``j - (Sk - Sq)
     == i``), which keeps every padding row finite.  GQA folds H onto KV;
-    the softmax runs in f32."""
+    the softmax runs in f32.  With a ``plan``
+    (`flash_attention_packed_plan_ref`) only the pairs of the key tiles
+    it visits are seen, as by the kernel, and a row that sees no key (a
+    query tile of padding only) gives zeros."""
     b, h, sq, dh = q.shape
     kv, sk = k.shape[1], k.shape[2]
     if b != 1 or sk < sq:
@@ -172,9 +256,14 @@ def flash_attention_packed_ref(q: torch.Tensor, k: torch.Tensor,
     keys = torch.arange(sk, device=q.device)
     self_key = (keys[None, :] - (sk - sq)) == \
         torch.arange(sq, device=q.device)[:, None]
-    s = torch.where((same & causal) | self_key, s, float("-inf"))
-    e = torch.exp(s - s.max(dim=-1, keepdim=True).values)
-    w = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+    mask = (same & causal) | self_key
+    if plan is not None:
+        mask = mask & packed_plan_visits(plan, sq, sk)
+    s = torch.where(mask, s, float("-inf"))
+    m = s.max(dim=-1, keepdim=True).values
+    e = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    den = e.sum(dim=-1, keepdim=True)
+    w = (e / torch.where(den > 0, den, 1.0)).to(q.dtype)
     out = torch.einsum("kgqs,ksd->kgqd", w.float(), v[0].float())
     return out.to(q.dtype).reshape(1, h, sq, dh)
 

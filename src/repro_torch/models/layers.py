@@ -221,7 +221,8 @@ def attention_naive(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 def attention_packed(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, *, q_seg: torch.Tensor,
                      k_seg: torch.Tensor, q_pos: torch.Tensor,
-                     k_pos: torch.Tensor) -> torch.Tensor:
+                     k_pos: torch.Tensor,
+                     plan: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Segment-masked causal attention of a packed prefill: q (1,Sq,H,dh)
     holds every segment's fresh tokens back to back, k/v (1,Sk,KV,dh) each
     segment's cached prefix followed by the fresh keys (the last Sq keys
@@ -229,10 +230,12 @@ def attention_packed(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     the segment id per slot (negative = padding) and ``q_pos`` / ``k_pos``
     the position within the segment.  Key j is visible to query i iff both
     sit in one segment and ``k_pos[j] <= q_pos[i]``, or j is i's own fresh
-    key.  Through the packed mode of the flash kernel; -> (1,Sq,H,dh)."""
+    key.  Through the packed mode of the flash kernel, over the pack's
+    tile ``plan`` (`repro_torch.kernels.ops.flash_attention_packed_plan`)
+    where the caller built it once for every layer; -> (1,Sq,H,dh)."""
     out = ops.flash_attention_packed(q.transpose(1, 2), k.transpose(1, 2),
                                      v.transpose(1, 2), q_seg, k_seg, q_pos,
-                                     k_pos)
+                                     k_pos, plan=plan)
     return out.transpose(1, 2)
 
 

@@ -163,7 +163,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    *, collect_cache: bool = False,
                    cache_dtype: torch.dtype = torch.float32,
                    cache_len: Optional[int] = None, attn: str = "flash",
-                   kv_out: Optional[Dict[str, torch.Tensor]] = None):
+                   kv_out: Optional[Dict[str, torch.Tensor]] = None,
+                   embeds_override: Optional[torch.Tensor] = None):
     """Causal pass over right-padded prompts.  Returns ``(h_final,
     parts)``; with ``collect_cache`` parts holds every layer's k/v as
     (L, B, max(S, cache_len), KV, dh) in ``cache_dtype``, zero past S,
@@ -172,12 +173,17 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     flash-attention kernel, the generative prefill's) or ``"naive"``
     (scores, the fused softmax kernel, weights times V: the
     classification path's, as the JAX package's ``_attn`` picks below
-    its chunked threshold)."""
+    its chunked threshold).  ``embeds_override`` (B, N, d), where given,
+    takes the first N slots' embeddings, as the JAX package's
+    ``embed_inputs`` places precomputed patch embeddings."""
     _check_family(cfg)
     if attn not in ATTN_ROUTES:
         raise ValueError(f"attn={attn!r}: expected one of {ATTN_ROUTES}")
     b, s = tokens.shape
     h = L.embed_tokens(cfg, params["embed"], tokens)
+    if embeds_override is not None:
+        h = h.clone()
+        h[:, :embeds_override.shape[1]] = embeds_override.to(h.dtype)
     positions = L.positions_for(cfg, (b, s), device=tokens.device)
     parts = None
     if collect_cache:
@@ -210,6 +216,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             max_len: Optional[int] = None,
+            embeds_override: Optional[torch.Tensor] = None,
             true_lengths: Optional[torch.Tensor] = None,
             cache_dtype: torch.dtype = torch.float32,
             kv_out: Optional[Dict[str, torch.Tensor]] = None
@@ -219,11 +226,12 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     ``k``/``v`` (L, B, max(S, max_len), KV, dh), zero past S (written
     into ``kv_out``'s where given), with ``len`` (each row's true length)
     and ``pos_offset`` (B,) int32.  The engine decodes it in place or
-    splices it into a slot cache or a paged pool."""
+    splices it into a slot cache or a paged pool.  ``embeds_override``
+    as in :func:`forward_hidden`."""
     bsz, seq = tokens.shape
     h, cache = forward_hidden(cfg, params, tokens, collect_cache=True,
                               cache_dtype=cache_dtype, cache_len=max_len,
-                              kv_out=kv_out)
+                              kv_out=kv_out, embeds_override=embeds_override)
     if true_lengths is None:
         lens = torch.full((bsz,), seq, dtype=torch.int32,
                           device=tokens.device)
@@ -338,6 +346,9 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         k_seg, k_pos = seg_ids, positions
     shape = (cfg.num_layers, p, cfg.num_kv_heads, cfg.head_dim)
     parts = _kv_parts(shape, cache_dtype, h.device, kv_out)
+    # which key tiles each query tile visits: one plan for every layer
+    # and head, the ids and positions being the same for all
+    plan = ops.flash_attention_packed_plan(seg_ids, k_seg, positions, k_pos)
     for i in range(cfg.num_layers):
         blk = layer_params(params, i)
         hn = L.apply_norm(cfg, blk["norm1"], h)
@@ -348,7 +359,8 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         else:
             k_all, v_all = k, v
         a = L.attention_packed(cfg, q, k_all, v_all, q_seg=seg_ids,
-                               k_seg=k_seg, q_pos=positions, k_pos=k_pos)
+                               k_seg=k_seg, q_pos=positions, k_pos=k_pos,
+                               plan=plan)
         out = L.attention_output(blk["attn"], a)
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
         h = h + L.apply_ffn(cfg, blk["ffn"], hn2)

@@ -83,6 +83,10 @@ PACK_LOG_LEN = 1024
 
 KV_LAYOUTS = ("paged", "contiguous")
 
+#: the InferenceEngine's bucket ladder where none is given (frozen), the
+#: reference's default
+DEFAULT_LADDER = BucketLadder()
+
 #: the ContinuousEngine's serving counters, which a warm-up leaves as it
 #: found them
 SERVING_COUNTERS = ("prefill_tokens", "prefill_dispatches", "decode_ticks",
@@ -164,7 +168,7 @@ class InferenceEngine:
     no-op when they already live on it)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict,
-                 ladder: Optional[BucketLadder] = None, pad_id: int = 0,
+                 ladder: BucketLadder = DEFAULT_LADDER, pad_id: int = 0,
                  sample_candidates: Optional[int] = None,
                  device=None) -> None:
         self.cfg = cfg
@@ -1237,7 +1241,7 @@ class ContinuousEngine(PipelineBackend):
         return btm.block_table(s.req_id)
 
     def prefill_pack(self, admissions: List[Session],
-                     chunks: Sequence[Tuple[Session, int]] = (),
+                     chunks: Sequence[Tuple[Session, int]],
                      decoding: Optional[List[Session]] = None) -> None:
         """ONE packed dispatch serving a whole pack group: ``admissions``
         (newly planned sessions — whole prompts, or the uncached suffixes
@@ -1599,7 +1603,8 @@ class ContinuousEngine(PipelineBackend):
         for slot, s in wanted:
             s.generated = [int(x) for x in emitted[slot, :counts[slot]]]
 
-    def warmup_aot(self) -> Dict[str, float]:
+    def warmup_aot(self, progress: Optional[Callable[[int], None]] = None
+                   ) -> Dict[str, float]:
         """Capture every reachable serving-path cell before the first
         request, as the JAX package's ``warmup_aot`` compiles them, by the
         reference's walk: throwaway sessions (far-negative req_ids, prefix
@@ -1623,7 +1628,9 @@ class ContinuousEngine(PipelineBackend):
         ``compile_count``; on the CPU the same rounds run eagerly.  The serving counters and ``pack_log`` are
         saved and restored, and the sampling flag is left off.  Returns
         ``{"compile_count", "warmup_seconds", "rounds"}``: the cells
-        captured (0 on the CPU), the seconds and the rounds walked."""
+        captured (0 on the CPU), the seconds and the rounds walked.
+        ``progress`` (if given) is called with the cumulative round count
+        after every round, as the JAX package's is."""
         eng = self.engine
         ladder = eng.ladder
         t0 = time.perf_counter()
@@ -1635,6 +1642,13 @@ class ContinuousEngine(PipelineBackend):
         prefix_was, pc = self._prefix_enabled, self.prefix_cache
         self._prefix_enabled, self.prefix_cache = False, None
         rounds = 0
+
+        def _bump() -> None:
+            nonlocal rounds
+            rounds += 1
+            if progress is not None:
+                progress(rounds)
+
         try:
             self._ensure_state(top)
             seqs = [b for b in ladder.seq_buckets if b <= top]
@@ -1664,16 +1678,16 @@ class ContinuousEngine(PipelineBackend):
                         if bn * n > self.block_table.num_blocks - 1:
                             continue
                     self._warm_round(plen, budget, n, temperature=0.8)
-                    rounds += 1
+                    _bump()
             self.state.sampling = False
             plen = max(seqs[0] - 3, 1)
             for n in sizes:
                 self._warm_round(plen, 1, n, temperature=0.0)
-                rounds += 1
+                _bump()
             n = min(2, self.max_slots)
             for temp in (0.0, 0.8):
                 self._warm_round(plen, 3, n, temperature=temp)
-                rounds += 1
+                _bump()
             if self.supports_packed_prefill():
                 cache = self.state.cache
                 shape = (cache["k"].shape[0],) + tuple(cache["k"].shape[3:])
@@ -1684,14 +1698,14 @@ class ContinuousEngine(PipelineBackend):
                     [[1] * bs, [2] * bs], [bs, bs], eng.prefill_cells, pre,
                     pre, np.repeat(np.arange(2, dtype=np.int32), bs),
                     np.tile(np.arange(bs, dtype=np.int32), 2))
-                rounds += 1
+                _bump()
                 zero = pre[:, :0]
                 no_ids = np.zeros((0,), np.int32)
                 for n in sizes:
                     eng._prefill_packed_flat([[1]] * n, [0] * n,
                                              eng.prefill_cells, zero, zero,
                                              no_ids, no_ids)
-                    rounds += 1
+                    _bump()
         finally:
             # every warm row is done; a greedy admission must get the
             # greedy tick back

@@ -292,6 +292,73 @@ def test_cuda_flash_attention_packed_segment_alone_equals_segment_in_pack(
         at += n
 
 
+def _random_ids(dev, seed, sq_max=700, extra=400):
+    """Ids and positions drawn one by one (the fresh keys the queries'),
+    no segment structure: (q_seg, k_seg, q_pos, k_pos)."""
+    rng = np.random.default_rng(seed)
+    sq = int(rng.integers(1, sq_max + 1))
+    sk = sq + int(rng.integers(0, extra + 1))
+    q_seg = rng.integers(-2, 5, sq).astype(np.int32)
+    q_pos = rng.integers(0, 90, sq).astype(np.int32)
+    k_seg = rng.integers(-2, 5, sk).astype(np.int32)
+    k_pos = rng.integers(0, 90, sk).astype(np.int32)
+    k_seg[sk - sq:], k_pos[sk - sq:] = q_seg, q_pos
+    return [torch.from_numpy(a).to(dev) for a in (q_seg, k_seg, q_pos,
+                                                  k_pos)]
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES) +
+                         [f"random{i}" for i in range(6)])
+def test_cuda_packed_plan_equals_plain_plan(cuda, case):
+    """The plan kernel writes the plain plan entry for entry: the count,
+    the visited tiles in ascending order with their masked flags, -1
+    after; one launch."""
+    if case.startswith("random"):
+        ids = _random_ids(cuda, int(case[6:]))
+    else:
+        ids = _packed(cuda, *PACKED_CASES[case])[3]
+    cuda_lib.reset_launches()
+    got = ops.flash_attention_packed_plan(*ids)
+    assert cuda_lib.LAUNCHES["flash_attention_packed_plan"] == 1
+    want = ref.flash_attention_packed_plan_ref(*ids)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+def test_cuda_packed_attention_with_a_given_plan_equals_its_own(cuda, case):
+    """Attention over a plan built before gives the same bits as the call
+    that builds its own (one plan launch and one attention launch)."""
+    q, k, v, ids = _packed(cuda, *PACKED_CASES[case])
+    plan = ops.flash_attention_packed_plan(*ids)
+    cuda_lib.reset_launches()
+    own = ops.flash_attention_packed(q, k, v, *ids)
+    assert cuda_lib.LAUNCHES["flash_attention_packed_plan"] == 1
+    given = ops.flash_attention_packed(q, k, v, *ids, plan=plan)
+    assert cuda_lib.LAUNCHES["flash_attention_packed_plan"] == 1
+    assert cuda_lib.LAUNCHES["flash_attention_packed"] == 2
+    assert torch.equal(own, given)
+
+
+@pytest.mark.parametrize("heads", [(3, 1), (8, 8), (6, 2)])
+def test_cuda_packed_attention_any_group_matches_plain(cuda, heads):
+    """A block serves two query heads of one KV head: groups of one, of
+    three (the last block of a group with one head) and of three pairs
+    against the plain version, on random ids and positions too."""
+    h, kv = heads
+    for ids in (_packed(cuda, (30, 1, 100, 64, 50), (0,) * 5, 320, 0)[3],
+                _random_ids(cuda, h * 10 + kv)):
+        sq, sk = ids[0].numel(), ids[1].numel()
+        g = _gen(cuda, h)
+        q, k, v = [torch.randn((1, n, m, 128), generator=g,
+                               device=cuda).bfloat16().transpose(1, 2)
+                   for n, m in ((sq, h), (sk, kv), (sk, kv))]
+        got = ops.flash_attention_packed(q, k, v, *ids)
+        want = ref.flash_attention_packed_ref(q, k, v, *ids)
+        real = ids[0] >= 0
+        torch.testing.assert_close(got[:, :, real], want[:, :, real],
+                                   **BF16_ATTN_TOL)
+
+
 def test_cuda_flash_attention_packed_refuses_f32_and_misaligned_rows(cuda):
     """The packed mode is built for bf16 only, and copies 16-byte chunks:
     f32 and a row that does not start on 16 bytes are refused, with no
@@ -519,8 +586,8 @@ def test_cuda_serving_matches_generate_alone(cuda):
 def test_cuda_packed_serving_one_launch_per_layer_per_pack(cuda):
     """The default (packed) admission path at the smoke depth in bf16 with
     the full head dim: every admission group is one packed dispatch, one
-    packed-mode flash launch per layer and none of the causal one, no
-    leak; and each prompt's last-token logits from one packed pass agree
+    plan launch and one packed-mode flash launch per layer and none of
+    the causal one, no leak; and each prompt's last-token logits from one packed pass agree
     with its own prefill within a few bf16 ulps (the products run at
     other shapes and round otherwise)."""
     import dataclasses
@@ -551,6 +618,8 @@ def test_cuda_packed_serving_one_launch_per_layer_per_pack(cuda):
     assert ce.pack_dispatches == ce.prefill_dispatches > 0
     assert cuda_lib.LAUNCHES["flash_attention_packed"] == \
         cfg.num_layers * ce.pack_dispatches
+    assert cuda_lib.LAUNCHES["flash_attention_packed_plan"] == \
+        ce.pack_dispatches
     assert cuda_lib.LAUNCHES["flash_attention"] == 0
     assert all(len(r) == len(p) + 12 for r, p in zip(results, prompts))
     assert ce.block_table.used_blocks == 0

@@ -1,0 +1,198 @@
+"""The port's public signatures against the reference's.
+
+Every public method that the port's `TurboClient`, `InferenceEngine` and
+`ContinuousEngine` share by name with the JAX package's, and the model
+functions `prefill`, `prefill_suffix`, `prefill_packed` and
+`decode_step`, keep the reference's parameter names, order, kinds and
+defaults.  The reference's signatures are read through `inspect`, so a
+change there shows here.  The planned differences are named in
+`PORT_ONLY`, `REF_ONLY` and `PLANNED_DEFAULTS`, each with its reason;
+any other difference fails.
+"""
+import dataclasses
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.api import client as ref_client
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import init_params as jax_init_params
+from repro.models import prefill as jax_prefill
+from repro.models import transformer as ref_models
+from repro.runtime import engine as ref_engine
+from repro_torch.api import client as port_client
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import init_params, prefill
+from repro_torch.models import transformer as port_models
+from repro_torch.models.bridge import params_from_numpy
+from repro_torch.runtime import engine as port_engine
+from repro_torch.runtime.bucketing import BucketLadder
+
+ARCH = "internlm2-1.8b"
+
+#: the port's parameters the reference lacks: ``device`` (the port's
+#: entry points choose the card or the CPU) and ``kv_out`` (a CUDA-graph
+#: cell writes its KV into static buffers); ``prompt_kv_only`` (a paged
+#: per-group prefill keeps only the prompt's KV)
+PORT_ONLY = {"device", "kv_out", "prompt_kv_only"}
+#: the reference's parameters the port lacks until ROADMAP.md §1 step 8:
+#: ``rt`` (the model runtime: sharding, remat, attention routes),
+#: ``per_token_host_sync`` (the old per-token loop of ``generate``) and
+#: ``replicas`` (the replica pool)
+REF_ONLY = {"rt", "per_token_host_sync", "replicas"}
+#: defaults that differ on purpose, (callable, parameter) -> (reference's,
+#: port's), normalised as by `_default`: the port's model functions
+#: default ``max_len`` to the prompt width and the KV to f32, the dtype
+#: its engine (and the reference's) asks for; tests/test_torch_packed.py
+#: calls them so
+PLANNED_DEFAULTS = {
+    ("prefill", "max_len"): ("<required>", None),
+    ("prefill", "cache_dtype"): ("bfloat16", "float32"),
+    ("prefill_suffix", "cache_dtype"): ("bfloat16", "float32"),
+    ("prefill_packed", "cache_dtype"): ("bfloat16", "float32"),
+}
+
+MODEL_FUNCTIONS = ("prefill", "prefill_suffix", "prefill_packed",
+                   "decode_step")
+
+
+def _shared_methods(ref_cls, port_cls):
+    names = sorted(n for n in set(vars(ref_cls)) & set(vars(port_cls))
+                   if n == "__init__" or not n.startswith("_"))
+    out = []
+    for n in names:
+        a = inspect.getattr_static(ref_cls, n)
+        b = inspect.getattr_static(port_cls, n)
+        a = a.__func__ if isinstance(a, (classmethod, staticmethod)) else a
+        b = b.__func__ if isinstance(b, (classmethod, staticmethod)) else b
+        if inspect.isfunction(a) and inspect.isfunction(b):
+            out.append((f"{port_cls.__name__}.{n}", a, b))
+    return out
+
+
+PAIRS = (
+    _shared_methods(ref_client.TurboClient, port_client.TurboClient)
+    + _shared_methods(ref_engine.InferenceEngine,
+                      port_engine.InferenceEngine)
+    + _shared_methods(ref_engine.ContinuousEngine,
+                      port_engine.ContinuousEngine)
+    + [(n, getattr(ref_models, n), getattr(port_models, n))
+       for n in MODEL_FUNCTIONS])
+
+
+def _default(value):
+    """A default in a form both packages can be compared by: a dataclass
+    instance by its class name and fields, a dtype by its name."""
+    if value is inspect.Parameter.empty:
+        return "<required>"
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return type(value).__name__, dataclasses.asdict(value)
+    if isinstance(value, torch.dtype):
+        return str(value).replace("torch.", "")
+    if isinstance(value, type):
+        return value.__name__
+    return value
+
+
+def _params(fn, drop):
+    return [(p.name, p.kind, _default(p.default))
+            for p in inspect.signature(fn).parameters.values()
+            if p.name not in drop]
+
+
+def test_the_pairs_cover_the_named_callables():
+    names = {n for n, _, _ in PAIRS}
+    assert {"TurboClient.__init__", "TurboClient.from_arch",
+            "TurboClient.submit", "InferenceEngine.__init__",
+            "ContinuousEngine.__init__", "ContinuousEngine.warmup_aot",
+            *MODEL_FUNCTIONS} <= names
+
+
+@pytest.mark.parametrize("name,ref_fn,port_fn", PAIRS,
+                         ids=[n for n, _, _ in PAIRS])
+def test_signature_matches_reference(name, ref_fn, port_fn):
+    short = name.split(".")[-1]
+    ref = _params(ref_fn, REF_ONLY)
+    port = _params(port_fn, PORT_ONLY)
+    for i, (pname, kind, default) in enumerate(ref):
+        planned = PLANNED_DEFAULTS.get((short, pname))
+        if planned is None or i >= len(port) or port[i][0] != pname:
+            continue
+        assert (default, port[i][2]) == planned, (name, pname)
+        ref[i] = port[i] = (pname, kind, None)
+    assert port == ref, name
+
+
+def test_planned_differences_are_still_differences():
+    """Each name in the planned sets marks a real difference somewhere:
+    a planned entry the two packages no longer need fails here."""
+    ref_names = {p for _, f, _ in PAIRS
+                 for p in inspect.signature(f).parameters}
+    port_names = {p for _, _, f in PAIRS
+                  for p in inspect.signature(f).parameters}
+    assert REF_ONLY <= ref_names - port_names
+    assert PORT_ONLY <= port_names - ref_names
+    for short, pname in PLANNED_DEFAULTS:
+        ref = inspect.signature(getattr(ref_models, short)).parameters
+        port = inspect.signature(getattr(port_models, short)).parameters
+        assert _default(ref[pname].default) != \
+            _default(port[pname].default)
+
+
+def test_background_warmup_is_refused_until_ported():
+    """The reference's ``warmup="background"`` has no port yet: the
+    port's client refuses it instead of warming in the foreground."""
+    with pytest.raises(ValueError, match="background"):
+        port_client.TurboClient(object(), warmup="background")
+
+
+def test_from_arch_warms_up_by_default(monkeypatch):
+    calls = []
+
+    def fake_warmup(self, progress=None):
+        calls.append(self)
+        return {"compile_count": 0, "warmup_seconds": 0.0, "rounds": 0}
+    monkeypatch.setattr(port_engine.ContinuousEngine, "warmup_aot",
+                        fake_warmup)
+    client = port_client.TurboClient.from_arch(ARCH, device="cpu",
+                                               auto_pump=False)
+    assert len(calls) == 1 and client.warmup_stats["rounds"] == 0
+    port_client.TurboClient.from_arch(ARCH, device="cpu", auto_pump=False,
+                                      warmup=False)
+    assert len(calls) == 1
+
+
+def test_warmup_progress_counts_every_round():
+    cfg = get_smoke_config(ARCH)
+    engine = port_engine.InferenceEngine(
+        cfg, init_params(cfg, seed=0, device="cpu"),
+        ladder=BucketLadder(seq_buckets=(16, 32), batch_buckets=(1, 2)),
+        device="cpu")
+    ce = port_engine.ContinuousEngine(engine, max_slots=2, cap_new=4)
+    seen = []
+    stats = ce.warmup_aot(progress=seen.append)
+    assert seen == list(range(1, stats["rounds"] + 1))
+
+
+def test_prefill_embeds_override_matches_reference():
+    jcfg = jax_smoke_config(ARCH)
+    jparams = jax_init_params(jcfg, jax.random.key(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                device="cpu")
+    cfg = get_smoke_config(ARCH)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(1, cfg.vocab_size, (2, 12)).astype(np.int32)
+    emb = (rng.standard_normal((2, 5, cfg.d_model)) * 0.1).astype(np.float32)
+    want, _ = jax_prefill(jcfg, jparams, jnp.asarray(toks), max_len=12,
+                          embeds_override=jnp.asarray(emb),
+                          cache_dtype=jnp.float32)
+    got, _ = prefill(cfg, tparams, torch.from_numpy(toks), max_len=12,
+                     embeds_override=torch.from_numpy(emb))
+    plain, _ = prefill(cfg, tparams, torch.from_numpy(toks), max_len=12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    assert not torch.allclose(got, plain)

@@ -6,16 +6,19 @@
 Builds an instrumented copy of ``src/repro_torch/csrc/flash_attention.cu``
 under ``build/flash_trace/`` (the stamps are written into the copy here,
 not into the shipped kernel; an anchor line that moved fails loudly):
-thread 0 of every block reads the global timer at its start, at the
-packed mode's plan phases (the query rows' summary, the tiles' votes,
-the plan done), when its first key tile has landed and at its end, and
+the lead thread of every block reads the global timer at its start, at
+the packed mode's phases (set up, its q tile in registers, its first K
+tile landed, the first tile's softmax done), when the causal kernel's
+first key tile has landed, and at its end, and
 keeps the number of tiles it visited and its SM.  Then, after warm-up
 launches, it runs the causal kernel at B 8 x 1024 and the packed mode on
-the packs of ``chip_smoke.PACKED_CASES`` (H 16, KV 8, dh 128, bf16) once
-each and prints one JSON line per run: the launch's span (first block
-start to last block end), each block's mean and largest span, the mean
-of each phase, the time per visited tile after the first one lands, and
-the visited tiles.  ``VARIANT`` (``VARIANTS``; "base" by default) adds
+the packs of ``chip_smoke.PACKED_CASES`` (H 16, KV 8, dh 128, bf16; the
+pack's plan built once before) once each and prints one JSON line per
+run: the launch's span (first block start to last block end), each
+block's mean and largest span, the mean of each phase, the time per
+visited tile after the first tile's softmax, the visited tiles, and for
+the packed mode how long before the block's end its producer issued its
+last copy.  ``VARIANT`` (``VARIANTS``; "base" by default) adds
 diagnostic edits to the copy, each variant built and run in a process of
 its own.
 """
@@ -35,23 +38,34 @@ __device__ __forceinline__ long long global_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-// thread 0 of the block keeps the global timer in slot k (slot 6: tiles
-// and SM)
+__device__ __forceinline__ int trace_block() {
+  return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+}
+// the block's lead thread keeps the global timer in slot k (slot 6:
+// tiles and SM): thread 0 of the causal kernel, the first consumer
+// thread (128) of the packed one, whose thread 0 is the producer
 __device__ __forceinline__ void stamp(int k, long long value = -1) {
-  if (threadIdx.x != 0) return;
-  const int id = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-                 blockIdx.x;
+  if (threadIdx.x != (blockDim.x > 128 ? 128 : 0)) return;
+  const int id = trace_block();
   if (id < MAX_BLOCKS) flash_trace[id][k] = value < 0 ? global_ns() : value;
+}
+// any thread: the packed producer's last issue (slot 7)
+__device__ __forceinline__ void stamp_any(int k) {
+  const int id = trace_block();
+  if (id < MAX_BLOCKS) flash_trace[id][k] = global_ns();
 }
 """.replace("MAX_BLOCKS", str(MAX_BLOCKS))
 
-#: the packed kernel's plan
-_PLAN = "  const int n_tiles = plan_tiles(*plan, pk, q0, sq, sk, offset);\n"
+#: the stamps: block start; the packed block set up (barriers, query
+#: rows); its q tile in registers; the first K tile landed; the first
+#: tile's softmax done (the causal kernel: only start, first tile landed
+#: and end); block end (slot 6: the tiles visited, and the SM; slot 7:
+#: the packed producer's last TMA issued)
+STAMPS = ("start", "set up", "q landed", "first K landed", "first tile",
+          "end")
 
-#: the stamps: block start; the plan's query summary (warp 0); its votes;
-#: the plan done; the first key tile landed; block end (slot 6: the tiles
-#: visited, and the SM)
-STAMPS = ("start", "query summary", "votes", "plan", "first tile", "end")
+#: the packed kernel's ring depth
+_STAGES = "constexpr int kPkStages = 2;"
 
 #: (lines of csrc/flash_attention.cu, what the copy puts in their place,
 #: and how many times they occur there: once where not given)
@@ -59,23 +73,24 @@ EDITS = (
     ("namespace repro {\n", "namespace repro {\n" + PRELUDE),
     ("  const int h = blockIdx.x;\n  const int b = blockIdx.y;\n",
      "  stamp(0);\n  const int h = blockIdx.x;\n  const int b = blockIdx.y;\n"),
-    ("  const int h = blockIdx.x;\n  const int qt = gridDim.z - 1 - blockIdx.z;\n",
-     "  stamp(0);\n  const int h = blockIdx.x;\n"
-     "  const int qt = gridDim.z - 1 - blockIdx.z;\n"),
-    ("  if (real == 0) return 0;\n",
-     "  if (tid == 0) stamp(1);\n  if (real == 0) return 0;\n"),
-    ("  __syncthreads();\n  if (tid < 32) {\n    int n = 0;\n",
-     "  __syncthreads();\n  stamp(2);\n  if (tid < 32) {\n    int n = 0;\n"),
-    (_PLAN, _PLAN + "  stamp(3);\n"),
     ("  if (n_tiles > 0) load_tile(ks, kb, k_ss, 0, kv_len);\n"
      "  cp_async_commit();\n  cp_async_wait_all();\n  __syncthreads();\n",
      "  if (n_tiles > 0) load_tile(ks, kb, k_ss, 0, kv_len);\n"
      "  cp_async_commit();\n  cp_async_wait_all();\n  __syncthreads();\n"
      "  stamp(4);\n"),
-    ("  load_keys(0);\n  cp_async_commit();\n"
-     "  cp_async_wait_all();\n  __syncthreads();\n",
-     "  load_keys(0);\n  cp_async_commit();\n"
-     "  cp_async_wait_all();\n  __syncthreads();\n  stamp(4);\n"),
+    ("  int* entry = reinterpret_cast<int*>(base_ptr + kPkEntry);\n",
+     "  int* entry = reinterpret_cast<int*>(base_ptr + kPkEntry);\n"
+     "  stamp(0);\n"),
+    ("  __syncthreads();\n\n  if (wg == 0) {",
+     "  __syncthreads();\n  stamp(1);\n\n  if (wg == 0) {"),
+    ("  cp_async_wait_all();\n  wg_sync(1 + w);\n",
+     "  cp_async_wait_all();\n  wg_sync(1 + w);\n  stamp(2);\n"),
+    ("    mbar_wait(full_k, 0);\n", "    mbar_wait(full_k, 0);\n    stamp(3);\n"),
+    ("    rows.softmax<true>(s, p0, alpha, 0, keep);\n  }\n",
+     "    rows.softmax<true>(s, p0, alpha, 0, keep);\n  }\n  stamp(4);\n"),
+    ("    }\n    return;\n  }\n  asm volatile(\"setmaxnreg.inc",
+     "    }\n    stamp_any(7);\n    return;\n  }\n"
+     "  asm volatile(\"setmaxnreg.inc"),
     ("          *reinterpret_cast<const uint4*>(qs_ptr + sw128(r, c));\n"
      "  }\n}\n",
      "          *reinterpret_cast<const uint4*>(qs_ptr + sw128(r, c));\n"
@@ -84,29 +99,11 @@ EDITS = (
      "  stamp(6, n_tiles | (static_cast<long long>(sm) << 32));\n}\n", 2),
 )
 
-#: diagnostic variants of the packed mode, each an extra set of edits to
-#: the copy.  Each is right only for case (a), eight segments of 1024 with
-#: no prefix (the other packs are timed but their outputs are not
-#: checked): "no_plan" drops the plan and visits case (a)'s tiles by
-#: arithmetic with the causal mask, as the causal kernel would on each
-#: segment; "plan_causal_loop" does the same after running the plan;
-#: "causal_mask" keeps the plan's list of tiles but masks as the causal
-#: kernel does.
-_ARITH = (
-    ("return (plan->list[j] & ~kMaskedTile) * kBK;",
-     "return ((q0 / 1024) * 16 + j) * kBK;"),
-    ("rows.softmax<true>(s, p0,", "rows.softmax<false>(s, p0,"),
-    ("rows.softmax<true>(s, p_out,", "rows.softmax<false>(s, p_out,"),
-)
+#: diagnostic variants of the packed mode, each an extra edit to the
+#: copy: "stages3" deepens its K and V ring from two stages to three
 VARIANTS = {
     "base": (),
-    "no_plan": ((_PLAN, "  const int n_tiles = (q0 % 1024) / kBK + 1;\n"),)
-    + _ARITH,
-    "plan_causal_loop": (
-        (_PLAN, "  const int planned = plan_tiles(*plan, pk, q0, sq, sk, "
-                "offset);\n  const int n_tiles = planned ? (q0 % 1024) / kBK "
-                "+ 1 : 0;\n"),) + _ARITH,
-    "causal_mask": _ARITH[1:],
+    "stages3": ((_STAGES, "constexpr int kPkStages = 3;"),),
 }
 
 READER = r"""
@@ -151,8 +148,9 @@ def summary(lib, blocks: int, label: str) -> dict:
     recs = [list(rows[8 * i:8 * i + 8])
             for i in range(min(blocks, MAX_BLOCKS))]
     recs = [r for r in recs if r[5]]        # blocks of padding only: none
-    for r in recs:                           # the causal kernel: no plan
-        for k in (1, 2, 3):
+    packed = any(r[1] for r in recs)
+    for r in recs:                           # the causal kernel: no set-up
+        for k in (1, 2, 3):                  # stamps
             r[k] = r[k] or r[0]
     t0 = min(r[0] for r in recs)
     t1 = max(r[5] for r in recs)
@@ -163,16 +161,20 @@ def summary(lib, blocks: int, label: str) -> dict:
         return sum(values) / len(values) / 1e3
     phases = {f"{STAMPS[k - 1]} -> {STAMPS[k]}": mean_us(
         r[k] - r[k - 1] for r in recs) for k in range(1, 5)}
-    return {"run": label, "blocks_traced": len(recs),
-            "launch_span_us": (t1 - t0) / 1e3,
-            "block_span_us_mean": mean_us(r[5] - r[0] for r in recs),
-            "block_span_us_max": max(r[5] - r[0] for r in recs) / 1e3,
-            "phase_us_mean": phases,
-            "us_per_visited_tile_after_the_first_mean": mean_us(
-                (r[5] - r[4]) / max(t, 1) for r, t in zip(recs, tiles)),
-            "visited_tiles_total": sum(tiles),
-            "visited_tiles_max": max(tiles),
-            "sms": len({r[6] >> 32 for r in recs})}
+    out = {"run": label, "blocks_traced": len(recs),
+           "launch_span_us": (t1 - t0) / 1e3,
+           "block_span_us_mean": mean_us(r[5] - r[0] for r in recs),
+           "block_span_us_max": max(r[5] - r[0] for r in recs) / 1e3,
+           "phase_us_mean": phases,
+           "us_per_visited_tile_after_the_first_mean": mean_us(
+               (r[5] - r[4]) / max(t, 1) for r, t in zip(recs, tiles)),
+           "visited_tiles_total": sum(tiles),
+           "visited_tiles_max": max(tiles),
+           "sms": len({r[6] >> 32 for r in recs})}
+    if packed:                               # the producer's lead on the end
+        out["producer_done_before_end_us_mean"] = mean_us(
+            r[5] - r[7] for r in recs if r[7])
+    return out
 
 
 def main() -> int:
@@ -221,8 +223,9 @@ def main() -> int:
     for label, fresh, prefix, width, pre_width in chip_smoke.PACKED_CASES:
         q, k, v, ids = chip_smoke.packed_inputs(dev, gen, fresh, prefix,
                                                 width, pre_width)
+        plan = flash_attention.flash_attention_packed_plan_cuda(*ids)
         traced(lambda: flash_attention.flash_attention_packed_cuda(
-            q, k, v, *ids), 16 * (width // 64), f"packed {label}")
+            q, k, v, *ids, plan=plan), 8 * (width // 64), f"packed {label}")
     return 0
 
 

@@ -11,7 +11,8 @@ built from its own ``src/repro_torch/csrc`` and checked with its own
 rtol 2e-2, CUDA-event and profiler times, SDPA beside it) at the check's
 shapes: B 2 at S 1024 and B 8 at S 128, 512 and 1024; and, where the
 checkout has the packed mode, ``chip_smoke.packed_case`` at its packs
-(case (a) beside the causal kernel at B 8 x 1024).  One JSON line per
+(case (a) beside the causal kernel at B 8 x 1024; where the checkout
+builds the pack's plan apart, its times too).  One JSON line per
 shape, prefixed with ``LABEL``, and first a ``sass`` line: the causal
 bf16 kernel's instruction count and a digest of its SASS with addresses
 and encodings dropped (two checkouts with one digest compiled it to the
@@ -84,6 +85,7 @@ def main() -> int:
         line = chip_smoke.packed_case(dev, gen, *case)
         print(label, json.dumps({"case": line["case"],
                                  **{k: line.get(k) for k in KEYS},
+                                 "plan": line.get("plan"),
                                  "against_causal": line.get(
                                      "against_causal")}), flush=True)
         chip_smoke.release_memory()
