@@ -95,6 +95,26 @@ Phases, each printing one JSON line:
    and nobatch policies), each served batch's last-token logits held
    against ``classify`` of each request alone, and the launch counters:
    24 masked-softmax launches per executed batch, no flash attention;
+6b. allocator: the paper's allocator (C2) at full width.  The classify
+   cell's forward (``forward_hidden(attn="naive")`` then ``logits_at``)
+   at batch 1 over the reference benchmark's 24 lengths
+   (``random.Random(0).randint(5, 500)``): at each length its usage
+   records, traced in fake mode from the port's op graph (each kernel
+   wrapper one node), planned by ``SequenceAwareAllocator`` (all records,
+   and apart those ``dedup_repeated_structure`` keeps), the simulated
+   ``CachingAllocator`` and ``GSOCAllocator``, ``validate_plan`` on every
+   plan; then the same forward eagerly: its activation peak
+   (``max_memory_allocated`` above its start, after one warm call), the
+   card's caching allocator's reserve above the phase's start (one
+   ``empty_cache`` first) and the forward's time (CUDA events).  One line
+   a length (record counts, the records' peak live bytes, the three
+   footprints, planning and tracing ms), then Fig. 11's peaks and final
+   footprints, Fig. 12's allocation and free traffic (the card's own
+   allocator beside the three), Fig. 13's planning time as a share of
+   the measured forward, and the paper's two orderings (reported, not
+   asserted).  It fails where a plan is invalid, the records' peak is
+   above the card's measured peak plus 512 bytes a record, or the norm
+   and softmax kernels did not launch once a call;
 7. serve_contiguous: the serve phase's workload through
    ``kv_layout="contiguous"`` (per-group prefill through the causal
    kernel) from a slot cache of 1024 positions, plus a 1200-token prompt
@@ -2225,6 +2245,226 @@ def classify_phase(dev, card: str, n_requests: int = 64):
 
 
 # ---------------------------------------------------------------------------
+# Phase 6b: the paper's allocator (C2) over the classify forward
+# ---------------------------------------------------------------------------
+
+#: the reference benchmark's stream (benchmarks/bench_allocator.py:28-29):
+#: 24 requests, lengths uniform in 5..500 from random.Random(0)
+ALLOC_REQUESTS = 24
+ALLOC_LENGTHS = (5, 500)
+#: that benchmark's smallest record (its records_for_fn's min_size)
+ALLOC_MIN_SIZE = 4096
+#: timed forwards a length, after the one whose peak is read
+ALLOC_TIMED = 3
+#: the card's caching allocator rounds every block up to 512 bytes
+CUDA_BLOCK_ROUND = 512
+
+
+def allocator_lengths() -> list:
+    import random
+    rng = random.Random(0)
+    return [rng.randint(*ALLOC_LENGTHS) for _ in range(ALLOC_REQUESTS)]
+
+
+class AllocatorStream:
+    """The paper's allocator and its two baselines over one stream of
+    usage records, one inference at a time (Figs. 11-13): Algorithm 1 on
+    every record and, apart, on the records ``dedup_repeated_structure``
+    keeps (the paper's repeated-structure trick), the simulated caching
+    allocator and per-inference GSOC.  ``validate_plan`` runs on every
+    plan and raises on a violation."""
+
+    def __init__(self, num_layers: int):
+        from repro_torch.core import (CachingAllocator, GSOCAllocator,
+                                      SequenceAwareAllocator)
+        self.num_layers = num_layers
+        self.turbo = SequenceAwareAllocator()
+        self.turbo_dedup = SequenceAwareAllocator()
+        self.caching = CachingAllocator()
+        self.gsoc = GSOCAllocator()
+
+    def step(self, records) -> dict:
+        from repro_torch.core import (dedup_repeated_structure,
+                                      peak_live_bytes, validate_plan)
+        deduped = dedup_repeated_structure(records, self.num_layers)
+        t0 = time.perf_counter()
+        plan = self.turbo.plan(records)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        validate_plan(records, plan)
+        t0 = time.perf_counter()
+        plan_d = self.turbo_dedup.plan(deduped)
+        plan_dedup_ms = (time.perf_counter() - t0) * 1e3
+        validate_plan(deduped, plan_d)
+        self.caching.run_inference(records)
+        self.gsoc.run_inference(records)
+        return {"records": len(records), "records_dedup": len(deduped),
+                "records_peak_bytes": peak_live_bytes(records),
+                "turbo_bytes": self.turbo.footprint,
+                "turbo_chunks": len(plan.chunks),
+                "caching_bytes": self.caching.footprint,
+                "gsoc_bytes": self.gsoc.footprint,
+                "plan_ms": plan_ms, "plan_dedup_ms": plan_dedup_ms}
+
+    def traffic(self) -> dict:
+        return {name: {"allocated_bytes": a.allocated_bytes,
+                       "freed_bytes": a.freed_bytes,
+                       "alloc_events": a.alloc_events,
+                       "free_events": a.free_events}
+                for name, a in (("turbo", self.turbo),
+                                ("caching", self.caching),
+                                ("gsoc", self.gsoc))}
+
+
+def cuda_traffic(dev) -> dict:
+    """The card's caching allocator's own device traffic so far
+    (cudaMalloc / cudaFree bytes and segments)."""
+    s = torch.cuda.memory_stats(dev)
+    return {"allocated_bytes": s.get("reserved_bytes.all.allocated", 0),
+            "freed_bytes": s.get("reserved_bytes.all.freed", 0),
+            "alloc_events": s.get("segment.all.allocated", 0),
+            "free_events": s.get("segment.all.freed", 0)}
+
+
+def allocator_phase(dev, card: str) -> dict:
+    """Trace the classify cell's forward (``forward_hidden(attn="naive")``
+    then ``logits_at``, as ``InferenceEngine._classify_body``) at full
+    width at each of the reference benchmark's 24 lengths, batch 1, into
+    usage records; plan them with Algorithm 1 and its baselines; run the
+    same forward eagerly and read the card's own activation peak, its
+    caching allocator's reserve and the forward's time.  Fails where a
+    plan is invalid, a forward's output is not finite, the records'
+    peak is above the card's measured one (a storage counted twice), or
+    the path launched other than one norm a norm call and one softmax a
+    layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import records_for_fn
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import forward_hidden, logits_at
+    cfg = get_config("internlm2-1.8b")
+    params = init_params(cfg, seed=SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def forward(tokens, last):
+        h, _ = forward_hidden(cfg, params, tokens, attn="naive")
+        return logits_at(cfg, params, h, last)
+
+    def inputs(n: int):
+        tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                               device=dev, dtype=torch.int32)
+        return tokens, torch.tensor([n - 1], dtype=torch.int32, device=dev)
+
+    lengths = allocator_lengths()
+    # one warm call: cuBLAS's workspace and the kernels' first loads stay
+    # outside every peak read below
+    forward(*inputs(lengths[0]))
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved(dev)
+    traffic0 = cuda_traffic(dev)
+    stream = AllocatorStream(cfg.num_layers)
+    rows, forwards = [], 0
+    cuda_lib.reset_launches()
+    for n in lengths:
+        tokens, last = inputs(n)
+        t0 = time.perf_counter()
+        records = records_for_fn(forward, tokens, last,
+                                 min_size=ALLOC_MIN_SIZE)
+        trace_ms = (time.perf_counter() - t0) * 1e3
+        row = {"len": n, "trace_ms": trace_ms}
+        row.update(stream.step(records))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev)
+        out = forward(tokens, last)
+        torch.cuda.synchronize()
+        row["eager_peak_bytes"] = torch.cuda.max_memory_allocated(dev) - start
+        if tuple(out.shape) != (1, cfg.vocab_size) or \
+                not torch.isfinite(out).all():
+            raise AssertionError(f"allocator: the forward at length {n} "
+                                 f"gave {tuple(out.shape)}, or a value "
+                                 "that is not finite")
+        del out
+        times = []
+        for _ in range(ALLOC_TIMED):
+            begin = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            begin.record()
+            forward(tokens, last)
+            end.record()
+            end.synchronize()
+            times.append(begin.elapsed_time(end))
+        forwards += 1 + ALLOC_TIMED
+        row["forward_ms"] = float(np.median(times))
+        row["cuda_reserved_bytes"] = \
+            torch.cuda.memory_reserved(dev) - reserved0
+        row["records_over_eager_peak"] = \
+            row["records_peak_bytes"] / row["eager_peak_bytes"]
+        row["plan_share_of_forward"] = row["plan_ms"] / row["forward_ms"]
+        row["plan_dedup_share_of_forward"] = \
+            row["plan_dedup_ms"] / row["forward_ms"]
+        slack = CUDA_BLOCK_ROUND * row["records"]
+        if row["records_peak_bytes"] > row["eager_peak_bytes"] + slack:
+            raise AssertionError(
+                f"allocator: at length {n} the records' peak, "
+                f"{row['records_peak_bytes']} bytes, is above the card's "
+                f"measured activation peak {row['eager_peak_bytes']} plus "
+                f"{slack} of rounding: a storage counted twice")
+        rows.append(row)
+        emit(dict({"phase": "allocator_len", "card": card}, **row))
+    launches = dict(cuda_lib.LAUNCHES)
+    want = {"norm": (2 * cfg.num_layers + 1) * forwards,
+            "softmax": cfg.num_layers * forwards}
+    if launches != want:
+        raise AssertionError(f"allocator: launches {launches} over "
+                             f"{forwards} forwards; expected {want} (none "
+                             "while tracing)")
+    traffic = stream.traffic()
+    now = cuda_traffic(dev)
+    traffic["cuda_caching"] = {k: now[k] - traffic0[k] for k in now}
+    last_row = rows[-1]
+
+    def mean(key):
+        return float(np.mean([r[key] for r in rows]))
+
+    summary = {
+        "phase": "allocator", "card": card,
+        "model": "internlm2-1.8b full width, bf16, classify forward "
+                 "(attn naive), batch 1",
+        "lengths": lengths, "min_size": ALLOC_MIN_SIZE,
+        "fig11_peak_bytes": {
+            k: max(r[k] for r in rows) for k in (
+                "records_peak_bytes", "eager_peak_bytes", "turbo_bytes",
+                "caching_bytes", "gsoc_bytes", "cuda_reserved_bytes")},
+        "fig11_final_bytes": {
+            k: last_row[k] for k in ("turbo_bytes", "caching_bytes",
+                                     "gsoc_bytes", "cuda_reserved_bytes")},
+        "fig12_traffic": traffic,
+        "fig13_plan_share_of_forward_mean": {
+            "full": mean("plan_share_of_forward"),
+            "dedup": mean("plan_dedup_share_of_forward")},
+        "plan_ms_mean": {"full": mean("plan_ms"),
+                         "dedup": mean("plan_dedup_ms")},
+        "trace_ms_mean": mean("trace_ms"),
+        "forward_ms_mean": mean("forward_ms"),
+        "records_over_eager_peak": {
+            "min": min(r["records_over_eager_peak"] for r in rows),
+            "max": max(r["records_over_eager_peak"] for r in rows)},
+        "paper_orderings": {
+            "turbo_final_footprint_at_most_caching":
+                last_row["turbo_bytes"] <= last_row["caching_bytes"],
+            "turbo_traffic_at_most_gsoc":
+                traffic["turbo"]["allocated_bytes"] <=
+                traffic["gsoc"]["allocated_bytes"] and
+                traffic["turbo"]["freed_bytes"] <=
+                traffic["gsoc"]["freed_bytes"]},
+        "launches": launches, "forwards": forwards}
+    emit(summary)
+    return summary
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: where a full-width decode tick spends its time
 # ---------------------------------------------------------------------------
 
@@ -2837,6 +3077,10 @@ def main() -> int:
     serve_prefix_chunked(dev, card)
     release_memory()
     launches["softmax"] = classify_phase(dev, card)
+    release_memory()
+    # the paper's allocator over the classify forward (its launches are
+    # checked there; the kernels line keeps classify's)
+    allocator_phase(dev, card)
     release_memory()
     # the contiguous layout admits per group: the causal kernel's path
     _, launches_c = serve(dev, card, layout="contiguous")

@@ -1357,3 +1357,63 @@ def test_cuda_cells_capture_from_the_pump_thread(cuda):
         eng.prefill_cells.captures + ce.tick_cells.captures
     for prompt, res in zip(prompts, results):
         assert eng.generate([prompt], max_new_tokens=12)[0] == res
+
+
+def _as_meta(t):
+    return tuple(t.shape), t.dtype, t.stride()
+
+
+@pytest.mark.parametrize("case", ["softmax", "rmsnorm_residual",
+                                  "layernorm", "flash_bf16"])
+def test_cuda_traced_wrappers_allocate_as_the_kernels(cuda, case):
+    """Each kernel wrapper traces to one custom-operator node whose fake
+    outputs have the kernel's own shapes, dtypes and strides."""
+    from repro_torch.core.usage_records import trace
+    g = _gen(cuda)
+    x = torch.randn((6, 256), generator=g, device=cuda)
+    gamma = torch.ones(256, device=cuda)
+    q = torch.randn((2, 4, 8, 128), generator=g, device=cuda).bfloat16()
+    kv = torch.randn((2, 2, 8, 128), generator=g, device=cuda).bfloat16()
+    lens = torch.full((6,), 100, dtype=torch.int32, device=cuda)
+    name, args, kwargs = {
+        "softmax": ("fused_softmax", (x, lens), {"scale": 0.5}),
+        "rmsnorm_residual": ("fused_rmsnorm", (x, gamma, None, x * 2),
+                             {"return_residual": True}),
+        "layernorm": ("fused_layernorm", (x, gamma, gamma), {}),
+        "flash_bf16": ("flash_attention", (q, kv, kv), {"causal": True}),
+    }[case]
+    want = getattr(ops, name)(*args, **kwargs)
+    gm = trace(lambda *a: getattr(ops, name)(*a, **kwargs), *args)
+    nodes = [n for n in gm.graph.nodes if n.op == "call_function"
+             and "repro_torch" in str(n.target)]
+    assert len(nodes) == 1
+    got = nodes[0].meta["val"]
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    assert [_as_meta(t) for t in got] == [_as_meta(t) for t in want]
+
+
+def test_cuda_classify_records_equal_the_cpu_trace(cuda):
+    """The smoke classify forward's usage records, traced with the weights
+    on the card, equal those traced on the CPU: the CPU test sees the
+    card's graph.  Tracing launches nothing."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import records_for_fn
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import forward_hidden, logits_at
+    cfg = get_smoke_config("internlm2-1.8b")
+    def classify_fn(params):
+        def fwd(tokens, last):
+            h, _ = forward_hidden(cfg, params, tokens, attn="naive")
+            return logits_at(cfg, params, h, last)
+        return fwd
+
+    got = {}
+    for dev in ("cpu", cuda):
+        fwd = classify_fn(init_params(cfg, seed=0, device=dev))
+        tokens = torch.ones((1, 45), dtype=torch.int32, device=dev)
+        last = torch.tensor([44], dtype=torch.int32, device=dev)
+        cuda_lib.reset_launches()
+        got[str(dev)] = records_for_fn(fwd, tokens, last, min_size=1)
+        assert not cuda_lib.LAUNCHES
+    assert got["cpu"] == got[str(cuda)] and got["cpu"]
