@@ -121,7 +121,33 @@ Phases, each printing one JSON line:
    arriving mid-decode that grows it to 2048 and re-captures the tick's
    cell, every stream equal to the request alone, 24 contiguous-decode
    launches per decode tick and no paged-decode launch, and the per-group
-   prefill cells the grow makes new captured while serving.
+   prefill cells the grow makes new captured while serving;
+8. serve_moe: the MoE family, ``TurboClient.from_arch("olmoe-1b-7b",
+   smoke=False)`` (16 layers, d_model 2048, 64 experts top 8, qk-norm,
+   bf16 weights from a seed, f32 KV pool, paged, packed admission,
+   ``warmup_aot``) after the earlier phases' clients are freed: the
+   serve phase's 14 requests served once timed (tok/s, TTFT p50 / p99,
+   peak memory, ``warmup_aot`` seconds, the launches, two qk-norm
+   launches a layer beside the two norms) and once more with every tick
+   and prefill cell replay held to its eager body bit for bit and every
+   prefill pass's routing read from its dispatch in an eager re-run
+   (the capacity and largest expert load of its first layer, the
+   assignments it dropped, which prompts lost one; a decode tick that
+   drops fails); each stream against the request alone with its
+   prefill dropping exactly what its served pass dropped, where a
+   difference must fall at a near tie of the drawn token (against twice
+   the logit drift between a packed pass and each prompt's own prefill
+   at every position with no capacity binding, held to
+   ``MOE_PACKED_LOGIT_ULPS``; the drift with routing pinned to the own
+   prefill's choices, rounding alone, held to ``MOE_ROUNDING_ULPS``,
+   and the choices the change of shape flips printed beside it); the
+   kernels at the MoE path's shapes (qk-norm rows of 128 without a
+   residual, group 1, V 50304) are checked with the others above; then
+   profile_decode_moe (greedy and sampled) and
+   profile_prefill_moe_packed (the eight 1024-bucket prompts as one
+   8192 pack), their device busy time split into matmuls, the port's
+   kernels, the index, sort and scan kernels of the MoE's dispatch and
+   combine, and the elementwise ones.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -133,6 +159,7 @@ plain versions is a full f32 product.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -311,18 +338,36 @@ def cold_warm(kernel, nbytes: int, flops: float, peak_flops: float,
 NORM_TOL = dict(atol=3e-2, rtol=2e-2)   # bf16 output: ~2 ulp at |y| <= 4
 #: the norm checks' rows: the decode tick's 8 and a B 8 x 1024 prefill's
 NORM_ROWS = (8, 8192)
+#: the MoE path's qk-norm (RMS over rows of dh 128, no residual): a decode
+#: tick's 8 tokens x 16 heads, and an 8192-token pack's
+QK_NORM_ROWS = (8 * 16, 8192 * 16)
 
 
-def norm_case(dev, gen, rms: bool, r: int, c: int, tol: dict) -> dict:
+def norm_case(dev, gen, rms: bool, r: int, c: int, tol: dict,
+              residual: bool = True) -> dict:
     """One shape of the fused norm: kernel against its plain version (the
     updated residual bit for bit), and the times of kernel, plain version
-    and library call; the kernel's device time cold and warm."""
+    and library call; the kernel's device time cold and warm.  Without
+    ``residual`` (RMS only, as qk-norm calls it) the kernel normalises x
+    alone and returns y only."""
     from repro_torch.kernels import layernorm, ref
     import torch.nn.functional as F
     x = torch.randn((r, c), generator=gen, device=dev).bfloat16()
     res = torch.randn((r, c), generator=gen, device=dev).bfloat16()
     g = (1 + 0.1 * torch.randn((c,), generator=gen, device=dev)).bfloat16()
-    if rms:
+    if not residual:
+        if not rms:
+            raise ValueError("norm_case: no-residual mode is RMS only")
+
+        def kernel():
+            return layernorm.norm_cuda(x, g, rms=True)
+
+        def plain():
+            return ref.rmsnorm_ref(x, g)
+
+        def library():
+            return F.rms_norm(x, (c,), g, 1e-6)
+    elif rms:
         def kernel():
             return layernorm.norm_cuda(x, g, residual=res, rms=True,
                                        return_residual=True)
@@ -348,33 +393,42 @@ def norm_case(dev, gen, rms: bool, r: int, c: int, tol: dict) -> dict:
 
         def library():
             return F.layer_norm(s_sum, (c,), g, beta, 1e-6)
-    y, s = kernel()
-    y_ref, s_ref = plain()
+    y, y_ref = kernel(), plain()
+    if residual:
+        (y, s), (y_ref, s_ref) = y, y_ref
     torch.cuda.synchronize()
     err = check_close("norm y", y, y_ref, **tol)
-    if not torch.equal(s, s_ref):
+    if residual and not torch.equal(s, s_ref):
         raise AssertionError(f"norm residual: not bit-equal to the plain "
                              f"version (max abs {max_err(s, s_ref)})")
     iters = 200 if r <= 64 else 50
     k_ms, p_ms, l_ms = (time_ms(kernel, iters), time_ms(plain, iters),
                         time_ms(library, iters))
-    nbytes = (4 * r * c + (1 if rms else 3) * c) * 2
+    if residual:
+        nbytes = (4 * r * c + (1 if rms else 3) * c) * 2
+        counts = ("x and residual read, y and residual written, gamma (and "
+                  "beta, bias) read once")
+        library_is = ("F.rms_norm" if rms else "F.layer_norm") + \
+            " of the pre-summed row (half the bytes: no residual read, " \
+            "no residual written)"
+    else:
+        nbytes = (2 * r * c + c) * 2
+        counts = "x read, y written, gamma read once"
+        library_is = "F.rms_norm of the same rows (the same bytes)"
     return {"phase": "kernel_check", "kernel": "fused_norm",
             "mode": "rms" if rms else "layernorm",
+            "residual": residual,
             "shape": [r, c], "dtype": "bfloat16",
             "tolerance": {**tol, "why": "bf16 output; kernel and plain "
                           "version sum the row in other orders; the "
-                          "updated residual bit for bit"},
+                          "updated residual (where there is one) bit for "
+                          "bit"},
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": l_ms,
-            "library": ("F.rms_norm" if rms else "F.layer_norm") +
-            " of the pre-summed row (half the bytes: no residual read, "
-            "no residual written)",
-            **cold_warm(kernel, nbytes, 6 * r * c, H100_F32_FLOPS, iters,
-                        writeback=r > 64),
+            "library_ms": l_ms, "library": library_is,
+            **cold_warm(kernel, nbytes, (6 if residual else 5) * r * c,
+                        H100_F32_FLOPS, iters, writeback=r > 64),
             "library_device_ms": device_ms(library, iters)["all"],
-            "bound_counts": "x and residual read, y and residual written, "
-                            "gamma (and beta, bias) read once"}
+            "bound_counts": counts}
 
 
 def floor_device_ms(blocks: int, threads: int, iters: int = 200):
@@ -423,6 +477,9 @@ def check_norm(dev, gen, results):
     for rms in (True, False):
         for r in NORM_ROWS:
             lines.append(norm_case(dev, gen, rms, r, 2048, NORM_TOL))
+    for r in QK_NORM_ROWS:
+        lines.append(norm_case(dev, gen, True, r, 128, NORM_TOL,
+                               residual=False))
     # the floor under the decode tick's launch: the same grid, no work
     from repro_torch.kernels import layernorm
     floor = floor_device_ms(
@@ -436,7 +493,7 @@ def check_norm(dev, gen, results):
         emit(line)
     emit({"phase": "norm_build", **norm_build_facts()})
     # the kernels line reports the decode-tick shape of the main path (RMS
-    # mode, R = 8) and the worst error over both modes and both shapes
+    # mode, R = 8) and the worst error over every mode and shape checked
     entry = dict(lines[0])
     entry["max_abs_err"] = max(ln["max_abs_err"] for ln in lines)
     results["fused_norm"] = dict(
@@ -633,6 +690,13 @@ PACKED_CASES = (
 #: heads of a GQA pair): above this it has fallen behind the causal
 #: kernel, so tiles are not being skipped or the body lost its schedule
 PACKED_OVER_CAUSAL_LIMIT = 1.0
+#: the MoE path's packs (OLMoE: H 16 over KV 16, group 1): (label, fresh
+#: lengths, prefix lengths, pack width, prefix width, KV heads)
+MOE_PACKED_CASES = (
+    ("d: 8 x 1024, KV 16", (1024,) * 8, (0,) * 8, 8192, 0, 16),
+    ("e: mixed 1..1024, KV 16", (1, 64, 200, 333, 512, 700, 960, 1024),
+     (0,) * 8, 4096, 0, 16),
+)
 
 
 def packed_inputs(dev, gen, fresh, prefix, width, pre_width, h=16, kv=8):
@@ -664,15 +728,17 @@ def packed_mask(ids) -> torch.Tensor:
             (k_pos[None, :] <= q_pos[:, None])) | own
 
 
-def packed_case(dev, gen, label, fresh, prefix, width, pre_width) -> dict:
-    """One pack: the packed mode against its plain version on real rows
-    (padding rows finite), and the times of kernel, plain version and
-    SDPA with the dense boolean mask; the bound counts the visible pairs
-    of the real rows."""
+def packed_case(dev, gen, label, fresh, prefix, width, pre_width,
+                kv: int = 8) -> dict:
+    """One pack at H 16 over ``kv`` KV heads: the packed mode against its
+    plain version on real rows (padding rows finite), and the times of
+    kernel, plain version and SDPA with the dense boolean mask; the bound
+    counts the visible pairs of the real rows."""
     from repro_torch.kernels import flash_attention, ref
     import torch.nn.functional as F
-    h, kv, dh = 16, 8, 128
-    q, k, v, ids = packed_inputs(dev, gen, fresh, prefix, width, pre_width)
+    h, dh = 16, 128
+    q, k, v, ids = packed_inputs(dev, gen, fresh, prefix, width, pre_width,
+                                 kv=kv)
     mask = packed_mask(ids)
     plan = flash_attention.flash_attention_packed_plan_cuda(*ids)
 
@@ -817,10 +883,11 @@ def packed_build_facts() -> dict:
 
 
 def check_flash_attention_packed(dev, gen, results):
-    """The packed mode on cases (a) to (c); the kernels line reports case
-    (a) with the worst error over the three."""
+    """The packed mode on cases (a) to (c), and (d), (e) at the MoE path's
+    group 1; the kernels line reports case (a) with the worst error over
+    the five."""
     lines = []
-    for case in PACKED_CASES:
+    for case in PACKED_CASES + MOE_PACKED_CASES:
         lines.append(packed_case(dev, gen, *case))
         emit(lines[-1])
         release_memory()
@@ -942,6 +1009,9 @@ DECODE_TOL_WHY = ("the cache is f32 and the kernel keeps f32 throughout; "
 #: kernels line's), and the full load
 DECODE_CASES = (("lengths 1..1024", "spread"),
                 ("full load, every row 1024", "full"))
+#: the MoE path's paged decode (OLMoE: H 16 over KV 16, group 1)
+MOE_DECODE_CASES = (("lengths 1..1024, KV 16", "spread", 16),
+                    ("full load, every row 1024, KV 16", "full", 16))
 
 
 def decode_lengths(dev, b: int, s: int, which) -> torch.Tensor:
@@ -969,12 +1039,12 @@ def decode_timing(kernel, nbytes: int, flops: float, iters: int) -> dict:
     return line
 
 
-def paged_decode_case(dev, gen, label: str, which) -> dict:
-    """The paged decode kernel at B 8, H 16, KV 8, BS 16, MB 64 over a
-    pool of randomly placed blocks: against its plain version, then
-    timed (``decode_timing``)."""
+def paged_decode_case(dev, gen, label: str, which, kv: int = 8) -> dict:
+    """The paged decode kernel at B 8, H 16, ``kv`` KV heads, BS 16, MB 64
+    over a pool of randomly placed blocks: against its plain version,
+    then timed (``decode_timing``)."""
     from repro_torch.kernels import flash_decode, ref
-    b, h, kv, dh, bs, mb = 8, 16, 8, 128, 16, 64
+    b, h, dh, bs, mb = 8, 16, 128, 16, 64
     nb = b * mb + 1
     lengths = decode_lengths(dev, b, mb * bs, which)
     perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
@@ -1015,8 +1085,8 @@ def paged_decode_case(dev, gen, label: str, which) -> dict:
 
 
 def check_paged_decode(dev, gen, results):
-    lines = [paged_decode_case(dev, gen, label, which)
-             for label, which in DECODE_CASES]
+    lines = [paged_decode_case(dev, gen, *case)
+             for case in DECODE_CASES + MOE_DECODE_CASES]
     for line in lines:
         emit(line)
     results["flash_decode_paged"] = dict(
@@ -1236,14 +1306,14 @@ def check_contiguous_decode(dev, gen, results):
         replaces="src/repro/kernels/flash_decode.py:81")
 
 
-def sample_inputs(dev, gen, dtype: torch.dtype):
-    """The sampling check's eight rows at B 8, V 92544, C 64: two greedy
+def sample_inputs(dev, gen, dtype: torch.dtype, v: int = 92544):
+    """The sampling check's eight rows at B 8, V ``v``, C 64: two greedy
     rows; row 1 with ten ties at the top; row 2 with 40 ties at the top
     and the C-th rank inside a run of 60 more ties (spread over the row,
     so over every block of its cluster); row 5 with 20 finite values and
     the rest -inf, fewer than C."""
     from repro_torch.runtime.sampling import gumbel_noise
-    b, v, c = 8, 92544, 64
+    b, c = 8, 64
     logits = 3 * torch.randn((b, v), generator=gen, device=dev)
     logits[1, 100:110] = logits[1].max() + 1     # a tie at the top
     spread = torch.randperm(v, generator=gen, device=dev)
@@ -1264,13 +1334,13 @@ def sample_inputs(dev, gen, dtype: torch.dtype):
     return logits, temp, top_k, top_p, gumbel
 
 
-def sample_case(dev, gen, dtype: torch.dtype) -> dict:
-    """The fused sampler at B 8, V 92544, C 64 with ``dtype`` logits:
+def sample_case(dev, gen, dtype: torch.dtype, v: int = 92544) -> dict:
+    """The fused sampler at B 8, V ``v``, C 64 with ``dtype`` logits:
     every token against the plain version, then its device time cold and
     warm (the LM head has just written the logits, so the tick finds them
     in L2)."""
     from repro_torch.kernels import ref, sampling
-    args = sample_inputs(dev, gen, dtype)
+    args = sample_inputs(dev, gen, dtype, v)
     logits, _, _, _, gumbel = args
     b, v = logits.shape
     c = gumbel.shape[-1]
@@ -1339,9 +1409,11 @@ def sample_build_facts() -> dict:
 
 def check_sample(dev, gen, results):
     """f32 logits (the earlier slices' check) and bf16, as the LM head
-    writes them on the serve path; the kernels line reports bf16."""
+    writes them on the serve path, and bf16 at the MoE path's vocab
+    (OLMoE's 50304); the kernels line reports bf16 at V 92544."""
     lines = [sample_case(dev, gen, dtype)
              for dtype in (torch.float32, torch.bfloat16)]
+    lines.append(sample_case(dev, gen, torch.bfloat16, v=50304))
     for line in lines:
         emit(line)
     emit({"phase": "sample_build", **sample_build_facts()})
@@ -1518,6 +1590,31 @@ def cell_stats(engine, since: dict = None) -> dict:
     return out
 
 
+#: the serve phases' prompt lengths, in arrival order: the first 8
+#: arrive together, the other 6 mid-decode
+SERVE_PROMPT_LENS = (64, 960, 200, 512, 90, 700, 130, 333, 1000 - 64, 77,
+                     480, 256, 150, 600)
+
+
+def serve_specs(vocab: int, rng) -> list:
+    """(prompt, params) of the serve phases' 14 requests: prompts of
+    ``SERVE_PROMPT_LENS`` tokens, 32 to 64 new tokens each (within the
+    1024 bucket), every third from the second sampled (5 of 14)."""
+    from repro_torch.api import GenerationParams
+    specs = []
+    for i, n in enumerate(SERVE_PROMPT_LENS):
+        new = int(rng.integers(32, 65))
+        new = min(new, 1024 - n)
+        sampled = i % 3 == 1
+        params = GenerationParams(
+            max_new_tokens=new, temperature=0.8 if sampled else 0.0,
+            top_k=50 if sampled else 0, top_p=0.95 if sampled else 1.0,
+            seed=1000 + i)
+        prompt = [int(t) for t in rng.integers(1, vocab, n)]
+        specs.append((prompt, params))
+    return specs
+
+
 def serve(dev, card: str, layout: str = "paged"):
     """The generative path over the paged pool (phase 4) or the contiguous
     slot cache (phase 7, ``layout="contiguous"``)."""
@@ -1562,19 +1659,7 @@ def serve(dev, card: str, layout: str = "paged"):
     warm_capture_s = cells.capture_seconds
     pool_after_warmup = cells.pool_bytes()
     vocab = engine.cfg.vocab_size
-    plens = [64, 960, 200, 512, 90, 700, 130, 333, 1000 - 64, 77, 480, 256,
-             150, 600]
-    specs = []
-    for i, n in enumerate(plens):
-        new = int(rng.integers(32, 65))
-        new = min(new, 1024 - n)
-        sampled = i % 3 == 1
-        params = GenerationParams(
-            max_new_tokens=new, temperature=0.8 if sampled else 0.0,
-            top_k=50 if sampled else 0, top_p=0.95 if sampled else 1.0,
-            seed=1000 + i)
-        prompt = [int(t) for t in rng.integers(1, vocab, n)]
-        specs.append((prompt, params))
+    specs = serve_specs(vocab, rng)
     if layout == "contiguous":
         # arrives mid-decode and needs the 2048 bucket: the slot cache
         # grows past its 1024 positions
@@ -2478,16 +2563,36 @@ def kernel_family(name: str) -> str:
     return "other PyTorch kernels"
 
 
-def split_profile(prof):
-    """Device busy microseconds by kernel family, the device kernels and
-    the host ops (each as (us, count, name)) of a profiler run: device
-    work from the trace's own events, host ops from the averaged view's
-    self times."""
+#: the MoE phase's family of the PyTorch kernels that index, sort and
+#: scan, by name: the router's sorts, the rank's scan, the dispatch's
+#: gathers and the combine's (and, named alike, the KV write and the
+#: embedding lookup)
+MOE_DISPATCH_FAMILY = ("index, sort and scan (the MoE dispatch and "
+                       "combine; also the KV write and embedding lookup)")
+
+
+def moe_kernel_family(name: str) -> str:
+    """``kernel_family``, with the MoE's dispatch and combine kernels
+    (``MOE_DISPATCH_FAMILY``) apart from the elementwise ones."""
+    family = kernel_family(name)
+    if family != "other PyTorch kernels":
+        return family
+    if any(k in name.lower() for k in ("sort", "scan", "index", "gather",
+                                       "scatter", "cummax")):
+        return MOE_DISPATCH_FAMILY
+    return "elementwise and reductions (PyTorch)"
+
+
+def split_profile(prof, family=kernel_family):
+    """Device busy microseconds by kernel ``family``, the device kernels
+    and the host ops (each as (us, count, name)) of a profiler run:
+    device work from the trace's own events, host ops from the averaged
+    view's self times."""
     busy_us, by_name, host = {}, {}, []
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             us = evt.time_range.elapsed_us()
-            fam = kernel_family(evt.name)
+            fam = family(evt.name)
             busy_us[fam] = busy_us.get(fam, 0.0) + us
             total, count = by_name.get(evt.name, (0.0, 0))
             by_name[evt.name] = (total + us, count + 1)
@@ -2518,6 +2623,9 @@ def cross_check(prof, kernels, launches: dict) -> dict:
                 if is_kernel(evt)]
     by_kernel = {}
     for name, parts in PORT_KERNELS.items():
+        # the port's kernels live in namespace repro (PyTorch's own
+        # softmax_warp_forward, the MoE router's, is not the port's)
+        parts = ("repro",) + parts
         seen = sum(count for _, count, key in kernels
                    if all(p in key for p in parts))
         if seen or launches.get(name, 0):
@@ -2585,11 +2693,11 @@ def gumbel_noise_cost(rows: int, cands: int, calls: int) -> dict:
             "host_self_ms_per_call": sum(u for u, _, _ in host) / 1e3 / calls}
 
 
-def traced_window(run):
+def traced_window(run, family=kernel_family):
     """``run()`` under torch.profiler with the launch counters set to 0
     just before it.  Returns the profiler, the window's wall milliseconds,
-    its launches, the split profile, the cross-check and ``run``'s
-    result."""
+    its launches, the split profile (by kernel ``family``), the
+    cross-check and ``run``'s result."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import cuda_lib
@@ -2602,7 +2710,7 @@ def traced_window(run):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(cuda_lib.LAUNCHES)
-    split = split_profile(prof)
+    split = split_profile(prof, family)
     check = cross_check(prof, split[1], launches)
     return prof, wall_ms, launches, split, check, result
 
@@ -2621,7 +2729,7 @@ def host_launch_calls(prof) -> dict:
     return calls
 
 
-def decode_window(run, ticks: int) -> dict:
+def decode_window(run, ticks: int, family=kernel_family) -> dict:
     """``run`` (``ticks`` decode ticks) once on the host clock alone and
     once under the profiler: wall time per tick both ways, host time per
     tick, the host's launch calls per tick, the device kernels per tick,
@@ -2633,7 +2741,7 @@ def decode_window(run, ticks: int) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     prof, wall_ms, launches, (busy_us, kernels, host), check, _ = \
-        traced_window(run)
+        traced_window(run, family)
     busy_ms = sum(busy_us.values()) / 1e3
     complete = check["trace_complete"] and busy_ms > 0
     calls = host_launch_calls(prof)
@@ -2682,7 +2790,8 @@ GRAPHED_LAUNCH_CALLS_PER_TICK = 10
 
 
 def profile_decode(client, card: str, ticks: int = 10,
-                   sampled: bool = False) -> None:
+                   sampled: bool = False, phase: str = "profile_decode",
+                   family=kernel_family) -> None:
     """Eight rows decoding at full width, greedy or (``sampled``) with
     temperature, top-k and top-p, in two windows of the same host: the
     engine's graphed tick (one replay of the captured cell a tick, through
@@ -2694,8 +2803,6 @@ def profile_decode(client, card: str, ticks: int = 10,
     gives the sample kernel's device time and what the Gumbel noise
     launches per tick."""
     from repro_torch.api import GenerationParams
-    from repro_torch.runtime.engine import GenState
-    from repro_torch.runtime.graphs import CONTROL
     rng = np.random.default_rng(SEED + (3 if sampled else 1))
     vocab = client.backend.engine.cfg.vocab_size
     ce = client.backend
@@ -2715,21 +2822,20 @@ def profile_decode(client, card: str, ticks: int = 10,
     while client.pipeline.queue:                 # admit all eight
         client.pump(max_ticks=1)
     client.pump(max_ticks=2)                     # settle into decode
-    name = "profile_decode_sampled" if sampled else "profile_decode"
+    name = phase + ("_sampled" if sampled else "")
     compiles = engine.compile_count
-    graphed = decode_window(lambda: client.pump(max_ticks=ticks), ticks)
+    graphed = decode_window(lambda: client.pump(max_ticks=ticks), ticks,
+                            family)
     if engine.compile_count != compiles:
         raise AssertionError("profile_decode: the graphed window captured "
                              "a cell")
     if any(h.session.is_finished for h in handles):
         raise AssertionError(f"{name}: a row finished inside the window")
-    st = ce.state
-    copy = GenState(cache={k: v.clone() for k, v in st.cache.items()},
-                    **{n: getattr(st, n).clone() for n in CONTROL},
-                    sampling=st.sampling)
+    copy = clone_state(ce.state)
     for h in handles:
         h.cancel()
-    eager = decode_window(lambda: eager_ticks(engine, copy, ticks), ticks)
+    eager = decode_window(lambda: eager_ticks(engine, copy, ticks), ticks,
+                          family)
     del copy
     for label, w in (("graphed", graphed), ("eager", eager)):
         if not sampled and w["launches"].get("sample", 0):
@@ -2788,7 +2894,7 @@ PREFILL_REPS = 3
 GRAPHED_LAUNCH_CALLS_PER_PREFILL = 64
 
 
-def prefill_window(run, reps: int) -> dict:
+def prefill_window(run, reps: int, family=kernel_family) -> dict:
     """``run`` (one prefill) ``reps`` times on the host clock alone, then
     under the profiler: wall time per prefill both ways, the host's
     launch calls per prefill, the device kernels per prefill, the
@@ -2801,7 +2907,7 @@ def prefill_window(run, reps: int) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     prof, wall_ms, launches, (busy_us, kernels, host), check, out = \
-        traced_window(lambda: [run() for _ in range(reps)][-1])
+        traced_window(lambda: [run() for _ in range(reps)][-1], family)
     busy_ms = sum(busy_us.values()) / 1e3
     complete = check["trace_complete"] and busy_ms > 0
     calls = host_launch_calls(prof)
@@ -2845,7 +2951,8 @@ def cell_outputs(engine, run) -> dict:
     return seen[-1]
 
 
-def profile_prefill(client, card: str, mode: str = "full") -> None:
+def profile_prefill(client, card: str, mode: str = "full",
+                    phase: str = None, family=kernel_family) -> None:
     """One prefill of eight prompts at full width, in two windows of the
     same host: through the engine's cell (the graph replay the
     continuous engine runs, captured here at its first call where
@@ -2931,7 +3038,7 @@ def profile_prefill(client, card: str, mode: str = "full") -> None:
     windows = {}
     for label in ("graphed", "eager"):
         w = prefill_window(lambda: prefill(label == "graphed"),
-                           PREFILL_REPS)
+                           PREFILL_REPS, family)
         suffix = cuda_lib.LAUNCH_SHAPES[("flash_attention", "suffix")]
         want = cfg.num_layers * PREFILL_REPS
         plans = w["launches"].get("flash_attention_packed_plan", 0)
@@ -2972,9 +3079,9 @@ def profile_prefill(client, card: str, mode: str = "full") -> None:
     pairs = sum(n * (n + 1) / 2 for n in PROFILE_PREFILL_LENS) if packed \
         else b * (s * (s + 1) / 2 + (s * cached if mode == "suffix" else 0))
     flops = cfg.num_layers * 4.0 * h * dh * pairs
-    emit({"phase": {"full": "profile_prefill",
-                    "packed": "profile_prefill_packed",
-                    "suffix": "profile_prefill_suffix"}[mode],
+    emit({"phase": phase or {"full": "profile_prefill",
+                             "packed": "profile_prefill_packed",
+                             "suffix": "profile_prefill_suffix"}[mode],
           "card": card, "rows": 1 if packed else b,
           "bucket": engine.ladder.pack_bucket(flat_tokens) if packed else s,
           "cached_tokens": cached if mode == "suffix" else 0,
@@ -3007,6 +3114,546 @@ def profile_prefill(client, card: str, mode: str = "full") -> None:
             f"profile_prefill {mode}: {calls} host launch calls a graphed "
             f"prefill (at most {GRAPHED_LAUNCH_CALLS_PER_PREFILL}): "
             f"{graphed['host_launch_calls']}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: serve full-width OLMoE-1B-7B (the MoE family)
+# ---------------------------------------------------------------------------
+
+#: the MoE phase's model
+MOE_ARCH = "olmoe-1b-7b"
+
+
+@contextlib.contextmanager
+def moe_wrapped(name: str, make):
+    """While open, ``repro_torch.models.moe``'s function ``name`` is
+    ``make(real)``; ``apply_moe`` finds it there at every call of an eager
+    pass (a graph replay runs none of it)."""
+    from repro_torch.models import moe as M
+    real = getattr(M, name)
+    setattr(M, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(M, name, real)
+
+
+@contextlib.contextmanager
+def moe_recorded():
+    """While open, every dispatch of an eager pass (the reads sync the
+    host) records its token count, the expert capacity, the largest
+    expert load, the assignments dropped, which tokens lost one and the
+    dropped (token, expert) pairs as a (T, E) mask, from the dispatch's
+    own ``keep``; yields the list of calls, in layer order."""
+    calls = []
+
+    def make(real):
+        def recorded(x2d, idx, weights, e, cap, dtype):
+            out = real(x2d, idx, weights, e, cap, dtype)
+            keep = out[4].reshape(idx.shape)
+            drops = torch.zeros((idx.shape[0], e), dtype=torch.bool,
+                                device=idx.device)
+            drops.scatter_(1, idx, ~keep)
+            load = torch.bincount(idx.reshape(-1), minlength=e)
+            calls.append({"tokens": idx.shape[0], "cap": cap,
+                          "max_load": int(load.max()),
+                          "dropped": int((~keep).sum()),
+                          "lost": (~keep).any(dim=1).cpu(),
+                          "drops": drops.cpu()})
+            return out
+        return recorded
+
+    with moe_wrapped("_dispatch_group", make):
+        yield calls
+
+
+def unbounded_capacity(real):
+    """``expert_capacity`` that never binds: each token picks k distinct
+    experts, so no expert gets more than T assignments."""
+    return lambda cfg, t: max(8, -(-t // 8) * 8)
+
+
+@contextlib.contextmanager
+def moe_pinned_drops(pins):
+    """While open, one eager pass drops exactly what ``pins`` says: no
+    capacity binds, and layer l drops the (token, expert) pairs its
+    (T, E) mask ``pins[l]`` marks, the rest kept: the pass repeats the
+    drops of another pass, token for token."""
+    layer = [0]
+
+    def make(real):
+        def pinned(x2d, idx, weights, e, cap, dtype):
+            xin, slot, tok, w, keep = real(x2d, idx, weights, e, cap, dtype)
+            pin = pins[layer[0]].gather(1, idx).reshape(-1)
+            layer[0] += 1
+            keep = keep & ~pin
+            return xin, torch.where(keep, slot, e * cap), tok, w, keep
+        return pinned
+
+    with moe_wrapped("expert_capacity", unbounded_capacity), \
+            moe_wrapped("_dispatch_group", make):
+        yield
+    if layer[0] != len(pins):
+        raise AssertionError(f"serve_moe: a pinned pass ran {layer[0]} MoE "
+                             f"layers, not {len(pins)}")
+
+
+def pass_segments(key, inputs) -> list:
+    """(prompt tokens, flat indices of those tokens in the pass) of each
+    segment of a packed prefill or each row of a per-group one."""
+    toks = np.asarray(inputs["tokens"])
+    if key[0] == "pack":
+        seg = np.asarray(inputs["seg_ids"])
+        return [(tuple(toks[0, seg == i]), np.flatnonzero(seg == i))
+                for i in np.unique(seg[seg >= 0])]
+    lens = np.asarray(inputs["true_lengths"])
+    width = toks.shape[1]
+    return [(tuple(toks[r, :n]), r * width + np.arange(n))
+            for r, n in enumerate(lens)]
+
+
+def clone_state(state):
+    from repro_torch.runtime.engine import GenState
+    from repro_torch.runtime.graphs import CONTROL
+    return GenState(cache={k: v.clone() for k, v in state.cache.items()},
+                    **{n: getattr(state, n).clone() for n in CONTROL},
+                    sampling=state.sampling)
+
+
+class MoeAudit:
+    """Spies on a continuous engine while installed: every decode tick's
+    graph replay is held bit for bit against ``decode_step_batch`` on a
+    copy of the state (the paged pool's trash block left out: free rows
+    write there in no fixed order), and every prefill cell's replay
+    against its body run eagerly on the same inputs; each eager run is
+    recorded (``moe_recorded``), so every prefill pass's capacity,
+    largest load and dropped assignments are known; a decode tick that
+    drops fails.  The engine's public (eager) prefills are recorded too.
+
+    ``mode`` labels the passes.  In "served" mode the (token, expert)
+    pairs each prompt's pass dropped are kept, by prompt.  In "alone"
+    mode (each request run again by itself) every prefill pass runs
+    eagerly with those drops pinned (``moe_pinned_drops``) and its
+    result is the one served: the alone run computes what the served
+    pass computed for the request, the other requests of its pack
+    apart."""
+
+    def __init__(self, ce):
+        self.ce, self.engine = ce, ce.engine
+        self.mode = "served"
+        self.passes = []
+        self.drops = {}
+        self.pinned = set()
+        self.ticks_checked = 0
+        self.cells_checked = 0
+
+    def install(self) -> None:
+        self.engine._run_cell = self._cell
+        self.ce.tick_cells.run = self._tick
+
+    def remove(self) -> None:
+        del self.engine._run_cell
+        del self.ce.tick_cells.run
+
+    def _tick(self, state) -> bool:
+        with moe_recorded() as calls:
+            want = self.engine.decode_step_batch(clone_state(state))
+        if any(c["dropped"] for c in calls):
+            raise AssertionError(f"serve_moe: a decode tick of "
+                                 f"{calls[0]['tokens']} rows dropped an "
+                                 "assignment")
+        captured = type(self.ce.tick_cells).run(self.ce.tick_cells, state)
+        same = torch.equal(state.cache["len"], want.cache["len"]) and all(
+            torch.equal(state.cache[k][:, 1:], want.cache[k][:, 1:])
+            for k in ("k", "v")) and all(
+            torch.equal(getattr(state, n), getattr(want, n))
+            for n in ("cur", "emitted", "counts", "done"))
+        if not same:
+            raise AssertionError(f"serve_moe: tick replay "
+                                 f"{self.ticks_checked} differs from the "
+                                 "eager tick")
+        self.ticks_checked += 1
+        return captured
+
+    def _pins(self, segments, tokens: int) -> list:
+        """The (T, E) drop masks, one a layer, that put each segment's
+        served drops on its tokens in this pass."""
+        cfg = self.engine.cfg
+        pins = [torch.zeros((tokens, cfg.moe.num_experts), dtype=torch.bool)
+                for _ in range(cfg.num_layers)]
+        for prompt, at in segments:
+            if prompt not in self.drops:     # a padding row of a batch
+                continue
+            self.pinned.add(prompt)
+            for pin, served in zip(pins, self.drops[prompt]):
+                pin[torch.from_numpy(at)] = served
+        return [pin.to(self.engine.device) for pin in pins]
+
+    def _cell(self, table, key, body, inputs, outputs):
+        from repro_torch.runtime import graphs
+        real = type(self.engine)._run_cell
+        dev = self.engine.device
+        segments = pass_segments(key, inputs)
+        if table is None:
+            with moe_recorded() as calls:
+                outs = real(self.engine, table, key, body, inputs, outputs)
+        else:
+            outs = real(self.engine, table, key, body, inputs, outputs)
+            with moe_recorded() as calls:
+                eager = graphs.run_eager(body, inputs, outputs, dev)
+            bad = [k for k in outs if not torch.equal(outs[k], eager[k])]
+            if bad:
+                raise AssertionError(f"serve_moe: cell {key} replay's {bad} "
+                                     "differ from its eager body's")
+            self.cells_checked += 1
+        lost = torch.stack([c["lost"] for c in calls]).any(dim=0).numpy()
+        record = {
+            "mode": self.mode, "kind": cell_kind(key),
+            "tokens": calls[0]["tokens"], "capacity": calls[0]["cap"],
+            "max_expert_load_layer0": calls[0]["max_load"],
+            "dropped_assignments": sum(c["dropped"] for c in calls),
+            "prompts_losing_an_assignment": sum(
+                bool(lost[at].any()) for _, at in segments)}
+        if self.mode == "served":
+            for prompt, at in segments:
+                at = torch.from_numpy(at)
+                self.drops[prompt] = [c["drops"][at] for c in calls]
+        else:
+            with moe_pinned_drops(self._pins(segments,
+                                             calls[0]["tokens"])), \
+                    moe_recorded() as pinned:
+                outs = graphs.run_eager(body, inputs, outputs, dev)
+            record["pinned_dropped_assignments"] = sum(
+                c["dropped"] for c in pinned)
+        self.passes.append(record)
+        return outs
+
+
+#: how far a packed pass's logits may lie from each prompt's own prefill's,
+#: at every position of every prompt, in bf16 ulps of the row's largest
+#: |logit|, with no capacity binding.  Routing free: 20.5 in each of three
+#: runs of the phase on an H100 80GB HBM3 at 700 W (the same seed), the
+#: expert choices the change of shape flips included.  Routing pinned to
+#: the own prefill's choices: rounding alone.  Both are wider than the
+#: dense rule's ``PACKED_LOGIT_ULPS``, which holds the last position of
+#: each prompt only: here every position of 14 prompts is held (about
+#: 5500 rows), through 16 layers that each sum eight experts' outputs in
+#: bf16
+MOE_PACKED_LOGIT_ULPS = 24
+MOE_ROUNDING_ULPS = 8
+
+
+@contextlib.contextmanager
+def moe_routes(pins=None):
+    """While open, every ``route`` of an eager pass appends its (T, k)
+    expert choices to the yielded list; with ``pins`` (a (T, k) choice a
+    layer, -1 rows free) the choices are pinned and the gates are the
+    pass's own router probabilities at the pinned experts, normalised
+    as ``route`` normalises them."""
+    chosen = []
+
+    def make(real):
+        def routed(cfg, p, x2d):
+            w, idx, aux = real(cfg, p, x2d)
+            if pins is not None:
+                want = pins[len(chosen)]
+                idx = torch.where(want >= 0, want, idx)
+                probs = torch.softmax(
+                    torch.matmul(x2d.float(), p["router"].float()), dim=-1)
+                w = probs.gather(1, idx)
+                w = w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9)
+            chosen.append(idx)
+            return w, idx, aux
+        return routed
+
+    with moe_wrapped("route", make):
+        yield chosen
+
+
+def moe_packed_drift(engine, prompts) -> dict:
+    """The largest |logit| difference between a packed pass (the prompts
+    in packs of 8, each pack at its pack bucket) and each prompt's own
+    prefill, at every position of every prompt, in logits and in bf16
+    ulps of the row's largest |logit|, with no capacity binding (so no
+    assignment drops in either pass): twice, with each pass routing
+    freely (rounding and the expert choices it flips) and with the
+    packed pass's choices pinned to the own prefill's (rounding alone);
+    and the choices the change of shape flips.  Fails where a drift
+    passes its limit (``MOE_PACKED_LOGIT_ULPS``, ``MOE_ROUNDING_ULPS``)."""
+    from repro_torch.models import forward_hidden, prefill_packed
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.engine import segment_labels
+    cfg, params, dev = engine.cfg, engine.params, engine.device
+    no_kv = torch.zeros((cfg.num_layers, 0, cfg.num_kv_heads, cfg.head_dim),
+                        device=dev)
+    no_ids = torch.zeros((0,), dtype=torch.int32, device=dev)
+    worst = {"free": [0.0, 0.0], "pinned": [0.0, 0.0]}
+    rows, flipped_rows, flipped_choices = 0, 0, 0
+    with moe_wrapped("expert_capacity", unbounded_capacity), \
+            moe_recorded() as calls:
+        for at in range(0, len(prompts), 8):
+            group = prompts[at:at + 8]
+            lens = [len(p) for p in group]
+            flat = sum(lens)
+            width = engine.ladder.pack_bucket(flat)
+            seg, pos = segment_labels(lens, [0] * len(lens), width)
+            toks = torch.full((1, width), engine.pad_id, dtype=torch.long,
+                              device=dev)
+            toks[0, :flat] = torch.tensor([t for p in group for t in p],
+                                          device=dev)
+            own, own_idx = [], []
+            for p in group:
+                with moe_routes() as chosen:
+                    h, _ = forward_hidden(cfg, params,
+                                          torch.tensor([p], device=dev))
+                own.append(L.lm_logits(cfg, params["embed"], h)[0].float())
+                own_idx.append(chosen)
+            pins = [torch.full((width, cfg.moe.top_k), -1, dtype=torch.long,
+                               device=dev) for _ in range(cfg.num_layers)]
+            for layer, pin in enumerate(pins):
+                pin[:flat] = torch.cat([c[layer] for c in own_idx])
+
+            def packed():
+                return prefill_packed(
+                    cfg, params, toks, torch.from_numpy(seg).to(dev),
+                    torch.from_numpy(pos).to(dev),
+                    torch.arange(flat, dtype=torch.int32, device=dev),
+                    no_kv, no_kv, no_ids, no_ids)[0]
+            with moe_routes() as free_idx:
+                free = packed()
+            with moe_routes(pins):
+                pinned = packed()
+            flips = torch.zeros((flat,), dtype=torch.bool, device=dev)
+            for layer, pin in enumerate(pins):
+                differ = (torch.sort(free_idx[layer][:flat]).values !=
+                          torch.sort(pin[:flat]).values)
+                flips |= differ.any(dim=1)
+                flipped_choices += int(differ.sum())
+            flipped_rows += int(flips.sum())
+            for label, logits in (("free", free), ("pinned", pinned)):
+                start = 0
+                for p, want in zip(group, own):
+                    got = logits[start:start + len(p)].float()
+                    start += len(p)
+                    if not bool(torch.isfinite(got).all()):
+                        raise AssertionError("serve_moe: non-finite packed "
+                                             "logits")
+                    d = (got - want).abs().amax(dim=-1)
+                    ulp = torch.exp2(torch.floor(torch.log2(
+                        want.abs().amax(dim=-1).clamp_min(2.0 ** -126))) - 7)
+                    w = worst[label]
+                    w[0] = max(w[0], float(d.max()))
+                    w[1] = max(w[1], float((d / ulp).max()))
+            rows += flat
+    if any(c["dropped"] for c in calls):
+        raise AssertionError("serve_moe: a pass with unbounded capacity "
+                             "dropped an assignment")
+    out = {"max_abs_dlogit": worst["free"][0],
+           "max_bf16_ulps": worst["free"][1],
+           "limit_bf16_ulps": MOE_PACKED_LOGIT_ULPS,
+           "routing_pinned": {"max_abs_dlogit": worst["pinned"][0],
+                              "max_bf16_ulps": worst["pinned"][1],
+                              "limit_bf16_ulps": MOE_ROUNDING_ULPS},
+           "positions": rows, "positions_with_a_flipped_choice": flipped_rows,
+           "flipped_choices": flipped_choices,
+           "capacity": "unbounded"}
+    if not worst["free"][1] <= MOE_PACKED_LOGIT_ULPS or \
+            not worst["pinned"][1] <= MOE_ROUNDING_ULPS:
+        raise AssertionError(f"serve_moe: packed pass against own prefill "
+                             f"beyond its limit: {out}")
+    return out
+
+
+def moe_launches_check(cfg, launches: dict, ticks: int,
+                       prefills: int) -> dict:
+    """The launches a served window of ``ticks`` decode ticks (warm-up
+    ticks included) and ``prefills`` packed prefills must count: two
+    norms a layer, two qk-norms a layer where the model has them and the
+    final norm in every tick and prefill; a packed flash launch a layer
+    and one plan a prefill; a paged decode launch a layer a tick; the
+    sampler; nothing of the per-group, contiguous or classify paths.
+    Returns the expected counts; raises where they differ."""
+    layers = cfg.num_layers
+    norms_per_step = (4 if cfg.qk_norm else 2) * layers + 1
+    want = {"norm": norms_per_step * (ticks + prefills),
+            "flash_attention_packed": layers * prefills,
+            "flash_attention_packed_plan": prefills,
+            "flash_decode_paged": layers * ticks}
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want or not launches.get("sample", 0) or any(
+            launches.get(k, 0) for k in ("flash_attention", "flash_decode",
+                                         "softmax")):
+        raise AssertionError(f"serve_moe: launches {launches} over {ticks} "
+                             f"ticks and {prefills} prefills (expected "
+                             f"{want})")
+    return want
+
+
+def serve_moe(dev, card: str):
+    """Full-width OLMoE-1B-7B through ``TurboClient.from_arch``: the
+    serve phase's 14 requests served twice, first timed (tok/s, TTFT,
+    peak memory, launches), then again with every graph replay held to
+    its eager body and every prefill pass's routing read (capacity,
+    largest load of its first layer, dropped assignments); each stream
+    against the request alone (greedy: ``generate``; sampled: served
+    again alone) with its prefill dropping exactly the assignments its
+    served pass dropped (``MoeAudit``), where a difference must fall at
+    a near tie of the drawn token (``draw_margins``, against twice the
+    logit drift between a packed pass and each prompt's own prefill,
+    ``moe_packed_drift``, held to ``MOE_PACKED_LOGIT_ULPS``).
+    Returns the client, warm, for the profile windows."""
+    from repro_torch.api import TurboClient
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.runtime.engine import _leaves
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    client = TurboClient.from_arch(
+        MOE_ARCH, smoke=False, device=dev, seq_buckets=(128, 256, 512, 1024),
+        batch_buckets=(8,), max_slots=8, cap_new=64, init_seed=SEED,
+        num_blocks=8 * 1024 // 16 + 1)
+    ce = client.backend
+    engine = ce.engine
+    cfg = engine.cfg
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    warm = dict(client.warmup_stats)
+    warm_cells = cell_stats(engine)
+    cells = ce.tick_cells
+    if len(cells) != 2 or warm["compile_count"] != \
+            2 + engine.prefill_cells.captures:
+        raise AssertionError(f"serve_moe: warmup_aot captured {warm}")
+    specs = serve_specs(cfg.vocab_size, rng)
+    first, later = specs[:8], specs[8:]
+
+    def serve_once():
+        handles = [client.submit(p, g) for p, g in first]
+        client.pump(max_ticks=6)
+        handles += [client.submit(p, g) for p, g in later]
+        return handles, [h.result() for h in handles]
+
+    captures0, warm_ticks0 = cells.captures, cells.warm_ticks
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_lib.reset_launches()
+    t_serve = time.perf_counter()
+    handles, results = serve_once()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t_serve
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ticks, prefills = ce.decode_ticks, ce.prefill_dispatches
+    warm_ticks = cells.warm_ticks - warm_ticks0
+    served_cells = cell_stats(engine, warm_cells)
+    if cells.captures != captures0 or served_cells["captured_since"]:
+        raise AssertionError(f"serve_moe: cells captured while serving: "
+                             f"{served_cells['captured_since']}")
+    layers = cfg.num_layers
+    want = moe_launches_check(cfg, launches, ticks + warm_ticks, prefills)
+    if ce.block_table.used_blocks or engine.kv_slab.live_bytes:
+        raise AssertionError("serve_moe: KV leaked after drain")
+    vocab = cfg.vocab_size
+    gen_tokens = 0
+    for (prompt, params), res in zip(specs, results):
+        out = res[len(prompt):]
+        gen_tokens += len(out)
+        if res[:len(prompt)] != prompt or len(out) != \
+                params.max_new_tokens or any(not 0 <= t < vocab
+                                             for t in out):
+            raise AssertionError("serve_moe: bad result")
+    ttft = sorted(h.ttft for h in handles)
+    packs = list(ce.pack_log)
+
+    # the same requests again, every replay checked and every pass read
+    audit = MoeAudit(ce)
+    audit.install()
+    try:
+        ce.state.sampling = False          # as the first serve found it
+        _, checked = serve_once()
+        audit.mode = "alone"
+        alone = []
+        for prompt, params in specs:
+            if params.temperature > 0:
+                alone.append(client.submit(prompt, params).result())
+            else:
+                alone.append(engine.generate(
+                    [prompt], max_new_tokens=params.max_new_tokens)[0])
+    finally:
+        audit.remove()
+    if audit.pinned != {tuple(p) for p, _ in specs}:
+        raise AssertionError("serve_moe: an alone run's prefill was not "
+                             "pinned to its served pass's drops")
+    drift = moe_packed_drift(engine, [p for p, _ in specs])
+    divergences = []
+    for (prompt, params), res, own in zip(specs, checked, alone):
+        if own == res:
+            continue
+        d = explain_divergence(engine, prompt, params, own, res,
+                               drift["max_abs_dlogit"])
+        rounding = 2 * drift["routing_pinned"]["max_abs_dlogit"] / (
+            params.temperature if params.temperature > 0 else 1.0)
+        d["within_rounding_alone"] = d["alone_margin"] < rounding and \
+            d["served_token_gap"] < rounding
+        divergences.append(d)
+    served_passes = [p for p in audit.passes if p["mode"] == "served"]
+    emit({"phase": "serve_moe",
+          "model": f"{MOE_ARCH} (full width, {layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.moe.num_experts} experts top "
+          f"{cfg.moe.top_k}, bf16 weights from a seed, f32 KV)",
+          "card": card, "kv_layout": "paged",
+          "weights": {"params": cfg.param_count(),
+                      "active_params": cfg.active_param_count(),
+                      "bytes": sum(t.numel() * t.element_size()
+                                   for t in _leaves(engine.params)),
+                      "active_bytes_bf16": 2 * cfg.active_param_count()},
+          "requests": len(handles),
+          "sampled": sum(1 for _, p in specs if p.temperature > 0),
+          "generated_tokens": gen_tokens, "serve_s": serve_s,
+          "tok_per_s": gen_tokens / serve_s,
+          "ttft_p50_s": float(np.percentile(ttft, 50)),
+          "ttft_p99_s": float(np.percentile(ttft, 99)),
+          "peak_mem_gib": peak / 2 ** 30, "stack_build_s": build_s,
+          "warmup_aot": warm,
+          "prefill_cells": {
+              "by_warmup_aot": warm_cells["cells_by_kind"],
+              "capture_s_by_warmup_aot": warm_cells["capture_s"],
+              "graph_pool_bytes": served_cells["graph_pool_bytes"],
+              "static_buffer_bytes": served_cells["static_buffer_bytes"]},
+          "tick_cells": {"capture_s_all": cells.capture_seconds,
+                         "graph_pool_bytes": cells.pool_bytes()},
+          "decode_ticks": ticks, "prefill_dispatches": prefills,
+          "packs": [{"segments": n, "flat": flat, "bucket": bucket}
+                    for n, flat, bucket in packs],
+          "launches": launches,
+          "launches_expected": want,
+          "kv_cache_gib": sum(ce.state.cache[k].numel() * 4
+                              for k in ("k", "v")) / 2 ** 30,
+          "checked_serve": {
+              "tick_replays_bit_equal_to_eager": audit.ticks_checked,
+              "cell_replays_bit_equal_to_eager": audit.cells_checked,
+              "streams_equal_to_the_timed_serve": sum(
+                  a == b for a, b in zip(results, checked))},
+          "prefill_passes": [
+              {k: p[k] for k in ("kind", "tokens", "capacity",
+                                 "max_expert_load_layer0",
+                                 "dropped_assignments",
+                                 "prompts_losing_an_assignment")}
+              for p in served_passes],
+          "alone_passes": [
+              {k: p[k] for k in ("kind", "tokens", "dropped_assignments",
+                                 "pinned_dropped_assignments")}
+              for p in audit.passes if p["mode"] == "alone"],
+          "packed_vs_own_prefill": drift,
+          "equal_to_alone": sum(a == b for a, b in zip(alone, checked)),
+          "divergences": divergences,
+          "divergences_at_a_near_tie": sum(d["within_rule"]
+                                           for d in divergences),
+          "divergences_within_rounding_alone": sum(
+              d["within_rounding_alone"] for d in divergences)})
+    beyond = [d for d in divergences if not d["within_rule"]]
+    if beyond:
+        raise AssertionError(f"serve_moe: {len(beyond)} streams differ from "
+                             f"the request alone (its served drops pinned) "
+                             f"beyond a near tie: {beyond}")
+    return client
 
 
 def release_memory() -> None:
@@ -3083,9 +3730,22 @@ def main() -> int:
     allocator_phase(dev, card)
     release_memory()
     # the contiguous layout admits per group: the causal kernel's path
-    _, launches_c = serve(dev, card, layout="contiguous")
+    client, launches_c = serve(dev, card, layout="contiguous")
     launches["flash_decode"] = launches_c["flash_decode"]
     launches["flash_attention"] = launches_c["flash_attention"]
+    del client
+    release_memory()
+    # the MoE family at full width: its own launches are in its line
+    client = serve_moe(dev, card)
+    profile_decode(client, card, phase="profile_decode_moe",
+                   family=moe_kernel_family)
+    profile_decode(client, card, sampled=True, phase="profile_decode_moe",
+                   family=moe_kernel_family)
+    profile_prefill(client, card, mode="packed",
+                    phase="profile_prefill_moe_packed",
+                    family=moe_kernel_family)
+    del client
+    release_memory()
     names = {"fused_norm": "norm", "flash_attention": "flash_attention",
              "flash_attention_packed": "flash_attention_packed",
              "flash_attention_packed_plan": "flash_attention_packed_plan",

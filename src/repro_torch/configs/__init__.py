@@ -7,6 +7,8 @@ from repro_torch.configs.base import ModelConfig, reduce_for_smoke
 
 _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
 }
 
 ARCH_IDS = tuple(_MODULES)

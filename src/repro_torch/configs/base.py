@@ -2,14 +2,20 @@
 
 Every architecture module exposes ``CONFIG`` (the exact published
 configuration) and ``smoke_config()`` (a reduced same-family config for
-CPU tests).  The port serves the dense family; the MoE / SSM fields stay
-so that a config reads the same in both packages.
+CPU tests).  The port serves the dense and MoE families; the SSM fields
+stay so that a config reads the same in both packages.  ``param_count``
+and ``active_param_count`` are the JAX package's analytic counts for the
+two families served.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+#: the model families the port serves
+FAMILIES = ("dense", "moe")
 
 
 @dataclass(frozen=True)
@@ -71,6 +77,43 @@ class ModelConfig:
         if self.d_head:
             return self.d_head
         return self.d_model // max(self.num_heads, 1)
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND model-FLOPs accounting),
+        the JAX package's count for the dense and MoE families the port
+        serves."""
+        if self.family not in FAMILIES or self.num_codebooks:
+            raise ValueError(f"{self.name}: the port counts the parameters "
+                             f"of dense and moe token models only")
+        d, v, L = self.d_model, self.vocab_size, self.num_layers
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return emb + L * (_attn_params(self) + _moe_or_ffn_params(self))
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.moe:
+            return self.param_count()
+        L = self.num_layers
+        expert = _ffn_params(self, self.d_ff)
+        inactive = L * (self.moe.num_experts - self.moe.top_k) * expert
+        return self.param_count() - inactive
+
+
+def _attn_params(cfg: ModelConfig) -> int:
+    d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return d * h * dh + 2 * d * kv * dh + h * dh * d
+
+
+def _ffn_params(cfg: ModelConfig, d_ff: int) -> int:
+    mult = 3 if cfg.act == "swiglu" else 2
+    return mult * cfg.d_model * d_ff
+
+
+def _moe_or_ffn_params(cfg: ModelConfig) -> int:
+    if cfg.moe:
+        return cfg.moe.num_experts * _ffn_params(cfg, cfg.d_ff) + \
+            cfg.d_model * cfg.moe.num_experts
+    return _ffn_params(cfg, cfg.d_ff)
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

@@ -1,5 +1,5 @@
-"""Transformer layers of the port's dense path: norms, RoPE, GQA
-projections, SwiGLU FFN, embeddings.
+"""Transformer layers of the port's decoders: norms (qk-norm among them),
+RoPE, GQA projections, SwiGLU FFN, embeddings.
 
 Counterparts of `repro.models.layers` with the same names, the same
 parameter dicts and the same einsum layouts (``wq`` (d, H, dh), ``wo``
@@ -59,12 +59,16 @@ def init_norm(cfg: ModelConfig, dim: int, dtype: torch.dtype,
 def init_attention(cfg: ModelConfig, gen: torch.Generator,
                    dtype: torch.dtype, device: torch.device) -> Params:
     d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": dense_init(gen, (d, h, dh), d, dtype, device),
         "wk": dense_init(gen, (d, kv, dh), d, dtype, device),
         "wv": dense_init(gen, (d, kv, dh), d, dtype, device),
         "wo": dense_init(gen, (h, dh, d), h * dh, dtype, device),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((dh,), dtype=dtype, device=device)
+        p["k_norm"] = torch.ones((dh,), dtype=dtype, device=device)
+    return p
 
 
 def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
@@ -110,6 +114,16 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
     if rr:
         return out[0].reshape(shape), out[1].reshape(shape)
     return out.reshape(shape)
+
+
+def rms_norm_headwise(scale: torch.Tensor, x: torch.Tensor,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """Per-head qk-norm (Qwen3/OLMoE): RMSNorm over the trailing head dim,
+    through the fused norm kernel over rows of dh (f32 moments, output in
+    x's dtype), as the JAX package's jnp ``rms_norm_headwise``."""
+    shape = x.shape
+    y = ops.fused_rmsnorm(x.reshape(-1, shape[-1]), scale, eps=eps)
+    return y.reshape(shape)
 
 
 # ---------------------------------------------------------------------------
@@ -170,12 +184,14 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def qkv_project(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor):
-    """x: (B,S,d) -> q (B,S,H,dh), k/v (B,S,KV,dh) with rope applied."""
-    if cfg.qk_norm:
-        raise ValueError("qk_norm is not served by the port yet")
+    """x: (B,S,d) -> q (B,S,H,dh), k/v (B,S,KV,dh) with qk-norm (where
+    the config has it) and rope applied."""
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm_headwise(p["q_norm"], q)
+        k = rms_norm_headwise(p["k_norm"], k)
     q = _rope_dispatch(cfg, q, positions)
     k = _rope_dispatch(cfg, k, positions)
     return q, k, v

@@ -1,7 +1,8 @@
-"""The port's dense decoder: init, prompt prefill and decode over a paged
-or a contiguous KV cache.
+"""The port's decoder: init, prompt prefill and decode over a paged or a
+contiguous KV cache.
 
-Counterpart of `repro.models.transformer` for the dense family, with the
+Counterpart of `repro.models.transformer` for the dense and MoE families
+(``[norm -> GQA attn -> norm -> FFN or MoE] x L``), with the
 same parameter tree (per-layer tensors stacked on a leading ``L`` dim)
 and the same two KV layouts: the paged pool ``(L, NB, BS, KV, dh)``
 shared by every sequence, reached through per-row block tables whose
@@ -30,18 +31,29 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FAMILIES, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.runtime.device import resolve_device
 
 Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.num_codebooks:
-        raise ValueError(f"{cfg.name}: the port serves dense single-"
-                         f"codebook decoders, not family {cfg.family!r}")
+    if cfg.family not in FAMILIES or cfg.num_codebooks:
+        raise ValueError(f"{cfg.name}: the port serves dense and MoE "
+                         f"single-codebook decoders, not family "
+                         f"{cfg.family!r}" + (" with codebooks"
+                                              if cfg.num_codebooks else ""))
+
+
+def _ffn(cfg: ModelConfig, blk: Params, x: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward: the MoE layer (its aux loss dropped, as
+    the JAX package's inference paths drop it) or the dense FFN."""
+    if cfg.family == "moe":
+        return M.apply_moe(cfg, blk["moe"], x)[0]
+    return L.apply_ffn(cfg, blk["ffn"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -52,8 +64,9 @@ def _check_family(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None, *, seed: int = 0,
                 param_dtype: Optional[str] = None) -> Params:
-    """Random weights in ``cfg.dtype`` on ``device`` (default ``"cuda"``;
-    raises without a card unless ``device="cpu"``).  Draws from
+    """Random weights in ``cfg.dtype`` (a MoE router in f32) on
+    ``device`` (default ``"cuda"``; raises without a card unless
+    ``device="cpu"``).  Draws from
     ``generator`` (which must live on ``device``), or from a fresh one
     seeded with ``seed``; no global random state is touched."""
     _check_family(cfg)
@@ -64,11 +77,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         gen.manual_seed(seed)
     dtype = L.torch_dtype(param_dtype or cfg.dtype)
     params: Params = {"embed": L.init_embedding(cfg, gen, dtype, dev)}
-    blocks = [{"norm1": L.init_norm(cfg, cfg.d_model, dtype, dev),
+    blocks = []
+    for _ in range(cfg.num_layers):
+        blk = {"norm1": L.init_norm(cfg, cfg.d_model, dtype, dev),
                "attn": L.init_attention(cfg, gen, dtype, dev),
-               "norm2": L.init_norm(cfg, cfg.d_model, dtype, dev),
-               "ffn": L.init_ffn(cfg, gen, dtype, dev)}
-              for _ in range(cfg.num_layers)]
+               "norm2": L.init_norm(cfg, cfg.d_model, dtype, dev)}
+        if cfg.family == "moe":
+            blk["moe"] = M.init_moe(cfg, gen, dtype, dev)
+        else:
+            blk["ffn"] = L.init_ffn(cfg, gen, dtype, dev)
+        blocks.append(blk)
     params["layers"] = _stack(blocks)
     params["final_norm"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
     return params
@@ -206,7 +224,7 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                     causal=True).transpose(1, 2)
         out = L.attention_output(blk["attn"], a)
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
-        h = h + L.apply_ffn(cfg, blk["ffn"], hn2)
+        h = h + _ffn(cfg, blk, hn2)
         if parts is not None:
             parts["k"][i, :, :s] = k
             parts["v"][i, :, :s] = v
@@ -295,7 +313,7 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                 causal=True).transpose(1, 2)
         out = L.attention_output(blk["attn"], a)
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
-        h = h + L.apply_ffn(cfg, blk["ffn"], hn2)
+        h = h + _ffn(cfg, blk, hn2)
         parts["k"][i] = k
         parts["v"][i] = v
     h = L.apply_norm(cfg, params["final_norm"], h)
@@ -363,7 +381,7 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                plan=plan)
         out = L.attention_output(blk["attn"], a)
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
-        h = h + L.apply_ffn(cfg, blk["ffn"], hn2)
+        h = h + _ffn(cfg, blk, hn2)
         parts["k"][i] = k[0]
         parts["v"][i] = v[0]
     h = L.apply_norm(cfg, params["final_norm"], h)
@@ -435,7 +453,7 @@ def _decode_attn(cfg, params, cache, h, positions):
                                 v_c.transpose(1, 2), lens + 1)
         out = L.attention_output(blk["attn"], attn[:, None])
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
-        h = h + L.apply_ffn(cfg, blk["ffn"], hn2)
+        h = h + _ffn(cfg, blk, hn2)
     return h
 
 
@@ -473,5 +491,5 @@ def _decode_attn_paged(cfg, params, cache, h, positions):
                                       lens + 1)
         out = L.attention_output(blk["attn"], attn[:, None])
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
-        h = h + L.apply_ffn(cfg, blk["ffn"], hn2)
+        h = h + _ffn(cfg, blk, hn2)
     return h

@@ -54,7 +54,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import FAMILIES, ModelConfig
 from repro_torch.core.cost_model import TableCostModel, block_round
 from repro_torch.core.pipeline import PipelineBackend
 from repro_torch.core.serving import Request
@@ -724,9 +724,12 @@ class ContinuousEngine(PipelineBackend):
                  prefix_cache: bool = False,
                  packed_prefill: bool = True) -> None:
         cfg = engine.cfg
-        if cfg.num_codebooks or cfg.family != "dense":
-            raise ValueError("ContinuousEngine serves dense single-codebook "
-                             "token models")
+        if cfg.num_codebooks:
+            raise ValueError("ContinuousEngine supports single-codebook "
+                             "token models only")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"ContinuousEngine serves the dense and moe "
+                             f"families, not {cfg.family!r}")
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if prefix_cache and kv_layout != "paged":

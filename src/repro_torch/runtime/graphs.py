@@ -48,6 +48,10 @@ continuous engine consumes each prefill's outputs (scatter, splice, the
 first token) before its next prefill; the engine's public methods run
 the same functions eagerly on tensors of their own.
 
+Every capture runs with Python's cyclic collector held off
+(:func:`collector_held`), so no collection can destroy another graph
+while a stream captures.
+
 Nothing here falls back to the eager function: a failed capture, a
 stale key (the engine's weights are not those the graph was captured
 on), an input whose shape or dtype differs from the cell's, or merge
@@ -55,7 +59,9 @@ tickets too few under capture raise.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import math
 import time
 from typing import Callable, Dict, Hashable, List, Optional, Tuple, Union
@@ -88,6 +94,26 @@ def warm_copy(state):
         state, cache=cache, cur=state.cur.clone(),
         emitted=state.emitted.clone(), counts=state.counts.clone(),
         done=torch.ones_like(state.done))
+
+
+@contextlib.contextmanager
+def collector_held():
+    """Hold Python's cyclic collector off until the block ends (raised
+    or not; a collector the caller had off stays off).  An automatic
+    collection inside a capture may destroy an older CUDA graph left in
+    a reference cycle, and destroying a graph while a stream captures
+    invalidates the capture ("operation not permitted when stream is
+    capturing"); held off, the cycle waits for a collection after the
+    capture.  No collection runs first: a full one costs the serving
+    path, where cells are captured at first use, more than the capture
+    itself."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
 
 
 @dataclasses.dataclass
@@ -164,7 +190,7 @@ class TickCells:
             self._tick(warm_copy(state))
         self.warm_ticks += 1
         graph = torch.cuda.CUDAGraph()
-        with cuda_lib.recording() as launches:
+        with collector_held(), cuda_lib.recording() as launches:
             with torch.cuda.graph(graph, pool=self._pool,
                                   stream=self._stream):
                 self._tick(state)
@@ -399,7 +425,7 @@ class CellTable:
         with torch.cuda.stream(arena.stream):
             body(cell.inputs, cell.outputs)      # this call's result
         graph = torch.cuda.CUDAGraph()
-        with cuda_lib.recording() as launches:
+        with collector_held(), cuda_lib.recording() as launches:
             with torch.cuda.graph(graph, pool=arena.pool,
                                   stream=arena.stream):
                 body(cell.inputs, cell.outputs)

@@ -11,6 +11,8 @@ versions then differ only in summation order, hence the 1e-4 tolerances
 (1e-5 for the softmax, whose rows are short sums of values below 1).
 Sampling is compared token for token on shared noise.
 """
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -943,7 +945,7 @@ def test_cuda_cow_copy_then_decode_write_keeps_the_cached_block(cuda):
 # the decode tick as CUDA graphs: replays against the eager tick
 # ---------------------------------------------------------------------------
 
-def _graph_engine(dev, **kw):
+def _graph_engine(dev, arch="internlm2-1.8b", **kw):
     """Smoke depth at the full head dim, f32, per-group prefill (the
     packed mode is bf16 only), 4 slots."""
     import dataclasses
@@ -952,7 +954,7 @@ def _graph_engine(dev, **kw):
     from repro_torch.models import init_params
     from repro_torch.runtime.bucketing import BucketLadder
     from repro_torch.runtime.engine import ContinuousEngine, InferenceEngine
-    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"), d_head=128)
+    cfg = dataclasses.replace(get_smoke_config(arch), d_head=128)
     engine = InferenceEngine(
         cfg, init_params(cfg, device=dev),
         ladder=BucketLadder(seq_buckets=(32, 64, 128), batch_buckets=(4,)),
@@ -1021,20 +1023,22 @@ def _graph_workload(rng, sampled, n=10, first_len=None):
     return out
 
 
-@pytest.mark.parametrize("layout,sampled", [("paged", False),
-                                            ("paged", True),
-                                            ("contiguous", False)])
-def test_cuda_graph_tick_is_bit_equal_to_the_eager_tick(cuda, layout,
+@pytest.mark.parametrize("arch,layout,sampled", [
+    ("internlm2-1.8b", "paged", False), ("internlm2-1.8b", "paged", True),
+    ("internlm2-1.8b", "contiguous", False), ("olmoe-1b-7b", "paged", False),
+    ("olmoe-1b-7b", "paged", True)])
+def test_cuda_graph_tick_is_bit_equal_to_the_eager_tick(cuda, arch, layout,
                                                         sampled):
     """Served with cells captured by ``warmup_aot``: every tick's replay
     leaves the state bit-equal to ``decode_step_batch`` on a copy of it,
     over admissions, finishes, block appends and copy-on-write (the paged
     layout with the prefix cache) between ticks; no cell is captured
-    while serving."""
+    while serving.  The MoE tick (qk-norm, routing, dispatch, combine)
+    too."""
     from repro_torch.api import TurboClient
     kw = dict(prefix_cache=True) if layout == "paged" \
         else dict(kv_layout="contiguous")
-    ce = _graph_engine(cuda, **kw)
+    ce = _graph_engine(cuda, arch, **kw)
     client = TurboClient(ce, warmup=True)
     assert len(ce.tick_cells) == 2 == ce.tick_cells.captures
     assert client.warmup_stats["compile_count"] == \
@@ -1207,14 +1211,24 @@ def _same(a, b):
     return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
 
 
+def _moe_cell_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("olmoe-1b-7b"), d_head=128,
+                               dtype="bfloat16")
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "olmoe-1b-7b"])
 @pytest.mark.parametrize("kind", CELL_KINDS)
-def test_cuda_cell_replay_is_bit_equal_to_the_eager_body(cuda, kind):
+def test_cuda_cell_replay_is_bit_equal_to_the_eager_body(cuda, kind, arch):
     """The first call of a key (the eager body on the capture stream)
     and every replay after it give the eager public body's logits and KV
     bit for bit, on other inputs between them too; the key is captured
     once, counted in ``compile_count``, and each replay adds the launches
-    its capture recorded."""
-    engine = _cell_engine(cuda)
+    its capture recorded.  The MoE cells too."""
+    engine = _cell_engine(cuda, _moe_cell_cfg() if arch == "olmoe-1b-7b"
+                          else None)
     table = engine.classify_cells if kind == "classify" \
         else engine.prefill_cells
     want = [_cell_outputs(engine, lambda s=s: _cell_call(engine, kind, s,
@@ -1417,3 +1431,168 @@ def test_cuda_classify_records_equal_the_cpu_trace(cuda):
         got[str(dev)] = records_for_fn(fwd, tokens, last, min_size=1)
         assert not cuda_lib.LAUNCHES
     assert got["cpu"] == got[str(cuda)] and got["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer at OLMoE-1B-7B's full width; captures beside garbage
+# ---------------------------------------------------------------------------
+
+def _olmoe_layer(dev, seed=0):
+    """One MoE layer of full-width OLMoE-1B-7B (64 experts, top 8, d
+    2048, f 1024) in bf16, its router f32, and 8 decode rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = get_config("olmoe-1b-7b")
+    p = M.init_moe(cfg, _gen(dev, seed), torch.bfloat16, dev)
+    x = torch.randn((8, 1, cfg.d_model), generator=_gen(dev, seed + 1),
+                    device=dev).to(torch.bfloat16)
+    return cfg, p, x
+
+
+def test_cuda_moe_decode_row_alone_equals_row_in_batch(cuda):
+    """At decode a row's MoE output does not depend on the batch: bucket
+    1 and bucket 8 both give capacity 8, so the expert products run at
+    one shape, and nothing drops; each of 8 rows alone is bit-equal to
+    the same row in the batch."""
+    from repro_torch.models import moe as M
+    cfg, p, x = _olmoe_layer(cuda)
+    assert M.expert_capacity(cfg, 1) == M.expert_capacity(cfg, 8) == 8
+    batch, _ = M.apply_moe(cfg, p, x)
+    for i in range(8):
+        alone, _ = M.apply_moe(cfg, p, x[i:i + 1])
+        assert torch.equal(alone[0], batch[i]), i
+
+
+@pytest.mark.parametrize("tokens", [8, 1024])
+def test_cuda_apply_moe_makes_no_host_sync(cuda, tokens):
+    """``apply_moe`` at full width reads nothing back to the host (the
+    sync debug mode raises on a sync), captures as a CUDA graph, and the
+    replay equals the eager call bit for bit."""
+    from repro_torch.models import moe as M
+    cfg, p, _ = _olmoe_layer(cuda, seed=2)
+    x = torch.randn((1, tokens, cfg.d_model), generator=_gen(cuda, 3),
+                    device=cuda).to(torch.bfloat16)
+    want, _ = M.apply_moe(cfg, p, x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        M.apply_moe(cfg, p, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        M.apply_moe(cfg, p, x)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out, _ = M.apply_moe(cfg, p, x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+class _Cycle:
+    """A holder that refers to itself: only the cyclic collector frees
+    it."""
+
+
+def _graph_in_a_cycle_dropped(keep: list):
+    """What a captured body does to reproduce the fault: the last
+    reference to what ``keep`` holds (a captured graph, or an engine
+    whose cells hold graphs) moves into a new reference cycle, which
+    becomes garbage; container allocations follow, kept alive so each
+    counts, any of which runs an automatic collection where the
+    collector is on.  Returns a weak reference to the cycle and whether
+    it outlived them."""
+    holder = _Cycle()
+    holder.held = keep.pop()
+    holder.me = holder
+    cycle = weakref.ref(holder)
+    del holder
+    grown = [[] for _ in range(200)]
+    return cycle, cycle() is not None and len(grown) == 200
+
+
+def _dropped_thing(dev, what):
+    """A captured and replayed graph allocating in its private pool, or
+    an engine whose classify cell is captured and replayed."""
+    if what == "engine":
+        engine = _cell_engine(dev)
+        for _ in range(2):
+            _cell_call(engine, "classify", 0, engine.classify_cells)
+        torch.cuda.synchronize()
+        return engine
+    x = torch.arange(4, dtype=torch.float32, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.graph(graph, stream=side):
+        y = x * 2
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    del y
+    return graph
+
+
+@pytest.mark.parametrize("dropped", ["graph", "engine"])
+@pytest.mark.parametrize("cell", ["prefill", "tick"])
+def test_cuda_capture_survives_a_graph_in_a_garbage_cycle(cuda, cell,
+                                                          dropped):
+    """A captured body drops a captured graph (or an engine holding
+    captured cells) into a garbage reference cycle, with the collector's
+    thresholds at 1: the collector is held off during the capture, so
+    nothing is collected (no graph destroyed) while the stream captures;
+    the cell captures and replays right, and the cycle is collected
+    after."""
+    import dataclasses
+    import gc
+
+    from repro_torch.runtime import graphs
+    keep = [_dropped_thing(cuda, dropped)]
+    calls, cycles = [], []
+
+    def body(ins, outs):
+        calls.append(1)
+        if len(calls) == 2:          # the captured call
+            cycles.append(_graph_in_a_cycle_dropped(keep))
+        outs["y"].copy_(ins["x"] * 2)
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        if cell == "prefill":
+            table = graphs.CellTable(graphs.CellArena(cuda), lambda: ())
+            spec = {"y": ((4,), torch.float32)}
+            table.run("k", body, {"x": np.arange(4, dtype=np.float32)},
+                      spec)
+            out = table.run("k", body, {"x": np.ones(4, np.float32)}, spec)
+            assert table.captures == 1
+            assert out["y"].tolist() == [2.0] * 4
+        else:
+            @dataclasses.dataclass
+            class State:
+                cache: dict
+                cur: torch.Tensor
+                emitted: torch.Tensor
+                counts: torch.Tensor
+                done: torch.Tensor
+                sampling: bool = False
+
+            z = torch.zeros((2,), device=cuda)
+            state = State({"k": torch.zeros((1, 1, 1, 2, 128), device=cuda),
+                           "len": z.clone()}, z.clone(), z.clone(),
+                          z.clone(), z.clone())
+            ins = {"x": torch.ones(2, device=cuda)}
+            ticks = graphs.TickCells(lambda st: body(ins, {"y": st.cur}))
+            ticks._capture(state, ("tick",)).graph.replay()
+            torch.cuda.synchronize()
+            assert state.cur.tolist() == [2.0, 2.0]
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not keep and len(calls) == 2
+    (cycle, survived), = cycles
+    assert survived, "a collection ran inside the capture"
+    gc.collect()
+    assert cycle() is None

@@ -20,9 +20,16 @@ in-place tick eagerly, so these tests hold the code the card captures:
 - ``warmup_aot`` returns the reference's keys and leaves the serving
   counters as it found them; ``engine.compile_count`` is published and a
   rise in it becomes the pipeline's ``compile`` trace event; on the CPU
-  no graph is captured and the count says so.
+  no graph is captured and the count says so;
+- both capture methods hold Python's cyclic collector off while they
+  capture (a collection there may destroy another graph and invalidate
+  the capture), with torch.cuda's capture calls stood in for on the CPU.
 """
+import contextlib
+import dataclasses
+import gc
 import inspect
+import weakref
 
 import jax
 import numpy as np
@@ -46,6 +53,7 @@ from repro_torch.models.bridge import params_from_numpy
 from repro_torch.runtime.bucketing import BucketLadder
 from repro_torch.runtime.engine import (ContinuousEngine, GenState,
                                         InferenceEngine)
+from repro_torch.runtime import graphs
 from repro_torch.runtime.graphs import CONTROL, signature
 from repro_torch.runtime.session import Session
 
@@ -354,3 +362,114 @@ def test_no_graph_on_the_cpu(weights):
     cells = ce.engine.prefill_cells
     assert len(cells) == 0 and cells.captures == 0 and cells.keys()
     assert client.metrics()["gauges"]["engine.compile_count"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Captures hold Python's cyclic collector off
+# ---------------------------------------------------------------------------
+
+
+class _Stream:
+    def wait_stream(self, other) -> None:
+        pass
+
+
+@dataclasses.dataclass
+class _State:
+    """What a tick capture reads of a GenState."""
+    cache: dict
+    cur: torch.Tensor
+    emitted: torch.Tensor
+    counts: torch.Tensor
+    done: torch.Tensor
+
+
+@pytest.fixture
+def fake_capture(monkeypatch):
+    """torch.cuda's capture calls replaced by stand-ins that run on the
+    CPU; returns the list of ``gc.isenabled()`` seen inside each
+    capture."""
+    seen = []
+
+    @contextlib.contextmanager
+    def graph(g, pool=None, stream=None):
+        seen.append(gc.isenabled())
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", object)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda dev=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: _Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 0))
+    monkeypatch.setattr(graphs, "reserve_tickets", lambda dev, n: None)
+    return seen
+
+
+def _capture_both(fail: bool):
+    """A cell capture and a tick capture whose captured call raises where
+    ``fail``."""
+    calls = []
+
+    def body(ins, outs):
+        calls.append(1)
+        if fail and len(calls) % 2 == 0:     # the captured call
+            raise RuntimeError("capture failed")
+
+    arena = graphs.CellArena(torch.device("cpu"))
+    table = graphs.CellTable(arena, lambda: ())
+    cell = graphs.Cell("key", {}, {})
+    state = _State({"k": torch.zeros((1, 1, 1, 2, 4)),
+                    "len": torch.zeros(2)}, torch.zeros(2),
+                   torch.zeros(2), torch.zeros(2), torch.zeros(2))
+    ticks = graphs.TickCells(lambda st: body(None, None))
+    for capture in (lambda: table._capture(cell, body),
+                    lambda: ticks._capture(state, ("tick",))):
+        if fail:
+            with pytest.raises(RuntimeError, match="capture failed"):
+                capture()
+        else:
+            capture()
+
+
+@pytest.mark.parametrize("fail", [False, True], ids=["ok", "raises"])
+def test_captures_hold_the_collector_off(fake_capture, fail):
+    """Both capture methods run their capture with the collector off and
+    turn it back on after it, also when the capture raises; a collector
+    the caller had off stays off."""
+    assert gc.isenabled()
+    _capture_both(fail)
+    assert fake_capture == [False, False]
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        _capture_both(fail)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+    assert fake_capture == [False] * 4
+
+
+def test_no_collection_runs_inside_collector_held():
+    """A cycle that becomes garbage inside the block survives every
+    allocation there, with the collector's thresholds at 1, and is
+    collected after the block."""
+    class Node:
+        pass
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        with graphs.collector_held():
+            node = Node()
+            node.self = node
+            ref = weakref.ref(node)
+            del node
+            held = [[] for _ in range(200)]     # each one may collect
+            assert ref() is not None and len(held) == 200
+    finally:
+        gc.set_threshold(*thresholds)
+    gc.collect()
+    assert ref() is None

@@ -48,13 +48,14 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 
 def test_scan_covers_the_serving_modules():
-    """The scan above reads every module of the port, the prefix cache
-    and the chunked-prefill path among them."""
+    """The scan above reads every module of the port, the prefix cache,
+    the chunked-prefill path and the MoE layer among them."""
     names = {p.relative_to(PORT).as_posix() for p in _port_files()
              if PORT in p.parents}
     assert {"runtime/prefix_cache.py", "runtime/engine.py",
             "runtime/kv_cache.py", "runtime/sanitizer.py",
-            "core/pipeline.py", "models/transformer.py"} <= names
+            "core/pipeline.py", "models/transformer.py",
+            "models/moe.py", "configs/olmoe_1b_7b.py"} <= names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

@@ -1,4 +1,4 @@
-"""The serve phase's stream rule in ``chip_smoke.py``, on the CPU.
+"""The serve phases' stream rules in ``chip_smoke.py``, on the CPU.
 
 ``draw_margins`` gives, for a draw from some logits, the least change of
 the logits (on the scale of a greedy top-2 gap) that can change the
@@ -6,7 +6,15 @@ drawn token, and the least under which a given other token is drawn.
 Held here against the port's plain sampler: moves below the margin never
 change the draw, and every token that a larger move draws has a gap
 within that move.
+
+The MoE phase runs each request alone with its prefill dropping exactly
+what its served pass dropped (``MoeAudit``, ``moe_pinned_drops``), and
+measures the drift of a packed pass with routing free and pinned
+(``moe_routes``, ``moe_packed_drift``).  Held here on the OLMoE smoke
+config with a capacity small enough to drop: a pinned pass repeats
+another pass's rows, and a served stream equals its pinned alone run.
 """
+import dataclasses
 import sys
 from pathlib import Path
 from types import SimpleNamespace
@@ -19,7 +27,15 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from repro_torch.api import GenerationParams, TurboClient  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models import moe as M  # noqa: E402
+from repro_torch.models.transformer import layer_params  # noqa: E402
+from repro_torch.runtime.bucketing import BucketLadder  # noqa: E402
+from repro_torch.runtime.engine import (  # noqa: E402
+    ContinuousEngine, InferenceEngine)
 from repro_torch.runtime.sampling import (  # noqa: E402
     DEFAULT_SAMPLE_CANDIDATES, gumbel_noise)
 
@@ -79,3 +95,124 @@ def test_draw_margins_bound_what_rounding_can_change(sampled):
                 m, gap = chip_smoke.draw_margins(logits, params, step, other)
                 assert m <= 2 * big / scale + 1e-9
                 assert gap <= 2 * big / scale + 1e-9
+
+
+# ---------------------------------------------------------------------------
+# The MoE phase's audit
+# ---------------------------------------------------------------------------
+
+#: f32 at the smoke config: a pinned pass and the pass it repeats run
+#: the same rows through expert batches of other shapes
+PIN_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _dropping_olmoe(factor=0.5):
+    cfg = get_smoke_config("olmoe-1b-7b")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+
+
+def _moe_layer(cfg):
+    return layer_params(init_params(cfg, device="cpu", seed=3), 0)["moe"]
+
+
+def test_pinned_drops_repeat_another_pass_rows():
+    cfg = _dropping_olmoe()
+    p = _moe_layer(cfg)
+    n_a = 24
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 64, cfg.d_model)).astype(np.float32))
+    with chip_smoke.moe_recorded() as calls:
+        pack, _ = M.apply_moe(cfg, p, x)
+    drops = calls[0]["drops"]
+    assert calls[0]["dropped"] == int(drops.sum()) > 0
+    # the last segment of the pack: earlier tokens win, so it loses some
+    seg = slice(64 - n_a, 64)
+    assert bool(drops[seg].any())
+    with chip_smoke.moe_pinned_drops([drops[seg]]), \
+            chip_smoke.moe_recorded() as pinned:
+        alone, _ = M.apply_moe(cfg, p, x[:, seg])
+    assert pinned[0]["dropped"] == int(drops[seg].sum())
+    torch.testing.assert_close(alone, pack[:, seg], **PIN_TOL)
+    # by itself the segment drops other assignments, or none
+    free, _ = M.apply_moe(cfg, p, x[:, seg])
+    assert not torch.allclose(free, pack[:, seg], **PIN_TOL)
+
+
+def test_pinned_routing_takes_the_pinned_experts():
+    cfg = get_smoke_config("olmoe-1b-7b")
+    p = _moe_layer(cfg)
+    x2d = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (10, cfg.d_model)).astype(np.float32))
+    _, idx, _ = M.route(cfg, p, x2d)
+    pins = torch.full_like(idx, -1)
+    pins[:5] = idx[:5].flip(1) ^ 1           # other experts, other order
+    with chip_smoke.moe_routes([pins]) as chosen:
+        w, got, _ = M.route(cfg, p, x2d)
+    assert torch.equal(chosen[0], got)
+    assert torch.equal(got[:5], pins[:5]) and torch.equal(got[5:], idx[5:])
+    probs = torch.softmax(x2d @ p["router"], dim=-1).gather(1, got)
+    torch.testing.assert_close(w, probs / probs.sum(-1, keepdim=True))
+
+
+def _served_and_alone(pinned: bool):
+    cfg = _dropping_olmoe()
+    engine = InferenceEngine(cfg, init_params(cfg, device="cpu", seed=0),
+                             ladder=BucketLadder(seq_buckets=(32, 64),
+                                                 batch_buckets=(1, 2, 4)),
+                             device="cpu")
+    ce = ContinuousEngine(engine, max_slots=4, cap_new=24)
+    client = TurboClient(ce)
+    rng = np.random.default_rng(0)
+    specs = [([int(t) for t in rng.integers(1, cfg.vocab_size, n)],
+              GenerationParams(max_new_tokens=8, seed=i,
+                               temperature=0.8 if i % 3 == 1 else 0.0))
+             for i, n in enumerate((9, 20, 13, 30, 7, 25))]
+
+    def alone_run():
+        return [client.submit(p, g).result() if g.temperature > 0 else
+                engine.generate([p], max_new_tokens=g.max_new_tokens)[0]
+                for p, g in specs]
+    audit = chip_smoke.MoeAudit(ce)
+    audit.install()
+    try:
+        served = [h.result() for h in [client.submit(p, g)
+                                       for p, g in specs]]
+        audit.mode = "alone"
+        alone = alone_run() if pinned else None
+    finally:
+        audit.remove()
+    if not pinned:
+        alone = alone_run()
+    return engine, specs, audit, served, alone
+
+
+@pytest.mark.parametrize("pinned", [True, False])
+def test_served_streams_equal_their_pinned_alone_runs(pinned):
+    engine, specs, audit, served, alone = _served_and_alone(pinned)
+    lost = sum(p["prompts_losing_an_assignment"] for p in audit.passes
+               if p["mode"] == "served")
+    # on the CPU the tick runs eagerly; the prefill cells run their bodies
+    assert lost > 0 and audit.cells_checked > 0
+    equal = sum(a == b for a, b in zip(served, alone))
+    if pinned:
+        assert audit.pinned == {tuple(p) for p, _ in specs}
+        assert equal == len(specs)
+    else:                        # the drops are what set them apart
+        assert equal < len(specs)
+
+
+def test_packed_drift_is_rounding_alone_at_f32():
+    cfg = get_smoke_config("olmoe-1b-7b")
+    engine = InferenceEngine(cfg, init_params(cfg, device="cpu", seed=0),
+                             ladder=BucketLadder(seq_buckets=(32, 64),
+                                                 batch_buckets=(1, 2, 4)),
+                             device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)]
+               for n in (9, 20, 13, 30, 7, 25, 3, 11, 17)]
+    drift = chip_smoke.moe_packed_drift(engine, prompts)
+    assert drift["positions"] == sum(map(len, prompts))
+    assert drift["positions_with_a_flipped_choice"] == 0
+    assert drift["max_bf16_ulps"] < 0.01
+    assert drift["routing_pinned"]["max_bf16_ulps"] < 0.01
