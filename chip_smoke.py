@@ -147,7 +147,33 @@ Phases, each printing one JSON line:
    profile_prefill_moe_packed (the eight 1024-bucket prompts as one
    8192 pack), their device busy time split into matmuls, the port's
    kernels, the index, sort and scan kernels of the MoE's dispatch and
-   combine, and the elementwise ones.
+   combine, and the elementwise ones;
+9. serve_pool: the serving tier, after every other client is freed.
+   (a) ``TurboClient.from_arch("internlm2-1.8b", smoke=False,
+   replicas=2, prefix_cache=True, auto_pump="thread")`` at full width
+   and depth, 4 slots a replica (one set of weights read by both, each
+   replica its own engine, cells and KV pool; the sanitizer on): 16
+   requests, two cohorts of 6 sharing a 512-token prefix and 4 cold
+   prompts of 700 to 960 tokens, 32 to 64 new tokens, greedy and
+   seeded-sampled, the cohort heads served first; once timed (tok/s,
+   TTFT, the launches of the port's kernels, each of which must launch,
+   the cells captured while serving and their seconds), once more on
+   warm caches, once with the first cohort's replica killed while it holds a decoding
+   and a queued session (its queued sessions fail over and finish, its
+   decoding ones raise ``ReplicaFailure``; ``check_pool_ownership`` on a
+   consistent snapshot between ticks until every request ends), and the
+   same requests through one replica, twice, for its tok/s; routed, affinity
+   hits, failovers, resubmitted and failed sessions, prefix hits by
+   replica, cells by replica after ``warmup_aot`` and after serving,
+   peak memory, and every finished stream against the request alone
+   under the margin rule; (b) ``warmup="background"`` with a pump
+   thread, 4 requests submitted before the warm-up ends: its rounds and
+   seconds, the requests' TTFT, the cells captured outside its walk, the
+   streams under the rule; (c) ``simulate`` under nobatch, naive and dp
+   with the classify phase's cost table, on that phase's requests and on
+   a Poisson draw at its rate, beside the measured resp/s and p99; (d)
+   ``python -m repro_torch.launch.serve --no-smoke --replicas 2`` in a
+   subprocess, rc 0 and every request finished.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
@@ -1444,19 +1470,19 @@ def own_prefill_logits(engine, tokens) -> torch.Tensor:
 PACKED_LOGIT_ULPS = 4
 
 
-def packed_logit_drift(engine, prompts) -> tuple:
+def packed_logit_drift(engine, prompts, group_size: int = 8) -> tuple:
     """The largest |logit| difference between each prompt's last-token
-    logits from a packed pass (the prompts packed in groups of 8, the
-    top batch bucket) and from its own prefill, and the largest in bf16
-    ulps of the row's largest |logit|; fails where one passes
-    ``PACKED_LOGIT_ULPS``."""
+    logits from a packed pass (the prompts packed in groups of
+    ``group_size``, the top batch bucket) and from its own prefill, and
+    the largest in bf16 ulps of the row's largest |logit|; fails where
+    one passes ``PACKED_LOGIT_ULPS``."""
     cfg = engine.cfg
     no_kv = torch.zeros((cfg.num_layers, 0, cfg.num_kv_heads, cfg.head_dim),
                         device=engine.device)
     no_ids = torch.zeros((0,), dtype=torch.int32, device=engine.device)
     worst, worst_ulps = 0.0, 0.0
-    for at in range(0, len(prompts), 8):
-        group = prompts[at:at + 8]
+    for at in range(0, len(prompts), group_size):
+        group = prompts[at:at + group_size]
         logits, _ = engine.prefill_packed_flat(group, [0] * len(group),
                                                no_kv, no_kv, no_ids, no_ids)
         for i, p in enumerate(group):
@@ -2183,7 +2209,10 @@ def replay(system, requests) -> float:
 def classify_phase(dev, card: str, n_requests: int = 64):
     """launch/serve.py's first phase at full width: warm the cost table,
     then serve the same Poisson request list under each policy, and hold
-    served batches against each request classified alone."""
+    served batches against each request classified alone.  Returns the
+    dp run's softmax launches, the bucketed cost model the warm-up
+    measured, the requests, their rate and each policy's resp/s and p99
+    latency (the simulator's comparison in serve_pool)."""
     from repro_torch.configs import get_config
     from repro_torch.core import (BucketedCostModel, ServingConfig,
                                   ServingSystem)
@@ -2226,7 +2255,7 @@ def classify_phase(dev, card: str, n_requests: int = 64):
           "their_s": fill_s,
           "graph_pool_bytes": ready_cells["graph_pool_bytes"],
           "static_buffer_bytes": ready_cells["static_buffer_bytes"]})
-    served, logs, softmax_launches = {}, {}, {}
+    served, logs, softmax_launches, measured = {}, {}, {}, {}
     for policy in ("dp", "naive", "nobatch"):
         system = ServingSystem(execute=engine.execute_requests,
                                cost_model=cost,
@@ -2256,6 +2285,8 @@ def classify_phase(dev, card: str, n_requests: int = 64):
         served[policy] = {r.req_id: r.result for r in resp}
         logs[policy] = batches
         softmax_launches[policy] = launches["softmax"]
+        measured[policy] = {"resp_per_s": n_requests / wall,
+                            "latency_p99_s": float(np.percentile(lats, 99))}
         emit({"phase": "classify", "policy": policy, "card": card,
               "requests": n_requests, "offered_rate_per_s": rate,
               "lengths": "uniform 5-500", "wall_s": wall,
@@ -2326,7 +2357,8 @@ def classify_phase(dev, card: str, n_requests: int = 64):
           "near_tie": "top-2 margin of the row alone within twice the "
                       "tolerance",
           "predictions_equal_to_dp": agree})
-    return softmax_launches["dp"]
+    return {"softmax_launches": softmax_launches["dp"], "cost": cost,
+            "requests": requests, "rate": rate, "measured": measured}
 
 
 # ---------------------------------------------------------------------------
@@ -3656,6 +3688,508 @@ def serve_moe(dev, card: str):
     return client
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the serving tier: a replica pool, background warm-up, the
+# simulator on the card's costs, the serving CLI
+# ---------------------------------------------------------------------------
+
+#: decode slots of each pool replica: fewer than the requests a replica
+#: gets, so some wait queued while others decode (the kill needs both)
+POOL_SLOTS = 4
+POOL_CLIENT = dict(smoke=False, seq_buckets=(128, 256, 512, 1024),
+                   batch_buckets=(1, 2, 4), max_slots=POOL_SLOTS, cap_new=64,
+                   init_seed=SEED, num_blocks=2 * POOL_SLOTS * 1024 // 16 + 1)
+#: serve_pool's requests in arrival order: (kind, prompt tokens past the
+#: cohort's 512-token prefix, or a cold prompt's length)
+POOL_KINDS = (("cohort0", 40), ("cohort1", 64), ("cohort0", 16),
+              ("cold", 700), ("cohort1", 120), ("cohort0", 300),
+              ("cold", 820), ("cohort1", 33), ("cohort0", 210),
+              ("cohort1", 250), ("cold", 910), ("cohort0", 97),
+              ("cohort1", 180), ("cold", 960), ("cohort0", 150),
+              ("cohort1", 8))
+POOL_PHASE_LIMIT_S = 300
+
+
+def pool_workload(vocab: int, rng) -> list:
+    """(kind, prompt, params) of serve_pool's 16 requests: two cohorts of
+    6 sharing a 512-token prefix each (16 to 300 tokens after it), 4 cold
+    prompts of 700 to 960 tokens, 32 to 64 new tokens each, every fourth
+    seeded-sampled.  The two cohort heads come first."""
+    from repro_torch.api import GenerationParams
+
+    def toks(n):
+        return [int(t) for t in rng.integers(1, vocab, n)]
+    prefixes = {"cohort0": toks(512), "cohort1": toks(512)}
+    out = []
+    for i, (kind, n) in enumerate(POOL_KINDS):
+        prompt = prefixes[kind] + toks(n) if kind in prefixes else toks(n)
+        sampled = i % 4 == 1
+        out.append((kind, prompt, GenerationParams(
+            max_new_tokens=min(int(rng.integers(32, 65)),
+                               1024 - len(prompt)),
+            temperature=0.8 if sampled else 0.0,
+            top_k=50 if sampled else 0, top_p=0.95 if sampled else 1.0,
+            seed=4000 + i)))
+    return out
+
+
+def check_ownership_now(pool) -> int:
+    """``check_pool_ownership`` on a consistent snapshot of the pool: its
+    lock, then every replica's, all held until every replica is read
+    (each replica's lock passes to this thread after its current tick).
+    Returns the live sessions."""
+    from repro_torch.runtime import sanitizer
+    with pool._cv:
+        held = []
+        try:
+            owned = {}
+            for i in range(pool.num_replicas):
+                c = pool.replica(i)
+                c._cv.acquire()
+                held.append(c)
+                p = c.pipeline
+                owned[i] = [s.req_id for s in list(p.queue) +
+                            list(p.chunking) + list(p.live)
+                            if not s.is_finished]
+            return len(sanitizer.check_pool_ownership(
+                owned, set(pool.healthy_replicas())))
+        finally:
+            for c in held:
+                c._cv.release()
+
+
+def pool_ticks(pool) -> int:
+    return sum(pool._tick_count(pool.replica(i))
+               for i in range(pool.num_replicas))
+
+
+def capture_seconds(clients) -> float:
+    """Seconds the clients' engines spent in first calls and captures of
+    their cells (prefill and tick), waits for the device gate included."""
+    return sum(c.backend.tick_cells.capture_seconds +
+               c.backend.engine.prefill_cells.capture_seconds
+               for c in clients)
+
+
+def run_pool(pool, specs, kill: bool, clients) -> dict:
+    """Serve ``specs`` through ``pool`` (the cohort heads first, to the
+    end, then the rest).  With ``kill``, kill the first head's replica
+    while it decodes some sessions and holds others queued (the last
+    seven requests are submitted with its lock held, so its share of
+    them stays queued), then hold the pool's ownership invariant on a
+    consistent snapshot between its ticks until every request has
+    ended.  ``clients``: the pool's replicas, whose captures while
+    serving are counted."""
+    from repro_torch.cluster import ReplicaFailure
+    from repro_torch.runtime.session import SessionState
+    cap0 = capture_seconds(clients)
+    compiles0 = sum(c.backend.engine.compile_count for c in clients)
+    t0 = time.perf_counter()
+    handles = [pool.submit(p, g) for _, p, g in specs[:2]]
+    for h in handles:
+        h.result(timeout=POOL_PHASE_LIMIT_S)
+    if not kill:
+        handles += [pool.submit(p, g) for _, p, g in specs[2:]]
+        placed = [h.replica for h in handles]
+    victim, at_kill, checks, ticks0 = None, None, 0, 0
+    if kill:
+        # half the rest, until the first head's replica decodes one; then
+        # with its lock held (it ticks no more) the other half, whose
+        # sessions there stay queued, and the kill
+        ticks0 = pool_ticks(pool)
+        victim = handles[0].replica
+        handles += [pool.submit(p, g) for _, p, g in specs[2:9]]
+        deadline = time.monotonic() + POOL_PHASE_LIMIT_S
+        while not any(h.replica == victim and
+                      h.session.state is SessionState.DECODE
+                      for h in handles):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"serve_pool: replica {victim} "
+                                     "never decoded")
+            time.sleep(0.0005)
+        with pool._cv, pool.replica(victim)._cv:
+            handles += [pool.submit(p, g) for _, p, g in specs[9:]]
+            placed = [h.replica for h in handles]
+            states = [h.session.state for h in handles
+                      if h.replica == victim]
+            at_kill = {st.value: states.count(st) for st in set(states)}
+            if SessionState.DECODE not in states or \
+                    SessionState.QUEUED not in states:
+                raise AssertionError(
+                    f"serve_pool: replica {victim} holds {at_kill}, not a "
+                    "decoding and a queued session")
+            pool.kill_replica(victim, reason="serve_pool kill")
+        deadline = time.monotonic() + POOL_PHASE_LIMIT_S
+        while not all(h.done for h in handles):
+            check_ownership_now(pool)
+            checks += 1
+            if time.monotonic() > deadline:
+                raise AssertionError("serve_pool: requests did not end")
+            time.sleep(0.002)
+    results, lost = [], []
+    for i, h in enumerate(handles):
+        try:
+            results.append(h.result(timeout=POOL_PHASE_LIMIT_S))
+        except ReplicaFailure as e:
+            if e.replica != victim or placed[i] != victim:
+                raise
+            results.append(None)
+            lost.append(i)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    done = [(h, r, p) for h, r, (_, p, _) in zip(handles, results, specs)
+            if r is not None]
+    gen = sum(len(r) - len(p) for _, r, p in done)
+    ttft = sorted(h.ttft for h, _, _ in done)
+    return {"results": results, "placed": placed,
+            "cached_tokens": [h.session.cached_tokens for h in handles],
+            "captured_while_serving": sum(
+                c.backend.engine.compile_count for c in clients) - compiles0,
+            "capture_s_while_serving": capture_seconds(clients) - cap0,
+            "final": [h.replica for h in handles], "victim": victim,
+            "at_kill": at_kill, "lost": lost, "ownership_checks": checks,
+            "ticks_while_checked": pool_ticks(pool) - ticks0 if kill else 0,
+            "serve_s": serve_s, "generated_tokens": gen,
+            "tok_per_s": gen / serve_s,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99))}
+
+
+def alone_streams(phase, engine, specs, results, dlogit, cache,
+                  indices=None) -> dict:
+    """Each finished stream against its request served alone (greedy:
+    ``engine.generate``; sampled: a client of its own over ``engine``),
+    under the margin rule of the other serve phases; ``cache`` keeps the
+    alone runs by request index.  Fails beyond the rule."""
+    from repro_torch.api import TurboClient
+    from repro_torch.runtime.engine import ContinuousEngine
+    indices = range(len(specs)) if indices is None else indices
+    greedy_eq = sampled_eq = 0
+    divergences, alone_client = [], None
+    for i, res in zip(indices, results):
+        if res is None:
+            continue
+        kind, prompt, params = specs[i]
+        if i not in cache:
+            if params.temperature > 0:
+                if alone_client is None:
+                    alone_client = TurboClient(ContinuousEngine(
+                        engine, max_slots=POOL_SLOTS, cap_new=64,
+                        num_blocks=POOL_SLOTS * 1024 // 16 + 1))
+                cache[i] = alone_client.submit(prompt, params).result()
+            else:
+                cache[i] = engine.generate(
+                    [prompt], max_new_tokens=params.max_new_tokens)[0]
+        alone = cache[i]
+        if alone != res:
+            divergences.append(dict(explain_divergence(
+                engine, prompt, params, alone, res, dlogit), kind=kind,
+                request=i))
+        if params.temperature > 0:
+            sampled_eq += alone == res
+        else:
+            greedy_eq += alone == res
+    if alone_client is not None:
+        alone_client.close()
+    beyond = [d for d in divergences if not d["within_rule"]]
+    if beyond:
+        raise AssertionError(f"{phase}: {len(beyond)} streams differ from "
+                             f"the request alone beyond the margin rule: "
+                             f"{beyond}")
+    return {"greedy_equal_to_generate_alone": greedy_eq,
+            "sampled_equal_to_served_alone": sampled_eq,
+            "divergences": divergences}
+
+
+def replica_cells(client) -> dict:
+    ce = client.backend
+    cells = cell_stats(ce.engine)
+    return {"by_warmup_aot": (client.warmup_stats or {}).get(
+                "compile_count"),
+            "compile_count": ce.engine.compile_count,
+            "tick_cells": ce.tick_cells.captures,
+            "prefill_cells_by_kind": cells["cells_by_kind"],
+            "capture_s": cells["capture_s"] + ce.tick_cells.capture_seconds}
+
+
+def serve_pool(dev, card: str, classified: dict) -> dict:
+    """Phase 9: the serving tier at full width.  (a) Two InternLM2-1.8B
+    replicas on the card, ``TurboClient.from_arch(..., replicas=2,
+    prefix_cache=True, auto_pump="thread")`` (weights drawn once and read
+    by both; the sanitizer on): 16 requests in two cohorts sharing a
+    512-token prefix and 4 cold ones, served once timed, once more on
+    warm caches and once with the first cohort's replica killed while it
+    holds decoding and queued sessions; the same requests through one
+    replica, twice, for its tok/s.
+    (b) One client warming up in the background with a pump thread,
+    given 4 requests before its warm-up ends.  (c) The simulator under
+    nobatch, naive and dp with the cost table the classify phase measured,
+    on that phase's requests and on the simulator's own Poisson draw at
+    its rate, beside the measured resp/s and p99.  (d) The serving CLI,
+    ``python -m repro_torch.launch.serve --no-smoke --replicas 2``, in a
+    subprocess.  Returns the launches of (a)'s timed run."""
+    import os
+
+    from repro_torch.api import TurboClient
+    from repro_torch.cluster import ReplicaPool
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.runtime import graphs
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+    sanitize_was = os.environ.get("TURBO_SANITIZE")
+    os.environ["TURBO_SANITIZE"] = "1"
+    try:
+        # ---- (a) the pool ---------------------------------------------
+        gate0 = (graphs.DEVICE_GATE.captures_waited,
+                 graphs.DEVICE_GATE.wait_seconds)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        pool = TurboClient.from_arch("internlm2-1.8b", device=dev,
+                                     replicas=2, prefix_cache=True,
+                                     auto_pump="thread", **POOL_CLIENT)
+        build_s = time.perf_counter() - t0
+        engines = [pool.replica(i).backend.engine for i in range(2)]
+        if engines[0].params["embed"]["tok"].data_ptr() != \
+                engines[1].params["embed"]["tok"].data_ptr() or \
+                engines[0].prefill_cells is engines[1].prefill_cells:
+            raise AssertionError("serve_pool: the replicas must read one "
+                                 "set of weights through engines of their "
+                                 "own")
+        warm = [replica_cells(pool.replica(i)) for i in range(2)]
+        specs = pool_workload(engines[0].cfg.vocab_size, rng)
+        del engines
+        replicas = [pool.replica(i) for i in range(2)]
+        cuda_lib.reset_launches()
+        timed = run_pool(pool, specs, False, replicas)
+        launches = dict(cuda_lib.LAUNCHES)
+        for kname in ("norm", "flash_attention_packed",
+                      "flash_attention_packed_plan", "flash_decode_paged",
+                      "sample"):
+            if launches.get(kname, 0) <= 0:
+                raise AssertionError(f"serve_pool: kernel {kname} never "
+                                     f"launched: {launches}")
+        rerun = run_pool(pool, specs, False, replicas)
+        timed_counters = pool.metrics()["counters"]
+        killed = run_pool(pool, specs, True, replicas)
+        c = pool.metrics()["counters"]
+        served = [replica_cells(pool.replica(i)) for i in range(2)]
+        prefix = [pool.replica(i).backend.prefix_stats() for i in range(2)]
+        peak = torch.cuda.max_memory_allocated(dev)
+        health = pool.health()
+        pool.close()
+        victim = killed["victim"]
+        moved = [i for i, (a, b) in enumerate(zip(killed["placed"],
+                                                  killed["final"]))
+                 if a == victim and b != victim]
+        resub = c["pool.failover_resubmitted"] - \
+            timed_counters.get("pool.failover_resubmitted", 0)
+        if not killed["lost"] or not moved or len(moved) != resub or \
+                c["pool.failed_sessions"] != len(killed["lost"]) or \
+                any(killed["results"][i] is None for i in moved) or \
+                health[victim]["state"] != "dead":
+            raise AssertionError(
+                f"serve_pool: kill of replica {victim} (at {killed['at_kill']}"
+                f"): {len(killed['lost'])} lost, failed over {moved}, "
+                f"counters {c}, health {health}")
+        for (_, prompt, params), res in zip(
+                specs * 3, killed["results"] + timed["results"] +
+                rerun["results"]):
+            if res is not None and (
+                    res[:len(prompt)] != prompt or
+                    len(res) - len(prompt) != params.max_new_tokens):
+                raise AssertionError("serve_pool: bad result")
+        del pool, replicas
+        release_memory()
+
+        # ---- one replica on the same requests, and the alone runs ------
+        single = TurboClient.from_arch("internlm2-1.8b", device=dev,
+                                       prefix_cache=True,
+                                       auto_pump="thread", **POOL_CLIENT)
+        one = ReplicaPool([single])
+        alone_timed = run_pool(one, specs, False, [single])
+        alone_rerun = run_pool(one, specs, False, [single])
+        one.close()
+        engine = single.backend.engine
+        prompts = [p for _, p, _ in specs]
+        seams = [n or 512 for n in killed["cached_tokens"]]
+        drift = {"packed": packed_logit_drift(engine, prompts, POOL_SLOTS),
+                 "suffix": suffix_logit_drift(engine, prompts, seams),
+                 "decode_b4_vs_b1": decode_shape_drift(engine, prompts[:4])}
+        dlogit = max(d for d, _ in drift.values())
+        cache = {}
+        rule = {name: alone_streams(f"serve_pool {name}", engine, specs,
+                                    run["results"], dlogit, cache)
+                for name, run in (("timed", timed), ("rerun", rerun),
+                                  ("killed", killed),
+                                  ("one_replica", alone_timed),
+                                  ("one_replica_rerun", alone_rerun))}
+
+        def run_line(run):
+            return {k: run[k] for k in (
+                "placed", "final", "serve_s", "generated_tokens",
+                "tok_per_s", "ttft_p50_s", "ttft_p99_s",
+                "captured_while_serving", "capture_s_while_serving")}
+        emit({"phase": "serve_pool", "card": card,
+              "model": "internlm2-1.8b x 2 replicas on one card (full "
+                       "width, 24 layers, bf16 weights from a seed read by "
+                       "both, f32 KV, prefix cache, packed admission, "
+                       "thread-pumped, sanitizer on)",
+              "slots_per_replica": POOL_SLOTS,
+              "requests": len(specs),
+              "kinds": {k: sum(1 for s in specs if s[0] == k)
+                        for k in ("cohort0", "cohort1", "cold")},
+              "sampled": sum(1 for s in specs if s[2].temperature > 0),
+              "stack_build_s": build_s,
+              "timed": run_line(timed),
+              "one_replica_same_requests": run_line(alone_timed),
+              "pool_over_one_replica_tok_per_s":
+                  timed["tok_per_s"] / alone_timed["tok_per_s"],
+              "rerun_warm_caches": run_line(rerun),
+              "one_replica_rerun_warm_caches": run_line(alone_rerun),
+              "pool_over_one_replica_tok_per_s_rerun":
+                  rerun["tok_per_s"] / alone_rerun["tok_per_s"],
+              "killed": dict(run_line(killed), victim=victim,
+                             victim_sessions_at_kill=killed["at_kill"],
+                             lost_mid_decode=killed["lost"],
+                             failed_over=moved,
+                             ownership_checks=killed["ownership_checks"],
+                             ticks_while_checked=killed[
+                                 "ticks_while_checked"]),
+              "pool_counters": {k: v for k, v in c.items()
+                                if k.startswith("pool.")},
+              "prefix_stats_by_replica": prefix,
+              "cached_tokens_killed_run": killed["cached_tokens"],
+              "cells_by_replica": {"after_warmup_aot": warm,
+                                   "after_serving": served},
+              "captures_that_waited_for_the_gate":
+                  graphs.DEVICE_GATE.captures_waited - gate0[0],
+              "their_gate_wait_s": graphs.DEVICE_GATE.wait_seconds - gate0[1],
+              "drift_max_abs_dlogit_and_bf16_ulps": drift,
+              "streams": rule,
+              "peak_mem_gib": peak / 2 ** 30,
+              "launches_timed_run": launches})
+        del one, single, engine, timed, rerun, killed, alone_timed, \
+            alone_rerun
+        release_memory()
+
+        # ---- (b) background warm-up while serving ----------------------
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        client = TurboClient.from_arch("internlm2-1.8b", device=dev,
+                                       warmup="background",
+                                       auto_pump="thread", **POOL_CLIENT)
+        early = [3, 6, 0, 1]           # two cold, two cohort prompts
+        handles, submit_s = [], []
+        for i in early:                # a submit waits for a round's end
+            t1 = time.perf_counter()
+            handles.append(client.submit(specs[i][1], specs[i][2]))
+            submit_s.append(time.perf_counter() - t1)
+        submitted_during = not client.warmup_stats["done"]
+        rounds_at_submit = client.warmup_stats.get("rounds_completed")
+        results = [h.result(timeout=POOL_PHASE_LIMIT_S) for h in handles]
+        first_tokens = [h.ttft for h in handles]
+        stats = client.wait_warmup(timeout=POOL_PHASE_LIMIT_S)
+        warm_s = time.perf_counter() - t0
+        client.close()
+        engine = client.backend.engine
+        if not submitted_during or not stats.get("done") or \
+                stats.get("error") is not None or \
+                stats["rounds_completed"] != stats["rounds"]:
+            raise AssertionError(f"serve_pool background warm-up: {stats}, "
+                                 f"submitted during it: {submitted_during}")
+        bg_rule = alone_streams("serve_pool background", engine, specs,
+                                results, dlogit, cache, indices=early)
+        emit({"phase": "serve_pool_background_warmup", "card": card,
+              "requests_before_warmup_end": len(early),
+              "warmup": {k: stats.get(k) for k in (
+                  "rounds", "rounds_completed", "warmup_seconds",
+                  "compile_count", "done", "error")},
+              "build_to_warm_s": warm_s,
+              "submit_call_s": submit_s,
+              "ttft_s_from_the_handle": first_tokens,
+              "rounds_done_after_the_submits": rounds_at_submit,
+              "cells_captured_total": engine.compile_count,
+              "cells_captured_outside_the_walk":
+                  engine.compile_count - stats["compile_count"],
+              "streams": bg_rule,
+              "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30})
+        del client, engine, handles, results
+        release_memory()
+    finally:
+        if sanitize_was is None:
+            os.environ.pop("TURBO_SANITIZE", None)
+        else:
+            os.environ["TURBO_SANITIZE"] = sanitize_was
+
+    # ---- (c) the simulator on the card's cost table -------------------
+    simulator_vs_card(card, classified)
+
+    # ---- (d) the serving CLI --------------------------------------------
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--no-smoke",
+           "--replicas", "2", "--num-requests", "16", "--gen-requests", "6",
+           "--max-new-tokens", "16"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=POOL_PHASE_LIMIT_S,
+                          env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    cli_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    emit({"phase": "serve_pool_cli", "card": card, "command": " ".join(
+              ["python -m repro_torch.launch.serve"] + cmd[3:]),
+          "rc": proc.returncode, "seconds": cli_s, "stdout_tail": lines[-8:],
+          "stderr_tail": proc.stderr.strip().splitlines()[-5:]})
+    if proc.returncode != 0 or not any("6 finished / 0 failed" in ln
+                                       for ln in lines):
+        raise AssertionError(f"serve_pool: the CLI gave rc "
+                             f"{proc.returncode}")
+    emit({"phase": "serve_pool_seconds", "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+def simulator_vs_card(card: str, classified: dict) -> None:
+    """(c): ``simulate`` under nobatch, naive and dp with the classify
+    phase's cost table (measured on the card), on that phase's own
+    requests (the same arrivals and lengths) and on the simulator's
+    Poisson draw at the same rate and lengths, beside the phase's
+    measured resp/s and p99 latency (the paper's §6.3 comparison)."""
+    from repro_torch.core import SimConfig, Workload, simulate
+    from repro_torch.runtime.session import Session
+    reqs = classified["requests"]
+    rate = classified["rate"]
+    duration = len(reqs) / rate
+
+    class Replayed(Workload):
+        def generate_sessions(self):
+            return [Session(req_id=r.req_id, seq_len=r.seq_len,
+                            arrival_time=r.arrival_time) for r in reqs]
+
+    out = {}
+    for policy in ("nobatch", "naive", "dp"):
+        row = {"measured_on_card": classified["measured"][policy]}
+        for name, wl in (("same_requests", Replayed(
+                rate=rate, duration=duration, len_min=5, len_max=500)),
+                         ("poisson_draw", Workload(
+                             rate=rate, duration=duration, len_min=5,
+                             len_max=500, seed=0))):
+            res = simulate(wl, classified["cost"],
+                           SimConfig(policy=policy, max_batch_size=20))
+            lats = [r.latency for r in res.responses]
+            end = max(r.finish_time for r in res.responses)
+            row[name] = {"requests": len(res.responses),
+                         "resp_per_s": len(res.responses) / end,
+                         "latency_p99_s": float(np.percentile(lats, 99)),
+                         "batches": len(res.batch_log)}
+        out[policy] = row
+    emit({"phase": "serve_pool_simulator", "card": card,
+          "cost_model": "BucketedCostModel over the classify phase's "
+                        "warm-up table (lengths 32, 128, 512 x batches 1, "
+                        "4, 16), measured on the card",
+          "rate_per_s": rate, "lengths": "uniform 5-500",
+          "max_batch": 20, "policies": out})
+
+
 def release_memory() -> None:
     """Free what a finished phase left (its client holds reference
     cycles), so the next phase's peak memory is its own."""
@@ -3723,7 +4257,8 @@ def main() -> int:
     # the prefix cache and chunked prefill: packed, then per group
     serve_prefix_chunked(dev, card)
     release_memory()
-    launches["softmax"] = classify_phase(dev, card)
+    classified = classify_phase(dev, card)
+    launches["softmax"] = classified["softmax_launches"]
     release_memory()
     # the paper's allocator over the classify forward (its launches are
     # checked there; the kernels line keeps classify's)
@@ -3746,6 +4281,10 @@ def main() -> int:
                     family=moe_kernel_family)
     del client
     release_memory()
+    # the serving tier: two replicas, background warm-up, the simulator
+    # on the classify phase's cost table, the CLI
+    pool_launches = serve_pool(dev, card, classified)
+    release_memory()
     names = {"fused_norm": "norm", "flash_attention": "flash_attention",
              "flash_attention_packed": "flash_attention_packed",
              "flash_attention_packed_plan": "flash_attention_packed_plan",
@@ -3760,6 +4299,7 @@ def main() -> int:
         c = checks[name]
         item = {"name": name, "launches": launches.get(counter, 0)}
         item.update({k: c[k] for k in keys})
+        item["launches_in_serve_pool"] = pool_launches.get(counter, 0)
         kernels.append(item)
     for item in kernels:
         for k, val in item.items():

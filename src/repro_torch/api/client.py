@@ -1,11 +1,12 @@
 """Handle-based streaming client over the serving pipeline.
 
 :class:`TurboClient` is the front door to the serving stack: construct
-it from an arch name (:meth:`TurboClient.from_arch`) or an existing
-`repro_torch.runtime.engine.ContinuousEngine`, then
-``submit(prompt, params)`` and consume the returned
+it from an arch name (:meth:`TurboClient.from_arch`), an existing
+`repro_torch.runtime.engine.ContinuousEngine`, or a virtual-clock
+`repro_torch.core.simulator.VirtualBackend` (:meth:`TurboClient.simulated`),
+then ``submit(prompt, params)`` and consume the returned
 :class:`RequestHandle`.  Copied from the JAX package; the port builds
-its stack with PyTorch on one CUDA device (or the CPU, when asked).
+its stack with PyTorch on CUDA devices (or the CPU, when asked).
 
 The client owns a `repro_torch.core.pipeline.ServingPipeline` and pumps it so
 callers never touch ``tick()``:
@@ -17,8 +18,8 @@ callers never touch ``tick()``:
   pending and handle calls just wait;
 - ``auto_pump=False``: the owner drives ``pipeline.tick()`` itself.
 
-The engine is imported lazily by :meth:`TurboClient.from_arch`, so the
-client imports no torch code of its own.
+The engine, the simulator and the cluster tier are imported lazily by
+the constructors, so the client imports no torch code of its own.
 """
 from __future__ import annotations
 
@@ -42,6 +43,81 @@ __all__ = ["GenerationParams", "RequestHandle", "TurboClient"]
 # costs to order/veto batches)
 _DEFAULT_COST = dict(flops_per_token=1e6, bytes_per_token=1e3,
                      weight_bytes=1e6, overhead=1e-4)
+
+
+class _FairRLock:
+    """A reentrant lock that passes, on release, to the thread that has
+    waited longest.  The client's lock: a pump thread ticks under it and
+    takes it again right after each tick, and with a plain lock a thread
+    waiting for it (a submit, a pool routing a prompt, a warm-up's round
+    boundary) would almost never get in until the pipeline idled.
+    Supports what `threading.Condition` uses (``acquire`` with
+    ``blocking`` and ``timeout``, ``release``, and the save / restore
+    pair that lets ``wait`` drop every recursion level)."""
+
+    def __init__(self) -> None:
+        self._mutex = threading.Lock()
+        self._owner: Optional[int] = None
+        self._count = 0
+        self._waiters: Deque[tuple] = deque()    # (gate, thread id)
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        me = threading.get_ident()
+        with self._mutex:
+            if self._owner == me:
+                self._count += 1
+                return True
+            if self._owner is None and not self._waiters:
+                self._owner, self._count = me, 1
+                return True
+            if not blocking:
+                return False
+            gate = threading.Lock()
+            gate.acquire()
+            entry = (gate, me)
+            self._waiters.append(entry)
+        if gate.acquire(True, timeout):
+            return True
+        with self._mutex:
+            if self._owner == me:      # handed over as the wait timed out
+                return True
+            self._waiters.remove(entry)
+            return False
+
+    def _hand_over(self) -> None:
+        if self._waiters:
+            gate, self._owner = self._waiters.popleft()
+            self._count = 1
+            gate.release()
+        else:
+            self._owner, self._count = None, 0
+
+    def release(self) -> None:
+        with self._mutex:
+            if self._owner != threading.get_ident():
+                raise RuntimeError("cannot release un-acquired lock")
+            self._count -= 1
+            if self._count == 0:
+                self._hand_over()
+
+    def __enter__(self) -> bool:
+        return self.acquire()
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def _is_owned(self) -> bool:
+        return self._owner == threading.get_ident()
+
+    def _release_save(self) -> int:
+        with self._mutex:
+            saved = self._count
+            self._hand_over()
+            return saved
+
+    def _acquire_restore(self, saved: int) -> None:
+        self.acquire()
+        self._count = saved
 
 
 class RequestHandle:
@@ -198,15 +274,14 @@ class TurboClient:
                  config: Optional[PipelineConfig] = None,
                  clock: Optional[Callable[[], float]] = None,
                  auto_pump: Union[str, bool] = "sync",
-                 warmup: bool = False,
+                 warmup: Union[bool, str] = False,
                  trace: Union[bool, TraceRecorder] = False) -> None:
-        if warmup not in (True, False):
-            raise ValueError("warmup must be True or False (the "
-                             "reference's 'background' warm-up is not "
-                             f"ported yet), got {warmup!r}")
         if auto_pump not in ("sync", "thread", False):
             raise ValueError("auto_pump must be 'sync', 'thread' or "
                              f"False, got {auto_pump!r}")
+        if warmup not in (True, False, "background"):
+            raise ValueError("warmup must be True, False or "
+                             f"'background', got {warmup!r}")
         if clock is None:
             clock = getattr(backend, "clock", None) or time.monotonic
         self.clock = clock
@@ -232,7 +307,7 @@ class TurboClient:
         self._handles: "weakref.WeakValueDictionary[int, RequestHandle]" \
             = weakref.WeakValueDictionary()
         self._ids = itertools.count()
-        self._cv = threading.Condition(threading.RLock())
+        self._cv = threading.Condition(_FairRLock())
         self._closed = False
         self._pump_error: Optional[BaseException] = None
         self._pump_thread: Optional[threading.Thread] = None
@@ -242,16 +317,31 @@ class TurboClient:
         # sampled decode ticks, and on the packed path a pack with
         # prefix keys and one per admission size), so on the card every
         # reachable prefill and tick cell is captured as a CUDA graph
-        # before the pump starts.  Opt-in here; `from_arch` warms by
-        # default, as the reference's does.
+        # before the first request.  ``True`` warms at construction;
+        # ``"background"`` walks the same rounds on a daemon thread,
+        # yielding the client lock between rounds so early submits are
+        # served between them (`warmup_stats` reports progress).  Opt-in
+        # here; `from_arch` warms by default, as the reference's does.
         self.warmup_stats: Optional[dict] = None
         if warmup and hasattr(backend, "warmup_aot"):
-            self.warmup_stats = backend.warmup_aot()
+            if warmup == "background":
+                self.warmup_stats = {"mode": "background", "done": False,
+                                     "rounds_completed": 0}
+            else:
+                self.warmup_stats = backend.warmup_aot()
+        self._warmup_thread: Optional[threading.Thread] = None
         if auto_pump == "thread":
             self._pump_thread = threading.Thread(
                 target=self._pump_loop, daemon=True,
                 name="turbo-client-pump")
             self._pump_thread.start()
+        # started last: the warmup thread takes `_cv`, so every other
+        # field must exist before it can observe the client
+        if warmup == "background" and hasattr(backend, "warmup_aot"):
+            self._warmup_thread = threading.Thread(
+                target=self._background_warmup, daemon=True,
+                name="turbo-client-warmup")
+            self._warmup_thread.start()
 
     # -- constructors ----------------------------------------------------
     @classmethod
@@ -265,10 +355,11 @@ class TurboClient:
                   config: Optional[PipelineConfig] = None,
                   init_seed: int = 0,
                   auto_pump: Union[str, bool] = "sync",
-                  warmup: bool = True,
+                  warmup: Union[bool, str] = True,
                   sample_candidates: Optional[int] = None,
                   trace: Union[bool, TraceRecorder] = False,
-                  **backend_kw) -> "TurboClient":
+                  replicas: int = 1,
+                  **backend_kw):
         """Build the whole serving stack from an arch name: reduced
         (``smoke=True``) or full config, fresh params drawn from
         ``init_seed`` on ``device``, a bucketed InferenceEngine, and a
@@ -278,26 +369,93 @@ class TurboClient:
         ``"cuda"``; without a card the call raises unless the caller
         passes ``device="cpu"``.  ``warmup`` defaults to True, as the
         reference's does: `ContinuousEngine.warmup_aot` captures every
-        reachable cell before the first request.  One client serves one
-        replica."""
+        reachable cell before the first request; ``warmup="background"``
+        warms on a daemon thread instead.  ``replicas=N`` returns a
+        `repro_torch.cluster.ReplicaPool` of N such stacks behind the
+        same submit/stream/cancel surface: the weights are drawn once;
+        each replica has its own InferenceEngine (its own cells) and
+        ContinuousEngine (its own KV pool); on one card every replica
+        reads the same weight tensors, and with several visible cards
+        replica i goes on ``cuda:{i % n}``, as the reference places
+        replicas over ``jax.devices()``."""
         from repro_torch.configs import get_config, get_smoke_config
         from repro_torch.models import init_params
         from repro_torch.runtime.bucketing import BucketLadder
         from repro_torch.runtime.device import resolve_device
         from repro_torch.runtime.engine import (ContinuousEngine,
                                                 InferenceEngine)
+        if replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {replicas}")
         dev = resolve_device(device)
         cfg = get_smoke_config(arch) if smoke else get_config(arch)
         params = init_params(cfg, seed=init_seed, device=dev)
-        engine = InferenceEngine(cfg, params, ladder=BucketLadder(
-            seq_buckets=tuple(seq_buckets),
-            batch_buckets=tuple(batch_buckets)),
-            sample_candidates=sample_candidates, device=dev)
-        backend = ContinuousEngine(engine, max_slots=max_slots,
-                                   cap_new=cap_new,
-                                   prefix_cache=prefix_cache, **backend_kw)
-        return cls(backend, cost_model=cost_model, config=config,
-                   auto_pump=auto_pump, warmup=warmup, trace=trace)
+        devices = [dev]
+        if dev.type == "cuda" and replicas > 1:
+            import torch
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+
+        def build_one(i: int, rec) -> "TurboClient":
+            engine = InferenceEngine(cfg, params, ladder=BucketLadder(
+                seq_buckets=tuple(seq_buckets),
+                batch_buckets=tuple(batch_buckets)),
+                sample_candidates=sample_candidates,
+                device=devices[i % len(devices)])
+            backend = ContinuousEngine(engine, max_slots=max_slots,
+                                       cap_new=cap_new,
+                                       prefix_cache=prefix_cache,
+                                       **backend_kw)
+            return cls(backend, cost_model=cost_model, config=config,
+                       auto_pump=auto_pump, warmup=warmup, trace=rec)
+
+        if replicas == 1:
+            # single replica keeps the historical path (including a
+            # caller-supplied TraceRecorder)
+            return build_one(0, trace)
+        # lazy: repro_torch.cluster imports nothing from repro_torch.api,
+        # but keep the cluster tier out of the api import graph regardless
+        from repro_torch.cluster import ReplicaPool
+        return ReplicaPool([build_one(i, bool(trace))
+                            for i in range(replicas)], trace=bool(trace))
+
+    @classmethod
+    def simulated(cls, cost_model: Optional[CostModel] = None,
+                  sim_config=None,
+                  auto_pump: Union[str, bool] = "sync",
+                  trace: Union[bool, TraceRecorder] = False,
+                  replicas: int = 1):
+        """The same client API over the virtual-clock simulator backend
+        — parity harness for scheduling/streaming/cancellation tests
+        with no model or device anywhere.  ``replicas=N`` returns a
+        `repro_torch.cluster.ReplicaPool` of N independent virtual
+        replicas (each with its own clock; the pool drains them
+        min-clock-first, the same discipline
+        `repro_torch.core.simulator.simulate` uses)."""
+        from repro_torch.core.simulator import SimConfig, virtual_replica
+        cfg = sim_config if sim_config is not None else SimConfig()
+        cost = cost_model if cost_model is not None \
+            else AnalyticCostModel(**_DEFAULT_COST)
+        if replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {replicas}")
+        if replicas == 1:
+            backend, clock = virtual_replica(cost, cfg)
+            return cls(backend, cost_model=cost,
+                       config=cfg.pipeline_config(), clock=clock,
+                       auto_pump=auto_pump, trace=trace)
+        if auto_pump == "thread":
+            raise ValueError("replicas > 1 over the virtual clock is "
+                             "sync-driven; auto_pump='thread' would "
+                             "race the per-replica clocks")
+        from repro_torch.cluster import ReplicaPool
+
+        def build_one() -> "TurboClient":
+            backend, clock = virtual_replica(cost, cfg)
+            return cls(backend, cost_model=cost,
+                       config=cfg.pipeline_config(), clock=clock,
+                       auto_pump=auto_pump, trace=bool(trace))
+
+        return ReplicaPool([build_one() for _ in range(replicas)],
+                           trace=bool(trace))
 
     # -- submission ------------------------------------------------------
     def submit(self, prompt: Sequence[int],
@@ -400,6 +558,67 @@ class TurboClient:
                     raise
                 self._cv.notify_all()
 
+    def _background_warmup(self) -> None:
+        """Daemon-thread body for ``warmup="background"``: run the
+        backend's warm-up rounds under the client lock, but drop the
+        lock at every round boundary (the ``progress`` callback below)
+        so submits and ticks made during warmup interleave instead of
+        blocking until the whole walk completes."""
+
+        class _Aborted(Exception):
+            pass
+
+        def progress(rounds: int) -> None:
+            # nested function: it needs its own `with self._cv:` — and
+            # Condition.wait(0) releases every RLock recursion level, so
+            # callers blocked on the lock (submits, sync-mode handle
+            # waits) run right here (the lock passes to them in turn).
+            # Work they queued is then served to completion BEFORE the
+            # next warm round: warm rounds assume every engine slot is
+            # free, so the engine must be drained at each round boundary.
+            with self._cv:
+                if self._closed:
+                    raise _Aborted()
+                self.warmup_stats["rounds_completed"] = rounds
+                self._cv.notify_all()
+                self._cv.wait(0)
+                while not self.pipeline.idle():
+                    self.pipeline.tick()
+                    self._cv.notify_all()
+                if self._closed:
+                    raise _Aborted()
+
+        try:
+            with self._cv:
+                stats = self.backend.warmup_aot(progress=progress)
+                self.warmup_stats.update(stats)
+                self.warmup_stats["mode"] = "background"
+                self.warmup_stats["done"] = True
+                self._cv.notify_all()
+        except _Aborted:
+            with self._cv:
+                self.warmup_stats["aborted"] = True
+                self.warmup_stats["done"] = True
+                self._cv.notify_all()
+        except BaseException as exc:
+            with self._cv:
+                self.warmup_stats["error"] = repr(exc)
+                self.warmup_stats["done"] = True
+                self._cv.notify_all()
+
+    def wait_warmup(self, timeout: Optional[float] = None) -> dict:
+        """Block until background warmup finishes (no-op for eager or
+        disabled warmup); returns ``warmup_stats``."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._cv:
+            while (self.warmup_stats is not None
+                   and not self.warmup_stats.get("done", True)):
+                if deadline is not None and time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"warmup not finished within {timeout}s")
+                self._cv.wait(0.05)
+            return dict(self.warmup_stats or {})
+
     # -- observability ---------------------------------------------------
     def metrics(self) -> dict:
         """Plain-dict snapshot of the serving stack's metrics registry
@@ -449,6 +668,10 @@ class TurboClient:
             self._cv.notify_all()
         if self._pump_thread is not None:
             self._pump_thread.join(timeout=2.0)
+        if self._warmup_thread is not None:
+            # aborts at its next round boundary (daemon: never blocks
+            # interpreter exit even if a capture is in flight)
+            self._warmup_thread.join(timeout=0.5)
 
     def __enter__(self) -> "TurboClient":
         return self

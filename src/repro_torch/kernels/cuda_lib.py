@@ -85,6 +85,7 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: how the library was obtained: {"seconds", "path", "built", "ptxas"}
 BUILD_INFO: Dict[str, object] = {}
@@ -112,10 +113,11 @@ def count_launch(name: str, shape: Optional[str] = None) -> None:
 def add_launches(counts: Dict[tuple, int]) -> None:
     """Count launches given by (wrapper, shape class or None): a graph
     replay adds what its capture recorded."""
-    for (name, shape), n in counts.items():
-        LAUNCHES[name] += n
-        if shape is not None:
-            LAUNCH_SHAPES[(name, shape)] += n
+    with _count_lock:      # replicas' pump threads count at once
+        for (name, shape), n in counts.items():
+            LAUNCHES[name] += n
+            if shape is not None:
+                LAUNCH_SHAPES[(name, shape)] += n
 
 
 @contextlib.contextmanager

@@ -46,7 +46,9 @@ chunks packed beside admissions).
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
+import threading
 import time
 from dataclasses import dataclass, replace
 from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
@@ -143,6 +145,30 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _device_call(fn):
+    """Run ``fn`` under its engine's lock and the process's device gate
+    (shared).  The lock keeps two backends that share one
+    `InferenceEngine` (as the JAX package's serving CLI builds its pool)
+    from interleaving inside its cells: a cell's outputs live in static
+    buffers until the engine's next cell call, so each call runs from
+    the write of its inputs to the read of its outputs alone.  The gate
+    keeps every device call out of another thread's CUDA graph capture
+    (`repro_torch.runtime.graphs.DEVICE_GATE`)."""
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        with _device_held(self if isinstance(self, InferenceEngine)
+                          else self.engine):
+            return fn(self, *args, **kwargs)
+    return call
+
+
+@contextlib.contextmanager
+def _device_held(engine: "InferenceEngine"):
+    """`_device_call`'s hold, for a block of code."""
+    with engine.lock, graphs.DEVICE_GATE.shared():
+        yield
+
+
 def _to_device(tree, device: torch.device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
@@ -183,6 +209,9 @@ class InferenceEngine:
                              f"{sample_candidates}")
         self.sample_candidates = sample_candidates
         self.kv_slab = KVSlabManager()
+        #: held by every device call of this engine and of the backends
+        #: over it (`_device_call`)
+        self.lock = threading.RLock()
         #: cells captured as CUDA graphs, as the JAX package counts its
         #: jitted cells here: the classify and prefill cells below and the
         #: ContinuousEngine's decode-tick cells (0 on the CPU)
@@ -283,6 +312,7 @@ class InferenceEngine:
                               {"logits": self._logits_spec(batch_b)})
         return outs["logits"]
 
+    @_device_call
     def classify_logits(self, token_lists: Sequence[Sequence[int]]
                         ) -> torch.Tensor:
         """Last-token logits (n, V) of a variable-length batch, on the
@@ -294,6 +324,7 @@ class InferenceEngine:
         cell, run eagerly."""
         return self._classify(token_lists, None)[:len(token_lists)]
 
+    @_device_call
     def classify(self, token_lists: Sequence[Sequence[int]]) -> List[int]:
         """Last-token classification over a variable-length batch (the
         paper's BERT-based service) through its (seq bucket, batch
@@ -303,6 +334,7 @@ class InferenceEngine:
         return [int(p) for p in _host(torch.argmax(
             logits[:len(token_lists)], dim=-1))]
 
+    @_device_call
     def execute_requests(self, requests: List[Request], padded_len: int
                          ) -> List[int]:
         """ServingSystem adapter: requests carry token payloads."""
@@ -311,6 +343,7 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     # Warm-up (paper §5: builds cached_cost)
     # ------------------------------------------------------------------
+    @_device_call
     def warmup(self, lengths: Optional[Sequence[int]] = None,
                batches: Optional[Sequence[int]] = None,
                repeats: int = 3) -> TableCostModel:
@@ -347,6 +380,7 @@ class InferenceEngine:
                              f"max_new_tokens={max(budgets)} budget")
         return budgets, _per_row(eos_id, n), cap
 
+    @_device_call
     def prefill_batch(self, token_lists: Sequence[Sequence[int]], *,
                       max_len: int, max_new_tokens, eos_id=None,
                       cap_new: Optional[int] = None,
@@ -400,6 +434,7 @@ class InferenceEngine:
         return self._finish_gen_state(outs["logits"], cache, n, batch_b,
                                       budgets, eos_ids, cap, sampling)
 
+    @_device_call
     def prefill_suffix_batch(self, token_lists: Sequence[Sequence[int]], *,
                              prefix_k: torch.Tensor, prefix_v: torch.Tensor,
                              prefix_len: int, max_new_tokens, eos_id=None,
@@ -465,6 +500,7 @@ class InferenceEngine:
         return self._finish_gen_state(outs["logits"], cache, n, batch_b,
                                       budgets, eos_ids, cap, sampling)
 
+    @_device_call
     def prefill_packed_flat(self, suffixes: Sequence[Sequence[int]],
                             offsets: Sequence[int], prefix_k: torch.Tensor,
                             prefix_v: torch.Tensor, prefix_seg: torch.Tensor,
@@ -568,6 +604,7 @@ class InferenceEngine:
         return GenState(cache, cur, emitted, counts, done, budget, eos,
                         temp, top_k, top_p, seed, sampling=use_sampling)
 
+    @_device_call
     def decode_step_batch(self, state: GenState) -> GenState:
         """One decode tick for every live row of ``state``, on device;
         finished rows are frozen (no KV advance, no emission).
@@ -607,6 +644,7 @@ class InferenceEngine:
         for name in ("cur", "emitted", "counts", "done"):
             getattr(state, name).copy_(getattr(out, name))
 
+    @_device_call
     def read_out(self, state: GenState,
                  token_lists: Sequence[Sequence[int]]) -> List[List[int]]:
         """ONE host transfer for the whole batch: prompt + emitted."""
@@ -615,6 +653,7 @@ class InferenceEngine:
         return [list(t) + [int(x) for x in em[i, :cnt[i]]]
                 for i, t in enumerate(token_lists)]
 
+    @_device_call
     def own_pool(self, state: GenState, max_len: int,
                  block_size: int = DEFAULT_KV_BLOCK) -> GenState:
         """Move a prefilled state's prompt KV into a private paged pool:
@@ -638,6 +677,7 @@ class InferenceEngine:
         cache["pos_offset"] = parts["pos_offset"].clone()
         return replace(state, cache=cache)
 
+    @_device_call
     def generate(self, token_lists: Sequence[Sequence[int]],
                  max_new_tokens: int = 16,
                  eos_id: Optional[int] = None) -> List[List[int]]:
@@ -748,6 +788,11 @@ class ContinuousEngine(PipelineBackend):
         self.block_table: Optional[BlockTableManager] = None
         self._prefix_enabled = prefix_cache
         self.prefix_cache: Optional[RadixPrefixCache] = None
+        # cluster-tier donation seam: forwarded onto the prefix cache's
+        # `on_insert` whenever the (lazily created) cache materializes,
+        # so a ReplicaPool can subscribe before the first prefill
+        self.on_prefix_insert: Optional[
+            Callable[[List[int], List[int]], None]] = None
         if kv_layout == "paged":
             if max_len is None:
                 max_len = engine.ladder.seq_buckets[-1]
@@ -1098,6 +1143,7 @@ class ContinuousEngine(PipelineBackend):
         self.state.cache["block_tables"][self._index(slots)] = \
             torch.as_tensor(rows, device=self.device)
 
+    @_device_call
     def prefill_batch(self, sessions: List[Session],
                       padded_len: int) -> None:
         if self.supports_packed_prefill():
@@ -1243,6 +1289,7 @@ class ContinuousEngine(PipelineBackend):
                 self._reserved[s.req_id] - len(fresh), 0)
         return btm.block_table(s.req_id)
 
+    @_device_call
     def prefill_pack(self, admissions: List[Session],
                      chunks: Sequence[Tuple[Session, int]],
                      decoding: Optional[List[Session]] = None) -> None:
@@ -1456,6 +1503,7 @@ class ContinuousEngine(PipelineBackend):
         if decoding is not None:
             self.decode_tick(decoding)
 
+    @_device_call
     def begin_prefill_chunks(self, session: Session) -> None:
         """Reserve everything the resumable prefill will need — a decode
         slot and blocks/reservations covering the WHOLE prompt + first
@@ -1488,6 +1536,7 @@ class ContinuousEngine(PipelineBackend):
         session.cached_tokens = cached
         session.prefilled_tokens = cached
 
+    @_device_call
     def prefill_chunk(self, session: Session, upto: int) -> None:
         """One resumable-prefill pass over prompt positions
         ``[prefilled_tokens, upto)``: gather the already-built prefix KV
@@ -1534,6 +1583,7 @@ class ContinuousEngine(PipelineBackend):
         self._sync()
         self._publish_stream()
 
+    @_device_call
     def abort_chunked(self, session: Session) -> None:
         """Drop every hold a failed (or cancelled) chunked prefill still
         has.  Its slot was never claimed and its block-table row was
@@ -1572,6 +1622,7 @@ class ContinuousEngine(PipelineBackend):
             self.state.cache["block_tables"][idx] = 0
             self.state.done[idx] = True
 
+    @_device_call
     def decode_tick(self, sessions: List[Session]) -> None:
         if self.block_table is not None:
             self._append_blocks()
@@ -1653,7 +1704,8 @@ class ContinuousEngine(PipelineBackend):
                 progress(rounds)
 
         try:
-            self._ensure_state(top)
+            with _device_held(eng):
+                self._ensure_state(top)
             seqs = [b for b in ladder.seq_buckets if b <= top]
             sizes = [n for n in range(1, self.max_slots + 1)
                      if n <= ladder.batch_buckets[-1]]
@@ -1695,19 +1747,25 @@ class ContinuousEngine(PipelineBackend):
                 cache = self.state.cache
                 shape = (cache["k"].shape[0],) + tuple(cache["k"].shape[3:])
                 bs = self.block_size
-                pre = torch.zeros((shape[0], 2 * bs) + shape[1:],
-                                  dtype=cache["k"].dtype, device=self.device)
-                eng._prefill_packed_flat(
-                    [[1] * bs, [2] * bs], [bs, bs], eng.prefill_cells, pre,
-                    pre, np.repeat(np.arange(2, dtype=np.int32), bs),
-                    np.tile(np.arange(bs, dtype=np.int32), 2))
+                # each round under the device hold, each progress call
+                # outside it (a background warm-up serves there)
+                with _device_held(eng):
+                    pre = torch.zeros((shape[0], 2 * bs) + shape[1:],
+                                      dtype=cache["k"].dtype,
+                                      device=self.device)
+                    eng._prefill_packed_flat(
+                        [[1] * bs, [2] * bs], [bs, bs], eng.prefill_cells,
+                        pre, pre,
+                        np.repeat(np.arange(2, dtype=np.int32), bs),
+                        np.tile(np.arange(bs, dtype=np.int32), 2))
                 _bump()
                 zero = pre[:, :0]
                 no_ids = np.zeros((0,), np.int32)
                 for n in sizes:
-                    eng._prefill_packed_flat([[1]] * n, [0] * n,
-                                             eng.prefill_cells, zero, zero,
-                                             no_ids, no_ids)
+                    with _device_held(eng):
+                        eng._prefill_packed_flat([[1]] * n, [0] * n,
+                                                 eng.prefill_cells, zero,
+                                                 zero, no_ids, no_ids)
                     _bump()
         finally:
             # every warm row is done; a greedy admission must get the
@@ -1722,12 +1780,14 @@ class ContinuousEngine(PipelineBackend):
             if prefix_was:
                 self.prefix_cache = pc if pc is not None else \
                     RadixPrefixCache(self.block_table)
+                self.prefix_cache.on_insert = self.on_prefix_insert
         self.warmup_stats = {
             "compile_count": eng.compile_count - compiles0,
             "warmup_seconds": time.perf_counter() - t0,
             "rounds": rounds}
         return self.warmup_stats
 
+    @_device_call
     def _warm_round(self, plen: int, budget: int, n: int, *,
                     temperature: float) -> None:
         """One throwaway admission: ``n`` sessions of ``plen`` prompt
@@ -1752,6 +1812,7 @@ class ContinuousEngine(PipelineBackend):
         else:
             raise RuntimeError("warmup round failed to converge")
 
+    @_device_call
     def cancel_session(self, session: Session) -> None:
         """Tear down a mid-decode session NOW: publish its partial
         generation (one row read), release its slab region and block
@@ -1865,6 +1926,7 @@ class ContinuousEngine(PipelineBackend):
                     b * (need_len // self.block_size) + 1, self.block_size)
             if self._prefix_enabled and self.prefix_cache is None:
                 self.prefix_cache = RadixPrefixCache(self.block_table)
+                self.prefix_cache.on_insert = self.on_prefix_insert
             cache = make_paged_cache(eng.cfg, b,
                                      self.block_table.num_blocks,
                                      self.block_size, self.max_blocks,

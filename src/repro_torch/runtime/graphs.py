@@ -50,7 +50,19 @@ the same functions eagerly on tensors of their own.
 
 Every capture runs with Python's cyclic collector held off
 (:func:`collector_held`), so no collection can destroy another graph
-while a stream captures.
+while a stream captures.  The hold is counted process-wide: where two
+threads hold it, the collector comes back on only when the last leaves.
+
+Captures and other device work are exclusive (:data:`DEVICE_GATE`).  A
+capture runs in CUDA's global capture mode, where a ``cudaMalloc``, a
+synchronization or a graph's destruction from ANY thread fails the
+capture ("operation not permitted when stream is capturing"), and
+``torch.cuda.graph`` itself synchronizes the device and empties the
+caching allocator before it begins.  Replicas of a pool tick on their
+own threads and a background warm-up captures on its own, so every
+device-facing call of the engines holds the gate shared, and a capture
+holds it alone: it waits until every other thread has left its device
+call, and no other thread enters one until the capture ends.
 
 Nothing here falls back to the eager function: a failed capture, a
 stale key (the engine's weights are not those the graph was captured
@@ -63,6 +75,7 @@ import contextlib
 import dataclasses
 import gc
 import math
+import threading
 import time
 from typing import Callable, Dict, Hashable, List, Optional, Tuple, Union
 
@@ -96,6 +109,12 @@ def warm_copy(state):
         done=torch.ones_like(state.done))
 
 
+#: the collector's process-wide hold: (holders, whether it was on when
+#: the first of them came)
+_collector = {"holders": 0, "was_on": False}
+_collector_lock = threading.Lock()
+
+
 @contextlib.contextmanager
 def collector_held():
     """Hold Python's cyclic collector off until the block ends (raised
@@ -106,14 +125,96 @@ def collector_held():
     capturing"); held off, the cycle waits for a collection after the
     capture.  No collection runs first: a full one costs the serving
     path, where cells are captured at first use, more than the capture
-    itself."""
-    was_on = gc.isenabled()
-    gc.disable()
+    itself.  The hold is counted across threads: the collector's state
+    is saved by the first holder and restored by the last, so a thread
+    that leaves while another still captures leaves it off."""
+    with _collector_lock:
+        if _collector["holders"] == 0:
+            _collector["was_on"] = gc.isenabled()
+            gc.disable()
+        _collector["holders"] += 1
     try:
         yield
     finally:
-        if was_on:
-            gc.enable()
+        with _collector_lock:
+            _collector["holders"] -= 1
+            if _collector["holders"] == 0 and _collector["was_on"]:
+                gc.enable()
+
+
+class DeviceGate:
+    """A process-wide shared / exclusive gate between device work and
+    CUDA graph captures.  Device calls hold it shared (many threads at
+    once; a thread may re-enter); a capture holds it alone.  A thread
+    inside a device call that must capture lets its shared holds go
+    while it waits and captures, and takes them back after, so two
+    threads that capture from inside device calls never wait on each
+    other.  Waiting captures go first: no thread takes a new shared hold
+    while one waits, so a stream of ticks cannot starve a capture."""
+
+    def __init__(self) -> None:
+        self._cv = threading.Condition(threading.Lock())
+        self._shared = 0                 # shared holds, all threads
+        self._writer: Optional[int] = None
+        self._waiting = 0                # captures waiting for the gate
+        self._local = threading.local()
+        self.captures_waited = 0         # captures that had to wait
+        self.wait_seconds = 0.0          # and how long, all together
+
+    def _mine(self) -> int:
+        return getattr(self._local, "shared", 0)
+
+    @contextlib.contextmanager
+    def shared(self):
+        """Hold the gate shared for one device call."""
+        me = threading.get_ident()
+        with self._cv:
+            if self._writer != me and self._mine() == 0:
+                while self._writer is not None or self._waiting:
+                    self._cv.wait()
+            self._shared += 1
+        self._local.shared = self._mine() + 1
+        try:
+            yield
+        finally:
+            self._local.shared = self._mine() - 1
+            with self._cv:
+                self._shared -= 1
+                self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        """Hold the gate alone, for one capture."""
+        me = threading.get_ident()
+        with self._cv:
+            if self._writer == me:       # a capture inside a capture
+                nested = True
+            else:
+                nested = False
+                held = self._mine()
+                self._shared -= held
+                self._cv.notify_all()
+                self._waiting += 1
+                if self._writer is not None or self._shared:
+                    self.captures_waited += 1
+                    t0 = time.perf_counter()
+                    while self._writer is not None or self._shared:
+                        self._cv.wait()
+                    self.wait_seconds += time.perf_counter() - t0
+                self._waiting -= 1
+                self._writer = me
+        try:
+            yield
+        finally:
+            if not nested:
+                with self._cv:
+                    self._writer = None
+                    self._shared += held
+                    self._cv.notify_all()
+
+
+#: the gate of the process: every engine's device calls and captures
+DEVICE_GATE = DeviceGate()
 
 
 @dataclasses.dataclass
@@ -190,7 +291,8 @@ class TickCells:
             self._tick(warm_copy(state))
         self.warm_ticks += 1
         graph = torch.cuda.CUDAGraph()
-        with collector_held(), cuda_lib.recording() as launches:
+        with DEVICE_GATE.exclusive(), collector_held(), \
+                cuda_lib.recording() as launches:
             with torch.cuda.graph(graph, pool=self._pool,
                                   stream=self._stream):
                 self._tick(state)
@@ -425,7 +527,8 @@ class CellTable:
         with torch.cuda.stream(arena.stream):
             body(cell.inputs, cell.outputs)      # this call's result
         graph = torch.cuda.CUDAGraph()
-        with collector_held(), cuda_lib.recording() as launches:
+        with DEVICE_GATE.exclusive(), collector_held(), \
+                cuda_lib.recording() as launches:
             with torch.cuda.graph(graph, pool=arena.pool,
                                   stream=arena.stream):
                 body(cell.inputs, cell.outputs)

@@ -17,8 +17,7 @@ those into a loud `SanitizerError` naming the block and the owning session:
 - **leaks at drain** — `take()`n blocks never adopted into a table, tables
   outliving their session, or pool usage the prefix cache can't account for.
 
-Copied from the JAX package, without the cluster tier's pool-ownership
-check.
+Copied from the JAX package.
 
 Enablement (`enabled()`): `TURBO_SANITIZE=1` forces it on, `TURBO_SANITIZE=0`
 forces it off, unset means *on under pytest, off otherwise* — production
@@ -73,6 +72,36 @@ def check_write(btm: BlockTableManager, req_id: int,
     ``blocks``.  A no-op on an unsanitized manager."""
     if isinstance(btm, SanitizedBlockTableManager):
         btm.check_write(req_id, blocks)
+
+
+def check_pool_ownership(sessions_by_replica: Dict[int, Sequence[int]],
+                         healthy: Iterable[int]) -> Dict[int, int]:
+    """Cluster-tier invariant: every live session is owned by exactly one
+    healthy replica.
+
+    ``sessions_by_replica`` maps replica index -> the req_ids live on
+    that replica (queued + chunking + decoding, finished excluded);
+    ``healthy`` is the set of replicas the pool's health board still
+    trusts.  Raises `SanitizerError` when a req_id appears under two
+    replicas at once (a failover double-submitted it) or when a replica
+    marked dead still owns live sessions (its work was never
+    redistributed).  Returns the req_id -> replica owner map."""
+    healthy_set = set(healthy)
+    owner: Dict[int, int] = {}
+    for idx, req_ids in sorted(sessions_by_replica.items()):
+        if req_ids and idx not in healthy_set:
+            raise SanitizerError(
+                f"unhealthy replica {idx} still owns live sessions "
+                f"{sorted(req_ids)}: failover must re-enqueue or fail "
+                "them before the replica is abandoned")
+        for rid in req_ids:
+            if rid in owner:
+                raise SanitizerError(
+                    f"session {rid} is owned by replica {owner[rid]} "
+                    f"and replica {idx} at once: routing/failover "
+                    "double-submitted it")
+            owner[rid] = idx
+    return owner
 
 
 class SanitizedBlockTableManager(BlockTableManager):

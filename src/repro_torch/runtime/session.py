@@ -6,8 +6,10 @@ requests, or ``QUEUED -> PREFILL -> FINISHED`` for one-shot (classification)
 requests that complete in a single batched forward pass.
 
 Sessions are the currency shared by the scheduler loop
-(`repro_torch.core.pipeline`) and the engine (`repro_torch.runtime.engine`).
-Copied from the JAX package.
+(`repro_torch.core.pipeline`), the engine (`repro_torch.runtime.engine`) and
+the virtual-clock simulator (`repro_torch.core.simulator`): all three
+move the same objects through the same transitions.  Copied from the JAX
+package.
 
 This module is deliberately dependency-free (no torch, no
 repro_torch.core) so both packages can import it without cycles.
@@ -139,6 +141,9 @@ class Session:
     # token, then one per decode tick); inter-token-latency telemetry for
     # the serving benchmarks — diffs of this list are the ITL samples.
     token_times: List[float] = field(default_factory=list)
+    # simulator hook: synthetic EOS position (tokens emitted before stop);
+    # None means the token budget is the only stop condition.
+    eos_at: Optional[int] = None
     # prefix-sharing hooks: cohort whose prompts open with the same
     # ``shared_prefix_len`` tokens (workloads may mark these; the engine
     # matches actual token ids instead), and the cached tokens the
@@ -249,3 +254,17 @@ class Session:
         stall a co-scheduled prefill imposes shows up here."""
         return [b - a for a, b in zip(self.token_times,
                                       self.token_times[1:])]
+
+    def stop_after(self, n_emitted: int, token: Optional[int] = None) -> bool:
+        """Would the session stop after having emitted ``n_emitted`` tokens,
+        the last of which is ``token``? (budget, synthetic EOS position, a
+        real EOS id, or any extra stop id)."""
+        if n_emitted >= self.max_new_tokens:
+            return True
+        if self.eos_at is not None and n_emitted >= self.eos_at:
+            return True
+        if token is None:
+            return False
+        if self.eos_id is not None and token == self.eos_id:
+            return True
+        return token in self.stop

@@ -979,12 +979,12 @@ def _check_every_replay(ce):
     real = cells.run
     seen = []
 
-    # the paged pool's trash block takes the KV writes of every free or
-    # finished row, several rows to one slot, in no fixed order: it is
-    # never read, and left out
-    kv = slice(1, None) if "block_tables" in ce.state.cache else slice(None)
-
     def checked(state):
+        # the paged pool's trash block takes the KV writes of every free
+        # or finished row, several rows to one slot, in no fixed order:
+        # it is never read, and left out
+        kv = slice(1, None) if "block_tables" in state.cache \
+            else slice(None)
         want = eng.decode_step_batch(_clone_state(state))
         captured = real(state)
         assert torch.equal(state.cache["len"], want.cache["len"])
@@ -1596,3 +1596,161 @@ def test_cuda_capture_survives_a_graph_in_a_garbage_cycle(cuda, cell,
     assert survived, "a collection ran inside the capture"
     gc.collect()
     assert cycle() is None
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card: replicas, background warm-up, threads
+# ---------------------------------------------------------------------------
+
+def _alone(engine, prompts, params):
+    return [engine.generate([p], max_new_tokens=g.max_new_tokens)[0]
+            for p, g in zip(prompts, params)]
+
+
+def _greedy_work(seed, n=8):
+    from repro_torch.api import GenerationParams
+    rng = np.random.default_rng(seed)
+    prompts = [[int(t) for t in rng.integers(1, 256, int(k))]
+               for k in rng.integers(3, 100, n)]
+    return prompts, [GenerationParams(max_new_tokens=int(b))
+                     for b in rng.integers(8, 24, n)]
+
+
+def test_cuda_two_pumped_replicas_capture_while_the_other_serves(cuda):
+    """Two thread-pumped replicas on one card, each over its own engine:
+    replica 0 warmed (it serves from graphs and captures nothing), replica
+    1 cold (its pump thread captures every cell at first use while
+    replica 0 ticks).  Captures and the other thread's device calls are
+    exclusive (`graphs.DEVICE_GATE`); every tick replay of both equals
+    the eager tick bit for bit, and every greedy stream equals
+    ``generate`` of its prompt alone."""
+    from repro_torch.api import TurboClient
+    from repro_torch.cluster import ReplicaPool
+    from repro_torch.runtime import graphs
+    warm, cold = _graph_engine(cuda), _graph_engine(cuda)
+    clients = [TurboClient(warm, warmup=True, auto_pump="thread"),
+               TurboClient(cold, auto_pump="thread")]
+    warm_captures = warm.engine.compile_count
+    seen = [_check_every_replay(ce) for ce in (warm, cold)]
+    waited0 = graphs.DEVICE_GATE.captures_waited
+    prompts, params = _greedy_work(41)
+    with ReplicaPool(clients) as pool:
+        handles = [pool.submit(p, g) for p, g in zip(prompts, params)]
+        results = [h.result(timeout=300) for h in handles]
+        placed = {h.replica for h in handles}
+    assert placed == {0, 1}
+    assert warm.engine.compile_count == warm_captures
+    assert cold.engine.prefill_cells.captures > 0 and \
+        cold.tick_cells.captures > 0
+    assert len(seen[0]) > 0 and len(seen[1]) > 0
+    assert not any(c for _, _, c in seen[0])
+    assert results == _alone(warm.engine, prompts, params)
+    print("captures that waited for the other replica:",
+          graphs.DEVICE_GATE.captures_waited - waited0)
+
+
+def test_cuda_background_warmup_while_serving(cuda):
+    """``warmup="background"`` with a pump thread: four requests submitted
+    before the warm-up ends are served (between its rounds, or after
+    it), the warm-up ends with every round walked and no error, and every
+    stream equals ``generate`` alone; every tick replay equals the eager
+    tick."""
+    from repro_torch.api import TurboClient
+    ce = _graph_engine(cuda)
+    seen = _check_every_replay(ce)
+    prompts, params = _greedy_work(43, n=4)
+    with TurboClient(ce, warmup="background", auto_pump="thread") as client:
+        handles = [client.submit(p, g) for p, g in zip(prompts, params)]
+        early = client.warmup_stats.get("rounds_completed")
+        results = [h.result(timeout=300) for h in handles]
+        stats = client.wait_warmup(timeout=300)
+    assert stats["done"] and stats.get("error") is None
+    assert stats["rounds_completed"] == stats["rounds"] > 0
+    assert stats["compile_count"] > 0 and len(seen) > 0
+    assert results == _alone(ce.engine, prompts, params)
+    print("rounds done at the first submit:", early, "of", stats["rounds"])
+
+
+def test_cuda_shared_engine_under_two_pump_threads(cuda):
+    """Two thread-pumped backends over ONE InferenceEngine (as the JAX
+    package's CLI builds its pool): the engine's lock holds each device
+    call from its cells' input writes to the read of their outputs, so
+    nothing is corrupted: every stream equals ``generate`` alone and
+    every tick replay equals the eager tick."""
+    from repro_torch.api import TurboClient
+    from repro_torch.cluster import ReplicaPool
+    from repro_torch.runtime.engine import ContinuousEngine
+    first = _graph_engine(cuda)
+    second = ContinuousEngine(first.engine, max_slots=4, cap_new=24,
+                              packed_prefill=False)
+    seen = [_check_every_replay(ce) for ce in (first, second)]
+    prompts, params = _greedy_work(47, n=10)
+    with ReplicaPool([TurboClient(ce, auto_pump="thread")
+                      for ce in (first, second)]) as pool:
+        handles = [pool.submit(p, g) for p, g in zip(prompts, params)]
+        results = [h.result(timeout=300) for h in handles]
+        assert {h.replica for h in handles} == {0, 1}
+    assert len(seen[0]) > 0 and len(seen[1]) > 0
+    assert results == _alone(first.engine, prompts, params)
+
+
+def test_cuda_collector_hold_under_two_capturing_threads(cuda):
+    """Two threads capture a cell each at once, each captured body
+    dropping a captured graph into a garbage cycle, with the collector's
+    thresholds at 1 and each thread's calls held as the engines hold
+    them (`DEVICE_GATE.shared`): the captures take turns, no collection
+    runs inside either, both cells replay right, and the collector is
+    back on after the last."""
+    import gc
+    import threading
+    import time
+
+    from repro_torch.runtime import graphs
+    keeps = [[_dropped_thing(cuda, "graph")] for _ in range(2)]
+    cycles, outs, errors = [[], []], [None, None], []
+    start = threading.Barrier(2)
+
+    def worker(i):
+        calls = []
+
+        def body(ins, o):
+            calls.append(1)
+            if len(calls) == 2:          # the captured call
+                cycles[i].append(_graph_in_a_cycle_dropped(keeps[i]))
+                time.sleep(0.05)         # the other thread arrives
+            o["y"].copy_(ins["x"] * (i + 2))
+
+        try:
+            table = graphs.CellTable(graphs.CellArena(cuda), lambda: ())
+            spec = {"y": ((4,), torch.float32)}
+            start.wait(5)
+            for x in (np.arange(4, dtype=np.float32),
+                      np.ones(4, np.float32)):
+                with graphs.DEVICE_GATE.shared():
+                    out = table.run("k", body, {"x": x}, spec)
+                    outs[i] = out["y"].tolist()
+            assert table.captures == 1 and len(calls) == 2
+        except BaseException as e:       # reported by the main thread
+            errors.append(e)
+
+    thresholds = gc.get_threshold()
+    waited0 = graphs.DEVICE_GATE.captures_waited
+    gc.set_threshold(1, 1, 1)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not errors, errors
+    assert outs == [[2.0] * 4, [3.0] * 4]
+    assert gc.isenabled()
+    print("captures that waited:",
+          graphs.DEVICE_GATE.captures_waited - waited0)
+    for (cycle, survived), in cycles:
+        assert survived, "a collection ran inside a capture"
+    gc.collect()
+    assert all(c[0][0]() is None for c in cycles)

@@ -49,13 +49,16 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 
 def test_scan_covers_the_serving_modules():
     """The scan above reads every module of the port, the prefix cache,
-    the chunked-prefill path and the MoE layer among them."""
+    the chunked-prefill path, the MoE layer and the serving tier (pool,
+    router, simulator, CLI) among them."""
     names = {p.relative_to(PORT).as_posix() for p in _port_files()
              if PORT in p.parents}
     assert {"runtime/prefix_cache.py", "runtime/engine.py",
             "runtime/kv_cache.py", "runtime/sanitizer.py",
             "core/pipeline.py", "models/transformer.py",
-            "models/moe.py", "configs/olmoe_1b_7b.py"} <= names
+            "models/moe.py", "configs/olmoe_1b_7b.py",
+            "cluster/pool.py", "cluster/router.py", "cluster/health.py",
+            "core/simulator.py", "launch/serve.py"} <= names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -67,6 +70,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
     cfg = get_smoke_config("internlm2-1.8b")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TurboClient.from_arch("internlm2-1.8b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TurboClient.from_arch("internlm2-1.8b", replicas=2)
+    from repro_torch.launch import serve
+    monkeypatch.setattr(sys, "argv", ["serve", "--replicas", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(cfg)
     params = init_params(cfg, device="cpu")

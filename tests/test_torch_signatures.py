@@ -1,10 +1,10 @@
 """The port's public signatures against the reference's.
 
-Every public method that the port's `TurboClient`, `InferenceEngine` and
-`ContinuousEngine` share by name with the JAX package's, and the model
-functions `prefill`, `prefill_suffix`, `prefill_packed` and
-`decode_step`, keep the reference's parameter names, order, kinds and
-defaults.  The reference's signatures are read through `inspect`, so a
+Every public method that the port's `TurboClient`, `InferenceEngine`,
+`ContinuousEngine`, `ReplicaPool` and `PrefixAffinityRouter` share by
+name with the JAX package's, and the model functions `prefill`,
+`prefill_suffix`, `prefill_packed` and `decode_step`, keep the
+reference's parameter names, order, kinds and defaults.  The reference's signatures are read through `inspect`, so a
 change there shows here.  The planned differences are named in
 `PORT_ONLY`, `REF_ONLY` and `PLANNED_DEFAULTS`, each with its reason;
 any other difference fails.
@@ -19,12 +19,16 @@ import pytest
 import torch
 
 from repro.api import client as ref_client
+from repro.cluster import pool as ref_pool
+from repro.cluster import router as ref_router
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 from repro.models import transformer as ref_models
 from repro.runtime import engine as ref_engine
 from repro_torch.api import client as port_client
+from repro_torch.cluster import pool as port_pool
+from repro_torch.cluster import router as port_router
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import init_params, prefill
 from repro_torch.models import transformer as port_models
@@ -40,10 +44,9 @@ ARCH = "internlm2-1.8b"
 #: per-group prefill keeps only the prompt's KV)
 PORT_ONLY = {"device", "kv_out", "prompt_kv_only"}
 #: the reference's parameters the port lacks until ROADMAP.md §1 step 8:
-#: ``rt`` (the model runtime: sharding, remat, attention routes),
-#: ``per_token_host_sync`` (the old per-token loop of ``generate``) and
-#: ``replicas`` (the replica pool)
-REF_ONLY = {"rt", "per_token_host_sync", "replicas"}
+#: ``rt`` (the model runtime: sharding, remat, attention routes) and
+#: ``per_token_host_sync`` (the old per-token loop of ``generate``)
+REF_ONLY = {"rt", "per_token_host_sync"}
 #: defaults that differ on purpose, (callable, parameter) -> (reference's,
 #: port's), normalised as by `_default`: the port's model functions
 #: default ``max_len`` to the prompt width and the KV to f32, the dtype
@@ -80,6 +83,10 @@ PAIRS = (
                       port_engine.InferenceEngine)
     + _shared_methods(ref_engine.ContinuousEngine,
                       port_engine.ContinuousEngine)
+    + _shared_methods(ref_pool.ReplicaPool, port_pool.ReplicaPool)
+    + _shared_methods(ref_pool.PooledHandle, port_pool.PooledHandle)
+    + _shared_methods(ref_router.PrefixAffinityRouter,
+                      port_router.PrefixAffinityRouter)
     + [(n, getattr(ref_models, n), getattr(port_models, n))
        for n in MODEL_FUNCTIONS])
 
@@ -107,9 +114,20 @@ def _params(fn, drop):
 def test_the_pairs_cover_the_named_callables():
     names = {n for n, _, _ in PAIRS}
     assert {"TurboClient.__init__", "TurboClient.from_arch",
-            "TurboClient.submit", "InferenceEngine.__init__",
+            "TurboClient.submit", "TurboClient.simulated",
+            "TurboClient.wait_warmup", "InferenceEngine.__init__",
             "ContinuousEngine.__init__", "ContinuousEngine.warmup_aot",
-            *MODEL_FUNCTIONS} <= names
+            "ReplicaPool.__init__", "ReplicaPool.submit",
+            "ReplicaPool.kill_replica", "ReplicaPool.pump",
+            "PooledHandle.result", "PrefixAffinityRouter.__init__",
+            "PrefixAffinityRouter.route", *MODEL_FUNCTIONS} <= names
+    # every public method of the pool and the router is held
+    for ref_cls, port_cls in ((ref_pool.ReplicaPool, port_pool.ReplicaPool),
+                              (ref_router.PrefixAffinityRouter,
+                               port_router.PrefixAffinityRouter)):
+        public = {n for n, v in vars(ref_cls).items()
+                  if inspect.isfunction(v) and not n.startswith("_")}
+        assert {f"{port_cls.__name__}.{n}" for n in public} <= names
 
 
 @pytest.mark.parametrize("name,ref_fn,port_fn", PAIRS,
@@ -144,10 +162,17 @@ def test_planned_differences_are_still_differences():
 
 
 def test_background_warmup_is_refused_until_ported():
-    """The reference's ``warmup="background"`` has no port yet: the
-    port's client refuses it instead of warming in the foreground."""
-    with pytest.raises(ValueError, match="background"):
-        port_client.TurboClient(object(), warmup="background")
+    """``warmup="background"`` is ported: the client accepts it (a
+    backend without ``warmup_aot`` warms nothing, as in the reference)
+    and, like the reference's, refuses any other warm-up mode by name."""
+    client = port_client.TurboClient(object(), warmup="background",
+                                     auto_pump=False)
+    assert client.warmup_stats is None and client.wait_warmup() == {}
+    for mode in ("eager", "later"):
+        with pytest.raises(ValueError, match="background"):
+            port_client.TurboClient(object(), warmup=mode)
+        with pytest.raises(ValueError, match="background"):
+            ref_client.TurboClient(object(), warmup=mode)
 
 
 def test_from_arch_warms_up_by_default(monkeypatch):

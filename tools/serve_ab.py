@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Run the paged serve phase of one checkout of the port several times in
-one process, on one NVIDIA H100, to compare two versions of the serving
-path in one call:
+"""Run the paged serve phase (or ``serve_prefix_chunked``) of one checkout
+of the port several times in one process, on one NVIDIA H100, to compare
+two versions of the serving path in one call:
 
-    python3 tools/serve_ab.py CHECKOUT LABEL [REPEATS]
+    python3 tools/serve_ab.py CHECKOUT LABEL [REPEATS [PHASE]]
+
+``PHASE`` is ``serve`` (the default) or ``serve_prefix_chunked`` (its
+packed and per-group runs, one line each).
 
 ``CHECKOUT`` is the root of a checkout (``.`` for this one; another
 version unpacked with ``git archive`` under ``build/``).  Its kernels are
@@ -26,6 +29,10 @@ KEYS = ("tok_per_s", "ttft_p50_s", "ttft_p99_s", "serve_s", "stack_build_s")
 def main() -> int:
     root, label = Path(sys.argv[1]).resolve(), sys.argv[2]
     repeats = int(sys.argv[3]) if len(sys.argv) > 3 else 2
+    phase = sys.argv[4] if len(sys.argv) > 4 else "serve"
+    if phase not in ("serve", "serve_prefix_chunked"):
+        print(f"serve_ab: unknown phase {phase}", file=sys.stderr)
+        return 2
     here = Path(__file__).resolve().parents[1]
     sys.path[:0] = [str(root / "src"), str(here)]
     import torch
@@ -46,14 +53,21 @@ def main() -> int:
     lines = []
     chip_smoke.emit = lines.append          # keep the phase's line
     for r in range(repeats):
-        client, _ = chip_smoke.serve(dev, card)
-        del client
+        del lines[:]
+        if phase == "serve":
+            client, _ = chip_smoke.serve(dev, card)
+            del client
+        else:
+            chip_smoke.serve_prefix_chunked(dev, card)
         chip_smoke.release_memory()
-        line = next(ln for ln in reversed(lines)
-                    if ln.get("phase") == "serve")
-        print(label, json.dumps({"repeat": r, "card": card,
-                                 **{k: line.get(k) for k in KEYS}}),
-              flush=True)
+        for line in [ln for ln in lines if ln.get("phase") == phase]:
+            cells = line.get("prefill_cells", {})
+            print(label, json.dumps({"repeat": r, "card": card,
+                                     "mode": line.get("mode"),
+                                     **{k: line.get(k) for k in KEYS},
+                                     "capture_s_while_serving": cells.get(
+                                         "capture_s_while_serving")}),
+                  flush=True)
     return 0
 
 
