@@ -3,12 +3,19 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, reduce_for_smoke
+from repro_torch.configs.base import (ALL_SHAPES, SHAPES, SMOKE_SHAPE,
+                                      ModelConfig, ShapeConfig,
+                                      reduce_for_smoke, shapes_for)
 
 _MODULES = {
+    "qwen3-32b": "qwen3_32b",
+    "llama3-405b": "llama3_405b",
     "internlm2-1.8b": "internlm2_1_8b",
+    "starcoder2-15b": "starcoder2_15b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "musicgen-large": "musicgen_large",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -29,5 +36,6 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
 
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_smoke_config",
-           "reduce_for_smoke"]
+__all__ = ["ALL_SHAPES", "ARCH_IDS", "SHAPES", "SMOKE_SHAPE", "ModelConfig",
+           "ShapeConfig", "get_config", "get_smoke_config",
+           "reduce_for_smoke", "shapes_for"]

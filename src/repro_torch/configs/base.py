@@ -2,20 +2,22 @@
 
 Every architecture module exposes ``CONFIG`` (the exact published
 configuration) and ``smoke_config()`` (a reduced same-family config for
-CPU tests).  The port serves the dense and MoE families; the SSM fields
-stay so that a config reads the same in both packages.  ``param_count``
-and ``active_param_count`` are the JAX package's analytic counts for the
-two families served.
+CPU tests).  The port serves the dense, MoE, VLM and audio families
+(the transformer ones); the SSM fields stay so that a config reads the
+same in both packages.  ``param_count`` and ``active_param_count`` are
+the JAX package's analytic counts for the families served, codebooks
+included; ``ShapeConfig``, ``SHAPES`` and ``shapes_for`` are its four
+global input shapes (`repro_torch.models.io` builds their inputs).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 #: the model families the port serves
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 @dataclass(frozen=True)
@@ -80,13 +82,14 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (used for 6ND model-FLOPs accounting),
-        the JAX package's count for the dense and MoE families the port
-        serves."""
-        if self.family not in FAMILIES or self.num_codebooks:
+        the JAX package's count for the families the port serves."""
+        if self.family not in FAMILIES:
             raise ValueError(f"{self.name}: the port counts the parameters "
-                             f"of dense and moe token models only")
+                             f"of the {FAMILIES} families only")
         d, v, L = self.d_model, self.vocab_size, self.num_layers
         emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.num_codebooks:
+            emb += (self.num_codebooks - 1) * v * d  # extra heads + embeds
         return emb + L * (_attn_params(self) + _moe_or_ffn_params(self))
 
     def active_param_count(self) -> int:
@@ -142,3 +145,35 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         updates["attn_every"] = 2
     return dataclasses.replace(cfg, **updates)
 
+
+
+# ---------------------------------------------------------------------------
+# Input shapes: the JAX package's four global shapes of every LM arch.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str            # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+ALL_SHAPES: Tuple[ShapeConfig, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K,
+                                       LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+def shapes_for(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
+    """long_500k needs sub-quadratic sequence handling: SSM/hybrid only."""
+    if cfg.family in ("ssm", "hybrid"):
+        return ALL_SHAPES
+    return (TRAIN_4K, PREFILL_32K, DECODE_32K)
+
+
+SMOKE_SHAPE = ShapeConfig("smoke", "train", 32, 2)

@@ -46,6 +46,12 @@
 // shared memory; each thread owns 4 query rows and dh / 16 output
 // columns.
 //
+// Head dim 64 (MusicGen's per-group prefill): both bodies are templates
+// on the head dim.  The bf16 body at dh 64 keeps the same pipeline with
+// one 64-column half a tile (8 KB, 41 KB of shared memory a block):
+// S = Q K^T in 4 k-steps of 16, and O += P V as m64n64k16 products;
+// the f32 FMA body at dh 64 has dh / 16 = 4 output columns a thread.
+//
 // Both: GQA maps query head h to KV head h / (H / KV); inputs are read
 // at caller-given strides with a contiguous last dim, so (B, S, H, dh)
 // activations need no transpose; queries sit at the last Sq keys; a row
@@ -316,8 +322,13 @@ constexpr int kDH = 128;
 constexpr int kChunks = kDH / 8;         // 16-byte chunks per row
 constexpr int kTileBytes = 64 * kDH * 2; // one 64-row bf16 tile, 16 KB
 // q (then the output), two stages of K and of V, and slack to align the
-// tiles to the 1024 bytes of the 128-byte swizzle pattern
-constexpr size_t kSmemBytes = 5 * kTileBytes + 1024;
+// tiles to the 1024 bytes of the 128-byte swizzle pattern; the causal
+// kernel at head dim DH (128, or MusicGen's 64: one 64-column half)
+template <int DH>
+constexpr int tile_bytes() { return 64 * DH * 2; }
+template <int DH>
+constexpr size_t smem_bytes() { return 5 * tile_bytes<DH>() + 1024; }
+constexpr size_t kSmemBytes = smem_bytes<kDH>();
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Byte offset of (row, 16-byte chunk) in a 64 x kDH tile laid out for
@@ -457,6 +468,33 @@ __device__ __forceinline__ void wgmma_o(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// O (64 x 64 dh, f32) += A (64 x 16 keys of P, registers) * V, V (16 keys x
+// 64 dh, one 64-column half) read from shared memory as an MN-major
+// (transposed) B operand: the head dim 64 form of wgmma_o.
+__device__ __forceinline__ void wgmma_o64(float (&d)[8][4],
+    const uint32_t (&a)[4], uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
@@ -466,10 +504,11 @@ __device__ __forceinline__ void wgmma_wait() {
 // of S = Q K^T, one per 16 dh: K-major, 8-row groups 1024 bytes apart, the
 // two dh halves 8 KB apart.  Like every register a wgmma reads, they are
 // set before the wgmma fence (the empty asm pins them there).
-__device__ __forceinline__ void k_descs(uint64_t (&d)[kDH / 16],
+template <int DH = kDH>
+__device__ __forceinline__ void k_descs(uint64_t (&d)[DH / 16],
                                         uint32_t kt) {
 #pragma unroll
-  for (int kk = 0; kk < kDH / 16; ++kk) {
+  for (int kk = 0; kk < DH / 16; ++kk) {
     d[kk] = smem_desc(kt + (kk >> 2) * 8192 + (kk & 3) * 32, 16, 1024);
     asm volatile("" : "+l"(d[kk]));
   }
@@ -489,20 +528,27 @@ __device__ __forceinline__ void v_descs(uint64_t (&d)[kBK / 16],
 
 // S = Q K^T for one tile of 64 keys, as one wgmma group; the first step
 // overwrites S (scale-d 0), so no other instruction writes S before it.
+template <int DH = kDH>
 __device__ __forceinline__ void scores(float (&s)[kBK / 8][4],
-                                       const uint32_t (&qf)[kDH / 16][4],
-                                       const uint64_t (&dk)[kDH / 16]) {
+                                       const uint32_t (&qf)[DH / 16][4],
+                                       const uint64_t (&dk)[DH / 16]) {
 #pragma unroll
-  for (int kk = 0; kk < kDH / 16; ++kk) wgmma_s(s, qf[kk], dk[kk], kk > 0);
+  for (int kk = 0; kk < DH / 16; ++kk) wgmma_s(s, qf[kk], dk[kk], kk > 0);
   wgmma_commit();
 }
 
 // O += P V for one tile of 64 keys, as one wgmma group.
-__device__ __forceinline__ void accumulate(float (&o)[kDH / 8][4],
+template <int DH = kDH>
+__device__ __forceinline__ void accumulate(float (&o)[DH / 8][4],
                                            const uint32_t (&pa)[kBK / 16][4],
                                            const uint64_t (&dv)[kBK / 16]) {
 #pragma unroll
-  for (int kk = 0; kk < kBK / 16; ++kk) wgmma_o(o, pa[kk], dv[kk]);
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    if constexpr (DH == 128)
+      wgmma_o(o, pa[kk], dv[kk]);
+    else
+      wgmma_o64(o, pa[kk], dv[kk]);
+  }
   wgmma_commit();
 }
 
@@ -613,16 +659,18 @@ struct Rows {
   }
 };
 
-// Start copying rows [row0, row0 + 64) of a (rows, kDH) operand with row
+// Start copying rows [row0, row0 + 64) of a (rows, DH) operand with row
 // stride `stride` into a swizzled tile at shared address `tile`; rows at
 // or past `limit` are zero-filled and never read.
+template <int DH = kDH>
 __device__ __forceinline__ void load_tile(uint32_t tile, const bf16* g,
                                           long long stride, int row0,
                                           int limit) {
+  constexpr int kC = DH / 8;              // 16-byte chunks a row
 #pragma unroll
-  for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
+  for (int i = 0; i < 64 * kC / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / kChunks, c = idx % kChunks;
+    const int r = idx / kC, c = idx % kC;
     const int row = row0 + r;
     const bool ok = row < limit;
     const bf16* src = ok ? g + row * stride + c * 8 : g;
@@ -836,6 +884,7 @@ __device__ __forceinline__ void load_tile_wg(uint32_t tile, const bf16* g,
 // The causal kernel
 // ---------------------------------------------------------------------------
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_bf16_kernel(const bf16* __restrict__ q,
                             const bf16* __restrict__ k,
@@ -851,8 +900,10 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(tc_smem));
   const uint32_t qs = (raw + 1023) & ~1023u;    // q, then the output
   unsigned char* qs_ptr = tc_smem + (qs - raw);
-  const uint32_t ks = qs + kTileBytes;          // K stages 0, 1
-  const uint32_t vs = ks + 2 * kTileBytes;      // V stages 0, 1
+  constexpr int kTile = 64 * DH * 2;            // one 64-row bf16 tile
+  constexpr int kC = DH / 8;                    // 16-byte chunks a row
+  const uint32_t ks = qs + kTile;               // K stages 0, 1
+  const uint32_t vs = ks + 2 * kTile;           // V stages 0, 1
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -871,16 +922,16 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   const bf16* kb = k + b * k_sb + kvh * k_sh;
   const bf16* vb = v + b * v_sb + kvh * v_sh;
 
-  load_tile(qs, qb, q_ss, q0, sq);
-  if (n_tiles > 0) load_tile(ks, kb, k_ss, 0, kv_len);
+  load_tile<DH>(qs, qb, q_ss, q0, sq);
+  if (n_tiles > 0) load_tile<DH>(ks, kb, k_ss, 0, kv_len);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
   // this warp's 16 query rows as A fragments, one per 16 columns of dh
-  uint32_t qf[kDH / 16][4];
+  uint32_t qf[DH / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < kDH / 16; ++kk)
+  for (int kk = 0; kk < DH / 16; ++kk)
     ldsm_x4(qs + sw128(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)),
             qf[kk]);
 
@@ -888,22 +939,22 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   // of every 8-wide n tile (the wgmma accumulator layout)
   Rows rows{{neg_inf(), neg_inf()}, {0.f, 0.f}, offset + q0 + warp * 16, g,
             tig, kv_len, causal, scale_log2};
-  float o[kDH / 8][4];
+  float o[DH / 8][4];
 #pragma unroll
-  for (int d = 0; d < kDH / 8; ++d)
+  for (int d = 0; d < DH / 8; ++d)
     o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
   float s[kBK / 8][4];
   uint32_t p0[kBK / 16][4], p1[kBK / 16][4];   // P of even, odd tiles
   float alpha[2];
-  uint64_t dk[kDH / 16], dv[kBK / 16];
+  uint64_t dk[DH / 16], dv[kBK / 16];
 
   if (n_tiles > 0) {                            // S_0 and P_0
-    if (n_tiles > 1) load_tile(ks + kTileBytes, kb, k_ss, kBK, kv_len);
-    load_tile(vs, vb, v_ss, 0, kv_len);
+    if (n_tiles > 1) load_tile<DH>(ks + kTile, kb, k_ss, kBK, kv_len);
+    load_tile<DH>(vs, vb, v_ss, 0, kv_len);
     cp_async_commit();                          // K_1, V_0
-    k_descs(dk, ks);
+    k_descs<DH>(dk, ks);
     wgmma_fence();
-    scores(s, qf, dk);
+    scores<DH>(s, qf, dk);
     wgmma_wait<0>();
     fence_regs(s);
     rows.softmax<false>(s, p0, alpha, 0, ~0u);
@@ -917,23 +968,23 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
     cp_async_wait_all();
     __syncthreads();       // K_j, V_{j-1} landed; all warps are past S_{j-1}
     if (j + 1 < n_tiles)   // and P_{j-2} V_{j-2}, whose stages these reuse
-      load_tile(ks + ((j + 1) & 1) * kTileBytes, kb, k_ss, (j + 1) * kBK,
+      load_tile<DH>(ks + ((j + 1) & 1) * kTile, kb, k_ss, (j + 1) * kBK,
                 kv_len);
-    load_tile(vs + (j & 1) * kTileBytes, vb, v_ss, j * kBK, kv_len);
+    load_tile<DH>(vs + (j & 1) * kTile, vb, v_ss, j * kBK, kv_len);
     cp_async_commit();                          // K_{j+1}, V_j
-    k_descs(dk, ks + (j & 1) * kTileBytes);
-    v_descs(dv, vs + ((j - 1) & 1) * kTileBytes);
+    k_descs<DH>(dk, ks + (j & 1) * kTile);
+    v_descs(dv, vs + ((j - 1) & 1) * kTile);
     fence_regs(o);
     wgmma_fence();
-    scores(s, qf, dk);
-    accumulate(o, p_in, dv);
+    scores<DH>(s, qf, dk);
+    accumulate<DH>(o, p_in, dv);
     wgmma_wait<1>();
     fence_regs(s);
     rows.softmax<false>(s, p_out, alpha, j * kBK, ~0u);
     wgmma_wait<0>();
     fence_regs(o);
 #pragma unroll
-    for (int d = 0; d < kDH / 8; ++d) {
+    for (int d = 0; d < DH / 8; ++d) {
       o[d][0] *= alpha[0];
       o[d][1] *= alpha[0];
       o[d][2] *= alpha[1];
@@ -944,10 +995,10 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   auto last = [&](const uint32_t (&p_in)[kBK / 16][4]) {
     cp_async_wait_all();
     __syncthreads();
-    v_descs(dv, vs + ((n_tiles - 1) & 1) * kTileBytes);
+    v_descs(dv, vs + ((n_tiles - 1) & 1) * kTile);
     fence_regs(o);
     wgmma_fence();
-    accumulate(o, p_in, dv);
+    accumulate<DH>(o, p_in, dv);
     wgmma_wait<0>();
     fence_regs(o);
   };
@@ -968,7 +1019,7 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   const float inv1 = 1.f / (rows.l[1] == 0.f ? 1.f : rows.l[1]);
   const int r0 = warp * 16 + g;
 #pragma unroll
-  for (int d = 0; d < kDH / 8; ++d) {
+  for (int d = 0; d < DH / 8; ++d) {
     *reinterpret_cast<uint32_t*>(qs_ptr + sw128(r0, d) + 4 * tig) =
         pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
     *reinterpret_cast<uint32_t*>(qs_ptr + sw128(r0 + 8, d) + 4 * tig) =
@@ -977,9 +1028,9 @@ flash_attention_bf16_kernel(const bf16* __restrict__ q,
   __syncthreads();
   bf16* ob = out + b * o_sb + h * o_sh;
 #pragma unroll
-  for (int i = 0; i < 64 * kChunks / kThreads; ++i) {
+  for (int i = 0; i < 64 * kC / kThreads; ++i) {
     const int idx = threadIdx.x + i * kThreads;
-    const int r = idx / kChunks, c = idx % kChunks;
+    const int r = idx / kC, c = idx % kC;
     if (q0 + r < sq)
       *reinterpret_cast<uint4*>(ob + (q0 + r) * o_ss + c * 8) =
           *reinterpret_cast<const uint4*>(qs_ptr + sw128(r, c));
@@ -1230,9 +1281,11 @@ flash_attention_packed_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
+template <int DH>
 cudaError_t set_bf16_smem() {
   static std::atomic<unsigned long long> done{0};   // devices already set
-  return set_smem_once(flash_attention_bf16_kernel, kSmemBytes, done);
+  return set_smem_once(flash_attention_bf16_kernel<DH>, smem_bytes<DH>(),
+                       done);
 }
 
 cudaError_t set_packed_smem() {
@@ -1255,16 +1308,18 @@ inline bool rows_aligned(const void* q, const void* k, const void* v,
   return true;
 }
 
+template <int DH>
 cudaError_t launch_flash_bf16(const void* q, const void* k, const void* v,
                               const void* lengths, void* out, int batch,
                               int heads, int kv_heads, int sq, int sk,
                               const long long* st, int causal, float scale,
                               cudaStream_t stream) {
   if (!rows_aligned(q, k, v, out, st)) return cudaErrorMisalignedAddress;
-  cudaError_t err = set_bf16_smem();
+  cudaError_t err = set_bf16_smem<DH>();
   if (err != cudaSuccess) return err;
   dim3 grid(heads, batch, (sq + kBQ - 1) / kBQ);
-  flash_attention_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+  constexpr size_t smem = smem_bytes<DH>();
+  flash_attention_bf16_kernel<DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(lengths),
       static_cast<bf16*>(out), heads, kv_heads, sq, sk, st[0], st[1], st[2],
@@ -1384,8 +1439,8 @@ cudaError_t launch_flash_packed(const void* q, const void* k, const void* v,
 // (batch, heads, sq, dh), each addressed through its (batch, head, seq)
 // element strides in `strides` (12 values: q, k, v, out) with a
 // contiguous last dim; lengths: (batch,) int32 valid kv lengths, or null.
-// Queries sit at the last sq key positions.  dh is 128, the model's.
-// bf16 runs on the tensor cores and needs 16-byte-aligned rows
+// Queries sit at the last sq key positions.  dh is 128 or 64.  bf16
+// runs on the tensor cores and needs 16-byte-aligned rows
 // (cudaErrorMisalignedAddress otherwise); f32 runs the FMA body.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, const void* lengths,
@@ -1394,15 +1449,20 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const long long* strides, int causal,
                                      float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dh != 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == repro::kFloat32)
-    return static_cast<int>(repro::launch_flash<float, 128>(
-        q, k, v, lengths, out, batch, heads, kv_heads, sq, sk, strides,
-        causal, scale, s));
-  if (dtype == repro::kBFloat16)
-    return static_cast<int>(repro::tc::launch_flash_bf16(
-        q, k, v, lengths, out, batch, heads, kv_heads, sq, sk, strides,
-        causal, scale, s));
+#define REPRO_FLASH_DH(DH_)                                                 \
+  if (dh == DH_) {                                                          \
+    if (dtype == repro::kFloat32)                                           \
+      return static_cast<int>(repro::launch_flash<float, DH_>(              \
+          q, k, v, lengths, out, batch, heads, kv_heads, sq, sk, strides,   \
+          causal, scale, s));                                               \
+    if (dtype == repro::kBFloat16)                                          \
+      return static_cast<int>(repro::tc::launch_flash_bf16<DH_>(            \
+          q, k, v, lengths, out, batch, heads, kv_heads, sq, sk, strides,   \
+          causal, scale, s));                                               \
+  }
+  REPRO_FLASH_DH(128)
+  REPRO_FLASH_DH(64)
+#undef REPRO_FLASH_DH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1450,27 +1510,29 @@ extern "C" int repro_flash_attention_packed(
       kv_heads, sq, sk, strides, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// Resident blocks per SM of the flash kernel for `dtype` at its launch
-// shape (threads, dynamic shared memory), from the CUDA occupancy
-// calculator; a negative CUDA error code on failure.
-extern "C" int repro_flash_attention_blocks_per_sm(int dtype) {
+// Resident blocks per SM of the flash kernel for `dtype` and head dim
+// `dh` at its launch shape (threads, dynamic shared memory), from the
+// CUDA occupancy calculator; a negative CUDA error code on failure.
+extern "C" int repro_flash_attention_blocks_per_sm(int dtype, int dh) {
   int blocks = 0;
-  cudaError_t err;
-  if (dtype == repro::kFloat32) {
-    err = repro::set_fma_smem<float, 128>();
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, repro::flash_attention_kernel<float, 128>,
-          repro::kFlashThreads, repro::FlashSmem<128>::kBytes);
-  } else if (dtype == repro::kBFloat16) {
-    err = repro::tc::set_bf16_smem();
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, repro::tc::flash_attention_bf16_kernel,
-        repro::tc::kThreads, repro::tc::kSmemBytes);
-  } else {
-    err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define REPRO_FLASH_BLOCKS(DH_)                                             \
+  if (dh == DH_ && dtype == repro::kFloat32) {                              \
+    err = repro::set_fma_smem<float, DH_>();                                \
+    if (err == cudaSuccess)                                                 \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                  \
+          &blocks, repro::flash_attention_kernel<float, DH_>,               \
+          repro::kFlashThreads, repro::FlashSmem<DH_>::kBytes);             \
+  } else if (dh == DH_ && dtype == repro::kBFloat16) {                      \
+    err = repro::tc::set_bf16_smem<DH_>();                                  \
+    if (err == cudaSuccess)                                                 \
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                  \
+          &blocks, repro::tc::flash_attention_bf16_kernel<DH_>,             \
+          repro::tc::kThreads, repro::tc::smem_bytes<DH_>());               \
   }
+  REPRO_FLASH_BLOCKS(128)
+  REPRO_FLASH_BLOCKS(64)
+#undef REPRO_FLASH_BLOCKS
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 

@@ -69,40 +69,63 @@
 // table (MB * BS) or the cache (S), as the plain versions clamp; a length
 // of 0 gives zeros.
 //
-// Instantiated for what the serving paths and the card tests run:
-// dh = 128, an f32 cache with f32 or bf16 queries, and H / KV of 1, 2 or
-// 8.
+// The head dim is a template parameter: one thread a dim of the output
+// (a block of DH threads), DH / 32 dims a lane in the score dot products,
+// and a ring of DH-wide tiles.  The G query heads of a group each keep an
+// accumulator a thread; a warp reduces its rows' G score sums in chunks
+// of at most 32 (`warp_sum_many`), padded to a power of two, so G need
+// not be one (group 7) and may exceed 8 (group 12).
+//
+// Instantiated for what the serving paths and the card tests run: an f32
+// cache with f32 or bf16 queries, at dh = 128 with H / KV of 1, 2, 7, 8
+// or 12 (InternLM2, OLMoE, Qwen2-VL, StarCoder2), and at dh = 64 with
+// H / KV of 1 (MusicGen).
 #include "common.cuh"
 
 namespace repro {
 
-constexpr int kDecodeThreads = 128;  // thread d owns output dim d
-constexpr int kDecodeWarps = kDecodeThreads / 32;
-constexpr int kDecodeDh = 128;       // the head dim the kernels are built for
 // a paged split owns 8 logical blocks (BLOCKS_PER_SPLIT in
 // kernels/flash_decode.py); a contiguous split the keys of 8 blocks of 16
 // (SPLIT_KEYS there), the pool's block size in the serving path
 constexpr int kSplitBlocks = 8;
 constexpr int kSplitKeys = kSplitBlocks * 16;
-constexpr int kTileKeys = 16;        // keys per stage, at most one per lane
+constexpr int kTileKeys = 16;        // keys per stage
 constexpr int kStages = 3;
-constexpr int kRowsPerWarp = kTileKeys / kDecodeWarps;
-// lanes that end up holding one of a warp's kRowsPerWarp * G score sums
-template <int G>
-constexpr int kLanesPerSum = 32 / (kRowsPerWarp * G);
-constexpr int kTileFloats = kTileKeys * kDecodeDh;
-// the ring: kStages stages of a K tile and a V tile (dynamic shared
-// memory); the split merge reuses it for every split's max and sum
-constexpr int kRingFloats = kStages * 2 * kTileFloats;
-constexpr size_t kRingBytes = size_t(kRingFloats) * 4;
-// splits whose outputs the merge loads at once
-constexpr int kMergeLoads = 8;
-static_assert(kDecodeThreads == kDecodeDh, "thread d owns output dim d");
-static_assert(kTileKeys % kDecodeWarps == 0 && kRowsPerWarp * 8 <= 32,
-              "a warp reduces its kRowsPerWarp * G <= 32 scores at once");
-static_assert(8 * kTileKeys <= kDecodeThreads,
-              "one thread per score of a tile");
 static_assert(kStages >= 2, "a stage in flight while one is computed");
+
+constexpr int pow2_at_least(int n) { return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2); }
+
+// The shape of the kernel for head dim DH and group G.
+template <int DH, int G>
+struct DecodeShape {
+  static constexpr int kThreads = DH;            // thread d owns output dim d
+  static constexpr int kWarps = DH / 32;
+  static constexpr int kLaneDims = DH / 32;      // q / k dims a lane dots
+  static constexpr int kRowsPerWarp = kTileKeys / kWarps;
+  // 16-byte copies a thread issues per tile of K (and of V)
+  static constexpr int kCopies = kTileKeys * DH / 4 / kThreads;
+  // a warp's score sums a tile (key row j, head g at j * G + g), reduced
+  // in chunks of kChunk (a power of two, at most 32) values
+  static constexpr int kSums = kRowsPerWarp * G;
+  static constexpr int kChunk = kSums < 32 ? pow2_at_least(kSums) : 32;
+  static constexpr int kChunks = (kSums + kChunk - 1) / kChunk;
+  static constexpr int kLanesPerSum = 32 / kChunk;
+  static constexpr int kTileFloats = kTileKeys * DH;
+  // the ring: kStages stages of a K tile and a V tile (dynamic shared
+  // memory); the split merge reuses it for every split's max and sum
+  static constexpr int kRingFloats = kStages * 2 * kTileFloats;
+  static constexpr size_t kRingBytes = size_t(kRingFloats) * 4;
+  // splits whose outputs the merge loads at once (fewer for wide groups,
+  // whose G outputs a split take registers)
+  static constexpr int kMergeLoads = G <= 8 ? 8 : 4;
+  static_assert(DH % 32 == 0 && kTileKeys % kWarps == 0, "DH: 64 or 128");
+  static_assert((kTileKeys * DH / 4) % kThreads == 0, "whole copies");
+  static_assert(kLaneDims * 4 <= 16, "one load of a lane's q or k dims");
+};
+
+// the ring's bytes at head dim DH (the same for every group)
+template <int DH>
+constexpr size_t kRingBytesFor = DecodeShape<DH, 1>::kRingBytes;
 
 // Where key t of row b lives in the paged pool (NB, BS, KV, dh): the row's
 // block table maps logical block t / BS to a pool block.
@@ -125,13 +148,14 @@ struct PagedRows {
       tab[threadIdx.x] = tables[static_cast<size_t>(b) * max_blocks +
                                 split * kSplitBlocks + threadIdx.x];
   }
-  // element offset of key t's dh-vector for KV head kvh; t0 is the
+  // element offset of key t's DH-vector for KV head kvh; t0 is the
   // split's first key
+  template <int DH>
   __device__ __forceinline__ size_t offset(int, int kvh, int t, int t0,
                                            const int* tab) const {
     const unsigned rel = t - t0, bsz = block_size;
     return ((static_cast<size_t>(tab[rel / bsz]) * bsz + rel % bsz) *
-                kv_heads + kvh) * kDecodeDh;
+                kv_heads + kvh) * DH;
   }
 };
 
@@ -144,6 +168,7 @@ struct StridedRows {
   __device__ __forceinline__ int capacity() const { return seq; }
   __device__ __forceinline__ int split_keys() const { return kSplitKeys; }
   __device__ __forceinline__ void load_split(int, int, int*) const {}
+  template <int DH>
   __device__ __forceinline__ size_t offset(int b, int kvh, int t, int,
                                            const int*) const {
     return static_cast<size_t>(b * stride_b + kvh * stride_h + t * stride_s);
@@ -175,14 +200,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename TQ, int G, typename Rows>
-__global__ void __launch_bounds__(kDecodeThreads)
+template <typename TQ, int G, int DH, typename Rows>
+__global__ void __launch_bounds__(DH)
 decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, Rows rows,
               const int* __restrict__ lengths, float* __restrict__ part,
               int* __restrict__ tickets, TQ* __restrict__ out, int kv_heads,
               int splits, float scale_log2) {
-  constexpr int DH = kDecodeDh;
+  using Sh = DecodeShape<DH, G>;
+  constexpr int kThreads = Sh::kThreads, kWarps = Sh::kWarps;
+  constexpr int kRowsPerWarp = Sh::kRowsPerWarp, kLaneDims = Sh::kLaneDims;
+  constexpr int kTileFloats = Sh::kTileFloats;
   constexpr int kPart = G * (DH + 2);  // a split's partial: o, m, l
   extern __shared__ __align__(16) float ring[];
   __shared__ float sm_s[G][kTileKeys];  // a tile's scores
@@ -220,26 +248,30 @@ decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k,
   if (tid < G) sm_m[0][tid] = neg_inf();
   __syncthreads();
 
-  // tile i's K and V into stage i % kStages, warp w copying keys w, w + 4,
-  // ...; every thread commits one group per tile, empty past the last.
-  // Tile i + kStages - 1 is issued once every thread is past tile i - 1,
-  // so kStages - 1 tiles are in flight while tile i is computed.
+  // tile i's K and V into stage i % kStages: copy c = tid + j * kThreads
+  // is 16 bytes of key row c / (DH / 4) (at DH 128: warp w copies keys
+  // w, w + 4, ...); every thread commits one group per tile, empty past
+  // the last.  Tile i + kStages - 1 is issued once every thread is past
+  // tile i - 1, so kStages - 1 tiles are in flight while tile i is
+  // computed.
   auto issue = [&](int i) {
     if (i < tiles) {
       float* ks = ring + (i % kStages) * 2 * kTileFloats;
       float* vs = ks + kTileFloats;
       const int n = min(kTileKeys, keys - i * kTileKeys);
 #pragma unroll
-      for (int j = 0; j < kRowsPerWarp; ++j) {
+      for (int j = 0; j < Sh::kCopies; ++j) {
         // a row past the split's keys is zero-filled: its copy reads
         // nothing (its address is the last key's, never dereferenced)
-        const int r = warp + j * kDecodeWarps;
+        const int c = tid + j * kThreads;
+        const int r = c / (DH / 4), col = (c % (DH / 4)) * 4;
         const size_t off =
-            rows.offset(b, kvh, t0 + i * kTileKeys + min(r, n - 1), t0,
-                        sm_tab) + lane * 4;
+            rows.template offset<DH>(b, kvh,
+                                     t0 + i * kTileKeys + min(r, n - 1), t0,
+                                     sm_tab) + col;
         const int bytes = r < n ? 16 : 0;
-        cp_async_16(ks + r * DH + lane * 4, k + off, bytes);
-        cp_async_16(vs + r * DH + lane * 4, v + off, bytes);
+        cp_async_16(ks + r * DH + col, k + off, bytes);
+        cp_async_16(vs + r * DH + col, v + off, bytes);
       }
     }
     cp_async_commit();
@@ -247,12 +279,13 @@ decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) issue(i);
 
-  float qv[G][4];
+  float qv[G][kLaneDims];
 #pragma unroll
   for (int g = 0; g < G; ++g)
-    load_vec<TQ, 4>(q + (static_cast<size_t>(b) * heads + kvh * G + g) * DH +
-                        lane * 4,
-                    qv[g]);
+    load_vec<TQ, kLaneDims>(
+        q + (static_cast<size_t>(b) * heads + kvh * G + g) * DH +
+            lane * kLaneDims,
+        qv[g]);
   // thread tid: dim tid of every head's output, and (the same in every
   // thread) each head's running sum of weights
   float acc[G], l[G];
@@ -267,25 +300,35 @@ decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k,
     const float* vs = ks + kTileFloats;
     const int n = min(kTileKeys, keys - i * kTileKeys);
 
-    // scores: warp w dots q against keys w, w + 4, ... of the tile; the
-    // warp's kRowsPerWarp * G sums are reduced together, so lane group
-    // lane / kLanesPerSum ends with value (key j, head g) = its index
-    float dot[kRowsPerWarp * G];
+    // scores: warp w dots q against keys w, w + kWarps, ... of the tile;
+    // the warp's kSums sums (key j, head g at j * G + g) are formed and
+    // reduced kChunk at a time (a wide group's sums never all live in
+    // registers at once), so lane group lane / kLanesPerSum of chunk c
+    // ends with value c * kChunk + its index
+    float kk[kRowsPerWarp][kLaneDims];     // zeros past the keys
 #pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-      const int r = warp + j * kDecodeWarps;
-      float kk[4];                         // zeros past the keys
-      load_vec<float, 4>(ks + r * DH + lane * 4, kk);
+    for (int j = 0; j < kRowsPerWarp; ++j)
+      load_vec<float, kLaneDims>(ks + (warp + j * kWarps) * DH +
+                                     lane * kLaneDims,
+                                 kk[j]);
 #pragma unroll
-      for (int g = 0; g < G; ++g)
-        dot[j * G + g] = qv[g][0] * kk[0] + qv[g][1] * kk[1] +
-                         qv[g][2] * kk[2] + qv[g][3] * kk[3];
-    }
-    {
-      const int idx = lane / kLanesPerSum<G>;
-      const float sum = warp_sum_many<kRowsPerWarp * G>(dot, lane);
-      const int r = warp + (idx / G) * kDecodeWarps;
-      if (lane % kLanesPerSum<G> == 0 && r < n)
+    for (int c = 0; c < Sh::kChunks; ++c) {
+      float dot[Sh::kChunk];
+#pragma unroll
+      for (int e = 0; e < Sh::kChunk; ++e) {
+        const int at = c * Sh::kChunk + e;
+        float d = 0.f;
+        if (at < Sh::kSums) {
+#pragma unroll
+          for (int x = 0; x < kLaneDims; ++x)
+            d += qv[at % G][x] * kk[at / G][x];
+        }
+        dot[e] = d;
+      }
+      const int idx = c * Sh::kChunk + lane / Sh::kLanesPerSum;
+      const float sum = warp_sum_many<Sh::kChunk>(dot, lane);
+      const int r = warp + (idx / G) * kWarps;
+      if (lane % Sh::kLanesPerSum == 0 && idx < Sh::kSums && r < n)
         sm_s[idx % G][r] = sum * scale_log2;
     }
     __syncthreads();
@@ -293,8 +336,8 @@ decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k,
     // online softmax, once per tile: thread (g, r) takes the tile's max
     // of head g from shared memory and the one exp2 of score r
     const int cur = i & 1;
-    if (tid < G * kTileKeys) {
-      const int g = tid / kTileKeys, r = tid % kTileKeys;
+    for (int e = tid; e < G * kTileKeys; e += kThreads) {
+      const int g = e / kTileKeys, r = e % kTileKeys;
       const float m_old = sm_m[cur][g];
       float mx = m_old;
 #pragma unroll
@@ -366,7 +409,7 @@ decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k,
   const float* all = part + bk * splits * kPart;
   float* sm_ms = ring;                     // [live][G] maxima
   float* sm_ls = ring + live * G;          // [live][G] sums
-  for (int idx = tid; idx < live * G; idx += kDecodeThreads) {
+  for (int idx = tid; idx < live * G; idx += kThreads) {
     const float* ps = all + (idx / G) * kPart + G * DH + idx % G;
     sm_ms[idx] = __ldcg(ps);
     sm_ls[idx] = __ldcg(ps + G);
@@ -381,6 +424,7 @@ decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k,
   for (int s = 0; s < live; ++s)
 #pragma unroll
     for (int g = 0; g < G; ++g) mx[g] = fmaxf(mx[g], sm_ms[s * G + g]);
+  constexpr int kMergeLoads = Sh::kMergeLoads;
   for (int s0 = 0; s0 < live; s0 += kMergeLoads) {
     float o[kMergeLoads][G];
 #pragma unroll
@@ -407,13 +451,14 @@ decode_kernel(const TQ* __restrict__ q, const float* __restrict__ k,
     ob[g * DH + tid] = from_float<TQ>(num[g] / fmaxf(den[g], 1e-30f));
 }
 
-template <typename TQ, int G, typename Rows>
+template <typename TQ, int G, int DH, typename Rows>
 cudaError_t set_decode_smem() {
   static std::atomic<unsigned long long> done{0};   // devices already set
-  return set_smem_once(decode_kernel<TQ, G, Rows>, kRingBytes, done);
+  return set_smem_once(decode_kernel<TQ, G, DH, Rows>, kRingBytesFor<DH>,
+                       done);
 }
 
-// One launch of the kernel instantiated for (TQ, G).
+// One launch of the kernel instantiated for (TQ, G, DH).
 template <typename Rows>
 struct DecodeLaunch {
   const void *q, *k, *v;
@@ -424,12 +469,14 @@ struct DecodeLaunch {
   float scale;
   cudaStream_t stream;
 
-  template <typename TQ, int G>
+  template <typename TQ, int G, int DH>
   cudaError_t run() const {
-    cudaError_t err = set_decode_smem<TQ, G, Rows>();
+    if (2 * splits * G > DecodeShape<DH, G>::kRingFloats)
+      return cudaErrorInvalidValue;       // the merge stages m and l there
+    cudaError_t err = set_decode_smem<TQ, G, DH, Rows>();
     if (err != cudaSuccess) return err;
     dim3 grid(splits, kv_heads, batch);
-    decode_kernel<TQ, G, Rows><<<grid, kDecodeThreads, kRingBytes, stream>>>(
+    decode_kernel<TQ, G, DH, Rows><<<grid, DH, kRingBytesFor<DH>, stream>>>(
         static_cast<const TQ*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), rows, static_cast<const int*>(lengths),
         static_cast<float*>(part), static_cast<int*>(tickets),
@@ -439,34 +486,39 @@ struct DecodeLaunch {
   }
 };
 
-// Resident blocks per SM of the kernel instantiated for (TQ, G).
+// Resident blocks per SM of the kernel instantiated for (TQ, G, DH).
 template <typename Rows>
 struct DecodeOccupancy {
   int* blocks;
 
-  template <typename TQ, int G>
+  template <typename TQ, int G, int DH>
   cudaError_t run() const {
-    cudaError_t err = set_decode_smem<TQ, G, Rows>();
+    cudaError_t err = set_decode_smem<TQ, G, DH, Rows>();
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, decode_kernel<TQ, G, Rows>, kDecodeThreads, kRingBytes);
+        blocks, decode_kernel<TQ, G, DH, Rows>, DH, kRingBytesFor<DH>);
   }
 };
 
-// Run `op` for the instantiation that q's dtype and the group size name.
+// Run `op` for the instantiation that q's dtype, the group size and the
+// head dim name (INSTANTIATIONS in kernels/flash_decode.py).
 template <typename Op>
-cudaError_t dispatch_decode(int q_dtype, int group, const Op& op) {
-#define REPRO_DECODE_CASE(TQ_, G_) \
-  if (group == G_) return op.template run<TQ_, G_>();
+cudaError_t dispatch_decode(int q_dtype, int group, int dh, const Op& op) {
+#define REPRO_DECODE_CASE(TQ_, G_, DH_) \
+  if (group == G_ && dh == DH_) return op.template run<TQ_, G_, DH_>();
+#define REPRO_DECODE_CASES(TQ_)   \
+  REPRO_DECODE_CASE(TQ_, 1, 128)  \
+  REPRO_DECODE_CASE(TQ_, 2, 128)  \
+  REPRO_DECODE_CASE(TQ_, 7, 128)  \
+  REPRO_DECODE_CASE(TQ_, 8, 128)  \
+  REPRO_DECODE_CASE(TQ_, 12, 128) \
+  REPRO_DECODE_CASE(TQ_, 1, 64)
   if (q_dtype == kFloat32) {
-    REPRO_DECODE_CASE(float, 1)
-    REPRO_DECODE_CASE(float, 2)
-    REPRO_DECODE_CASE(float, 8)
+    REPRO_DECODE_CASES(float)
   } else if (q_dtype == kBFloat16) {
-    REPRO_DECODE_CASE(__nv_bfloat16, 1)
-    REPRO_DECODE_CASE(__nv_bfloat16, 2)
-    REPRO_DECODE_CASE(__nv_bfloat16, 8)
+    REPRO_DECODE_CASES(__nv_bfloat16)
   }
+#undef REPRO_DECODE_CASES
 #undef REPRO_DECODE_CASE
   return cudaErrorInvalidValue;
 }
@@ -478,8 +530,9 @@ cudaError_t dispatch_decode(int q_dtype, int group, const Op& op) {
 // int32; part: batch * kv_heads * splits * group * (dh + 2) f32 scratch,
 // splits = ceil(max_blocks / 8); tickets: batch * kv_heads int32, all 0
 // (the kernel leaves them 0); out: (batch, heads, dh) in q's dtype (f32
-// or bf16).  dh is 128, group 1, 2 or 8, and 2 * splits * group at most
-// the ring's floats (the merge stages every split's max and sum there).
+// or bf16).  (group, dh) is one of those instantiated (dispatch_decode),
+// and 2 * splits * group at most the ring's floats (the merge stages
+// every split's max and sum there).
 extern "C" int repro_paged_decode(const void* q, const void* k_pool,
                                   const void* v_pool, const void* tables,
                                   const void* lengths, void* part,
@@ -487,15 +540,14 @@ extern "C" int repro_paged_decode(const void* q, const void* k_pool,
                                   int kv_heads, int group, int dh,
                                   int block_size, int max_blocks, int splits,
                                   float scale, int q_dtype, void* stream) {
-  if (dh != repro::kDecodeDh || splits * repro::kSplitBlocks < max_blocks ||
-      2 * splits * group > repro::kRingFloats)
+  if (splits * repro::kSplitBlocks < max_blocks)
     return static_cast<int>(cudaErrorInvalidValue);
   repro::PagedRows rows{static_cast<const int*>(tables), block_size,
                         max_blocks, kv_heads};
   repro::DecodeLaunch<repro::PagedRows> op{
       q, k_pool, v_pool, rows, lengths, part, tickets, out, batch,
       kv_heads, splits, scale, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(repro::dispatch_decode(q_dtype, group, op));
+  return static_cast<int>(repro::dispatch_decode(q_dtype, group, dh, op));
 }
 
 // q: (batch, kv_heads * group, dh); k, v: (batch, kv_heads, seq, dh) f32
@@ -508,32 +560,35 @@ extern "C" int repro_contiguous_decode(
     void* part, void* tickets, void* out, int batch, int kv_heads,
     int group, int dh, int seq, long long stride_b, long long stride_h,
     long long stride_s, int splits, float scale, int q_dtype, void* stream) {
-  if (dh != repro::kDecodeDh || splits * repro::kSplitKeys < seq ||
-      2 * splits * group > repro::kRingFloats)
+  if (splits * repro::kSplitKeys < seq)
     return static_cast<int>(cudaErrorInvalidValue);
   repro::StridedRows rows{stride_b, stride_h, stride_s, seq};
   repro::DecodeLaunch<repro::StridedRows> op{
       q, k, v, rows, lengths, part, tickets, out, batch,
       kv_heads, splits, scale, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(repro::dispatch_decode(q_dtype, group, op));
+  return static_cast<int>(repro::dispatch_decode(q_dtype, group, dh, op));
 }
 
 // Resident blocks per SM of the paged (paged != 0) or contiguous kernel
-// for q's dtype and the group size, or minus the CUDA error.
+// for q's dtype, the group size and the head dim, or minus the CUDA
+// error.
 extern "C" int repro_flash_decode_blocks_per_sm(int q_dtype, int group,
-                                                int paged) {
+                                                int paged, int dh) {
   int blocks = 0;
   const cudaError_t err =
       paged ? repro::dispatch_decode(
-                  q_dtype, group, repro::DecodeOccupancy<repro::PagedRows>{
-                                      &blocks})
+                  q_dtype, group, dh,
+                  repro::DecodeOccupancy<repro::PagedRows>{&blocks})
             : repro::dispatch_decode(
-                  q_dtype, group, repro::DecodeOccupancy<repro::StridedRows>{
-                                      &blocks});
+                  q_dtype, group, dh,
+                  repro::DecodeOccupancy<repro::StridedRows>{&blocks});
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
-// Dynamic shared memory of one block: the ring of K and V stages.
-extern "C" int repro_flash_decode_ring_bytes() {
-  return static_cast<int>(repro::kRingBytes);
+// Dynamic shared memory of one block at head dim dh (64 or 128): the ring
+// of K and V stages; 0 for another dh.
+extern "C" int repro_flash_decode_ring_bytes(int dh) {
+  if (dh == 64) return static_cast<int>(repro::kRingBytesFor<64>);
+  if (dh == 128) return static_cast<int>(repro::kRingBytesFor<128>);
+  return 0;
 }

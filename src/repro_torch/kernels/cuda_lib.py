@@ -67,7 +67,7 @@ _SIGNATURES = {
     "repro_floor": [_I, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P, _I, _F, _I, _P],
-    "repro_flash_attention_blocks_per_sm": [_I],
+    "repro_flash_attention_blocks_per_sm": [_I, _I],
     "repro_flash_attention_packed": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                                      _I, _I, _I, _I, _I, _P, _F, _I, _P],
     "repro_flash_attention_packed_plan": [_P, _P, _P, _P, _P, _I, _I, _I,
@@ -77,8 +77,8 @@ _SIGNATURES = {
                            _I, _I, _I, _F, _I, _P],
     "repro_contiguous_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                 _I, _L, _L, _L, _I, _F, _I, _P],
-    "repro_flash_decode_blocks_per_sm": [_I, _I, _I],
-    "repro_flash_decode_ring_bytes": [],
+    "repro_flash_decode_blocks_per_sm": [_I, _I, _I, _I],
+    "repro_flash_decode_ring_bytes": [_I],
     "repro_sample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_sample_occupancy": [_I, _I, _P, _P],
     "repro_softmax": [_P, _P, _P, _I, _I, _F, _I, _I, _P],

@@ -31,7 +31,11 @@ __all__ = ["flash_attention_cuda", "flash_attention_packed_cuda",
            "flash_attention_packed_plan_ref", "flash_attention_packed_ref",
            "flash_attention_ref"]
 
-HEAD_DIM = 128      # the one head dim csrc/flash_attention.cu is built for
+#: the head dims of the causal mode (csrc/flash_attention.cu: both bodies,
+#: bf16 on the tensor cores, are templates on it); the packed mode takes
+#: 128
+HEAD_DIMS = (64, 128)
+PACKED_HEAD_DIM = 128
 #: the most keys the packed mode takes (the plan kernel flags up to
 #: kMaxTiles = 2048 key tiles of 64 keys a query tile)
 PACKED_MAX_KEYS = 2048 * 64
@@ -55,8 +59,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(v.shape)} does not fit q {tuple(q.shape)}")
     if kv == 0 or h % kv:
         raise ValueError(f"{name}: H={h} is not a multiple of KV={kv}")
-    if dh != HEAD_DIM:
-        raise ValueError(f"{name}: head dim {dh} is not {HEAD_DIM}")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {dh} is not one of {HEAD_DIMS}")
     if q.dtype not in cuda_lib.DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise ValueError(f"{name}: q/k/v must share one of "
@@ -83,9 +87,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(causal), float(scale), cuda_lib.DTYPE_CODES[q.dtype],
         cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, name)
-    # queries aligned as the last Sq of more keys: a suffix prefill
-    cuda_lib.count_launch("flash_attention",
-                          "suffix" if sk > sq else None)
+    # queries aligned as the last Sq of more keys: a suffix prefill; the
+    # head dim where it is not the packed mode's
+    classes = (["suffix"] if sk > sq else []) + \
+        ([f"dh{dh}"] if dh != PACKED_HEAD_DIM else [])
+    cuda_lib.count_launch("flash_attention", " ".join(classes) or None)
     return out
 
 
@@ -159,8 +165,8 @@ def flash_attention_packed_cuda(q: torch.Tensor, k: torch.Tensor,
     _check_ids(name, q_seg, k_seg, q_pos, k_pos, sq, sk)
     if kv == 0 or h % kv:
         raise ValueError(f"{name}: H={h} is not a multiple of KV={kv}")
-    if dh != HEAD_DIM:
-        raise ValueError(f"{name}: head dim {dh} is not {HEAD_DIM}")
+    if dh != PACKED_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {dh} is not {PACKED_HEAD_DIM}")
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise ValueError(f"{name}: q/k/v must be bfloat16 (the packed mode "
                          "is built for the serving path's dtype only)")

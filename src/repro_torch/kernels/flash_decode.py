@@ -20,9 +20,10 @@ from repro_torch.kernels.ref import flash_decode_paged_ref, flash_decode_ref
 __all__ = ["flash_decode_cuda", "flash_decode_paged_cuda",
            "flash_decode_paged_ref", "flash_decode_ref"]
 
-# what the kernel is instantiated for (csrc/flash_decode.cu)
-HEAD_DIM = 128
-GROUPS = (1, 2, 8)
+# what the kernel is instantiated for (csrc/flash_decode.cu): the (H / KV,
+# head dim) pairs of the served models (InternLM2 8, OLMoE 1, Qwen2-VL 7,
+# StarCoder2 12 at dh 128; MusicGen 1 at dh 64) and of the card tests
+INSTANTIATIONS = ((1, 128), (2, 128), (7, 128), (8, 128), (12, 128), (1, 64))
 Q_DTYPES = (torch.float32, torch.bfloat16)
 #: logical KV blocks per split (128 positions at the block size of 16),
 #: kSplitBlocks in csrc/flash_decode.cu
@@ -40,12 +41,15 @@ def num_splits(max_blocks: int) -> int:
     return max(1, -(-max_blocks // BLOCKS_PER_SPLIT))
 
 
-def _check_heads(name: str, q: torch.Tensor, kv: int, dh: int) -> None:
+def _check_heads(name: str, q: torch.Tensor, kv: int, dh: int) -> str:
+    """Raise unless an instantiation covers (H / KV, dh); its launch
+    shape class otherwise."""
     h = q.shape[1]
-    if kv == 0 or h % kv or h // kv not in GROUPS:
-        raise ValueError(f"{name}: H/KV = {h}/{kv} must be one of {GROUPS}")
-    if dh != HEAD_DIM:
-        raise ValueError(f"{name}: head dim {dh} is not {HEAD_DIM}")
+    if kv == 0 or h % kv or (h // kv, dh) not in INSTANTIATIONS:
+        raise ValueError(f"{name}: H/KV = {h}/{kv} at head dim {dh} is "
+                         f"not built; (H/KV, head dim) must be one of "
+                         f"{INSTANTIATIONS}")
+    return f"g{h // kv} dh{dh}"
 
 
 #: per (device, stream): the zeroed int32 tickets of the in-launch split
@@ -100,7 +104,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(k.shape) != (b, kv, s, dh) or v.shape != k.shape:
         raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not "
                          f"fit q {tuple(q.shape)}")
-    _check_heads(name, q, kv, dh)
+    shape_class = _check_heads(name, q, kv, dh)
     if q.dtype not in Q_DTYPES or k.dtype != torch.float32 or \
             v.dtype != torch.float32:
         raise ValueError(f"{name}: q must be f32 or bf16 and k/v f32, "
@@ -130,7 +134,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         h // kv, dh, s, sb, sh, ss, splits,
         float(scale), cuda_lib.DTYPE_CODES[q.dtype], cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, name)
-    cuda_lib.count_launch("flash_decode")
+    cuda_lib.count_launch("flash_decode", shape_class)
     return out
 
 
@@ -151,7 +155,7 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if tuple(k_pool.shape) != (nb, bs, kv, dh) or v_pool.shape != k_pool.shape:
         raise ValueError(f"{name}: pool shape {tuple(k_pool.shape)} does "
                          f"not fit q {tuple(q.shape)}")
-    _check_heads(name, q, kv, dh)
+    shape_class = _check_heads(name, q, kv, dh)
     if q.dtype not in Q_DTYPES or k_pool.dtype != torch.float32 or \
             v_pool.dtype != torch.float32:
         raise ValueError(f"{name}: q must be f32 or bf16 and the pool f32, "
@@ -179,5 +183,5 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         splits, float(scale),
         cuda_lib.DTYPE_CODES[q.dtype], cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, name)
-    cuda_lib.count_launch("flash_decode_paged")
+    cuda_lib.count_launch("flash_decode_paged", shape_class)
     return out

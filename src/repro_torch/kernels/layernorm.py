@@ -95,5 +95,5 @@ def norm_cuda(x: torch.Tensor, gamma: torch.Tensor,
                             cuda_lib.DTYPE_CODES[x.dtype], plan.threads,
                             plan.vectors, cuda_lib.stream_ptr(x))
         cuda_lib.check(rc, name)
-        cuda_lib.count_launch("norm")
+        cuda_lib.count_launch("norm", None if rms else "layernorm")
     return (y, s) if return_residual else y

@@ -1,12 +1,15 @@
-"""The port's decoder (`repro_torch.models.transformer`, dense or MoE),
-its layers, the MoE layer (`repro_torch.models.moe`) and the weight
-bridge from the JAX package."""
-from repro_torch.models.transformer import (decode_step, forward_hidden,
+"""The port's decoder (`repro_torch.models.transformer`: dense, VLM,
+audio or MoE), its layers, the MoE layer (`repro_torch.models.moe`), the
+stub modality front ends (`repro_torch.models.frontend`), the model
+inputs (`repro_torch.models.io`) and the weight bridge from the JAX
+package."""
+from repro_torch.models.transformer import (cache_specs, decode_step,
+                                            embed_inputs, forward_hidden,
                                             init_params, logits_at,
                                             make_cache, make_paged_cache,
                                             prefill, prefill_packed,
                                             prefill_suffix)
 
-__all__ = ["decode_step", "forward_hidden", "init_params", "logits_at",
-           "make_cache", "make_paged_cache", "prefill", "prefill_packed",
-           "prefill_suffix"]
+__all__ = ["cache_specs", "decode_step", "embed_inputs", "forward_hidden",
+           "init_params", "logits_at", "make_cache", "make_paged_cache",
+           "prefill", "prefill_packed", "prefill_suffix"]

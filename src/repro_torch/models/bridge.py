@@ -4,8 +4,9 @@
 converts it to numpy (``jax.tree.map(np.asarray, params)``) and
 :func:`params_from_numpy` turns that tree into the port's tensors with
 the same keys and the same einsum layouts (``wq`` (d,H,dh), ``wo``
-(H,dh,d), ``w_gate``/``w_up`` (d,f), ``tok`` (1,V,d), ``head`` (1,d,V)).
-Nothing here imports JAX.
+(H,dh,d), ``w_gate``/``w_up`` (d,f), the GELU FFN's ``b_up``/``b_down``,
+``tok`` (K,V,d) and ``head`` (K,d,V) with K = max(num_codebooks, 1): one
+table of each a codebook).  Nothing here imports JAX.
 """
 from __future__ import annotations
 

@@ -1,9 +1,11 @@
 """Transformer layers of the port's decoders: norms (qk-norm among them),
-RoPE, GQA projections, SwiGLU FFN, embeddings.
+RoPE and M-RoPE, GQA projections, the SwiGLU and GELU FFNs, embeddings
+and heads of one or K codebooks.
 
 Counterparts of `repro.models.layers` with the same names, the same
 parameter dicts and the same einsum layouts (``wq`` (d, H, dh), ``wo``
-(H, dh, d), ``w_gate``/``w_up`` (d, f), ``tok`` (1, V, d)).  The norms go
+(H, dh, d), ``w_gate``/``w_up`` (d, f), ``tok`` (K, V, d), ``head`` (K,
+d, V), K = max(num_codebooks, 1)).  The norms go
 through the fused norm kernel (`repro_torch.kernels.ops`); the large
 matrix products are plain ``torch.matmul``.  ``attention_naive`` is the
 paper's attention (batched GEMM, the fused mask + softmax kernel, batched
@@ -74,19 +76,29 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
 def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
              device: torch.device) -> Params:
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": dense_init(gen, (d, f), d, dtype, device),
+            "w_up": dense_init(gen, (d, f), d, dtype, device),
+            "w_down": dense_init(gen, (f, d), f, dtype, device),
+        }
     return {
-        "w_gate": dense_init(gen, (d, f), d, dtype, device),
         "w_up": dense_init(gen, (d, f), d, dtype, device),
+        "b_up": torch.zeros((f,), dtype=dtype, device=device),
         "w_down": dense_init(gen, (f, d), f, dtype, device),
+        "b_down": torch.zeros((d,), dtype=dtype, device=device),
     }
 
 
 def init_embedding(cfg: ModelConfig, gen: torch.Generator,
                    dtype: torch.dtype, device: torch.device) -> Params:
-    p = {"tok": dense_init(gen, (1, cfg.vocab_size, cfg.d_model),
+    """``tok`` (K, V, d) and, untied, ``head`` (K, d, V): one table each
+    per codebook (K = 1 for a token model)."""
+    n_embed = max(cfg.num_codebooks, 1)
+    p = {"tok": dense_init(gen, (n_embed, cfg.vocab_size, cfg.d_model),
                            cfg.d_model, dtype, device)}
     if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, (1, cfg.d_model, cfg.vocab_size),
+        p["head"] = dense_init(gen, (n_embed, cfg.d_model, cfg.vocab_size),
                                cfg.d_model, dtype, device)
     return p
 
@@ -152,21 +164,64 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """Split of half-dim across (temporal, height, width) à la Qwen2-VL."""
+    half = head_dim // 2
+    t = half - 2 * (half // 3)
+    return (t, half // 3, half // 3)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """M-RoPE: x (B, S, H, dh); positions (3, B, S), the temporal, height
+    and width streams.  Frequency i of the half dim takes its angle from
+    the stream of its section (:func:`mrope_sections`)."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    t, h, _ = mrope_sections(x.shape[-1])
+    # each frequency's stream, built on the device (no host copy, so a
+    # CUDA graph captures it)
+    idx = torch.arange(half, device=x.device)
+    sel = (idx >= t).long() + (idx >= t + h).long()       # (half,)
+    angles = positions[..., None].float() * freqs        # (3,B,S,half)
+    angle = angles.gather(0, sel.expand_as(angles[:1]))[0]  # (B,S,half)
+    cos = torch.cos(angle)[:, :, None, :]
+    sin = torch.sin(angle)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
 def positions_for(cfg: ModelConfig, tokens_shape: Tuple[int, int],
-                  offset: int = 0,
+                  num_prefix_patches: int = 0, offset: int = 0,
                   device: Optional[torch.device] = None) -> torch.Tensor:
-    """Position ids (B, S) for a dense model: ``offset`` .. ``offset+S``."""
+    """Position ids: (B, S) ``offset`` .. ``offset + S``, or (3, B, S) for
+    M-RoPE.  With an image prefix (M-RoPE), the first
+    ``num_prefix_patches`` slots are a square patch grid at (t = 0, h =
+    row, w = col), and text positions continue from 1 on all three
+    streams, as the JAX package's stub front end lays them out."""
     b, s = tokens_shape
-    base = torch.arange(s, dtype=torch.int32, device=device)[None, :] + \
-        offset
-    return base.expand(b, s)
+    idx = torch.arange(s, dtype=torch.int32, device=device)
+    base = (idx[None, :] + offset).expand(b, s)
+    if cfg.rope != "mrope":
+        return base
+    if num_prefix_patches:
+        g = max(math.isqrt(num_prefix_patches), 1)
+        is_img = idx < num_prefix_patches
+        text = idx - num_prefix_patches + 1
+        row = torch.where(is_img, idx // g, text)
+        col = torch.where(is_img, idx % g, text)
+        tpos = torch.where(is_img, torch.zeros_like(idx), text)
+        pos3 = torch.stack([tpos, row, col])[:, None, :] + offset
+        return pos3.expand(3, b, s)
+    return base[None].expand(3, b, s)
 
 
 def _rope_dispatch(cfg: ModelConfig, x, positions):
     if cfg.rope == "none":
         return x
-    if cfg.rope != "rope":
-        raise ValueError(f"rope={cfg.rope!r} is not served by the port yet")
+    if cfg.rope == "mrope":
+        return apply_mrope(x, positions, cfg.rope_theta)
     return apply_rope(x, positions, cfg.rope_theta)
 
 
@@ -261,11 +316,14 @@ def attention_packed(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 
 def apply_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if cfg.act != "swiglu":
-        raise ValueError(f"act={cfg.act!r} is not served by the port yet")
-    g = torch.matmul(x, p["w_gate"])
-    u = torch.matmul(x, p["w_up"])
-    return torch.matmul(F.silu(g) * u, p["w_down"])
+    """SwiGLU, or GELU with biases (the tanh form, ``jax.nn.gelu``'s
+    default)."""
+    if cfg.act == "swiglu":
+        g = torch.matmul(x, p["w_gate"])
+        u = torch.matmul(x, p["w_up"])
+        return torch.matmul(F.silu(g) * u, p["w_down"])
+    h = F.gelu(torch.matmul(x, p["w_up"]) + p["b_up"], approximate="tanh")
+    return torch.matmul(h, p["w_down"]) + p["b_down"]
 
 
 # ---------------------------------------------------------------------------
@@ -275,14 +333,20 @@ def apply_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def embed_tokens(cfg: ModelConfig, p: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B,S) -> (B,S,d)."""
-    if tokens.dim() != 2:
-        raise ValueError("codebook tokens are not served by the port yet")
-    return p["tok"][0][tokens.long()]
+    """tokens: (B,S), or (B,K,S) for a codebook model, whose K codebook
+    embeddings of a frame are summed in codebook order -> (B,S,d)."""
+    if tokens.dim() == 2:
+        return p["tok"][0][tokens.long()]
+    h = p["tok"][0][tokens[:, 0].long()]
+    for i in range(1, tokens.shape[1]):
+        h = h + p["tok"][i][tokens[:, i].long()]
+    return h
 
 
 def lm_logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
-    """h: (B,S,d) -> logits (B,S,V)."""
-    if cfg.tie_embeddings:
-        return torch.matmul(h, p["tok"][0].t())
-    return torch.matmul(h, p["head"][0])
+    """h: (B,S,d) -> logits (B,S,V), or (B,K,S,V) for a codebook model
+    (one head a codebook)."""
+    w = p["tok"].transpose(1, 2) if cfg.tie_embeddings else p["head"]
+    if not cfg.num_codebooks:
+        return torch.matmul(h, w[0])
+    return torch.matmul(h[:, None], w[None])

@@ -1,8 +1,9 @@
 """The port's decoder: init, prompt prefill and decode over a paged or a
 contiguous KV cache.
 
-Counterpart of `repro.models.transformer` for the dense and MoE families
-(``[norm -> GQA attn -> norm -> FFN or MoE] x L``), with the
+Counterpart of `repro.models.transformer` for the transformer families,
+dense, VLM, audio and MoE (``[norm -> GQA attn -> norm -> FFN or MoE] x
+L``), with the
 same parameter tree (per-layer tensors stacked on a leading ``L`` dim)
 and the same two KV layouts: the paged pool ``(L, NB, BS, KV, dh)``
 shared by every sequence, reached through per-row block tables whose
@@ -24,6 +25,13 @@ row through the flash kernel's segment-masked mode.  Decode
 attention is the paged or the contiguous split-K decode kernel where the
 JAX package gathers the cache and runs the jnp ``attention_decode``.  Every norm goes through the fused norm kernel,
 and ``h + attn_out -> norm2`` is one launch.
+
+The VLM family takes precomputed patch embeddings in the first slots of
+a prompt (:func:`embed_inputs`, ``embeds_override``) at M-RoPE's grid
+positions, and its text continues from position 1 after the image
+(``pos_offset``); the audio family (MusicGen) sums K codebook embeddings
+a frame and predicts K codebooks, through :func:`prefill` and
+:func:`decode_step` only, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,11 +49,16 @@ Params = Dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or cfg.num_codebooks:
-        raise ValueError(f"{cfg.name}: the port serves dense and MoE "
-                         f"single-codebook decoders, not family "
-                         f"{cfg.family!r}" + (" with codebooks"
-                                              if cfg.num_codebooks else ""))
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: the port serves the families "
+                         f"{FAMILIES}, not {cfg.family!r}")
+
+
+def _no_codebooks(cfg: ModelConfig, what: str) -> None:
+    """The JAX package's refusal of codebook models on the paged serving
+    path's prefills."""
+    if cfg.num_codebooks:
+        raise ValueError(f"{what} does not support codebook models")
 
 
 def _ffn(cfg: ModelConfig, blk: Params, x: torch.Tensor) -> torch.Tensor:
@@ -140,9 +153,11 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32,
                device=None) -> Dict[str, torch.Tensor]:
     """An empty contiguous decode cache: ``k``/``v`` (L, B, max_len, KV,
-    dh), one stripe per row, plus ``len`` and ``pos_offset`` (B,)."""
+    dh), one stripe per row, plus ``len`` and ``pos_offset`` (B,).  On
+    ``device="meta"`` it allocates nothing (:func:`cache_specs`)."""
     _check_family(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" else \
+        resolve_device(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.head_dim)
     return {
@@ -153,8 +168,30 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype: torch.dtype = torch.bfloat16
+                ) -> Dict[str, torch.Tensor]:
+    """:func:`make_cache`'s tensors on the ``meta`` device: shapes and
+    dtypes, no memory (the JAX package's ``eval_shape`` of its
+    ``make_cache``, bf16 by default as there)."""
+    return make_cache(cfg, batch, max_len, dtype, device="meta")
+
+
 #: prefill attention routes of `forward_hidden`
 ATTN_ROUTES = ("flash", "naive")
+
+
+def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 embeds_override: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeddings (B, S, d) of (B, S) tokens, or (B, K, S) codes;
+    ``embeds_override`` (B, N, d), where given, takes the first N slots
+    (the VLM stub front end's precomputed patch embeddings)."""
+    h = L.embed_tokens(cfg, params["embed"], tokens)
+    if embeds_override is not None:
+        h = h.clone()
+        h[:, :embeds_override.shape[1]] = embeds_override.to(h.dtype)
+    return h
 
 
 def _kv_parts(shape: Tuple[int, ...], dtype: torch.dtype,
@@ -182,8 +219,10 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    cache_dtype: torch.dtype = torch.float32,
                    cache_len: Optional[int] = None, attn: str = "flash",
                    kv_out: Optional[Dict[str, torch.Tensor]] = None,
-                   embeds_override: Optional[torch.Tensor] = None):
-    """Causal pass over right-padded prompts.  Returns ``(h_final,
+                   embeds_override: Optional[torch.Tensor] = None,
+                   num_prefix_patches: int = 0):
+    """Causal pass over right-padded prompts, (B, S) tokens or (B, K, S)
+    codes.  Returns ``(h_final,
     parts)``; with ``collect_cache`` parts holds every layer's k/v as
     (L, B, max(S, cache_len), KV, dh) in ``cache_dtype``, zero past S,
     written into ``kv_out``'s tensors where given, else None.  ``attn``
@@ -191,18 +230,16 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     flash-attention kernel, the generative prefill's) or ``"naive"``
     (scores, the fused softmax kernel, weights times V: the
     classification path's, as the JAX package's ``_attn`` picks below
-    its chunked threshold).  ``embeds_override`` (B, N, d), where given,
-    takes the first N slots' embeddings, as the JAX package's
-    ``embed_inputs`` places precomputed patch embeddings."""
+    its chunked threshold).  ``embeds_override`` as in
+    :func:`embed_inputs`; ``num_prefix_patches`` lays out M-RoPE's image
+    grid (`repro_torch.models.layers.positions_for`)."""
     _check_family(cfg)
     if attn not in ATTN_ROUTES:
         raise ValueError(f"attn={attn!r}: expected one of {ATTN_ROUTES}")
-    b, s = tokens.shape
-    h = L.embed_tokens(cfg, params["embed"], tokens)
-    if embeds_override is not None:
-        h = h.clone()
-        h[:, :embeds_override.shape[1]] = embeds_override.to(h.dtype)
-    positions = L.positions_for(cfg, (b, s), device=tokens.device)
+    b, s = tokens.shape[0], tokens.shape[-1]
+    h = embed_inputs(cfg, params, tokens, embeds_override)
+    positions = L.positions_for(cfg, (b, s), num_prefix_patches,
+                                device=tokens.device)
     parts = None
     if collect_cache:
         width = max(s, cache_len or 0)
@@ -239,17 +276,21 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             cache_dtype: torch.dtype = torch.float32,
             kv_out: Optional[Dict[str, torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Prompt pass over right-padded ``tokens`` (B, S).  Returns the
-    logits at each row's last real token (B, V) and a contiguous cache:
-    ``k``/``v`` (L, B, max(S, max_len), KV, dh), zero past S (written
-    into ``kv_out``'s where given), with ``len`` (each row's true length)
-    and ``pos_offset`` (B,) int32.  The engine decodes it in place or
-    splices it into a slot cache or a paged pool.  ``embeds_override``
-    as in :func:`forward_hidden`."""
-    bsz, seq = tokens.shape
+    """Prompt pass over right-padded ``tokens`` (B, S), or (B, K, S)
+    codes.  Returns the logits at each row's last real token, (B, V) or
+    (B, K, V) for a codebook model, and a contiguous cache: ``k``/``v``
+    (L, B, max(S, max_len), KV, dh), zero past S (written into
+    ``kv_out``'s where given), with ``len`` (each row's true length) and
+    ``pos_offset`` (B,) int32: with M-RoPE and an image prefix of N
+    patches it is -(N - 1), so decoding continues the text positions.
+    The engine decodes it in place or splices it into a slot cache or a
+    paged pool.  ``embeds_override`` as in :func:`embed_inputs`."""
+    bsz, seq = tokens.shape[0], tokens.shape[-1]
+    n_img = 0 if embeds_override is None else embeds_override.shape[1]
     h, cache = forward_hidden(cfg, params, tokens, collect_cache=True,
                               cache_dtype=cache_dtype, cache_len=max_len,
-                              kv_out=kv_out, embeds_override=embeds_override)
+                              kv_out=kv_out, embeds_override=embeds_override,
+                              num_prefix_patches=n_img)
     if true_lengths is None:
         lens = torch.full((bsz,), seq, dtype=torch.int32,
                           device=tokens.device)
@@ -258,6 +299,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     logits = logits_at(cfg, params, h, lens - 1)
     cache["len"] = lens
     cache["pos_offset"] = torch.zeros_like(lens)
+    if cfg.rope == "mrope" and n_img:
+        cache["pos_offset"] -= n_img - 1
     return logits, cache
 
 
@@ -291,11 +334,12 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     own (copy-on-write) blocks, and the shared prefix blocks are never
     written."""
     _check_family(cfg)
+    _no_codebooks(cfg, "suffix prefill")
     if prefix_len < 0:
         raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
     bsz, seq = tokens.shape
     h = L.embed_tokens(cfg, params["embed"], tokens)
-    positions = L.positions_for(cfg, (bsz, seq), offset=prefix_len,
+    positions = L.positions_for(cfg, (bsz, seq), 0, offset=prefix_len,
                                 device=tokens.device)
     shape = (cfg.num_layers, bsz, seq, cfg.num_kv_heads, cfg.head_dim)
     parts = _kv_parts(shape, cache_dtype, h.device, kv_out)
@@ -353,9 +397,12 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``cache_dtype`` (``kv_out``'s tensors where given) for the caller to
     scatter into per-segment blocks."""
     _check_family(cfg)
+    _no_codebooks(cfg, "packed prefill")
     p = tokens.shape[1]
     h = L.embed_tokens(cfg, params["embed"], tokens)
     pos_in = positions[None]
+    if cfg.rope == "mrope":
+        pos_in = pos_in[None].expand((3,) + pos_in.shape)
     use_prefix = prefix_k.shape[1] > 0
     if use_prefix:
         k_seg = torch.cat([prefix_seg, seg_ids])
@@ -391,12 +438,12 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def logits_at(cfg: ModelConfig, params: Params, h: torch.Tensor,
               idx: torch.Tensor) -> torch.Tensor:
-    """Logits (B, V) at position ``idx[b]`` of each row of ``h`` (B, S,
-    d): the rows are gathered first, so the vocabulary-wide head runs
-    over B rows, not B * S."""
+    """Logits (B, V), or (B, K, V) for a codebook model, at position
+    ``idx[b]`` of each row of ``h`` (B, S, d): the rows are gathered
+    first, so the vocabulary-wide head runs over B rows, not B * S."""
     rows = torch.arange(h.shape[0], device=h.device)
     h_last = h[rows, idx.to(h.device).long()][:, None]
-    return L.lm_logits(cfg, params["embed"], h_last)[:, 0]
+    return L.lm_logits(cfg, params["embed"], h_last)[..., 0, :]
 
 
 # ---------------------------------------------------------------------------
@@ -408,18 +455,22 @@ def decode_step(cfg: ModelConfig, params: Params,
                 cache: Dict[str, torch.Tensor], tokens_t: torch.Tensor
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step over a paged cache (``block_tables`` present) or a
-    contiguous one.  tokens_t: (B,).  Writes each row's new K/V at
-    ``cache['len']`` IN PLACE and returns ``(logits (B, V), cache')``
-    where ``cache'`` shares the K/V (and tables) and has ``len + 1``."""
+    contiguous one.  tokens_t: (B,), or (B, K) for a codebook model.
+    Writes each row's new K/V at ``cache['len']`` IN PLACE, at rope
+    position ``len + pos_offset``, and returns ``(logits, cache')``:
+    logits (B, V) or (B, K, V), and ``cache'`` sharing the K/V (and
+    tables) with ``len + 1``."""
     _check_family(cfg)
-    h = L.embed_tokens(cfg, params["embed"], tokens_t[:, None])  # (B,1,d)
-    pos = cache["len"] + cache["pos_offset"]
+    h = L.embed_tokens(cfg, params["embed"], tokens_t[..., None])  # (B,1,d)
+    positions = (cache["len"] + cache["pos_offset"])[:, None]
+    if cfg.rope == "mrope":
+        positions = positions[None].expand((3,) + positions.shape)
     if "block_tables" in cache:
-        h = _decode_attn_paged(cfg, params, cache, h, pos[:, None])
+        h = _decode_attn_paged(cfg, params, cache, h, positions)
     else:
-        h = _decode_attn(cfg, params, cache, h, pos[:, None])
+        h = _decode_attn(cfg, params, cache, h, positions)
     h = L.apply_norm(cfg, params["final_norm"], h)
-    logits = L.lm_logits(cfg, params["embed"], h)[:, 0]
+    logits = L.lm_logits(cfg, params["embed"], h)[..., 0, :]
     new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
     return logits, new_cache

@@ -106,7 +106,7 @@ class GenState:
     (``k``/``v`` pools, ``block_tables``, ``len``, ``pos_offset``); both
     decode."""
     cache: Dict[str, torch.Tensor]
-    cur: torch.Tensor                 # (B,) last token
+    cur: torch.Tensor                 # (B,) last token, (B, K) codebooks
     emitted: torch.Tensor             # (B, cap) generated tokens
     counts: torch.Tensor              # (B,) number emitted
     done: torch.Tensor                # (B,) bool
@@ -253,7 +253,11 @@ class InferenceEngine:
         return outs
 
     def _logits_spec(self, rows: int) -> graphs.Spec:
-        return (rows, self.cfg.vocab_size), self.params["embed"]["tok"].dtype
+        """(rows, V) logits, (rows, K, V) for a codebook model."""
+        cfg = self.cfg
+        k = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+        return (rows,) + k + (cfg.vocab_size,), \
+            self.params["embed"]["tok"].dtype
 
     def _kv_spec(self, *dims: int) -> Dict[str, graphs.Spec]:
         """k/v outputs (L, *dims, KV, dh) in f32, the reference's
@@ -585,6 +589,9 @@ class InferenceEngine:
                 stops[i, 1 + j] = t
         eos = self._tensor(stops, torch.int32)
         use_sampling = any(p.temperature > 0 for p in specs)
+        if use_sampling and logits.dim() != 2:
+            raise ValueError("temperature sampling is unsupported for "
+                             "codebook models (greedy only)")
         if use_sampling:
             # first generated token: drawn at step 0 with the row's key
             cur = sample_tokens(
@@ -593,14 +600,16 @@ class InferenceEngine:
                 candidates=self.sample_candidates)
         else:
             cur = torch.argmax(logits, dim=-1).to(torch.int32)
+        # a codebook model emits its first codebook's token
+        tok0 = cur if cur.dim() == 1 else cur[:, 0]
         budget = self._tensor(list(budgets) + [0] * (batch_b - n),
                               torch.int32)
         emitted = torch.zeros((batch_b, cap), dtype=torch.int32,
                               device=self.device)
-        emitted[:, 0] = cur
+        emitted[:, 0] = tok0
         counts = torch.clamp(budget, max=1)
         done = (counts >= budget) | \
-            ((cur[:, None] == eos).any(dim=-1) & (counts > 0))
+            ((tok0[:, None] == eos).any(dim=-1) & (counts > 0))
         return GenState(cache, cur, emitted, counts, done, budget, eos,
                         temp, top_k, top_p, seed, sampling=use_sampling)
 
@@ -609,27 +618,32 @@ class InferenceEngine:
         """One decode tick for every live row of ``state``, on device;
         finished rows are frozen (no KV advance, no emission).
         Greedy-only states take the argmax; states with sampled rows run
-        the sampling kernel (greedy rows still get the argmax)."""
+        the sampling kernel (greedy rows still get the argmax).  A
+        codebook model's state (``cur`` (B, K)) is always greedy and
+        emits its first codebook, as the JAX package's tick of token
+        rank 2."""
         cache = state.cache
         prev_len = cache["len"]
         logits, cache2 = decode_step(self.cfg, self.params, cache,
                                      state.cur)
-        if state.sampling:
+        if state.sampling and state.cur.dim() == 1:
             nxt = sample_tokens(logits, temperature=state.temp,
                                 top_k=state.top_k, top_p=state.top_p,
                                 seed=state.seed, step=state.counts,
                                 candidates=self.sample_candidates)
         else:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = nxt if nxt.dim() == 1 else nxt[:, 0]
         done = state.done
         cache2["len"] = torch.where(done, prev_len, cache2["len"])
         col = torch.clamp(state.counts, max=state.capacity - 1).long()
-        written = state.emitted.scatter(1, col[:, None], nxt[:, None])
+        written = state.emitted.scatter(1, col[:, None], tok[:, None])
         emitted = torch.where(done[:, None], state.emitted, written)
         counts = torch.where(done, state.counts, state.counts + 1)
         done2 = done | (counts >= state.budget) | \
-            (nxt[:, None] == state.eos).any(dim=-1)
-        cur = torch.where(done, state.cur, nxt)
+            (tok[:, None] == state.eos).any(dim=-1)
+        mask = done if state.cur.dim() == 1 else done[:, None]
+        cur = torch.where(mask, state.cur, nxt)
         return replace(state, cache=cache2, cur=cur, emitted=emitted,
                        counts=counts, done=done2)
 
@@ -679,11 +693,18 @@ class InferenceEngine:
 
     @_device_call
     def generate(self, token_lists: Sequence[Sequence[int]],
-                 max_new_tokens: int = 16,
-                 eos_id: Optional[int] = None) -> List[List[int]]:
+                 max_new_tokens: int = 16, eos_id: Optional[int] = None,
+                 per_token_host_sync: bool = False) -> List[List[int]]:
         """Greedy decode over a ragged batch (right-padded; per-request
         last-token gather), with its own paged pool.  Tokens accumulate
-        on the device and transfer once at the end."""
+        on the device and transfer once at the end; on the card each tick
+        is a replay of one graph of the in-place tick, as the JAX package
+        runs its compiled tick (the graph is captured on the call's own
+        state and dropped with it, so it is not counted in
+        ``compile_count``, whose cells live on).
+        ``per_token_host_sync=True`` runs the JAX package's old loop
+        instead, one device-to-host read a token, as a baseline.  A
+        codebook model emits its first codebook's tokens."""
         lens = [len(t) for t in token_lists]
         seq_b = self.ladder.seq_bucket(max(lens) + max_new_tokens)
         per_tok = kv_bytes_per_token(self.cfg)
@@ -697,18 +718,44 @@ class InferenceEngine:
                                       tokens=ln + max_new_tokens)
             if max_new_tokens == 0:
                 return [list(t) for t in token_lists]
+            if per_token_host_sync:
+                return self._generate_host_synced(token_lists,
+                                                  max_new_tokens, seq_b)
             state = self.prefill_batch(token_lists, max_len=seq_b,
                                        max_new_tokens=max_new_tokens,
                                        eos_id=eos_id, prompt_kv_only=True)
             state = self.own_pool(state, seq_b)
+            ticks = TickCells(self.decode_step_inplace) \
+                if self.device.type == "cuda" else None
             for _ in range(max_new_tokens - 1):
-                state = self.decode_step_batch(state)
+                if ticks is not None:
+                    ticks.run(state)
+                else:
+                    state = self.decode_step_batch(state)
             return self.read_out(state, token_lists)
         finally:
             for rid in req_ids:
                 if self.kv_slab.has_region(rid):
                     self.kv_slab.free(rid)
             self.kv_slab.gc()
+
+    def _generate_host_synced(self, token_lists, max_new_tokens: int,
+                              seq_b: int) -> List[List[int]]:
+        """The JAX package's pre-refactor loop: a contiguous cache of
+        ``seq_b`` positions decoded in place one step at a time, each
+        step's token read back to the host (one sync a token).  Kept as
+        the baseline that shows what the sync costs."""
+        state = self.prefill_batch(token_lists, max_len=seq_b,
+                                   max_new_tokens=max_new_tokens)
+        outs = [list(t) for t in token_lists]
+        cache, cur = state.cache, state.cur
+        for _ in range(max_new_tokens):
+            cur_np = _host(cur)
+            for i in range(len(token_lists)):
+                outs[i].append(int(cur_np[i].reshape(-1)[0]))
+            logits, cache = decode_step(self.cfg, self.params, cache, cur)
+            cur = torch.argmax(logits, dim=-1)
+        return outs
 
 
 class ContinuousEngine(PipelineBackend):
@@ -768,8 +815,8 @@ class ContinuousEngine(PipelineBackend):
             raise ValueError("ContinuousEngine supports single-codebook "
                              "token models only")
         if cfg.family not in FAMILIES:
-            raise ValueError(f"ContinuousEngine serves the dense and moe "
-                             f"families, not {cfg.family!r}")
+            raise ValueError(f"ContinuousEngine serves the families "
+                             f"{FAMILIES}, not {cfg.family!r}")
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if prefix_cache and kv_layout != "paged":

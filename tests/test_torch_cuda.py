@@ -794,7 +794,7 @@ EDGE_LENGTHS = (0, 1, 15, 16, 17, 127, 128, 129, 1024)
 
 
 def _decode_rows(dev, lengths, group, qdtype, seed=11, s=1024, kv=8,
-                 bs=16):
+                 bs=16, dh=128):
     """q of H = KV * group heads; a (B, S, KV, dh) cache NaN past each
     length, seen as the kernel's strided (B, KV, S, dh) view; the same
     view with a zero tail for the plain version; the same keys in a pool
@@ -803,19 +803,19 @@ def _decode_rows(dev, lengths, group, qdtype, seed=11, s=1024, kv=8,
     rng = np.random.default_rng(seed)
     b = len(lengths)
     lens = np.asarray(lengths, np.int32)
-    kc = rng.standard_normal((b, s, kv, 128)).astype(np.float32)
-    vc = rng.standard_normal((b, s, kv, 128)).astype(np.float32)
+    kc = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
+    vc = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
     past = np.arange(s)[None, :] >= lens[:, None]
     kz, vz = kc.copy(), vc.copy()
     kz[past] = vz[past] = 0
     kc[past] = vc[past] = np.nan
-    q = rng.standard_normal((b, kv * group, 128)).astype(np.float32)
+    q = rng.standard_normal((b, kv * group, dh)).astype(np.float32)
     q, kc, vc, kz, vz, lens = [torch.from_numpy(a).to(dev)
                                for a in (q, kc, vc, kz, vz, lens)]
     mb = s // bs
 
     def pool(x):
-        blocks = x.reshape(b * mb, bs, kv, 128)
+        blocks = x.reshape(b * mb, bs, kv, dh)
         return torch.cat([torch.full_like(blocks[:1], float("nan")),
                           blocks])
     tables = (1 + torch.arange(b * mb, dtype=torch.int32, device=dev)
@@ -1126,6 +1126,10 @@ def test_cuda_tickets_too_few_under_capture_raise(cuda):
     from repro_torch.kernels import flash_decode
     q, kp, vp, tables, lengths = _paged(cuda, b=2, mb=4)
     stream = torch.cuda.Stream()
+    # PyTorch hands out streams from a pool, so this one may be a stream
+    # an earlier capture (a tick graph of generate or of a backend)
+    # reserved tickets on: start from none reserved
+    flash_decode._TICKETS.pop((q.device, stream.cuda_stream), None)
     graph = torch.cuda.CUDAGraph()
     with pytest.raises(RuntimeError, match="merge tickets"):
         with cuda_lib.recording():
@@ -1754,3 +1758,186 @@ def test_cuda_collector_hold_under_two_capturing_threads(cuda):
         assert survived, "a collection ran inside a capture"
     gc.collect()
     assert all(c[0][0]() is None for c in cycles)
+
+
+# ---------------------------------------------------------------------------
+# the newer served models' shapes: decode at groups 7 and 12 (Qwen2-VL,
+# StarCoder2) and at head dim 64 (MusicGen); the causal kernel at dh 64;
+# the packed body at groups 7 and 12; the norm's LayerNorm mode at their
+# widths; the sampler at Qwen2-VL's vocab
+# ---------------------------------------------------------------------------
+
+#: (group, head dim, KV heads) of the newer instantiations
+MODEL_DECODE_SHAPES = ((7, 128, 4), (12, 128, 4), (1, 64, 32))
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,dh,kv", MODEL_DECODE_SHAPES,
+                         ids=["g7", "g12", "dh64"])
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_model_groups_match_plain(cuda, layout, group, dh, kv,
+                                              qdtype):
+    """Both layouts at the edges of tiles, blocks and splits, counted at
+    their instantiation's launch shape class, and the two layouts' bits
+    equal on the same keys."""
+    d = _decode_rows(cuda, EDGE_LENGTHS, group, qdtype, kv=kv, dh=dh)
+    cuda_lib.reset_launches()
+    got = _decode(layout, d)
+    name = "flash_decode_paged" if layout == "paged" else "flash_decode"
+    assert cuda_lib.LAUNCH_SHAPES[(name, f"g{group} dh{dh}")] == 1
+    want = ref.flash_decode_ref(d["q"], d["kz"], d["vz"], d["lens"])
+    assert bool((got[0] == 0).all())               # the empty row
+    # bf16 q: both versions round the output to bf16 after rounding the
+    # weights at other points, so an output may land one bf16 ulp away
+    # (2**-7 relative), which 48 heads of values up to ~3 reach
+    tol = dict(rtol=1e-4, atol=1e-4) if qdtype == torch.float32 \
+        else dict(rtol=2 ** -7, atol=4e-3)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    other = _decode("contiguous" if layout == "paged" else "paged", d)
+    assert torch.equal(got, other)
+
+
+def test_cuda_decode_model_groups_row_alone_equals_row_in_batch(cuda):
+    for group, dh, kv in MODEL_DECODE_SHAPES:
+        d = _decode_rows(cuda, (1, 17, 128, 129, 300, 777, 1000, 1024),
+                         group, torch.bfloat16, kv=kv, dh=dh)
+        batch = _decode("paged", d)
+        for r in range(8):
+            assert torch.equal(_decode("paged", d, slice(r, r + 1))[0],
+                               batch[r])
+
+
+def test_cuda_decode_uncovered_group_or_head_dim_raises(cuda):
+    """Groups 3 and 16 at dh 128, and group 2 at dh 64, have no
+    instantiation: the wrappers raise, they never reach a plain version."""
+    for group, dh, kv in ((3, 128, 2), (16, 128, 1), (2, 64, 4)):
+        d = _decode_rows(cuda, (5, 9), group, torch.bfloat16, s=64, kv=kv,
+                         dh=dh)
+        for layout in ("paged", "contiguous"):
+            with pytest.raises(ValueError, match="not built"):
+                _decode(layout, d)
+
+
+@pytest.mark.parametrize("sq,sk", [(100, 100), (37, 100), (1024, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_dh64_matches_plain(cuda, sq, sk, dtype):
+    """MusicGen's head dim (bf16 on the tensor cores, f32 on the FMA
+    body): 32 heads over 32 KV heads and a GQA group of 4, ragged lengths
+    with an empty row, each launch counted at its dh 64 shape class."""
+    g = _gen(cuda, sq)
+    for h, kv in ((32, 32), (8, 2)):
+        q = torch.randn((3, h, sq, 64), generator=g, device=cuda).to(dtype)
+        k = torch.randn((3, kv, sk, 64), generator=g, device=cuda).to(dtype)
+        v = torch.randn((3, kv, sk, 64), generator=g, device=cuda).to(dtype)
+        lengths = torch.tensor([sk, sk - 20, 0], dtype=torch.int32,
+                               device=cuda)
+        cuda_lib.reset_launches()
+        got = ops.flash_attention(q, k, v, lengths, causal=True)
+        shape = "suffix dh64" if sk > sq else "dh64"
+        assert cuda_lib.LAUNCH_SHAPES[("flash_attention", shape)] == 1
+        want = ref.flash_attention_ref(q, k, v, lengths, True)
+        assert not bool(got[2].any())
+        tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+            else BF16_ATTN_TOL
+        torch.testing.assert_close(got, want, **tol)
+
+
+def test_cuda_flash_attention_refuses_other_head_dims(cuda):
+    for dh in (32, 96):
+        q, k, v = [torch.randn((1, 2, 16, dh), device=cuda).bfloat16()
+                   for _ in range(3)]
+        with pytest.raises(ValueError, match="head dim"):
+            ops.flash_attention(q, k, v)
+    # the packed mode is built at dh 128 only
+    ids = _packed(cuda, (30, 20), (0, 0), 64, 0)[3]
+    q, k, v = [torch.randn((1, 2, 64, 64), device=cuda).bfloat16()
+               for _ in range(3)]
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_packed(q, k, v, *ids)
+
+
+@pytest.mark.parametrize("heads", [(28, 4), (48, 4)], ids=["g7", "g12"])
+def test_cuda_packed_attention_model_groups_match_plain(cuda, heads):
+    """Qwen2-VL's odd group (the last pair of each group one head) and
+    StarCoder2's wide one, on a pack of mixed segments after prefix keys
+    and on random ids and positions."""
+    h, kv = heads
+    for ids in (_packed(cuda, (30, 1, 100, 64, 50), (16, 0, 40, 0, 0), 320,
+                        64)[3], _random_ids(cuda, h * 10 + kv)):
+        sq, sk = ids[0].numel(), ids[1].numel()
+        g = _gen(cuda, h)
+        q, k, v = [torch.randn((1, n, m, 128), generator=g,
+                               device=cuda).bfloat16().transpose(1, 2)
+                   for n, m in ((sq, h), (sk, kv), (sk, kv))]
+        got = ops.flash_attention_packed(q, k, v, *ids)
+        want = ref.flash_attention_packed_ref(q, k, v, *ids)
+        real = ids[0] >= 0
+        torch.testing.assert_close(got[:, :, real], want[:, :, real],
+                                   **BF16_ATTN_TOL)
+
+
+class _PlainNorm:
+    """The plain versions under the wrappers' names, for ``_norm``."""
+    @staticmethod
+    def fused_rmsnorm(x, gamma, bias, res, return_residual):
+        return ref.rmsnorm_ref(x, gamma, bias, res, 1e-6, return_residual)
+
+    @staticmethod
+    def fused_layernorm(x, gamma, beta, bias, res, return_residual):
+        return ref.layernorm_ref(x, gamma, beta, bias, res, 1e-6,
+                                 return_residual)
+
+
+@pytest.mark.parametrize("cols,rms", [(6144, False), (2048, False),
+                                      (3584, True)])
+@pytest.mark.parametrize("rows", [8, 1000])
+def test_cuda_norm_model_widths_match_plain(cuda, cols, rms, rows):
+    """StarCoder2's and MusicGen's LayerNorm with bias and residual, and
+    Qwen2-VL's RMS width, in bf16: the residual bit for bit, and the
+    LayerNorm launches counted in their mode."""
+    x, res, bias, gamma, beta = _norm_inputs(cuda, rows, cols,
+                                             torch.bfloat16)
+    cuda_lib.reset_launches()
+    y, s = _norm(rms, x, res, bias, gamma, beta)
+    assert cuda_lib.LAUNCH_SHAPES[("norm", "layernorm")] == (0 if rms
+                                                             else 1)
+    y_ref, s_ref = _norm(rms, x, res, bias, gamma, beta, fn=_PlainNorm)
+    torch.testing.assert_close(y, y_ref, rtol=2e-2, atol=3e-2)
+    assert torch.equal(s, s_ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sample_at_qwen2_vl_vocab_matches_plain(cuda, dtype):
+    """V 152064: slices of 19008 values a block of the 8-block cluster,
+    below MAX_SLICE, token for token on shared noise."""
+    from repro_torch.kernels import sampling
+    plan = sampling.sample_plan(8, 152064, 64)
+    assert plan.slice_len <= sampling.MAX_SLICE
+    g = _gen(cuda, 152)
+    logits = 3 * torch.randn((8, 152064), generator=g, device=cuda)
+    logits[1, 5000:5010] = logits[1].max() + 1          # a tie at the top
+    args = _sample_args(cuda, logits.to(dtype))
+    for a in (args, _all_sampled(args)):
+        assert torch.equal(ops.fused_sample(*a), ref.sample_ref(*a))
+
+
+def test_cuda_mrope_is_captured_in_a_graph(cuda):
+    """M-RoPE builds its frequency-to-stream selector on the device: a
+    CUDA graph captures it (a host-to-device copy fails a capture, as
+    the packed prefill cell's did before) and replays it bit-equal to
+    the eager call."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import layers as L
+    cfg = get_smoke_config("qwen2-vl-7b")
+    x = torch.randn((2, 24, 4, 128), generator=_gen(cuda, 9),
+                    device=cuda).bfloat16()
+    pos = L.positions_for(cfg, (2, 24), 16, device=cuda)
+    want = L.apply_mrope(x, pos, cfg.rope_theta)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = L.apply_mrope(x, pos, cfg.rope_theta)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)

@@ -2,8 +2,9 @@
 
 Every public method that the port's `TurboClient`, `InferenceEngine`,
 `ContinuousEngine`, `ReplicaPool` and `PrefixAffinityRouter` share by
-name with the JAX package's, and the model functions `prefill`,
-`prefill_suffix`, `prefill_packed` and `decode_step`, keep the
+name with the JAX package's, the model functions `prefill`,
+`prefill_suffix`, `prefill_packed`, `decode_step` and `embed_inputs`,
+and the layer function `positions_for`, keep the
 reference's parameter names, order, kinds and defaults.  The reference's signatures are read through `inspect`, so a
 change there shows here.  The planned differences are named in
 `PORT_ONLY`, `REF_ONLY` and `PLANNED_DEFAULTS`, each with its reason;
@@ -24,6 +25,7 @@ from repro.cluster import router as ref_router
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
+from repro.models import layers as ref_layers
 from repro.models import transformer as ref_models
 from repro.runtime import engine as ref_engine
 from repro_torch.api import client as port_client
@@ -31,6 +33,7 @@ from repro_torch.cluster import pool as port_pool
 from repro_torch.cluster import router as port_router
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import init_params, prefill
+from repro_torch.models import layers as port_layers
 from repro_torch.models import transformer as port_models
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.runtime import engine as port_engine
@@ -43,10 +46,9 @@ ARCH = "internlm2-1.8b"
 #: cell writes its KV into static buffers); ``prompt_kv_only`` (a paged
 #: per-group prefill keeps only the prompt's KV)
 PORT_ONLY = {"device", "kv_out", "prompt_kv_only"}
-#: the reference's parameters the port lacks until ROADMAP.md §1 step 8:
-#: ``rt`` (the model runtime: sharding, remat, attention routes) and
-#: ``per_token_host_sync`` (the old per-token loop of ``generate``)
-REF_ONLY = {"rt", "per_token_host_sync"}
+#: the reference's parameters the port lacks: ``rt`` (the model runtime:
+#: sharding, remat, attention routes)
+REF_ONLY = {"rt"}
 #: defaults that differ on purpose, (callable, parameter) -> (reference's,
 #: port's), normalised as by `_default`: the port's model functions
 #: default ``max_len`` to the prompt width and the KV to f32, the dtype
@@ -60,7 +62,9 @@ PLANNED_DEFAULTS = {
 }
 
 MODEL_FUNCTIONS = ("prefill", "prefill_suffix", "prefill_packed",
-                   "decode_step")
+                   "decode_step", "embed_inputs")
+#: the layer functions held the same way
+LAYER_FUNCTIONS = ("positions_for",)
 
 
 def _shared_methods(ref_cls, port_cls):
@@ -88,7 +92,9 @@ PAIRS = (
     + _shared_methods(ref_router.PrefixAffinityRouter,
                       port_router.PrefixAffinityRouter)
     + [(n, getattr(ref_models, n), getattr(port_models, n))
-       for n in MODEL_FUNCTIONS])
+       for n in MODEL_FUNCTIONS]
+    + [(n, getattr(ref_layers, n), getattr(port_layers, n))
+       for n in LAYER_FUNCTIONS])
 
 
 def _default(value):
@@ -120,7 +126,8 @@ def test_the_pairs_cover_the_named_callables():
             "ReplicaPool.__init__", "ReplicaPool.submit",
             "ReplicaPool.kill_replica", "ReplicaPool.pump",
             "PooledHandle.result", "PrefixAffinityRouter.__init__",
-            "PrefixAffinityRouter.route", *MODEL_FUNCTIONS} <= names
+            "PrefixAffinityRouter.route", "InferenceEngine.generate",
+            *MODEL_FUNCTIONS, *LAYER_FUNCTIONS} <= names
     # every public method of the pool and the router is held
     for ref_cls, port_cls in ((ref_pool.ReplicaPool, port_pool.ReplicaPool),
                               (ref_router.PrefixAffinityRouter,

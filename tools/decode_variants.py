@@ -81,7 +81,7 @@ def time_one(keys: int, stages: int, path: str) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(chip_smoke.SEED)
-    blocks = lib.repro_flash_decode_blocks_per_sm(1, 2, 1)
+    blocks = lib.repro_flash_decode_blocks_per_sm(1, 2, 1, 128)
     for case in (chip_smoke.paged_decode_case,
                  chip_smoke.contiguous_decode_case):
         for name, which in chip_smoke.DECODE_CASES:

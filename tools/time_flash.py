@@ -46,7 +46,9 @@ def causal_sass(label: str, sass_dir) -> dict:
     for line in dump.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            inside = "flash_attention_bf16_kernel" in m.group(1)
+            # the dh 128 instantiation (dh 64 has one of its own)
+            inside = "flash_attention_bf16_kernel" in m.group(1) and \
+                "Li64E" not in m.group(1)
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
         if inside and m:
