@@ -172,6 +172,27 @@ Phases, each printing one JSON line:
    model functions on (B, 4, S) delayed codes from
    ``io.synthetic_prompts``, a prefill and 64 decode steps held against
    the plain versions for each codebook;
+8e. serve_falcon_mamba: ``TurboClient.from_arch("falcon-mamba-7b",
+   smoke=False, kv_layout="contiguous")`` (64 Mamba1 layers, d_model
+   4096, d_inner 8192, state 16, vocab 65024, attention-free; bf16
+   weights from a seed, f32 conv window and scan state) with
+   ``SSM_SLOTS`` slots, on the serve mix and rules of phase 7 (the slot
+   cache from 1024 positions grown to 2048 by a 1200-token prompt; an
+   SSM model prefills each prompt at its exact length, so every new
+   length is a prefill cell captured while serving; no attention
+   launch; one norm a layer), then ``replay_audit``: the mix's four
+   shortest prompts served twice with every tick replay and prefill cell
+   call held bit for bit to its eager body (every cache leaf);
+   profile_decode_falcon_mamba: a greedy graphed window of its slots,
+   the device time split into matmuls, the port's kernels and the
+   elementwise kernels and reductions (the SSM step's);
+8f. serve_zamba2: ``from_arch("zamba2-1.2b", ...)`` (38 Mamba2 layers of
+   64 heads of 64, state 64, d_model 2048; the shared attention + FFN
+   block after every 6 layers, H 32 / KV 32 at dh 64, vocab 32000) the
+   same way: the causal kernel at dh 64 over exact prompt lengths (row
+   4z checks it at 1, 63, 937 and 1000 tokens) and the contiguous decode
+   at group 1, dh 64, six launches a tick; the grow pads the shared KV
+   and re-captures the tick's cell;
 9. serve_pool: the serving tier, after every other client is freed.
    (a) ``TurboClient.from_arch("internlm2-1.8b", smoke=False,
    replicas=2, prefix_cache=True, auto_pump="thread")`` at full width
@@ -392,9 +413,10 @@ NORM_ROWS = (8, 8192)
 #: tick's 8 tokens x 16 heads, and an 8192-token pack's
 QK_NORM_ROWS = (8 * 16, 8192 * 16)
 #: the newer served models' rows, at NORM_ROWS: (RMS?, C): StarCoder2's
-#: LayerNorm at d_model 6144 (MusicGen's at 2048 is the check above) and
-#: Qwen2-VL's RMS at 3584
-MODEL_NORM_COLS = ((False, 6144), (True, 3584))
+#: LayerNorm at d_model 6144 (MusicGen's at 2048 is the check above),
+#: Qwen2-VL's RMS at 3584 and Falcon-Mamba's at 4096 (Zamba2's RMS at
+#: 2048 is the check above)
+MODEL_NORM_COLS = ((False, 6144), (True, 3584), (True, 4096))
 
 
 def norm_case(dev, gen, rms: bool, r: int, c: int, tol: dict,
@@ -606,6 +628,9 @@ def flash_case(dev, gen, b: int, s: int, tol: dict, h: int = 16,
 #: the suffix-aligned check (PERF.md row 4c): B 8 rows of Sq queries
 #: after ``cached`` keys served from the prefix cache
 SUFFIX_CASE = dict(b=8, sq=256, cached=768)
+#: exact prompt lengths of the causal check at dh 64 (row 4z): one
+#: token, one short of a 64-key tile, and two long prompts off the tiles
+RAGGED_LENS = (1, 63, 937, 1000)
 
 
 def flash_suffix_case(dev, gen, b: int, sq: int, cached: int,
@@ -726,12 +751,25 @@ def check_flash_attention(dev, gen, results):
     # tensor-core body at dh 64 (row 4a)
     dh64 = flash_case(dev, gen, 8, 1024, tol, h=32, kv=32, dh=64)
     emit(dict(dh64, case="4a: dh 64 (MusicGen)"))
+    # Zamba2's shared block prefills a prompt at its exact length, not a
+    # bucket's (an SSM model's prompts are not padded): the same body at
+    # lengths off the 64-key tile, at the SSM phases' batch (row 4z)
+    ragged = []
+    for s in RAGGED_LENS:
+        line = flash_case(dev, gen, SSM_SLOTS, s, tol, h=32, kv=32, dh=64)
+        emit(dict(line, case="4z: dh 64 at an exact prompt length "
+                             "(Zamba2)"))
+        ragged.append(line)
     emit({"phase": "flash_attention_build", **flash_build_facts()})
     results["flash_attention"] = dict(
         entry, route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91",
-        max_abs_err=max(entry["max_abs_err"], suffix["max_abs_err"],
-                        dh64["max_abs_err"]),
+        max_abs_err=max([entry["max_abs_err"], suffix["max_abs_err"],
+                         dh64["max_abs_err"]] +
+                        [ln["max_abs_err"] for ln in ragged]),
+        dh64_exact_lengths=[{k: ln[k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "device_ms", "bound_ms")} for ln in ragged],
         suffix_alignment={k: suffix[k] for k in (
             "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
             "device_ms", "library_device_ms", "bound_ms", "bound_by")},
@@ -1524,9 +1562,12 @@ def check_sample(dev, gen, results):
     lines = [sample_case(dev, gen, dtype)
              for dtype in (torch.float32, torch.bfloat16)]
     lines.append(sample_case(dev, gen, torch.bfloat16, v=50304))
-    # Qwen2-VL's vocab (a slice of 19008 values a block) and StarCoder2's
+    # Qwen2-VL's vocab (a slice of 19008 values a block) and StarCoder2's,
+    # Falcon-Mamba's and Zamba2's
     lines.append(sample_case(dev, gen, torch.bfloat16, v=152064))
     lines.append(sample_case(dev, gen, torch.bfloat16, v=49152))
+    lines.append(sample_case(dev, gen, torch.bfloat16, v=65024))
+    lines.append(sample_case(dev, gen, torch.bfloat16, v=32000))
     for line in lines:
         emit(line)
     plan = sampling_plan_facts(152064)
@@ -1730,12 +1771,60 @@ def serve_specs(vocab: int, rng) -> list:
     return specs
 
 
+def attention_layers(cfg) -> int:
+    """The attention layers one pass of ``cfg`` runs: every layer of a
+    transformer, the shared block's applications of a hybrid, none of an
+    SSM model."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
+
+
+def norms_per_pass(cfg) -> int:
+    """Norm launches of one pass: two a transformer layer, one a mamba
+    layer and two a shared-block application, and the final norm."""
+    if cfg.family in ("ssm", "hybrid"):
+        return cfg.num_layers + 2 * attention_layers(cfg) + 1
+    return 2 * cfg.num_layers + 1
+
+
+def model_line(arch: str, cfg) -> str:
+    """The serve line's description of the model at full width."""
+    if cfg.family in ("ssm", "hybrid"):
+        ssm = cfg.ssm
+        shared = (f"; one shared attention + FFN block after every "
+                  f"{cfg.attn_every} layers, H {cfg.num_heads} / KV "
+                  f"{cfg.num_kv_heads} at dh {cfg.head_dim}"
+                  if cfg.attn_every else "")
+        return (f"{arch} (full width, {cfg.num_layers} {ssm.variant} "
+                f"layers, d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+                f"state {ssm.state_dim}, chunk {ssm.chunk_size}{shared}, "
+                f"vocab {cfg.vocab_size}; bf16 weights from a seed, f32 "
+                "conv window, scan state and KV)")
+    return (f"{arch} (full width, {cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, H {cfg.num_heads} / KV {cfg.num_kv_heads}, "
+            f"{cfg.norm} + {cfg.act}, rope {cfg.rope}, vocab "
+            f"{cfg.vocab_size}; bf16 weights from a seed, f32 KV)")
+
+
+#: the SSM phases' slot count (and batch bucket): every admission of an
+#: SSM model prefills at the batch bucket, padding rows included, through
+#: the plain-torch scan (900 to 1450 prompt tokens a second a row at
+#: full width, tools/ssm_cost.py), so the phases serve with 4 slots
+SSM_SLOTS = 4
+
+
 def serve(dev, card: str, layout: str = "paged",
-          arch: str = "internlm2-1.8b", phase: str = None):
+          arch: str = "internlm2-1.8b", phase: str = None,
+          slots: int = 8):
     """The generative path over the paged pool (phase 4) or the contiguous
-    slot cache (phase 7, ``layout="contiguous"``), of InternLM2-1.8B or,
-    on the paged pool, another dense model at full width (``arch``; the
-    line's ``phase`` names it)."""
+    slot cache (phase 7, ``layout="contiguous"``), of InternLM2-1.8B or
+    another model at full width (``arch``; the line's ``phase`` names
+    it), with ``slots`` decode slots, the one batch bucket.  An SSM or
+    hybrid model (contiguous only) also has its graph replays held to
+    their eager bodies (``replay_audit``)."""
     from repro_torch.api import GenerationParams, TurboClient
     from repro_torch.kernels import cuda_lib
     rng = np.random.default_rng(SEED)
@@ -1759,8 +1848,8 @@ def serve(dev, card: str, layout: str = "paged",
     # prefill cells it walks and both decode-tick cells as CUDA graphs
     client = TurboClient.from_arch(
         arch, smoke=False, device=dev, seq_buckets=buckets,
-        batch_buckets=(8,), max_slots=8, cap_new=64, init_seed=SEED,
-        **layout_kw)
+        batch_buckets=(slots,), max_slots=slots, cap_new=64,
+        init_seed=SEED, **layout_kw)
     engine = client.backend.engine
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
@@ -1808,24 +1897,37 @@ def serve(dev, card: str, layout: str = "paged",
         raise AssertionError(
             f"paged serving captured {captured} tick cells and prefill "
             f"cells {served_cells['captured_since']} after warmup_aot")
-    if layout == "contiguous" and not (ce.max_len == 2048 and captured):
+    # a grow re-makes the slot cache's tensors with a sequence axis (k/v,
+    # the hybrid's shared KV), whose tick cells are then captured anew;
+    # an SSM model's conv window and scan state stay as they are
+    regrown = any(k in ce.state.cache for k in ("k", "shared_k"))
+    if layout == "contiguous" and not (ce.max_len == 2048 and
+                                       bool(captured) == regrown):
         raise AssertionError(f"contiguous serving: slot cache of "
                              f"{ce.max_len} positions, {captured} cells "
                              "captured while serving (expected a grow to "
-                             "2048 and its re-capture)")
+                             "2048, and its re-capture where the cache "
+                             "has a sequence axis)")
 
     # the paged layout admits through packed prefill (the default), the
     # contiguous one per group through the causal kernel
+    cfg = engine.cfg
+    n_attn = attention_layers(cfg)
     decode = "flash_decode_paged" if layout == "paged" else "flash_decode"
     attention = "flash_attention_packed" if layout == "paged" \
         else "flash_attention"
-    for kname in ("norm", attention, decode, "sample"):
+    for kname in ("norm", "sample") + ((attention, decode) if n_attn
+                                       else ()):
         if launches.get(kname, 0) <= 0:
             raise AssertionError(f"kernel {kname} never launched on the "
                                  f"serving path: {launches}")
-    cfg = engine.cfg
-    group = f"g{cfg.num_heads // cfg.num_kv_heads} dh{cfg.head_dim}"
-    if by_shape.get(f"{decode} {group}", 0) != launches[decode]:
+    if not n_attn and (launches.get(attention, 0) or
+                       launches.get(decode, 0)):
+        raise AssertionError(f"an attention-free model launched attention "
+                             f"kernels: {launches}")
+    group = f"g{max(cfg.num_heads // max(cfg.num_kv_heads, 1), 1)} " \
+        f"dh{cfg.head_dim}"
+    if n_attn and by_shape.get(f"{decode} {group}", 0) != launches[decode]:
         raise AssertionError(f"{decode}: {launches[decode]} launches, "
                              f"{by_shape.get(f'{decode} {group}', 0)} of "
                              f"them at {group}: {by_shape}")
@@ -1834,10 +1936,10 @@ def serve(dev, card: str, layout: str = "paged",
         raise AssertionError(f"norm: {by_shape.get('norm layernorm', 0)} "
                              f"of {launches['norm']} launches in LayerNorm "
                              f"mode for a {cfg.norm} model")
-    if launches[attention] != engine.cfg.num_layers * prefills:
+    if launches.get(attention, 0) != n_attn * prefills:
         raise AssertionError(
-            f"{launches[attention]} {attention} launches over {prefills} "
-            f"prefills (expected {engine.cfg.num_layers} per prefill)")
+            f"{launches.get(attention, 0)} {attention} launches over "
+            f"{prefills} prefills (expected {n_attn} per prefill)")
     other = "flash_attention" if layout == "paged" \
         else "flash_attention_packed"
     if launches.get(other, 0):
@@ -1851,10 +1953,11 @@ def serve(dev, card: str, layout: str = "paged",
     if plans != (prefills if layout == "paged" else 0):
         raise AssertionError(f"{layout} serving: {plans} packed-plan "
                              f"launches over {prefills} prefill dispatches")
-    # two norms a layer and the final one, in every decode tick (each
-    # replay adds what its capture recorded), every eager tick that warmed
-    # a capture, and every prefill
-    norms_per_step = 2 * engine.cfg.num_layers + 1
+    # two norms a layer (one a mamba layer, two a shared-block
+    # application) and the final one, in every decode tick (each replay
+    # adds what its capture recorded), every eager tick that warmed a
+    # capture, and every prefill
+    norms_per_step = norms_per_pass(cfg)
     steps = ticks + warm_ticks + prefills
     if launches["norm"] != norms_per_step * steps:
         raise AssertionError(f"{launches['norm']} norm launches over {ticks} "
@@ -1862,11 +1965,12 @@ def serve(dev, card: str, layout: str = "paged",
                              f"{prefills} prefills (expected "
                              f"{norms_per_step} each)")
     if layout == "contiguous":
-        per_tick = engine.cfg.num_layers
-        if launches[decode] != per_tick * (ticks + warm_ticks) or \
+        per_tick = n_attn
+        if launches.get(decode, 0) != per_tick * (ticks + warm_ticks) or \
                 launches.get("flash_decode_paged", 0):
             raise AssertionError(
-                f"contiguous serving: {launches[decode]} contiguous decode "
+                f"contiguous serving: {launches.get(decode, 0)} contiguous "
+                f"decode "
                 f"launches over {ticks} ticks and {warm_ticks} warm-up "
                 f"ticks (expected {per_tick} per tick) and "
                 f"{launches.get('flash_decode_paged', 0)} paged")
@@ -1906,13 +2010,12 @@ def serve(dev, card: str, layout: str = "paged",
         else:
             greedy_checked += alone == res
     ttft = sorted(h.ttft for h in handles)
+    audit = replay_audit(client, specs) \
+        if cfg.family in ("ssm", "hybrid") else None
     emit({"phase": phase or ("serve" if layout == "paged"
                              else "serve_contiguous"),
-          "model": f"{arch} (full width, {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, H {cfg.num_heads} / KV {cfg.num_kv_heads}, "
-          f"{cfg.norm} + {cfg.act}, rope {cfg.rope}, vocab "
-          f"{cfg.vocab_size}; bf16 weights from a seed, f32 KV)",
-          "kv_layout": layout,
+          "model": model_line(arch, cfg),
+          "kv_layout": layout, "slots": slots,
           "card": card, "requests": len(handles),
           "sampled": sum(1 for _, p in specs if p.temperature > 0),
           "greedy_equal_to_generate_alone": greedy_checked,
@@ -1951,8 +2054,13 @@ def serve(dev, card: str, layout: str = "paged",
           "decode_ticks": ticks, "prefill_dispatches": prefills,
           "norm_launches": {"decode": norms_per_step * ticks,
                             "prefill": norms_per_step * prefills},
-          "kv_cache_gib": sum(ce.state.cache[k].numel() * 4
-                              for k in ("k", "v")) / 2 ** 30,
+          "kv_cache_gib": sum(t.numel() * t.element_size()
+                              for k, t in ce.state.cache.items()
+                              if k not in ("len", "pos_offset",
+                                           "block_tables")) / 2 ** 30,
+          "cache_leaves": {k: list(t.shape) for k, t in
+                           ce.state.cache.items()},
+          "replay_audit": audit,
           "launches": launches,
           "launches_by_shape": by_shape,
           "phase_s": time.perf_counter() - t0})
@@ -1962,6 +2070,75 @@ def serve(dev, card: str, layout: str = "paged",
                              f"request alone beyond the margin rule: "
                              f"{beyond}")
     return client, launches
+
+
+#: the replay audit's prompts: the serve mix's shortest, greedy
+AUDIT_PROMPTS = 4
+AUDIT_NEW_TOKENS = 16
+
+
+def replay_audit(client, specs) -> dict:
+    """Every decode tick's graph replay and every prefill cell call of a
+    short re-serve held bit for bit to the eager bodies: each tick against
+    ``decode_step_batch`` on a copy of the state (every cache leaf: the
+    conv window, the scan state, the shared block's KV), each cell call
+    against its body run eagerly on the same inputs.  The mix's
+    ``AUDIT_PROMPTS`` shortest prompts, greedy, are served twice, so the
+    second round's prefills are replays of cells the first captured or
+    replayed; its streams must equal the first's."""
+    from repro_torch.api import GenerationParams
+    from repro_torch.runtime import graphs
+    ce = client.backend
+    engine = ce.engine
+    counts = {"ticks_checked": 0, "cell_replays_checked": 0,
+              "cell_first_calls_checked": 0}
+    run_tick = ce.tick_cells.run
+    run_cell = engine._run_cell
+
+    def tick(state):
+        want = engine.decode_step_batch(clone_state(state))
+        captured = run_tick(state)
+        bad = [k for k in state.cache
+               if not torch.equal(state.cache[k], want.cache[k])]
+        bad += [n for n in ("cur", "emitted", "counts", "done")
+                if not torch.equal(getattr(state, n), getattr(want, n))]
+        if bad:
+            raise AssertionError(f"replay audit: tick "
+                                 f"{counts['ticks_checked']}'s {bad} "
+                                 "differ from the eager tick's")
+        counts["ticks_checked"] += 1
+        return captured
+
+    def cell(table, key, body, inputs, outputs):
+        before = None if table is None else table.captures
+        outs = run_cell(table, key, body, inputs, outputs)
+        if table is None:
+            return outs
+        eager = graphs.run_eager(body, inputs, outputs, engine.device)
+        bad = [k for k in outs if not torch.equal(outs[k], eager[k])]
+        if bad:
+            raise AssertionError(f"replay audit: cell {key}'s {bad} "
+                                 "differ from its eager body's")
+        counts["cell_replays_checked" if table.captures == before
+               else "cell_first_calls_checked"] += 1
+        return outs
+
+    prompts = sorted((p for p, _ in specs), key=len)[:AUDIT_PROMPTS]
+    ce.tick_cells.run, engine._run_cell = tick, cell
+    try:
+        rounds = []
+        for _ in range(2):
+            handles = [client.submit(p, GenerationParams(
+                max_new_tokens=AUDIT_NEW_TOKENS)) for p in prompts]
+            rounds.append([h.result() for h in handles])
+    finally:
+        del ce.tick_cells.run, engine._run_cell
+    if rounds[0] != rounds[1] or counts["cell_replays_checked"] < \
+            len(prompts) or not counts["ticks_checked"]:
+        raise AssertionError(f"replay audit: {counts}, the rounds' streams "
+                             f"equal: {rounds[0] == rounds[1]}")
+    return dict(counts, prompts=[len(p) for p in prompts],
+                new_tokens=AUDIT_NEW_TOKENS)
 
 
 # ---------------------------------------------------------------------------
@@ -2713,6 +2890,20 @@ MOE_DISPATCH_FAMILY = ("index, sort and scan (the MoE dispatch and "
                        "combine; also the KV write and embedding lookup)")
 
 
+#: the SSM profile's family of the PyTorch elementwise kernels and
+#: reductions, the SSM step's among them (softplus, exp, the state's
+#: update, the conv window's shift and the in-place writes)
+SSM_STEP_FAMILY = "elementwise and reductions (PyTorch; the SSM step's)"
+
+
+def ssm_kernel_family(name: str) -> str:
+    """``kernel_family``, with PyTorch's elementwise kernels and
+    reductions (on an SSM tick, mostly the mamba step's) named as
+    ``SSM_STEP_FAMILY``."""
+    family = kernel_family(name)
+    return SSM_STEP_FAMILY if family == "other PyTorch kernels" else family
+
+
 def moe_kernel_family(name: str) -> str:
     """``kernel_family``, with the MoE's dispatch and combine kernels
     (``MOE_DISPATCH_FAMILY``) apart from the elementwise ones."""
@@ -2933,8 +3124,9 @@ GRAPHED_LAUNCH_CALLS_PER_TICK = 10
 
 def profile_decode(client, card: str, ticks: int = 10,
                    sampled: bool = False, phase: str = "profile_decode",
-                   family=kernel_family) -> None:
-    """Eight rows decoding at full width, greedy or (``sampled``) with
+                   family=kernel_family, rows: int = 8) -> None:
+    """``rows`` rows (eight by default) decoding at full width, greedy or
+    (``sampled``) with
     temperature, top-k and top-p, in two windows of the same host: the
     engine's graphed tick (one replay of the captured cell a tick, through
     the client) and then the eager ``InferenceEngine.decode_step_batch``
@@ -2957,7 +3149,7 @@ def profile_decode(client, card: str, ticks: int = 10,
     ce.state.sampling = False
     params = [GenerationParams(max_new_tokens=64, temperature=0.8, top_k=50,
                                top_p=0.95, seed=2000 + i) if sampled
-              else GenerationParams(max_new_tokens=64) for i in range(8)]
+              else GenerationParams(max_new_tokens=64) for i in range(rows)]
     handles = [client.submit([int(t) for t in rng.integers(1, vocab, n)], p)
                for n, p in zip((100, 200, 300, 400, 500, 600, 700, 800),
                                params)]
@@ -4735,6 +4927,23 @@ def main() -> int:
     release_memory()
     musicgen_launches = generate_musicgen(dev, card)
     release_memory()
+    # the SSM and hybrid families over the contiguous slot cache:
+    # Falcon-Mamba (attention-free; its greedy decode window split by
+    # kernel family) and Zamba2 (the shared block's causal and decode
+    # kernels at dh 64)
+    client, falcon_launches = serve(dev, card, layout="contiguous",
+                                    arch="falcon-mamba-7b",
+                                    phase="serve_falcon_mamba",
+                                    slots=SSM_SLOTS)
+    profile_decode(client, card, phase="profile_decode_falcon_mamba",
+                   family=ssm_kernel_family, rows=SSM_SLOTS)
+    del client
+    release_memory()
+    client, zamba_launches = serve(dev, card, layout="contiguous",
+                                   arch="zamba2-1.2b", phase="serve_zamba2",
+                                   slots=SSM_SLOTS)
+    del client
+    release_memory()
     # the serving tier: two replicas, background warm-up, the simulator
     # on the classify phase's cost table, the CLI
     pool_launches = serve_pool(dev, card, classified)
@@ -4758,6 +4967,9 @@ def main() -> int:
         item["launches_in_serve_starcoder2"] = sc2_launches.get(counter, 0)
         item["launches_in_generate_musicgen"] = \
             musicgen_launches.get(counter, 0)
+        item["launches_in_serve_falcon_mamba"] = \
+            falcon_launches.get(counter, 0)
+        item["launches_in_serve_zamba2"] = zamba_launches.get(counter, 0)
         kernels.append(item)
     for item in kernels:
         for k, val in item.items():

@@ -1,11 +1,13 @@
-"""Registry of the architectures the port serves (``get_config``)."""
+"""Registry of the architectures the port serves (``get_config``): every
+architecture of the JAX package's registry, in its order."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.configs.base import (ALL_SHAPES, SHAPES, SMOKE_SHAPE,
-                                      ModelConfig, ShapeConfig,
-                                      reduce_for_smoke, shapes_for)
+                                      ModelConfig, MoEConfig, ShapeConfig,
+                                      SSMConfig, reduce_for_smoke,
+                                      shapes_for)
 
 _MODULES = {
     "qwen3-32b": "qwen3_32b",
@@ -15,6 +17,8 @@ _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "zamba2-1.2b": "zamba2_1_2b",
     "musicgen-large": "musicgen_large",
 }
 
@@ -37,5 +41,5 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["ALL_SHAPES", "ARCH_IDS", "SHAPES", "SMOKE_SHAPE", "ModelConfig",
-           "ShapeConfig", "get_config", "get_smoke_config",
+           "MoEConfig", "SSMConfig", "ShapeConfig", "get_config", "get_smoke_config",
            "reduce_for_smoke", "shapes_for"]

@@ -2,12 +2,14 @@
 
 Every architecture module exposes ``CONFIG`` (the exact published
 configuration) and ``smoke_config()`` (a reduced same-family config for
-CPU tests).  The port serves the dense, MoE, VLM and audio families
-(the transformer ones); the SSM fields stay so that a config reads the
-same in both packages.  ``param_count`` and ``active_param_count`` are
-the JAX package's analytic counts for the families served, codebooks
-included; ``ShapeConfig``, ``SHAPES`` and ``shapes_for`` are its four
-global input shapes (`repro_torch.models.io` builds their inputs).
+CPU tests).  The port serves every family of the JAX package: the
+transformer ones (dense, MoE, VLM, audio), the attention-free SSM
+(Mamba1) and the hybrid (a Mamba2 backbone with one weight-shared
+attention block).  ``param_count`` and ``active_param_count`` are the
+JAX package's analytic counts, codebooks included and the hybrid's
+shared block counted once; ``ShapeConfig``, ``SHAPES`` and
+``shapes_for`` are its four global input shapes
+(`repro_torch.models.io` builds their inputs).
 """
 from __future__ import annotations
 
@@ -17,7 +19,11 @@ from typing import Optional, Tuple
 
 
 #: the model families the port serves
-FAMILIES = ("dense", "moe", "vlm", "audio")
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
+
+#: the families whose layers are Mamba blocks (their caches hold SSM
+#: state; the hybrid's also one shared attention block's KV)
+SSM_FAMILIES = ("ssm", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -80,17 +86,33 @@ class ModelConfig:
             return self.d_head
         return self.d_model // max(self.num_heads, 1)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def d_inner(self) -> int:
+        return (self.ssm.expand * self.d_model) if self.ssm else 0
+
     def param_count(self) -> int:
         """Analytic parameter count (used for 6ND model-FLOPs accounting),
-        the JAX package's count for the families the port serves."""
+        the JAX package's count."""
         if self.family not in FAMILIES:
             raise ValueError(f"{self.name}: the port counts the parameters "
                              f"of the {FAMILIES} families only")
         d, v, L = self.d_model, self.vocab_size, self.num_layers
         emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            per_layer = _mamba_params(self)
+        elif self.family == "hybrid":
+            per_layer = _mamba_params(self)
+            # one shared attention+MLP block (counted once)
+            emb += _attn_params(self) + _ffn_params(self, self.d_ff)
+        else:
+            per_layer = _attn_params(self) + _moe_or_ffn_params(self)
         if self.num_codebooks:
             emb += (self.num_codebooks - 1) * v * d  # extra heads + embeds
-        return emb + L * (_attn_params(self) + _moe_or_ffn_params(self))
+        return emb + L * per_layer
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE: only routed experts)."""
@@ -117,6 +139,13 @@ def _moe_or_ffn_params(cfg: ModelConfig) -> int:
         return cfg.moe.num_experts * _ffn_params(cfg, cfg.d_ff) + \
             cfg.d_model * cfg.moe.num_experts
     return _ffn_params(cfg, cfg.d_ff)
+
+
+def _mamba_params(cfg: ModelConfig) -> int:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm.state_dim
+    # in_proj (x,z), conv, dt/B/C proj, out_proj (dominant terms)
+    return 2 * d * di + di * cfg.ssm.conv_kernel + \
+        di * (2 * n + di // 16) + di * d
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

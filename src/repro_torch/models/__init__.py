@@ -1,5 +1,6 @@
 """The port's decoder (`repro_torch.models.transformer`: dense, VLM,
-audio or MoE), its layers, the MoE layer (`repro_torch.models.moe`), the
+audio, MoE, SSM or hybrid), its layers, the MoE layer
+(`repro_torch.models.moe`), the mamba blocks (`repro_torch.models.ssm`), the
 stub modality front ends (`repro_torch.models.frontend`), the model
 inputs (`repro_torch.models.io`) and the weight bridge from the JAX
 package."""

@@ -6,7 +6,9 @@ converts it to numpy (``jax.tree.map(np.asarray, params)``) and
 the same keys and the same einsum layouts (``wq`` (d,H,dh), ``wo``
 (H,dh,d), ``w_gate``/``w_up`` (d,f), the GELU FFN's ``b_up``/``b_down``,
 ``tok`` (K,V,d) and ``head`` (K,d,V) with K = max(num_codebooks, 1): one
-table of each a codebook).  Nothing here imports JAX.
+table of each a codebook; the mamba blocks' leaves, their f32 ``A_log``,
+``D`` and ``dt_bias`` kept f32, and the hybrid's ``shared`` block).
+Nothing here imports JAX.
 """
 from __future__ import annotations
 

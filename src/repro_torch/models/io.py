@@ -5,7 +5,8 @@ Counterpart of `repro.models.io`.  ``input_specs(cfg, shape)`` says what
 each (arch x input shape) cell feeds into a train step, a prefill or a
 decode step; where the JAX package returns ``jax.ShapeDtypeStruct``s,
 the port returns tensors on the ``meta`` device with the same shapes and
-dtypes.  The SSM and hybrid families are not ported yet and raise.
+dtypes; a decode step's cache is `repro_torch.models.transformer`'s
+``cache_specs`` (the SSM families' state among them).
 """
 from __future__ import annotations
 
@@ -16,12 +17,6 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import frontend, transformer
 from repro_torch.models.layers import torch_dtype
-
-
-def _check(cfg: ModelConfig) -> None:
-    if cfg.family in ("ssm", "hybrid"):
-        raise ValueError(f"{cfg.name}: the {cfg.family} family is not "
-                         "ported yet")
 
 
 def _spec(shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
@@ -41,7 +36,6 @@ def _patch_spec(cfg: ModelConfig, b: int, s: int) -> torch.Tensor:
 
 def train_input_specs(cfg: ModelConfig, shape: ShapeConfig
                       ) -> Dict[str, Any]:
-    _check(cfg)
     b, s = shape.global_batch, shape.seq_len
     specs: Dict[str, Any] = {
         "tokens": _spec(_token_shape(cfg, b, s), torch.int32),
@@ -54,7 +48,6 @@ def train_input_specs(cfg: ModelConfig, shape: ShapeConfig
 
 def prefill_input_specs(cfg: ModelConfig, shape: ShapeConfig
                         ) -> Dict[str, Any]:
-    _check(cfg)
     b, s = shape.global_batch, shape.seq_len
     specs: Dict[str, Any] = {
         "tokens": _spec(_token_shape(cfg, b, s), torch.int32)}
@@ -66,8 +59,7 @@ def prefill_input_specs(cfg: ModelConfig, shape: ShapeConfig
 def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig
                        ) -> Dict[str, Any]:
     """A decode step's inputs: one new token (or frame) a row and a KV
-    cache of seq_len."""
-    _check(cfg)
+    (or SSM) cache of seq_len."""
     b, s = shape.global_batch, shape.seq_len
     tok_shape = (b, cfg.num_codebooks) if cfg.num_codebooks else (b,)
     return {"tokens_t": _spec(tok_shape, torch.int32),
@@ -92,7 +84,6 @@ def synthetic_train_batch(cfg: ModelConfig, generator: torch.Generator,
     """Random tokens (delayed codebook streams for an audio model), the
     labels one step on, and patch embeddings for a VLM, drawn from
     ``generator`` on its device."""
-    _check(cfg)
     if cfg.num_codebooks:
         tokens = frontend.encodec_tokens(cfg, generator, batch, seq)
     else:

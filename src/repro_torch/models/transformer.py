@@ -1,9 +1,11 @@
 """The port's decoder: init, prompt prefill and decode over a paged or a
 contiguous KV cache.
 
-Counterpart of `repro.models.transformer` for the transformer families,
-dense, VLM, audio and MoE (``[norm -> GQA attn -> norm -> FFN or MoE] x
-L``), with the
+Counterpart of `repro.models.transformer` for every family: the
+transformer ones, dense, VLM, audio and MoE (``[norm -> GQA attn -> norm
+-> FFN or MoE] x L``), the SSM (``[norm -> mamba] x L``) and the hybrid
+(a mamba backbone and ONE weight-shared attention + FFN block after
+every ``attn_every`` layers), with the
 same parameter tree (per-layer tensors stacked on a leading ``L`` dim)
 and the same two KV layouts: the paged pool ``(L, NB, BS, KV, dh)``
 shared by every sequence, reached through per-row block tables whose
@@ -31,7 +33,12 @@ a prompt (:func:`embed_inputs`, ``embeds_override``) at M-RoPE's grid
 positions, and its text continues from position 1 after the image
 (``pos_offset``); the audio family (MusicGen) sums K codebook embeddings
 a frame and predicts K codebooks, through :func:`prefill` and
-:func:`decode_step` only, as in the JAX package.
+:func:`decode_step` only, as in the JAX package.  So do the SSM and
+hybrid families, over the contiguous layout only: their cache holds each
+layer's conv window ``conv`` (L, B, k-1, d_inner) and f32 scan state
+``state`` (`repro_torch.models.ssm`), and the hybrid's also the shared
+block's KV, ``shared_k`` / ``shared_v`` (n_apps, B, S, KV, dh), one
+stripe per application; a decode step writes all of them in place.
 """
 from __future__ import annotations
 
@@ -39,10 +46,11 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import FAMILIES, ModelConfig
+from repro_torch.configs.base import FAMILIES, SSM_FAMILIES, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.runtime.device import resolve_device
 
 Params = Dict[str, Any]
@@ -52,6 +60,15 @@ def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: the port serves the families "
                          f"{FAMILIES}, not {cfg.family!r}")
+
+
+def _num_shared_apps(cfg: ModelConfig) -> int:
+    return cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+
+
+def _shared_after(cfg: ModelConfig, i: int) -> bool:
+    """Whether the hybrid's shared block runs after layer ``i``."""
+    return bool(cfg.attn_every) and i % cfg.attn_every == cfg.attn_every - 1
 
 
 def _no_codebooks(cfg: ModelConfig, what: str) -> None:
@@ -90,8 +107,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         gen.manual_seed(seed)
     dtype = L.torch_dtype(param_dtype or cfg.dtype)
     params: Params = {"embed": L.init_embedding(cfg, gen, dtype, dev)}
+    if cfg.family == "hybrid":
+        # the shared block draws from a generator of its own, as the JAX
+        # package draws it from a key of its own (the other families'
+        # draws are left as they were)
+        shared_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                        device=dev))
     blocks = []
     for _ in range(cfg.num_layers):
+        if cfg.family in SSM_FAMILIES:
+            blocks.append({"norm1": L.init_norm(cfg, cfg.d_model, dtype, dev),
+                           "mamba": S.init_mamba(cfg, gen, dtype, dev)})
+            continue
         blk = {"norm1": L.init_norm(cfg, cfg.d_model, dtype, dev),
                "attn": L.init_attention(cfg, gen, dtype, dev),
                "norm2": L.init_norm(cfg, cfg.d_model, dtype, dev)}
@@ -101,6 +128,15 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             blk["ffn"] = L.init_ffn(cfg, gen, dtype, dev)
         blocks.append(blk)
     params["layers"] = _stack(blocks)
+    if cfg.family == "hybrid":
+        sgen = torch.Generator(device=dev)
+        sgen.manual_seed(shared_seed)
+        params["shared"] = {
+            "norm1": L.init_norm(cfg, cfg.d_model, dtype, dev),
+            "attn": L.init_attention(cfg, sgen, dtype, dev),
+            "norm2": L.init_norm(cfg, cfg.d_model, dtype, dev),
+            "ffn": L.init_ffn(cfg, sgen, dtype, dev),
+        }
     params["final_norm"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
     return params
 
@@ -134,8 +170,12 @@ def make_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
     ``num_blocks`` blocks of ``block_size`` tokens shared by every row;
     ``block_tables`` (B, max_blocks) maps each row's logical blocks to
     pool blocks and defaults to 0, the trash block, so unassigned entries
-    read masked garbage and absorb stray writes."""
+    read masked garbage and absorb stray writes.  Attention families
+    only, as in the JAX package."""
     _check_family(cfg)
+    if cfg.family in SSM_FAMILIES:
+        raise ValueError("paged KV applies to attention-family caches "
+                         "only (SSM state is O(1) per sequence)")
     dev = resolve_device(device)
     kv, dh = cfg.num_kv_heads, cfg.head_dim
     pool = (cfg.num_layers, num_blocks, block_size, kv, dh)
@@ -149,23 +189,45 @@ def make_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
     }
 
 
+def state_specs(cfg: ModelConfig, batch: int, width: int,
+                dtype: torch.dtype) -> Dict[str, Tuple[Tuple[int, ...],
+                                                      torch.dtype]]:
+    """(shape, dtype) of every per-row leaf of a contiguous cache of
+    ``width`` positions (what a prefill collects): ``k``/``v`` (L, B,
+    width, KV, dh) in ``dtype``; for the SSM families ``conv`` (L, B,
+    k-1, d_inner) in ``dtype`` and ``state`` (L, B, ...) in f32, and for
+    the hybrid ``shared_k``/``shared_v`` (n_apps, B, width, KV, dh)."""
+    kv = (cfg.num_kv_heads, cfg.head_dim)
+    if cfg.family not in SSM_FAMILIES:
+        shape = (cfg.num_layers, batch, width) + kv
+        return {"k": (shape, dtype), "v": (shape, dtype)}
+    conv_s, state_s = S.ssm_state_shapes(cfg, batch)
+    specs = {"conv": ((cfg.num_layers,) + conv_s, dtype),
+             "state": ((cfg.num_layers,) + state_s, torch.float32)}
+    if cfg.attn_every:
+        shape = (_num_shared_apps(cfg), batch, width) + kv
+        specs["shared_k"] = (shape, dtype)
+        specs["shared_v"] = (shape, dtype)
+    return specs
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.float32,
                device=None) -> Dict[str, torch.Tensor]:
-    """An empty contiguous decode cache: ``k``/``v`` (L, B, max_len, KV,
-    dh), one stripe per row, plus ``len`` and ``pos_offset`` (B,).  On
-    ``device="meta"`` it allocates nothing (:func:`cache_specs`)."""
+    """An empty contiguous decode cache: ``len`` and ``pos_offset`` (B,)
+    and the leaves of :func:`state_specs` (``k``/``v`` (L, B, max_len,
+    KV, dh), one stripe per row, or the SSM families' state), zeroed.
+    On ``device="meta"`` it allocates nothing (:func:`cache_specs`)."""
     _check_family(cfg)
     dev = torch.device("meta") if str(device) == "meta" else \
         resolve_device(device)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.head_dim)
-    return {
+    cache = {
         "len": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "pos_offset": torch.zeros((batch,), dtype=torch.int32, device=dev),
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-    }
+        "pos_offset": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    for name, (shape, dt) in state_specs(cfg, batch, max_len,
+                                         dtype).items():
+        cache[name] = torch.zeros(shape, dtype=dt, device=dev)
+    return cache
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
@@ -194,24 +256,39 @@ def embed_inputs(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     return h
 
 
+#: the contiguous cache's leaves with a sequence axis (axis 2): a prompt
+#: pass fills their first S positions, the slot cache's grow pads them
+SEQ_LEAVES = ("k", "v", "shared_k", "shared_v")
+
+
 def _kv_parts(shape: Tuple[int, ...], dtype: torch.dtype,
               device: torch.device,
               kv_out: Optional[Dict[str, torch.Tensor]],
               zeros: bool = False) -> Dict[str, torch.Tensor]:
-    """The k/v tensors a prefill writes its cache into: ``kv_out``'s
-    ``k`` and ``v`` where given (a graph's static outputs), which must
-    have ``shape`` and ``dtype``, else new ones (zeroed with ``zeros``)."""
+    """The k/v tensors a prefill writes its cache into (:func:`_parts`
+    of two leaves of ``shape`` and ``dtype``)."""
+    return _parts({key: (shape, dtype) for key in ("k", "v")}, device,
+                  kv_out, zeros)
+
+
+def _parts(specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+           device: torch.device, kv_out: Optional[Dict[str, torch.Tensor]],
+           zeros: bool = False) -> Dict[str, torch.Tensor]:
+    """The tensors a prefill writes its cache into: ``kv_out``'s of the
+    names of ``specs`` where given (a graph's static outputs), which must
+    have the shapes and dtypes there, else new ones (zeroed with
+    ``zeros``)."""
     if kv_out is None:
         alloc = torch.zeros if zeros else torch.empty
         return {key: alloc(shape, dtype=dtype, device=device)
-                for key in ("k", "v")}
-    for key in ("k", "v"):
+                for key, (shape, dtype) in specs.items()}
+    for key, (shape, dtype) in specs.items():
         t = kv_out[key]
         if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
             raise ValueError(f"kv_out[{key!r}] is {tuple(t.shape)} "
                              f"{t.dtype}; the cache is {tuple(shape)} "
                              f"{dtype}")
-    return {"k": kv_out["k"], "v": kv_out["v"]}
+    return {key: kv_out[key] for key in specs}
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -232,7 +309,9 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     classification path's, as the JAX package's ``_attn`` picks below
     its chunked threshold).  ``embeds_override`` as in
     :func:`embed_inputs`; ``num_prefix_patches`` lays out M-RoPE's image
-    grid (`repro_torch.models.layers.positions_for`)."""
+    grid (`repro_torch.models.layers.positions_for`).  For the SSM
+    families parts holds the state of :func:`state_specs` instead
+    (:func:`_forward_hidden_ssm`)."""
     _check_family(cfg)
     if attn not in ATTN_ROUTES:
         raise ValueError(f"attn={attn!r}: expected one of {ATTN_ROUTES}")
@@ -243,22 +322,19 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     parts = None
     if collect_cache:
         width = max(s, cache_len or 0)
-        shape = (cfg.num_layers, b, width, cfg.num_kv_heads, cfg.head_dim)
-        parts = _kv_parts(shape, cache_dtype, tokens.device, kv_out,
-                          zeros=width > s)
+        parts = _parts(state_specs(cfg, b, width, cache_dtype),
+                       tokens.device, kv_out, zeros=width > s)
         if kv_out is not None and width > s:
-            for t in parts.values():
-                t[:, :, s:].zero_()
+            for key in SEQ_LEAVES:
+                if key in parts:
+                    parts[key][:, :, s:].zero_()
+    if cfg.family in SSM_FAMILIES:
+        return _forward_hidden_ssm(cfg, params, h, positions, attn, parts)
     for i in range(cfg.num_layers):
         blk = layer_params(params, i)
         hn = L.apply_norm(cfg, blk["norm1"], h)
         q, k, v = L.qkv_project(cfg, blk["attn"], hn, positions)
-        if attn == "naive":
-            a = L.attention_naive(cfg, q, k, v, causal=True)
-        else:
-            a = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                    v.transpose(1, 2),
-                                    causal=True).transpose(1, 2)
+        a = _prompt_attention(q, k, v, attn, cfg)
         out = L.attention_output(blk["attn"], a)
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
         h = h + _ffn(cfg, blk, hn2)
@@ -266,6 +342,62 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             parts["k"][i, :, :s] = k
             parts["v"][i, :, :s] = v
     h = L.apply_norm(cfg, params["final_norm"], h)
+    return h, parts
+
+
+def _prompt_attention(q, k, v, attn: str, cfg: ModelConfig):
+    """Causal attention of a prompt pass by route (see
+    :func:`forward_hidden`): (B,S,H,dh) q, (B,S,KV,dh) k/v."""
+    if attn == "naive":
+        return L.attention_naive(cfg, q, k, v, causal=True)
+    return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=True).transpose(1, 2)
+
+
+def _norm_add(cfg: ModelConfig, p: Params, h: torch.Tensor,
+              out: Optional[torch.Tensor]):
+    """``(norm(h + out), h + out)`` in one norm launch, or ``(norm(h),
+    h)`` where there is no block output to add yet: the mamba backbone
+    adds each block's output to the residual stream in the next norm."""
+    if out is None:
+        return L.apply_norm(cfg, p, h), h
+    return L.apply_norm(cfg, p, out, residual=h)
+
+
+def _forward_hidden_ssm(cfg: ModelConfig, params: Params, h: torch.Tensor,
+                        positions: torch.Tensor, attn: str,
+                        parts: Optional[Dict[str, torch.Tensor]]):
+    """The mamba backbone over whole prompts (no padding: the state would
+    roll through it); the hybrid runs its shared block (norm -> qkv +
+    rope -> causal attention -> wo -> norm -> FFN) after every
+    ``attn_every``-th layer.  Where ``parts`` is given, every layer's
+    conv window and scan state go there, and each application's k/v
+    into the first S positions of ``shared_k`` / ``shared_v``."""
+    s = h.shape[1]
+    shared = params.get("shared")
+    out, app = None, 0
+    for i in range(cfg.num_layers):
+        blk = layer_params(params, i)
+        hn, h = _norm_add(cfg, blk["norm1"], h, out)
+        out, conv, state = S.apply_mamba_with_state(cfg, blk["mamba"], hn,
+                                                    None)
+        if parts is not None:
+            parts["conv"][i] = conv
+            parts["state"][i] = state
+        if not _shared_after(cfg, i):
+            continue
+        hn, h = _norm_add(cfg, shared["norm1"], h, out)
+        q, k, v = L.qkv_project(cfg, shared["attn"], hn, positions)
+        a = _prompt_attention(q, k, v, attn, cfg)
+        hn2, h = L.apply_norm(cfg, shared["norm2"],
+                              L.attention_output(shared["attn"], a),
+                              residual=h)
+        out = L.apply_ffn(cfg, shared["ffn"], hn2)
+        if parts is not None:
+            parts["shared_k"][app, :, :s] = k
+            parts["shared_v"][app, :, :s] = v
+        app += 1
+    h, _ = _norm_add(cfg, params["final_norm"], h, out)
     return h, parts
 
 
@@ -284,8 +416,14 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     ``pos_offset`` (B,) int32: with M-RoPE and an image prefix of N
     patches it is -(N - 1), so decoding continues the text positions.
     The engine decodes it in place or splices it into a slot cache or a
-    paged pool.  ``embeds_override`` as in :func:`embed_inputs`."""
+    paged pool.  ``embeds_override`` as in :func:`embed_inputs`.  An SSM
+    or hybrid model's prompts are not padded (``true_lengths`` raises:
+    its state would roll through the padding) and its cache holds the
+    state of :func:`state_specs`."""
     bsz, seq = tokens.shape[0], tokens.shape[-1]
+    if true_lengths is not None and cfg.family in SSM_FAMILIES:
+        raise ValueError("ragged prefill unsupported for SSM state "
+                         "(group requests by exact length instead)")
     n_img = 0 if embeds_override is None else embeds_override.shape[1]
     h, cache = forward_hidden(cfg, params, tokens, collect_cache=True,
                               cache_dtype=cache_dtype, cache_len=max_len,
@@ -334,6 +472,9 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     own (copy-on-write) blocks, and the shared prefix blocks are never
     written."""
     _check_family(cfg)
+    if cfg.family in SSM_FAMILIES:
+        raise ValueError("suffix prefill resumes attention KV only; SSM "
+                         "state cannot restart mid-sequence")
     _no_codebooks(cfg, "suffix prefill")
     if prefix_len < 0:
         raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
@@ -397,6 +538,9 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``cache_dtype`` (``kv_out``'s tensors where given) for the caller to
     scatter into per-segment blocks."""
     _check_family(cfg)
+    if cfg.family in SSM_FAMILIES:
+        raise ValueError("packed prefill is attention-only; SSM state "
+                         "rolls through padding and cannot pack")
     _no_codebooks(cfg, "packed prefill")
     p = tokens.shape[1]
     h = L.embed_tokens(cfg, params["embed"], tokens)
@@ -457,19 +601,23 @@ def decode_step(cfg: ModelConfig, params: Params,
     """One decode step over a paged cache (``block_tables`` present) or a
     contiguous one.  tokens_t: (B,), or (B, K) for a codebook model.
     Writes each row's new K/V at ``cache['len']`` IN PLACE, at rope
-    position ``len + pos_offset``, and returns ``(logits, cache')``:
-    logits (B, V) or (B, K, V), and ``cache'`` sharing the K/V (and
-    tables) with ``len + 1``."""
+    position ``len + pos_offset`` (an SSM model its conv window and scan
+    state, a hybrid also the shared block's KV), and returns ``(logits,
+    cache')``: logits (B, V) or (B, K, V), and ``cache'`` sharing the
+    K/V (and tables, and state) with ``len + 1``."""
     _check_family(cfg)
     h = L.embed_tokens(cfg, params["embed"], tokens_t[..., None])  # (B,1,d)
     positions = (cache["len"] + cache["pos_offset"])[:, None]
     if cfg.rope == "mrope":
         positions = positions[None].expand((3,) + positions.shape)
-    if "block_tables" in cache:
+    if cfg.family in SSM_FAMILIES:
+        h = _decode_ssm(cfg, params, cache, h, positions)
+    elif "block_tables" in cache:
         h = _decode_attn_paged(cfg, params, cache, h, positions)
+        h = L.apply_norm(cfg, params["final_norm"], h)
     else:
         h = _decode_attn(cfg, params, cache, h, positions)
-    h = L.apply_norm(cfg, params["final_norm"], h)
+        h = L.apply_norm(cfg, params["final_norm"], h)
     logits = L.lm_logits(cfg, params["embed"], h)[..., 0, :]
     new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
@@ -485,27 +633,74 @@ def _write_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
     v_cache[index] = v[:, 0].to(v_cache.dtype)
 
 
-def _decode_attn(cfg, params, cache, h, positions):
-    """Decode layers over the contiguous cache: each layer attends to
-    ``len + 1`` keys through the contiguous decode kernel, which reads
-    the layer's (B, S, KV, dh) slice as a strided (B, KV, S, dh) view."""
-    lens = cache["len"]
-    # each row writes at its length, clamped to S - 1 as the JAX
-    # package's dynamic_update_slice clamps it
+def _write_index(lens: torch.Tensor, width: int):
+    """Each row's write position in a contiguous cache of ``width``
+    positions: its length, clamped to ``width - 1`` as the JAX package's
+    dynamic_update_slice clamps it."""
     rows = torch.arange(lens.shape[0], device=lens.device)
-    index = (rows, torch.clamp(lens, 0, cache["k"].shape[2] - 1).long())
+    return rows, torch.clamp(lens, 0, width - 1).long()
+
+
+def _attend_step(cfg: ModelConfig, p: Params, hn: torch.Tensor,
+                 positions: torch.Tensor, k_c: torch.Tensor,
+                 v_c: torch.Tensor, index, lens: torch.Tensor
+                 ) -> torch.Tensor:
+    """One decode step of attention over one contiguous (B, S, KV, dh)
+    cache slice, written in place at ``index``: attends to ``len + 1``
+    keys through the contiguous decode kernel, which reads the slice as a
+    strided (B, KV, S, dh) view; -> the output projection (B, 1, d)."""
+    q, k, v = L.qkv_project(cfg, p, hn, positions)
+    _write_kv(k_c, v_c, k, v, index)
+    attn = ops.flash_decode(q[:, 0], k_c.transpose(1, 2),
+                            v_c.transpose(1, 2), lens + 1)
+    return L.attention_output(p, attn[:, None])
+
+
+def _decode_attn(cfg, params, cache, h, positions):
+    """Decode layers over the contiguous cache."""
+    lens = cache["len"]
+    index = _write_index(lens, cache["k"].shape[2])
     for i in range(cfg.num_layers):
         blk = layer_params(params, i)
-        k_c, v_c = cache["k"][i], cache["v"][i]
         hn = L.apply_norm(cfg, blk["norm1"], h)
-        q, k, v = L.qkv_project(cfg, blk["attn"], hn, positions)
-        _write_kv(k_c, v_c, k, v, index)
-        attn = ops.flash_decode(q[:, 0], k_c.transpose(1, 2),
-                                v_c.transpose(1, 2), lens + 1)
-        out = L.attention_output(blk["attn"], attn[:, None])
+        out = _attend_step(cfg, blk["attn"], hn, positions, cache["k"][i],
+                           cache["v"][i], index, lens)
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
         h = h + _ffn(cfg, blk, hn2)
     return h
+
+
+def _decode_ssm(cfg, params, cache, h, positions):
+    """Decode layers of the SSM families, unrolled (the JAX package's
+    ``_decode_ssm_unrolled``): each mamba block's step reads its layer's
+    conv window and scan state and writes the new ones back IN PLACE;
+    the hybrid's shared block writes its application's KV in place and
+    attends through the contiguous decode kernel.  Returns the final
+    norm's output (B, 1, d)."""
+    shared = params.get("shared")
+    lens = cache["len"]
+    conv, state = cache["conv"], cache["state"]
+    index = _write_index(lens, cache["shared_k"].shape[2]) \
+        if cfg.attn_every else None
+    out, app = None, 0
+    for i in range(cfg.num_layers):
+        blk = layer_params(params, i)
+        hn, h = _norm_add(cfg, blk["norm1"], h, out)
+        y, conv_l, state_l = S.apply_mamba_step(cfg, blk["mamba"], hn[:, 0],
+                                                conv[i], state[i])
+        conv[i].copy_(conv_l)
+        state[i].copy_(state_l)
+        out = y[:, None]
+        if not _shared_after(cfg, i):
+            continue
+        hn, h = _norm_add(cfg, shared["norm1"], h, out)
+        o = _attend_step(cfg, shared["attn"], hn, positions,
+                         cache["shared_k"][app], cache["shared_v"][app],
+                         index, lens)
+        hn2, h = L.apply_norm(cfg, shared["norm2"], o, residual=h)
+        out = L.apply_ffn(cfg, shared["ffn"], hn2)
+        app += 1
+    return _norm_add(cfg, params["final_norm"], h, out)[0]
 
 
 def _paged_write_kv(k_pool: torch.Tensor, v_pool: torch.Tensor,

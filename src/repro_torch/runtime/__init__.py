@@ -10,7 +10,7 @@ from repro_torch.runtime.session import (GenerationParams, Session,
 __all__ = ["BlockTableManager", "BucketLadder", "ContinuousEngine",
            "GenerationParams", "InferenceEngine", "KVSlabManager",
            "PrefixMatch", "RadixPrefixCache", "Session", "SessionState",
-           "kv_bytes_per_token"]
+           "kv_bytes_per_token", "ssm_state_bytes"]
 
 _LAZY = {
     "BlockTableManager": ("repro_torch.runtime.kv_cache",
@@ -24,6 +24,7 @@ _LAZY = {
                          "RadixPrefixCache"),
     "kv_bytes_per_token": ("repro_torch.runtime.kv_cache",
                            "kv_bytes_per_token"),
+    "ssm_state_bytes": ("repro_torch.runtime.kv_cache", "ssm_state_bytes"),
 }
 
 

@@ -56,24 +56,30 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import FAMILIES, ModelConfig
+from repro_torch.configs.base import FAMILIES, SSM_FAMILIES, ModelConfig
 from repro_torch.core.cost_model import TableCostModel, block_round
 from repro_torch.core.pipeline import PipelineBackend
 from repro_torch.core.serving import Request
 from repro_torch.models import (decode_step, forward_hidden, logits_at,
                                 make_cache, make_paged_cache, prefill,
                                 prefill_packed, prefill_suffix)
+from repro_torch.models.transformer import SEQ_LEAVES, state_specs
 from repro_torch.runtime import graphs, sanitizer
 from repro_torch.runtime.bucketing import BucketLadder
 from repro_torch.runtime.device import resolve_device
 from repro_torch.runtime.graphs import CellArena, CellTable, Fill, TickCells
 from repro_torch.runtime.kv_cache import (DEFAULT_KV_BLOCK,
                                           BlockExhausted, BlockTableManager,
-                                          KVSlabManager, kv_bytes_per_token)
+                                          KVSlabManager, kv_bytes_per_token,
+                                          ssm_state_bytes)
 from repro_torch.runtime.prefix_cache import PrefixMatch, RadixPrefixCache
 from repro_torch.runtime.sampling import (DEFAULT_SAMPLE_CANDIDATES,
                                           sample_tokens)
 from repro_torch.runtime.session import GenerationParams, Session
+
+# cache leaves whose batch axis is 0 (every other per-row leaf batches on
+# axis 1: k/v/conv/state are (L, B, ...), shared_k/v are (n_apps, B, ...))
+_BATCH_AXIS0 = ("len", "pos_offset")
 
 # stop-id slots per row in GenState.eos: column 0 is the request's eos_id,
 # the rest hold extra GenerationParams.stop ids (-1 = unused)
@@ -102,9 +108,10 @@ class GenState:
     bookkeeping and sampling params.
 
     ``cache`` is a contiguous decode cache (``k``/``v`` (L, B, S, KV,
-    dh), ``len``, ``pos_offset``; a prefill produces one) or a paged one
-    (``k``/``v`` pools, ``block_tables``, ``len``, ``pos_offset``); both
-    decode."""
+    dh), ``len``, ``pos_offset``; a prefill produces one; an SSM model's
+    holds its state instead, `repro_torch.models.transformer.state_specs`)
+    or a paged one (``k``/``v`` pools, ``block_tables``, ``len``,
+    ``pos_offset``); both decode."""
     cache: Dict[str, torch.Tensor]
     cur: torch.Tensor                 # (B,) last token, (B, K) codebooks
     emitted: torch.Tensor             # (B, cap) generated tokens
@@ -275,9 +282,12 @@ class InferenceEngine:
                                        ins["last_idx"]))
 
     def _prefill_body(self, max_len: int, ins, outs) -> None:
+        # an SSM model's prompts are exact: its pass takes no lengths
+        ssm = self.cfg.family in SSM_FAMILIES
         logits, _ = prefill(self.cfg, self.params, ins["tokens"],
                             max_len=max_len,
-                            true_lengths=ins["true_lengths"], kv_out=outs)
+                            true_lengths=None if ssm else
+                            ins["true_lengths"], kv_out=outs)
         outs["logits"].copy_(logits)
 
     def _suffix_body(self, prefix_len: int, ins, outs) -> None:
@@ -411,10 +421,18 @@ class InferenceEngine:
                        prompt_kv_only: bool = False) -> GenState:
         """:meth:`prefill_batch` through cell (max_len, batch bucket,
         prompt bucket).  A ``prompt_kv_only`` pass computes what
-        ``max_len`` = the prompt bucket does, and is keyed so."""
+        ``max_len`` = the prompt bucket does, and is keyed so.  An SSM or
+        hybrid model's prompts must have one length, which stands for the
+        bucket: padding would roll through its state."""
         n = len(token_lists)
         lens = [len(t) for t in token_lists]
-        prompt_b = self.ladder.seq_bucket(max(lens))
+        if self.cfg.family in SSM_FAMILIES:
+            if len(set(lens)) > 1:
+                raise ValueError("SSM prompts must be grouped by exact "
+                                 "length")
+            prompt_b = max(lens)   # no pad: state would roll through it
+        else:
+            prompt_b = self.ladder.seq_bucket(max(lens))
         batch_b = self.ladder.batch_bucket(n)
         budgets, eos_ids, cap = self._budgets(n, max_new_tokens, eos_id,
                                               cap_new)
@@ -425,16 +443,18 @@ class InferenceEngine:
             toks[i, :len(t)] = t
         true_lens = np.array(lens + [1] * (batch_b - n), np.int32)
         width = prompt_b if prompt_kv_only else max(prompt_b, max_len)
+        # the cache at width positions in f32, the reference's
+        # cache_dtype: k/v, or an SSM model's state
+        leaves = state_specs(self.cfg, batch_b, width, torch.float32)
         outs = self._run_cell(
             table, (width, batch_b, prompt_b),
             functools.partial(self._prefill_body, width),
             {"tokens": toks, "true_lengths": true_lens},
-            {"logits": self._logits_spec(batch_b),
-             **self._kv_spec(batch_b, width)})
-        cache = {"k": outs["k"], "v": outs["v"],
-                 "len": self._tensor(true_lens, torch.int32),
-                 "pos_offset": torch.zeros((batch_b,), dtype=torch.int32,
-                                           device=self.device)}
+            {"logits": self._logits_spec(batch_b), **leaves})
+        cache = {name: outs[name] for name in leaves}
+        cache["len"] = self._tensor(true_lens, torch.int32)
+        cache["pos_offset"] = torch.zeros((batch_b,), dtype=torch.int32,
+                                          device=self.device)
         return self._finish_gen_state(outs["logits"], cache, n, batch_b,
                                       budgets, eos_ids, cap, sampling)
 
@@ -650,11 +670,14 @@ class InferenceEngine:
     def decode_step_inplace(self, state: GenState) -> None:
         """:meth:`decode_step_batch` written back into ``state``'s own
         tensors (``cur``, ``emitted``, ``counts``, ``done`` and the cache's
-        ``len``; the KV write is in place already), so the tensors the tick
-        reads are the tensors it writes: the form a CUDA graph captures
-        and replays."""
+        ``len``; the KV write, and an SSM model's state write, are in
+        place already, and a cache leaf the step returns anew is copied
+        back), so the tensors the tick reads are the tensors it writes:
+        the form a CUDA graph captures and replays."""
         out = self.decode_step_batch(state)
-        state.cache["len"].copy_(out.cache["len"])
+        for name, t in out.cache.items():
+            if t is not state.cache[name]:
+                state.cache[name].copy_(t)
         for name in ("cur", "emitted", "counts", "done"):
             getattr(state, name).copy_(getattr(out, name))
 
@@ -696,7 +719,9 @@ class InferenceEngine:
                  max_new_tokens: int = 16, eos_id: Optional[int] = None,
                  per_token_host_sync: bool = False) -> List[List[int]]:
         """Greedy decode over a ragged batch (right-padded; per-request
-        last-token gather), with its own paged pool.  Tokens accumulate
+        last-token gather), with its own paged pool; an SSM or hybrid
+        model (prompts of one length) decodes its prefilled contiguous
+        state in place instead.  Tokens accumulate
         on the device and transfer once at the end; on the card each tick
         is a replay of one graph of the in-place tick, as the JAX package
         runs its compiled tick (the graph is captured on the call's own
@@ -708,14 +733,18 @@ class InferenceEngine:
         lens = [len(t) for t in token_lists]
         seq_b = self.ladder.seq_bucket(max(lens) + max_new_tokens)
         per_tok = kv_bytes_per_token(self.cfg)
+        fixed = ssm_state_bytes(self.cfg)
+        ssm = self.cfg.family in SSM_FAMILIES
         # negative ids: a namespace disjoint from serving req_ids
         req_ids = [-(self._next_gen_id + i + 1)
                    for i in range(len(token_lists))]
         self._next_gen_id += len(token_lists)
         try:
             for rid, ln in zip(req_ids, lens):
-                self.kv_slab.allocate(rid, per_tok * seq_b,
-                                      tokens=ln + max_new_tokens)
+                self.kv_slab.allocate(
+                    rid,
+                    per_tok * seq_b + fixed if per_tok else max(fixed, 1),
+                    tokens=ln + max_new_tokens)
             if max_new_tokens == 0:
                 return [list(t) for t in token_lists]
             if per_token_host_sync:
@@ -723,8 +752,10 @@ class InferenceEngine:
                                                   max_new_tokens, seq_b)
             state = self.prefill_batch(token_lists, max_len=seq_b,
                                        max_new_tokens=max_new_tokens,
-                                       eos_id=eos_id, prompt_kv_only=True)
-            state = self.own_pool(state, seq_b)
+                                       eos_id=eos_id,
+                                       prompt_kv_only=not ssm)
+            if not ssm:
+                state = self.own_pool(state, seq_b)
             ticks = TickCells(self.decode_step_inplace) \
                 if self.device.type == "cuda" else None
             for _ in range(max_new_tokens - 1):
@@ -776,7 +807,9 @@ class ContinuousEngine(PipelineBackend):
       slot, sized at the first admission (or by ``max_len``) and grown by
       padding the sequence axis when a longer request arrives; the
       JAX package's equivalence baseline for the paged pool, and the
-      layout SSM / hybrid families need.
+      layout SSM / hybrid families need (their O(1) state cannot be
+      paged; the hybrid's shared-block KV rides in the slot cache).
+      Their admissions prefill as groups of one exact prompt length.
 
     With ``packed_prefill=True`` (the default, as in the JAX package) the
     paged layout prefills each admission group — and each pack group of
@@ -819,6 +852,10 @@ class ContinuousEngine(PipelineBackend):
                              f"{FAMILIES}, not {cfg.family!r}")
         if kv_layout not in KV_LAYOUTS:
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if kv_layout == "paged" and cfg.family in SSM_FAMILIES:
+            raise ValueError("paged KV requires an attention-family "
+                             "model; use kv_layout='contiguous' for "
+                             "SSM/hybrid")
         if prefix_cache and kv_layout != "paged":
             raise ValueError("prefix_cache requires kv_layout='paged' "
                              "(sharing happens at block granularity)")
@@ -1223,11 +1260,18 @@ class ContinuousEngine(PipelineBackend):
         if btm is not None:
             self._check_capacity(sessions, matches, "prefill batch",
                                  "batch")
-        # prefix-cache hits group by cached length (one suffix pass per
-        # distinct shared-prefix length); otherwise the whole right-padded
-        # group prefills at once
-        if matches is not None:
+        # ragged prefill is unsupported for SSM state, so SSM/hybrid
+        # admissions run as equal-prompt-length sub-batches; prefix-cache
+        # hits group by cached length (one suffix pass per distinct
+        # shared-prefix length); otherwise the whole right-padded group
+        # prefills at once
+        if eng.cfg.family in SSM_FAMILIES:
             groups: Dict[int, List[int]] = {}
+            for i, s in enumerate(sessions):
+                groups.setdefault(s.seq_len, []).append(i)
+            parts = list(groups.values())
+        elif matches is not None:
+            groups = {}
             for i, m in enumerate(matches):
                 groups.setdefault(m.cached_tokens, []).append(i)
             parts = list(groups.values())
@@ -2006,9 +2050,11 @@ class ContinuousEngine(PipelineBackend):
 
     def _grow(self, need_len: int) -> None:
         """Contiguous layout: re-make the slot cache with a longer
-        sequence axis (zero-padded), keeping every row's KV."""
+        sequence axis (zero-padded), keeping every row's KV: k/v, and
+        the hybrid's shared_k/shared_v (an SSM model's conv and scan
+        state have no sequence axis)."""
         cache = self.state.cache
-        for key in ("k", "v"):
+        for key in [k for k in SEQ_LEAVES if k in cache]:
             old = cache[key]
             shape = old.shape[:2] + (need_len,) + old.shape[3:]
             new = torch.zeros(shape, dtype=old.dtype, device=old.device)
@@ -2019,12 +2065,13 @@ class ContinuousEngine(PipelineBackend):
     def _splice(self, rows: GenState, slots: List[int]) -> None:
         """Contiguous layout: copy the first ``len(slots)`` rows of a
         freshly prefilled state (a ``max_len`` cache) into the slot
-        cache's stripes, whole, so nothing of a slot's last occupant
-        survives."""
+        cache's rows, whole (every per-row leaf: k/v, or an SSM model's
+        conv, state and shared_k/shared_v), so nothing of a slot's last
+        occupant survives."""
         idx = self._index(slots)
         k = len(slots)
         cache = self.state.cache
-        for key in ("k", "v"):
+        for key in [k for k in cache if k not in _BATCH_AXIS0]:
             cache[key][:, idx] = rows.cache[key][:, :k].to(cache[key].dtype)
         self._splice_rows(rows, idx, k)
 

@@ -21,6 +21,10 @@ launches.  Two kinds of cells:
   tickets exist for that stream.  A done row writes KV only at its frozen
   length, which is what the next real tick writes there anyway (or the
   trash block, for a free slot), and the copy takes every other write.
+  An SSM model's step writes every row's conv window and scan state
+  whether done or not, so the copy has its own of those as well (and
+  the hybrid's KV write at the frozen length then sees the same state
+  the real tick will).
 - :class:`CellTable`, pure functions of device tensors: the reference's
   classify, per-group prefill, suffix and packed prefill cells
   (``_classify_fn``, ``_prefill_fn``, ``_suffix_fn``, ``_packed_fn``),
@@ -90,6 +94,16 @@ CONTROL = ("cur", "emitted", "counts", "done", "budget", "eos", "temp",
            "top_k", "top_p", "seed")
 
 
+def decode_heads(cache: Dict[str, torch.Tensor]) -> int:
+    """KV heads a row of ``cache``'s decode attention reads (a KV leaf's
+    axis 3: (L or n_apps, B, S, KV, dh) or a pool's (L, NB, BS, KV, dh));
+    0 for an attention-free model."""
+    for name in ("k", "shared_k"):
+        if name in cache:
+            return cache[name].shape[3]
+    return 0
+
+
 def signature(state) -> Tuple:
     """(name, data pointer, shape, stride, dtype) of every tensor of
     ``state`` the tick touches: its cache's and its control tensors."""
@@ -99,10 +113,19 @@ def signature(state) -> Tuple:
                  for name, t in named)
 
 
+#: cache leaves a tick writes on every row, done or not (an SSM model's
+#: conv window and scan state)
+STEP_STATE = ("conv", "state")
+
+
 def warm_copy(state):
     """``state`` with its own copy of every control tensor the tick
-    writes and every row done; the KV tensors are shared."""
+    writes, and of an SSM model's state, and every row done; the KV
+    tensors are shared."""
     cache = dict(state.cache, len=state.cache["len"].clone())
+    for name in STEP_STATE:
+        if name in cache:
+            cache[name] = cache[name].clone()
     return dataclasses.replace(
         state, cache=cache, cur=state.cur.clone(),
         emitted=state.emitted.clone(), counts=state.counts.clone(),
@@ -287,7 +310,7 @@ class TickCells:
         self._stream.wait_stream(main)
         with torch.cuda.stream(self._stream):
             tickets = reserve_tickets(
-                dev, state.cur.shape[0] * state.cache["k"].shape[3])
+                dev, state.cur.shape[0] * decode_heads(state.cache))
             self._tick(warm_copy(state))
         self.warm_ticks += 1
         graph = torch.cuda.CUDAGraph()

@@ -43,8 +43,31 @@ K_SCALE = 1.2
 
 
 def kv_bytes_per_token(cfg: ModelConfig, dtype_bytes: int = 2) -> int:
-    """Per-token cache bytes for one request (all layers)."""
-    return 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * dtype_bytes
+    """Per-token cache bytes for one request (all layers): none for an
+    SSM model, whose state is O(1) in sequence length, and the shared
+    block's applications' for a hybrid."""
+    if cfg.family == "ssm":
+        return 0
+    kv_layers = cfg.num_layers
+    if cfg.family == "hybrid":
+        kv_layers = (cfg.num_layers // cfg.attn_every) if cfg.attn_every \
+            else 0
+    return 2 * kv_layers * cfg.num_kv_heads * cfg.head_dim * dtype_bytes
+
+
+def ssm_state_bytes(cfg: ModelConfig, dtype_bytes: int = 4) -> int:
+    """Fixed per-request state bytes for SSM/hybrid archs (the conv
+    window counted at 2 bytes, the scan state at ``dtype_bytes``)."""
+    if not cfg.ssm:
+        return 0
+    di = cfg.d_inner
+    conv = (cfg.ssm.conv_kernel - 1) * di * 2
+    if cfg.ssm.variant == "mamba1":
+        state = di * cfg.ssm.state_dim * dtype_bytes
+    else:
+        state = (di // cfg.ssm.head_dim) * cfg.ssm.head_dim * \
+            cfg.ssm.state_dim * dtype_bytes
+    return cfg.num_layers * (conv + state)
 
 
 @dataclass

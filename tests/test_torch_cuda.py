@@ -876,26 +876,68 @@ def test_cuda_decode_repeated_calls_give_same_bits(cuda, layout):
         assert int(buf.abs().sum()) == 0
 
 
+#: CUgraphNodeType's kernel node (cuda.h)
+CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def _graph_node_types(graph) -> list:
+    """The type of every node of a captured graph (kept with
+    ``keep_graph=True``), read through the driver API: cuGraphGetNodes,
+    then cuGraphNodeGetType a node."""
+    import ctypes
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(int(graph.raw_cuda_graph()))
+    n = ctypes.c_size_t(0)
+    assert drv.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert drv.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    types = []
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int(-1)
+        assert drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0
+        types.append(kind.value)
+    return types
+
+
 @pytest.mark.parametrize("layout", ["paged", "contiguous"])
 def test_cuda_decode_is_one_launch_per_call(cuda, layout):
-    """Splits are merged inside the launch: one device kernel per call."""
-    from torch.profiler import ProfilerActivity, profile
+    """Splits are merged inside the launch: one device kernel per call.
+    ``calls`` calls captured into one CUDA graph make exactly ``calls``
+    nodes, every one a kernel node (the wrapper copies, fills and
+    allocates nothing on the device); the launch counter rises by
+    ``calls`` and the replay gives the eager calls' bits."""
     d = _decode_rows(cuda, (1, 300, 1024), 2, torch.bfloat16)
-    _decode(layout, d)
+    q, lens = d["q"].clone(), d["lens"].clone()
+
+    def call():
+        if layout == "paged":
+            return ops.flash_decode_paged(q, d["k_pool"], d["v_pool"],
+                                          d["tables"], lens)
+        return ops.flash_decode(q, d["k"], d["v"], lens)
+    want = call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()                 # the capture stream's merge tickets
     torch.cuda.synchronize()
     calls = 5
-    for _ in range(2):         # the trace now and then comes back empty
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                _decode(layout, d)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA and
-                 "repro" in e.name]
-        if names:
-            break
-    assert len(names) == calls, names
-    assert all("decode_kernel" in n for n in names), names
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with cuda_lib.recording() as rec:
+        with torch.cuda.graph(graph, stream=stream):
+            outs = [call() for _ in range(calls)]
+    name = "flash_decode_paged" if layout == "paged" else "flash_decode"
+    assert sum(rec.values()) == calls and \
+        sum(n for (w, _), n in rec.items() if w == name) == calls, rec
+    types = _graph_node_types(graph)
+    assert types == [CU_GRAPH_NODE_TYPE_KERNEL] * calls, types
+    cuda_lib.reset_launches()
+    graph.replay()
+    cuda_lib.add_launches(rec)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES == {name: calls}
+    for out in outs:
+        assert torch.equal(out, want)
 
 
 def test_cuda_cow_copy_then_decode_write_keeps_the_cached_block(cuda):
@@ -988,9 +1030,13 @@ def _check_every_replay(ce):
         want = eng.decode_step_batch(_clone_state(state))
         captured = real(state)
         assert torch.equal(state.cache["len"], want.cache["len"])
-        for key in ("k", "v"):
-            assert torch.equal(state.cache[key][:, kv],
-                               want.cache[key][:, kv]), \
+        # every state leaf: k/v, or an SSM model's conv window, scan
+        # state and shared KV
+        for key in [k for k in state.cache
+                    if k not in ("len", "pos_offset", "block_tables")]:
+            rows = kv if key in ("k", "v") else slice(None)
+            assert torch.equal(state.cache[key][:, rows],
+                               want.cache[key][:, rows]), \
                 f"tick {len(seen)}: the graph's cache {key} differs"
         for name in ("cur", "emitted", "counts", "done"):
             assert torch.equal(getattr(state, name), getattr(want, name)), \
@@ -1941,3 +1987,166 @@ def test_cuda_mrope_is_captured_in_a_graph(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families: Zamba2's shared block prefills a prompt at
+# its exact length; the mamba state decodes in place under graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [1, 63, 937, 1000])
+def test_cuda_flash_attention_dh64_exact_lengths_match_plain(cuda, s):
+    """Zamba2's shared block (H 32 over KV 32 at dh 64, bf16, the SSM
+    serve phases' batch of 4): a prompt's own length, not a bucket's,
+    one token and lengths off the 64-key tile among them; each row alone
+    equals the row in the batch."""
+    g = _gen(cuda, s)
+    q, k, v = (torch.randn((4, 32, s, 64), generator=g,
+                           device=cuda).bfloat16() for _ in range(3))
+    cuda_lib.reset_launches()
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert cuda_lib.LAUNCH_SHAPES[("flash_attention", "dh64")] == 1
+    want = ref.flash_attention_ref(q, k, v, None, True)
+    torch.testing.assert_close(got, want, **BF16_ATTN_TOL)
+    for r in (0, 3):
+        one = ops.flash_attention(q[r:r + 1].clone(), k[r:r + 1].clone(),
+                                  v[r:r + 1].clone(), causal=True)
+        assert torch.equal(one[0], got[r])
+
+
+def test_cuda_generate_graph_lives_for_its_call_and_is_not_counted(cuda):
+    """The planned departure: ``generate`` captures its tick's graph on
+    its own state, replays it for the call and drops it (the reference
+    compiles its tick once an engine); two calls build two graphs and
+    leave ``compile_count`` as it was, and give the same tokens."""
+    from repro_torch.runtime import engine as port_engine
+    engine = _graph_engine(cuda).engine
+    built = []
+
+    class Recorded(port_engine.TickCells):
+        def __init__(self, tick):
+            super().__init__(tick)
+            built.append(self)
+
+    real = port_engine.TickCells
+    port_engine.TickCells = Recorded
+    try:
+        prompts = [[5, 9, 3, 7], list(range(10, 30))]
+        count = engine.compile_count
+        first = engine.generate(prompts, max_new_tokens=8)
+        second = engine.generate(prompts, max_new_tokens=8)
+    finally:
+        port_engine.TickCells = real
+    assert first == second
+    assert engine.compile_count == count
+    assert len(built) == 2 and built[0] is not built[1]
+    assert [c.captures for c in built] == [1, 1]
+
+
+def _ssm_engine(dev, arch, slots=4, **kw):
+    """An SSM or hybrid smoke config in f32 (the hybrid's shared block at
+    dh 64, an instantiated decode and causal shape), contiguous, with
+    one batch bucket of ``slots``."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime.bucketing import BucketLadder
+    from repro_torch.runtime.engine import ContinuousEngine, InferenceEngine
+    cfg = get_smoke_config(arch)
+    if cfg.attn_every:
+        cfg = dataclasses.replace(cfg, d_head=64)
+    engine = InferenceEngine(
+        cfg, init_params(cfg, device=dev),
+        ladder=BucketLadder(seq_buckets=(32, 64, 128),
+                            batch_buckets=(slots,)), device=dev)
+    return ContinuousEngine(engine, max_slots=slots, cap_new=24,
+                            kv_layout="contiguous", **kw)
+
+
+SSM_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b")
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_cuda_ssm_graph_tick_is_bit_equal_to_the_eager_tick(cuda, arch):
+    """Served from a slot cache of 64 positions grown to 128 mid-decode:
+    every tick's replay leaves every cache leaf (conv window, scan state,
+    the shared block's KV) and the control state bit-equal to
+    ``decode_step_batch`` on a copy; the grow re-captures the tick's
+    cell only where the cache has a sequence axis (the hybrid's shared
+    KV); greedy streams equal ``generate`` alone."""
+    from repro_torch.api import GenerationParams, TurboClient
+    ce = _ssm_engine(cuda, arch, max_len=64)
+    client = TurboClient(ce, warmup=True)
+    assert len(ce.tick_cells) == 2 == ce.tick_cells.captures
+    seen = _check_every_replay(ce)
+    rng = np.random.default_rng(31)
+    work = _graph_workload(rng, False, n=6, first_len=64)
+    handles = [client.submit(p, g) for p, g in work[:4]]
+    client.pump(max_ticks=4)
+    long_prompt = [int(t) for t in rng.integers(1, 256, 80)]
+    handles.append(client.submit(long_prompt,
+                                 GenerationParams(max_new_tokens=20)))
+    handles += [client.submit(p, g) for p, g in work[4:]]
+    results = [h.result() for h in handles]
+    assert ce.max_len == 128 and len(seen) >= 20
+    recaptured = sum(c for _, _, c in seen)
+    assert recaptured == (1 if arch == "zamba2-1.2b" else 0)
+    alone = [ce.engine.generate([p], max_new_tokens=g.max_new_tokens)[0]
+             for p, g in work[:4] + [(long_prompt,
+                                      GenerationParams(max_new_tokens=20))]
+             + work[4:]]
+    assert results == alone
+    assert ce.engine.kv_slab.live_bytes == 0
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_cuda_ssm_prefill_cell_replay_is_bit_equal_to_the_eager_body(cuda,
+                                                                     arch):
+    """A per-group prefill cell of one exact prompt length: its first
+    call and its replays give the eager public body's logits and every
+    state leaf bit for bit, on other prompts of that length too; each
+    new length is a new cell."""
+    engine = _ssm_engine(cuda, arch).engine
+    table = engine.prefill_cells
+
+    def call(seed, n, tab):
+        rng = np.random.default_rng(seed)
+        prompts = [[int(t) for t in rng.integers(1, 256, n)]
+                   for _ in range(3)]
+        return engine._prefill_batch(prompts, tab, max_len=64,
+                                     max_new_tokens=2)
+
+    def leaves(st):
+        return {k: v.clone() for k, v in st.cache.items()}
+    for n in (37, 5):
+        want = [leaves(call(s, n, None)) for s in (0, 1)]
+        for s in (0, 1, 0):
+            got = leaves(call(s, n, table))
+            assert set(got) == set(want[s])
+            for k in got:
+                assert torch.equal(got[k], want[s][k]), (n, s, k)
+    assert table.captures == 2 == engine.compile_count
+    assert sorted(table.keys()) == [(64, 4, 5), (64, 4, 37)]
+
+
+def test_cuda_hybrid_decode_launches_per_tick(cuda):
+    """Zamba2's tick launches the contiguous decode kernel once per
+    shared-block application and the norm once per mamba layer, twice
+    per application and once at the end; Falcon-Mamba's launches no
+    attention kernel."""
+    from repro_torch.api import GenerationParams, TurboClient
+    for arch in SSM_ARCHS:
+        ce = _ssm_engine(cuda, arch)
+        client = TurboClient(ce)
+        cfg = ce.engine.cfg
+        apps = cfg.num_layers // cfg.attn_every if cfg.attn_every else 0
+        cuda_lib.reset_launches()
+        client.submit([3, 1, 4, 1, 5, 9, 2, 6],
+                      GenerationParams(max_new_tokens=10)).result()
+        steps = ce.decode_ticks + ce.tick_cells.warm_ticks
+        assert cuda_lib.LAUNCHES["flash_decode"] == apps * steps
+        assert cuda_lib.LAUNCHES["flash_attention"] == \
+            apps * ce.prefill_dispatches
+        assert cuda_lib.LAUNCHES["norm"] == \
+            (cfg.num_layers + 2 * apps + 1) * (steps + ce.prefill_dispatches)

@@ -28,14 +28,16 @@ from repro_torch.models import frontend as F
 from repro_torch.models import io as IO
 from repro_torch.models import layers as L
 
-#: the reference's transformer archs (the SSM and hybrid ones wait for
-#: their port)
-ARCHS = tuple(a for a in jconfigs.ARCH_IDS
-              if jconfigs.get_config(a).family not in ("ssm", "hybrid"))
+#: the reference's archs, every one of which the port registers
+ARCHS = jconfigs.ARCH_IDS
 
 
 def test_the_port_registers_every_transformer_arch():
-    assert set(configs.ARCH_IDS) == set(ARCHS)
+    """Every arch of the reference, the SSM and hybrid ones among them,
+    in the reference's order."""
+    assert configs.ARCH_IDS == ARCHS
+    assert {configs.get_config(a).family for a in ARCHS} >= {"ssm",
+                                                             "hybrid"}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -160,12 +162,21 @@ def test_input_specs_match_reference(arch):
 
 
 def test_io_refuses_the_families_not_ported_yet():
-    cfg = dataclasses.replace(configs.get_smoke_config("qwen3-32b"),
-                              family="ssm")
-    with pytest.raises(ValueError, match="not ported yet"):
-        IO.input_specs(cfg, configs.SMOKE_SHAPE)
-    with pytest.raises(ValueError, match="not ported yet"):
-        IO.synthetic_prompts(cfg, torch.Generator(), 2, 8)
+    """The SSM and hybrid families are ported: their specs at the smoke
+    shape (a decode step's cache is their state) and synthetic prompts
+    have the reference's shapes and dtypes."""
+    for arch in ("falcon-mamba-7b", "zamba2-1.2b"):
+        cfg, jcfg = configs.get_smoke_config(arch), \
+            jconfigs.get_smoke_config(arch)
+        for kind in ("train", "prefill", "decode"):
+            shape = dataclasses.replace(configs.SMOKE_SHAPE, kind=kind)
+            jshape = dataclasses.replace(jconfigs.SMOKE_SHAPE, kind=kind)
+            assert _shapes(IO.input_specs(cfg, shape)) == \
+                _shapes(JIO.input_specs(jcfg, jshape)), (arch, kind)
+        got = IO.synthetic_prompts(cfg, torch.Generator().manual_seed(0), 2,
+                                   8)
+        want = JIO.synthetic_prompts(jcfg, jax.random.key(0), 2, 8)
+        assert _shapes(got) == _shapes(want)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-vl-7b", "musicgen-large",

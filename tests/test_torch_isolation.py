@@ -50,8 +50,8 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_scan_covers_the_serving_modules():
     """The scan above reads every module of the port, the prefix cache,
     the chunked-prefill path, the MoE layer and the serving tier (pool,
-    router, simulator, CLI) and the modality front ends and model
-    inputs with their configs among them."""
+    router, simulator, CLI), the modality front ends and model inputs
+    and the mamba blocks, with their configs, among them."""
     names = {p.relative_to(PORT).as_posix() for p in _port_files()
              if PORT in p.parents}
     assert {"runtime/prefix_cache.py", "runtime/engine.py",
@@ -62,7 +62,9 @@ def test_scan_covers_the_serving_modules():
             "core/simulator.py", "launch/serve.py", "models/frontend.py",
             "models/io.py", "configs/qwen2_vl_7b.py",
             "configs/starcoder2_15b.py", "configs/musicgen_large.py",
-            "configs/qwen3_32b.py", "configs/llama3_405b.py"} <= names
+            "configs/qwen3_32b.py", "configs/llama3_405b.py",
+            "models/ssm.py", "configs/falcon_mamba_7b.py",
+            "configs/zamba2_1_2b.py"} <= names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

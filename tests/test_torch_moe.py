@@ -138,20 +138,35 @@ def test_dense_param_count_matches_reference():
         assert port.active_param_count() == port.param_count()
 
 
-@pytest.mark.parametrize("change", [dict(family="ssm"),
-                                    dict(family="hybrid"),
-                                    dict(num_codebooks=4)],
+#: changes of the OLMoE smoke config into another family: the SSM and
+#: hybrid ones take the mamba block of their own smoke config
+FAMILY_CHANGES = [dict(family="ssm", ssm_of="falcon-mamba-7b"),
+                  dict(family="hybrid", ssm_of="zamba2-1.2b", attn_every=2),
+                  dict(num_codebooks=4)]
+
+
+def _changed(get, change):
+    """``get(OLMOE)`` with ``change`` applied (``get`` is either package's
+    ``get_smoke_config``)."""
+    change = dict(change)
+    ssm_of = change.pop("ssm_of", None)
+    if ssm_of is not None:
+        change["ssm"] = get(ssm_of).ssm
+    return dataclasses.replace(get(OLMOE), **change)
+
+
+@pytest.mark.parametrize("change", FAMILY_CHANGES,
                          ids=["ssm", "hybrid", "codebooks"])
 def test_param_count_refuses_what_the_port_does_not_serve(change):
-    """The SSM and hybrid families are refused; codebooks, served since
-    the audio family, are counted as the reference counts them."""
-    cfg = dataclasses.replace(get_smoke_config(OLMOE), **change)
-    if "family" not in change:
-        ref = dataclasses.replace(jax_smoke_config(OLMOE), **change)
-        assert cfg.param_count() == ref.param_count()
-        return
+    """Every family is served now: the SSM and hybrid families (the
+    hybrid's shared block counted once) and codebooks are counted as the
+    reference counts them; a family of neither package is refused."""
+    cfg = _changed(get_smoke_config, change)
+    ref = _changed(jax_smoke_config, change)
+    assert cfg.param_count() == ref.param_count()
+    assert cfg.active_param_count() == ref.active_param_count()
     with pytest.raises(ValueError, match="families"):
-        cfg.param_count()
+        dataclasses.replace(cfg, family="diffusion").param_count()
 
 
 def test_olmoe_param_count_is_the_published_size():
@@ -540,22 +555,28 @@ def test_continuous_engine_admits_moe(olmoe, layout):
     assert len(out.result()) == 6
 
 
-@pytest.mark.parametrize("change", [dict(family="ssm"),
-                                    dict(family="hybrid"),
-                                    dict(num_codebooks=4)],
+@pytest.mark.parametrize("change", FAMILY_CHANGES,
                          ids=["ssm", "hybrid", "codebooks"])
 @pytest.mark.parametrize("layout", ["paged", "contiguous"])
 def test_continuous_engine_refuses_other_families(olmoe, change, layout):
+    """The SSM and hybrid families are served on the contiguous layout
+    and refused on the paged one with the reference's message; codebook
+    models are refused on both; each family's init draws its tree."""
     _, cfg, _, tparams = olmoe
     engine = _engine(tparams, cfg)
-    engine.cfg = dataclasses.replace(cfg, **change)
-    with pytest.raises(ValueError, match="families|codebook"):
-        ContinuousEngine(engine, max_slots=2, kv_layout=layout)
-    if "family" not in change:       # codebooks: the audio family's init
-        init_params(dataclasses.replace(cfg, **change), device="cpu")
+    engine.cfg = _changed(get_smoke_config, change)
+    init_params(engine.cfg, device="cpu")
+    if "family" not in change:
+        with pytest.raises(ValueError, match="codebook"):
+            ContinuousEngine(engine, max_slots=2, kv_layout=layout)
         return
-    with pytest.raises(ValueError, match="the port serves the families"):
-        init_params(dataclasses.replace(cfg, **change), device="cpu")
+    if layout == "paged":
+        with pytest.raises(ValueError, match="use kv_layout='contiguous' "
+                           "for SSM/hybrid"):
+            ContinuousEngine(engine, max_slots=2, kv_layout=layout)
+        return
+    ce = ContinuousEngine(engine, max_slots=2, kv_layout=layout)
+    assert ce.kv_layout == "contiguous" and ce.block_table is None
 
 
 def _serve_both(weights, work, *, packed, chunked=False,

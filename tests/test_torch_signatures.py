@@ -4,7 +4,9 @@ Every public method that the port's `TurboClient`, `InferenceEngine`,
 `ContinuousEngine`, `ReplicaPool` and `PrefixAffinityRouter` share by
 name with the JAX package's, the model functions `prefill`,
 `prefill_suffix`, `prefill_packed`, `decode_step` and `embed_inputs`,
-and the layer function `positions_for`, keep the
+the layer function `positions_for`, and the mamba block's
+`apply_mamba`, `apply_mamba_with_state`, `apply_mamba_step` and
+`ssm_state_shapes`, keep the
 reference's parameter names, order, kinds and defaults.  The reference's signatures are read through `inspect`, so a
 change there shows here.  The planned differences are named in
 `PORT_ONLY`, `REF_ONLY` and `PLANNED_DEFAULTS`, each with its reason;
@@ -26,6 +28,7 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
 from repro.models import layers as ref_layers
+from repro.models import ssm as ref_ssm
 from repro.models import transformer as ref_models
 from repro.runtime import engine as ref_engine
 from repro_torch.api import client as port_client
@@ -34,6 +37,7 @@ from repro_torch.cluster import router as port_router
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import init_params, prefill
 from repro_torch.models import layers as port_layers
+from repro_torch.models import ssm as port_ssm
 from repro_torch.models import transformer as port_models
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.runtime import engine as port_engine
@@ -65,6 +69,9 @@ MODEL_FUNCTIONS = ("prefill", "prefill_suffix", "prefill_packed",
                    "decode_step", "embed_inputs")
 #: the layer functions held the same way
 LAYER_FUNCTIONS = ("positions_for",)
+#: and the mamba block's
+SSM_FUNCTIONS = ("apply_mamba", "apply_mamba_with_state", "apply_mamba_step",
+                 "ssm_state_shapes")
 
 
 def _shared_methods(ref_cls, port_cls):
@@ -94,7 +101,9 @@ PAIRS = (
     + [(n, getattr(ref_models, n), getattr(port_models, n))
        for n in MODEL_FUNCTIONS]
     + [(n, getattr(ref_layers, n), getattr(port_layers, n))
-       for n in LAYER_FUNCTIONS])
+       for n in LAYER_FUNCTIONS]
+    + [(n, getattr(ref_ssm, n), getattr(port_ssm, n))
+       for n in SSM_FUNCTIONS])
 
 
 def _default(value):
@@ -127,7 +136,7 @@ def test_the_pairs_cover_the_named_callables():
             "ReplicaPool.kill_replica", "ReplicaPool.pump",
             "PooledHandle.result", "PrefixAffinityRouter.__init__",
             "PrefixAffinityRouter.route", "InferenceEngine.generate",
-            *MODEL_FUNCTIONS, *LAYER_FUNCTIONS} <= names
+            *MODEL_FUNCTIONS, *LAYER_FUNCTIONS, *SSM_FUNCTIONS} <= names
     # every public method of the pool and the router is held
     for ref_cls, port_cls in ((ref_pool.ReplicaPool, port_pool.ReplicaPool),
                               (ref_router.PrefixAffinityRouter,
