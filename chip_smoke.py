@@ -218,9 +218,31 @@ Phases, each printing one JSON line:
    with the classify phase's cost table, on that phase's requests and on
    a Poisson draw at its rate, beside the measured resp/s and p99; (d)
    ``python -m repro_torch.launch.serve --no-smoke --replicas 2`` in a
-   subprocess, rc 0 and every request finished.
+   subprocess, rc 0 and every request finished;
+10. train: training at full width, after every serving client is freed.
+   The norm's and the softmax's Functions alone at the train path's
+   shapes (norm R 2048 x C 2048 bf16 with a residual, softmax R 32768 x
+   C 512 f32 with causal lengths), each gradient against autograd through
+   the plain version and each backward timed; (a) full-width, full-depth
+   InternLM2-1.8B (f32 master weights from a seed, bf16 compute), one
+   microbatch of 4 x 512 through the kernels, again under
+   ``plain_versions`` and in f32 compute (plain), the loss and every
+   leaf's gradient held to the bf16 floor (``TRAIN_GRAD_WHY``), 49 norm
+   and 24 softmax launches; (b) ``Trainer`` with AdamW, batch 8 x 512 in
+   two microbatches, 6 steps: seconds a step, tokens a second, peak
+   memory, each step's loss and gradient norm, the launches a microbatch
+   (49 and 24), and two steps on one batch whose second loss must be
+   lower; (c) one step profiled: device busy time by kernel family, the
+   backward's norm and softmax gradients and the optimizer apart (their
+   profiler ranges), idle share; (d) the crash and resume drill at 2
+   layers with Adafactor (a checkpoint every 2 steps, a failure at step
+   4, resumed: parameters and optimizer state bit-equal to an
+   uninterrupted run; a checkpoint's bytes and write seconds); (e)
+   ``python -m repro_torch.launch.train --arch internlm2-1.8b --steps 2
+   --batch 2 --seq 128`` in a subprocess, rc 0.
 
-Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and the last
+Then a ``{"kernels": [...]}`` line (each kernel's launches in the serving
+paths and ``launches_in_train``), the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
 exits non-zero and prints no result.  It also refuses to run without a
 CUDA device or outside a checkout of the repository.
@@ -2919,11 +2941,13 @@ def moe_kernel_family(name: str) -> str:
 def split_profile(prof, family=kernel_family):
     """Device busy microseconds by kernel ``family``, the device kernels
     and the host ops (each as (us, count, name)) of a profiler run:
-    device work from the trace's own events, host ops from the averaged
-    view's self times."""
+    device work from the trace's own events (not the device-side spans of
+    ``record_function`` ranges, which cover kernels counted already),
+    host ops from the averaged view's self times."""
     busy_us, by_name, host = {}, {}, []
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and \
+                not evt.is_user_annotation:
             us = evt.time_range.elapsed_us()
             fam = family(evt.name)
             busy_us[fam] = busy_us.get(fam, 0.0) + us
@@ -2952,8 +2976,9 @@ def cross_check(prof, kernels, launches: dict) -> dict:
     counters over the same window: each counted launch is one kernel, so
     a shortfall in the trace means it lost events and its busy totals
     read low."""
+    ranges = {evt.name for evt in prof.events() if evt.is_user_annotation}
     averaged = [(evt.count, evt.key) for evt in prof.key_averages()
-                if is_kernel(evt)]
+                if is_kernel(evt) and evt.key not in ranges]
     by_kernel = {}
     for name, parts in PORT_KERNELS.items():
         # the port's kernels live in namespace repro (PyTorch's own
@@ -3996,16 +4021,19 @@ def serve_moe(dev, card: str):
 
 #: the kernels' plain versions stand in for these wrappers of
 #: `repro_torch.kernels.ops` in a plain run (``plain_versions``)
-PLAIN_WRAPPERS = ("fused_rmsnorm", "fused_layernorm", "flash_attention",
-                  "flash_decode", "flash_decode_paged")
+PLAIN_WRAPPERS = ("fused_rmsnorm", "fused_layernorm", "fused_softmax",
+                  "flash_attention", "flash_decode", "flash_decode_paged")
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """Route the model's norm, causal attention and decode calls to the
-    kernels' plain versions (`repro_torch.kernels.ref`) on the card's own
-    tensors, so one pass can be held against the same pass through the
-    kernels; the launch counters stay as they were."""
+    """Route the model's norm, masked softmax, causal attention and
+    decode calls to the kernels' plain versions (`repro_torch.kernels.ref`)
+    on the card's own tensors, so one pass can be held against the same
+    pass through the kernels; the launch counters stay as they were.  A
+    training pass's gradient is then autograd's through the plain
+    versions, where the kernels' is their Functions'
+    (`repro_torch.kernels.autograd`)."""
     from repro_torch.kernels import ops, ref
     plain = {
         "fused_rmsnorm": lambda x, gamma, bias=None, residual=None, *,
@@ -4014,6 +4042,8 @@ def plain_versions():
         "fused_layernorm": lambda x, gamma, beta, bias=None, residual=None,
         *, eps=1e-6, return_residual=False: ref.layernorm_ref(
             x, gamma, beta, bias, residual, eps, return_residual),
+        "fused_softmax": lambda x, lengths=None, *, scale=1.0:
+        ref.softmax_ref(x, lengths, scale),
         "flash_attention": lambda q, k, v, lengths=None, *, causal=True,
         scale=None: ref.flash_attention_ref(q, k, v, lengths, causal, scale),
         "flash_decode": lambda q, k, v, lengths=None, *, scale=None:
@@ -4821,6 +4851,444 @@ def simulator_vs_card(card: str, classified: dict) -> None:
           "max_batch": 20, "policies": out})
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internlm2-1.8b"
+#: (a)'s microbatch, and (b)'s batch (two microbatches of 4 x 512)
+TRAIN_GRAD_BATCH = (4, 512)
+TRAIN_BATCH = (8, 512)
+TRAIN_ACCUM = 2
+TRAIN_STEPS = 6
+#: (a): how close each gradient leaf through the kernels (bf16 compute)
+#: must lie to the same leaf in f32 compute (through the plain
+#: versions), as a multiple of the distance of the plain versions' bf16
+#: gradient to it; and the loss's relative distance to the plain run's
+TRAIN_GRAD_FLOOR_RATIO = 1.5
+TRAIN_LOSS_REL = 2e-2
+TRAIN_GRAD_WHY = (
+    "bf16 compute sets a floor: a bf16 gradient differs from the f32 one "
+    "by rounding at every op of 24 layers, and the kernels round at other "
+    "points than the plain versions, so their two bf16 gradients differ by "
+    "about that floor (1e-2 to 2.5e-2 a leaf on an NVIDIA H100 80GB HBM3), "
+    "which a fixed relative bound would mistake for an error; the kernels "
+    "pass where their gradient is no further from the f32 one than 1.5 "
+    "times the plain versions' bf16 gradient is")
+#: the Functions alone: their gradients against autograd through the
+#: plain versions on the same inputs
+TRAIN_NORM_WHY = ("bf16 norm: the Function computes its gradient in f32 "
+                  "from the inputs and rounds once, autograd through the "
+                  "plain version rounds at its bf16 ops: within 2 bf16 ulps "
+                  "of each leaf's largest gradient")
+TRAIN_SOFTMAX_TOL = dict(atol=1e-5, rtol=1e-5)
+#: (d): the crash and resume drill
+RESUME_LAYERS = 2
+RESUME_STEPS = 6
+RESUME_EVERY = 2
+RESUME_FAIL_AT = 4
+#: the profiler ranges of a train step that (c) lists apart
+TRAIN_RANGES = ("repro_torch.norm_backward", "repro_torch.softmax_backward",
+                "repro_torch.optimizer")
+
+
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The '/'-joined paths of a nested dict's leaves in sorted-key order
+    (`repro_torch.training.optimizer.tree_leaves`' order)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in leaf_paths(tree[k], f"{prefix}/{k}" if prefix
+                                    else k)]
+    return [prefix]
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    d = float(torch.linalg.vector_norm((got.float() - want.float())))
+    return d / max(float(torch.linalg.vector_norm(want.float())), 1e-30)
+
+
+def backward_ms(fn, leaves, ups, iters: int = 10) -> float:
+    """Mean milliseconds of one backward of ``fn(*leaves)`` (CUDA events
+    around ``iters`` backwards of one retained graph)."""
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * u).sum() for o, u in zip(outs, ups))
+    torch.autograd.grad(loss, leaves, retain_graph=True)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        torch.autograd.grad(loss, leaves, retain_graph=True)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def function_grads(fn, leaves, ups):
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = sum((o.float() * u).sum() for o, u in zip(outs, ups))
+    return torch.autograd.grad(loss, leaves)
+
+
+def train_function_checks(dev, gen, card: str) -> None:
+    """Each kernel's Function alone at the train path's shapes, its
+    gradient against autograd through the plain version on the same
+    inputs and upstream gradient: the norm at a microbatch's rows (R
+    2048 x C 2048, bf16, with a residual and the sum returned, norm2's
+    call), the softmax at its scores (R 32768 = 4 x 16 heads x 512
+    queries, C 512, f32, causal lengths, the 1/sqrt(128) scale)."""
+    from repro_torch.kernels import cuda_lib, ops, ref
+    r = c = 2048
+    x, res = (torch.randn((r, c), generator=gen, device=dev).bfloat16()
+              for _ in range(2))
+    gamma = (torch.rand((c,), generator=gen, device=dev) + 0.5).bfloat16()
+    ups = [torch.randn((r, c), generator=gen, device=dev) for _ in range(2)]
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, res)]
+    kern = lambda x, g, rr: ops.fused_rmsnorm(  # noqa: E731
+        x, g, None, rr, return_residual=True)
+    plain = lambda x, g, rr: ref.rmsnorm_ref(  # noqa: E731
+        x, g, None, rr, 1e-6, True)
+    cuda_lib.reset_launches()
+    got = function_grads(kern, leaves, ups)
+    launched = cuda_lib.LAUNCHES["norm"]
+    want = function_grads(plain, leaves, ups)
+    errs = {name: float((a.float() - w.float()).abs().max())
+            / max(float(w.float().abs().max()), 1e-30)
+            for name, a, w in zip(("x", "gamma", "residual"), got, want)}
+    norm = {"shape": f"R {r} x C {c}, bf16, residual, sum returned",
+            "launches": launched,
+            "max_err_over_largest": errs, "tolerance": 2 * 2 ** -8,
+            "why": TRAIN_NORM_WHY,
+            "backward_ms": backward_ms(kern, leaves, ups),
+            "plain_backward_ms": backward_ms(plain, leaves, ups)}
+    rs, cs = 4 * 16 * 512, 512
+    scores = torch.randn((rs, cs), generator=gen, device=dev) * 8
+    lengths = (torch.arange(rs, device=dev, dtype=torch.int32) % cs) + 1
+    sup = [torch.randn((rs, cs), generator=gen, device=dev)]
+    sleaf = [scores.clone().requires_grad_(True)]
+    scale = 1.0 / math.sqrt(128)
+    skern = lambda t: ops.fused_softmax(t, lengths, scale=scale)  # noqa
+    splain = lambda t: ref.softmax_ref(t, lengths, scale)  # noqa: E731
+    cuda_lib.reset_launches()
+    (sgot,) = function_grads(skern, sleaf, sup)
+    slaunched = cuda_lib.LAUNCHES["softmax"]
+    (swant,) = function_grads(splain, sleaf, sup)
+    soft = {"shape": f"R {rs} x C {cs}, f32, causal lengths, scale "
+                     f"{scale:.6f}", "launches": slaunched,
+            "max_abs_err": float((sgot - swant).abs().max()),
+            "tolerance": TRAIN_SOFTMAX_TOL,
+            "backward_ms": backward_ms(skern, sleaf, sup),
+            "plain_backward_ms": backward_ms(splain, sleaf, sup)}
+    emit({"phase": "train_functions", "card": card, "norm": norm,
+          "softmax": soft})
+    if launched != 1 or slaunched != 1:
+        raise AssertionError(f"train_functions: launches {launched} norm, "
+                             f"{slaunched} softmax (1 each expected)")
+    if max(errs.values()) > 2 * 2 ** -8:
+        raise AssertionError(f"train_functions: norm gradients {errs}")
+    torch.testing.assert_close(sgot, swant, **TRAIN_SOFTMAX_TOL)
+
+
+def train_grad_check(dev, card: str) -> None:
+    """(a) Full-width, full-depth InternLM2-1.8B (f32 master weights from
+    a seed): one microbatch of 4 x 512 in bf16 compute through the kernels
+    (their Functions' gradients), again under ``plain_versions``
+    (autograd through the plain versions), and in f32 compute under
+    ``plain_versions``, the yardstick.  Each leaf's gradient through the
+    kernels must lie within ``TRAIN_GRAD_FLOOR_RATIO`` times the plain bf16
+    gradient's distance of the f32 one, and the loss within
+    ``TRAIN_LOSS_REL`` of the plain run's; the kernels' run must launch
+    49 norms and 24 softmaxes."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import ModelRuntime, init_params
+    from repro_torch.training import TrainConfig
+    from repro_torch.training.train_loop import loss_and_grads
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    tc = TrainConfig()
+    params = init_params(cfg, seed=SEED, device=dev, param_dtype="float32")
+    batch = TokenStream(cfg, *TRAIN_GRAD_BATCH, seed=SEED,
+                        device=dev).batch(0)
+    rt = ModelRuntime()
+    loss_and_grads(cfg, tc, rt, params, batch)        # warm (cuBLAS, ...)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t1 = time.perf_counter()
+    loss_k, _, grads_k = loss_and_grads(cfg, tc, rt, params, batch)
+    torch.cuda.synchronize()
+    kern_s = time.perf_counter() - t1
+    launches = dict(cuda_lib.LAUNCHES)
+    with plain_versions():
+        t1 = time.perf_counter()
+        loss_p, _, grads_p = loss_and_grads(cfg, tc, rt, params, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        loss_f, _, grads_f = loss_and_grads(
+            cfg, TrainConfig(compute_dtype="float32"), rt, params, batch)
+    paths = leaf_paths(params)
+    errs = {p: {"kernels_to_plain": rel_err(k, pl),
+                "kernels_to_f32": rel_err(k, f),
+                "plain_to_f32": rel_err(pl, f)}
+            for p, k, pl, f in zip(paths, grads_k, grads_p, grads_f)}
+    ratio = {p: e["kernels_to_f32"] / e["plain_to_f32"]
+             for p, e in errs.items()}
+    worst = max(ratio, key=ratio.get)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    emit({"phase": "train_grad_check", "card": card,
+          "model": model_line(TRAIN_ARCH, cfg).replace(
+              "bf16 weights from a seed, f32 KV",
+              "f32 master weights from a seed, bf16 compute"),
+          "microbatch": list(TRAIN_GRAD_BATCH), "loss": float(loss_k),
+          "plain_loss": float(loss_p), "f32_loss": float(loss_f),
+          "loss_rel_err": loss_err, "loss_tolerance": TRAIN_LOSS_REL,
+          "worst_ratio_to_the_plain_floor": {worst: ratio[worst]},
+          "ratio_limit": TRAIN_GRAD_FLOOR_RATIO,
+          "grad_rel_err_by_leaf": errs, "why": TRAIN_GRAD_WHY,
+          "launches": launches, "fwd_bwd_s": kern_s,
+          "plain_fwd_bwd_s": plain_s,
+          "phase_s": time.perf_counter() - t0})
+    want = {"norm": norms_per_pass(cfg), "softmax": cfg.num_layers}
+    if any(launches.get(k, 0) != v for k, v in want.items()):
+        raise AssertionError(f"train_grad_check: launches {launches}, "
+                             f"expected {want}")
+    if loss_err > TRAIN_LOSS_REL or ratio[worst] > TRAIN_GRAD_FLOOR_RATIO:
+        raise AssertionError(f"train_grad_check: loss {loss_err}, {worst} "
+                             f"{errs[worst]}")
+    if any(not bool(torch.isfinite(g).all()) or not bool(g.any())
+           for g in grads_k):
+        raise AssertionError("train_grad_check: a gradient leaf is zero "
+                             "or not finite")
+
+
+def ranged_device_us(prof, ranges) -> dict:
+    """The device time of the kernels that the ops inside each profiler
+    range launched (an op's kernels are joined to it by the profiler's
+    correlation ids; a kernel launched outside any PyTorch op, as the
+    port's ``ctypes`` kernels are, joins none)."""
+    out = dict.fromkeys(ranges, 0.0)
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU or \
+                not evt.kernels:
+            continue
+        node = evt
+        while node is not None and node.name not in out:
+            node = node.cpu_parent
+        if node is not None:
+            out[node.name] += sum(k.duration for k in evt.kernels)
+    return out
+
+
+def train_timed(dev, card: str) -> dict:
+    """(b) ``Trainer`` at full width and depth, AdamW, batch 8 x 512 in
+    two microbatches, ``TRAIN_STEPS`` steps: seconds a step (median of
+    steps 2 to 6), tokens a second, peak memory, each step's loss and
+    gradient norm, and the norm and softmax launches a microbatch (49 and
+    24 with ``remat="none"``).  Then two steps on one batch (the second's
+    loss must be lower) and (c) one more step profiled: its device busy
+    time by kernel family, the backward's norm and softmax gradients and
+    the optimizer apart, and its idle share.  Returns the timed run's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.training import (OptimizerConfig, TrainConfig,
+                                      Trainer, make_train_step)
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    tc = TrainConfig(optimizer=OptimizerConfig(), grad_accum=TRAIN_ACCUM,
+                     log_every=1)
+    b, s = TRAIN_BATCH
+    trainer = Trainer(cfg, tc, batch_size=b, seq_len=s, seed=SEED,
+                      device=dev)
+    stamps, log = [], []
+
+    def on_metrics(step, m):          # float() of the metrics synchronises
+        stamps.append(time.perf_counter())
+        log.append({"step": step, "loss": m["loss"],
+                    "grad_norm": m["grad_norm"]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_lib.reset_launches()
+    state = trainer.run(TRAIN_STEPS, on_metrics=on_metrics)
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    step_s = [b2 - a2 for a2, b2 in zip(stamps, stamps[1:])]
+    med = float(np.median(step_s))
+    micro = TRAIN_STEPS * TRAIN_ACCUM
+    per_micro = {k: launches.get(k, 0) / micro for k in ("norm", "softmax")}
+    # two steps on one batch: the second's loss (after one update) lower
+    step = make_train_step(cfg, tc)
+    batch = trainer.data_for_step(TRAIN_STEPS)
+    state, m1 = step(state, batch)
+    state, m2 = step(state, batch)
+    repeat = [float(m1["loss"]), float(m2["loss"])]
+    # (c) one step profiled
+    prof, wall_ms, plaunch, (busy_us, kernels, _), check, _ = traced_window(
+        lambda: step(state, batch))
+    ranged = ranged_device_us(prof, TRAIN_RANGES)
+    busy = sum(busy_us.values())
+    ranged_ms = {k: v / 1e3 for k, v in ranged.items()}
+    other = busy_us.get("other PyTorch kernels", 0.0) - sum(ranged.values())
+    emit({"phase": "train", "card": card,
+          "model": model_line(TRAIN_ARCH, cfg).replace(
+              "bf16 weights from a seed, f32 KV",
+              "f32 master weights, AdamW m and v, bf16 compute"),
+          "batch": list(TRAIN_BATCH), "grad_accum": TRAIN_ACCUM,
+          "steps": TRAIN_STEPS, "step_s": step_s,
+          "step_s_median_2_to_6": med, "tokens_per_s": b * s / med,
+          "peak_mem_gib": peak, "log": log,
+          "launches": launches, "launches_per_microbatch": per_micro,
+          "repeated_batch_losses": repeat,
+          "profile_one_step": {
+              "wall_ms": wall_ms, "busy_ms": busy_or_not_measured(
+                  busy / 1e3, check),
+              "busy_ms_by_family": {k: v / 1e3 for k, v in busy_us.items()},
+              "of_which_ranges_ms": ranged_ms if sum(ranged.values())
+              else "not measured: no kernel joined to a range",
+              "other_pytorch_outside_the_ranges_ms": other / 1e3,
+              "idle_share": busy_or_not_measured(1 - busy / 1e3 / wall_ms,
+                                                 check),
+              **in_trace(busy_us, 1, check, wall_ms),
+              "launches": plaunch, "trace_check": check},
+          "phase_s": time.perf_counter() - t0})
+    want = {"norm": norms_per_pass(cfg), "softmax": cfg.num_layers}
+    if any(per_micro[k] != v for k, v in want.items()):
+        raise AssertionError(f"train: {per_micro} launches a microbatch, "
+                             f"expected {want}")
+    if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+               for x in log):
+        raise AssertionError(f"train: {log}")
+    if not repeat[1] < repeat[0]:
+        raise AssertionError(f"train: a repeated batch's loss went "
+                             f"{repeat[0]} -> {repeat[1]}")
+    return launches
+
+
+def train_resume(dev, card: str) -> None:
+    """(d) The crash and resume drill at full width and 2 layers,
+    Adafactor, batch 4 x 512: ``RESUME_STEPS`` steps with a checkpoint
+    every ``RESUME_EVERY``, uninterrupted; again with a failure injected
+    at step ``RESUME_FAIL_AT``, then resumed from its checkpoint.  The
+    parameters and optimizer state must equal the uninterrupted run's bit
+    for bit.  Prints a checkpoint's bytes and the seconds of a
+    synchronous write.  Checkpoints go under ``build/`` in the checkout
+    and are removed."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.training import OptimizerConfig, TrainConfig, Trainer
+    from repro_torch.training.optimizer import tree_leaves
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=RESUME_LAYERS)
+    root = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(name, fail_at=None):
+        tc = TrainConfig(optimizer=OptimizerConfig(name="adafactor"),
+                         checkpoint_dir=str(root / name),
+                         checkpoint_every=RESUME_EVERY, keep_last=1,
+                         log_every=100)
+        return Trainer(cfg, tc, batch_size=4, seq_len=512, seed=SEED,
+                       fail_at_step=fail_at, device=dev)
+    try:
+        ref = trainer("uninterrupted").run(RESUME_STEPS)
+        shutil.rmtree(root / "uninterrupted")
+        try:
+            trainer("crashed", RESUME_FAIL_AT).run(RESUME_STEPS)
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("train_resume: no failure was injected")
+        deadline = time.time() + 120
+        while time.time() < deadline and \
+                ckpt.available_steps(str(root / "crashed")) != \
+                [RESUME_FAIL_AT]:
+            time.sleep(0.2)
+        survived = ckpt.available_steps(str(root / "crashed"))
+        t1 = time.perf_counter()
+        resumed = trainer("crashed").run(RESUME_STEPS)
+        resume_s = time.perf_counter() - t1
+        a = tree_leaves({"params": ref["params"], "opt": ref["opt"]})
+        b = tree_leaves({"params": resumed["params"],
+                         "opt": resumed["opt"]})
+        differ = [p for p, x, y in zip(
+            leaf_paths({"params": ref["params"], "opt": ref["opt"]}), a, b)
+            if not torch.equal(x, y)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        path = ckpt.save(str(root / "timed"), RESUME_STEPS, resumed)
+        write_s = time.perf_counter() - t1
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        emit({"phase": "train_resume", "card": card,
+              "model": f"{TRAIN_ARCH} at full width, {RESUME_LAYERS} "
+                       "layers, Adafactor, batch 4 x 512",
+              "steps": RESUME_STEPS, "checkpoint_every": RESUME_EVERY,
+              "failure_at": RESUME_FAIL_AT,
+              "checkpoints_after_the_crash": survived,
+              "resumed_at_step": int(resumed["step"]),
+              "leaves": len(a), "leaves_not_bit_equal": differ,
+              "resume_run_s": resume_s, "checkpoint_bytes": nbytes,
+              "checkpoint_write_s": write_s,
+              "phase_s": time.perf_counter() - t0})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if survived != [RESUME_FAIL_AT] or int(resumed["step"]) != RESUME_STEPS:
+        raise AssertionError(f"train_resume: checkpoints {survived}, "
+                             f"resumed to {int(resumed['step'])}")
+    if differ:
+        raise AssertionError(f"train_resume: {len(differ)} leaves differ "
+                             f"from the uninterrupted run: {differ[:5]}")
+
+
+def train_cli(card: str) -> None:
+    """(e) ``python -m repro_torch.launch.train`` at full width in a
+    subprocess: rc 0 and its final line."""
+    import os
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--steps", "2", "--batch", "2", "--seq", "128"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    lines = proc.stdout.strip().splitlines()
+    emit({"phase": "train_cli", "card": card, "command": " ".join(
+              ["python -m repro_torch.launch.train"] + cmd[3:]),
+          "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+          "stdout_tail": lines[-4:],
+          "stderr_tail": proc.stderr.strip().splitlines()[-5:]})
+    if proc.returncode != 0 or not any(ln.startswith("done at step 2")
+                                       for ln in lines):
+        raise AssertionError(f"train_cli: rc {proc.returncode}")
+
+
+def train_phase(dev, card: str) -> dict:
+    """Phase 10 (after every serving phase, every client freed): the
+    kernels' Functions alone, (a) the gradient check, (b) the timed
+    trainer with (c) its profiled step, (d) the crash and resume drill,
+    (e) the CLI.  Returns (b)'s launches."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    train_function_checks(dev, gen, card)
+    release_memory()
+    train_grad_check(dev, card)
+    release_memory()
+    launches = train_timed(dev, card)
+    release_memory()
+    train_resume(dev, card)
+    release_memory()
+    train_cli(card)
+    emit({"phase": "train_seconds", "card": card,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def release_memory() -> None:
     """Free what a finished phase left (its client holds reference
     cycles), so the next phase's peak memory is its own."""
@@ -4948,6 +5416,10 @@ def main() -> int:
     # on the classify phase's cost table, the CLI
     pool_launches = serve_pool(dev, card, classified)
     release_memory()
+    # training at full width: the norm and softmax kernels with their
+    # gradients, the trainer, checkpoints and the CLI
+    train_launches = train_phase(dev, card)
+    release_memory()
     names = {"fused_norm": "norm", "flash_attention": "flash_attention",
              "flash_attention_packed": "flash_attention_packed",
              "flash_attention_packed_plan": "flash_attention_packed_plan",
@@ -4970,6 +5442,7 @@ def main() -> int:
         item["launches_in_serve_falcon_mamba"] = \
             falcon_launches.get(counter, 0)
         item["launches_in_serve_zamba2"] = zamba_launches.get(counter, 0)
+        item["launches_in_train"] = train_launches.get(counter, 0)
         kernels.append(item)
     for item in kernels:
         for k, val in item.items():

@@ -1,5 +1,6 @@
-"""Request streams for the serving paths (the serving part of the JAX
-package's `repro.data`)."""
-from repro_torch.data.pipeline import LengthDistribution, RequestGenerator
+"""Training batches and request streams (the JAX package's
+`repro.data`)."""
+from repro_torch.data.pipeline import (LengthDistribution, RequestGenerator,
+                                       TokenStream)
 
-__all__ = ["LengthDistribution", "RequestGenerator"]
+__all__ = ["LengthDistribution", "RequestGenerator", "TokenStream"]

@@ -8,7 +8,10 @@ the same keys and the same einsum layouts (``wq`` (d,H,dh), ``wo``
 ``tok`` (K,V,d) and ``head`` (K,d,V) with K = max(num_codebooks, 1): one
 table of each a codebook; the mamba blocks' leaves, their f32 ``A_log``,
 ``D`` and ``dt_bias`` kept f32, and the hybrid's ``shared`` block).
-Nothing here imports JAX.
+A train state (``{"params", "opt", "step"}``, `repro_torch.training`)
+crosses the same way: :func:`params_from_numpy` takes any nested dict,
+and :func:`tree_to_numpy` carries the port's tree back (bf16 leaves as
+f32, which holds them exactly).  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -36,3 +39,15 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def tree_to_numpy(tree: Any) -> Any:
+    """Nested dict of tensors -> the same dict of numpy arrays on the
+    host; a bfloat16 tensor becomes float32 (exact), since numpy has no
+    bfloat16 of its own."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -9,15 +9,19 @@ d, V), K = max(num_codebooks, 1)).  The norms go
 through the fused norm kernel (`repro_torch.kernels.ops`); the large
 matrix products are plain ``torch.matmul``.  ``attention_naive`` is the
 paper's attention (batched GEMM, the fused mask + softmax kernel, batched
-GEMM).
+GEMM); ``attention_chunked_train`` runs it a block of queries at a time
+under activation checkpointing.  ``embed_tokens`` gathers through
+``gather_rows``, whose gradient is the same on every run.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -289,6 +293,29 @@ def attention_naive(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
+def attention_chunked_train(cfg: ModelConfig, q: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True,
+                            q_block: int = 512) -> torch.Tensor:
+    """Training-path blockwise attention: each block of ``q_block``
+    queries is :func:`attention_naive` at its offset (scores in the
+    activation dtype, cast to f32, the softmax kernel with each row's
+    causal length, times V), wrapped in ``torch.utils.checkpoint``, so
+    the backward recomputes one block's (q_block x Sk) scores at a time
+    instead of keeping every block's.  The last block runs at its true
+    length where the JAX package pads it (padded queries are dropped
+    there).  Rows of at most the softmax kernel's width on the card."""
+    sq = q.shape[1]
+    q_block = min(q_block, sq)
+    outs = []
+    for s0 in range(0, sq, q_block):
+        block = functools.partial(attention_naive, cfg, causal=causal,
+                                  q_offset=s0)
+        outs.append(checkpoint(block, q[:, s0:s0 + q_block], k, v,
+                               use_reentrant=False))
+    return torch.cat(outs, dim=1)
+
+
 def attention_packed(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, *, q_seg: torch.Tensor,
                      k_seg: torch.Tensor, q_pos: torch.Tensor,
@@ -331,15 +358,52 @@ def apply_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class _GatherRows(torch.autograd.Function):
+    """``table[idx]`` whose backward sums each row's gradients without
+    atomics: the indices' gradients are grouped by a stable sort and each
+    group summed in order (``segment_reduce``), so a step's gradient is
+    the same on every run.  Autograd's own backward of the lookup is an
+    accumulating ``index_put_``, which adds on the card through atomics
+    in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        gf = g.reshape((flat.numel(),) + tuple(ctx.shape[1:])).float()
+        rows, inverse, counts = torch.unique(flat, return_inverse=True,
+                                             return_counts=True)
+        order = torch.sort(inverse, stable=True).indices
+        sums = torch.segment_reduce(gf[order], "sum", lengths=counts,
+                                    axis=0)
+        out = torch.zeros(ctx.shape, dtype=torch.float32, device=g.device)
+        out.index_copy_(0, rows, sums)
+        return out.to(ctx.dtype), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (idx int64); where ``table`` needs a gradient, one
+    that is the same on every run (:class:`_GatherRows`)."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _GatherRows.apply(table, idx)
+    return table[idx]
+
+
 def embed_tokens(cfg: ModelConfig, p: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B,S), or (B,K,S) for a codebook model, whose K codebook
     embeddings of a frame are summed in codebook order -> (B,S,d)."""
     if tokens.dim() == 2:
-        return p["tok"][0][tokens.long()]
-    h = p["tok"][0][tokens[:, 0].long()]
+        return gather_rows(p["tok"][0], tokens.long())
+    h = gather_rows(p["tok"][0], tokens[:, 0].long())
     for i in range(1, tokens.shape[1]):
-        h = h + p["tok"][i][tokens[:, i].long()]
+        h = h + gather_rows(p["tok"][i], tokens[:, i].long())
     return h
 
 

@@ -14,9 +14,11 @@ a value back to the host, so the decode tick and the prefill cells
 capture it as CUDA graphs.  Nothing adds in an unspecified order: the
 combine sums each token's k contributions in k order in the activations'
 dtype, as the JAX package's sequential scatter-add does, so a replay is
-bit-equal to its eager body.  The expert products are plain batched
-matrix products, which the JAX package leaves to XLA outside any Pallas
-kernel.
+bit-equal to its eager body; in a training forward the two gathers
+(tokens into the expert batch, expert rows back to tokens) go through
+``gather_rows``, whose gradient adds without atomics.  The expert
+products are plain batched matrix products, which the JAX package leaves
+to XLA outside any Pallas kernel.
 
 At decode a tick of B <= 8 rows never drops: the capacity is at least 8
 (:func:`expert_capacity`) and each token picks k distinct experts, so no
@@ -30,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, gather_rows
 
 Params = Dict[str, torch.Tensor]
 
@@ -110,7 +112,7 @@ def _dispatch_group(x2d: torch.Tensor, idx: torch.Tensor,
     table = table[:-1].reshape(e, cap)
     valid = table < n
     tok_for_slot = flat_token[torch.where(valid, table, 0)]
-    xin = x2d[tok_for_slot] * valid[..., None].to(dtype)
+    xin = gather_rows(x2d, tok_for_slot) * valid[..., None].to(dtype)
     return xin, slot, flat_token, flat_weight, keep
 
 
@@ -122,7 +124,7 @@ def _combine_group(yflat: torch.Tensor, slot: torch.Tensor,
     ``dtype``.  ``flat_token`` is ``repeat(arange(tg), k)``: token t's
     contributions are rows t*k .. t*k+k-1, so the JAX package's
     scatter-add over it is this sum, without an atomic."""
-    contrib = yflat[slot] * flat_weight[:, None] * \
+    contrib = gather_rows(yflat, slot) * flat_weight[:, None] * \
         keep.to(dtype)[:, None]
     contrib = contrib.reshape(tg, -1, d)
     out = contrib[:, 0]

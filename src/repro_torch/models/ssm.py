@@ -119,8 +119,20 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     broadcast against ``b`` in its trailing dims.  Each round writes a
     second buffer (``b + a * b`` shifted as one fused ``addcmul``) and
     the two swap, so a round reads each operand once and writes once
-    (``a`` and ``b`` themselves are overwritten)."""
+    (``a`` and ``b`` themselves are overwritten).  Where grad mode is on
+    and ``a`` or ``b`` requires grad (autograd refuses ``out=`` there),
+    each round builds fresh tensors from the same ops in the same order,
+    bit for bit the same result."""
     c = a.shape[1]
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        d = 1
+        while d < c:
+            b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], a[:, d:],
+                                                   b[:, :-d])], dim=1)
+            if 2 * d < c:
+                a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+            d *= 2
+        return b
     b_next, a_next = torch.empty_like(b), torch.empty_like(a)
     d = 1
     while d < c:
@@ -139,7 +151,8 @@ def _chunk_scan(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor,
                 log_a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """h_t = a_t * h_{t-1} + bx_t over the chunk's time axis (axis=1).
 
-    a, bx: (B, c, ...), overwritten; h0: (B, ...). Returns (h_all
+    a, bx: (B, c, ...), overwritten unless they need a gradient
+    (:func:`_linear_scan`); h0: (B, ...). Returns (h_all
     (B,c,...), h_last).  ``log_a`` = log of a (for the stable cumulative
     product exp(cumsum)).
     """

@@ -1,5 +1,5 @@
-"""The port's decoder: init, prompt prefill and decode over a paged or a
-contiguous KV cache.
+"""The port's decoder: init, the training loss, prompt prefill and decode
+over a paged or a contiguous KV cache.
 
 Counterpart of `repro.models.transformer` for every family: the
 transformer ones, dense, VLM, audio and MoE (``[norm -> GQA attn -> norm
@@ -39,12 +39,23 @@ layer's conv window ``conv`` (L, B, k-1, d_inner) and f32 scan state
 ``state`` (`repro_torch.models.ssm`), and the hybrid's also the shared
 block's KV, ``shared_k`` / ``shared_v`` (n_apps, B, S, KV, dh), one
 stripe per application; a decode step writes all of them in place.
+
+:func:`forward_train` is the training loss of every family under a
+:class:`ModelRuntime` (attention route, remat policy, aux-loss weight),
+the JAX package's: its attention is ``attention_naive`` or, blockwise,
+``attention_chunked_train``, never a flash kernel (which has no
+backward), and the MoE's aux loss is carried out of the layer loop.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import FAMILIES, SSM_FAMILIES, ModelConfig
 from repro_torch.kernels import ops
@@ -78,12 +89,19 @@ def _no_codebooks(cfg: ModelConfig, what: str) -> None:
         raise ValueError(f"{what} does not support codebook models")
 
 
-def _ffn(cfg: ModelConfig, blk: Params, x: torch.Tensor) -> torch.Tensor:
-    """The block's feed-forward: the MoE layer (its aux loss dropped, as
-    the JAX package's inference paths drop it) or the dense FFN."""
+def _ffn_aux(cfg: ModelConfig, blk: Params, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's feed-forward and its aux loss: the MoE layer's
+    load-balancing loss, or None for the dense FFN."""
     if cfg.family == "moe":
-        return M.apply_moe(cfg, blk["moe"], x)[0]
-    return L.apply_ffn(cfg, blk["ffn"], x)
+        return M.apply_moe(cfg, blk["moe"], x)
+    return L.apply_ffn(cfg, blk["ffn"], x), None
+
+
+def _ffn(cfg: ModelConfig, blk: Params, x: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward, its aux loss dropped, as the JAX
+    package's inference paths drop it."""
+    return _ffn_aux(cfg, blk, x)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -328,21 +346,30 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             for key in SEQ_LEAVES:
                 if key in parts:
                     parts[key][:, :, s:].zero_()
+    attend = functools.partial(_prompt_attention, attn=attn, cfg=cfg)
     if cfg.family in SSM_FAMILIES:
-        return _forward_hidden_ssm(cfg, params, h, positions, attn, parts)
+        return _forward_hidden_ssm(cfg, params, h, positions, attend, parts)
     for i in range(cfg.num_layers):
-        blk = layer_params(params, i)
-        hn = L.apply_norm(cfg, blk["norm1"], h)
-        q, k, v = L.qkv_project(cfg, blk["attn"], hn, positions)
-        a = _prompt_attention(q, k, v, attn, cfg)
-        out = L.attention_output(blk["attn"], a)
-        hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
-        h = h + _ffn(cfg, blk, hn2)
+        h, _, k, v = _attn_layer(cfg, layer_params(params, i), h, positions,
+                                 attend)
         if parts is not None:
             parts["k"][i, :, :s] = k
             parts["v"][i, :, :s] = v
     h = L.apply_norm(cfg, params["final_norm"], h)
     return h, parts
+
+
+def _attn_layer(cfg: ModelConfig, blk: Params, h: torch.Tensor,
+                positions: torch.Tensor, attend):
+    """One layer of a transformer family over a whole sequence: norm ->
+    qkv + rope -> ``attend(q, k, v)`` -> wo -> (+ h) norm -> FFN or MoE
+    (+ h).  Returns ``(h, aux, k, v)``, aux the MoE's loss or None."""
+    hn = L.apply_norm(cfg, blk["norm1"], h)
+    q, k, v = L.qkv_project(cfg, blk["attn"], hn, positions)
+    out = L.attention_output(blk["attn"], attend(q, k, v))
+    hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
+    f, aux = _ffn_aux(cfg, blk, hn2)
+    return h + f, aux, k, v
 
 
 def _prompt_attention(q, k, v, attn: str, cfg: ModelConfig):
@@ -365,40 +392,222 @@ def _norm_add(cfg: ModelConfig, p: Params, h: torch.Tensor,
 
 
 def _forward_hidden_ssm(cfg: ModelConfig, params: Params, h: torch.Tensor,
-                        positions: torch.Tensor, attn: str,
+                        positions: torch.Tensor, attend,
                         parts: Optional[Dict[str, torch.Tensor]]):
     """The mamba backbone over whole prompts (no padding: the state would
     roll through it); the hybrid runs its shared block (norm -> qkv +
-    rope -> causal attention -> wo -> norm -> FFN) after every
+    rope -> ``attend`` -> wo -> norm -> FFN) after every
     ``attn_every``-th layer.  Where ``parts`` is given, every layer's
     conv window and scan state go there, and each application's k/v
     into the first S positions of ``shared_k`` / ``shared_v``."""
     s = h.shape[1]
-    shared = params.get("shared")
     out, app = None, 0
     for i in range(cfg.num_layers):
-        blk = layer_params(params, i)
-        hn, h = _norm_add(cfg, blk["norm1"], h, out)
-        out, conv, state = S.apply_mamba_with_state(cfg, blk["mamba"], hn,
-                                                    None)
+        h, out, conv, state, kv = _ssm_layer(
+            cfg, layer_params(params, i), _shared_at(cfg, params, i), h,
+            out, positions, attend)
         if parts is not None:
             parts["conv"][i] = conv
             parts["state"][i] = state
-        if not _shared_after(cfg, i):
+        if kv is None:
             continue
-        hn, h = _norm_add(cfg, shared["norm1"], h, out)
-        q, k, v = L.qkv_project(cfg, shared["attn"], hn, positions)
-        a = _prompt_attention(q, k, v, attn, cfg)
-        hn2, h = L.apply_norm(cfg, shared["norm2"],
-                              L.attention_output(shared["attn"], a),
-                              residual=h)
-        out = L.apply_ffn(cfg, shared["ffn"], hn2)
         if parts is not None:
-            parts["shared_k"][app, :, :s] = k
-            parts["shared_v"][app, :, :s] = v
+            parts["shared_k"][app, :, :s] = kv[0]
+            parts["shared_v"][app, :, :s] = kv[1]
         app += 1
     h, _ = _norm_add(cfg, params["final_norm"], h, out)
     return h, parts
+
+
+def _shared_at(cfg: ModelConfig, params: Params, i: int):
+    """The hybrid's shared block where it runs after layer ``i``, else
+    None."""
+    return params["shared"] if _shared_after(cfg, i) else None
+
+
+def _ssm_layer(cfg: ModelConfig, blk: Params, shared: Optional[Params],
+               h: torch.Tensor, out: Optional[torch.Tensor],
+               positions: torch.Tensor, attend):
+    """One mamba layer over a whole sequence, and after it the shared
+    block where ``shared`` is given.  The residual stream ``h`` takes the
+    previous block's ``out`` in this layer's norm.  Returns ``(h, out,
+    conv, state, kv)``: the layer's conv window and scan state, and the
+    shared block's ``(k, v)`` or None."""
+    hn, h = _norm_add(cfg, blk["norm1"], h, out)
+    out, conv, state = S.apply_mamba_with_state(cfg, blk["mamba"], hn, None)
+    if shared is None:
+        return h, out, conv, state, None
+    hn, h = _norm_add(cfg, shared["norm1"], h, out)
+    q, k, v = L.qkv_project(cfg, shared["attn"], hn, positions)
+    hn2, h = L.apply_norm(cfg, shared["norm2"],
+                          L.attention_output(shared["attn"], attend(q, k, v)),
+                          residual=h)
+    return h, L.apply_ffn(cfg, shared["ffn"], hn2), conv, state, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ModelRuntime:
+    """Execution knobs independent of the architecture: the JAX package's
+    fields and defaults.  The port reads them on its train path
+    (:func:`forward_train`): ``attn_impl`` (naive | chunked |
+    chunked_train | auto, chunked at or above ``chunked_threshold``
+    tokens), ``q_block``, ``remat`` (none | full | dots) and
+    ``aux_loss_weight``.  ``kv_block`` sizes the JAX package's online
+    softmax, which the port does not run (its chunked route is
+    ``attention_chunked_train``).  ``unroll_decode`` has no effect: the
+    port's decode is always an unrolled Python loop writing each layer's
+    cache in place, the JAX package's unrolled form.  ``seq_shard``
+    (sequence parallelism of the residual stream over a mesh) raises
+    until the port has a mesh."""
+    attn_impl: str = "auto"        # naive | chunked | chunked_train | auto
+    q_block: int = 512
+    kv_block: int = 1024
+    remat: str = "none"            # none | full | dots
+    chunked_threshold: int = 2048  # auto: chunked when S >= this
+    aux_loss_weight: float = 0.01
+    seq_shard: bool = False
+    unroll_decode: bool = False
+
+    def __post_init__(self):
+        if self.seq_shard:
+            raise NotImplementedError(
+                "seq_shard shards the residual stream over a device mesh; "
+                "the port runs on one device until distributed/ is ported")
+
+
+DEFAULT_RUNTIME = ModelRuntime()
+
+#: the matrix products a ``remat="dots"`` checkpoint keeps: those without
+#: batch dims (the JAX package's ``checkpoint_dots_with_no_batch_dims``);
+#: the batched ones (attention scores, the experts, the scan's einsums)
+#: are recomputed with everything else
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, rt: ModelRuntime):
+    """``fn`` as the runtime's remat policy runs it: as is (``none``),
+    recomputed in the backward (``full``: ``torch.utils.checkpoint``), or
+    recomputed but for the matrix products of :data:`_SAVED_DOTS`
+    (``dots``: a selective checkpoint)."""
+    if rt.remat == "none":
+        return fn
+    if rt.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if rt.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"remat={rt.remat!r}: expected none, full or dots")
+
+
+def _train_attention(cfg: ModelConfig, rt: ModelRuntime, q, k, v):
+    """Causal attention of a training forward by ``rt.attn_impl``:
+    ``naive`` through `repro_torch.models.layers.attention_naive` (the
+    softmax kernel with its gradient); ``chunked_train``, and
+    ``chunked`` or ``auto`` at or above ``chunked_threshold``, through
+    ``attention_chunked_train``.  The JAX package's ``chunked`` is its
+    online-softmax ``attention_chunked``, which computes the same
+    function up to rounding; the port has no backward for a flash
+    kernel, so it trains both chunked routes one way."""
+    impl = rt.attn_impl
+    if impl == "auto":
+        impl = "chunked" if q.shape[1] >= rt.chunked_threshold else "naive"
+    if impl in ("chunked", "chunked_train"):
+        return L.attention_chunked_train(cfg, q, k, v, causal=True,
+                                         q_block=rt.q_block)
+    if impl == "naive":
+        return L.attention_naive(cfg, q, k, v, causal=True)
+    raise ValueError(f"attn_impl={impl!r}: expected naive, chunked, "
+                     "chunked_train or auto")
+
+
+def _unbind_layers(cfg: ModelConfig, params: Params) -> List[Params]:
+    """Every layer's slice of the stacked tree as views, from one
+    ``torch.unbind`` per leaf: its backward stacks the L gradients in one
+    op, where L indexings (:func:`layer_params`) would each add a
+    zero-filled gradient of the whole stack."""
+    def unbind(tree):
+        if isinstance(tree, dict):
+            return {k: unbind(v) for k, v in tree.items()}
+        return tree.unbind(0)
+
+    def pick(tree, i):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return tree[i]
+    slices = unbind(params["layers"])
+    return [pick(slices, i) for i in range(cfg.num_layers)]
+
+
+def _hidden_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                  rt: ModelRuntime,
+                  embeds_override: Optional[torch.Tensor],
+                  num_prefix_patches: int):
+    """The training forward up to the final norm: ``(h, aux)``, aux the
+    MoE layers' losses summed in layer order (0 for the other families,
+    as in the JAX package).  Each layer (a mamba layer with the shared
+    block that follows it) runs under the remat policy."""
+    b, s = tokens.shape[0], tokens.shape[-1]
+    h = embed_inputs(cfg, params, tokens, embeds_override)
+    positions = L.positions_for(cfg, (b, s), num_prefix_patches,
+                                device=tokens.device)
+    attend = functools.partial(_train_attention, cfg, rt)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    blocks = _unbind_layers(cfg, params)
+    if cfg.family in SSM_FAMILIES:
+        layer = _maybe_remat(
+            lambda h, out, blk, shared: _ssm_layer(
+                cfg, blk, shared, h, out, positions, attend)[:2], rt)
+        out = None
+        for i, blk in enumerate(blocks):
+            h, out = layer(h, out, blk, _shared_at(cfg, params, i))
+        return _norm_add(cfg, params["final_norm"], h, out)[0], aux
+    layer = _maybe_remat(
+        lambda h, blk: _attn_layer(cfg, blk, h, positions, attend)[:2], rt)
+    for blk in blocks:
+        h, aux_l = layer(h, blk)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return L.apply_norm(cfg, params["final_norm"], h), aux
+
+
+def forward_train(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
+                  *, rt: ModelRuntime = DEFAULT_RUNTIME):
+    """batch: ``tokens`` (B,S) or (B,K,S) codes, ``labels`` of the same
+    shape, and a VLM's ``embeds_override``.  Returns ``(loss +
+    rt.aux_loss_weight * aux, {"loss", "aux_loss", "perplexity"})``: the
+    mean next-token cross entropy in f32 over every position (and
+    codebook), the MoE's load-balancing loss, and ``exp(min(loss,
+    20))``.  Every family; the norms and the attention softmax go through
+    the kernels with their gradients (`repro_torch.kernels.autograd`)."""
+    _check_family(cfg)
+    tokens, labels = batch["tokens"], batch["labels"]
+    override = batch.get("embeds_override")
+    n_img = 0 if override is None else override.shape[1]
+    h, aux = _hidden_train(cfg, params, tokens, rt, override, n_img)
+    logits = L.lm_logits(cfg, params["embed"], h).float()
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1).long())
+    total = loss + rt.aux_loss_weight * aux
+    return total, {"loss": loss, "aux_loss": aux,
+                   "perplexity": torch.exp(torch.clamp(loss, max=20.0))}
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

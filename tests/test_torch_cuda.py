@@ -2150,3 +2150,102 @@ def test_cuda_hybrid_decode_launches_per_tick(cuda):
             apps * ce.prefill_dispatches
         assert cuda_lib.LAUNCHES["norm"] == \
             (cfg.num_layers + 2 * apps + 1) * (steps + ce.prefill_dispatches)
+
+
+# ---------------------------------------------------------------------------
+# Training: the kernels' gradients and a deterministic train step
+# ---------------------------------------------------------------------------
+
+
+def _grad_of(fn, inputs, up):
+    out = fn(*inputs)
+    outs = out if isinstance(out, tuple) else (out,)
+    loss = sum((o.float() * u).sum() for o, u in zip(outs, up))
+    return torch.autograd.grad(loss, [t for t in inputs if t is not None])
+
+
+@pytest.mark.parametrize("rms", [True, False])
+def test_cuda_norm_gradient_matches_plain(cuda, rms):
+    """The norm's Function on the card (forward: the kernel) against
+    autograd through the plain version: bf16 rows of 2048 with a
+    residual and the sum returned.  The Function's backward computes in
+    f32 from the inputs and rounds once; autograd rounds at each bf16 op
+    of the plain version: within two bf16 ulps of the largest gradient."""
+    x, res, bias, gamma, beta = _norm_inputs(cuda, 256, 2048, torch.bfloat16,
+                                             seed=7)
+    inputs = [t.clone().requires_grad_(True)
+              for t in ((x, gamma, bias, res) if rms
+                        else (x, gamma, beta, bias, res))]
+    g = _gen(cuda, 8)
+    up = [torch.randn((256, 2048), generator=g, device=cuda)
+          for _ in range(2)]
+    if rms:
+        kern = lambda x, gm, b, r: ops.fused_rmsnorm(  # noqa: E731
+            x, gm, b, r, return_residual=True)
+        plain = lambda x, gm, b, r: ref.rmsnorm_ref(  # noqa: E731
+            x, gm, b, r, 1e-6, True)
+    else:
+        kern = lambda x, gm, bt, b, r: ops.fused_layernorm(  # noqa: E731
+            x, gm, bt, b, r, return_residual=True)
+        plain = lambda x, gm, bt, b, r: ref.layernorm_ref(  # noqa: E731
+            x, gm, bt, b, r, 1e-6, True)
+    cuda_lib.reset_launches()
+    got = _grad_of(kern, inputs, up)
+    assert cuda_lib.LAUNCHES["norm"] == 1
+    want = _grad_of(plain, inputs, up)
+    for a, w in zip(got, want):
+        top = float(w.float().abs().max())
+        torch.testing.assert_close(a.float(), w.float(), rtol=2 ** -7,
+                                   atol=2 * top * 2 ** -8)
+
+
+def test_cuda_softmax_gradient_matches_plain(cuda):
+    """The masked softmax's Function on the card against autograd
+    through the plain version: f32 rows of 512 with causal lengths (one
+    empty), a scale; the kernel's weights and the plain ones differ in
+    summation order only, hence 1e-5."""
+    g = _gen(cuda, 9)
+    r, c = 1024, 512
+    x = (torch.randn((r, c), generator=g, device=cuda) * 4).requires_grad_()
+    lengths = (torch.arange(r, device=cuda, dtype=torch.int32) % (c + 1))
+    up = [torch.randn((r, c), generator=g, device=cuda)]
+    cuda_lib.reset_launches()
+    (got,) = _grad_of(lambda t: ops.fused_softmax(t, lengths, scale=0.088),
+                      [x], up)
+    assert cuda_lib.LAUNCHES["softmax"] == 1
+    (want,) = _grad_of(lambda t: ref.softmax_ref(t, lengths, 0.088), [x], up)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert not bool(got[0].any())
+
+
+def test_cuda_train_steps_are_bit_equal(cuda):
+    """Two identical runs of two train steps (the smoke InternLM2, bf16
+    compute, AdamW) from the same state on the same batch end in the
+    same bits: no atomic adds in the gradient (the embedding's gather
+    sums by segment), and every step launches the norm and softmax
+    kernels (2L + 1 and L a microbatch)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TokenStream
+    from repro_torch.training import TrainConfig, init_state, make_train_step
+    cfg = get_smoke_config("internlm2-1.8b")
+    tc = TrainConfig()
+    batch = TokenStream(cfg, 4, 64, seed=1, device=cuda).batch(0)
+    runs = []
+    for _ in range(2):
+        state = init_state(cfg, tc, seed=0, device=cuda)
+        step = make_train_step(cfg, tc)
+        cuda_lib.reset_launches()
+        for _ in range(2):
+            state, metrics = step(state, batch)
+        assert cuda_lib.LAUNCHES["norm"] == 2 * (2 * cfg.num_layers + 1)
+        assert cuda_lib.LAUNCHES["softmax"] == 2 * cfg.num_layers
+        runs.append((state, float(metrics["loss"])))
+    (a, la), (b, lb) = runs
+    assert la == lb
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [tree]
+    for x, y in zip(leaves(a), leaves(b)):
+        assert torch.equal(x, y)

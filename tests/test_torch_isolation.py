@@ -51,7 +51,9 @@ def test_scan_covers_the_serving_modules():
     """The scan above reads every module of the port, the prefix cache,
     the chunked-prefill path, the MoE layer and the serving tier (pool,
     router, simulator, CLI), the modality front ends and model inputs
-    and the mamba blocks, with their configs, among them."""
+    and the mamba blocks, with their configs, and the training path
+    (the kernels' gradients, optimizers, train loop, checkpoints, CLI)
+    among them."""
     names = {p.relative_to(PORT).as_posix() for p in _port_files()
              if PORT in p.parents}
     assert {"runtime/prefix_cache.py", "runtime/engine.py",
@@ -64,7 +66,10 @@ def test_scan_covers_the_serving_modules():
             "configs/starcoder2_15b.py", "configs/musicgen_large.py",
             "configs/qwen3_32b.py", "configs/llama3_405b.py",
             "models/ssm.py", "configs/falcon_mamba_7b.py",
-            "configs/zamba2_1_2b.py"} <= names
+            "configs/zamba2_1_2b.py", "kernels/autograd.py",
+            "training/optimizer.py", "training/train_loop.py",
+            "runtime/checkpoint.py", "data/pipeline.py",
+            "launch/train.py"} <= names
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -90,6 +95,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert InferenceEngine(cfg, params, device="cpu").device.type == "cpu"
     with pytest.raises(ValueError, match="unsupported device"):
         init_params(cfg, device="meta")
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.training import TrainConfig, Trainer, init_state
+    tc = TrainConfig()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, tc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(cfg, tc)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TokenStream(cfg, 2, 8).batch(0)
+    monkeypatch.setattr(sys, "argv", ["train", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main()
+    assert Trainer(cfg, tc, device="cpu").device.type == "cpu"
 
 
 class _OnCuda(torch.Tensor):

@@ -6,7 +6,9 @@ name with the JAX package's, the model functions `prefill`,
 `prefill_suffix`, `prefill_packed`, `decode_step` and `embed_inputs`,
 the layer function `positions_for`, and the mamba block's
 `apply_mamba`, `apply_mamba_with_state`, `apply_mamba_step` and
-`ssm_state_shapes`, keep the
+`ssm_state_shapes`, and the training API (`forward_train`,
+`make_train_step`, `init_state`, `Trainer`, `TrainConfig`,
+`OptimizerConfig`, `apply_optimizer`, `TokenStream`), keep the
 reference's parameter names, order, kinds and defaults.  The reference's signatures are read through `inspect`, so a
 change there shows here.  The planned differences are named in
 `PORT_ONLY`, `REF_ONLY` and `PLANNED_DEFAULTS`, each with its reason;
@@ -24,6 +26,7 @@ import torch
 from repro.api import client as ref_client
 from repro.cluster import pool as ref_pool
 from repro.cluster import router as ref_router
+from repro.data import pipeline as ref_data
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import init_params as jax_init_params
 from repro.models import prefill as jax_prefill
@@ -31,10 +34,13 @@ from repro.models import layers as ref_layers
 from repro.models import ssm as ref_ssm
 from repro.models import transformer as ref_models
 from repro.runtime import engine as ref_engine
+from repro.training import optimizer as ref_optimizer
+from repro.training import train_loop as ref_train
 from repro_torch.api import client as port_client
 from repro_torch.cluster import pool as port_pool
 from repro_torch.cluster import router as port_router
 from repro_torch.configs import get_smoke_config
+from repro_torch.data import pipeline as port_data
 from repro_torch.models import init_params, prefill
 from repro_torch.models import layers as port_layers
 from repro_torch.models import ssm as port_ssm
@@ -42,6 +48,8 @@ from repro_torch.models import transformer as port_models
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.runtime import engine as port_engine
 from repro_torch.runtime.bucketing import BucketLadder
+from repro_torch.training import optimizer as port_optimizer
+from repro_torch.training import train_loop as port_train
 
 ARCH = "internlm2-1.8b"
 
@@ -50,8 +58,10 @@ ARCH = "internlm2-1.8b"
 #: cell writes its KV into static buffers); ``prompt_kv_only`` (a paged
 #: per-group prefill keeps only the prompt's KV)
 PORT_ONLY = {"device", "kv_out", "prompt_kv_only"}
-#: the reference's parameters the port lacks: ``rt`` (the model runtime:
-#: sharding, remat, attention routes)
+#: the reference's parameters the port's serving callables lack: ``rt``
+#: (the model runtime: sharding, remat, attention routes), which the
+#: port's serving paths do not read (their attention is the flash and
+#: decode kernels'); the training callables take it (``TRAIN_PAIRS``)
 REF_ONLY = {"rt"}
 #: defaults that differ on purpose, (callable, parameter) -> (reference's,
 #: port's), normalised as by `_default`: the port's model functions
@@ -104,6 +114,19 @@ PAIRS = (
        for n in LAYER_FUNCTIONS]
     + [(n, getattr(ref_ssm, n), getattr(port_ssm, n))
        for n in SSM_FUNCTIONS])
+
+
+#: the training API: every parameter the reference's has, ``rt``
+#: included, plus the port's ``device``
+TRAIN_PAIRS = (
+    [("forward_train", ref_models.forward_train,
+      port_models.forward_train)]
+    + [(n, getattr(ref_train, n), getattr(port_train, n))
+       for n in ("make_train_step", "init_state", "Trainer",
+                 "TrainConfig")]
+    + [(n, getattr(ref_optimizer, n), getattr(port_optimizer, n))
+       for n in ("OptimizerConfig", "apply_optimizer")]
+    + [("TokenStream", ref_data.TokenStream, port_data.TokenStream)])
 
 
 def _default(value):
@@ -159,6 +182,12 @@ def test_signature_matches_reference(name, ref_fn, port_fn):
         assert (default, port[i][2]) == planned, (name, pname)
         ref[i] = port[i] = (pname, kind, None)
     assert port == ref, name
+
+
+@pytest.mark.parametrize("name,ref_fn,port_fn", TRAIN_PAIRS,
+                         ids=[n for n, _, _ in TRAIN_PAIRS])
+def test_train_signature_matches_reference(name, ref_fn, port_fn):
+    assert _params(port_fn, PORT_ONLY) == _params(ref_fn, set()), name
 
 
 def test_planned_differences_are_still_differences():
