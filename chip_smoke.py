@@ -239,10 +239,33 @@ Phases, each printing one JSON line:
    4, resumed: parameters and optimizer state bit-equal to an
    uninterrupted run; a checkpoint's bytes and write seconds); (e)
    ``python -m repro_torch.launch.train --arch internlm2-1.8b --steps 2
-   --batch 2 --seq 128`` in a subprocess, rc 0.
+   --batch 2 --seq 128`` in a subprocess, rc 0;
+11. examples: the four examples of ``examples/torch`` in this process
+   through their ``main(argv)``, the launch counters set to 0 before
+   each (``EXAMPLES``: quickstart and serve_e2e with ``--no-smoke``, the
+   full-width model, since the reduced config's dh 16 has no attention
+   kernel; train_small at its reduced config, whose train path runs only
+   the norm and softmax kernels and whose checkpoints are small, with a
+   checkpoint written before its injected failure and the resumed run
+   bitwise identical; the allocator demo, which traces a plain encoder
+   and launches nothing): each kernel its path reaches launched, its
+   results checked, its seconds;
+12. dryrun: the dry run of InternLM2-1.8B's three global shapes at full
+   width, traced on the CPU by a worker process started with the script
+   (``dryrun_worker``, pinned to one CPU, fake tensors only), its records
+   printed; then the card's own steps (``DRYRUN_CHIP_SHAPES``: prefill B
+   8 x 1024, the decode tick's 8 rows over 1024 positions, the train
+   step of 8 x 512 in two microbatches), each run eager with weights
+   from a seed beside its record: the dry run's FLOPs against
+   ``FlopCounterMode``'s on the real step (held to ``DRYRUN_FLOPS_REL``;
+   where they differ, by op), the predicted peak against
+   ``max_memory_allocated`` after a reset, and the record's bound against
+   the step's device time (CUDA events, and the profiler's busy time),
+   the roofline fraction of each.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches in the serving
-paths and ``launches_in_train``), the ``nvidia-smi`` line, and the last
+paths, ``launches_in_train`` and ``launches_in_examples``), the
+``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
 exits non-zero and prints no result.  It also refuses to run without a
 CUDA device or outside a checkout of the repository.
@@ -5289,6 +5312,356 @@ def train_phase(dev, card: str) -> dict:
     return launches
 
 
+#: the examples, each run in-process through ``main(argv)`` on the card:
+#: its arguments, and the launch counters (of `cuda_lib.LAUNCHES`) that
+#: its path reaches and that must each be above 0
+EXAMPLES = (
+    # classify (the masked softmax), generate (causal prefill, paged
+    # decode): the reduced config's dh 16 has no attention kernel
+    ("quickstart", ["--no-smoke"],
+     ("norm", "softmax", "flash_attention", "flash_decode_paged")),
+    # the reduced config: its train path runs only the norm and softmax
+    # kernels, which take its widths; a full-width checkpoint is 22.7 GB
+    ("train_small", [], ("norm", "softmax")),
+    # classify, packed admission, paged decode, a sampled request
+    ("serve_e2e", ["--no-smoke"],
+     ("norm", "softmax", "flash_attention_packed",
+      "flash_attention_packed_plan", "flash_decode_paged", "sample")),
+    # a plain-PyTorch encoder traced in fake mode: no kernel of the port
+    ("allocator_scheduler_demo", [], ()),
+)
+
+
+def example_module(root: Path, name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", root / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_result(name: str, out) -> dict:
+    """What an example returned, checked: the facts its line prints."""
+    if name == "quickstart":
+        labels, gens, engine = out
+        facts = {"labels": labels, "generated": gens,
+                 "compile_count": engine.compile_count,
+                 "kv_live_bytes": engine.kv_slab.live_bytes}
+        ok = len(labels) == 3 and [len(g) for g in gens] == [11, 13] and \
+            engine.kv_slab.live_bytes == 0
+    elif name == "train_small":
+        facts = {"bitwise_identical": out}
+        ok = out is True
+    elif name == "serve_e2e":
+        facts = {"one_shot_answered": len(out["one_shot"]),
+                 "one_shot_requests": out["one_shot_requests"],
+                 "generative_lengths": {k: len(v) for k, v in
+                                        out["generative"].items()},
+                 "prefix": {k: out["prefix"][k] for k in ("hits", "cold",
+                                                          "hot")},
+                 "client": out["client"], "pool": out["pool"]}
+        ok = len(out["one_shot"]) == out["one_shot_requests"] and \
+            all(r is not None for r in out["one_shot"].values()) and \
+            [len(out["generative"][i]) for i in (0, 1)] == [30, 11] and \
+            out["pool"]["finished"] + out["pool"]["lost"] == \
+            out["pool"]["submitted"]
+    else:
+        facts = {"footprints": out["footprints"],
+                 "dp_ms": out["dp"][0] * 1e3, "naive_ms": out["naive"][0] * 1e3,
+                 "nobatch_ms": out["nobatch"][0] * 1e3}
+        turbo = [f[2] for f in out["footprints"]]
+        ok = turbo[-1] < turbo[2] and \
+            out["dp"][0] < min(out["naive"][0], out["nobatch"][0])
+    return {"facts": facts, "ok": ok}
+
+
+def examples_phase(dev, card: str) -> dict:
+    """Each example of ``examples/torch`` through its ``main(argv)`` in
+    this process, on the card (``--device`` defaults to cuda), with the
+    launch counters set to 0 just before it: every kernel its path
+    reaches must launch.  train_small's checkpoints are recorded (the
+    trainer writes them in the background) to show one lands before the
+    injected failure.  Returns the launches summed over the examples."""
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.runtime import checkpoint as ckpt
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "examples"
+    work.mkdir(parents=True, exist_ok=True)
+    total: dict = {}
+    t_phase = time.perf_counter()
+    for name, argv, reach in EXAMPLES:
+        mod = example_module(root, name)
+        saved, save_async = [], ckpt.save_async
+
+        def record_save(directory, step, *args, **kwargs):
+            saved.append(step)
+            return save_async(directory, step, *args, **kwargs)
+        ckpt.save_async = record_save
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.chdir(work):
+                out = mod.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            ckpt.save_async = save_async
+        seconds = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        result = example_result(name, out)
+        line = {"phase": "examples", "card": card, "example": name,
+                "argv": argv, "seconds": seconds, "launches": launches,
+                "reaches": list(reach), **result}
+        if name == "train_small":
+            line["checkpoints_written"] = saved
+        emit(line)
+        missing = [k for k in reach if not launches.get(k)]
+        if missing or not result["ok"]:
+            raise AssertionError(f"examples: {name}: kernels not launched "
+                                 f"{missing}, result ok {result['ok']}")
+        if name == "train_small" and not (saved and min(saved) < 100):
+            raise AssertionError(f"examples: train_small wrote no "
+                                 f"checkpoint before its failure: {saved}")
+        del out, mod
+        release_memory()
+    emit({"phase": "examples_seconds", "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    return total
+
+
+#: the dry run held against the card: the arch, and the card's own steps
+#: (kind, S, B): a padded prefill (B 8 x 1024), the decode tick's 8 rows
+#: over 1024 positions, the train step (8 x 512 in two microbatches)
+DRYRUN_ARCH = "internlm2-1.8b"
+DRYRUN_CHIP_SHAPES = (("prefill", 1024, 8), ("decode", 1024, 8),
+                      ("train", 512, 8))
+#: the dry run's FLOPs against FlopCounterMode's on the real step
+DRYRUN_FLOPS_REL = 1e-3
+#: timed repetitions of each step (CUDA events)
+DRYRUN_REPS = {"prefill": 5, "decode": 50, "train": 3}
+#: the kernels each step must launch
+DRYRUN_KERNELS = {"prefill": ("norm", "flash_attention"),
+                  "decode": ("norm", "flash_decode"),
+                  "train": ("norm", "softmax")}
+DRYRUN_WAIT_S = 600
+
+
+def card_cell(kind: str, s: int, b: int):
+    """The dry run's cell of one of the card's steps; the train step with
+    the train phase's runtime (``ModelRuntime()``: no remat), as the
+    card runs it."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ModelRuntime
+    return dryrun.build_cell(DRYRUN_ARCH,
+                             ShapeConfig(f"card_{kind}", kind, s, b),
+                             rt=ModelRuntime() if kind == "train" else None)
+
+
+def dryrun_dir() -> Path:
+    return Path(__file__).resolve().parent / "build" / "dryrun_chip"
+
+
+def dryrun_worker(out: str) -> int:
+    """The dry run's CPU half, in a process of its own while the card's
+    phases run: the arch's global shapes through the CLI, then a record
+    of each of the card's shapes.  Fake tensors only: no card, no device
+    memory.  Pinned to one CPU, so the card's phases keep the others."""
+    import os
+
+    from repro_torch.launch import dryrun
+    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+    rc = dryrun.main(["--arch", DRYRUN_ARCH, "--shape", "all", "--out", out,
+                      "--force"])
+    for kind, s, b in DRYRUN_CHIP_SHAPES:
+        rec = dryrun.run_cell(card_cell(kind, s, b), ops_path=str(
+            Path(out) / f"card_{kind}.ops.json.gz"))
+        with open(Path(out) / f"card_{kind}.json", "w") as f:
+            json.dump(rec, f, indent=1)
+    return rc
+
+
+def start_dryrun_worker(root: Path):
+    import os
+    import shutil
+    out = dryrun_dir()
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    log = open(out / "worker.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.dryrun_worker(sys.argv[1]))", str(out)],
+        cwd=root, stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+    log.close()
+    return proc
+
+
+def record_line(rec: dict) -> dict:
+    m, r = rec["memory"], rec["roofline"]
+    return {"params": rec["params"], "global_batch": rec["global_batch"],
+            "seq_len": rec["seq_len"], "ops": rec["ops"],
+            "trace_s": rec["trace_s"],
+            "flops": rec["cost"]["flops_per_device"],
+            "flops_by_class": rec["cost"]["flops_by_class"],
+            "hbm_bytes": rec["cost"]["bytes_per_device"],
+            "memory_gb": {k: v / 1e9 for k, v in m.items()},
+            "fits_hbm80": rec["fits_hbm80"],
+            "model_flops": r["model_flops"],
+            "useful_flops_ratio": r["useful_flops_ratio"],
+            "t_compute_ms": r["t_compute_s"] * 1e3,
+            "t_memory_ms": r["t_memory_s"] * 1e3,
+            "bound_ms": r["step_time_bound_s"] * 1e3,
+            "dominant": r["dominant"],
+            "roofline_fraction": r["roofline_fraction"]}
+
+
+def flops_by_op(table) -> dict:
+    """An op table's flops by op (``aten.mm``, ``repro_torch.fused_norm``,
+    as ``FlopCounterMode`` names them)."""
+    from repro_torch.launch import graph_analysis as ga
+    out: dict = {}
+    for row in table:
+        flops = ga.row_cost(row)[0]
+        if flops:
+            op = row["op"].rsplit(".", 1)[0]
+            out[op] = out.get(op, 0) + flops
+    return out
+
+
+def dryrun_vs_card(dev, card: str, kind: str, s: int, b: int,
+                   rec: dict) -> dict:
+    """One of the card's steps, run eager with the weights from a seed,
+    beside the dry run's record of it: FlopCounterMode's count (the
+    kernels one node each, `kernels.traced`, their formulas registered)
+    against the record's; the predicted peak (arguments + temporaries)
+    against ``max_memory_allocated`` after a reset, less what was
+    allocated before the arguments were made (what earlier phases and
+    the libraries hold); and the record's bound against the measured
+    device time (CUDA events over back-to-back steps, and the profiler's
+    busy time of one step)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.kernels.traced import traced_kernels
+    from repro_torch.launch import graph_analysis as ga
+    cell = card_cell(kind, s, b)
+    release_memory()
+    floor = torch.cuda.memory_allocated(dev)
+    args = cell.inputs(dev, SEED)
+    cell.fn(*args)                          # warm (cuBLAS, first launches)
+    torch.cuda.synchronize()
+    release_memory()                        # the warm step's garbage
+    ga.register_flop_formulas()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    cuda_lib.reset_launches()
+    with traced_kernels(), FlopCounterMode(display=False) as counter:
+        cell.fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = dict(cuda_lib.LAUNCHES)
+    flops = counter.get_total_flops()
+    card_by_op = {str(k): v for k, v in
+                  counter.get_flop_counts()["Global"].items()}
+    reps = DRYRUN_REPS[kind]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        cell.fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    event_ms = start.elapsed_time(end) / reps
+    _, wall_ms, _, (busy_us, _, _), check, _ = traced_window(
+        lambda: cell.fn(*args))
+    busy_ms = sum(busy_us.values()) / 1e3
+    want = rec["cost"]["flops_per_device"]
+    bound_ms = rec["roofline"]["step_time_bound_s"] * 1e3
+    line = {"phase": "dryrun_vs_card", "card": card, "step": kind,
+            "shape": {"B": b, "S": s},
+            "flops": {"dry_run": want, "flop_counter_mode": flops,
+                      "rel_diff": abs(flops - want) / want,
+                      "limit": DRYRUN_FLOPS_REL},
+            "memory_bytes": {
+                "predicted_peak": rec["memory"]["peak_bytes"],
+                "max_memory_allocated": peak,
+                "allocated_before_the_arguments": floor,
+                "measured_peak": peak - floor,
+                "predicted_arguments": rec["memory"]["argument_bytes"],
+                "measured_arguments": base - floor,
+                "predicted_temporaries": rec["memory"]["temp_bytes"],
+                "measured_temporaries": peak - base},
+            "time_ms": {"bound": bound_ms, "bound_by":
+                        rec["roofline"]["dominant"],
+                        "events_mean": event_ms, "reps": reps,
+                        "profiled_wall": wall_ms,
+                        "profiled_busy": busy_or_not_measured(busy_ms,
+                                                              check),
+                        **in_trace(busy_us, 1, check, wall_ms)},
+            "roofline_fraction": {
+                "of_event_time": bound_ms / event_ms,
+                "of_busy_time": bound_ms / busy_ms if busy_ms and
+                check["trace_complete"] else "not measured",
+                "model_flops_over_peak_of_event_time":
+                    rec["roofline"]["model_flops"] / 989e12 * 1e3 / event_ms},
+            "launches": launches}
+    if flops != want:
+        import gzip
+        with gzip.open(dryrun_dir() / f"card_{kind}.ops.json.gz", "rt") as f:
+            dry_by_op = flops_by_op(json.load(f))
+        line["flops"]["by_op_where_they_differ"] = {
+            op: {"dry_run": dry_by_op.get(op, 0),
+                 "flop_counter_mode": card_by_op.get(op, 0)}
+            for op in sorted(set(dry_by_op) | set(card_by_op))
+            if dry_by_op.get(op, 0) != card_by_op.get(op, 0)}
+    emit(line)
+    missing = [k for k in DRYRUN_KERNELS[kind] if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"dryrun {kind}: kernels not launched {missing}")
+    if line["flops"]["rel_diff"] > DRYRUN_FLOPS_REL:
+        raise AssertionError(f"dryrun {kind}: FLOPs {flops} against the dry "
+                             f"run's {want}")
+    return line
+
+
+def dryrun_phase(dev, card: str, worker) -> None:
+    """The dry run: its records of the arch's three global shapes at full
+    width (the CPU worker started with the script), then each of the
+    card's shapes held against its record (`dryrun_vs_card`)."""
+    t0 = time.perf_counter()
+    rc = worker.wait(timeout=DRYRUN_WAIT_S)
+    waited = time.perf_counter() - t0
+    out = dryrun_dir()
+    tail = (out / "worker.log").read_text().strip().splitlines()[-8:]
+    if rc != 0:
+        raise AssertionError(f"dryrun worker rc {rc}: {tail}")
+    records = {}
+    for path in sorted(out.glob(f"{DRYRUN_ARCH}_*_single.json")):
+        with open(path) as f:
+            rec = json.load(f)
+        records[rec["shape"]] = record_line(rec)
+    emit({"phase": "dryrun", "card": card, "arch": DRYRUN_ARCH,
+          "constants": "H100 SXM data sheet: 989 TFLOP/s bf16, 67 f32, "
+                       "3.35 TB/s HBM, 900 GB/s NVLink, 80 GB",
+          "records": records, "worker_log_tail": tail,
+          "waited_for_the_worker_s": waited})
+    if sorted(records) != ["decode_32k", "prefill_32k", "train_4k"]:
+        raise AssertionError(f"dryrun: records {sorted(records)}")
+    for kind, s, b in DRYRUN_CHIP_SHAPES:
+        with open(out / f"card_{kind}.json") as f:
+            rec = json.load(f)
+        emit({"phase": "dryrun_card_shape", "card": card, "step": kind,
+              "record": record_line(rec)})
+        dryrun_vs_card(dev, card, kind, s, b, rec)
+        release_memory()
+    emit({"phase": "dryrun_seconds", "card": card,
+          "seconds": time.perf_counter() - t0})
+
+
 def release_memory() -> None:
     """Free what a finished phase left (its client holds reference
     cycles), so the next phase's peak memory is its own."""
@@ -5297,6 +5670,7 @@ def release_memory() -> None:
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -5307,6 +5681,17 @@ def main() -> int:
               "(src/repro_torch not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root / "src"))
+    # the dry run's CPU half runs beside the card's phases
+    worker = start_dryrun_worker(root)
+    try:
+        return run_phases(worker, started)
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+
+
+def run_phases(worker, started: float) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -5420,6 +5805,11 @@ def main() -> int:
     # gradients, the trainer, checkpoints and the CLI
     train_launches = train_phase(dev, card)
     release_memory()
+    # the examples, in-process, then the dry run against the card
+    example_launches = examples_phase(dev, card)
+    release_memory()
+    dryrun_phase(dev, card, worker)
+    release_memory()
     names = {"fused_norm": "norm", "flash_attention": "flash_attention",
              "flash_attention_packed": "flash_attention_packed",
              "flash_attention_packed_plan": "flash_attention_packed_plan",
@@ -5443,11 +5833,14 @@ def main() -> int:
             falcon_launches.get(counter, 0)
         item["launches_in_serve_zamba2"] = zamba_launches.get(counter, 0)
         item["launches_in_train"] = train_launches.get(counter, 0)
+        item["launches_in_examples"] = example_launches.get(counter, 0)
         kernels.append(item)
     for item in kernels:
         for k, val in item.items():
             if isinstance(val, float) and not math.isfinite(val):
                 raise AssertionError(f"{item['name']}: {k} is {val}")
+    emit({"phase": "total_seconds", "card": card,
+          "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,6 +3,7 @@ architecture of the JAX package's registry, in its order."""
 from __future__ import annotations
 
 import importlib
+from typing import Dict
 
 from repro_torch.configs.base import (ALL_SHAPES, SHAPES, SMOKE_SHAPE,
                                       ModelConfig, MoEConfig, ShapeConfig,
@@ -40,6 +41,10 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
 
 
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
 __all__ = ["ALL_SHAPES", "ARCH_IDS", "SHAPES", "SMOKE_SHAPE", "ModelConfig",
-           "MoEConfig", "SSMConfig", "ShapeConfig", "get_config", "get_smoke_config",
-           "reduce_for_smoke", "shapes_for"]
+           "MoEConfig", "SSMConfig", "ShapeConfig", "all_configs", "get_config",
+           "get_smoke_config", "reduce_for_smoke", "shapes_for"]

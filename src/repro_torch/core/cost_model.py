@@ -23,6 +23,8 @@ import bisect
 from dataclasses import dataclass
 from typing import Dict, List, Sequence, Tuple
 
+from repro_torch.configs.base import ModelConfig
+
 # NVIDIA H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3)
 PEAK_FLOPS_BF16 = 989e12
 HBM_BW = 3.35e12
@@ -92,6 +94,9 @@ class CostModel:
     def latency(self, seq_len: int, batch: int) -> float:
         raise NotImplementedError
 
+    def per_request(self, seq_len: int, batch: int) -> float:
+        return self.latency(seq_len, batch) / max(batch, 1)
+
     # -- two-phase regime (iteration-level scheduling) -------------------
     # Continuous batching plans *ticks*, not whole requests: a tick is
     # either a prompt pass over newly admitted requests (prefill) or one
@@ -132,6 +137,16 @@ class AnalyticCostModel(CostModel):
     hbm_bw: float = HBM_BW
     overhead: float = 50e-6           # dispatch/launch overhead (s)
     chips: int = 1
+
+    @classmethod
+    def for_model(cls, cfg: ModelConfig, chips: int = 1,
+                  dtype_bytes: int = 2) -> "AnalyticCostModel":
+        n_active = cfg.active_param_count()
+        return cls(
+            flops_per_token=2.0 * n_active,
+            bytes_per_token=2.0 * cfg.d_model * cfg.num_layers * dtype_bytes,
+            weight_bytes=float(n_active * dtype_bytes),
+            chips=chips)
 
     def latency(self, seq_len: int, batch: int) -> float:
         tokens = seq_len * batch

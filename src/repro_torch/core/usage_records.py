@@ -80,12 +80,15 @@ def _aliased_arg(node: torch.fx.Node, j: int, n_out: int):
     return None
 
 
-def graph_lifetimes(gm: torch.fx.GraphModule) -> Dict[str, Any]:
+def graph_lifetimes(gm: torch.fx.GraphModule,
+                    nbytes: Callable[[torch.Tensor], int] = _storage_nbytes
+                    ) -> Dict[str, Any]:
     """Every storage that a compute node allocates, in order of first
     definition: ``{"nodes": [compute nodes], "storages": [(node, output
     index, first_op, last_op, bytes)], "n_ops": n}``, ``last_op`` already
     ``n_ops`` for a graph output.  Needs each node's ``meta["val"]``, as
-    ``make_fx`` records it."""
+    ``make_fx`` records it.  ``nbytes`` gives a storage's bytes from one
+    of its tensors (a trace with symbolic sizes passes its own)."""
     nodes = [n for n in gm.graph.nodes if _is_op(n)]
     index = {n: i for i, n in enumerate(nodes)}
     n_ops = len(nodes)
@@ -144,7 +147,7 @@ def graph_lifetimes(gm: torch.fx.GraphModule) -> Dict[str, Any]:
                 k = by_storage[key]
             else:
                 k = len(storages)
-                storages.append([node, j, i, i, _storage_nbytes(v)])
+                storages.append([node, j, i, i, nbytes(v)])
             by_storage.setdefault(key, k)
             touch([k], i)
             mine.append(k)

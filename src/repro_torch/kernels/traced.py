@@ -8,12 +8,20 @@ by a call to a custom operator ``repro_torch::<name>`` that takes all the
 wrapper's inputs and returns its outputs.  The operator's fake
 implementation allocates the outputs as the card's wrapper does (the same
 shapes, dtypes and strides on either device), so a trace on the CPU holds
-the card's graph; its real implementation is the wrapper itself.
+the card's graph; its real implementation is the wrapper itself.  Under
+grad the norm and softmax nodes run inside the same
+``torch.autograd.Function`` as the wrappers
+(`repro_torch.kernels.autograd`), so a traced train step carries their
+plain-PyTorch gradients.
 
 Only tracing enters this module: serving and classify call ``ops``
 directly.  While a trace is open anywhere in the process, the names in
 ``ops`` are stand-ins that take the operator only on a thread inside
 :func:`traced_kernels`, and the wrapper itself on every other thread.
+Autograd runs a CUDA backward on a device thread of its own, so there a
+checkpoint's recompute calls the wrappers themselves: a dispatch mode
+(``FlopCounterMode``) over a card's step with ``remat`` sees the
+recomputed kernels as no node.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 from torch import Tensor
 
+from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import PACKED_TILE, packed_plan_width
 
@@ -181,18 +190,42 @@ def _as_nodes(o: Dict[str, object]) -> Dict[str, object]:
     """The wrappers of ``ops``, with their signatures, each as one call of
     its operator."""
 
-    def fused_softmax(x, lengths=None, *, scale: float = 1.0):
+    def softmax_node(x, lengths=None, *, scale: float = 1.0):
         return o["fused_softmax"](x, lengths, float(scale))
 
-    def fused_rmsnorm(x, gamma, bias=None, residual=None, *,
-                      eps: float = 1e-6, return_residual: bool = False):
+    def rmsnorm_node(x, gamma, bias=None, residual=None, *,
+                     eps: float = 1e-6, return_residual: bool = False):
         op = o["fused_norm_residual" if return_residual else "fused_norm"]
         return op(x, gamma, None, bias, residual, float(eps))
 
-    def fused_layernorm(x, gamma, beta, bias=None, residual=None, *,
-                        eps: float = 1e-6, return_residual: bool = False):
+    def layernorm_node(x, gamma, beta, bias=None, residual=None, *,
+                       eps: float = 1e-6, return_residual: bool = False):
         op = o["fused_norm_residual" if return_residual else "fused_norm"]
         return op(x, gamma, beta, bias, residual, float(eps))
+
+    # under grad the nodes run inside the wrappers' own Functions, so a
+    # traced train step has ops' gradients (plain PyTorch, as in ``ops``)
+    def fused_softmax(x, lengths=None, *, scale: float = 1.0):
+        if _ag.needs_grad(x):
+            return _ag.softmax(softmax_node, x, lengths, scale=scale)
+        return softmax_node(x, lengths, scale=scale)
+
+    def fused_rmsnorm(x, gamma, bias=None, residual=None, *,
+                      eps: float = 1e-6, return_residual: bool = False):
+        if _ag.needs_grad(x, gamma, bias, residual):
+            return _ag.rmsnorm(rmsnorm_node, x, gamma, bias, residual,
+                               eps=eps, return_residual=return_residual)
+        return rmsnorm_node(x, gamma, bias, residual, eps=eps,
+                            return_residual=return_residual)
+
+    def fused_layernorm(x, gamma, beta, bias=None, residual=None, *,
+                        eps: float = 1e-6, return_residual: bool = False):
+        if _ag.needs_grad(x, gamma, beta, bias, residual):
+            return _ag.layernorm(layernorm_node, x, gamma, beta, bias,
+                                 residual, eps=eps,
+                                 return_residual=return_residual)
+        return layernorm_node(x, gamma, beta, bias, residual, eps=eps,
+                              return_residual=return_residual)
 
     def fused_sample(logits, temperature, top_k, top_p, gumbel):
         return o["fused_sample"](logits, temperature, top_k, top_p, gumbel)

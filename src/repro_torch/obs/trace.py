@@ -82,9 +82,29 @@ class TraceRecorder:
         self.record(name, "request", ts, req=session.req_id,
                     trace_id=session.trace_id, **args)
 
+    # -- structural queries (tests / summaries) ------------------------
+    def request_ids(self) -> List[int]:
+        seen: Dict[int, None] = {}
+        for ev in self.events:
+            if ev["track"] == "request":
+                seen.setdefault(ev["req"], None)
+        return list(seen)
+
+    def request_events(self, req_id: int) -> List[dict]:
+        return [ev for ev in self.events
+                if ev["track"] == "request" and ev["req"] == req_id]
+
+    def request_names(self, req_id: int) -> List[str]:
+        """Event-name sequence of one request's span — the unit of
+        simulator-vs-wall-clock structural parity."""
+        return [ev["name"] for ev in self.request_events(req_id)]
+
     # -- export --------------------------------------------------------
     def chrome_trace(self) -> dict:
         return chrome_trace(self.events)
+
+    def save(self, path: str) -> dict:
+        return save_chrome_trace(self.events, path)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ bucket.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Sequence, Tuple
 
 
 DEFAULT_BUCKETS: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024, 2048, 4096)
@@ -48,3 +48,16 @@ class BucketLadder:
                 return b
         raise ValueError(
             f"batch {batch} exceeds max bucket {self.batch_buckets[-1]}")
+
+    def padding_waste(self, lengths: Sequence[int]) -> float:
+        """Fraction of executed tokens that are padding for this batch."""
+        if not lengths:
+            return 0.0
+        sb = self.seq_bucket(max(lengths))
+        bb = self.batch_bucket(len(lengths))
+        executed = sb * bb
+        useful = sum(lengths)
+        return 1.0 - useful / executed
+
+    def num_cells(self) -> int:
+        return len(self.seq_buckets) * len(self.batch_buckets)

@@ -6,17 +6,18 @@ requests, or ``QUEUED -> PREFILL -> FINISHED`` for one-shot (classification)
 requests that complete in a single batched forward pass.
 
 Sessions are the currency shared by the scheduler loop
-(`repro_torch.core.pipeline`), the engine (`repro_torch.runtime.engine`) and
-the virtual-clock simulator (`repro_torch.core.simulator`): all three
-move the same objects through the same transitions.  Copied from the JAX
-package.
+(`repro_torch.core.pipeline`), the real engine (`repro_torch.runtime.engine`) and the
+virtual-clock simulator (`repro_torch.core.simulator`): all three move the same
+objects through the same transitions, so scheduling decisions are testable
+against either execution mode.
 
-This module is deliberately dependency-free (no torch, no
-repro_torch.core) so both packages can import it without cycles.
+This module is deliberately dependency-free (no torch, no repro_torch.core) so both
+packages can import it without cycles.
 """
 from __future__ import annotations
 
 import enum
+import hashlib
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple
 
@@ -55,6 +56,10 @@ class GenerationParams:
         # tuple-ify so callers can pass lists; frozen needs object.__setattr__
         object.__setattr__(self, "stop", tuple(self.stop))
 
+    @property
+    def is_greedy(self) -> bool:
+        return self.temperature == 0.0
+
 
 class SessionState(enum.Enum):
     QUEUED = "queued"        # waiting in the admission queue
@@ -86,7 +91,8 @@ class InvalidTransition(RuntimeError):
 class Session:
     """One request moving through the serving pipeline.
 
-    ``seq_len`` is the declared prompt length (used for planning);
+    ``seq_len`` is the declared prompt length (used for planning even when
+    ``prompt`` tokens are absent, e.g. in the simulator);
     ``max_new_tokens == 0`` marks a one-shot request that finishes at
     prefill (the paper's BERT classification service).
     """
@@ -145,14 +151,26 @@ class Session:
     # None means the token budget is the only stop condition.
     eos_at: Optional[int] = None
     # prefix-sharing hooks: cohort whose prompts open with the same
-    # ``shared_prefix_len`` tokens (workloads may mark these; the engine
-    # matches actual token ids instead), and the cached tokens the
-    # serving backend actually reused at prefill (telemetry).
+    # ``shared_prefix_len`` tokens (simulator workloads mark these; the
+    # real engine matches actual token ids instead), and the cached
+    # tokens the serving backend actually reused at prefill (telemetry).
     prefix_group: Optional[int] = None
     shared_prefix_len: int = 0
     cached_tokens: int = 0
 
     # -- constructors ----------------------------------------------------
+    @classmethod
+    def from_request(cls, req: "Any", max_new_tokens: int = 0,
+                     eos_id: Optional[int] = None) -> "Session":
+        """Adapt a `repro_torch.core.serving.Request` (or anything with req_id /
+        seq_len / arrival_time / payload)."""
+        payload = getattr(req, "payload", None)
+        prompt = payload if isinstance(payload, (list, tuple)) else None
+        return cls(req_id=req.req_id, seq_len=req.seq_len,
+                   arrival_time=req.arrival_time, prompt=prompt,
+                   max_new_tokens=max_new_tokens, eos_id=eos_id,
+                   payload=payload)
+
     @classmethod
     def from_params(cls, req_id: int, prompt: Sequence[int],
                     params: GenerationParams,
@@ -174,6 +192,20 @@ class Session:
             temperature=self.temperature, top_k=self.top_k,
             top_p=self.top_p, seed=self.seed, eos=self.eos_id,
             stop=tuple(self.stop))
+
+    def cache_key(self) -> str:
+        """Memoization key: the full request identity — payload for
+        one-shot requests, (prompt, budget, eos, sampling params) for
+        generative ones.  Every generation knob is part of the key:
+        two same-prompt requests with different budgets or temperatures
+        produce different results and must never collide (the stale
+        ResponseCache bug)."""
+        ident = (self.payload,
+                 tuple(self.prompt) if self.prompt is not None else None,
+                 self.max_new_tokens, self.eos_id, self.temperature,
+                 self.top_k, self.top_p, self.seed, tuple(self.stop))
+        h = hashlib.sha1(repr(ident).encode()).hexdigest()
+        return f"{self.seq_len}:{h}"
 
     # -- state machine ---------------------------------------------------
     def _to(self, new: SessionState) -> None:
@@ -229,6 +261,10 @@ class Session:
     @property
     def tokens_emitted(self) -> int:
         return len(self.generated)
+
+    @property
+    def budget_left(self) -> int:
+        return max(self.max_new_tokens - len(self.generated), 0)
 
     @property
     def total_len(self) -> int:

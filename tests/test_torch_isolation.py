@@ -1,8 +1,8 @@
 """The port stands alone, stays on the device it is given, and never
 routes a CUDA tensor to a plain version.
 
-- No file of `src/repro_torch/` and not `chip_smoke.py` imports JAX or
-  the JAX package (an AST scan).
+- No file of `src/repro_torch/`, no example of `examples/torch/` and
+  not `chip_smoke.py` imports JAX or the JAX package (an AST scan).
 - The entry points default to the card and raise without one unless the
   caller asks for the CPU.
 - A tensor on a CUDA device goes to the kernel or raises: the plain
@@ -27,7 +27,9 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + \
+        sorted((ROOT / "examples" / "torch").glob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
 
 
 def _imports(path):
@@ -51,9 +53,10 @@ def test_scan_covers_the_serving_modules():
     """The scan above reads every module of the port, the prefix cache,
     the chunked-prefill path, the MoE layer and the serving tier (pool,
     router, simulator, CLI), the modality front ends and model inputs
-    and the mamba blocks, with their configs, and the training path
-    (the kernels' gradients, optimizers, train loop, checkpoints, CLI)
-    among them."""
+    and the mamba blocks, with their configs, the training path (the
+    kernels' gradients, optimizers, train loop, checkpoints, CLI), the
+    dry run with its graph analysis, the port's linter, and the four
+    examples among them."""
     names = {p.relative_to(PORT).as_posix() for p in _port_files()
              if PORT in p.parents}
     assert {"runtime/prefix_cache.py", "runtime/engine.py",
@@ -69,7 +72,14 @@ def test_scan_covers_the_serving_modules():
             "configs/zamba2_1_2b.py", "kernels/autograd.py",
             "training/optimizer.py", "training/train_loop.py",
             "runtime/checkpoint.py", "data/pipeline.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "launch/graph_analysis.py",
+            "launch/dryrun.py", "launch/reanalyze.py",
+            "analysis/config.py", "analysis/lint.py",
+            "analysis/rules.py"} <= names
+    examples = {p.name for p in _port_files()
+                if p.parent == ROOT / "examples" / "torch"}
+    assert examples == {"quickstart.py", "train_small.py", "serve_e2e.py",
+                        "allocator_scheduler_demo.py"}
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
