@@ -261,10 +261,28 @@ Phases, each printing one JSON line:
    where they differ, by op), the predicted peak against
    ``max_memory_allocated`` after a reset, and the record's bound against
    the step's device time (CUDA events, and the profiler's busy time),
-   the roofline fraction of each.
+   the roofline fraction of each; and the worker's mesh records
+   (``--mesh single``: one rank of the (16, 16) pod, ``pod16x16``) of
+   the same three shapes, per device;
+13. distributed: full-width InternLM2-1.8B (bf16 from a seed, an f32
+   KV) over a one-rank NCCL group and a (1, 1) ``("data", "model")``
+   DeviceMesh, placed by `repro_torch.distributed.plan` and run under
+   ``sharding_rules``: a prefill of B 8 x 1024 (the flash kernel),
+   ``DIST_DECODE_STEPS`` decode steps over the contiguous cache (the
+   decode kernel) and one train step of 8 x 512 in two microbatches (the
+   norm and the softmax), each bit-equal to the same call without the
+   mesh with the same kernel launches, the eager wall time of each with
+   and without the mesh (DTensor's host cost), and the trained state's
+   ``reshard`` onto the mesh and back bit-equal; then each rank's local
+   call of the decode and causal-flash wrappers as tensor parallelism of
+   2, 4, 8 and 16 splits InternLM2's 16 / 8 and Qwen3-32B's 64 / 8 heads
+   (the kv heads of each rank's query heads,
+   `repro_torch.distributed.sharding.local_kv_heads`), concatenated over heads
+   and bit-equal to the full call.
 
 Then a ``{"kernels": [...]}`` line (each kernel's launches in the serving
-paths, ``launches_in_train`` and ``launches_in_examples``), the
+paths, ``launches_in_train``, ``launches_in_examples`` and
+``launches_in_distributed``), the
 ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises: the script
 exits non-zero and prints no result.  It also refuses to run without a
@@ -5477,6 +5495,8 @@ def dryrun_worker(out: str) -> int:
     os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
     rc = dryrun.main(["--arch", DRYRUN_ARCH, "--shape", "all", "--out", out,
                       "--force"])
+    rc = rc or dryrun.main(["--arch", DRYRUN_ARCH, "--shape", "all",
+                            "--mesh", "single", "--out", out, "--force"])
     for kind, s, b in DRYRUN_CHIP_SHAPES:
         rec = dryrun.run_cell(card_cell(kind, s, b), ops_path=str(
             Path(out) / f"card_{kind}.ops.json.gz"))
@@ -5518,6 +5538,22 @@ def record_line(rec: dict) -> dict:
             "bound_ms": r["step_time_bound_s"] * 1e3,
             "dominant": r["dominant"],
             "roofline_fraction": r["roofline_fraction"]}
+
+
+def mesh_record_line(rec: dict) -> dict:
+    """A mesh record's line: one rank's numbers and its collectives."""
+    line = record_line(rec)
+    line.update({"chips": rec["chips"], "mesh_shape": rec["mesh_shape"],
+                 "seq_shard": rec["seq_shard"],
+                 "collective_bytes": rec["collectives"]["bytes_by_type"],
+                 "collective_counts": rec["collectives"]["counts"],
+                 "collective_bytes_by_dim":
+                     rec["collectives"]["bytes_by_dim"],
+                 "links": {a["dim"]: a["link"] for a in
+                           rec["collective_axes"].values()},
+                 "t_collective_ms":
+                     rec["roofline"]["t_collective_s"] * 1e3})
+    return line
 
 
 def flops_by_op(table) -> dict:
@@ -5639,18 +5675,31 @@ def dryrun_phase(dev, card: str, worker) -> None:
     tail = (out / "worker.log").read_text().strip().splitlines()[-8:]
     if rc != 0:
         raise AssertionError(f"dryrun worker rc {rc}: {tail}")
-    records = {}
-    for path in sorted(out.glob(f"{DRYRUN_ARCH}_*_single.json")):
+    records, mesh_records = {}, {}
+    for path in sorted(out.glob(f"{DRYRUN_ARCH}_*_card.json")):
         with open(path) as f:
             rec = json.load(f)
         records[rec["shape"]] = record_line(rec)
+    for path in sorted(out.glob(f"{DRYRUN_ARCH}_*_pod16x16.json")):
+        with open(path) as f:
+            rec = json.load(f)
+        mesh_records[rec["shape"]] = mesh_record_line(rec)
     emit({"phase": "dryrun", "card": card, "arch": DRYRUN_ARCH,
           "constants": "H100 SXM data sheet: 989 TFLOP/s bf16, 67 f32, "
                        "3.35 TB/s HBM, 900 GB/s NVLink, 80 GB",
           "records": records, "worker_log_tail": tail,
           "waited_for_the_worker_s": waited})
-    if sorted(records) != ["decode_32k", "prefill_32k", "train_4k"]:
-        raise AssertionError(f"dryrun: records {sorted(records)}")
+    emit({"phase": "dryrun_mesh", "card": card, "arch": DRYRUN_ARCH,
+          "mesh": "pod16x16", "per_device": True,
+          "constants": "collectives at the slowest link of their group: "
+                       "NVLink 900 GB/s inside an 8-GPU node, NDR "
+                       "InfiniBand 50 GB/s a GPU across nodes (DGX H100 "
+                       "data sheet)",
+          "records": mesh_records})
+    if sorted(records) != ["decode_32k", "prefill_32k", "train_4k"] or \
+            sorted(mesh_records) != sorted(records):
+        raise AssertionError(f"dryrun: records {sorted(records)}, mesh "
+                             f"records {sorted(mesh_records)}")
     for kind, s, b in DRYRUN_CHIP_SHAPES:
         with open(out / f"card_{kind}.json") as f:
             rec = json.load(f)
@@ -5660,6 +5709,282 @@ def dryrun_phase(dev, card: str, worker) -> None:
         release_memory()
     emit({"phase": "dryrun_seconds", "card": card,
           "seconds": time.perf_counter() - t0})
+
+
+DIST_ARCH = "internlm2-1.8b"
+DIST_PREFILL = (8, 1024)
+DIST_DECODE_STEPS = 16
+DIST_TRAIN = (8, 512)
+DIST_ACCUM = 2
+#: tensor parallelism the shard-local calls emulate, and the (arch, H, KV)
+#: head shapes they split: InternLM2's replicated kv heads at 16, Qwen3-32B's
+#: head offsets (64 / 8: four query heads over one kv head at 16)
+DIST_TP = (2, 4, 8, 16)
+DIST_HEADS = (("internlm2-1.8b", 16, 8), ("qwen3-32b", 64, 8))
+#: the shard-local calls' batch and length (decode: cache length)
+DIST_LOCAL = (8, 1024)
+
+
+def _dist_tree_equal(a, b, path="") -> list:
+    """Paths where two trees of tensors differ in any bit."""
+    if isinstance(a, dict):
+        return [p for k in a for p in _dist_tree_equal(a[k], b[k],
+                                                       f"{path}/{k}")]
+    return [] if torch.equal(a, b) else [path]
+
+
+def _dist_full(x):
+    from repro_torch.distributed.sharding import is_dtensor
+    if isinstance(x, dict):
+        return {k: _dist_full(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_dist_full(v) for v in x)
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _dist_timed(fn):
+    """(result, wall ms, launches) of one eager call, the launch counters
+    set to 0 just before it."""
+    from repro_torch.kernels import cuda_lib
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, dict(cuda_lib.LAUNCHES)
+
+
+def distributed_phase(dev, card: str) -> dict:
+    """The model functions over a (1, 1) mesh of a one-rank NCCL group
+    against the same calls without it (see the module docstring, 13),
+    then the shard-local kernel calls.  Returns the mesh runs' launches
+    (prefill, decode steps and train step together)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import plan as dplan
+    from repro_torch.distributed.sharding import make_rules, sharding_rules
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.runtime import checkpoint as ckpt
+    from repro_torch.training import (OptimizerConfig, TrainConfig,
+                                      init_state, make_train_step)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="repro_dist_")
+    dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        rules = make_rules(mesh)
+        cfg = get_config(DIST_ARCH)
+        params = init_params(cfg, seed=SEED, device=dev)
+        b, s = DIST_PREFILL
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        toks = torch.randint(1, cfg.vocab_size, (b, s), generator=gen,
+                             device=dev, dtype=torch.int32)
+        width = s + DIST_DECODE_STEPS
+        mismatch, lines, total = [], {}, {}
+
+        def run(label, fn, mesh_fn):
+            plain, ms, launches = _dist_timed(fn)
+            with sharding_rules(rules):
+                meshed, ms_mesh, launches_mesh = _dist_timed(mesh_fn)
+            for k, v in launches_mesh.items():
+                total[k] = total.get(k, 0) + v
+            lines[label] = {"wall_ms": ms, "wall_ms_mesh": ms_mesh,
+                            "host_cost_ms": ms_mesh - ms,
+                            "launches": launches,
+                            "launches_mesh": launches_mesh}
+            if launches != launches_mesh:
+                mismatch.append(f"{label}: launches {launches} against "
+                                f"{launches_mesh}")
+            return plain, meshed
+
+        with sharding_rules(rules):
+            pp = dplan.distribute(params, dplan.to_shardings(
+                rules, dplan.param_specs(rules, params)))
+            tt = dplan.distribute({"t": toks}, dplan.to_shardings(
+                rules, dplan.batch_specs(rules, {"t": toks})))["t"]
+        (lg, cache), (lg_m, cache_m) = run(
+            "prefill",
+            lambda: prefill(cfg, params, toks, max_len=width),
+            lambda: prefill(cfg, pp, tt, max_len=width))
+        with sharding_rules(rules):
+            lg_m, cache_m = _dist_full((lg_m, cache_m))
+        if not torch.equal(lg, lg_m):
+            mismatch.append("prefill logits")
+        mismatch += [f"prefill cache {p}" for p in
+                     _dist_tree_equal(cache, cache_m)]
+        with sharding_rules(rules):
+            c_spec, t_spec = dplan.decode_specs(rules, cfg, cache_m,
+                                                lg.argmax(-1).int())
+            cc = dplan.distribute(cache_m, dplan.to_shardings(rules, c_spec))
+        nxt = lg.argmax(-1).to(torch.int32)
+        steps = []
+        for i in range(DIST_DECODE_STEPS):
+            with sharding_rules(rules):
+                nt = dplan.distribute({"t": nxt}, dplan.to_shardings(
+                    rules, {"t": t_spec}))["t"]
+            (lo, cache), (lo_m, cc) = run(
+                f"decode_{i}",
+                lambda: decode_step(cfg, params, cache, nxt),
+                lambda: decode_step(cfg, pp, cc, nt))
+            with sharding_rules(rules):
+                lo_m = _dist_full(lo_m)
+            if not torch.equal(lo, lo_m):
+                mismatch.append(f"decode step {i} logits")
+            steps.append(lines.pop(f"decode_{i}"))
+            nxt = lo.argmax(-1).to(torch.int32)
+        with sharding_rules(rules):
+            cc = _dist_full(cc)
+        mismatch += [f"decode cache {p}" for p in _dist_tree_equal(
+            {k: cache[k] for k in ("k", "v", "len")},
+            {k: cc[k] for k in ("k", "v", "len")})]
+        lines["decode"] = {
+            "steps": DIST_DECODE_STEPS,
+            "wall_ms": sum(x["wall_ms"] for x in steps),
+            "wall_ms_mesh": sum(x["wall_ms_mesh"] for x in steps),
+            "host_cost_ms_a_step": float(np.median(
+                [x["host_cost_ms"] for x in steps])),
+            "launches_a_step": steps[-1]["launches"],
+            "launches_mesh_a_step": steps[-1]["launches_mesh"]}
+        del params, pp, cache, cc, cache_m, lg, lg_m
+        release_memory()
+        # the train step: the mesh run first, its state to the host, then
+        # the same step from the same seed without the mesh
+        tc = TrainConfig(optimizer=OptimizerConfig(), grad_accum=DIST_ACCUM)
+        step = make_train_step(cfg, tc)
+        tb, ts = DIST_TRAIN
+        tok = torch.randint(0, cfg.vocab_size, (tb, ts + 1), generator=gen,
+                            device=dev, dtype=torch.int32)
+        batch = {"tokens": tok[:, :-1].contiguous(),
+                 "labels": tok[:, 1:].contiguous()}
+        state = init_state(cfg, tc, SEED, device=dev)
+        with sharding_rules(rules):
+            specs = dplan.to_shardings(rules, dplan.state_specs(rules, state))
+            st = dplan.distribute(state, specs)
+            bt = dplan.distribute(batch, dplan.to_shardings(
+                rules, dplan.batch_specs(rules, batch)))
+            (st, m_mesh), ms_mesh, launches_mesh = _dist_timed(
+                lambda: step(st, bt))
+            loss_mesh = float(_dist_full(m_mesh["loss"]))
+            host = {"state": _dist_tree_cpu(_dist_full(st))}
+            # reshard: the trained state from the host onto the mesh, back
+            flat = {}
+            _dist_flat(specs, "", flat)
+            placed = ckpt.reshard(host["state"], lambda path, _: flat[path])
+            back = _dist_tree_cpu(_dist_full(placed))
+        reshard_bad = _dist_tree_equal(back, host["state"])
+        del st, state, placed, bt
+        release_memory()
+        state = init_state(cfg, tc, SEED, device=dev)
+        (state, m), ms, launches = _dist_timed(lambda: step(state, batch))
+        for k, v in launches_mesh.items():
+            total[k] = total.get(k, 0) + v
+        train_bad = _dist_tree_equal(_dist_tree_cpu(state), host["state"])
+        lines["train"] = {"batch": list(DIST_TRAIN), "grad_accum": DIST_ACCUM,
+                          "wall_ms": ms, "wall_ms_mesh": ms_mesh,
+                          "host_cost_ms": ms_mesh - ms,
+                          "loss": float(m["loss"]), "loss_mesh": loss_mesh,
+                          "launches": launches,
+                          "launches_mesh": launches_mesh}
+        if launches != launches_mesh:
+            mismatch.append(f"train: launches {launches} against "
+                            f"{launches_mesh}")
+        if float(m["loss"]) != loss_mesh:
+            mismatch.append("train loss")
+        mismatch += [f"train state {p}" for p in train_bad]
+        mismatch += [f"reshard {p}" for p in reshard_bad]
+        del state, host, back
+        release_memory()
+    finally:
+        dist.destroy_process_group()
+    local = dist_local_calls(dev)
+    emit({"phase": "distributed", "card": card, "arch": DIST_ARCH,
+          "mesh": {"shape": [1, 1], "dims": ["data", "model"],
+                   "backend": "nccl", "world": 1},
+          "calls": lines, "reshard_bit_equal": not reshard_bad,
+          "bit_equal": not mismatch, "mismatches": mismatch[:20],
+          "shard_local_calls": local,
+          "seconds": time.perf_counter() - t_phase})
+    if mismatch:
+        raise AssertionError(f"distributed: {mismatch[:10]}")
+    for kernel in ("norm", "flash_attention", "flash_decode", "softmax"):
+        if not total.get(kernel):
+            raise AssertionError(f"distributed: {kernel} not launched over "
+                                 "the mesh")
+    return total
+
+
+def _dist_tree_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _dist_tree_cpu(v) for k, v in tree.items()}
+    return tree.detach().to("cpu", copy=True)
+
+
+def _dist_flat(tree, prefix: str, out: dict) -> None:
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            _dist_flat(v, key, out)
+        else:
+            out[key] = v
+
+
+def dist_local_calls(dev) -> dict:
+    """Each rank's local decode and causal-flash call as tensor
+    parallelism of ``DIST_TP`` splits the heads of ``DIST_HEADS``: the
+    rank's query heads and the kv heads they read (sharded with them
+    where the kv heads divide, else sliced by
+    `repro_torch.distributed.sharding.local_kv_heads`), the outputs concatenated
+    over heads against the full call, bit for bit."""
+    from repro_torch.distributed.sharding import local_kv_heads
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    b, s = DIST_LOCAL
+    out = {}
+    for arch, h, kv in DIST_HEADS:
+        dh = 128
+        q1 = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
+        kc = torch.randn((b, kv, s, dh), generator=gen, device=dev)
+        vc = torch.randn((b, kv, s, dh), generator=gen, device=dev)
+        lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+        qf = torch.randn((b, h, s, dh), generator=gen, device=dev).bfloat16()
+        kf = torch.randn((b, kv, s, dh), generator=gen, device=dev).bfloat16()
+        vf = torch.randn((b, kv, s, dh), generator=gen, device=dev).bfloat16()
+        full_d = ops.flash_decode(q1, kc, vc, lens)
+        full_f = ops.flash_attention(qf, kf, vf, causal=True)
+        for tp in DIST_TP:
+            hl = h // tp
+            kv_sharded = kv % tp == 0
+            parts_d, parts_f, groups = [], [], set()
+            for r in range(tp):
+                q_off = r * hl
+                k_off = r * (kv // tp) if kv_sharded else 0
+                k_n = kv // tp if kv_sharded else kv
+                first, n = local_kv_heads("dist_local", q_off, hl,
+                                              h // kv, k_off, k_n)
+                ks = slice(k_off + first, k_off + first + n)
+                groups.add(hl // n)
+                parts_d.append(ops.flash_decode(
+                    q1[:, q_off:q_off + hl].contiguous(),
+                    kc[:, ks].contiguous(), vc[:, ks].contiguous(), lens))
+                parts_f.append(ops.flash_attention(
+                    qf[:, q_off:q_off + hl].contiguous(),
+                    kf[:, ks].contiguous(), vf[:, ks].contiguous(),
+                    causal=True))
+            ok_d = torch.equal(torch.cat(parts_d, dim=1), full_d)
+            ok_f = torch.equal(torch.cat(parts_f, dim=1), full_f)
+            out[f"{arch} tp{tp}"] = {
+                "heads_a_rank": hl, "kv_heads": "sharded" if kv_sharded
+                else "replicated, sliced", "local_groups": sorted(groups),
+                "decode_bit_equal": ok_d, "flash_bit_equal": ok_f}
+            if not (ok_d and ok_f):
+                raise AssertionError(f"distributed: {arch} tp {tp}: decode "
+                                     f"{ok_d}, flash {ok_f}")
+    return out
 
 
 def release_memory() -> None:
@@ -5810,6 +6135,10 @@ def run_phases(worker, started: float) -> int:
     release_memory()
     dryrun_phase(dev, card, worker)
     release_memory()
+    # the model functions over a (1, 1) DeviceMesh, and the kernels on the
+    # shards tensor parallelism would give each rank
+    dist_launches = distributed_phase(dev, card)
+    release_memory()
     names = {"fused_norm": "norm", "flash_attention": "flash_attention",
              "flash_attention_packed": "flash_attention_packed",
              "flash_attention_packed_plan": "flash_attention_packed_plan",
@@ -5834,6 +6163,7 @@ def run_phases(worker, started: float) -> int:
         item["launches_in_serve_zamba2"] = zamba_launches.get(counter, 0)
         item["launches_in_train"] = train_launches.get(counter, 0)
         item["launches_in_examples"] = example_launches.get(counter, 0)
+        item["launches_in_distributed"] = dist_launches.get(counter, 0)
         kernels.append(item)
     for item in kernels:
         for k, val in item.items():

@@ -509,6 +509,7 @@ cudaError_t dispatch_decode(int q_dtype, int group, int dh, const Op& op) {
 #define REPRO_DECODE_CASES(TQ_)   \
   REPRO_DECODE_CASE(TQ_, 1, 128)  \
   REPRO_DECODE_CASE(TQ_, 2, 128)  \
+  REPRO_DECODE_CASE(TQ_, 4, 128)  \
   REPRO_DECODE_CASE(TQ_, 7, 128)  \
   REPRO_DECODE_CASE(TQ_, 8, 128)  \
   REPRO_DECODE_CASE(TQ_, 12, 128) \

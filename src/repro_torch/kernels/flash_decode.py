@@ -22,8 +22,11 @@ __all__ = ["flash_decode_cuda", "flash_decode_paged_cuda",
 
 # what the kernel is instantiated for (csrc/flash_decode.cu): the (H / KV,
 # head dim) pairs of the served models (InternLM2 8, OLMoE 1, Qwen2-VL 7,
-# StarCoder2 12 at dh 128; MusicGen 1 at dh 64) and of the card tests
-INSTANTIATIONS = ((1, 128), (2, 128), (7, 128), (8, 128), (12, 128), (1, 64))
+# StarCoder2 12 at dh 128; MusicGen 1 at dh 64), of the card tests, and of
+# the local heads of tensor parallelism (Qwen3-32B's 64 / 8 at model 16 is
+# 4 query heads a rank over one kv head)
+INSTANTIATIONS = ((1, 128), (2, 128), (4, 128), (7, 128), (8, 128),
+                  (12, 128), (1, 64))
 Q_DTYPES = (torch.float32, torch.bfloat16)
 #: logical KV blocks per split (128 positions at the block size of 16),
 #: kSplitBlocks in csrc/flash_decode.cu

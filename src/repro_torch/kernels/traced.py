@@ -32,6 +32,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 from torch import Tensor
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels import autograd as _ag
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import PACKED_TILE, packed_plan_width
@@ -257,7 +258,10 @@ def _stand_in(name: str, via_operator):
     plain = _PLAIN[name]
 
     def fn(*args, **kwargs):
-        if getattr(_LOCAL, "depth", 0):
+        # DTensors take the wrapper's own path, which calls the (stood-in)
+        # wrapper again on each rank's shard
+        if getattr(_LOCAL, "depth", 0) and not any(
+                is_dtensor(a) for a in list(args) + list(kwargs.values())):
             return via_operator(*args, **kwargs)
         return plain(*args, **kwargs)
     fn.__name__ = fn.__qualname__ = name

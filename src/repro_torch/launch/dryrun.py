@@ -27,20 +27,42 @@ that graph:
 The steps: train is ``make_train_step`` (``forward_train``, backward
 and the optimizer, ``grad_accum`` microbatches); prefill is
 ``prefill``; decode is ``decode_step`` over a contiguous cache of the
-shape's length.  The global shapes (`repro_torch.configs.SHAPES`) were
-sized for a pod; on one card the dry run reports them whole and marks
-what does not fit.  ``TRAIN_TUNING`` is the JAX package's table less its
-sharding knobs (``seq_shard``, ``uneven``, ``kv_dh_shard``); a mesh
-(``--mesh``) waits for the port's ``distributed/``.
+shape's length.  ``TRAIN_TUNING`` is the JAX package's table, its
+sharding knobs (``seq_shard``, ``uneven``, ``kv_dh_shard``) included.
+
+``--mesh`` picks where each cell runs:
+
+- ``card``: one H100 (the global shapes, sized for a pod, reported whole
+  and marked where they do not fit; tag ``card``);
+- ``single``: the JAX package's one pod, a (16, 16) ``("data",
+  "model")`` mesh of 256 GPUs (tag ``pod16x16``); ``multi``: its two
+  pods, (2, 16, 16) ``("pod", "data", "model")``, 512 GPUs (tag
+  ``pod2x16x16``); ``both``: the two.
+
+Over a mesh the dry run traces ONE rank's program: a ``"fake"`` process
+group of the mesh's size (no communication), the arguments placed by
+`repro_torch.distributed.plan` and each traced as this rank's shard
+(so the graph's arguments are a device's bytes), the step run on
+DTensors under ``sharding_rules``.  The graph holds the local ops, the
+kernels on local shards, and the ``_c10d_functional`` collectives
+DTensor's redistributions issue.  Every number in a mesh record is per
+device but ``model_flops`` (the whole step's).  A collective's time is
+its operand bytes over the rate of the slowest link its group crosses
+(``collective_axes``: the group of each mesh dim, and its rate): NVLink
+where the group lies in one 8-GPU node, else the node's InfiniBand.  On
+the production meshes every dim crosses nodes (``model``'s 16 ranks
+span two 8-GPU nodes), so every collective is charged at InfiniBand's
+rate there.
 
 Usage (CPU only, no device memory):
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun \\
-      --arch internlm2-1.8b --shape all [--out build/dryrun]
+      --arch internlm2-1.8b --shape all [--mesh card|single|multi|both] \\
+      [--out build/dryrun]
 
-Each cell writes ``<arch>_<shape>_single.json`` (the record)
-and ``.ops.json.gz`` (its op table, which
-`repro_torch.launch.reanalyze` re-reads).
+Each cell writes ``<arch>_<shape>_<tag>.json`` (the record) and
+``.ops.json.gz`` (its op table, which `repro_torch.launch.reanalyze`
+re-reads).
 """
 from __future__ import annotations
 
@@ -67,27 +89,51 @@ PEAK_FLOPS = {ga.BF16: 989e12, ga.F32: 67e12}
 HBM_BW = 3.35e12
 NVLINK_BW = 900e9
 HBM_BYTES = 80e9
+#: a GPU's rate across nodes: one ConnectX-7 NDR 400 Gb/s InfiniBand port
+#: a GPU (NVIDIA DGX H100 data sheet: 8 ports for 8 GPUs), 50 GB/s
+IB_BW = 50e9
+#: GPUs a node (one NVLink domain: the DGX H100's NVSwitch fabric)
+NODE_GPUS = 8
+#: --mesh -> (mesh shape, dim names, record tag); ``card`` is one GPU
+MESHES = {"card": (None, None, "card"),
+          "single": ((16, 16), ("data", "model"), "pod16x16"),
+          "multi": ((2, 16, 16), ("pod", "data", "model"), "pod2x16x16")}
 
-# Per-arch training knobs (the JAX package's table, less its sharding
-# knobs).  grad_accum splits the global batch into microbatches.
+# Per-arch training knobs (the JAX package's table).  grad_accum splits
+# the global batch into microbatches; seq_shard shards the residual
+# stream over 'model' (read over a mesh only, for train); kv_dh_shard and
+# uneven are sharding-rule overrides (a mesh only).
 TRAIN_TUNING: Dict[str, Dict[str, Any]] = {
-    "llama3-405b": dict(grad_accum=16, optimizer="adafactor",
-                        grad_dtype="bfloat16", param_dtype="bfloat16"),
-    "qwen3-32b": dict(grad_accum=16, optimizer="adafactor"),
-    "starcoder2-15b": dict(grad_accum=8, optimizer="adafactor"),
-    "phi3.5-moe-42b-a6.6b": dict(grad_accum=8, optimizer="adafactor"),
-    "qwen2-vl-7b": dict(grad_accum=8, optimizer="adamw"),
-    "falcon-mamba-7b": dict(grad_accum=8, optimizer="adamw"),
-    "olmoe-1b-7b": dict(grad_accum=2, optimizer="adamw"),
-    "internlm2-1.8b": dict(grad_accum=2, optimizer="adamw"),
+    # kv_dh_shard off: at model 16 the 405B's decode caches shard their
+    # sequence instead of the head dim
+    "llama3-405b": dict(grad_accum=16, seq_shard=True,
+                        optimizer="adafactor", grad_dtype="bfloat16",
+                        param_dtype="bfloat16", kv_dh_shard=False),
+    "qwen3-32b": dict(grad_accum=16, seq_shard=False,
+                      optimizer="adafactor"),
+    "starcoder2-15b": dict(grad_accum=8, seq_shard=True,
+                           optimizer="adafactor"),
+    "phi3.5-moe-42b-a6.6b": dict(grad_accum=8, seq_shard=False,
+                                 optimizer="adafactor"),
+    # uneven: the 28-head attention keeps its head shard on model 16
+    "qwen2-vl-7b": dict(grad_accum=8, seq_shard=False, optimizer="adamw",
+                        uneven=True),
+    "falcon-mamba-7b": dict(grad_accum=8, seq_shard=False,
+                            optimizer="adamw"),
+    "olmoe-1b-7b": dict(grad_accum=2, seq_shard=False, optimizer="adamw"),
+    "internlm2-1.8b": dict(grad_accum=2, seq_shard=False,
+                           optimizer="adamw"),
     # the SSD block-matmul form of Mamba-2
-    "zamba2-1.2b": dict(grad_accum=4, optimizer="adamw", mamba_ssd=True),
-    "musicgen-large": dict(grad_accum=4, optimizer="adamw"),
+    "zamba2-1.2b": dict(grad_accum=4, seq_shard=False, optimizer="adamw",
+                        mamba_ssd=True),
+    "musicgen-large": dict(grad_accum=4, seq_shard=False,
+                           optimizer="adamw"),
 }
 
 
-def runtime_for(shape: ShapeConfig, arch: str):
-    """The JAX package's ``_runtime_for`` without ``seq_shard``."""
+def runtime_for(shape: ShapeConfig, arch: str, mesh: bool = False):
+    """The JAX package's ``_runtime_for``; ``seq_shard`` only over a
+    ``mesh`` (one card has no dim to shard the sequence over)."""
     from repro_torch.models import ModelRuntime
     tun = TRAIN_TUNING.get(arch, {})
     if shape.kind == "train":
@@ -102,8 +148,63 @@ def runtime_for(shape: ShapeConfig, arch: str):
         kv_block=int(tun.get("kv_block", default_kb)),
         remat=str(tun.get("remat",
                           "full" if shape.kind == "train" else "none")),
+        seq_shard=mesh and bool(tun.get("seq_shard", False)) and
+        shape.kind == "train",
         unroll_decode=bool(tun.get("unroll_decode",
                                    shape.kind == "decode")))
+
+
+def rules_for(arch: str, mesh):
+    """The sharding rules of ``arch`` on ``mesh``: the defaults with
+    ``TRAIN_TUNING``'s ``kv_dh_shard`` and ``uneven``."""
+    from repro_torch.distributed.sharding import make_rules
+    tun = TRAIN_TUNING.get(arch, {})
+    overrides = ({"kv_dh_shard": bool(tun["kv_dh_shard"])}
+                 if "kv_dh_shard" in tun else None)
+    return make_rules(mesh, overrides=overrides,
+                      uneven=bool(tun.get("uneven", False)))
+
+
+def production_mesh(kind: str):
+    """The ``kind`` ("single" or "multi") mesh over a ``"fake"`` process
+    group of its size, set up here (any other default group is torn down
+    first): one rank's view, no communication."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_production_mesh
+    shape = MESHES[kind][0]
+    world = 1
+    for n in shape:
+        world *= n
+    if dist.is_initialized():
+        if dist.get_world_size() == world and \
+                dist.get_backend() == "fake":
+            return make_production_mesh(multi_pod=kind == "multi",
+                                        device_type="cpu")
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    return make_production_mesh(multi_pod=kind == "multi",
+                                device_type="cpu")
+
+
+def collective_axes(mesh) -> Dict[str, Dict[str, Any]]:
+    """Each mesh dim's process group (rank 0's): its name, the dim, and
+    the rate a collective over it is charged at (NVLink where its ranks
+    lie in one node of ``NODE_GPUS``, else InfiniBand)."""
+    out = {}
+    ranks = mesh.mesh
+    for i, name in enumerate(mesh.mesh_dim_names):
+        index = [0] * ranks.dim()
+        index[i] = slice(None)
+        members = ranks[tuple(index)].tolist()
+        nodes = {r // NODE_GPUS for r in members}
+        out[mesh.get_group(i).group_name] = {
+            "dim": name, "size": len(members),
+            "link": "nvlink" if len(nodes) == 1 else "infiniband",
+            "rate": NVLINK_BW if len(nodes) == 1 else IB_BW}
+    return out
 
 
 def fake_mode():
@@ -125,6 +226,8 @@ class Cell:
     cfg: ModelConfig
     fn: Callable
     inputs: Callable[..., Tuple]
+    #: ``specs(rules, *args)``: the arguments' spec trees over a mesh
+    specs: Optional[Callable[..., Tuple]] = None
 
     def model_flops(self) -> float:
         n_active = self.cfg.active_param_count()
@@ -137,12 +240,17 @@ class Cell:
 
 
 def build_cell(arch: str, shape: Union[str, ShapeConfig],
-               cfg: Optional[ModelConfig] = None, rt=None) -> Cell:
+               cfg: Optional[ModelConfig] = None, rt=None,
+               rules=None) -> Cell:
     """The cell's step at full width: ``SHAPES[shape]``, or any
     ``ShapeConfig`` (the card's own shapes in `chip_smoke.py`); ``cfg``
     in place of the arch's full config (a test's reduced one), ``rt`` in
     place of :func:`runtime_for`'s (the card's train step runs the
-    default ``ModelRuntime``)."""
+    default ``ModelRuntime``).  With ``rules`` (a mesh's) the cell is one
+    rank's: ``grad_accum`` keeps a row a data shard per microbatch, as
+    the JAX package's does, and :attr:`Cell.specs` places its
+    arguments."""
+    from repro_torch.distributed import plan as dplan
     from repro_torch.models import decode_step, init_params, make_cache
     from repro_torch.models import io as mio
     from repro_torch.training import (OptimizerConfig, TrainConfig,
@@ -153,8 +261,13 @@ def build_cell(arch: str, shape: Union[str, ShapeConfig],
     if tun.get("mamba_ssd") and cfg.ssm and cfg.ssm.variant == "mamba2":
         cfg = dataclasses.replace(
             cfg, ssm=dataclasses.replace(cfg.ssm, ssd_matmul=True))
-    rt = rt if rt is not None else runtime_for(shape, arch)
+    rt = rt if rt is not None else runtime_for(shape, arch,
+                                               mesh=rules is not None)
     b, s = shape.global_batch, shape.seq_len
+    dp_ways = 1
+    if rules is not None:
+        from repro_torch.distributed.sharding import axes_size
+        dp_ways = axes_size(rules.mesh, rules.physical("batch"))
 
     def batch_like(specs, device, seed):
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -170,7 +283,7 @@ def build_cell(arch: str, shape: Union[str, ShapeConfig],
         return out
 
     if shape.kind == "train":
-        ga_steps = max(1, min(int(tun.get("grad_accum", 1)), b))
+        ga_steps = max(1, min(int(tun.get("grad_accum", 1)), b // dp_ways))
         tc = TrainConfig(
             optimizer=OptimizerConfig(name=tun.get("optimizer", "adamw")),
             grad_accum=ga_steps,
@@ -183,7 +296,8 @@ def build_cell(arch: str, shape: Union[str, ShapeConfig],
             return (init_state(cfg, tc, seed, device=device),
                     batch_like(mio.train_input_specs(cfg, shape), device,
                                seed + 1))
-        return Cell(arch, shape, cfg, step, inputs)
+        return Cell(arch, shape, cfg, step, inputs, lambda r, st, bt: (
+            dplan.state_specs(r, st), dplan.batch_specs(r, bt)))
 
     def params_on(device, seed):
         return init_params(cfg, seed=seed, device=device,
@@ -193,17 +307,18 @@ def build_cell(arch: str, shape: Union[str, ShapeConfig],
         from repro_torch.models import prefill
 
         def pf(params, batch):
-            return prefill(cfg, params, batch["tokens"], max_len=s,
+            return prefill(cfg, params, batch["tokens"], max_len=s, rt=rt,
                            embeds_override=batch.get("embeds_override"))
 
         def inputs(device="cpu", seed=0):
             return (params_on(device, seed),
                     batch_like(mio.prefill_input_specs(cfg, shape), device,
                                seed + 1))
-        return Cell(arch, shape, cfg, pf, inputs)
+        return Cell(arch, shape, cfg, pf, inputs, lambda r, p, bt: (
+            dplan.param_specs(r, p), dplan.batch_specs(r, bt)))
 
     def serve_step(params, cache, tokens_t):
-        return decode_step(cfg, params, cache, tokens_t)
+        return decode_step(cfg, params, cache, tokens_t, rt=rt)
 
     def inputs(device="cpu", seed=0):
         cache = make_cache(cfg, b, s, device=device)
@@ -211,21 +326,61 @@ def build_cell(arch: str, shape: Union[str, ShapeConfig],
         tok = batch_like({"t": mio.decode_input_specs(cfg, shape)[
             "tokens_t"]}, device, seed + 1)["t"]
         return params_on(device, seed), cache, tok
-    return Cell(arch, shape, cfg, serve_step, inputs)
+    return Cell(arch, shape, cfg, serve_step, inputs, lambda r, p, c, t: (
+        (dplan.param_specs(r, p),) + dplan.decode_specs(r, cfg, c, t)))
 
 
-def trace(cell: Cell, seed: int = 0):
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _zip_map(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, other[k]) for k, v in tree.items()}
+    return fn(tree, other)
+
+
+def trace(cell: Cell, seed: int = 0, rules=None):
     """``(graph, shape_env, arguments)``: the cell's step traced under a
     fake mode with each kernel wrapper one node, profiler ranges
-    removed."""
+    removed.  With ``rules`` it is one rank's step over their mesh: the
+    arguments (this rank's shards) are the graph's inputs, wrapped as
+    DTensors inside the traced function, whose outputs are this rank's
+    shards again."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
+    from repro_torch.distributed import plan as dplan
+    from repro_torch.distributed.sharding import (from_local, is_dtensor,
+                                                  sharding_rules)
     from repro_torch.kernels.traced import traced_kernels
     mode = fake_mode()
     with mode:
         args = cell.inputs("cpu", seed)
+    fn = cell.fn
+    if rules is not None:
+        with mode:
+            placed = [dplan.distribute(a, dplan.to_shardings(rules, sp))
+                      for a, sp in zip(args, cell.specs(rules, *args))]
+        args = tuple(dplan.local(p) for p in placed)
+
+        def fn(*local_args):
+            wrapped = [_zip_map(lambda t, d: from_local(
+                t, d.device_mesh, d.placements, d.shape), la, pl)
+                for la, pl in zip(local_args, placed)]
+            with sharding_rules(rules):
+                out = cell.fn(*wrapped)
+            return _tree_map(lambda t: t.to_local() if is_dtensor(t)
+                             else t, out)
     with traced_kernels(), mode:
-        gm = make_fx(cell.fn)(*args)
+        gm = make_fx(fn)(*args)
+    if rules is not None:
+        # DTensor's wrapping may trace global-shape buffers that nothing
+        # reads (torch 2.11): not a device's memory
+        gm.graph.eliminate_dead_code()
     for node in reversed(list(gm.graph.nodes)):
         if node.op == "call_function" and \
                 str(node.target).startswith("profiler.") and not node.users:
@@ -281,12 +436,19 @@ def memory(gm: torch.fx.GraphModule, shape_env) -> Dict[str, int]:
             "peak_bytes": arg_bytes + temps}
 
 
-def roofline(prof: ga.Profile, model_flops: float,
-             chips: int = 1) -> Dict[str, Any]:
-    """The roofline fields of a record from a profile (H100 constants)."""
+def roofline(prof: ga.Profile, model_flops: float, chips: int = 1,
+             axes: Optional[Dict[str, Dict[str, Any]]] = None
+             ) -> Dict[str, Any]:
+    """The roofline fields of a record from a profile (H100 constants):
+    a collective over a group of ``axes`` at that group's rate; one over
+    another group (DTensor's flattened dims) at the slowest of the mesh's
+    rates; without a mesh at NVLink's."""
     t_comp = sum(f / PEAK_FLOPS[c] for c, f in prof.flops_by_class.items())
     t_mem = prof.hbm_bytes / HBM_BW
-    t_coll = prof.collective_bytes / NVLINK_BW
+    axes = axes or {}
+    slowest = min((a["rate"] for a in axes.values()), default=NVLINK_BW)
+    t_coll = sum(b / axes.get(g, {}).get("rate", slowest)
+                 for g, b in prof.collective_by_group.items())
     bound = max(t_comp, t_mem, t_coll)
     return {
         "t_compute_s": t_comp, "t_memory_s": t_mem,
@@ -312,16 +474,25 @@ def apply_profile(rec: Dict[str, Any], prof: ga.Profile) -> Dict[str, Any]:
     rec["collectives"] = {"bytes_by_type": dict(prof.collective_by_type),
                           "counts": dict(prof.collective_counts),
                           "total_bytes": prof.collective_bytes}
+    axes = rec.get("collective_axes")
+    if axes:
+        by_dim: Dict[str, float] = {}
+        for g, b in prof.collective_by_group.items():
+            key = axes[g]["dim"] if g in axes else "flattened"
+            by_dim[key] = by_dim.get(key, 0.0) + b
+        rec["collectives"]["bytes_by_dim"] = by_dim
     rec["roofline"] = roofline(prof, rec["roofline"]["model_flops"],
-                               rec["chips"])
+                               rec["chips"], axes)
     return rec
 
 
-def run_cell(cell: Cell, ops_path: Optional[str] = None) -> Dict[str, Any]:
-    """Trace and analyse one cell; its record (and, given ``ops_path``,
-    its op table, gzipped JSON)."""
+def run_cell(cell: Cell, ops_path: Optional[str] = None, rules=None,
+             mesh_tag: str = "card") -> Dict[str, Any]:
+    """Trace and analyse one cell, on one card or, with ``rules``, as one
+    rank of their mesh (``mesh_tag`` names it); its record (and, given
+    ``ops_path``, its op table, gzipped JSON)."""
     t0 = time.time()
-    gm, shape_env, _ = trace(cell)
+    gm, shape_env, _ = trace(cell, rules=rules)
     t1 = time.time()
     table = ga.op_table(gm, shape_env)
     prof = ga.analyze(table)
@@ -330,8 +501,9 @@ def run_cell(cell: Cell, ops_path: Optional[str] = None) -> Dict[str, Any]:
     if ops_path:
         with gzip.open(ops_path, "wt") as f:
             json.dump(table, f)
-    rec = {"arch": cell.arch, "shape": cell.shape.name, "mesh": "single",
-           "chips": 1, "card": CARD,
+    chips = 1 if rules is None else rules.mesh.size()
+    rec = {"arch": cell.arch, "shape": cell.shape.name,
+           "mesh": mesh_tag, "chips": chips, "card": CARD,
            "params": cell.cfg.param_count(),
            "active_params": cell.cfg.active_param_count(),
            "global_batch": cell.shape.global_batch,
@@ -340,6 +512,12 @@ def run_cell(cell: Cell, ops_path: Optional[str] = None) -> Dict[str, Any]:
            "ops": len(table), "memory": mem,
            "fits_hbm80": mem["peak_bytes"] < HBM_BYTES,
            "roofline": {"model_flops": cell.model_flops()}}
+    if rules is not None:
+        rec["mesh_shape"] = dict(zip(rules.mesh.mesh_dim_names,
+                                     rules.mesh.shape))
+        rec["collective_axes"] = collective_axes(rules.mesh)
+        rec["seq_shard"] = bool(TRAIN_TUNING.get(cell.arch, {}).get(
+            "seq_shard")) and cell.shape.kind == "train"
     return apply_profile(rec, prof)
 
 
@@ -359,6 +537,10 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
     ap.add_argument("--out", default="build/dryrun")
+    ap.add_argument("--mesh", default="card",
+                    choices=["card", "single", "multi", "both"],
+                    help="one card, the (16, 16) pod, the (2, 16, 16) two "
+                    "pods, or both pods")
     ap.add_argument("--force", action="store_true",
                     help="trace cells whose record exists")
     args = ap.parse_args(argv)
@@ -367,23 +549,29 @@ def main(argv=None) -> int:
     shape_names = list(SHAPES) if args.shape == "all" \
         else args.shape.split(",")
 
+    kinds = {"both": ["single", "multi"]}.get(args.mesh, [args.mesh])
     os.makedirs(args.out, exist_ok=True)
     failures = []
-    for arch, sn in cells(archs, shape_names):
+    for kind, (arch, sn) in ((k, c) for k in kinds
+                             for c in cells(archs, shape_names)):
+        mesh_tag = MESHES[kind][2]
         if sn.endswith(":SKIP"):
-            print(f"SKIP  {arch} {sn.split(':')[0]} single "
+            print(f"SKIP  {arch} {sn.split(':')[0]} {mesh_tag} "
                   f"(long-context needs sub-quadratic attention)")
             continue
-        tag = f"{arch}_{sn}_single"
+        tag = f"{arch}_{sn}_{mesh_tag}"
         path = os.path.join(args.out, tag + ".json")
         if os.path.exists(path) and not args.force:
             print(f"CACHED {tag}")
             continue
         print(f"RUN   {tag} ...", flush=True)
         try:
-            rec = run_cell(build_cell(arch, sn),
+            rules = None if kind == "card" else \
+                rules_for(arch, production_mesh(kind))
+            rec = run_cell(build_cell(arch, sn, rules=rules),
                            ops_path=os.path.join(args.out,
-                                                 tag + ".ops.json.gz"))
+                                                 tag + ".ops.json.gz"),
+                           rules=rules, mesh_tag=mesh_tag)
             with open(path, "w") as f:
                 json.dump(rec, f, indent=1)
             r, m = rec["roofline"], rec["memory"]

@@ -20,7 +20,12 @@ and storages, no data and no device memory), with each kernel wrapper of
                a kernel node moves what ``chip_smoke.py``'s bound counts
                for it (each input read once, each output written once);
   collectives  operand bytes of each c10d functional collective, by type
-               (none until the port has a device mesh).
+               and by process group (the group's name, the last string
+               argument of the op: the dry run maps it to a mesh dim).
+               A step traced over a DTensor mesh
+               (`repro_torch.launch.dryrun`, ``--mesh``) is one rank's
+               program: its collectives are the ``_c10d_functional``
+               ops DTensor's redistributions record.
 
 Each kernel's formula is the one its ``chip_smoke.py`` check uses for its
 bound, on shapes alone: a trace has no data, so a length that the data
@@ -77,6 +82,8 @@ class Profile:
     collective_bytes: float = 0.0
     collective_by_type: Dict[str, float] = field(default_factory=dict)
     collective_counts: Dict[str, float] = field(default_factory=dict)
+    #: collective operand bytes by process group name
+    collective_by_group: Dict[str, float] = field(default_factory=dict)
     #: ``flops`` by class (:data:`BF16`, :data:`F32`)
     flops_by_class: Dict[str, float] = field(default_factory=dict)
 
@@ -363,6 +370,10 @@ def analyze(graph: Graph) -> Profile:
                 prof.collective_by_type.get(coll, 0.0) + moved
             prof.collective_counts[coll] = \
                 prof.collective_counts.get(coll, 0.0) + 1
+            group = next((a for a in reversed(row["args"])
+                          if isinstance(a, str)), "")
+            prof.collective_by_group[group] = \
+                prof.collective_by_group.get(group, 0.0) + moved
             prof.hbm_bytes += 2 * moved
             continue
         prof.flops += flops

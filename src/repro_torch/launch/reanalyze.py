@@ -7,8 +7,11 @@ to `repro_torch.launch.graph_analysis`'s formulas.
 
 Each ``<tag>.json`` record beside a ``<tag>.ops.json.gz`` table (gzipped
 JSON, stdlib only) gets its ``cost``, ``collectives`` and ``roofline``
-rewritten with the H100 constants of `repro_torch.launch.dryrun`; its
-``memory`` (a property of the traced graph's lifetimes) is kept.
+rewritten with the H100 constants of `repro_torch.launch.dryrun` (a mesh
+record's collectives at the rates of its ``collective_axes``); its
+``memory`` (a property of the traced graph's lifetimes) is kept.  A
+one-card record written before the one-card tag became ``card`` (mesh
+``single``, one chip) is read as one and rewritten as ``card``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ def ops_path(json_path: str) -> str:
 def reanalyze_record(json_path: str) -> dict:
     with open(json_path) as f:
         rec = json.load(f)
+    if rec.get("mesh") == "single" and rec.get("chips") == 1:
+        rec["mesh"] = "card"
     table_path = ops_path(json_path)
     if not os.path.exists(table_path):
         return rec

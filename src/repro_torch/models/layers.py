@@ -12,6 +12,16 @@ paper's attention (batched GEMM, the fused mask + softmax kernel, batched
 GEMM); ``attention_chunked_train`` runs it a block of queries at a time
 under activation checkpointing.  ``embed_tokens`` gathers through
 ``gather_rows``, whose gradient is the same on every run.
+
+Over a mesh (`repro_torch.distributed`) the weights and activations are
+DTensors and the activations are annotated with logical axes
+(``constrain``) at the JAX package's points: q/k/v after rope, the
+attention output, the FFN's hidden and output, the embedding and the
+logits.  The kernels run on each rank's shard (`repro_torch.kernels.ops`);
+the attention routes that are plain PyTorch around the softmax kernel run
+on the local heads too; the embedding from a vocab-sharded table is a
+vocab-parallel gather (each rank gathers its rows, the sum over ``model``
+completes it).
 """
 from __future__ import annotations
 
@@ -24,6 +34,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain, from_local,
+                                              from_local_like, fsdp_gathered,
+                                              head_slices, is_dtensor,
+                                              replicated_on, to_local)
 from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
@@ -118,15 +132,23 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
     kernel.  With ``residual`` the kernel adds it first and returns
     ``(norm(x + residual), x + residual)`` from one launch."""
     shape = x.shape
-    x2 = x.reshape(-1, shape[-1])
-    r2 = None if residual is None else residual.reshape(-1, shape[-1])
     rr = residual is not None
+    if is_dtensor(x):       # the wrapper takes (..., C) shards whole
+        if rr and tuple(x.placements) != tuple(residual.placements):
+            x = x.redistribute(residual.device_mesh, residual.placements)
+        x2, r2 = x, residual
+        shape = None
+    else:
+        x2 = x.reshape(-1, shape[-1])
+        r2 = None if residual is None else residual.reshape(-1, shape[-1])
     if cfg.norm == "layernorm":
         out = ops.fused_layernorm(x2, p["scale"], p["bias"], residual=r2,
                                   eps=eps, return_residual=rr)
     else:
         out = ops.fused_rmsnorm(x2, p["scale"], residual=r2, eps=eps,
                                 return_residual=rr)
+    if shape is None:
+        return out
     if rr:
         return out[0].reshape(shape), out[1].reshape(shape)
     return out.reshape(shape)
@@ -137,6 +159,8 @@ def rms_norm_headwise(scale: torch.Tensor, x: torch.Tensor,
     """Per-head qk-norm (Qwen3/OLMoE): RMSNorm over the trailing head dim,
     through the fused norm kernel over rows of dh (f32 moments, output in
     x's dtype), as the JAX package's jnp ``rms_norm_headwise``."""
+    if is_dtensor(x):
+        return ops.fused_rmsnorm(x, scale, eps=eps)
     shape = x.shape
     y = ops.fused_rmsnorm(x.reshape(-1, shape[-1]), scale, eps=eps)
     return y.reshape(shape)
@@ -159,7 +183,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, dh); positions: (B, S) integer."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    freqs = replicated_on(rope_freqs(x.shape[-1], theta, x.device),
+                          positions)
     angles = positions[..., None].float() * freqs          # (B,S,half)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -181,12 +206,14 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     and width streams.  Frequency i of the half dim takes its angle from
     the stream of its section (:func:`mrope_sections`)."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    freqs = replicated_on(rope_freqs(x.shape[-1], theta, x.device),
+                          positions)
     t, h, _ = mrope_sections(x.shape[-1])
     # each frequency's stream, built on the device (no host copy, so a
     # CUDA graph captures it)
     idx = torch.arange(half, device=x.device)
-    sel = (idx >= t).long() + (idx >= t + h).long()       # (half,)
+    sel = replicated_on((idx >= t).long() + (idx >= t + h).long(),
+                        positions)                        # (half,)
     angles = positions[..., None].float() * freqs        # (3,B,S,half)
     angle = angles.gather(0, sel.expand_as(angles[:1]))[0]  # (B,S,half)
     cos = torch.cos(angle)[:, :, None, :]
@@ -237,14 +264,24 @@ def _rope_dispatch(cfg: ModelConfig, x, positions):
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one matmul."""
     d, n, k = w.shape
-    y = torch.matmul(x, w.reshape(d, n * k))
+    y = torch.matmul(x, fsdp_gathered(w).reshape(d, n * k))
+    if is_dtensor(y):
+        # a shard of the merged (n * k) columns must hold whole heads
+        from torch.distributed.tensor import Replicate, Shard
+        last = Shard(y.dim() - 1)
+        want = [Replicate() if p == last and n % y.device_mesh.shape[i]
+                else p for i, p in enumerate(y.placements)]
+        if want != list(y.placements):
+            y = y.redistribute(y.device_mesh, want)
     return y.reshape(x.shape[:-1] + (n, k))
 
 
 def qkv_project(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 positions: torch.Tensor):
     """x: (B,S,d) -> q (B,S,H,dh), k/v (B,S,KV,dh) with qk-norm (where
-    the config has it) and rope applied."""
+    the config has it) and rope applied.  Over a mesh ``x`` is gathered
+    whole along the sequence first (sequence parallelism's all-gather)."""
+    x = constrain(x, "batch", None, "embed")
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -253,6 +290,9 @@ def qkv_project(cfg: ModelConfig, p: Params, x: torch.Tensor,
         k = rms_norm_headwise(p["k_norm"], k)
     q = _rope_dispatch(cfg, q, positions)
     k = _rope_dispatch(cfg, k, positions)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -260,7 +300,22 @@ def attention_output(p: Params, attn: torch.Tensor) -> torch.Tensor:
     """einsum("bshk,hkd->bsd"): attn (B,S,H,dh) -> (B,S,d)."""
     h, k, d = p["wo"].shape
     b, s = attn.shape[:2]
-    return torch.matmul(attn.reshape(b, s, h * k), p["wo"].reshape(h * k, d))
+    out = torch.matmul(attn.reshape(b, s, h * k),
+                       fsdp_gathered(p["wo"]).reshape(h * k, d))
+    return constrain(out, "batch", None, "embed")
+
+
+def on_local_heads(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   name: str = "attention") -> torch.Tensor:
+    """``fn(q, k, v)`` over (B,S,H,dh) / (B,S,KV,dh) DTensors run on each
+    rank's batch rows and heads (the kv heads of its query heads), its
+    output placed as ``q``; plain tensors go straight to ``fn``."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    ql, (kl, vl), _ = head_slices(name, q, (k, v), (), q_head=2,
+                                  kv_head=2)
+    out = torch.empty_like(ql) if ql.shape[2] == 0 else fn(ql, kl, vl)
+    return from_local_like(out, q)
 
 
 def attention_naive(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
@@ -274,7 +329,11 @@ def attention_naive(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     (B*H*Sq, Sk) rows, the causal mask given as each row's length
     ``q_pos + 1`` (key j is kept iff j <= q_pos, as the JAX package masks
     ``kpos <= qpos``); the weights are cast to q's dtype and multiplied
-    with V."""
+    with V.  Over a mesh it runs on the local heads (:func:`on_local_heads`)."""
+    if is_dtensor(q):
+        return on_local_heads(functools.partial(
+            attention_naive, cfg, causal=causal, q_offset=q_offset), q, k, v,
+            "attention_naive")
     b, sq, h, dh = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -344,13 +403,19 @@ def attention_packed(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
 
 def apply_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU, or GELU with biases (the tanh form, ``jax.nn.gelu``'s
-    default)."""
+    default).  Over a mesh ``x`` is gathered whole along the sequence
+    first."""
+    x = constrain(x, "batch", None, "embed")
+    w_up, w_down = fsdp_gathered(p["w_up"]), fsdp_gathered(p["w_down"])
     if cfg.act == "swiglu":
-        g = torch.matmul(x, p["w_gate"])
-        u = torch.matmul(x, p["w_up"])
-        return torch.matmul(F.silu(g) * u, p["w_down"])
-    h = F.gelu(torch.matmul(x, p["w_up"]) + p["b_up"], approximate="tanh")
-    return torch.matmul(h, p["w_down"]) + p["b_down"]
+        g = torch.matmul(x, fsdp_gathered(p["w_gate"]))
+        u = torch.matmul(x, w_up)
+        h = constrain(F.silu(g) * u, "batch", None, "mlp")
+        return constrain(torch.matmul(h, w_down), "batch", None, "embed")
+    h = F.gelu(torch.matmul(x, w_up) + p["b_up"], approximate="tanh")
+    h = constrain(h, "batch", None, "mlp")
+    return constrain(torch.matmul(h, w_down) + p["b_down"], "batch", None,
+                     "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -395,22 +460,67 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return table[idx]
 
 
+def _gather_sharded(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` of a (V, d) DTensor table: gathered whole on every
+    mesh dim but those that shard its vocabulary (FSDP's gather), each
+    rank gathers the rows it holds, the others zero, and the result is
+    ``Partial`` over the vocab dims (the caller's ``constrain`` sums it:
+    the vocab-parallel embedding).  ``ids`` (B, S) are a DTensor or a
+    plain tensor, the same on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed.sharding import shard_offset
+    mesh = table.device_mesh
+    want = [p if p == Shard(0) else Replicate() for p in table.placements]
+    table = table.redistribute(mesh, want)
+    vocab_dims = [i for i, p in enumerate(want) if p == Shard(0)]
+    ids = replicated_on(ids, table)
+    id_pl = [Replicate() if i in vocab_dims else p
+             for i, p in enumerate(ids.placements)]
+    if any(p not in (Shard(0), Replicate()) for p in id_pl):
+        raise ValueError(f"embed_tokens: ids placed {ids.placements}; "
+                         "expected rows sharded or replicated")
+    ids = ids.redistribute(mesh, id_pl)
+    row_dims = [i for i, p in enumerate(id_pl) if p == Shard(0)]
+    local = to_local(table, row_dims)
+    v0 = shard_offset(table.shape, mesh, want, 0)
+    il = ids.to_local().long() - v0
+    inside = (il >= 0) & (il < local.shape[0])
+    rows = gather_rows(local, torch.where(inside, il, 0)) * \
+        inside[..., None].to(local.dtype)
+    out_pl = [Partial() if i in vocab_dims else p
+              for i, p in enumerate(id_pl)]
+    return from_local(rows, mesh, out_pl,
+                          tuple(ids.shape) + (table.shape[1],))
+
+
+def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(table):
+        return _gather_sharded(table, ids)
+    return gather_rows(table, ids.long())
+
+
 def embed_tokens(cfg: ModelConfig, p: Params,
                  tokens: torch.Tensor) -> torch.Tensor:
     """tokens: (B,S), or (B,K,S) for a codebook model, whose K codebook
-    embeddings of a frame are summed in codebook order -> (B,S,d)."""
+    embeddings of a frame are summed in codebook order -> (B,S,d).  Over
+    a mesh, from a vocab-sharded table (:func:`_gather_sharded`)."""
     if tokens.dim() == 2:
-        return gather_rows(p["tok"][0], tokens.long())
-    h = gather_rows(p["tok"][0], tokens[:, 0].long())
-    for i in range(1, tokens.shape[1]):
-        h = h + gather_rows(p["tok"][i], tokens[:, i].long())
-    return h
+        h = _gather(p["tok"][0], tokens)
+    else:
+        h = _gather(p["tok"][0], tokens[:, 0])
+        for i in range(1, tokens.shape[1]):
+            h = h + _gather(p["tok"][i], tokens[:, i])
+    return constrain(h, "batch", None, "embed")
 
 
 def lm_logits(cfg: ModelConfig, p: Params, h: torch.Tensor) -> torch.Tensor:
     """h: (B,S,d) -> logits (B,S,V), or (B,K,S,V) for a codebook model
     (one head a codebook)."""
-    w = p["tok"].transpose(1, 2) if cfg.tie_embeddings else p["head"]
+    h = constrain(h, "batch", None, "embed")
+    w = fsdp_gathered(p["tok"]).transpose(1, 2) if cfg.tie_embeddings \
+        else fsdp_gathered(p["head"])
     if not cfg.num_codebooks:
-        return torch.matmul(h, w[0])
-    return torch.matmul(h[:, None], w[None])
+        return constrain(torch.matmul(h, w[0]), "batch", None, "vocab")
+    return constrain(torch.matmul(h[:, None], w[None]), "batch", None, None,
+                     "vocab")

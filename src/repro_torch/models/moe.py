@@ -5,9 +5,15 @@ Counterpart of `repro.models.moe` with the same names, parameter dict
 (E, d, f), ``w_down`` (E, f, d)) and results.  Assignments are ranked
 within their expert by a stable sort of the flat (token, k) order, so
 earlier tokens win; those past the expert's capacity are dropped, and
-the (E, cap, d) expert batch is built by a gather.  The port has no
-mesh, so there is one dispatch group (the JAX package's ``G`` is 1 on a
-single device).
+the (E, cap, d) expert batch is built by a gather.  The tokens are split
+into ``G`` dispatch groups with a capacity each, GShard's grouped
+dispatch: ``G`` is the size of the mesh dims the batch is sharded over
+(`repro_torch.distributed.axis_size`), 1 where that does not divide the
+tokens and off a mesh, as in the JAX package.  Over a mesh the sort, the
+scatters and the gathers run on each rank's own tokens (its groups), each
+rank computes its shard of the experts, and the expert outputs are
+gathered over the expert dim before the combine
+(:func:`_apply_moe_sharded`).
 
 Every shape here follows from the input's shape alone and nothing reads
 a value back to the host, so the decode tick and the prefill cells
@@ -32,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import axis_size, constrain, is_dtensor
 from repro_torch.models.layers import dense_init, gather_rows
 
 Params = Dict[str, torch.Tensor]
@@ -64,20 +71,30 @@ def route(cfg: ModelConfig, p: Params, x2d: torch.Tensor
 
     The top k come from a stable descending sort, so tied probabilities
     go to the lower expert first, as ``lax.top_k`` orders them."""
+    weights, idx, me, ce = _route_terms(cfg, p["router"], x2d)
+    return weights, idx, _aux_loss(cfg, me, ce)
+
+
+def _route_terms(cfg: ModelConfig, router: torch.Tensor, x2d: torch.Tensor):
+    """(weights (T,k), expert_idx (T,k), mean router probability per
+    expert, mean assignments per expert) of the tokens ``x2d``."""
     moe = cfg.moe
-    logits = torch.matmul(x2d.float(), p["router"].float())
+    logits = torch.matmul(x2d.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights = top.values[:, :moe.top_k]
     idx = top.indices[:, :moe.top_k]
     weights = weights / torch.clamp(weights.sum(dim=-1, keepdim=True),
                                     min=1e-9)
-    # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(dim=0)
     experts = torch.arange(moe.num_experts, device=idx.device)
     ce = (idx[..., None] == experts).sum(dim=1).float().mean(dim=0)
-    aux = moe.num_experts * torch.sum(me * ce) / moe.top_k
-    return weights, idx, aux
+    return weights, idx, probs.mean(dim=0), ce
+
+
+def _aux_loss(cfg: ModelConfig, me: torch.Tensor, ce: torch.Tensor):
+    """The load-balancing auxiliary loss (Switch-style)."""
+    moe = cfg.moe
+    return moe.num_experts * torch.sum(me * ce) / moe.top_k
 
 
 def _dispatch_group(x2d: torch.Tensor, idx: torch.Tensor,
@@ -133,29 +150,130 @@ def _combine_group(yflat: torch.Tensor, slot: torch.Tensor,
     return out
 
 
+def _experts(w_gate, w_up, w_down, xin: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU experts over (E, G, cap, d) slots -> (E, G, cap, d):
+    one batched product an expert over all its groups' slots."""
+    e, g_, cap, d = xin.shape
+    x3 = xin.reshape(e, g_ * cap, d)
+    h = F.silu(torch.bmm(x3, w_gate)) * torch.bmm(x3, w_up)
+    return torch.bmm(h, w_down).reshape(e, g_, cap, d)
+
+
+def _dispatch_combine(cfg: ModelConfig, x2d: torch.Tensor,
+                      idx: torch.Tensor, weights: torch.Tensor, groups: int,
+                      experts) -> torch.Tensor:
+    """Tokens (T, d) in ``groups`` equal groups, each dispatched to its
+    own (E, cap) buffer, through ``experts`` ((E, G, cap, d) -> the same)
+    and combined back -> (T, d)."""
+    t, d = x2d.shape
+    e = cfg.moe.num_experts
+    tg = t // groups
+    cap = expert_capacity(cfg, tg)
+    parts = [_dispatch_group(x2d[i * tg:(i + 1) * tg],
+                             idx[i * tg:(i + 1) * tg],
+                             weights[i * tg:(i + 1) * tg], e, cap, x2d.dtype)
+             for i in range(groups)]
+    xin = torch.stack([pt[0] for pt in parts], dim=1)   # (E,G,cap,d)
+    yexp = experts(xin)
+    pad = torch.zeros((1, d), dtype=x2d.dtype, device=x2d.device)
+    outs = []
+    for i, (_, slot, flat_token, flat_weight, keep) in enumerate(parts):
+        yflat = torch.cat([yexp[:, i].reshape(e * cap, d), pad])
+        outs.append(_combine_group(yflat, slot, flat_token, flat_weight,
+                                   keep, tg, d, x2d.dtype))
+    return outs[0] if groups == 1 else torch.cat(outs)
+
+
+def num_groups(num_tokens: int) -> int:
+    """Dispatch groups of ``num_tokens`` tokens: the batch's mesh size, or
+    1 where that does not divide them."""
+    groups = axis_size("batch")
+    return groups if num_tokens % groups == 0 else 1
+
+
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> (out (B,S,d), aux_loss scalar).
 
     Every one of the B*S tokens is routed and takes capacity, padding
-    included: the capacity follows from B*S, as in the JAX package."""
-    moe = cfg.moe
+    included: the capacity follows from the tokens of a group, as in the
+    JAX package."""
     if cfg.act != "swiglu":
         raise ValueError(f"act={cfg.act!r} is not served by the port yet")
     b, s, d = x.shape
-    t = b * s
-    e = moe.num_experts
-    x2d = x.reshape(t, d)
+    groups = num_groups(b * s)
+    if is_dtensor(x):
+        return _apply_moe_sharded(cfg, p, x, groups)
+    x2d = x.reshape(b * s, d)
     weights, idx, aux = route(cfg, p, x2d)
-    cap = expert_capacity(cfg, t)
-    xin, slot, flat_token, flat_weight, keep = _dispatch_group(
-        x2d, idx, weights, e, cap, x.dtype)             # xin: (E,cap,d)
-    # expert FFN: (E,cap,d) x (E,d,f)
-    g = torch.bmm(xin, p["w_gate"])
-    u = torch.bmm(xin, p["w_up"])
-    yexp = torch.bmm(F.silu(g) * u, p["w_down"])        # (E,cap,d)
-    yflat = torch.cat([yexp.reshape(e * cap, d),
-                       torch.zeros((1, d), dtype=x.dtype, device=x.device)])
-    out = _combine_group(yflat, slot, flat_token, flat_weight, keep, t, d,
-                         x.dtype)
+    out = _dispatch_combine(
+        cfg, x2d, idx, weights, groups,
+        lambda xin: _experts(p["w_gate"], p["w_up"], p["w_down"], xin))
     return out.reshape(b, s, d), aux
+
+
+def _apply_moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`apply_moe` over a mesh.  ``x`` is placed with its batch
+    over the batch's mesh dims (its rows of the groups) and replicated
+    elsewhere; each rank routes and dispatches its own tokens, in its
+    share of the ``groups``; the experts are sharded over ``model`` where
+    their weights are (EP): each rank runs its experts over its groups'
+    slots and the outputs are all-gathered over the expert dim before the
+    combine.  The aux loss takes the global means.  The gradient of
+    ``x`` through the dispatch is partial over the expert shards, and
+    through the routing whole on every rank."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.distributed.sharding import from_local, to_local
+    mesh = x.device_mesh
+    b, s, d = x.shape
+    e = cfg.moe.num_experts
+    row_pl = [pl if pl == Shard(0) else Replicate() for pl in x.placements]
+    x = x.redistribute(mesh, row_pl)
+    row_dims = [i for i, pl in enumerate(row_pl) if pl == Shard(0)]
+    shards = 1
+    for i in row_dims:
+        shards *= mesh.shape[i]
+    if groups % shards:
+        raise ValueError(f"apply_moe: {groups} dispatch groups over "
+                         f"{shards} batch shards")
+    ws = {}
+    for k in ("w_gate", "w_up", "w_down"):
+        w = p[k]
+        w_pl = [pl if pl == Shard(0) else Replicate() for pl in w.placements]
+        ws[k] = to_local(w.redistribute(mesh, w_pl), row_dims)
+    expert_dims = [i for i, pl in enumerate(w_pl) if pl == Shard(0)]
+    router = p["router"]
+    router = to_local(router.redistribute(mesh, [Replicate()] * mesh.ndim),
+                       row_dims)
+    x_route = x.to_local().reshape(-1, d)
+    x_disp = to_local(x, expert_dims).reshape(-1, d)
+    weights, idx, me, ce = _route_terms(cfg, router, x_route)
+    mean_pl = [Partial() if i in row_dims else Replicate()
+               for i in range(mesh.ndim)]
+    full = [Replicate()] * mesh.ndim
+    me, ce = (from_local(v / shards, mesh, mean_pl, (e,))
+              .redistribute(mesh, full) for v in (me, ce))
+    aux = _aux_loss(cfg, me, ce)
+    e_local = ws["w_gate"].shape[0]
+    e0 = 0
+    if expert_dims:
+        from repro_torch.distributed.sharding import shard_offset
+        e0 = shard_offset(p["w_gate"].shape, mesh, w_pl, 0)
+    g_local = groups // shards
+
+    def experts(xin):                                   # (E,G_l,cap,d)
+        y = _experts(ws["w_gate"], ws["w_up"], ws["w_down"],
+                     xin[e0:e0 + e_local])
+        y_pl = [Shard(0) if i in expert_dims else
+                Shard(1) if i in row_dims else Replicate()
+                for i in range(mesh.ndim)]
+        gathered = [Shard(1) if i in row_dims else Replicate()
+                    for i in range(mesh.ndim)]
+        shape = (e, groups) + tuple(y.shape[2:])
+        return from_local(y, mesh, y_pl, shape).redistribute(
+            mesh, gathered).to_local()
+
+    out = _dispatch_combine(cfg, x_disp, idx, weights, g_local, experts)
+    out = from_local(out.reshape(-1, s, d), mesh, row_pl, (b, s, d))
+    return constrain(out, "batch", None, "embed"), aux

@@ -16,8 +16,10 @@ has the SSD form (``ssm.ssd_matmul``): within a chunk the scalar-decay
 recurrence is two matrix products per head.  A decode step is one
 recurrence step over ``(conv_state, ssm_state)``.  The scan and the step
 are plain torch, as the JAX package's are jnp (there is no Pallas kernel
-of them); ``constrain``, the JAX package's sharding hint, has no meaning
-on one device and is dropped.
+of them).  Over a mesh the Mamba-1 prompt pass constrains ``xs`` to
+``ssm_inner`` as the JAX package does and runs per channel on each rank's
+shard (:func:`_apply_mamba_sharded`); Mamba-2 and the decode step over a
+mesh are not ported (they raise).
 """
 from __future__ import annotations
 
@@ -28,6 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (constrain, from_local,
+                                              fsdp_gathered, is_dtensor,
+                                              shard_offset, to_local)
 from repro_torch.models.layers import dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -173,12 +178,20 @@ def _chunks(s: int, chunk: int):
 # ---------------------------------------------------------------------------
 
 
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def _mamba1_inner(cfg: ModelConfig, p: Params, xc: torch.Tensor,
-                  h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xc: (B,S,di) post-conv post-silu; h0: (B,di,N). Chunked scan."""
+                  h0: torch.Tensor, contract=_same
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xc: (B,S,di) post-conv post-silu; h0: (B,di,N). Chunked scan.
+    ``contract`` completes the one product over the channels (x_proj):
+    the identity on one device, a sum over the channel shards on a
+    mesh."""
     n = cfg.ssm.state_dim
     r = dt_rank(cfg)
-    proj = torch.matmul(xc, p["x_proj"])
+    proj = contract(torch.matmul(xc, p["x_proj"]))
     dt = F.softplus(torch.matmul(proj[..., :r], p["dt_proj"]).float()
                     + p["dt_bias"])                       # (B,S,di)
     b_t = proj[..., r:r + n].float()                      # (B,S,N)
@@ -347,7 +360,8 @@ def apply_mamba_with_state(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """x: (B,S,d). Returns (y (B,S,d), conv_state, ssm_state): the conv
     window of the last k-1 inputs in x's dtype and the f32 scan state,
     from ``init_state`` = (conv_state, ssm_state) or from zeros."""
-    ssm = cfg.ssm
+    if is_dtensor(x):
+        return _apply_mamba_sharded(cfg, p, x, init_state)
     di = cfg.d_inner
     xz = torch.matmul(x, p["in_proj"])
     xs, z = xz[..., :di], xz[..., di:]
@@ -357,7 +371,19 @@ def apply_mamba_with_state(cfg: ModelConfig, p: Params, x: torch.Tensor,
         h0 = torch.zeros(state0, dtype=torch.float32, device=x.device)
     else:
         conv_state, h0 = init_state
-    # conv over [conv_state ; xs]
+    return _mamba_block(cfg, p, xs, z, conv_state, h0, x.dtype)
+
+
+def _mamba_block(cfg: ModelConfig, p: Params, xs: torch.Tensor,
+                 z: torch.Tensor, conv_state: torch.Tensor,
+                 h0: torch.Tensor, dtype: torch.dtype, contract=_same):
+    """The block after ``in_proj``: the conv over [conv_state ; xs], the
+    scan from ``h0``, the gate by ``z`` and ``out_proj``.  Everything is
+    per channel but the products over the channels, which ``contract``
+    completes (the identity on one device; over a mesh each rank runs
+    its channels and ``contract`` sums the products over the channel
+    shards).  Returns (y, conv_state, ssm_state)."""
+    ssm = cfg.ssm
     full = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
     k = ssm.conv_kernel
     conv_out = sum(full[:, i:i + xs.shape[1], :] * p["conv_w"][i]
@@ -365,14 +391,85 @@ def apply_mamba_with_state(cfg: ModelConfig, p: Params, x: torch.Tensor,
     xc = F.silu(conv_out)
     new_conv_state = full[:, -(k - 1):, :] if k > 1 else conv_state
     if ssm.variant == "mamba1":
-        y, h_last = _mamba1_inner(cfg, p, xc, h0)
+        y, h_last = _mamba1_inner(cfg, p, xc, h0, contract)
     else:
         dt_in = torch.matmul(xc, p["dt_w"])               # (B,S,H)
         inner = _mamba2_inner_ssd if ssm.ssd_matmul else _mamba2_inner
         y, h_last = inner(cfg, p, xc, dt_in, h0)
-    y = y.to(x.dtype) * F.silu(z)
-    out = torch.matmul(y, p["out_proj"])
+    y = y.to(dtype) * F.silu(z)
+    out = contract(torch.matmul(y, p["out_proj"]))
     return out, new_conv_state, h_last
+
+
+def _apply_mamba_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                         init_state) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """:func:`apply_mamba_with_state` of a Mamba-1 block over a mesh:
+    ``xs`` / ``z`` constrained to ``ssm_inner`` (the JAX package's
+    point), then :func:`_mamba_block` on each rank's rows and channels
+    with its slice of each weight (the scan writes with ``out=``, which
+    a DTensor does not take), the two products over the channels
+    (``x_proj`` and ``out_proj``) summed over the channel shards.
+    Returns the output, the conv window and the scan state as DTensors
+    placed by rows and channels."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    ssm = cfg.ssm
+    if ssm.variant != "mamba1" or init_state is not None:
+        raise NotImplementedError(
+            "over a mesh the port runs the Mamba-1 block's prompt pass; "
+            "Mamba-2 and a resumed state run on one device")
+    di, n, k = cfg.d_inner, ssm.state_dim, ssm.conv_kernel
+    x = constrain(x, "batch", None, "embed")
+    xz = torch.matmul(x, fsdp_gathered(p["in_proj"]))
+    xs = constrain(xz[..., :di], "batch", None, "ssm_inner")
+    z = constrain(xz[..., di:], "batch", None, "ssm_inner")
+    mesh, pl = xs.device_mesh, tuple(xs.placements)
+    rows = [i for i, q in enumerate(pl) if q == Shard(0)]
+    chans = [i for i, q in enumerate(pl) if q == Shard(2)]
+    c0 = shard_offset(xs.shape, mesh, pl, 2)
+    xs_l, z_l = xs.to_local(), z.to_local()
+    bsz, n_ch = xs_l.shape[0], xs_l.shape[2]
+    rows_pl = [Shard(0) if i in rows else Replicate()
+               for i in range(len(pl))]
+
+    def weight(w, ch_dim):
+        """``w``'s rows (``ch_dim``) of this rank's channels, whole
+        elsewhere; its gradient partial over the row shards (and over
+        the channel shards where it is replicated and sliced here)."""
+        want = [Shard(ch_dim) if i in chans and q == Shard(ch_dim)
+                else Replicate() for i, q in enumerate(w.placements)]
+        w = w.redistribute(mesh, want)
+        sliced = [i for i in chans if want[i] != Shard(ch_dim)]
+        wl = to_local(w, rows + sliced)
+        return wl.narrow(ch_dim, c0, n_ch) if sliced else wl
+
+    def reduce_channels(t):
+        """A local product over this rank's channels, summed over them."""
+        part = [Partial() if i in chans else q
+                for i, q in enumerate(rows_pl)]
+        shape = (x.shape[0],) + tuple(t.shape[1:])
+        return from_local(t, mesh, part, shape).redistribute(
+            mesh, rows_pl).to_local()
+
+    local = {"conv_w": weight(p["conv_w"], 1),
+             "conv_b": weight(p["conv_b"], 0),
+             "x_proj": weight(p["x_proj"], 0),
+             "dt_proj": weight(p["dt_proj"], 1),
+             "dt_bias": weight(p["dt_bias"], 0),
+             "A_log": weight(p["A_log"], 0), "D": weight(p["D"], 0),
+             "out_proj": weight(p["out_proj"], 0)}
+    conv0 = torch.zeros((bsz, k - 1, n_ch), dtype=xs_l.dtype,
+                        device=xs_l.device)
+    h0 = torch.zeros((bsz, n_ch, n), dtype=torch.float32,
+                     device=xs_l.device)
+    out, conv_state, h = _mamba_block(cfg, local, xs_l, z_l, conv0, h0,
+                                      x.dtype, reduce_channels)
+    out = constrain(from_local(out, mesh, rows_pl, tuple(x.shape)),
+                    "batch", None, "embed")
+    conv_state = from_local(conv_state, mesh, pl, (x.shape[0], k - 1, di))
+    state_pl = [Shard(1) if q == Shard(2) else q for q in pl]
+    return out, conv_state, from_local(h, mesh, state_pl,
+                                       (x.shape[0], di, n))
 
 
 def apply_mamba_step(cfg: ModelConfig, p: Params, x_t: torch.Tensor,

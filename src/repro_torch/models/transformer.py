@@ -45,6 +45,15 @@ stripe per application; a decode step writes all of them in place.
 the JAX package's: its attention is ``attention_naive`` or, blockwise,
 ``attention_chunked_train``, never a flash kernel (which has no
 backward), and the MoE's aux loss is carried out of the layer loop.
+
+Over a mesh (`repro_torch.distributed`: parameters, batches and caches
+DTensors placed by `repro_torch.distributed.plan`, the calls under a
+``sharding_rules`` context) the same functions run SPMD: the residual
+stream is constrained after every block (over ``act_seq`` too where
+``rt.seq_shard``), and the kernels run on each rank's shard.  A decode
+step writes each rank's rows of its cache shard, and gathers a cache
+sharded on the head dim or the sequence before the decode kernel, which
+takes the batch and the kv heads sharded only.
 """
 from __future__ import annotations
 
@@ -58,6 +67,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import FAMILIES, SSM_FAMILIES, ModelConfig
+from repro_torch.distributed.sharding import (constrain, from_local,
+                                              is_dtensor)
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -129,8 +140,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         # the shared block draws from a generator of its own, as the JAX
         # package draws it from a key of its own (the other families'
         # draws are left as they were)
-        shared_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
-                                        device=dev))
+        draw = torch.randint(0, 2 ** 62, (1,), generator=gen, device=dev)
+        # fake tensors (abstract_params) hold no value: any seed will do
+        shared_seed = 0 if _is_fake(draw) else int(draw)
     blocks = []
     for _ in range(cfg.num_layers):
         if cfg.family in SSM_FAMILIES:
@@ -157,6 +169,20 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         }
     params["final_norm"] = L.init_norm(cfg, cfg.d_model, dtype, dev)
     return params
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
+def abstract_params(cfg: ModelConfig, param_dtype: Optional[str] = None
+                    ) -> Params:
+    """The parameter tree as fake tensors (shapes and dtypes, no memory):
+    the JAX package's ``eval_shape`` of its ``init_params``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        return init_params(cfg, device="cpu", param_dtype=param_dtype)
 
 
 def _stack(blocks):
@@ -310,7 +336,7 @@ def _parts(specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                   *, collect_cache: bool = False,
+                   *, rt: "ModelRuntime" = None, collect_cache: bool = False,
                    cache_dtype: torch.dtype = torch.float32,
                    cache_len: Optional[int] = None, attn: str = "flash",
                    kv_out: Optional[Dict[str, torch.Tensor]] = None,
@@ -329,38 +355,102 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     :func:`embed_inputs`; ``num_prefix_patches`` lays out M-RoPE's image
     grid (`repro_torch.models.layers.positions_for`).  For the SSM
     families parts holds the state of :func:`state_specs` instead
-    (:func:`_forward_hidden_ssm`)."""
+    (:func:`_forward_hidden_ssm`).  ``rt`` (default
+    :data:`DEFAULT_RUNTIME`) gives ``seq_shard``."""
     _check_family(cfg)
+    rt = DEFAULT_RUNTIME if rt is None else rt
     if attn not in ATTN_ROUTES:
         raise ValueError(f"attn={attn!r}: expected one of {ATTN_ROUTES}")
     b, s = tokens.shape[0], tokens.shape[-1]
     h = embed_inputs(cfg, params, tokens, embeds_override)
-    positions = L.positions_for(cfg, (b, s), num_prefix_patches,
-                                device=tokens.device)
+    positions = _placed_like(L.positions_for(
+        cfg, (b, s), num_prefix_patches, device=tokens.device), h)
     parts = None
-    if collect_cache:
-        width = max(s, cache_len or 0)
-        parts = _parts(state_specs(cfg, b, width, cache_dtype),
-                       tokens.device, kv_out, zeros=width > s)
+    width = max(s, cache_len or 0)
+    specs = state_specs(cfg, b, width, cache_dtype)
+    if collect_cache and is_dtensor(h):
+        if kv_out is not None:
+            raise ValueError("kv_out (a graph's static buffers) takes plain "
+                             "tensors; over a mesh the cache is DTensors")
+        parts = {key: [] for key in specs}
+    elif collect_cache:
+        parts = _parts(specs, tokens.device, kv_out, zeros=width > s)
         if kv_out is not None and width > s:
             for key in SEQ_LEAVES:
                 if key in parts:
                     parts[key][:, :, s:].zero_()
     attend = functools.partial(_prompt_attention, attn=attn, cfg=cfg)
     if cfg.family in SSM_FAMILIES:
-        return _forward_hidden_ssm(cfg, params, h, positions, attend, parts)
+        h, parts = _forward_hidden_ssm(cfg, params, h, positions, attend,
+                                       parts, rt)
+        return h, _stacked(parts, specs, s)
     for i in range(cfg.num_layers):
         h, _, k, v = _attn_layer(cfg, layer_params(params, i), h, positions,
-                                 attend)
+                                 attend, rt)
         if parts is not None:
-            parts["k"][i, :, :s] = k
-            parts["v"][i, :, :s] = v
+            _store(parts, "k", i, k)
+            _store(parts, "v", i, v)
     h = L.apply_norm(cfg, params["final_norm"], h)
-    return h, parts
+    return h, _stacked(parts, specs, s)
+
+
+def _placed_like(positions: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Position ids (B, S), or M-RoPE's (3, B, S), placed with ``h``'s
+    batch shards where ``h`` is a DTensor (each rank slices its own rows,
+    no communication), so no op meets a global-batch plain tensor that
+    DTensor would answer by gathering the activations."""
+    if not is_dtensor(h):
+        return positions
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = h.device_mesh
+    bdim = positions.dim() - 2
+    want = [Shard(bdim) if p == Shard(0) else Replicate()
+            for p in h.placements]
+    full = DTensor.from_local(positions, mesh, [Replicate()] * mesh.ndim)
+    return full.redistribute(mesh, want)
+
+
+def _store(parts: Dict[str, Any], key: str, i: int,
+           src: torch.Tensor) -> None:
+    """Entry ``i`` of cache leaf ``key``: ``parts[key][i, :, :S] = src``
+    (a prompt pass's (B, S, ...) part into the first S positions of a
+    (B, width, ...) leaf), or, over a mesh, appended to the list that
+    :func:`_stacked` stacks."""
+    if isinstance(parts[key], list):
+        parts[key].append(src)
+    elif key in SEQ_LEAVES:
+        parts[key][i, :, :src.shape[1]] = src
+    else:
+        parts[key][i] = src
+
+
+def _stacked(parts: Optional[Dict[str, Any]], specs, s: int):
+    """A mesh's cache parts (lists of DTensors) stacked into the leaves of
+    ``specs``, cast and zero-padded past S like the single-device cache;
+    plain parts pass."""
+    if parts is None or not any(isinstance(v, list) for v in parts.values()):
+        return parts
+    out = {}
+    for key, (shape, dtype) in specs.items():
+        t = torch.stack(parts[key]).to(dtype)
+        if key in SEQ_LEAVES and shape[2] > s:
+            t = F.pad(t, (0, 0, 0, 0, 0, shape[2] - s))
+        out[key] = t
+    return out
+
+
+def _residual_constrain(rt: "ModelRuntime", h: torch.Tensor
+                        ) -> torch.Tensor:
+    """The residual stream's placement after a block: the batch over DP,
+    and with ``rt.seq_shard`` the sequence over ``model`` (Megatron's
+    sequence parallelism)."""
+    if rt.seq_shard:
+        return constrain(h, "batch", "act_seq", "embed")
+    return constrain(h, "batch", None, "embed")
 
 
 def _attn_layer(cfg: ModelConfig, blk: Params, h: torch.Tensor,
-                positions: torch.Tensor, attend):
+                positions: torch.Tensor, attend, rt: "ModelRuntime"):
     """One layer of a transformer family over a whole sequence: norm ->
     qkv + rope -> ``attend(q, k, v)`` -> wo -> (+ h) norm -> FFN or MoE
     (+ h).  Returns ``(h, aux, k, v)``, aux the MoE's loss or None."""
@@ -369,12 +459,15 @@ def _attn_layer(cfg: ModelConfig, blk: Params, h: torch.Tensor,
     out = L.attention_output(blk["attn"], attend(q, k, v))
     hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
     f, aux = _ffn_aux(cfg, blk, hn2)
-    return h + f, aux, k, v
+    return _residual_constrain(rt, h + f), aux, k, v
 
 
 def _prompt_attention(q, k, v, attn: str, cfg: ModelConfig):
     """Causal attention of a prompt pass by route (see
     :func:`forward_hidden`): (B,S,H,dh) q, (B,S,KV,dh) k/v."""
+    if is_dtensor(q):
+        return L.on_local_heads(functools.partial(
+            _prompt_attention, attn=attn, cfg=cfg), q, k, v)
     if attn == "naive":
         return L.attention_naive(cfg, q, k, v, causal=True)
     return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -393,7 +486,8 @@ def _norm_add(cfg: ModelConfig, p: Params, h: torch.Tensor,
 
 def _forward_hidden_ssm(cfg: ModelConfig, params: Params, h: torch.Tensor,
                         positions: torch.Tensor, attend,
-                        parts: Optional[Dict[str, torch.Tensor]]):
+                        parts: Optional[Dict[str, torch.Tensor]],
+                        rt: "ModelRuntime"):
     """The mamba backbone over whole prompts (no padding: the state would
     roll through it); the hybrid runs its shared block (norm -> qkv +
     rope -> ``attend`` -> wo -> norm -> FFN) after every
@@ -405,15 +499,15 @@ def _forward_hidden_ssm(cfg: ModelConfig, params: Params, h: torch.Tensor,
     for i in range(cfg.num_layers):
         h, out, conv, state, kv = _ssm_layer(
             cfg, layer_params(params, i), _shared_at(cfg, params, i), h,
-            out, positions, attend)
+            out, positions, attend, rt)
         if parts is not None:
-            parts["conv"][i] = conv
-            parts["state"][i] = state
+            _store(parts, "conv", i, conv)
+            _store(parts, "state", i, state)
         if kv is None:
             continue
         if parts is not None:
-            parts["shared_k"][app, :, :s] = kv[0]
-            parts["shared_v"][app, :, :s] = kv[1]
+            _store(parts, "shared_k", app, kv[0])
+            _store(parts, "shared_v", app, kv[1])
         app += 1
     h, _ = _norm_add(cfg, params["final_norm"], h, out)
     return h, parts
@@ -427,13 +521,14 @@ def _shared_at(cfg: ModelConfig, params: Params, i: int):
 
 def _ssm_layer(cfg: ModelConfig, blk: Params, shared: Optional[Params],
                h: torch.Tensor, out: Optional[torch.Tensor],
-               positions: torch.Tensor, attend):
+               positions: torch.Tensor, attend, rt: "ModelRuntime"):
     """One mamba layer over a whole sequence, and after it the shared
     block where ``shared`` is given.  The residual stream ``h`` takes the
     previous block's ``out`` in this layer's norm.  Returns ``(h, out,
     conv, state, kv)``: the layer's conv window and scan state, and the
     shared block's ``(k, v)`` or None."""
     hn, h = _norm_add(cfg, blk["norm1"], h, out)
+    h = _residual_constrain(rt, h)
     out, conv, state = S.apply_mamba_with_state(cfg, blk["mamba"], hn, None)
     if shared is None:
         return h, out, conv, state, None
@@ -462,8 +557,10 @@ class ModelRuntime:
     ``attention_chunked_train``).  ``unroll_decode`` has no effect: the
     port's decode is always an unrolled Python loop writing each layer's
     cache in place, the JAX package's unrolled form.  ``seq_shard``
-    (sequence parallelism of the residual stream over a mesh) raises
-    until the port has a mesh."""
+    shards the residual stream's sequence over ``model`` between blocks
+    (sequence parallelism; a no-op off a mesh).  The serving callables
+    take ``rt`` too and read ``seq_shard`` from it: their attention is
+    the flash and decode kernels' whatever ``attn_impl`` says."""
     attn_impl: str = "auto"        # naive | chunked | chunked_train | auto
     q_block: int = 512
     kv_block: int = 1024
@@ -472,12 +569,6 @@ class ModelRuntime:
     aux_loss_weight: float = 0.01
     seq_shard: bool = False
     unroll_decode: bool = False
-
-    def __post_init__(self):
-        if self.seq_shard:
-            raise NotImplementedError(
-                "seq_shard shards the residual stream over a device mesh; "
-                "the port runs on one device until distributed/ is ported")
 
 
 DEFAULT_RUNTIME = ModelRuntime()
@@ -561,21 +652,22 @@ def _hidden_train(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     block that follows it) runs under the remat policy."""
     b, s = tokens.shape[0], tokens.shape[-1]
     h = embed_inputs(cfg, params, tokens, embeds_override)
-    positions = L.positions_for(cfg, (b, s), num_prefix_patches,
-                                device=tokens.device)
+    positions = _placed_like(L.positions_for(
+        cfg, (b, s), num_prefix_patches, device=tokens.device), h)
     attend = functools.partial(_train_attention, cfg, rt)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     blocks = _unbind_layers(cfg, params)
     if cfg.family in SSM_FAMILIES:
         layer = _maybe_remat(
             lambda h, out, blk, shared: _ssm_layer(
-                cfg, blk, shared, h, out, positions, attend)[:2], rt)
+                cfg, blk, shared, h, out, positions, attend, rt)[:2], rt)
         out = None
         for i, blk in enumerate(blocks):
             h, out = layer(h, out, blk, _shared_at(cfg, params, i))
         return _norm_add(cfg, params["final_norm"], h, out)[0], aux
     layer = _maybe_remat(
-        lambda h, blk: _attn_layer(cfg, blk, h, positions, attend)[:2], rt)
+        lambda h, blk: _attn_layer(cfg, blk, h, positions, attend, rt)[:2],
+        rt)
     for blk in blocks:
         h, aux_l = layer(h, blk)
         if aux_l is not None:
@@ -598,11 +690,39 @@ def forward_train(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
     n_img = 0 if override is None else override.shape[1]
     h, aux = _hidden_train(cfg, params, tokens, rt, override, n_img)
     logits = L.lm_logits(cfg, params["embed"], h).float()
-    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           labels.reshape(-1).long())
+    if is_dtensor(logits):
+        loss = _cross_entropy_sharded(logits, labels)
+    else:
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1).long())
     total = loss + rt.aux_loss_weight * aux
     return total, {"loss": loss, "aux_loss": aux,
                    "perplexity": torch.exp(torch.clamp(loss, max=20.0))}
+
+
+def _cross_entropy_sharded(logits: torch.Tensor, labels: torch.Tensor
+                           ) -> torch.Tensor:
+    """:func:`forward_train`'s mean cross entropy of DTensor logits: the
+    vocabulary gathered, each rank's rows summed and divided by the
+    global count, the sum over the batch shards completing the mean (a
+    replicated scalar DTensor).  Unsharded rows take the plain mean."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    rows = [p if p == Shard(0) else Replicate() for p in logits.placements]
+    lg = logits.redistribute(mesh, rows).to_local()
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim)
+    lb = labels.redistribute(mesh, rows).to_local()
+    flat_lg = lg.reshape(-1, lg.shape[-1])
+    flat_lb = lb.reshape(-1).long()
+    if Shard(0) not in rows:
+        local = F.cross_entropy(flat_lg, flat_lb)
+        return from_local(local, mesh, rows, ())
+    local = F.cross_entropy(flat_lg, flat_lb, reduction="sum") / \
+        labels.numel()
+    part = [Partial() if p == Shard(0) else p for p in rows]
+    return from_local(local, mesh, part, ()).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
 
 
 # ---------------------------------------------------------------------------
@@ -612,6 +732,7 @@ def forward_train(cfg: ModelConfig, params: Params, batch: Dict[str, Any],
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             max_len: Optional[int] = None,
+            rt: ModelRuntime = DEFAULT_RUNTIME,
             embeds_override: Optional[torch.Tensor] = None,
             true_lengths: Optional[torch.Tensor] = None,
             cache_dtype: torch.dtype = torch.float32,
@@ -634,7 +755,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
         raise ValueError("ragged prefill unsupported for SSM state "
                          "(group requests by exact length instead)")
     n_img = 0 if embeds_override is None else embeds_override.shape[1]
-    h, cache = forward_hidden(cfg, params, tokens, collect_cache=True,
+    h, cache = forward_hidden(cfg, params, tokens, rt=rt, collect_cache=True,
                               cache_dtype=cache_dtype, cache_len=max_len,
                               kv_out=kv_out, embeds_override=embeds_override,
                               num_prefix_patches=n_img)
@@ -653,7 +774,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
 
 def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    prefix_k: torch.Tensor, prefix_v: torch.Tensor, *,
-                   prefix_len: int,
+                   prefix_len: int, rt: ModelRuntime = DEFAULT_RUNTIME,
                    true_lengths: Optional[torch.Tensor] = None,
                    cache_dtype: torch.dtype = torch.float32,
                    kv_out: Optional[Dict[str, torch.Tensor]] = None
@@ -689,8 +810,8 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         raise ValueError(f"prefix_len must be >= 0, got {prefix_len}")
     bsz, seq = tokens.shape
     h = L.embed_tokens(cfg, params["embed"], tokens)
-    positions = L.positions_for(cfg, (bsz, seq), 0, offset=prefix_len,
-                                device=tokens.device)
+    positions = _placed_like(L.positions_for(
+        cfg, (bsz, seq), 0, offset=prefix_len, device=tokens.device), h)
     shape = (cfg.num_layers, bsz, seq, cfg.num_kv_heads, cfg.head_dim)
     parts = _kv_parts(shape, cache_dtype, h.device, kv_out)
     for i in range(cfg.num_layers):
@@ -707,7 +828,7 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                 causal=True).transpose(1, 2)
         out = L.attention_output(blk["attn"], a)
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
-        h = h + _ffn(cfg, blk, hn2)
+        h = _residual_constrain(rt, h + _ffn(cfg, blk, hn2))
         parts["k"][i] = k
         parts["v"][i] = v
     h = L.apply_norm(cfg, params["final_norm"], h)
@@ -724,6 +845,7 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    last_idx: torch.Tensor, prefix_k: torch.Tensor,
                    prefix_v: torch.Tensor, prefix_seg: torch.Tensor,
                    prefix_pos: torch.Tensor, *,
+                   rt: ModelRuntime = DEFAULT_RUNTIME,
                    cache_dtype: torch.dtype = torch.float32,
                    kv_out: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -781,7 +903,7 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                                plan=plan)
         out = L.attention_output(blk["attn"], a)
         hn2, h = L.apply_norm(cfg, blk["norm2"], out, residual=h)
-        h = h + _ffn(cfg, blk, hn2)
+        h = _residual_constrain(rt, h + _ffn(cfg, blk, hn2))
         parts["k"][i] = k[0]
         parts["v"][i] = v[0]
     h = L.apply_norm(cfg, params["final_norm"], h)
@@ -794,9 +916,30 @@ def logits_at(cfg: ModelConfig, params: Params, h: torch.Tensor,
     """Logits (B, V), or (B, K, V) for a codebook model, at position
     ``idx[b]`` of each row of ``h`` (B, S, d): the rows are gathered
     first, so the vocabulary-wide head runs over B rows, not B * S."""
-    rows = torch.arange(h.shape[0], device=h.device)
-    h_last = h[rows, idx.to(h.device).long()][:, None]
+    if is_dtensor(h):
+        h_last = _rows_at(h, idx)
+    else:
+        rows = torch.arange(h.shape[0], device=h.device)
+        h_last = h[rows, idx.to(h.device).long()][:, None]
     return L.lm_logits(cfg, params["embed"], h_last)[..., 0, :]
+
+
+def _rows_at(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``h[b, idx[b]]`` as (B, 1, d) of a (B, S, d) DTensor: each rank
+    gathers its batch rows' positions (a sequence shard gathered
+    first)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = h.device_mesh
+    pl = [p if p == Shard(0) else Replicate() for p in h.placements]
+    h = h.redistribute(mesh, pl)
+    if not is_dtensor(idx):
+        idx = DTensor.from_local(idx.to(h.device), mesh,
+                                 [Replicate()] * mesh.ndim)
+    il = idx.redistribute(mesh, pl).to_local()
+    hl = h.to_local()
+    rows = torch.arange(hl.shape[0], device=hl.device)
+    out = hl[rows, il.long()][:, None]
+    return from_local(out, mesh, pl, (h.shape[0], 1, h.shape[2]))
 
 
 # ---------------------------------------------------------------------------
@@ -805,7 +948,8 @@ def logits_at(cfg: ModelConfig, params: Params, h: torch.Tensor,
 
 
 def decode_step(cfg: ModelConfig, params: Params,
-                cache: Dict[str, torch.Tensor], tokens_t: torch.Tensor
+                cache: Dict[str, torch.Tensor], tokens_t: torch.Tensor, *,
+                rt: ModelRuntime = DEFAULT_RUNTIME
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step over a paged cache (``block_tables`` present) or a
     contiguous one.  tokens_t: (B,), or (B, K) for a codebook model.
@@ -813,7 +957,11 @@ def decode_step(cfg: ModelConfig, params: Params,
     position ``len + pos_offset`` (an SSM model its conv window and scan
     state, a hybrid also the shared block's KV), and returns ``(logits,
     cache')``: logits (B, V) or (B, K, V), and ``cache'`` sharing the
-    K/V (and tables, and state) with ``len + 1``."""
+    K/V (and tables, and state) with ``len + 1``.  Over a mesh the
+    cache's leaves are DTensors placed by
+    `repro_torch.distributed.plan.decode_specs` (the paged pool stays
+    single-device, as the engines are); ``rt`` is read for its
+    ``seq_shard``, which a one-token step has no use for."""
     _check_family(cfg)
     h = L.embed_tokens(cfg, params["embed"], tokens_t[..., None])  # (B,1,d)
     positions = (cache["len"] + cache["pos_offset"])[:, None]
@@ -859,10 +1007,50 @@ def _attend_step(cfg: ModelConfig, p: Params, hn: torch.Tensor,
     keys through the contiguous decode kernel, which reads the slice as a
     strided (B, KV, S, dh) view; -> the output projection (B, 1, d)."""
     q, k, v = L.qkv_project(cfg, p, hn, positions)
-    _write_kv(k_c, v_c, k, v, index)
+    if is_dtensor(k_c):
+        k_c, v_c = _write_kv_sharded(k_c, v_c, k, v, lens)
+    else:
+        _write_kv(k_c, v_c, k, v, index)
     attn = ops.flash_decode(q[:, 0], k_c.transpose(1, 2),
                             v_c.transpose(1, 2), lens + 1)
     return L.attention_output(p, attn[:, None])
+
+
+def _write_kv_sharded(k_c: torch.Tensor, v_c: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor):
+    """The sharded cache's :func:`_write_kv`: each rank writes its rows,
+    heads and head-dim slice of the new token into its shard of the
+    (B, S, KV, dh) layer cache, at ``len`` (clamped) where that position
+    lies in its sequence shard.  Returns the cache as the decode kernel
+    takes it: a head-dim or sequence shard gathered (an all-gather of the
+    layer's cache, the price of feeding the kernel whole heads and
+    keys)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.distributed.sharding import shard_offset
+    mesh, pl = k_c.device_mesh, tuple(k_c.placements)
+    width = k_c.shape[1]
+    row_pl = [p if p == Shard(0) else Replicate() for p in pl]
+    if not is_dtensor(lens):
+        lens = DTensor.from_local(lens, mesh, [Replicate()] * mesh.ndim)
+    pos = torch.clamp(lens.redistribute(mesh, row_pl).to_local(), 0,
+                      width - 1).long()
+    s0 = shard_offset(k_c.shape, mesh, pl, 1)
+    new_pl = [Replicate() if p == Shard(1) else p for p in pl]
+    for cache, new in ((k_c, k), (v_c, v)):
+        cl = cache.to_local()
+        nl = new.redistribute(mesh, new_pl).to_local()[:, 0]
+        local = pos - s0
+        inside = (local >= 0) & (local < cl.shape[1])
+        local = torch.clamp(local, 0, cl.shape[1] - 1)
+        rows = torch.arange(cl.shape[0], device=cl.device)
+        cur = cl[rows, local]
+        cl[rows, local] = torch.where(inside[:, None, None],
+                                      nl.to(cl.dtype), cur)
+    att = tuple(Replicate() if p in (Shard(1), Shard(3)) else p for p in pl)
+    if att == pl:
+        return k_c, v_c
+    return k_c.redistribute(mesh, att), v_c.redistribute(mesh, att)
 
 
 def _decode_attn(cfg, params, cache, h, positions):

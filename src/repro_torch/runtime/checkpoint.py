@@ -16,8 +16,11 @@ Counterpart of `repro.runtime.checkpoint`:
 Leaves are tensors (any device) or numpy arrays; they load as CPU
 tensors.  bfloat16 leaves are written and read as their raw bytes
 through torch's own dtype, with no ``ml_dtypes``; the dtype names are
-numpy's, so each package reads the other's checkpoints.  ``reshard``
-(placing leaves on a new mesh) waits for the port's ``distributed/``.
+numpy's, so each package reads the other's checkpoints.  A DTensor
+leaf is written as its global value (every rank of its mesh takes part
+in the gather: each calls ``save``, or the caller gathers first and one
+rank saves), so a checkpoint does not depend on the mesh it came from;
+:func:`reshard` places a loaded tree on a new one (elastic resume).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,7 +67,10 @@ def _unflatten(flat: Dict[str, Any]) -> Any:
 
 def _host(leaf: Any) -> torch.Tensor:
     """A leaf as a contiguous CPU tensor of its own (a copy: the caller
-    may go on changing the original)."""
+    may go on changing the original); a DTensor's global value."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).contiguous()
     arr = np.asarray(leaf)
@@ -160,3 +166,25 @@ def load_latest(directory: str) -> Optional[Tuple[int, Any, Dict[str, Any]]]:
         return None
     tree, manifest = load(directory, steps[-1])
     return steps[-1], tree, manifest
+
+
+def reshard(tree: Any, sharding_fn: Callable[[str, Any], Any]) -> Any:
+    """Elastic reload: each leaf (its global value: a loaded tensor or
+    array, or a DTensor of an old mesh) placed by ``sharding_fn(path,
+    leaf)``, which returns ``(mesh, placements)`` of the new mesh (the
+    leaves of `repro_torch.distributed.plan.to_shardings`).  A tensor is
+    distributed from its value, which must be the same on every rank; a
+    DTensor is redistributed, or taken whole first where its mesh is
+    another."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def place(path, leaf):
+        mesh, placements = sharding_fn(path, leaf)
+        if isinstance(leaf, DTensor):
+            if leaf.device_mesh == mesh:
+                return leaf.redistribute(mesh, placements)
+            leaf = leaf.full_tensor()
+        if not isinstance(leaf, torch.Tensor):
+            leaf = _host(leaf)
+        return distribute_tensor(leaf, mesh, placements)
+    return _unflatten({p: place(p, a) for p, a in _flatten(tree).items()})

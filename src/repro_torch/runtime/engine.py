@@ -60,9 +60,10 @@ from repro_torch.configs.base import FAMILIES, SSM_FAMILIES, ModelConfig
 from repro_torch.core.cost_model import TableCostModel, block_round
 from repro_torch.core.pipeline import PipelineBackend
 from repro_torch.core.serving import Request
-from repro_torch.models import (decode_step, forward_hidden, logits_at,
-                                make_cache, make_paged_cache, prefill,
-                                prefill_packed, prefill_suffix)
+from repro_torch.models import (DEFAULT_RUNTIME, ModelRuntime, decode_step,
+                                forward_hidden, logits_at, make_cache,
+                                make_paged_cache, prefill, prefill_packed,
+                                prefill_suffix)
 from repro_torch.models.transformer import SEQ_LEAVES, state_specs
 from repro_torch.runtime import graphs, sanitizer
 from repro_torch.runtime.bucketing import BucketLadder
@@ -198,13 +199,18 @@ class InferenceEngine:
 
     ``device`` defaults to ``"cuda"`` and raises without a card unless
     the caller passes ``device="cpu"``; ``params`` are moved there (a
-    no-op when they already live on it)."""
+    no-op when they already live on it).  ``rt`` (the model runtime)
+    reaches every model call, as in the JAX package; the engines serve
+    one device, so of its knobs only ``seq_shard`` would act, and only
+    under a mesh, which they do not set up."""
 
     def __init__(self, cfg: ModelConfig, params: Dict,
+                 rt: ModelRuntime = DEFAULT_RUNTIME,
                  ladder: BucketLadder = DEFAULT_LADDER, pad_id: int = 0,
                  sample_candidates: Optional[int] = None,
                  device=None) -> None:
         self.cfg = cfg
+        self.rt = rt
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
         self.ladder = ladder if ladder is not None else BucketLadder()
@@ -277,7 +283,7 @@ class InferenceEngine:
     # outputs (the reference's ``run`` / ``pf`` bodies)
     def _classify_body(self, ins, outs) -> None:
         h, _ = forward_hidden(self.cfg, self.params, ins["tokens"],
-                              attn="naive")
+                              rt=self.rt, attn="naive")
         outs["logits"].copy_(logits_at(self.cfg, self.params, h,
                                        ins["last_idx"]))
 
@@ -285,7 +291,7 @@ class InferenceEngine:
         # an SSM model's prompts are exact: its pass takes no lengths
         ssm = self.cfg.family in SSM_FAMILIES
         logits, _ = prefill(self.cfg, self.params, ins["tokens"],
-                            max_len=max_len,
+                            max_len=max_len, rt=self.rt,
                             true_lengths=None if ssm else
                             ins["true_lengths"], kv_out=outs)
         outs["logits"].copy_(logits)
@@ -293,7 +299,7 @@ class InferenceEngine:
     def _suffix_body(self, prefix_len: int, ins, outs) -> None:
         logits, _ = prefill_suffix(
             self.cfg, self.params, ins["tokens"], ins["prefix_k"],
-            ins["prefix_v"], prefix_len=prefix_len,
+            ins["prefix_v"], prefix_len=prefix_len, rt=self.rt,
             true_lengths=ins["true_lengths"], kv_out=outs)
         outs["logits"].copy_(logits)
 
@@ -302,7 +308,7 @@ class InferenceEngine:
             self.cfg, self.params, ins["tokens"], ins["seg_ids"],
             ins["positions"], ins["last_idx"], ins["prefix_k"],
             ins["prefix_v"], ins["prefix_seg"], ins["prefix_pos"],
-            kv_out=outs)
+            rt=self.rt, kv_out=outs)
         outs["logits"].copy_(logits)
 
     # ------------------------------------------------------------------
@@ -646,7 +652,7 @@ class InferenceEngine:
         cache = state.cache
         prev_len = cache["len"]
         logits, cache2 = decode_step(self.cfg, self.params, cache,
-                                     state.cur)
+                                     state.cur, rt=self.rt)
         if state.sampling and state.cur.dim() == 1:
             nxt = sample_tokens(logits, temperature=state.temp,
                                 top_k=state.top_k, top_p=state.top_p,
@@ -785,7 +791,8 @@ class InferenceEngine:
             cur_np = _host(cur)  # turbolint: allow-sync(deliberate per-token baseline for benchmarks)
             for i in range(len(token_lists)):
                 outs[i].append(int(cur_np[i].reshape(-1)[0]))
-            logits, cache = decode_step(self.cfg, self.params, cache, cur)
+            logits, cache = decode_step(self.cfg, self.params, cache, cur,
+                                        rt=self.rt)
             cur = torch.argmax(logits, dim=-1)
         return outs
 

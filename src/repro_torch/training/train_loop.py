@@ -15,6 +15,15 @@ Counterpart of `repro.training.train_loop`:
   step)`` (`repro_torch.data.TokenStream`), so a restart reproduces the
   run.
 
+Over a mesh the state's leaves are DTensors placed by
+`repro_torch.distributed.plan.state_specs` and the batch by
+``batch_specs``; the step runs under the caller's ``sharding_rules``.
+Each master is cast to ``grad_dtype`` and gathered over the batch's mesh
+dims (FSDP's all-gather) before the cast to ``compute_dtype``, so its
+gradient is reduce-scattered in ``grad_dtype`` (the JAX package's
+compressed reduction where that is bf16); each microbatch is a slice of
+every rank's own batch rows.  The optimizer then runs on the shards.
+
 A step updates the state's tensors in place (the JAX package returns new
 trees).  Its gradient is the same on every run of the same inputs: the
 norm and softmax backwards are plain sums, the embedding's and the
@@ -32,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import TokenStream
+from repro_torch.distributed.sharding import fsdp_gathered, is_dtensor
 from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import (DEFAULT_RUNTIME, ModelRuntime,
                                             forward_train, init_params)
@@ -87,16 +97,22 @@ def loss_and_grads(cfg: ModelConfig, tc: TrainConfig, rt: ModelRuntime,
     order and the masters' dtype (zeros for a leaf the loss does not
     reach, as in the JAX package)."""
     compute_dt = torch_dtype(tc.compute_dtype)
+    grad_dt = torch_dtype(tc.grad_dtype)
     masters = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     with torch.enable_grad():
         cparams = _like(params, [
-            p.to(compute_dt) if p.dtype in (torch.float32, torch.bfloat16)
+            fsdp_gathered(p, grad_dt).to(compute_dt)
+            if p.dtype in (torch.float32, torch.bfloat16)
             else p for p in masters])
         loss, metrics = forward_train(cfg, cparams, micro, rt=rt)
         grads = torch.autograd.grad(loss, masters, allow_unused=True,
                                     materialize_grads=True)
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if is_dtensor(g) and tuple(g.placements) != tuple(p.placements)
+             else g for g, p in zip(grads, masters)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             list(grads))
+
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig,
@@ -110,6 +126,12 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
 
     def split_micro(batch, i):
         def slice_leaf(x):
+            if is_dtensor(x):       # slice i of this rank's own rows
+                from torch.distributed.tensor import DTensor
+                xl = x.to_local()
+                mb = xl.shape[0] // tc.grad_accum
+                return DTensor.from_local(xl[i * mb:(i + 1) * mb],
+                                          x.device_mesh, x.placements)
             mb = x.shape[0] // tc.grad_accum
             return x[i * mb:(i + 1) * mb]
         return {k: slice_leaf(v) for k, v in batch.items()}

@@ -75,10 +75,6 @@ PLANNED = {
         "jnp decode attention; the port's is the decode kernels",
     ("models/layers.py", "<module>", "expand_kv"):
         "a jnp GQA helper of the two above",
-    ("models/transformer.py", "<module>", "abstract_params"):
-        "jax.eval_shape of the weights: waits for distributed/",
-    ("runtime/checkpoint.py", "<module>", "reshard"):
-        "resharding across meshes: waits for distributed/",
 }
 
 

@@ -398,7 +398,7 @@ def _paged(dev, b=8, h=16, kv=8, dh=128, bs=16, mb=16, seed=5):
             for a in (q, kp, vp, tables, lengths)]
 
 
-@pytest.mark.parametrize("h,kv", [(16, 8), (8, 8), (32, 4)])
+@pytest.mark.parametrize("h,kv", [(16, 8), (8, 8), (32, 4), (16, 4)])
 def test_cuda_paged_decode_matches_plain(cuda, h, kv):
     q, kp, vp, tables, lengths = _paged(cuda, h=h, kv=kv)
     got = ops.flash_decode_paged(q, kp, vp, tables, lengths)
@@ -694,7 +694,7 @@ def _contiguous(dev, b=6, h=16, kv=8, s=300, seed=3):
             vz.transpose(1, 2), lens)
 
 
-@pytest.mark.parametrize("h,kv", [(16, 8), (8, 8), (32, 4)])
+@pytest.mark.parametrize("h,kv", [(16, 8), (8, 8), (32, 4), (16, 4)])
 def test_cuda_contiguous_decode_matches_plain(cuda, h, kv):
     q, k, v, kz, vz, lens = _contiguous(cuda, h=h, kv=kv)
     assert not k.is_contiguous()
@@ -737,7 +737,7 @@ def test_cuda_kernels_refuse_shapes_outside_the_built_set(cuda):
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_decode(q[..., :64], k[..., :64], v[..., :64], lens)
     with pytest.raises(ValueError, match="H/KV"):
-        ops.flash_decode(q[:, :12], k[:, :3], v[:, :3], lens)
+        ops.flash_decode(q[:, :12], k[:, :2], v[:, :2], lens)   # group 6
     with pytest.raises(ValueError, match="f32 or bf16"):
         ops.flash_decode(q.half(), k, v, lens)
     with pytest.raises(ValueError, match="one layout"):
@@ -837,7 +837,7 @@ def _decode(layout, d, rows=slice(None)):
 
 
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("layout", ["paged", "contiguous"])
 def test_cuda_decode_edge_lengths_match_plain(cuda, layout, group, qdtype):
     d = _decode_rows(cuda, EDGE_LENGTHS, group, qdtype)

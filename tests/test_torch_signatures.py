@@ -58,11 +58,10 @@ ARCH = "internlm2-1.8b"
 #: cell writes its KV into static buffers); ``prompt_kv_only`` (a paged
 #: per-group prefill keeps only the prompt's KV)
 PORT_ONLY = {"device", "kv_out", "prompt_kv_only"}
-#: the reference's parameters the port's serving callables lack: ``rt``
-#: (the model runtime: sharding, remat, attention routes), which the
-#: port's serving paths do not read (their attention is the flash and
-#: decode kernels'); the training callables take it (``TRAIN_PAIRS``)
-REF_ONLY = {"rt"}
+#: the reference's parameters the port's serving callables lack: none
+#: (the model runtime ``rt`` reaches the serving callables and engines as
+#: it does the training ones)
+REF_ONLY: set = set()
 #: defaults that differ on purpose, (callable, parameter) -> (reference's,
 #: port's), normalised as by `_default`: the port's model functions
 #: default ``max_len`` to the prompt width and the KV to f32, the dtype

@@ -299,9 +299,20 @@ def test_ssm_prompt_pass_is_bit_equal_with_grad(arch, ssd):
         torch.testing.assert_close(a, b.detach(), rtol=0, atol=0)
 
 
-def test_seq_shard_raises_until_a_mesh():
-    with pytest.raises(NotImplementedError, match="distributed"):
-        ModelRuntime(seq_shard=True)
+def test_seq_shard_off_a_mesh_matches_reference():
+    """``seq_shard`` constrains the residual stream over a mesh
+    (`tests/test_torch_distributed.py` holds it there); off one it
+    changes nothing, in the port as in the reference: the loss with it
+    equals the reference's with it, and the port's without it."""
+    jcfg, cfg, params = _weights("internlm2-1.8b")
+    batch = _batch(cfg, 8, 2, 16)
+    rt = JaxRuntime(seq_shard=True)
+    want, _ = jax_forward_train(jcfg, _jax(params), _jax(batch), rt=rt)
+    got, _ = forward_train(cfg, _torch(params), _torch(batch),
+                           rt=ModelRuntime(seq_shard=True))
+    plain, _ = forward_train(cfg, _torch(params), _torch(batch))
+    assert abs(float(got) - float(want)) < 1e-4
+    assert float(got) == float(plain)
 
 
 def test_unroll_decode_has_no_effect():
