@@ -35,7 +35,10 @@ Phases, each printing one JSON line:
    norm in LayerNorm mode at C 6144 and RMS at C 3584, the causal kernel
    at dh 64 (32 heads, B 8 x 1024, the wgmma body), the packed mode at
    groups 7 and 12, the paged decode at groups 7 and 12 and at dh 64,
-   the sampler at V 152064 and 49152; and what the norm, sampling,
+   the sampler at V 152064 and 49152; both decode layouts over a bf16
+   K/V (the model functions' default cache) at row 1's shape and at dh
+   64 (``BF16_DECODE_CASES``, the kernels line's ``bf16_kv``); and what
+   the norm, sampling,
    decode and packed kernels compiled to (``norm_build``,
    ``sample_build``, ``flash_decode_build`` for every instantiation,
    ``flash_attention_packed_build``);
@@ -101,8 +104,9 @@ Phases, each printing one JSON line:
    24 masked-softmax launches per executed batch, no flash attention;
 6b. allocator: the paper's allocator (C2) at full width.  The classify
    cell's forward (``forward_hidden(attn="naive")`` then ``logits_at``)
-   at batch 1 over the reference benchmark's 24 lengths
-   (``random.Random(0).randint(5, 500)``): at each length its usage
+   at batch 1 over the first ``ALLOC_REQUESTS`` (16) of the reference
+   benchmark's 24 lengths (``random.Random(0).randint(5, 500)``): at
+   each length its usage
    records, traced in fake mode from the port's op graph (each kernel
    wrapper one node), planned by ``SequenceAwareAllocator`` (all records,
    and apart those ``dedup_repeated_structure`` keeps), the simulated
@@ -176,7 +180,8 @@ Phases, each printing one JSON line:
    smoke=False, kv_layout="contiguous")`` (64 Mamba1 layers, d_model
    4096, d_inner 8192, state 16, vocab 65024, attention-free; bf16
    weights from a seed, f32 conv window and scan state) with
-   ``SSM_SLOTS`` slots, on the serve mix and rules of phase 7 (the slot
+   ``SSM_SLOTS`` slots, on the serve mix's first ``SSM_REQUESTS``
+   requests and the rules of phase 7 (the slot
    cache from 1024 positions grown to 2048 by a 1200-token prompt; an
    SSM model prefills each prompt at its exact length, so every new
    length is a prefill cell captured while serving; no attention
@@ -261,11 +266,16 @@ Phases, each printing one JSON line:
    where they differ, by op), the predicted peak against
    ``max_memory_allocated`` after a reset, and the record's bound against
    the step's device time (CUDA events, and the profiler's busy time),
-   the roofline fraction of each; and the worker's mesh records
-   (``--mesh single``: one rank of the (16, 16) pod, ``pod16x16``) of
-   the same three shapes, per device;
-13. distributed: full-width InternLM2-1.8B (bf16 from a seed, an f32
-   KV) over a one-rank NCCL group and a (1, 1) ``("data", "model")``
+   the roofline fraction of each (the decode tick over the bf16 cache
+   the dry run traces, its bf16 decode launches required); and the
+   worker's mesh records (``--mesh single``: one rank of the (16, 16)
+   pod, ``pod16x16``) of the same three shapes, per device; then
+   ``KV_DTYPE_STEPS`` greedy decode steps of 8 prompts over a bf16 cache
+   against the same steps over an f32 one (``PLAIN_LOGIT_ULPS``, ties by
+   ``greedy_near_ties``, each run's decode launches by shape class);
+13. distributed: full-width InternLM2-1.8B (bf16 from a seed, the bf16
+   KV the model functions default to) over a one-rank NCCL group and a
+   (1, 1) ``("data", "model")``
    DeviceMesh, placed by `repro_torch.distributed.plan` and run under
    ``sharding_rules``: a prefill of B 8 x 1024 (the flash kernel),
    ``DIST_DECODE_STEPS`` decode steps over the contiguous cache (the
@@ -273,7 +283,11 @@ Phases, each printing one JSON line:
    norm and the softmax), each bit-equal to the same call without the
    mesh with the same kernel launches, the eager wall time of each with
    and without the mesh (DTensor's host cost), and the trained state's
-   ``reshard`` onto the mesh and back bit-equal; then each rank's local
+   ``reshard`` onto the mesh and back bit-equal; full-width Zamba2-1.2B
+   (Mamba-2, the shared attention block) and Falcon-Mamba-7B (Mamba-1)
+   the same way (``DIST_SSM``: a prefill of B 2 x 512 and 4 decode steps,
+   logits, conv windows, scan states and KV bit-equal, launches equal);
+   then each rank's local
    call of the decode and causal-flash wrappers as tensor parallelism of
    2, 4, 8 and 16 splits InternLM2's 16 / 8 and Qwen3-32B's 64 / 8 heads
    (the kv heads of each rank's query heads,
@@ -312,7 +326,14 @@ H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
 SEED = 0
 
 
+#: the script's start on the host clock: each phase line carries its
+#: seconds since then (``t_s``), so a run shows where its time went
+STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -1203,6 +1224,20 @@ MODEL_DECODE_CASES = tuple(
                                ("full load", "full")))
 
 
+#: the decode checks over a bf16 K/V (the model functions' default cache,
+#: the JAX package's): (label, lengths, KV, H, dh) at row 1's and row 5's
+#: shape and at dh 64, group 1; each held against its plain version on
+#: the same bf16 values at the f32 cache's tolerance (both compute in f32
+#: from them)
+BF16_DECODE_CASES = (("lengths 1..1024, bf16 KV", "spread", 8, 16, 128),
+                     ("lengths 1..1024, H 32 / KV 32, dh 64, bf16 KV",
+                      "spread", 32, 32, 64))
+#: a bf16 case's fields in the kernels line (``bf16_kv`` of the entry)
+BF16_DECODE_FIELDS = ("case", "max_abs_err", "ms", "device_ms",
+                      "device_ms_warm_l2", "bound_ms", "bound_by",
+                      "plain_ms", "library_ms", "library_device_ms")
+
+
 def decode_lengths(dev, b: int, s: int, which) -> torch.Tensor:
     """``which``: "spread" (1 to S evenly), "full" (every row S), or the
     B lengths themselves."""
@@ -1229,10 +1264,12 @@ def decode_timing(kernel, nbytes: int, flops: float, iters: int) -> dict:
 
 
 def paged_decode_case(dev, gen, label: str, which, kv: int = 8,
-                      h: int = 16, dh: int = 128) -> dict:
+                      h: int = 16, dh: int = 128,
+                      kvdtype: torch.dtype = torch.float32) -> dict:
     """The paged decode kernel at B 8, ``h`` heads over ``kv`` KV heads of
-    ``dh``, BS 16, MB 64 over a pool of randomly placed blocks: against
-    its plain version, then timed (``decode_timing``)."""
+    ``dh``, BS 16, MB 64 over a pool of randomly placed blocks in
+    ``kvdtype``: against its plain version, then timed
+    (``decode_timing``)."""
     from repro_torch.kernels import flash_decode, ref
     b, bs, mb = 8, 16, 64
     nb = b * mb + 1
@@ -1245,8 +1282,10 @@ def paged_decode_case(dev, gen, label: str, which, kv: int = 8,
         tables[i, :nblk] = perm[used:used + nblk].to(torch.int32)
         used += nblk               # logical blocks past the length: trash 0
     q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
-    k_pool = torch.randn((nb, bs, kv, dh), generator=gen, device=dev)
-    v_pool = torch.randn((nb, bs, kv, dh), generator=gen, device=dev)
+    k_pool = torch.randn((nb, bs, kv, dh), generator=gen,
+                         device=dev).to(kvdtype)
+    v_pool = torch.randn((nb, bs, kv, dh), generator=gen,
+                         device=dev).to(kvdtype)
 
     def kernel():
         return flash_decode.flash_decode_paged_cuda(q, k_pool, v_pool,
@@ -1261,12 +1300,13 @@ def paged_decode_case(dev, gen, label: str, which, kv: int = 8,
         else MODEL_DECODE_TOL
     err = check_close(f"flash_decode_paged {label}", out, want, **tol)
     live = int(lengths.sum())
-    nbytes = 2 * live * kv * dh * 4 + 2 * b * h * dh * 2 + b * mb * 4 + b * 4
+    nbytes = 2 * live * kv * dh * k_pool.element_size() + \
+        2 * b * h * dh * 2 + b * mb * 4 + b * 4
     line = {"phase": "kernel_check", "kernel": "flash_decode_paged",
             "case": label,
             "shape": {"B": b, "H": h, "KV": kv, "dh": dh, "BS": bs,
                       "MB": mb, "lengths": lengths.tolist()},
-            "dtype": "q bfloat16, pool float32",
+            "dtype": f"q bfloat16, pool {str(kvdtype)[6:]}",
             "tolerance": {**tol, "why": DECODE_TOL_WHY},
             "max_abs_err": err,
             **decode_timing(kernel, nbytes, 4.0 * h * dh * live, 200),
@@ -1279,12 +1319,16 @@ def check_paged_decode(dev, gen, results):
     lines = [paged_decode_case(dev, gen, *case)
              for case in DECODE_CASES + MOE_DECODE_CASES +
              MODEL_DECODE_CASES]
-    for line in lines:
+    bf16 = [paged_decode_case(dev, gen, label, which, kv, h, dh,
+                              torch.bfloat16)
+            for label, which, kv, h, dh in BF16_DECODE_CASES]
+    for line in lines + bf16:
         emit(line)
     results["flash_decode_paged"] = dict(
-        lines[0], max_abs_err=max(ln["max_abs_err"] for ln in lines),
+        lines[0], max_abs_err=max(ln["max_abs_err"] for ln in lines + bf16),
         route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
-        replaces="src/repro/kernels/flash_decode.py:207")
+        replaces="src/repro/kernels/flash_decode.py:207",
+        bf16_kv=[{k: ln[k] for k in BF16_DECODE_FIELDS} for ln in bf16])
 
 
 def flash_decode_build_facts() -> dict:
@@ -1302,38 +1346,56 @@ def flash_decode_build_facts() -> dict:
                                 ("contiguous", "StridedRows", 0)):
         for dtype, code, mangled in (("f32", 0, "decode_kernelIf"),
                                      ("bf16", 1, "decode_kernelI13__nv_")):
-            for g, dh in flash_decode.INSTANTIATIONS:
-                blocks = lib.repro_flash_decode_blocks_per_sm(code, g, paged,
-                                                              dh)
-                if blocks < 1:
-                    raise AssertionError(
-                        f"flash_decode {layout} {dtype} G {g} dh {dh}: "
-                        f"occupancy query gave {blocks}")
-                ptxas = next((u for name, u in
-                              cuda_lib.BUILD_INFO["ptxas"].items()
-                              if mangled in name and
-                              f"Li{g}ELi{dh}E" in name and rows in name), {})
-                facts[f"{layout} {dtype} G{g} dh{dh}"] = {
-                    "blocks_per_sm": blocks,
-                    "registers": ptxas.get("registers", "not measured"),
-                    "spill_bytes": ptxas.get("spill_stores", 0) +
-                    ptxas.get("spill_loads", 0),
-                    "smem_bytes": lib.repro_flash_decode_ring_bytes(dh) +
-                    ptxas.get("static_smem_bytes", 0)}
+            for kv_name, kv_code in (("", 0), (" bf16kv", 1)):
+                for g, dh in flash_decode.INSTANTIATIONS:
+                    key = f"{layout} {dtype} G{g} dh{dh}{kv_name}"
+                    blocks = lib.repro_flash_decode_blocks_per_sm(
+                        code, kv_code, g, paged, dh)
+                    if blocks < 1:
+                        raise AssertionError(f"flash_decode {key}: "
+                                             f"occupancy query gave {blocks}")
+                    ptxas = cuda_lib.BUILD_INFO["ptxas"].get(
+                        decode_kernel_name(mangled, g, dh, rows, kv_code),
+                        {})
+                    facts[key] = {
+                        "blocks_per_sm": blocks,
+                        "registers": ptxas.get("registers", "not measured"),
+                        "spill_bytes": ptxas.get("spill_stores", 0) +
+                        ptxas.get("spill_loads", 0),
+                        "smem_bytes": lib.repro_flash_decode_ring_bytes(
+                            dh, kv_code) + ptxas.get("static_smem_bytes", 0)}
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if Path(tool).exists():
         sass = subprocess.run(
             [tool, "-sass", str(cuda_lib.BUILD_INFO["path"])],
             capture_output=True, text=True).stdout
-        facts["sass_paged_bf16_G2"] = cuda_lib.sass_opcodes(
-            sass, "decode_kernelI13__nv_bfloat16Li2ELi128ENS_9PagedRows",
-            ("LDGSTS", "SHFL", "MUFU", "FFMA", "ATOMG", "RED"))
-        if facts["sass_paged_bf16_G2"]["LDGSTS"] == 0:
-            raise AssertionError("flash_decode: no cp.async (LDGSTS) in "
-                                 "the paged kernel's SASS")
+        for kv_name, kv_code in (("", 0), ("_bf16kv", 1)):
+            name = decode_kernel_name("decode_kernelI13__nv_", 2, 128,
+                                      "PagedRows", kv_code)
+            ops_ = cuda_lib.sass_opcodes(
+                sass, name or "not built",
+                ("LDGSTS", "SHFL", "MUFU", "FFMA", "ATOMG", "RED"))
+            facts[f"sass_paged_bf16_G2{kv_name}"] = ops_
+            if ops_["LDGSTS"] == 0:
+                raise AssertionError("flash_decode: no cp.async (LDGSTS) in "
+                                     f"the paged kernel's SASS ({name})")
     else:
         facts["sass_paged_bf16_G2"] = "not measured: no cuobjdump"
     return facts
+
+
+def decode_kernel_name(q_mangled: str, g: int, dh: int, rows: str,
+                       kv_code: int):
+    """The mangled name of the decode kernel for q (``q_mangled``, the
+    name's start), group ``g``, head dim ``dh``, ``rows`` and the K/V
+    type (0 f32, 1 bf16) among those ptxas reported, or None.  The K/V
+    type is the last template argument: ``<rows>EfE`` names f32."""
+    from repro_torch.kernels import cuda_lib
+    for name in cuda_lib.BUILD_INFO["ptxas"]:
+        if q_mangled in name and f"Li{g}ELi{dh}E" in name and \
+                rows in name and (f"{rows}EfE" in name) == (kv_code == 0):
+            return name
+    return None
 
 
 def softmax_case(dev, gen, label: str, lengths, c: int,
@@ -1417,18 +1479,22 @@ def check_softmax(dev, gen, results):
         replaces="src/repro/kernels/softmax.py:42")
 
 
-def contiguous_decode_case(dev, gen, label: str, which) -> dict:
-    """Contiguous decode at B 8, H 16, KV 8, S 1024 on a strided view of a
-    (B, S, KV, dh) cache whose positions past each length are NaN: against
-    its plain version, bit for bit against the paged kernel on the same
-    keys, then timed (``decode_timing``), with SDPA beside it."""
+def contiguous_decode_case(dev, gen, label: str, which, kv: int = 8,
+                           h: int = 16, dh: int = 128,
+                           kvdtype: torch.dtype = torch.float32) -> dict:
+    """Contiguous decode at B 8, ``h`` heads over ``kv`` KV heads of
+    ``dh`` (row 5: H 16, KV 8, dh 128), S 1024 on a strided view of a (B,
+    S, KV, dh) cache in ``kvdtype`` whose positions past each length are
+    NaN: against its plain version, bit for bit against the paged kernel
+    on the same keys, then timed (``decode_timing``), with SDPA beside
+    it."""
     from repro_torch.kernels import flash_decode, ref
     import torch.nn.functional as F
-    b, h, kv, dh, s, bs = 8, 16, 8, 128, 1024, 16
+    b, s, bs = 8, 1024, 16
     lengths = decode_lengths(dev, b, s, which)
     q = torch.randn((b, h, dh), generator=gen, device=dev).bfloat16()
-    kc = torch.randn((b, s, kv, dh), generator=gen, device=dev)
-    vc = torch.randn((b, s, kv, dh), generator=gen, device=dev)
+    kc = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(kvdtype)
+    vc = torch.randn((b, s, kv, dh), generator=gen, device=dev).to(kvdtype)
     past = torch.arange(s, device=dev)[None, :] >= lengths[:, None]
     kc[past] = float("nan")            # never written, never to be read
     vc[past] = float("nan")
@@ -1444,19 +1510,24 @@ def contiguous_decode_case(dev, gen, label: str, which) -> dict:
     def plain():
         return ref.flash_decode_ref(q, k0, v0, lengths)
     mask = ~past[:, None, None, :]
-    qf = q.float()[:, :, None, :]
+    # SDPA in the cache's type: f32 q over an f32 cache, bf16 over bf16
+    qf = q.to(kvdtype)[:, :, None, :]
 
     def library():
         return F.scaled_dot_product_attention(qf, k0, v0, attn_mask=mask,
                                               enable_gqa=True)
     out, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = check_close(f"flash_decode {label}", out, want, **DECODE_TOL)
+    tol = DECODE_TOL if (h // kv, dh) in ((2, 128), (1, 128)) \
+        else MODEL_DECODE_TOL
+    err = check_close(f"flash_decode {label}", out, want, **tol)
     # the same keys in a pool: row r owns blocks 1 + r * MB ... in order
     mb = s // bs
-    pool_k = torch.cat([torch.zeros((1, bs, kv, dh), device=dev),
+    pool_k = torch.cat([torch.zeros((1, bs, kv, dh), device=dev,
+                                    dtype=kvdtype),
                         kc.reshape(b * mb, bs, kv, dh)])
-    pool_v = torch.cat([torch.zeros((1, bs, kv, dh), device=dev),
+    pool_v = torch.cat([torch.zeros((1, bs, kv, dh), device=dev,
+                                    dtype=kvdtype),
                         vc.reshape(b * mb, bs, kv, dh)])
     tables = (1 + torch.arange(b * mb, device=dev, dtype=torch.int32)
               ).reshape(b, mb)
@@ -1470,34 +1541,40 @@ def contiguous_decode_case(dev, gen, label: str, which) -> dict:
                              f"{bit_diff})")
     del pool_k, pool_v
     live = int(lengths.sum())
-    nbytes = 2 * live * kv * dh * 4 + 2 * b * h * dh * 2 + b * 4
+    nbytes = 2 * live * kv * dh * kc.element_size() + 2 * b * h * dh * 2 + \
+        b * 4
     return {"phase": "kernel_check", "kernel": "flash_decode",
             "case": label,
             "shape": {"B": b, "H": h, "KV": kv, "dh": dh, "S": s,
                       "lengths": lengths.tolist(),
                       "layout": "strided (B, KV, S, dh) view of a "
                                 "(B, S, KV, dh) cache, NaN past each length"},
-            "dtype": "q bfloat16, cache float32",
-            "tolerance": {**DECODE_TOL, "why": DECODE_TOL_WHY},
+            "dtype": f"q bfloat16, cache {str(kvdtype)[6:]}",
+            "tolerance": {**tol, "why": DECODE_TOL_WHY},
             "max_abs_err": err, "max_abs_diff_vs_paged_kernel": bit_diff,
             **decode_timing(kernel, nbytes, 4.0 * h * dh * live, 200),
             "plain_ms": time_ms(plain, 20),
             "library_ms": time_ms(library, 50),
             "library_device_ms": device_ms(library, 50)["all"],
-            "library": "F.scaled_dot_product_attention (f32 q, bool mask, "
-                       "enable_gqa), back to back (warm L2)"}
+            "library": f"F.scaled_dot_product_attention ({str(kvdtype)[6:]}"
+                       " q, K and V, bool mask, enable_gqa), back to back "
+                       "(warm L2)"}
 
 
 def check_contiguous_decode(dev, gen, results):
     lines = [contiguous_decode_case(dev, gen, label, which)
              for label, which in DECODE_CASES]
-    for line in lines:
+    bf16 = [contiguous_decode_case(dev, gen, label, which, kv, h, dh,
+                                   torch.bfloat16)
+            for label, which, kv, h, dh in BF16_DECODE_CASES]
+    for line in lines + bf16:
         emit(line)
     emit({"phase": "flash_decode_build", **flash_decode_build_facts()})
     results["flash_decode"] = dict(
-        lines[0], max_abs_err=max(ln["max_abs_err"] for ln in lines),
+        lines[0], max_abs_err=max(ln["max_abs_err"] for ln in lines + bf16),
         route="cuda", source="src/repro_torch/csrc/flash_decode.cu",
-        replaces="src/repro/kernels/flash_decode.py:81")
+        replaces="src/repro/kernels/flash_decode.py:81",
+        bf16_kv=[{k: ln[k] for k in BF16_DECODE_FIELDS} for ln in bf16])
 
 
 def sample_inputs(dev, gen, dtype: torch.dtype, v: int = 92544):
@@ -1648,10 +1725,12 @@ def check_sample(dev, gen, results):
 
 
 def own_prefill_logits(engine, tokens) -> torch.Tensor:
-    """Last-token logits (V,) of ``tokens`` prefilled alone, in f32."""
+    """Last-token logits (V,) of ``tokens`` prefilled alone, in f32 (over
+    the engines' f32 cache)."""
     from repro_torch.models import prefill
     logits, _ = prefill(engine.cfg, engine.params,
-                        torch.tensor([tokens], device=engine.device))
+                        torch.tensor([tokens], device=engine.device),
+                        cache_dtype=torch.float32)
     return logits[0].float()
 
 
@@ -1877,17 +1956,23 @@ def model_line(arch: str, cfg) -> str:
 #: the plain-torch scan (900 to 1450 prompt tokens a second a row at
 #: full width, tools/ssm_cost.py), so the phases serve with 4 slots
 SSM_SLOTS = 4
+#: and the first 6 requests of the serve mix (before the grow's prompt):
+#: each new exact length is a prefill cell captured while serving and
+#: every stream is served again alone, so the depth is cut here to pay
+#: for the distributed phase's SSM runs
+SSM_REQUESTS = 6
 
 
 def serve(dev, card: str, layout: str = "paged",
           arch: str = "internlm2-1.8b", phase: str = None,
-          slots: int = 8):
+          slots: int = 8, requests: int = None):
     """The generative path over the paged pool (phase 4) or the contiguous
     slot cache (phase 7, ``layout="contiguous"``), of InternLM2-1.8B or
     another model at full width (``arch``; the line's ``phase`` names
-    it), with ``slots`` decode slots, the one batch bucket.  An SSM or
-    hybrid model (contiguous only) also has its graph replays held to
-    their eager bodies (``replay_audit``)."""
+    it), with ``slots`` decode slots, the one batch bucket, on the serve
+    mix (its first ``requests`` where given).  An SSM or hybrid model
+    (contiguous only) also has its graph replays held to their eager
+    bodies (``replay_audit``)."""
     from repro_torch.api import GenerationParams, TurboClient
     from repro_torch.kernels import cuda_lib
     rng = np.random.default_rng(SEED)
@@ -1929,13 +2014,14 @@ def serve(dev, card: str, layout: str = "paged",
     warm_capture_s = cells.capture_seconds
     pool_after_warmup = cells.pool_bytes()
     vocab = engine.cfg.vocab_size
-    specs = serve_specs(vocab, rng)
+    specs = serve_specs(vocab, rng)[:requests]
+    n_first = min(8, len(specs))            # the rest arrive mid-decode
     if layout == "contiguous":
         # arrives mid-decode and needs the 2048 bucket: the slot cache
         # grows past its 1024 positions
         specs.append(([int(t) for t in rng.integers(1, vocab, 1200)],
                        GenerationParams(max_new_tokens=48, seed=1099)))
-    first, later = specs[:8], specs[8:]
+    first, later = specs[:n_first], specs[n_first:]
 
     torch.cuda.reset_peak_memory_stats(dev)
     cuda_lib.reset_launches()
@@ -2255,9 +2341,11 @@ def suffix_logit_drift(engine, prompts, seams) -> tuple:
     worst, worst_ulps = 0.0, 0.0
     for p, c in zip(prompts, seams):
         t = torch.tensor([p], device=engine.device)
-        _, pre = prefill(cfg, engine.params, t[:, :c])
+        _, pre = prefill(cfg, engine.params, t[:, :c],
+                         cache_dtype=torch.float32)
         got, _ = prefill_suffix(cfg, engine.params, t[:, c:], pre["k"],
-                                pre["v"], prefix_len=c)
+                                pre["v"], prefix_len=c,
+                                cache_dtype=torch.float32)
         got, own = got[0].float(), own_prefill_logits(engine, p)
         d = float((got - own).abs().max())
         ulps = d / bf16_ulp(float(own.abs().max()))
@@ -2716,8 +2804,10 @@ def classify_phase(dev, card: str, n_requests: int = 64):
 # ---------------------------------------------------------------------------
 
 #: the reference benchmark's stream (benchmarks/bench_allocator.py:28-29):
-#: 24 requests, lengths uniform in 5..500 from random.Random(0)
-ALLOC_REQUESTS = 24
+#: lengths uniform in 5..500 from random.Random(0), its first 16 of 24
+#: requests (each traces the full-width forward, ~4.7 s: the depth cut to
+#: pay for the distributed phase's SSM runs)
+ALLOC_REQUESTS = 16
 ALLOC_LENGTHS = (5, 500)
 #: that benchmark's smallest record (its records_for_fn's min_size)
 ALLOC_MIN_SIZE = 4096
@@ -2795,7 +2885,8 @@ def cuda_traffic(dev) -> dict:
 def allocator_phase(dev, card: str) -> dict:
     """Trace the classify cell's forward (``forward_hidden(attn="naive")``
     then ``logits_at``, as ``InferenceEngine._classify_body``) at full
-    width at each of the reference benchmark's 24 lengths, batch 1, into
+    width at each of the first ``ALLOC_REQUESTS`` of the reference
+    benchmark's lengths, batch 1, into
     usage records; plan them with Algorithm 1 and its baselines; run the
     same forward eagerly and read the card's own activation peak, its
     caching allocator's reserve and the forward's time.  Fails where a
@@ -4185,7 +4276,8 @@ def vlm_image_check(engine, card: str) -> dict:
     # tokens
     cuda_lib.reset_launches()
     logits, cache = prefill(cfg, params, toks, max_len=max_len,
-                            embeds_override=emb, true_lengths=lens)
+                            embeds_override=emb, true_lengths=lens,
+                            cache_dtype=torch.float32)
     kernel_steps, fed = [logits], []
     for _ in range(VLM_IMAGE_STEPS):
         cur = logits.argmax(-1).to(torch.int32)
@@ -4198,7 +4290,8 @@ def vlm_image_check(engine, card: str) -> dict:
     offset = cache["pos_offset"].tolist()
     with plain_versions():
         logits, cache = prefill(cfg, params, toks, max_len=max_len,
-                                embeds_override=emb, true_lengths=lens)
+                                embeds_override=emb, true_lengths=lens,
+                                cache_dtype=torch.float32)
         plain_steps = [logits]
         for cur in fed:
             logits, cache = decode_step(cfg, params, cache, cur)
@@ -4323,7 +4416,8 @@ def generate_musicgen(dev, card: str) -> dict:
     max_len = MUSICGEN_CODES["seq"] + n_steps
     kernel_steps, fed = [], []
     cuda_lib.reset_launches()
-    logits, cache = prefill(cfg, params, codes, max_len=max_len)
+    logits, cache = prefill(cfg, params, codes, max_len=max_len,
+                            cache_dtype=torch.float32)
     kernel_steps.append(logits)
     for _ in range(n_steps):
         cur = logits.argmax(-1).to(torch.int32)           # (B, 4)
@@ -4334,7 +4428,8 @@ def generate_musicgen(dev, card: str) -> dict:
     fn_shapes = {f"{n} {c}": v for (n, c), v in
                  cuda_lib.LAUNCH_SHAPES.items()}
     with plain_versions():
-        logits, cache = prefill(cfg, params, codes, max_len=max_len)
+        logits, cache = prefill(cfg, params, codes, max_len=max_len,
+                                cache_dtype=torch.float32)
         plain_steps = [logits]
         for cur in fed:
             logits, cache = decode_step(cfg, params, cache, cur)
@@ -5601,6 +5696,7 @@ def dryrun_vs_card(dev, card: str, kind: str, s: int, b: int,
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
     launches = dict(cuda_lib.LAUNCHES)
+    shapes = {f"{n} {c}": v for (n, c), v in cuda_lib.LAUNCH_SHAPES.items()}
     flops = counter.get_total_flops()
     card_by_op = {str(k): v for k, v in
                   counter.get_flop_counts()["Global"].items()}
@@ -5644,7 +5740,7 @@ def dryrun_vs_card(dev, card: str, kind: str, s: int, b: int,
                 check["trace_complete"] else "not measured",
                 "model_flops_over_peak_of_event_time":
                     rec["roofline"]["model_flops"] / 989e12 * 1e3 / event_ms},
-            "launches": launches}
+            "launches": launches, "launches_by_shape": shapes}
     if flops != want:
         import gzip
         with gzip.open(dryrun_dir() / f"card_{kind}.ops.json.gz", "rt") as f:
@@ -5656,11 +5752,100 @@ def dryrun_vs_card(dev, card: str, kind: str, s: int, b: int,
             if dry_by_op.get(op, 0) != card_by_op.get(op, 0)}
     emit(line)
     missing = [k for k in DRYRUN_KERNELS[kind] if not launches.get(k)]
+    if kind == "decode" and not any(k.startswith("flash_decode ") and
+                                    k.endswith(" bf16kv") for k in shapes):
+        missing.append("flash_decode over the bf16 cache")
     if missing:
         raise AssertionError(f"dryrun {kind}: kernels not launched {missing}")
     if line["flops"]["rel_diff"] > DRYRUN_FLOPS_REL:
         raise AssertionError(f"dryrun {kind}: FLOPs {flops} against the dry "
                              f"run's {want}")
+    return line
+
+
+#: the bf16 cache against an f32 one: greedy decode steps after a prefill
+#: of 8 prompts of ~1000 tokens (the decode tick's 8 rows over 1024)
+KV_DTYPE_STEPS = 32
+KV_DTYPE_LENS = (1000, 1010, 990, 1023, 700, 1017, 980, 1005)
+
+
+def decode_bf16_vs_f32(dev, card: str) -> dict:
+    """Full-width InternLM2-1.8B (bf16 weights from a seed) through the
+    model functions: a prefill of 8 prompts into a bf16 cache (the
+    default) and into an f32 one (the engines'), then
+    ``KV_DTYPE_STEPS`` greedy ``decode_step``s over each, the f32 run fed
+    the bf16 run's tokens.  Every step's logits are held to the bf16
+    run's in bf16 ulps of the row's largest (``PLAIN_LOGIT_ULPS``), a
+    differing greedy token must be a near tie (``greedy_near_ties``), and
+    each run's decode launches are counted by shape class."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda_lib
+    from repro_torch.models import decode_step, init_params, prefill
+    t0 = time.perf_counter()
+    cfg = get_config(DRYRUN_ARCH)
+    params = init_params(cfg, seed=SEED, device=dev)
+    rng = np.random.default_rng(SEED + 13)
+    s = max(KV_DTYPE_LENS)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (len(KV_DTYPE_LENS), s))).to(dev)
+    lens = torch.tensor(KV_DTYPE_LENS, dtype=torch.int32, device=dev)
+    max_len = s + KV_DTYPE_STEPS
+    runs, fed = {}, []
+    for dtype in (torch.bfloat16, torch.float32):
+        cuda_lib.reset_launches()
+        logits, cache = prefill(cfg, params, toks, max_len=max_len,
+                                true_lengths=lens, cache_dtype=dtype)
+        steps = [logits]
+        for i in range(KV_DTYPE_STEPS):
+            if dtype == torch.bfloat16:
+                fed.append(logits.argmax(-1).to(torch.int32))
+            logits, cache = decode_step(cfg, params, cache, fed[i])
+            steps.append(logits)
+        torch.cuda.synchronize()
+        runs[dtype] = {
+            "steps": steps, "cache_dtype": str(cache["k"].dtype),
+            "launches_by_shape": {f"{n} {c}": v for (n, c), v in
+                                  cuda_lib.LAUNCH_SHAPES.items()
+                                  if n == "flash_decode"}}
+        del cache
+    worst, equal = 0.0, 0
+    ties = {"rows": 0, "differ": 0, "beyond_rule": []}
+    for b16, f32 in zip(runs[torch.bfloat16]["steps"],
+                        runs[torch.float32]["steps"]):
+        if not bool(torch.isfinite(b16.float()).all()):
+            raise AssertionError("bf16 cache: non-finite logits")
+        worst = max(worst, ulps_of_row(b16, f32))
+        equal += int(torch.equal(b16, f32))
+        t = greedy_near_ties(b16, f32)
+        for k in ("rows", "differ"):
+            ties[k] += t[k]
+        ties["beyond_rule"] += t["beyond_rule"]
+    nl = cfg.num_layers
+    group = f"g{cfg.num_heads // cfg.num_kv_heads} dh{cfg.head_dim}"
+    want = {torch.bfloat16: {f"flash_decode {group} bf16kv":
+                             nl * KV_DTYPE_STEPS},
+            torch.float32: {f"flash_decode {group}": nl * KV_DTYPE_STEPS}}
+    line = {"phase": "decode_bf16_vs_f32_cache", "card": card,
+            "arch": DRYRUN_ARCH, "prompts": list(KV_DTYPE_LENS),
+            "decode_steps": KV_DTYPE_STEPS,
+            "bf16_vs_f32_bf16_ulps": {"max": worst,
+                                      "limit": PLAIN_LOGIT_ULPS},
+            "steps_bit_equal": equal,
+            "greedy_tokens_differing": ties,
+            **{f"launches_{str(d)[6:]}_cache": runs[d]["launches_by_shape"]
+               for d in runs},
+            "cache_dtypes": [runs[d]["cache_dtype"] for d in runs],
+            "phase_s": time.perf_counter() - t0}
+    emit(line)
+    if worst > PLAIN_LOGIT_ULPS or ties["beyond_rule"]:
+        raise AssertionError(f"bf16 cache: {worst:.1f} bf16 ulps from the "
+                             f"f32 cache's logits (limit "
+                             f"{PLAIN_LOGIT_ULPS}), ties {ties}")
+    for d, counts in want.items():
+        if runs[d]["launches_by_shape"] != counts:
+            raise AssertionError(f"{str(d)[6:]} cache: decode launches "
+                                 f"{runs[d]['launches_by_shape']}, "
+                                 f"expected {counts}")
     return line
 
 
@@ -5707,13 +5892,17 @@ def dryrun_phase(dev, card: str, worker) -> None:
               "record": record_line(rec)})
         dryrun_vs_card(dev, card, kind, s, b, rec)
         release_memory()
+    decode_bf16_vs_f32(dev, card)
+    release_memory()
     emit({"phase": "dryrun_seconds", "card": card,
           "seconds": time.perf_counter() - t0})
 
 
 DIST_ARCH = "internlm2-1.8b"
 DIST_PREFILL = (8, 1024)
-DIST_DECODE_STEPS = 16
+#: the InternLM2 mesh run's decode steps (16 before the SSM runs were
+#: added to the phase)
+DIST_DECODE_STEPS = 8
 DIST_TRAIN = (8, 512)
 DIST_ACCUM = 2
 #: tensor parallelism the shard-local calls emulate, and the (arch, H, KV)
@@ -5723,6 +5912,10 @@ DIST_TP = (2, 4, 8, 16)
 DIST_HEADS = (("internlm2-1.8b", 16, 8), ("qwen3-32b", 64, 8))
 #: the shard-local calls' batch and length (decode: cache length)
 DIST_LOCAL = (8, 1024)
+#: the SSM families over the mesh: (arch, prefill B x S, decode steps):
+#: Zamba2's Mamba-2 blocks (64 heads of 64 over ``ssm_inner``) and shared
+#: attention block, Falcon-Mamba's Mamba-1 step
+DIST_SSM = (("zamba2-1.2b", (2, 512), 4), ("falcon-mamba-7b", (2, 512), 4))
 
 
 def _dist_tree_equal(a, b, path="") -> list:
@@ -5899,6 +6092,65 @@ def distributed_phase(dev, card: str) -> dict:
         mismatch += [f"reshard {p}" for p in reshard_bad]
         del state, host, back
         release_memory()
+        # the SSM families: a prefill and decode steps, each against the
+        # same call without the mesh (outputs, conv windows, scan states
+        # and the hybrid's KV, bit for bit; launches equal)
+        for arch, (sb, ss), n_steps in DIST_SSM:
+            scfg = get_config(arch)
+            sp = init_params(scfg, seed=SEED, device=dev)
+            st = torch.randint(1, scfg.vocab_size, (sb, ss), generator=gen,
+                               device=dev, dtype=torch.int32)
+            with sharding_rules(rules):
+                spp = dplan.distribute(sp, dplan.to_shardings(
+                    rules, dplan.param_specs(rules, sp)))
+                stt = dplan.distribute({"t": st}, dplan.to_shardings(
+                    rules, dplan.batch_specs(rules, {"t": st})))["t"]
+            (lg, cache), (lg_m, cache_m) = run(
+                f"{arch} prefill",
+                lambda: prefill(scfg, sp, st, max_len=ss + n_steps),
+                lambda: prefill(scfg, spp, stt, max_len=ss + n_steps))
+            with sharding_rules(rules):
+                lg_m, cache_m = _dist_full((lg_m, cache_m))
+                c_spec, t_spec = dplan.decode_specs(rules, scfg, cache_m,
+                                                    lg.argmax(-1).int())
+                cc = dplan.distribute(cache_m, dplan.to_shardings(rules,
+                                                                  c_spec))
+            if not torch.equal(lg, lg_m):
+                mismatch.append(f"{arch} prefill logits")
+            mismatch += [f"{arch} prefill cache {p}" for p in
+                         _dist_tree_equal(cache, cache_m)]
+            nxt = lg.argmax(-1).to(torch.int32)
+            steps = []
+            for i in range(n_steps):
+                with sharding_rules(rules):
+                    nt = dplan.distribute({"t": nxt}, dplan.to_shardings(
+                        rules, {"t": t_spec}))["t"]
+                (lo, cache), (lo_m, cc) = run(
+                    f"{arch} decode_{i}",
+                    lambda: decode_step(scfg, sp, cache, nxt),
+                    lambda: decode_step(scfg, spp, cc, nt))
+                with sharding_rules(rules):
+                    lo_m = _dist_full(lo_m)
+                if not torch.equal(lo, lo_m):
+                    mismatch.append(f"{arch} decode step {i} logits")
+                steps.append(lines.pop(f"{arch} decode_{i}"))
+                nxt = lo.argmax(-1).to(torch.int32)
+            with sharding_rules(rules):
+                cc = _dist_full(cc)
+            mismatch += [f"{arch} decode cache {p}" for p in
+                         _dist_tree_equal(cache, cc)]
+            lines[f"{arch} decode"] = {
+                "steps": n_steps,
+                "wall_ms": sum(x["wall_ms"] for x in steps),
+                "wall_ms_mesh": sum(x["wall_ms_mesh"] for x in steps),
+                "host_cost_ms_a_step": float(np.median(
+                    [x["host_cost_ms"] for x in steps])),
+                "launches_a_step": steps[-1]["launches"],
+                "launches_mesh_a_step": steps[-1]["launches_mesh"],
+                "cache": {k: [list(v.shape), str(v.dtype)[6:]]
+                          for k, v in cache.items()}}
+            del sp, spp, cache, cc, cache_m, lg, lg_m, lo, lo_m
+            release_memory()
     finally:
         dist.destroy_process_group()
     local = dist_local_calls(dev)
@@ -5915,6 +6167,12 @@ def distributed_phase(dev, card: str) -> dict:
         if not total.get(kernel):
             raise AssertionError(f"distributed: {kernel} not launched over "
                                  "the mesh")
+    for arch, _, _ in DIST_SSM:
+        got = lines[f"{arch} decode"]["launches_mesh_a_step"]
+        if not got.get("norm") or (get_config(arch).attn_every and
+                                   not got.get("flash_decode")):
+            raise AssertionError(f"distributed: {arch}'s decode step over "
+                                 f"the mesh launched {got}")
     return total
 
 
@@ -6112,14 +6370,14 @@ def run_phases(worker, started: float) -> int:
     client, falcon_launches = serve(dev, card, layout="contiguous",
                                     arch="falcon-mamba-7b",
                                     phase="serve_falcon_mamba",
-                                    slots=SSM_SLOTS)
+                                    slots=SSM_SLOTS, requests=SSM_REQUESTS)
     profile_decode(client, card, phase="profile_decode_falcon_mamba",
                    family=ssm_kernel_family, rows=SSM_SLOTS)
     del client
     release_memory()
     client, zamba_launches = serve(dev, card, layout="contiguous",
                                    arch="zamba2-1.2b", phase="serve_zamba2",
-                                   slots=SSM_SLOTS)
+                                   slots=SSM_SLOTS, requests=SSM_REQUESTS)
     del client
     release_memory()
     # the serving tier: two replicas, background warm-up, the simulator
@@ -6153,6 +6411,8 @@ def run_phases(worker, started: float) -> int:
         c = checks[name]
         item = {"name": name, "launches": launches.get(counter, 0)}
         item.update({k: c[k] for k in keys})
+        if "bf16_kv" in c:          # the decode checks over a bf16 K/V
+            item["bf16_kv"] = c["bf16_kv"]
         item["launches_in_serve_pool"] = pool_launches.get(counter, 0)
         item["launches_in_serve_vlm"] = vlm_launches.get(counter, 0)
         item["launches_in_serve_starcoder2"] = sc2_launches.get(counter, 0)

@@ -42,8 +42,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("norm.cu", "flash_attention.cu", "flash_decode.cu",
-           "sampling.cu", "softmax.cu")
-HEADERS = ("common.cuh",)
+           "flash_decode_bf16kv.cu", "sampling.cu", "softmax.cu")
+HEADERS = ("common.cuh", "flash_decode.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -74,11 +74,11 @@ _SIGNATURES = {
                                           _P],
     "repro_flash_attention_packed_blocks_per_sm": [],
     "repro_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _I, _I, _I, _F, _I, _P],
+                           _I, _I, _I, _F, _I, _I, _P],
     "repro_contiguous_decode": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _L, _L, _L, _I, _F, _I, _P],
-    "repro_flash_decode_blocks_per_sm": [_I, _I, _I, _I],
-    "repro_flash_decode_ring_bytes": [_I],
+                                _I, _L, _L, _L, _I, _F, _I, _I, _P],
+    "repro_flash_decode_blocks_per_sm": [_I, _I, _I, _I, _I],
+    "repro_flash_decode_ring_bytes": [_I, _I],
     "repro_sample": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_sample_occupancy": [_I, _I, _P, _P],
     "repro_softmax": [_P, _P, _P, _I, _I, _F, _I, _I, _P],

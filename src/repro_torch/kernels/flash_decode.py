@@ -3,8 +3,9 @@ Hopper kernel's wrappers.
 
 Replace the JAX package's `flash_decode_paged_pallas` and
 `flash_decode_pallas` (src/repro/kernels/flash_decode.py).  Both launch
-``csrc/flash_decode.cu``; their plain versions are
-:func:`repro_torch.kernels.ref.flash_decode_paged_ref` and
+``csrc/flash_decode.cu`` (the kernel in ``flash_decode.cuh``, its bf16
+K/V's instantiations in ``flash_decode_bf16kv.cu``); their plain versions
+are :func:`repro_torch.kernels.ref.flash_decode_paged_ref` and
 :func:`~repro_torch.kernels.ref.flash_decode_ref`, re-exported here.
 """
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch.kernels.ref import flash_decode_paged_ref, flash_decode_ref
 __all__ = ["flash_decode_cuda", "flash_decode_paged_cuda",
            "flash_decode_paged_ref", "flash_decode_ref"]
 
-# what the kernel is instantiated for (csrc/flash_decode.cu): the (H / KV,
+# what the kernel is instantiated for (csrc/flash_decode.cuh): the (H / KV,
 # head dim) pairs of the served models (InternLM2 8, OLMoE 1, Qwen2-VL 7,
 # StarCoder2 12 at dh 128; MusicGen 1 at dh 64), of the card tests, and of
 # the local heads of tensor parallelism (Qwen3-32B's 64 / 8 at model 16 is
@@ -28,8 +29,12 @@ __all__ = ["flash_decode_cuda", "flash_decode_paged_cuda",
 INSTANTIATIONS = ((1, 128), (2, 128), (4, 128), (7, 128), (8, 128),
                   (12, 128), (1, 64))
 Q_DTYPES = (torch.float32, torch.bfloat16)
+#: the K/V types each instantiation takes: the engines' f32 cache and the
+#: model functions' bf16 default (the JAX package's), both read in their
+#: own type and computed in f32, as the Pallas kernels compute
+KV_DTYPES = (torch.float32, torch.bfloat16)
 #: logical KV blocks per split (128 positions at the block size of 16),
-#: kSplitBlocks in csrc/flash_decode.cu
+#: kSplitBlocks in csrc/flash_decode.cuh
 BLOCKS_PER_SPLIT = 8
 #: keys per split of the contiguous layout (kSplitKeys): the keys of 8
 #: blocks of 16, so both layouts split a row at the same keys
@@ -44,15 +49,32 @@ def num_splits(max_blocks: int) -> int:
     return max(1, -(-max_blocks // BLOCKS_PER_SPLIT))
 
 
-def _check_heads(name: str, q: torch.Tensor, kv: int, dh: int) -> str:
-    """Raise unless an instantiation covers (H / KV, dh); its launch
-    shape class otherwise."""
+def _check_built(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, kv: int, dh: int) -> str:
+    """Raise unless an instantiation covers (H / KV, dh) and the dtypes
+    of q and of K and V (one type for both); the launch shape class
+    otherwise: ``g{H/KV} dh{dh}``, and `` bf16kv`` after it for a bf16
+    K/V."""
     h = q.shape[1]
     if kv == 0 or h % kv or (h // kv, dh) not in INSTANTIATIONS:
         raise ValueError(f"{name}: H/KV = {h}/{kv} at head dim {dh} is "
                          f"not built; (H/KV, head dim) must be one of "
                          f"{INSTANTIATIONS}")
-    return f"g{h // kv} dh{dh}"
+    if q.dtype not in Q_DTYPES or k.dtype not in KV_DTYPES or \
+            v.dtype != k.dtype:
+        raise ValueError(f"{name}: q must be f32 or bf16 and k/v both f32 "
+                         f"or both bf16, got {q.dtype} / {k.dtype} / "
+                         f"{v.dtype}")
+    shape_class = f"g{h // kv} dh{dh}"
+    return shape_class + " bf16kv" if k.dtype == torch.bfloat16 \
+        else shape_class
+
+
+def _check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on 16 bytes: the kernel copies K
+    and V 16 bytes at a time."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: k/v must start on a 16-byte boundary")
 
 
 #: per (device, stream): the zeroed int32 tickets of the in-launch split
@@ -94,10 +116,11 @@ def _launch_buffers(q: torch.Tensor, kv: int, splits: int):
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       lengths: Optional[torch.Tensor] = None, *,
                       scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,H,dh) f32 or bf16, contiguous; k, v: (B,KV,S,dh) f32 views
-    with one shared layout, any strides with the head dim unit-stride and
-    every dh-vector 16-byte aligned (the cache's (B,S,KV,dh) layer slice
-    transposed is such a view: it is read in place, never copied);
+    """q: (B,H,dh) f32 or bf16, contiguous; k, v: (B,KV,S,dh) views, both
+    f32 or both bf16, with one shared layout, any strides with the head
+    dim unit-stride and every dh-vector 16-byte aligned (strides in
+    multiples of 4 f32 or 8 bf16 values; the cache's (B,S,KV,dh) layer
+    slice transposed is such a view: it is read in place, never copied);
     lengths: (B,) int32 valid kv lengths (None = S; a length past S reads
     the whole cache).  Returns (B,H,dh) in q's dtype."""
     name = "flash_decode"
@@ -107,16 +130,14 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(k.shape) != (b, kv, s, dh) or v.shape != k.shape:
         raise ValueError(f"{name}: k/v shape {tuple(k.shape)} does not "
                          f"fit q {tuple(q.shape)}")
-    shape_class = _check_heads(name, q, kv, dh)
-    if q.dtype not in Q_DTYPES or k.dtype != torch.float32 or \
-            v.dtype != torch.float32:
-        raise ValueError(f"{name}: q must be f32 or bf16 and k/v f32, "
-                         f"got {q.dtype} / {k.dtype} / {v.dtype}")
+    shape_class = _check_built(name, q, k, v, kv, dh)
+    vec = 16 // k.element_size()
     if k.stride() != v.stride() or k.stride(3) != 1 or \
-            any(st % 4 for st in k.stride()[:3]):
+            any(st % vec for st in k.stride()[:3]):
         raise ValueError(f"{name}: k and v must share one layout with a "
                          f"unit-stride head dim and 16-byte rows, got "
                          f"strides {k.stride()} / {v.stride()}")
+    _check_aligned(name, k, v)
     if not q.is_contiguous():
         raise ValueError(f"{name}: q must be contiguous")
     lib = cuda_lib.library()
@@ -134,8 +155,9 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rc = lib.repro_contiguous_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         part.data_ptr(), tickets.data_ptr(), out.data_ptr(), b, kv,
-        h // kv, dh, s, sb, sh, ss, splits,
-        float(scale), cuda_lib.DTYPE_CODES[q.dtype], cuda_lib.stream_ptr(q))
+        h // kv, dh, s, sb, sh, ss, splits, float(scale),
+        cuda_lib.DTYPE_CODES[q.dtype], cuda_lib.DTYPE_CODES[k.dtype],
+        cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, name)
     cuda_lib.count_launch("flash_decode", shape_class)
     return out
@@ -146,7 +168,8 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                             block_tables: torch.Tensor,
                             lengths: Optional[torch.Tensor] = None, *,
                             scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B,H,dh) f32 or bf16; k_pool, v_pool: (NB,BS,KV,dh) f32;
+    """q: (B,H,dh) f32 or bf16; k_pool, v_pool: (NB,BS,KV,dh), both f32 or
+    both bf16;
     block_tables: (B,MB) int32; lengths: (B,) int32 valid kv lengths
     (None = MB * BS; a length past MB * BS reads the whole table).
     Returns (B,H,dh) in q's dtype."""
@@ -158,11 +181,7 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     if tuple(k_pool.shape) != (nb, bs, kv, dh) or v_pool.shape != k_pool.shape:
         raise ValueError(f"{name}: pool shape {tuple(k_pool.shape)} does "
                          f"not fit q {tuple(q.shape)}")
-    shape_class = _check_heads(name, q, kv, dh)
-    if q.dtype not in Q_DTYPES or k_pool.dtype != torch.float32 or \
-            v_pool.dtype != torch.float32:
-        raise ValueError(f"{name}: q must be f32 or bf16 and the pool f32, "
-                         f"got {q.dtype} / {k_pool.dtype} / {v_pool.dtype}")
+    shape_class = _check_built(name, q, k_pool, v_pool, kv, dh)
     if block_tables.dtype != torch.int32 or block_tables.shape[0] != b:
         raise ValueError(f"{name}: block_tables must be (B, MB) int32")
     lib = cuda_lib.library()
@@ -174,6 +193,7 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     for t in (q, k_pool, v_pool, block_tables, lengths):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    _check_aligned(name, k_pool, v_pool)
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     splits = num_splits(mb)
     out, part, tickets = _launch_buffers(q, kv, splits)
@@ -183,8 +203,8 @@ def flash_decode_paged_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), lengths.data_ptr(), part.data_ptr(),
         tickets.data_ptr(), out.data_ptr(), b, kv, h // kv, dh, bs, mb,
-        splits, float(scale),
-        cuda_lib.DTYPE_CODES[q.dtype], cuda_lib.stream_ptr(q))
+        splits, float(scale), cuda_lib.DTYPE_CODES[q.dtype],
+        cuda_lib.DTYPE_CODES[k_pool.dtype], cuda_lib.stream_ptr(q))
     cuda_lib.check(rc, name)
     cuda_lib.count_launch("flash_decode_paged", shape_class)
     return out

@@ -272,11 +272,13 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: Optional[torch.Tensor] = None,
                      scale: Optional[float] = None) -> torch.Tensor:
     """Decode attention over a contiguous cache. q: (B,H,dh); k,v:
-    (B,KV,S,dh), any strides; lengths: (B,) valid kv lengths (None = S).
-    GQA folds H onto KV.  As the JAX package's ``ops.flash_decode`` on
-    its ``xla`` path: the attention reference with one query."""
-    out = flash_attention_ref(q[:, :, None, :], k, v, lengths,
-                              causal=False, scale=scale)
+    (B,KV,S,dh) in any type (an f32 or a bf16 cache), any strides;
+    lengths: (B,) valid kv lengths (None = S).  GQA folds H onto KV.  As
+    the JAX package's ``ops.flash_decode`` on its ``xla`` path: the
+    attention reference with one query, K and V cast to f32 before the
+    products, as its Pallas kernel casts them."""
+    out = flash_attention_ref(q[:, :, None, :], k.float(), v.float(),
+                              lengths, causal=False, scale=scale)
     return out[:, :, 0]
 
 
@@ -284,16 +286,17 @@ def flash_decode_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, block_tables: torch.Tensor,
                            lengths: Optional[torch.Tensor] = None,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Paged decode attention. q: (B,H,dh); k_pool,v_pool: (NB,BS,KV,dh);
-    block_tables: (B,MB) physical block of each logical block; lengths:
-    (B,) valid kv lengths.  Gathers each row's logical view through its
-    table (as the JAX package's ``ops.flash_decode_paged`` does on its
-    ``xla`` path) and runs the attention reference."""
+    """Paged decode attention. q: (B,H,dh); k_pool,v_pool: (NB,BS,KV,dh)
+    in any type; block_tables: (B,MB) physical block of each logical
+    block; lengths: (B,) valid kv lengths.  Gathers each row's logical
+    view through its table (as the JAX package's ``ops.flash_decode_paged``
+    does on its ``xla`` path), casts it to f32 (as the Pallas kernel casts
+    K and V) and runs the attention reference."""
     b, mb = block_tables.shape
     bs = k_pool.shape[1]
     tables = block_tables.long()
-    k = k_pool[tables].reshape((b, mb * bs) + k_pool.shape[2:])
-    v = v_pool[tables].reshape((b, mb * bs) + v_pool.shape[2:])
+    k = k_pool[tables].reshape((b, mb * bs) + k_pool.shape[2:]).float()
+    v = v_pool[tables].reshape((b, mb * bs) + v_pool.shape[2:]).float()
     out = flash_attention_ref(q[:, :, None, :], k.transpose(1, 2),
                               v.transpose(1, 2), lengths, causal=False,
                               scale=scale)

@@ -321,7 +321,9 @@ def build_cell(arch: str, shape: Union[str, ShapeConfig],
         return decode_step(cfg, params, cache, tokens_t, rt=rt)
 
     def inputs(device="cpu", seed=0):
-        cache = make_cache(cfg, b, s, device=device)
+        # bf16, as the JAX package's decode_input_specs (its cache_specs'
+        # default) builds the cache it traces decode over
+        cache = make_cache(cfg, b, s, torch.bfloat16, device=device)
         cache["len"].fill_(s - 1)           # the step writes the last slot
         tok = batch_like({"t": mio.decode_input_specs(cfg, shape)[
             "tokens_t"]}, device, seed + 1)["t"]

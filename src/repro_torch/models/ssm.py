@@ -16,10 +16,12 @@ has the SSD form (``ssm.ssd_matmul``): within a chunk the scalar-decay
 recurrence is two matrix products per head.  A decode step is one
 recurrence step over ``(conv_state, ssm_state)``.  The scan and the step
 are plain torch, as the JAX package's are jnp (there is no Pallas kernel
-of them).  Over a mesh the Mamba-1 prompt pass constrains ``xs`` to
-``ssm_inner`` as the JAX package does and runs per channel on each rank's
-shard (:func:`_apply_mamba_sharded`); Mamba-2 and the decode step over a
-mesh are not ported (they raise).
+of them).  Over a mesh the prompt pass and the decode step constrain
+``xs`` to ``ssm_inner`` as the JAX package does and run per channel on
+each rank's shard with its slice of each weight, the products over the
+channels summed over the channel shards (:class:`_MeshBlock`); Mamba-2's
+heads lie along the channels, so a rank holds whole heads (a split that
+cuts one raises).
 """
 from __future__ import annotations
 
@@ -178,7 +180,9 @@ def _chunks(s: int, chunk: int):
 # ---------------------------------------------------------------------------
 
 
-def _same(t: torch.Tensor) -> torch.Tensor:
+def _same(t: torch.Tensor, heads: bool = False) -> torch.Tensor:
+    """The one-device ``contract``: a product over the channels is
+    complete, and every head is this device's."""
     return t
 
 
@@ -212,11 +216,12 @@ def _mamba1_inner(cfg: ModelConfig, p: Params, xc: torch.Tensor,
 
 
 def _mamba1_step(cfg: ModelConfig, p: Params, xc: torch.Tensor,
-                 h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                 h: torch.Tensor, contract=_same
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single decode step. xc: (B,di); h: (B,di,N)."""
     n = cfg.ssm.state_dim
     r = dt_rank(cfg)
-    proj = torch.matmul(xc, p["x_proj"])
+    proj = contract(torch.matmul(xc, p["x_proj"]))
     dt = F.softplus(torch.matmul(proj[..., :r], p["dt_proj"]).float()
                     + p["dt_bias"])                       # (B,di)
     b_t = proj[..., r:r + n].float()
@@ -236,23 +241,26 @@ def _mamba1_step(cfg: ModelConfig, p: Params, xc: torch.Tensor,
 
 
 def _mamba2_parts(cfg: ModelConfig, p: Params, xc: torch.Tensor,
-                  dt_in: torch.Tensor):
+                  dt_in: torch.Tensor, contract=_same):
     """What both Mamba2 prompt forms start from: B and C (B,S,N), dt and
-    log a (B,S,H) in f32, and x by head (B,S,H,dh) in f32."""
+    log a (B,S,H) in f32, and x by head (B,S,H,dh) in f32.  H is the
+    heads ``xc``'s channels hold (a rank's, over a mesh, whose ``p``
+    holds their ``dt_bias`` / ``A_log``); ``contract`` completes the
+    product over the channels (``bc_proj``)."""
     n = cfg.ssm.state_dim
-    bc = torch.matmul(xc, p["bc_proj"]).float()
+    bc = contract(torch.matmul(xc, p["bc_proj"])).float()
     dt = F.softplus(dt_in.float() + p["dt_bias"])          # (B,S,H)
     log_a = dt * -torch.exp(p["A_log"])                    # (B,S,H) <= 0
     bsz, s = xc.shape[:2]
-    xh = xc.reshape(bsz, s, num_ssm_heads(cfg), cfg.ssm.head_dim).float()
+    xh = xc.reshape(bsz, s, -1, cfg.ssm.head_dim).float()
     return bc[..., :n], bc[..., n:], dt, log_a, xh
 
 
 def _mamba2_inner(cfg: ModelConfig, p: Params, xc: torch.Tensor,
-                  dt_in: torch.Tensor, h0: torch.Tensor
+                  dt_in: torch.Tensor, h0: torch.Tensor, contract=_same
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xc: (B,S,di); dt_in: (B,S,H) pre-softplus; h0: (B,H,dh,N)."""
-    b_t, c_t, dt, log_a, xh = _mamba2_parts(cfg, p, xc, dt_in)
+    b_t, c_t, dt, log_a, xh = _mamba2_parts(cfg, p, xc, dt_in, contract)
     h = h0
     ys = []
     for s0, s1 in _chunks(xc.shape[1], cfg.ssm.chunk_size):
@@ -266,7 +274,7 @@ def _mamba2_inner(cfg: ModelConfig, p: Params, xc: torch.Tensor,
 
 
 def _mamba2_inner_ssd(cfg: ModelConfig, p: Params, xc: torch.Tensor,
-                      dt_in: torch.Tensor, h0: torch.Tensor
+                      dt_in: torch.Tensor, h0: torch.Tensor, contract=_same
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD (structured state-space duality) block-matmul form.
 
@@ -278,7 +286,7 @@ def _mamba2_inner_ssd(cfg: ModelConfig, p: Params, xc: torch.Tensor,
     is numerically stable. Inter-chunk state is carried exactly as in the
     scan path.
     """
-    b_t, c_t, dt, log_a, xh = _mamba2_parts(cfg, p, xc, dt_in)
+    b_t, c_t, dt, log_a, xh = _mamba2_parts(cfg, p, xc, dt_in, contract)
     h = h0
     ys = []
     for s0, s1 in _chunks(xc.shape[1], cfg.ssm.chunk_size):
@@ -311,13 +319,14 @@ def _mamba2_inner_ssd(cfg: ModelConfig, p: Params, xc: torch.Tensor,
 
 
 def _mamba2_step(cfg: ModelConfig, p: Params, xc: torch.Tensor,
-                 dt_in: torch.Tensor, h: torch.Tensor
+                 dt_in: torch.Tensor, h: torch.Tensor, contract=_same
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """xc: (B,di); dt_in: (B,H); h: (B,H,dh,N)."""
+    """xc: (B,di); dt_in: (B,H); h: (B,H,dh,N) (H: the heads ``xc``'s
+    channels hold)."""
     n = cfg.ssm.state_dim
-    nh = num_ssm_heads(cfg)
     dh = cfg.ssm.head_dim
-    bc = torch.matmul(xc, p["bc_proj"]).float()
+    nh = xc.shape[-1] // dh
+    bc = contract(torch.matmul(xc, p["bc_proj"])).float()
     b_t, c_t = bc[..., :n], bc[..., n:]
     dt = F.softplus(dt_in.float() + p["dt_bias"])
     a_h = -torch.exp(p["A_log"])
@@ -382,7 +391,8 @@ def _mamba_block(cfg: ModelConfig, p: Params, xs: torch.Tensor,
     per channel but the products over the channels, which ``contract``
     completes (the identity on one device; over a mesh each rank runs
     its channels and ``contract`` sums the products over the channel
-    shards).  Returns (y, conv_state, ssm_state)."""
+    shards, and with ``heads`` keeps this rank's heads of the sum).
+    Returns (y, conv_state, ssm_state)."""
     ssm = cfg.ssm
     full = torch.cat([conv_state.to(xs.dtype), xs], dim=1)
     k = ssm.conv_kernel
@@ -393,99 +403,177 @@ def _mamba_block(cfg: ModelConfig, p: Params, xs: torch.Tensor,
     if ssm.variant == "mamba1":
         y, h_last = _mamba1_inner(cfg, p, xc, h0, contract)
     else:
-        dt_in = torch.matmul(xc, p["dt_w"])               # (B,S,H)
+        dt_in = contract(torch.matmul(xc, p["dt_w"]), heads=True)  # (B,S,H)
         inner = _mamba2_inner_ssd if ssm.ssd_matmul else _mamba2_inner
-        y, h_last = inner(cfg, p, xc, dt_in, h0)
+        y, h_last = inner(cfg, p, xc, dt_in, h0, contract)
     y = y.to(dtype) * F.silu(z)
     out = contract(torch.matmul(y, p["out_proj"]))
     return out, new_conv_state, h_last
 
 
+class _MeshBlock:
+    """One mamba block's per-rank pieces over a mesh: the input
+    constrained to (``batch``, ..., ``embed``) and ``in_proj`` applied,
+    ``xs`` / ``z`` constrained to ``ssm_inner`` (the JAX package's point)
+    and taken local (this rank's rows and channels), each weight's slice
+    for those channels (Mamba-2's per-head vectors for the heads they
+    hold), and ``contract``, which sums a local product over the channel
+    shards (``Partial`` reduced; with ``heads``, this rank's heads of the
+    sum).  The scan writes with ``out=`` and the step into the cache, so
+    the block runs on plain local tensors through the one-device body."""
+
+    def __init__(self, cfg: ModelConfig, p: Params, x: torch.Tensor):
+        from torch.distributed.tensor import Replicate, Shard
+        di = cfg.d_inner
+        lead = (None,) * (x.dim() - 2)      # the prompt pass's sequence
+        self.x = constrain(x, "batch", *lead, "embed")
+        xz = torch.matmul(self.x, fsdp_gathered(p["in_proj"]))
+        self.ch = ch = x.dim() - 1
+        xs = constrain(xz[..., :di], "batch", *lead, "ssm_inner")
+        z = constrain(xz[..., di:], "batch", *lead, "ssm_inner")
+        self.mesh, self.pl = xs.device_mesh, tuple(xs.placements)
+        self.rows = [i for i, q in enumerate(self.pl) if q == Shard(0)]
+        self.chans = [i for i, q in enumerate(self.pl) if q == Shard(ch)]
+        self.c0 = shard_offset(xs.shape, self.mesh, self.pl, ch)
+        self.xs, self.z = xs.to_local(), z.to_local()
+        self.n_ch = self.xs.shape[-1]
+        self.rows_pl = [Shard(0) if i in self.rows else Replicate()
+                        for i in range(len(self.pl))]
+        hd = cfg.ssm.head_dim
+        if cfg.ssm.variant == "mamba2" and (self.c0 % hd or self.n_ch % hd):
+            raise ValueError(
+                f"mamba2 over a mesh: this rank's channels {self.c0}.."
+                f"{self.c0 + self.n_ch - 1} of d_inner {di} cut a head of "
+                f"{hd}; the ssm_inner mesh dims must divide the "
+                f"{num_ssm_heads(cfg)} heads")
+        self.h0, self.nh = self.c0 // hd, self.n_ch // hd
+        names = (("x_proj", 0), ("dt_proj", 1), ("dt_bias", 0),
+                 ("A_log", 0), ("D", 0)) if cfg.ssm.variant == "mamba1" \
+            else (("bc_proj", 0), ("dt_w", 0))
+        self.p = {name: self._weight(p[name], dim) for name, dim in
+                  (("conv_w", 1), ("conv_b", 0), ("out_proj", 0)) + names}
+        if cfg.ssm.variant == "mamba2":
+            for name in ("dt_bias", "A_log", "D"):
+                self.p[name] = self._weight(p[name], None)
+
+    def _weight(self, w: torch.Tensor, ch_dim: Optional[int]
+                ) -> torch.Tensor:
+        """``w``'s rows (``ch_dim``) of this rank's channels, whole
+        elsewhere (``ch_dim`` None: a per-head vector, its entries of this
+        rank's heads); its gradient partial over the row shards (and over
+        the channel shards where it is replicated and sliced here)."""
+        from torch.distributed.tensor import Replicate, Shard
+        want = [Shard(ch_dim) if ch_dim is not None and i in self.chans and
+                q == Shard(ch_dim) else Replicate()
+                for i, q in enumerate(w.placements)]
+        w = w.redistribute(self.mesh, want)
+        sliced = [i for i in self.chans if want[i] == Replicate()]
+        wl = to_local(w, self.rows + sliced)
+        if not sliced:
+            return wl
+        if ch_dim is None:
+            return wl.narrow(0, self.h0, self.nh)
+        return wl.narrow(ch_dim, self.c0, self.n_ch)
+
+    def contract(self, t: torch.Tensor, heads: bool = False
+                 ) -> torch.Tensor:
+        """A local product over this rank's channels, summed over them;
+        with ``heads``, this rank's heads of the sum (its last dim)."""
+        from torch.distributed.tensor import Partial
+        part = [Partial() if i in self.chans else q
+                for i, q in enumerate(self.rows_pl)]
+        shape = (self.x.shape[0],) + tuple(t.shape[1:])
+        out = from_local(t, self.mesh, part, shape).redistribute(
+            self.mesh, self.rows_pl).to_local()
+        return out.narrow(-1, self.h0, self.nh) if heads else out
+
+    def state_placements(self):
+        """(conv window (B, k-1, di), scan state (B, di, N) or (B, H, dh,
+        N)) placements: the rows as ``xs``'s, the channels (the window's
+        last dim, the state's d_inner or heads) where ``xs`` has them."""
+        from torch.distributed.tensor import Shard
+        return ([Shard(2) if q == Shard(self.ch) else q for q in self.pl],
+                [Shard(1) if q == Shard(self.ch) else q for q in self.pl])
+
+    def local_state(self, conv: torch.Tensor, state: torch.Tensor):
+        """This rank's shards of a (conv window, scan state) pair of
+        DTensors, redistributed first to :meth:`state_placements` (a
+        no-op for the pair a prompt pass or a step returned)."""
+        conv_pl, state_pl = self.state_placements()
+        return (conv.redistribute(self.mesh, conv_pl).to_local(),
+                state.redistribute(self.mesh, state_pl).to_local())
+
+    def placed(self, cfg: ModelConfig, out: torch.Tensor, conv: torch.Tensor,
+               state: torch.Tensor):
+        """The block's local output, conv window and scan state as
+        DTensors: the output by rows (constrained to ``embed``), the pair
+        by :meth:`state_placements`."""
+        out = constrain(from_local(out, self.mesh, self.rows_pl,
+                                   tuple(self.x.shape)),
+                        "batch", *(None,) * (self.x.dim() - 2), "embed")
+        conv_pl, state_pl = self.state_placements()
+        conv0, state0 = ssm_state_shapes(cfg, self.x.shape[0])
+        return (out, from_local(conv, self.mesh, conv_pl, conv0),
+                from_local(state, self.mesh, state_pl, state0))
+
+
 def _apply_mamba_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor,
                          init_state) -> Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
-    """:func:`apply_mamba_with_state` of a Mamba-1 block over a mesh:
-    ``xs`` / ``z`` constrained to ``ssm_inner`` (the JAX package's
-    point), then :func:`_mamba_block` on each rank's rows and channels
-    with its slice of each weight (the scan writes with ``out=``, which
-    a DTensor does not take), the two products over the channels
-    (``x_proj`` and ``out_proj``) summed over the channel shards.
-    Returns the output, the conv window and the scan state as DTensors
-    placed by rows and channels."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    ssm = cfg.ssm
-    if ssm.variant != "mamba1" or init_state is not None:
-        raise NotImplementedError(
-            "over a mesh the port runs the Mamba-1 block's prompt pass; "
-            "Mamba-2 and a resumed state run on one device")
-    di, n, k = cfg.d_inner, ssm.state_dim, ssm.conv_kernel
-    x = constrain(x, "batch", None, "embed")
-    xz = torch.matmul(x, fsdp_gathered(p["in_proj"]))
-    xs = constrain(xz[..., :di], "batch", None, "ssm_inner")
-    z = constrain(xz[..., di:], "batch", None, "ssm_inner")
-    mesh, pl = xs.device_mesh, tuple(xs.placements)
-    rows = [i for i, q in enumerate(pl) if q == Shard(0)]
-    chans = [i for i, q in enumerate(pl) if q == Shard(2)]
-    c0 = shard_offset(xs.shape, mesh, pl, 2)
-    xs_l, z_l = xs.to_local(), z.to_local()
-    bsz, n_ch = xs_l.shape[0], xs_l.shape[2]
-    rows_pl = [Shard(0) if i in rows else Replicate()
-               for i in range(len(pl))]
-
-    def weight(w, ch_dim):
-        """``w``'s rows (``ch_dim``) of this rank's channels, whole
-        elsewhere; its gradient partial over the row shards (and over
-        the channel shards where it is replicated and sliced here)."""
-        want = [Shard(ch_dim) if i in chans and q == Shard(ch_dim)
-                else Replicate() for i, q in enumerate(w.placements)]
-        w = w.redistribute(mesh, want)
-        sliced = [i for i in chans if want[i] != Shard(ch_dim)]
-        wl = to_local(w, rows + sliced)
-        return wl.narrow(ch_dim, c0, n_ch) if sliced else wl
-
-    def reduce_channels(t):
-        """A local product over this rank's channels, summed over them."""
-        part = [Partial() if i in chans else q
-                for i, q in enumerate(rows_pl)]
-        shape = (x.shape[0],) + tuple(t.shape[1:])
-        return from_local(t, mesh, part, shape).redistribute(
-            mesh, rows_pl).to_local()
-
-    local = {"conv_w": weight(p["conv_w"], 1),
-             "conv_b": weight(p["conv_b"], 0),
-             "x_proj": weight(p["x_proj"], 0),
-             "dt_proj": weight(p["dt_proj"], 1),
-             "dt_bias": weight(p["dt_bias"], 0),
-             "A_log": weight(p["A_log"], 0), "D": weight(p["D"], 0),
-             "out_proj": weight(p["out_proj"], 0)}
-    conv0 = torch.zeros((bsz, k - 1, n_ch), dtype=xs_l.dtype,
-                        device=xs_l.device)
-    h0 = torch.zeros((bsz, n_ch, n), dtype=torch.float32,
-                     device=xs_l.device)
-    out, conv_state, h = _mamba_block(cfg, local, xs_l, z_l, conv0, h0,
-                                      x.dtype, reduce_channels)
-    out = constrain(from_local(out, mesh, rows_pl, tuple(x.shape)),
-                    "batch", None, "embed")
-    conv_state = from_local(conv_state, mesh, pl, (x.shape[0], k - 1, di))
-    state_pl = [Shard(1) if q == Shard(2) else q for q in pl]
-    return out, conv_state, from_local(h, mesh, state_pl,
-                                       (x.shape[0], di, n))
+    """:func:`apply_mamba_with_state` over a mesh: :func:`_mamba_block` on
+    each rank's rows and channels (:class:`_MeshBlock`), from zeros or
+    from ``init_state``'s shards.  Returns the output, the conv window and
+    the scan state as DTensors placed by rows and channels."""
+    m = _MeshBlock(cfg, p, x)
+    if init_state is None:
+        conv0, state0 = ssm_state_shapes(cfg, m.xs.shape[0])
+        conv0 = conv0[:2] + (m.n_ch,)
+        state0 = (state0[0], m.n_ch) + state0[2:] \
+            if cfg.ssm.variant == "mamba1" else (state0[0], m.nh) + state0[2:]
+        conv = torch.zeros(conv0, dtype=m.xs.dtype, device=m.xs.device)
+        h0 = torch.zeros(state0, dtype=torch.float32, device=m.xs.device)
+    else:
+        conv, h0 = m.local_state(*init_state)
+    out, conv, h = _mamba_block(cfg, m.p, m.xs, m.z, conv, h0, x.dtype,
+                                m.contract)
+    return m.placed(cfg, out, conv, h)
 
 
 def apply_mamba_step(cfg: ModelConfig, p: Params, x_t: torch.Tensor,
                      conv_state: torch.Tensor, h: torch.Tensor):
     """Decode step. x_t: (B,d) -> (y (B,d), conv_state, h), the state
-    as new tensors (the caller writes them back where it keeps them)."""
+    as new tensors (the caller writes them back where it keeps them).
+    Over a mesh (DTensors) each rank steps its rows and channels with its
+    weight slices (:class:`_MeshBlock`), and the state comes back placed
+    as ``conv_state`` and ``h`` were, so the caller writes its shards
+    back in place."""
+    if is_dtensor(x_t):
+        m = _MeshBlock(cfg, p, x_t)
+        conv_l, h_l = m.local_state(conv_state, h)
+        out, conv_l, h_l = _step_block(cfg, m.p, m.xs, m.z, conv_l, h_l,
+                                       x_t.dtype, m.contract)
+        out, conv_l, h_l = m.placed(cfg, out, conv_l, h_l)
+        return (out, conv_l.redistribute(m.mesh, conv_state.placements),
+                h_l.redistribute(m.mesh, h.placements))
     di = cfg.d_inner
     xz = torch.matmul(x_t, p["in_proj"])
-    xs, z = xz[..., :di], xz[..., di:]
+    return _step_block(cfg, p, xz[..., :di], xz[..., di:], conv_state, h,
+                       x_t.dtype)
+
+
+def _step_block(cfg: ModelConfig, p: Params, xs: torch.Tensor,
+                z: torch.Tensor, conv_state: torch.Tensor, h: torch.Tensor,
+                dtype: torch.dtype, contract=_same):
+    """The step after ``in_proj``, as :func:`_mamba_block` is the prompt
+    pass's: the conv window, the recurrence, the gate and ``out_proj``,
+    the products over the channels completed by ``contract``."""
     conv_state, conv_out = _conv_step(p, conv_state, xs)
     xc = F.silu(conv_out)
     if cfg.ssm.variant == "mamba1":
-        y, h = _mamba1_step(cfg, p, xc, h)
+        y, h = _mamba1_step(cfg, p, xc, h, contract)
     else:
-        dt_in = torch.matmul(xc, p["dt_w"])
-        y, h = _mamba2_step(cfg, p, xc, dt_in, h)
-    y = y.to(x_t.dtype) * F.silu(z)
-    out = torch.matmul(y, p["out_proj"])
+        dt_in = contract(torch.matmul(xc, p["dt_w"]), heads=True)
+        y, h = _mamba2_step(cfg, p, xc, dt_in, h, contract)
+    y = y.to(dtype) * F.silu(z)
+    out = contract(torch.matmul(y, p["out_proj"]))
     return out, conv_state, h

@@ -208,10 +208,12 @@ def layer_params(params: Params, i: int) -> Params:
 
 def make_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
                      block_size: int, max_blocks: int,
-                     dtype: torch.dtype = torch.float32,
+                     dtype: torch.dtype = torch.bfloat16,
                      device=None) -> Dict[str, torch.Tensor]:
-    """An empty paged decode cache.  K/V live in one pool of
-    ``num_blocks`` blocks of ``block_size`` tokens shared by every row;
+    """An empty paged decode cache, in bf16 unless ``dtype`` says (the
+    JAX package's default; its engines, and the port's, ask for f32).
+    K/V live in one pool of ``num_blocks`` blocks of ``block_size``
+    tokens shared by every row;
     ``block_tables`` (B, max_blocks) maps each row's logical blocks to
     pool blocks and defaults to 0, the trash block, so unassigned entries
     read masked garbage and absorb stray writes.  Attention families
@@ -256,11 +258,13 @@ def state_specs(cfg: ModelConfig, batch: int, width: int,
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype: torch.dtype = torch.float32,
+               dtype: torch.dtype = torch.bfloat16,
                device=None) -> Dict[str, torch.Tensor]:
     """An empty contiguous decode cache: ``len`` and ``pos_offset`` (B,)
     and the leaves of :func:`state_specs` (``k``/``v`` (L, B, max_len,
-    KV, dh), one stripe per row, or the SSM families' state), zeroed.
+    KV, dh), one stripe per row, or the SSM families' state), zeroed, in
+    bf16 unless ``dtype`` says (the JAX package's default; the engines
+    ask for f32, as its engines do).
     On ``device="meta"`` it allocates nothing (:func:`cache_specs`)."""
     _check_family(cfg)
     dev = torch.device("meta") if str(device) == "meta" else \
@@ -337,7 +341,7 @@ def _parts(specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    *, rt: "ModelRuntime" = None, collect_cache: bool = False,
-                   cache_dtype: torch.dtype = torch.float32,
+                   cache_dtype: torch.dtype = torch.bfloat16,
                    cache_len: Optional[int] = None, attn: str = "flash",
                    kv_out: Optional[Dict[str, torch.Tensor]] = None,
                    embeds_override: Optional[torch.Tensor] = None,
@@ -345,7 +349,8 @@ def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """Causal pass over right-padded prompts, (B, S) tokens or (B, K, S)
     codes.  Returns ``(h_final,
     parts)``; with ``collect_cache`` parts holds every layer's k/v as
-    (L, B, max(S, cache_len), KV, dh) in ``cache_dtype``, zero past S,
+    (L, B, max(S, cache_len), KV, dh) in ``cache_dtype`` (bf16 unless
+    given, as the JAX package's prefills default), zero past S,
     written into ``kv_out``'s tensors where given, else None.  ``attn``
     picks the attention route: ``"flash"`` (the
     flash-attention kernel, the generative prefill's) or ``"naive"``
@@ -735,7 +740,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
             rt: ModelRuntime = DEFAULT_RUNTIME,
             embeds_override: Optional[torch.Tensor] = None,
             true_lengths: Optional[torch.Tensor] = None,
-            cache_dtype: torch.dtype = torch.float32,
+            cache_dtype: torch.dtype = torch.bfloat16,
             kv_out: Optional[Dict[str, torch.Tensor]] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prompt pass over right-padded ``tokens`` (B, S), or (B, K, S)
@@ -776,7 +781,7 @@ def prefill_suffix(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    prefix_k: torch.Tensor, prefix_v: torch.Tensor, *,
                    prefix_len: int, rt: ModelRuntime = DEFAULT_RUNTIME,
                    true_lengths: Optional[torch.Tensor] = None,
-                   cache_dtype: torch.dtype = torch.float32,
+                   cache_dtype: torch.dtype = torch.bfloat16,
                    kv_out: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Resume a prompt pass after ``prefix_len`` cached tokens (the
@@ -846,7 +851,7 @@ def prefill_packed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    prefix_v: torch.Tensor, prefix_seg: torch.Tensor,
                    prefix_pos: torch.Tensor, *,
                    rt: ModelRuntime = DEFAULT_RUNTIME,
-                   cache_dtype: torch.dtype = torch.float32,
+                   cache_dtype: torch.dtype = torch.bfloat16,
                    kv_out: Optional[Dict[str, torch.Tensor]] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill many independent sequences in ONE pass.
@@ -967,8 +972,9 @@ def decode_step(cfg: ModelConfig, params: Params,
     positions = (cache["len"] + cache["pos_offset"])[:, None]
     if cfg.rope == "mrope":
         positions = positions[None].expand((3,) + positions.shape)
+    new_cache = dict(cache)
     if cfg.family in SSM_FAMILIES:
-        h = _decode_ssm(cfg, params, cache, h, positions)
+        h = _decode_ssm(cfg, params, new_cache, h, positions)
     elif "block_tables" in cache:
         h = _decode_attn_paged(cfg, params, cache, h, positions)
         h = L.apply_norm(cfg, params["final_norm"], h)
@@ -976,7 +982,6 @@ def decode_step(cfg: ModelConfig, params: Params,
         h = _decode_attn(cfg, params, cache, h, positions)
         h = L.apply_norm(cfg, params["final_norm"], h)
     logits = L.lm_logits(cfg, params["embed"], h)[..., 0, :]
-    new_cache = dict(cache)
     new_cache["len"] = cache["len"] + 1
     return logits, new_cache
 
@@ -1070,13 +1075,23 @@ def _decode_attn(cfg, params, cache, h, positions):
 def _decode_ssm(cfg, params, cache, h, positions):
     """Decode layers of the SSM families, unrolled (the JAX package's
     ``_decode_ssm_unrolled``): each mamba block's step reads its layer's
-    conv window and scan state and writes the new ones back IN PLACE;
-    the hybrid's shared block writes its application's KV in place and
-    attends through the contiguous decode kernel.  Returns the final
-    norm's output (B, 1, d)."""
+    conv window and scan state and writes the new ones back IN PLACE (over
+    a mesh into this rank's shards, which the step returns placed as the
+    cache's); the hybrid's shared block writes its application's KV in
+    place and attends through the contiguous decode kernel (over a mesh
+    on each rank's shard).  Returns the final norm's output (B, 1, d).
+    A conv window narrower than the activations (the bf16 default under
+    f32 weights) is first replaced in ``cache`` by a copy in their type:
+    the JAX package's step returns the window in the promotion of the
+    two, so from its first step on its cache holds the new inputs
+    unrounded.  An engine's cache (f32, or the activations' type) is
+    written in place from the start."""
     shared = params.get("shared")
     lens = cache["len"]
     conv, state = cache["conv"], cache["state"]
+    wide = torch.promote_types(conv.dtype, h.dtype)
+    if conv.dtype != wide:
+        conv = cache["conv"] = conv.to(wide)
     index = _write_index(lens, cache["shared_k"].shape[2]) \
         if cfg.attn_every else None
     out, app = None, 0
@@ -1085,8 +1100,11 @@ def _decode_ssm(cfg, params, cache, h, positions):
         hn, h = _norm_add(cfg, blk["norm1"], h, out)
         y, conv_l, state_l = S.apply_mamba_step(cfg, blk["mamba"], hn[:, 0],
                                                 conv[i], state[i])
-        conv[i].copy_(conv_l)
-        state[i].copy_(state_l)
+        for leaf, new in ((conv, conv_l), (state, state_l)):
+            if is_dtensor(leaf):
+                leaf.to_local()[i].copy_(new.to_local())
+            else:
+                leaf[i].copy_(new)
         out = y[:, None]
         if not _shared_after(cfg, i):
             continue

@@ -293,14 +293,16 @@ class InferenceEngine:
         logits, _ = prefill(self.cfg, self.params, ins["tokens"],
                             max_len=max_len, rt=self.rt,
                             true_lengths=None if ssm else
-                            ins["true_lengths"], kv_out=outs)
+                            ins["true_lengths"], cache_dtype=torch.float32,
+                            kv_out=outs)
         outs["logits"].copy_(logits)
 
     def _suffix_body(self, prefix_len: int, ins, outs) -> None:
         logits, _ = prefill_suffix(
             self.cfg, self.params, ins["tokens"], ins["prefix_k"],
             ins["prefix_v"], prefix_len=prefix_len, rt=self.rt,
-            true_lengths=ins["true_lengths"], kv_out=outs)
+            true_lengths=ins["true_lengths"], cache_dtype=torch.float32,
+            kv_out=outs)
         outs["logits"].copy_(logits)
 
     def _packed_body(self, ins, outs) -> None:
@@ -308,7 +310,7 @@ class InferenceEngine:
             self.cfg, self.params, ins["tokens"], ins["seg_ids"],
             ins["positions"], ins["last_idx"], ins["prefix_k"],
             ins["prefix_v"], ins["prefix_seg"], ins["prefix_pos"],
-            rt=self.rt, kv_out=outs)
+            rt=self.rt, cache_dtype=torch.float32, kv_out=outs)
         outs["logits"].copy_(logits)
 
     # ------------------------------------------------------------------

@@ -575,10 +575,10 @@ def test_classify_records_follow_the_length(smoke):
 # ---------------------------------------------------------------------------
 
 def test_chip_smoke_allocator_stream_on_the_smoke_forward():
-    """The phase's stream of lengths is the reference benchmark's, and its
-    planning half (records, Algorithm 1 full and deduplicated, both
-    baselines, ``validate_plan`` on every plan) runs on the smoke
-    forward."""
+    """The phase's stream of lengths is the reference benchmark's, cut in
+    depth to its first ``ALLOC_REQUESTS``, and its planning half (records,
+    Algorithm 1 full and deduplicated, both baselines, ``validate_plan`` on
+    every plan) runs on the smoke forward."""
     import random
     import sys
     from pathlib import Path
@@ -589,7 +589,8 @@ def test_chip_smoke_allocator_stream_on_the_smoke_forward():
 
     rng = random.Random(0)
     want = [rng.randint(5, 500) for _ in range(bench_allocator.NUM_REQUESTS)]
-    assert chip_smoke.allocator_lengths() == want
+    assert 4 <= chip_smoke.ALLOC_REQUESTS <= bench_allocator.NUM_REQUESTS
+    assert chip_smoke.allocator_lengths() == want[:chip_smoke.ALLOC_REQUESTS]
     cfg = get_smoke_config(ARCH)
     _, fwd, _ = _classify_trace(cfg)
     stream = chip_smoke.AllocatorStream(cfg.num_layers)

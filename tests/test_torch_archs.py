@@ -135,7 +135,8 @@ def _paged(cfg, cache, block_size=8):
     b owns blocks 1 + b * MB ..), as `InferenceEngine.own_pool` does."""
     nl, b, s = cache["k"].shape[:3]
     mb = -(-s // block_size)
-    pc = make_paged_cache(cfg, b, 1 + b * mb, block_size, mb, device="cpu")
+    pc = make_paged_cache(cfg, b, 1 + b * mb, block_size, mb,
+                          cache["k"].dtype, device="cpu")
     pc["block_tables"] = (1 + torch.arange(b)[:, None] * mb +
                           torch.arange(mb)[None]).to(torch.int32)
     for key in ("k", "v"):
@@ -191,7 +192,8 @@ def test_prefill_and_decode_match_reference(weights, layout):
     toks, lens, emb, steps = _decode_inputs(cfg)
     tl, tc = prefill(cfg, tparams, torch.from_numpy(toks), max_len=32,
                      embeds_override=_opt(emb),
-                     true_lengths=torch.from_numpy(lens))
+                     true_lengths=torch.from_numpy(lens),
+                     cache_dtype=torch.float32)
     assert (tc["pos_offset"] != 0).any().item() == (emb is not None)
     if layout == "paged":
         tc = _paged(cfg, tc)
@@ -229,7 +231,8 @@ def test_vlm_prefill_packed_matches_reference():
                                  *[jnp.asarray(a) for a in args],
                                  cache_dtype=jnp.float32)
     tl, tkv = prefill_packed(cfg, tparams,
-                             *[torch.from_numpy(a) for a in args])
+                             *[torch.from_numpy(a) for a in args],
+                             cache_dtype=torch.float32)
     _close(tl, jl)
     _close(tkv["k"][:, :12], jkv["k"][:, :12])
 

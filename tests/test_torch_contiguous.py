@@ -94,7 +94,8 @@ def test_contiguous_decode_step_matches_reference(weights):
                              true_lengths=jnp.asarray(lens),
                              cache_dtype=jnp.float32)
     tl, tcache = prefill(cfg, tparams, torch.from_numpy(toks.astype(np.int64)),
-                         max_len=32, true_lengths=torch.from_numpy(lens))
+                         max_len=32, true_lengths=torch.from_numpy(lens),
+                         cache_dtype=torch.float32)
     assert "block_tables" not in tcache
     assert tuple(tcache["k"].shape) == tuple(jcache["k"].shape)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,

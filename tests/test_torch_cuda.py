@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import cuda_lib, ops, ref
+from repro_torch.kernels.flash_decode import INSTANTIATIONS
 
 
 @pytest.fixture
@@ -794,12 +795,13 @@ EDGE_LENGTHS = (0, 1, 15, 16, 17, 127, 128, 129, 1024)
 
 
 def _decode_rows(dev, lengths, group, qdtype, seed=11, s=1024, kv=8,
-                 bs=16, dh=128):
+                 bs=16, dh=128, kvdtype=torch.float32):
     """q of H = KV * group heads; a (B, S, KV, dh) cache NaN past each
     length, seen as the kernel's strided (B, KV, S, dh) view; the same
     view with a zero tail for the plain version; the same keys in a pool
     (row r owns blocks 1 + r * S / BS, in order, block 0 NaN) with its
-    tables; the lengths."""
+    tables; the lengths.  K and V are drawn in f32 and held in ``kvdtype``
+    (every view of them)."""
     rng = np.random.default_rng(seed)
     b = len(lengths)
     lens = np.asarray(lengths, np.int32)
@@ -810,8 +812,9 @@ def _decode_rows(dev, lengths, group, qdtype, seed=11, s=1024, kv=8,
     kz[past] = vz[past] = 0
     kc[past] = vc[past] = np.nan
     q = rng.standard_normal((b, kv * group, dh)).astype(np.float32)
-    q, kc, vc, kz, vz, lens = [torch.from_numpy(a).to(dev)
-                               for a in (q, kc, vc, kz, vz, lens)]
+    q, lens = torch.from_numpy(q).to(dev), torch.from_numpy(lens).to(dev)
+    kc, vc, kz, vz = [torch.from_numpy(a).to(dev).to(kvdtype)
+                      for a in (kc, vc, kz, vz)]
     mb = s // bs
 
     def pool(x):
@@ -907,7 +910,12 @@ def test_cuda_decode_is_one_launch_per_call(cuda, layout):
     nodes, every one a kernel node (the wrapper copies, fills and
     allocates nothing on the device); the launch counter rises by
     ``calls`` and the replay gives the eager calls' bits."""
-    d = _decode_rows(cuda, (1, 300, 1024), 2, torch.bfloat16)
+    _one_launch_per_call(cuda, layout, torch.float32)
+
+
+def _one_launch_per_call(cuda, layout, kvdtype):
+    d = _decode_rows(cuda, (1, 300, 1024), 2, torch.bfloat16,
+                     kvdtype=kvdtype)
     q, lens = d["q"].clone(), d["lens"].clone()
 
     def call():
@@ -1841,6 +1849,76 @@ def test_cuda_decode_model_groups_match_plain(cuda, layout, group, dh, kv,
     torch.testing.assert_close(got.float(), want.float(), **tol)
     other = _decode("contiguous" if layout == "paged" else "paged", d)
     assert torch.equal(got, other)
+
+
+# ---------------------------------------------------------------------------
+# decode over a bf16 K/V (the model functions' default cache, the JAX
+# package's): every instantiation with both q types
+# ---------------------------------------------------------------------------
+
+
+#: the KV heads each (group, head dim) is tested at
+BF16_KV_HEADS = {1: 8, 2: 8, 4: 2, 7: 4, 8: 2, 12: 4}
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,dh", INSTANTIATIONS)
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_bf16_kv_matches_plain(cuda, layout, group, dh, qdtype):
+    """A bf16 cache at the edges of tiles, blocks and splits, against the
+    plain version on the same bf16 values (both compute in f32 from
+    them: f32 q within 1e-4, bf16 q one output ulp as the f32 cache's
+    tests allow), counted at the instantiation's ``bf16kv`` shape class,
+    and the two layouts' bits equal on the same keys."""
+    kv = 32 if dh == 64 else BF16_KV_HEADS[group]
+    d = _decode_rows(cuda, EDGE_LENGTHS, group, qdtype, kv=kv, dh=dh,
+                     kvdtype=torch.bfloat16)
+    cuda_lib.reset_launches()
+    got = _decode(layout, d)
+    name = "flash_decode_paged" if layout == "paged" else "flash_decode"
+    assert cuda_lib.LAUNCH_SHAPES[(name, f"g{group} dh{dh} bf16kv")] == 1
+    assert cuda_lib.LAUNCHES[name] == 1
+    want = ref.flash_decode_ref(d["q"], d["kz"], d["vz"], d["lens"])
+    assert bool((got[0] == 0).all())               # the empty row
+    tol = dict(rtol=1e-4, atol=1e-4) if qdtype == torch.float32 \
+        else dict(rtol=2 ** -7, atol=4e-3)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    other = _decode("contiguous" if layout == "paged" else "paged", d)
+    assert torch.equal(got, other)
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_bf16_kv_row_alone_equals_row_in_batch(cuda, layout):
+    """Over a bf16 cache too a row's bits do not depend on the batch: each
+    row of 8 alone, the batch's first 3 and last 5 rows, and the batch
+    reversed give the rows of the batch of 8."""
+    d = _decode_rows(cuda, (1, 17, 128, 129, 300, 777, 1000, 1024), 2,
+                     torch.bfloat16, kvdtype=torch.bfloat16)
+    batch = _decode(layout, d)
+    for r in range(8):
+        assert torch.equal(_decode(layout, d, slice(r, r + 1))[0], batch[r])
+    assert torch.equal(torch.cat([_decode(layout, d, slice(0, 3)),
+                                  _decode(layout, d, slice(3, 8))]), batch)
+    rev = torch.arange(7, -1, -1, device=cuda)
+    assert torch.equal(_decode(layout, d, rev).flip(0), batch)
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_cuda_decode_bf16_kv_is_one_launch_per_call(cuda, layout):
+    """The bf16 cache's kernels, like the f32 cache's, are one kernel node
+    a call inside a captured graph, and the replay gives the eager
+    bits."""
+    _one_launch_per_call(cuda, layout, torch.bfloat16)
+
+
+def test_cuda_decode_refuses_mixed_kv_types(cuda):
+    """K and V of two types, or a half cache, raise before any launch."""
+    d = _decode_rows(cuda, (5, 9), 2, torch.bfloat16, s=64)
+    with pytest.raises(ValueError, match="both bf16"):
+        ops.flash_decode(d["q"], d["k"], d["v"].bfloat16(), d["lens"])
+    with pytest.raises(ValueError, match="both bf16"):
+        ops.flash_decode_paged(d["q"], d["k_pool"].half(),
+                               d["v_pool"].half(), d["tables"], d["lens"])
 
 
 def test_cuda_decode_model_groups_row_alone_equals_row_in_batch(cuda):

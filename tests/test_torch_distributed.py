@@ -13,7 +13,12 @@ each case reads its world's results (`tests/torch_world_cases.py`):
   capacity each, a capacity that drops) against the reference's
   ``apply_moe`` with two groups, and which assignments drop against its
   ``_dispatch_group``; the Mamba-1 family (falcon-mamba smoke, d_inner
-  over ``model``): its loss and a prefill's logits and state.
+  over ``model``): its loss, a prefill's logits and state and 4 decode
+  steps; the hybrid (zamba2 smoke: Mamba-2's heads over ``model``, the
+  shared attention block), in the scan and the SSD forms: a prefill and 4
+  decode steps; each held against the port on one device (the same
+  calls without the mesh) and against the reference; and a Mamba-2 split
+  that cuts a head, on a (1, 4) mesh, raising.
 - 8 ranks: sharded decode on (2, 4) (qwen3 smoke: its 2 kv heads do not
   divide ``model`` 4, so the cache is sharded on the head dim) against
   the reference's single-device ``decode_step``; and the elastic run:
@@ -46,7 +51,9 @@ from repro.training import TrainConfig as JTrain
 from repro.training import init_state as jinit_state
 from repro.training import make_train_step as jmake_step
 from repro_torch.configs import get_smoke_config
+from repro_torch.models import decode_step as pdecode
 from repro_torch.models import moe as pmoe
+from repro_torch.models import prefill as pprefill
 from repro_torch.models.bridge import params_from_numpy
 from torch_world import start_world
 
@@ -99,6 +106,29 @@ def ssm_inputs():
     return cfg, params, batch
 
 
+#: decode steps of the SSM cases, each fed one of these tokens a row
+SSM_STEPS = 4
+
+
+def _steps(seed, b):
+    return np.random.default_rng(seed).integers(
+        1, 256, (SSM_STEPS, b)).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def hybrid_inputs():
+    cfg = jconfigs.get_smoke_config("zamba2-1.2b")
+    params = jinit(cfg, jax.random.key(6), "float32")
+    toks = np.random.default_rng(7).integers(1, 256, (4, 20)).astype(
+        np.int32)
+    return cfg, params, toks, _steps(8, 4)
+
+
+def _ssd(cfg, on):
+    return dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, ssd_matmul=on))
+
+
 @functools.lru_cache(maxsize=None)
 def decode_inputs():
     cfg = jconfigs.get_smoke_config("qwen3-32b")
@@ -118,11 +148,15 @@ def worlds(tmp_path_factory):
     _, cfg = moe_cfgs()
     _, mp, x = moe_inputs()
     _, sparams, sbatch = ssm_inputs()
+    _, hparams, htoks, hsteps = hybrid_inputs()
     a = start_world(4, "torch_world_cases:world_a",
                     str(tmp_path_factory.mktemp("world_a")),
                     {"train_state": _np(state), "train_batch": _np(batch),
                      "moe_cfg": cfg, "moe_params": _np(mp), "moe_x": x,
-                     "ssm_params": _np(sparams), "ssm_batch": _np(sbatch)},
+                     "ssm_params": _np(sparams), "ssm_batch": _np(sbatch),
+                     "ssm_steps": _steps(9, 4),
+                     "hybrid_params": _np(hparams), "hybrid_tokens": htoks,
+                     "hybrid_steps": hsteps},
                     timeout=TIMEOUT)
     out_a = a.wait()
     _, params, toks, _, nxt = decode_inputs()
@@ -239,6 +273,94 @@ def test_ssm_over_ssm_inner_matches_reference(world_a):
                                    rtol=1e-4, atol=1e-4)
     # in_proj (L, d, 2 di): FSDP over data, d_inner over model
     assert world_a["ssm_placed"] == "(Shard(dim=1), Shard(dim=2))"
+
+
+def _one_device_and_reference(jcfg, jparams, toks, steps, max_len):
+    """The same prefill and decode steps without the mesh, in the port and
+    in the reference (f32 caches): each's logits a step and final cache."""
+    cfg = get_smoke_config(jcfg.name)
+    cfg = _ssd(cfg, jcfg.ssm.ssd_matmul)
+    tp = params_from_numpy(_np(jparams), device="cpu")
+    tl, tc = pprefill(cfg, tp, torch.from_numpy(toks), max_len=max_len,
+                      cache_dtype=torch.float32)
+    jl, jc = jprefill(jcfg, jparams, jnp.asarray(toks), max_len=max_len,
+                      cache_dtype=jnp.float32)
+    port = {"prefill_logits": tl, "decode_logits": [],
+            "prefill_cache": {k: v.clone() for k, v in tc.items()}}
+    ref = {"prefill_logits": jl, "decode_logits": []}
+    for tok in steps:
+        tl, tc = pdecode(cfg, tp, tc, torch.from_numpy(tok.copy()))
+        jl, jc = jdecode(jcfg, jparams, jc, jnp.asarray(tok))
+        port["decode_logits"].append(tl)
+        ref["decode_logits"].append(jl)
+    port["decode_cache"], ref["decode_cache"] = tc, jc
+    return port, ref
+
+
+#: the mesh against the port on one device: the products over the
+#: channels are summed over two channel shards, in another order than one
+#: device's, through 4 layers and the steps
+MESH_TOL = dict(rtol=5e-5, atol=5e-5)
+
+
+def _held(mesh, port, ref):
+    """The mesh's logits and final cache leaves against the port's on one
+    device (``MESH_TOL``) and the reference's (1e-4, as the one-device
+    SSM tests)."""
+    pairs = [(mesh["decode_logits"], port["decode_logits"],
+              ref["decode_logits"])]
+    if "prefill_logits" in mesh:
+        pairs.append(([mesh["prefill_logits"]], [port["prefill_logits"]],
+                      [ref["prefill_logits"]]))
+    for got, one, want in pairs:
+        assert len(got) == len(one) == len(want)
+        for g, o, w in zip(got, one, want):
+            np.testing.assert_allclose(g.numpy(), o.numpy(), **MESH_TOL)
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                       atol=1e-4)
+    for k, w in ref["decode_cache"].items():
+        g, o = mesh["decode_cache"][k], port["decode_cache"][k]
+        assert g.dtype == o.dtype, k
+        np.testing.assert_allclose(g.float().numpy(), o.float().numpy(),
+                                   err_msg=k, **MESH_TOL)
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32), rtol=1e-4,
+                                   atol=1e-4, err_msg=k)
+    for k, o in port["prefill_cache"].items() if "prefill_cache" in mesh \
+            else ():
+        np.testing.assert_allclose(mesh["prefill_cache"][k].float().numpy(),
+                                   o.float().numpy(), err_msg=k, **MESH_TOL)
+
+
+def test_ssm_decode_over_ssm_inner_matches_single_device(world_a):
+    """Falcon-Mamba's steps from the mesh prefill's cache (d_inner over
+    ``model``, rows over ``data``): each rank steps its channels with its
+    weight slices, the window and state written back in place."""
+    cfg, params, batch = ssm_inputs()
+    toks = np.asarray(batch["tokens"])
+    port, ref = _one_device_and_reference(cfg, params, toks,
+                                          _steps(9, 4), toks.shape[1])
+    _held(world_a["ssm_decode"], port, ref)
+
+
+@pytest.mark.parametrize("ssd", [False, True])
+def test_hybrid_over_the_mesh_matches_single_device(world_a, ssd):
+    """Zamba2's Mamba-2 blocks (8 heads of 16, 4 a rank) and its shared
+    attention block over (2, 2): the prompt pass in either form and 4
+    decode steps, the shared block decoding through the shard-local
+    contiguous kernel path."""
+    jcfg, params, toks, steps = hybrid_inputs()
+    port, ref = _one_device_and_reference(_ssd(jcfg, ssd), params, toks,
+                                          steps, toks.shape[1] + len(steps))
+    run = world_a[f"hybrid_ssd_{ssd}"]
+    _held(run, port, ref)
+    # the scan state (L, B, H, dh, N): rows over data, heads over model
+    assert run["state_placed"] == "(Shard(dim=1), Shard(dim=2))"
+
+
+def test_mamba2_split_cutting_a_head_raises(world_a):
+    msg = world_a["hybrid_cut_head"]
+    assert msg is not None and "cut a head" in msg
 
 
 def test_wrappers_refuse_placements_their_kernels_cannot_take(world_a):

@@ -153,7 +153,8 @@ def test_prefill_logits_and_kv_match_reference(weights):
     toks = _tokens(5, 3, 24, cfg.vocab_size)
     lens = np.array([24, 9, 1], np.int32)
     logits, parts = prefill(cfg, tparams, torch.from_numpy(toks),
-                            true_lengths=torch.from_numpy(lens))
+                            true_lengths=torch.from_numpy(lens),
+                            cache_dtype=torch.float32)
     jlogits, jcache = jax_prefill(jcfg, jparams, jnp.asarray(toks),
                                   max_len=32,
                                   true_lengths=jnp.asarray(lens),
@@ -180,7 +181,8 @@ def _paged_pair(jcfg, cfg, b, nb, bs, mb, seed, steps=5):
     k = rng.standard_normal(shape).astype(np.float32)
     v = rng.standard_normal(shape).astype(np.float32)
     k[:, 0] = v[:, 0] = 50.0                       # trash garbage
-    tcache = make_paged_cache(cfg, b, nb, bs, mb, device="cpu")
+    tcache = make_paged_cache(cfg, b, nb, bs, mb, torch.float32,
+                              device="cpu")
     jcache = jax_make_paged_cache(jcfg, b, nb, bs, mb, dtype=jnp.float32)
     for key, val in (("k", k), ("v", v), ("block_tables", tables),
                      ("len", lens)):

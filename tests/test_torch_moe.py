@@ -427,7 +427,8 @@ def test_prefill_matches_reference(weights):
     toks = _tokens(5, 3, 24, cfg.vocab_size)
     lens = np.array([24, 9, 1], np.int32)
     logits, parts = prefill(cfg, tparams, torch.from_numpy(toks),
-                            true_lengths=torch.from_numpy(lens))
+                            true_lengths=torch.from_numpy(lens),
+                            cache_dtype=torch.float32)
     jlogits, jcache = jax_prefill(jcfg, jparams, jnp.asarray(toks),
                                   max_len=32, true_lengths=jnp.asarray(lens),
                                   cache_dtype=jnp.float32)
@@ -453,7 +454,7 @@ def test_prefill_suffix_matches_reference(weights, prefix_len):
     logits, parts = prefill_suffix(
         cfg, tparams, torch.from_numpy(toks.astype(np.int64)),
         torch.from_numpy(pk), torch.from_numpy(pv), prefix_len=prefix_len,
-        true_lengths=torch.from_numpy(lens))
+        true_lengths=torch.from_numpy(lens), cache_dtype=torch.float32)
     _close(logits, want_logits)
     for key in ("k", "v"):
         _close(parts[key], want[key])
@@ -492,7 +493,7 @@ def test_prefill_packed_matches_reference(weights):
         return torch.from_numpy(np.array(a))
     logits, parts = prefill_packed(
         cfg, tparams, t(toks).long(), t(seg), t(pos), t(last), t(pk), t(pv),
-        t(p_seg), t(p_pos))
+        t(p_seg), t(p_pos), cache_dtype=torch.float32)
     _close(logits, want_logits)
     for key in ("k", "v"):
         _close(parts[key], want[key])
@@ -513,7 +514,8 @@ def test_paged_decode_steps_match_reference(weights):
     shape = (cfg.num_layers, nb, bs, cfg.num_kv_heads, cfg.head_dim)
     k = rng.standard_normal(shape).astype(np.float32)
     v = rng.standard_normal(shape).astype(np.float32)
-    tcache = make_paged_cache(cfg, b, nb, bs, mb, device="cpu")
+    tcache = make_paged_cache(cfg, b, nb, bs, mb, torch.float32,
+                              device="cpu")
     jcache = jax_make_paged_cache(jcfg, b, nb, bs, mb, dtype=jnp.float32)
     for key, val in (("k", k), ("v", v), ("block_tables", tables),
                      ("len", lens)):

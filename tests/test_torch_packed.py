@@ -158,7 +158,7 @@ def test_prefill_packed_matches_reference(weights, with_prefix):
         cache_dtype=jnp.float32)
     logits, kv = prefill_packed(
         cfg, tparams, _t(toks).long(), _t(seg), _t(pos), _t(last), _t(pk),
-        _t(pv), _t(p_seg), _t(p_pos))
+        _t(pv), _t(p_seg), _t(p_pos), cache_dtype=torch.float32)
     _close(logits, want_logits, **MODEL_TOL)
     for key in ("k", "v"):
         assert tuple(kv[key].shape) == tuple(want_kv[key].shape)
@@ -187,7 +187,8 @@ def test_prefill_packed_flat_matches_per_prompt_prefill(weights):
     assert tuple(parts["k"].shape[:2]) == (cfg.num_layers, 64)
     at = 0
     for i, p in enumerate(prompts):
-        want, cache = prefill(cfg, eng.params, torch.tensor([p]))
+        want, cache = prefill(cfg, eng.params, torch.tensor([p]),
+                              cache_dtype=torch.float32)
         _close(logits[i], want[0], **MODEL_TOL)
         for key in ("k", "v"):
             _close(parts[key][:, at:at + len(p)], cache[key][:, 0],

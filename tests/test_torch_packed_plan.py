@@ -280,7 +280,7 @@ def test_prefill_packed_with_the_plan_matches_reference(weights, case,
     monkeypatch.setattr(ops, "flash_attention_packed_plan", counted)
     logits, kv = prefill_packed(cfg, tparams, t(toks).long(), t(q_seg),
                                 t(q_pos), t(last), t(pk), t(pv), t(p_seg),
-                                t(p_pos))
+                                t(p_pos), cache_dtype=torch.float32)
     assert len(calls) == 1
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
                                **MODEL_TOL)

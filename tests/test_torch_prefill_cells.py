@@ -182,7 +182,8 @@ def test_prefill_cell_equals_prefill(weights, monkeypatch, kv_only):
     want_logits, want = prefill(
         cfg, tparams, torch.from_numpy(toks),
         max_len=None if kv_only else 64,
-        true_lengths=torch.tensor([20, 7, 31, 1], dtype=torch.int32))
+        true_lengths=torch.tensor([20, 7, 31, 1], dtype=torch.int32),
+        cache_dtype=torch.float32)
     assert torch.equal(seen[0], want_logits)
     for key in ("k", "v", "len", "pos_offset"):
         assert torch.equal(state.cache[key], want[key]), key
@@ -211,7 +212,8 @@ def test_suffix_cell_equals_prefill_suffix(weights, monkeypatch):
     want_logits, want = prefill_suffix(
         cfg, tparams, torch.from_numpy(toks), torch.cat([pk, pad], 1),
         torch.cat([pv, pad], 1), prefix_len=pre,
-        true_lengths=torch.tensor([9, 30, 1, 1], dtype=torch.int32))
+        true_lengths=torch.tensor([9, 30, 1, 1], dtype=torch.int32),
+        cache_dtype=torch.float32)
     assert torch.equal(seen[0], want_logits)
     for key in ("k", "v"):
         assert torch.equal(state.cache[key], want[key]), key
@@ -247,7 +249,8 @@ def test_packed_cell_equals_prefill_packed(weights, with_prefix):
         torch.cat([pk, pad], 1), torch.cat([pv, pad], 1),
         torch.from_numpy(np.pad(pseg, (0, pre_b - pre),
                                 constant_values=-1)),
-        torch.from_numpy(np.pad(ppos, (0, pre_b - pre))))
+        torch.from_numpy(np.pad(ppos, (0, pre_b - pre))),
+        cache_dtype=torch.float32)
     assert torch.equal(logits, want_logits)
     for key in ("k", "v"):
         assert torch.equal(parts[key], want[key]), key
@@ -313,13 +316,15 @@ def test_kv_out_must_fit_the_cache(weights):
     toks = torch.ones((2, 8), dtype=torch.int64)
     shape = (cfg.num_layers, 2, 16, cfg.num_kv_heads, cfg.head_dim)
     good = {"k": torch.full(shape, 9.0), "v": torch.full(shape, 9.0)}
-    _, cache = prefill(cfg, tparams, toks, max_len=16, kv_out=good)
+    _, cache = prefill(cfg, tparams, toks, max_len=16,
+                       cache_dtype=torch.float32, kv_out=good)
     assert cache["k"] is good["k"]
     assert float(good["k"][:, :, 8:].abs().sum()) == 0.0   # tail zeroed
     with pytest.raises(ValueError, match="kv_out"):
-        prefill(cfg, tparams, toks, max_len=32, kv_out=good)
+        prefill(cfg, tparams, toks, max_len=32,
+                cache_dtype=torch.float32, kv_out=good)
     with pytest.raises(ValueError, match="kv_out"):
-        prefill(cfg, tparams, toks, max_len=16,
+        prefill(cfg, tparams, toks, max_len=16, cache_dtype=torch.float32,
                 kv_out={k: v.double() for k, v in good.items()})
 
 

@@ -307,7 +307,7 @@ def test_prefill_suffix_matches_reference(weights, prefix_len):
     logits, parts = prefill_suffix(
         cfg, tparams, torch.from_numpy(toks.astype(np.int64)),
         torch.from_numpy(pk), torch.from_numpy(pv), prefix_len=prefix_len,
-        true_lengths=torch.from_numpy(lens))
+        true_lengths=torch.from_numpy(lens), cache_dtype=torch.float32)
     np.testing.assert_allclose(logits.numpy(), np.asarray(want_logits),
                                **MODEL_TOL)
     for key in ("k", "v"):
@@ -318,7 +318,8 @@ def test_prefill_suffix_matches_reference(weights, prefix_len):
     full_t = torch.from_numpy(full.astype(np.int64))
     want_full, _ = prefill(cfg, tparams, full_t)
     if prefix_len:
-        _, pre = prefill(cfg, tparams, full_t[:, :prefix_len])
+        _, pre = prefill(cfg, tparams, full_t[:, :prefix_len],
+                         cache_dtype=torch.float32)
         pk_t, pv_t = pre["k"], pre["v"]
     else:
         pk_t = pv_t = torch.zeros((cfg.num_layers, 1, 0, cfg.num_kv_heads,

@@ -63,15 +63,11 @@ PORT_ONLY = {"device", "kv_out", "prompt_kv_only"}
 #: it does the training ones)
 REF_ONLY: set = set()
 #: defaults that differ on purpose, (callable, parameter) -> (reference's,
-#: port's), normalised as by `_default`: the port's model functions
-#: default ``max_len`` to the prompt width and the KV to f32, the dtype
-#: its engine (and the reference's) asks for; tests/test_torch_packed.py
-#: calls them so
+#: port's), normalised as by `_default`: the port's ``prefill`` defaults
+#: ``max_len`` to the prompt width (the KV defaults to bf16 in both, and
+#: both packages' engines ask for f32)
 PLANNED_DEFAULTS = {
     ("prefill", "max_len"): ("<required>", None),
-    ("prefill", "cache_dtype"): ("bfloat16", "float32"),
-    ("prefill_suffix", "cache_dtype"): ("bfloat16", "float32"),
-    ("prefill_packed", "cache_dtype"): ("bfloat16", "float32"),
 }
 
 MODEL_FUNCTIONS = ("prefill", "prefill_suffix", "prefill_packed",

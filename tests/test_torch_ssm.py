@@ -328,7 +328,8 @@ def test_prefill_and_decode_match_reference(weights, ssd):
         np.int32)
     jl, jcache = jax_prefill(jcfg, jparams, jnp.asarray(toks), max_len=64,
                              cache_dtype=jnp.float32)
-    tl, tcache = prefill(cfg, tparams, torch.from_numpy(toks), max_len=64)
+    tl, tcache = prefill(cfg, tparams, torch.from_numpy(toks), max_len=64,
+                         cache_dtype=torch.float32)
     assert set(tcache) == set(jcache)
     want_keys = {"len", "pos_offset", "conv", "state"}
     if cfg.attn_every:

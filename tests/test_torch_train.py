@@ -328,7 +328,7 @@ def test_unroll_decode_has_no_effect():
     want, _ = jax_decode_step(jcfg, _jax(params), jcache,
                               jnp.asarray(toks[:, -1]), rt=rt)
     _, cache = prefill(cfg, _torch(params), torch.from_numpy(toks),
-                       max_len=12)
+                       max_len=12, cache_dtype=torch.float32)
     logits, _ = decode_step(cfg, _torch(params), cache,
                             torch.from_numpy(toks[:, -1]))
     np.testing.assert_allclose(logits.numpy(), np.asarray(want), rtol=1e-4,

@@ -2,7 +2,9 @@
 
 ``world_a`` (4 ranks): the sharded train step on (2, 2), the grouped MoE
 on (2, 2) (two dispatch groups), ``seq_shard`` off and on through
-``forward_train``, and the Mamba-1 family's loss and prefill.
+``forward_train``, the Mamba-1 family's loss, prefill and decode steps,
+the hybrid's (Mamba-2, scan and SSD forms) prefill and decode steps, and a
+Mamba-2 split that cuts a head on (1, 4).
 ``world_b`` (8 ranks): sharded decode on (2, 4) (the head-dim-sharded
 cache), and the elastic run: two steps on a (2, 2) mesh of ranks 0-3, a
 checkpoint, a continuation there, and one step after ``reshard`` onto
@@ -11,6 +13,7 @@ checkpoint, a continuation there, and one step after ``reshard`` onto
 returned.
 """
 import copy
+import dataclasses
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
@@ -97,6 +100,8 @@ def world_a(rank, world, inputs):
         out["moe_out"] = _full(y)
         out["moe_aux"] = float(_full(aux))
     # 4. the Mamba-1 family: the loss, and a prefill's logits and state
+    # (f32, the cache the reference's prefill is asked for), then its
+    # decode steps
     scfg = get_smoke_config("falcon-mamba-7b")
     sparams = _tensors(inputs["ssm_params"])
     sbatch = _tensors(inputs["ssm_batch"])
@@ -105,13 +110,74 @@ def world_a(rank, world, inputs):
         loss, _ = forward_train(scfg, sp, _batch(rules, sbatch))
         out["ssm_loss"] = float(_full(loss))
         logits, cache = prefill(scfg, sp,
-                                _batch(rules, {"t": sbatch["tokens"]})["t"])
+                                _batch(rules, {"t": sbatch["tokens"]})["t"],
+                                cache_dtype=torch.float32)
         out["ssm_logits"] = _full(logits)
         out["ssm_cache"] = {k: _full(v) for k, v in cache.items()
                             if k in ("conv", "state")}
         out["ssm_placed"] = str(sp["layers"]["mamba"]["in_proj"].placements)
+        out["ssm_decode"] = _decode_steps(rules, scfg, sp, cache,
+                                          inputs["ssm_steps"])
+    # 5. the hybrid (Mamba-2 and the shared attention block), the scan
+    # and the SSD forms: a prefill and decode steps
+    zcfg = get_smoke_config("zamba2-1.2b")
+    zparams = _tensors(inputs["hybrid_params"])
+    ztoks = torch.from_numpy(inputs["hybrid_tokens"])
+    steps = inputs["hybrid_steps"]
+    for ssd in (False, True):
+        cfg_f = dataclasses.replace(zcfg, ssm=dataclasses.replace(
+            zcfg.ssm, ssd_matmul=ssd))
+        with sharding_rules(rules):
+            zp = _place(rules, zparams, dplan.param_specs(rules, zparams))
+            logits, cache = prefill(
+                cfg_f, zp, _batch(rules, {"t": ztoks})["t"],
+                max_len=ztoks.shape[1] + len(steps),
+                cache_dtype=torch.float32)
+            run = {"prefill_logits": _full(logits),
+                   "prefill_cache": {k: _full(v) for k, v in cache.items()}}
+            run.update(_decode_steps(rules, cfg_f, zp, cache, steps))
+            run["state_placed"] = str(cache["state"].placements)
+        out[f"hybrid_ssd_{ssd}"] = run
+    out["hybrid_cut_head"] = cut_head(zcfg, zparams, ztoks)
     out["refusals"] = refusals(mesh)
     return out
+
+
+def _decode_steps(rules, cfg, params, cache, steps):
+    """Decode steps over the mesh from a prefilled cache (placed by the
+    plan's decode specs), fed the tokens of ``steps`` (steps, B): each
+    step's logits and the final cache, gathered."""
+    c_spec, t_spec = dplan.decode_specs(rules, cfg, cache,
+                                        torch.from_numpy(steps[0]))
+    cache = _place(rules, cache, c_spec)
+    placed = {k: cache[k] for k in ("conv", "state")}
+    logits = []
+    for tok in steps:
+        lg, cache = decode_step(cfg, params, cache, _place(
+            rules, torch.from_numpy(tok), t_spec))
+        logits.append(_full(lg))
+    # the step writes the conv window and the scan state in place
+    assert all(cache[k] is placed[k] for k in placed)
+    return {"decode_logits": logits,
+            "decode_cache": {k: _full(v) for k, v in cache.items()}}
+
+
+def cut_head(cfg, params, toks):
+    """The hybrid at a head of 64 (2 heads of its d_inner 128) on a (1, 4)
+    mesh, 32 channels a rank: the prompt pass raises (its message), or
+    None where it did not."""
+    mesh = DeviceMesh("cpu", [[0, 1, 2, 3]], mesh_dim_names=("data",
+                                                             "model"))
+    rules = make_rules(mesh)
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, head_dim=64))
+    try:
+        with sharding_rules(rules):
+            pp = _place(rules, params, dplan.param_specs(rules, params))
+            prefill(cfg, pp, _batch(rules, {"t": toks})["t"])
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 def refusals(mesh):
@@ -168,7 +234,8 @@ def world_b(rank, world, inputs):
     cfg = get_smoke_config("qwen3-32b")
     params = _tensors(inputs["decode_params"])
     toks = torch.from_numpy(inputs["decode_tokens"])
-    _, cache = prefill(cfg, params, toks, max_len=32)
+    _, cache = prefill(cfg, params, toks, max_len=32,
+                       cache_dtype=torch.float32)
     nxt = torch.from_numpy(inputs["decode_next"])
     mesh = make_debug_mesh(2, 4, device_type="cpu")
     rules = make_rules(mesh)

@@ -5,7 +5,9 @@ time each variant on one NVIDIA H100, in one call:
     python3 tools/decode_variants.py 32:2 16:4 16:2
 
 Each ``KEYS:STAGES`` argument rebuilds ``src/repro_torch/csrc/
-flash_decode.cu`` with ``kTileKeys = KEYS`` and ``kStages = STAGES`` into
+flash_decode.cuh`` with ``kTileKeys = KEYS`` and ``kStages = STAGES``
+(and its two translation units, ``flash_decode.cu`` and
+``flash_decode_bf16kv.cu``) into
 its own library under ``build/decode_variants/`` (one ``nvcc`` per
 variant, all started together), points the port's wrappers at it, and
 runs ``chip_smoke.paged_decode_case`` and ``contiguous_decode_case``
@@ -30,22 +32,26 @@ KEYS = ("max_abs_err", "device_ms", "device_ms_warm_l2", "bound_ms",
 def build(variants):
     """One library per (keys, stages), built in parallel."""
     from repro_torch.kernels import cuda_lib
-    src = (cuda_lib.CSRC / "flash_decode.cu").read_text()
+    src = (cuda_lib.CSRC / "flash_decode.cuh").read_text()
+    units = ("flash_decode.cu", "flash_decode_bf16kv.cu")
     procs = []
     for keys, stages in variants:
         out = ROOT / "build" / "decode_variants" / f"k{keys}_s{stages}"
         out.mkdir(parents=True, exist_ok=True)
-        text = re.sub(r"constexpr int kTileKeys = \d+;",
-                      f"constexpr int kTileKeys = {keys};", src)
-        text = re.sub(r"constexpr int kStages = \d+;",
-                      f"constexpr int kStages = {stages};", text)
-        (out / "flash_decode.cu").write_text(text)
-        (out / "common.cuh").write_text(
-            (cuda_lib.CSRC / "common.cuh").read_text())
+        text, n_keys = re.subn(r"constexpr int kTileKeys = \d+;",
+                               f"constexpr int kTileKeys = {keys};", src)
+        text, n_stages = re.subn(r"constexpr int kStages = \d+;",
+                                 f"constexpr int kStages = {stages};", text)
+        if (n_keys, n_stages) != (1, 1):
+            raise RuntimeError("flash_decode.cuh: kTileKeys / kStages not "
+                               "found once each")
+        (out / "flash_decode.cuh").write_text(text)
+        for name in ("common.cuh",) + units:
+            (out / name).write_text((cuda_lib.CSRC / name).read_text())
         lib = out / "libdecode.so"
         procs.append((lib, subprocess.Popen(
             [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-shared",
-             str(out / "flash_decode.cu"), "-o", str(lib)],
+             *[str(out / name) for name in units], "-o", str(lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = []
     for lib, proc in procs:
@@ -81,7 +87,7 @@ def time_one(keys: int, stages: int, path: str) -> None:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(chip_smoke.SEED)
-    blocks = lib.repro_flash_decode_blocks_per_sm(1, 2, 1, 128)
+    blocks = lib.repro_flash_decode_blocks_per_sm(1, 0, 2, 1, 128)
     for case in (chip_smoke.paged_decode_case,
                  chip_smoke.contiguous_decode_case):
         for name, which in chip_smoke.DECODE_CASES:

@@ -16,10 +16,18 @@ time per call with the L2 flushed before each call (``device_ms``) and
 back to back (``device_ms_warm_l2``).  One JSON line per kernel and
 case, prefixed with ``LABEL``.  ``--ladder`` times other lengths instead
 (every row 1, 128, 129 or 1024, one row 1024), which separate the fixed
-costs from the streaming.  Run the versions in turns (A, B, B, A): two
-calls may land on two cards.
+costs from the streaming.  First comes one line of the library's build
+seconds and, for every instantiation over an f32 K/V (layout, q type,
+group, head dim), the count and sha1 of its SASS with addresses and
+encodings dropped: two checkouts with equal digests compiled it to the
+same code.  Run the versions in turns (A, B, B, A): two calls may land on
+two cards.
 """
+import hashlib
 import json
+import re
+import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -33,6 +41,38 @@ KEYS = ("max_abs_err", "ms", "device_ms", "device_ms_warm_l2", "bound_ms",
         "max_abs_diff_vs_paged_kernel", "library_device_ms")
 
 
+def f32_kv_sass() -> dict:
+    """Per f32-K/V decode instantiation, keyed ``layout q G dh``: its
+    SASS instructions (one a line, without address and encoding), count
+    and sha1.  A name without a K/V template argument (a checkout from
+    before the bf16 K/V) is an f32 one."""
+    from repro_torch.kernels import cuda_lib
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {"sass": "not measured: no cuobjdump"}
+    dump = subprocess.run([tool, "-sass", str(cuda_lib.BUILD_INFO["path"])],
+                          capture_output=True, text=True, check=True).stdout
+    name_re = re.compile(r"decode_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)"
+                         r"ENS_\d+(PagedRows|StridedRows)E(fE|E)")
+    bodies, key = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            n = name_re.search(m.group(1))
+            key = None if n is None else " ".join(
+                ("paged" if n[4] == "PagedRows" else "contiguous",
+                 "f32" if n[1] == "f" else "bf16", f"G{n[2]}", f"dh{n[3]}"))
+            if key is not None:
+                bodies[key] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+        if key is not None and m:
+            bodies[key].append(m.group(1))
+    return {k: {"instructions": len(v), "sha1": hashlib.sha1(
+        ("\n".join(v) + "\n").encode()).hexdigest()}
+        for k, v in sorted(bodies.items())}
+
+
 def main() -> int:
     root, label = Path(sys.argv[1]).resolve(), sys.argv[2]
     here = Path(__file__).resolve().parents[1]
@@ -43,6 +83,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_decode: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.kernels import cuda_lib
+    cuda_lib.library()
+    print(label, json.dumps({"build_seconds": cuda_lib.BUILD_INFO.get(
+        "seconds"), "f32_kv_sass": f32_kv_sass()}), flush=True)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(chip_smoke.SEED)
