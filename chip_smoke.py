@@ -35,7 +35,10 @@ Phases, each printing one JSON line:
    norm in LayerNorm mode at C 6144 and RMS at C 3584, the causal kernel
    at dh 64 (32 heads, B 8 x 1024, the wgmma body), the packed mode at
    groups 7 and 12, the paged decode at groups 7 and 12 and at dh 64,
-   the sampler at V 152064 and 49152; both decode layouts over a bf16
+   the sampler at V 152064 and 49152; Qwen3-32B's: the paged decode and
+   the packed mode at group 8 (H 64 over KV 8), qk-norm over 64 heads
+   (R 512 and 524,288 of C 128), the norm at C 5120, the sampler at V
+   151,936 (``plan_v151936``); both decode layouts over a bf16
    K/V (the model functions' default cache) at row 1's shape and at dh
    64 (``BF16_DECODE_CASES``, the kernels line's ``bf16_kv``); and what
    the norm, sampling,
@@ -43,8 +46,10 @@ Phases, each printing one JSON line:
    ``sample_build``, ``flash_decode_build`` for every instantiation,
    ``flash_attention_packed_build``);
 4. serve: build ``TurboClient.from_arch("internlm2-1.8b", smoke=False)``
-   (its default ``warmup=True``; 24 layers, d_model 2048, vocab 92544,
-   bf16 weights from a seed, f32 KV pool; ``warmup_aot`` walks the reference's rounds and
+   (24 layers, d_model 2048, vocab 92544, bf16 weights from a seed, f32
+   KV pool; the greedy requests' ``generate`` alone and the packed
+   drift run first, then ``warmup_aot``, the warm-up ``from_arch`` runs
+   by default, walks the reference's rounds and
    captures each prefill cell it reaches and both decode-tick cells as
    CUDA graphs, and no cell may be captured while serving; the phase
    prints the cells by kind, their capture seconds, the graph pools' and
@@ -104,7 +109,7 @@ Phases, each printing one JSON line:
    24 masked-softmax launches per executed batch, no flash attention;
 6b. allocator: the paper's allocator (C2) at full width.  The classify
    cell's forward (``forward_hidden(attn="naive")`` then ``logits_at``)
-   at batch 1 over the first ``ALLOC_REQUESTS`` (16) of the reference
+   at batch 1 over the first ``ALLOC_REQUESTS`` (4) of the reference
    benchmark's 24 lengths (``random.Random(0).randint(5, 500)``): at
    each length its usage
    records, traced in fake mode from the port's op graph (each kernel
@@ -134,8 +139,9 @@ Phases, each printing one JSON line:
    smoke=False)`` (16 layers, d_model 2048, 64 experts top 8, qk-norm,
    bf16 weights from a seed, f32 KV pool, paged, packed admission,
    ``warmup_aot``) after the earlier phases' clients are freed: the
-   serve phase's 14 requests served once timed (tok/s, TTFT p50 / p99,
-   peak memory, ``warmup_aot`` seconds, the launches, two qk-norm
+   serve mix's first ``MOE_REQUESTS`` (10) served once timed (tok/s,
+   TTFT p50 / p99, peak memory, ``warmup_aot`` seconds, the launches,
+   two qk-norm
    launches a layer beside the two norms) and once more with every tick
    and prefill cell replay held to its eager body bit for bit and every
    prefill pass's routing read from its dispatch in an eager re-run
@@ -168,6 +174,14 @@ Phases, each printing one JSON line:
 8c. serve_starcoder2: ``from_arch("starcoder2-15b", smoke=False)`` (40
    layers, d_model 6144, H 48 over KV 4, LayerNorm + GELU) on the same
    mix (group 12, the norm in LayerNorm mode);
+8c2. serve_qwen3: ``from_arch("qwen3-32b", smoke=False)`` (64 layers,
+   d_model 5120, H 64 over KV 8, qk-norm, vocab 151,936: 61 GiB of bf16
+   weights) on the mix's first ``QWEN3_REQUESTS``, with the card's free
+   memory before the build and ``init_params``' peak beside the
+   weights' bytes (at most ``QWEN3_INIT_OVER_WEIGHTS_BYTES`` above
+   them; out of memory fails with those numbers), 4L + 1 norm launches
+   a step, every decode launch at ``g8 dh128``; profile_decode_qwen3:
+   its greedy tick beside the tick's byte bound (``tick_byte_bound``);
 8d. generate_musicgen: MusicGen-large (48 layers, 32 heads of dh 64,
    LayerNorm + GELU, 4 codebooks) through ``InferenceEngine.generate``
    (8 prompts of 100 to 1000 tokens, 256 new frames, greedy: frames/s,
@@ -493,14 +507,15 @@ def cold_warm(kernel, nbytes: int, flops: float, peak_flops: float,
 NORM_TOL = dict(atol=3e-2, rtol=2e-2)   # bf16 output: ~2 ulp at |y| <= 4
 #: the norm checks' rows: the decode tick's 8 and a B 8 x 1024 prefill's
 NORM_ROWS = (8, 8192)
-#: the MoE path's qk-norm (RMS over rows of dh 128, no residual): a decode
-#: tick's 8 tokens x 16 heads, and an 8192-token pack's
-QK_NORM_ROWS = (8 * 16, 8192 * 16)
+#: qk-norm (RMS over rows of dh 128, no residual): a decode tick's 8
+#: tokens and an 8192-token pack's, over the MoE path's 16 query heads
+#: (OLMoE) and Qwen3-32B's 64
+QK_NORM_ROWS = (8 * 16, 8192 * 16, 8 * 64, 8192 * 64)
 #: the newer served models' rows, at NORM_ROWS: (RMS?, C): StarCoder2's
 #: LayerNorm at d_model 6144 (MusicGen's at 2048 is the check above),
-#: Qwen2-VL's RMS at 3584 and Falcon-Mamba's at 4096 (Zamba2's RMS at
-#: 2048 is the check above)
-MODEL_NORM_COLS = ((False, 6144), (True, 3584), (True, 4096))
+#: Qwen2-VL's RMS at 3584, Falcon-Mamba's at 4096 and Qwen3-32B's at
+#: 5120 (Zamba2's RMS at 2048 is the check above)
+MODEL_NORM_COLS = ((False, 6144), (True, 3584), (True, 4096), (True, 5120))
 
 
 def norm_case(dev, gen, rms: bool, r: int, c: int, tol: dict,
@@ -887,14 +902,17 @@ MOE_PACKED_CASES = (
      (0,) * 8, 4096, 0, 16),
 )
 #: the odd and wide groups of Qwen2-VL (H 28 over KV 4, group 7: a block's
-#: second consumer idles on the last head of each group) and StarCoder2
-#: (H 48 over KV 4, group 12): mixed lengths in a 4096 pack, as case (b);
-#: (label, fresh, prefix, width, prefix width, KV heads, heads)
+#: second consumer idles on the last head of each group), StarCoder2
+#: (H 48 over KV 4, group 12) and Qwen3-32B (H 64 over KV 8, group 8):
+#: mixed lengths in a 4096 pack, as case (b); (label, fresh, prefix,
+#: width, prefix width, KV heads, heads)
 WIDE_PACKED_CASES = (
     ("v: mixed 1..1024, H 28 / KV 4", (1, 64, 200, 333, 512, 700, 960,
                                        1024), (0,) * 8, 4096, 0, 4, 28),
     ("s: mixed 1..1024, H 48 / KV 4", (1, 64, 200, 333, 512, 700, 960,
                                        1024), (0,) * 8, 4096, 0, 4, 48),
+    ("q: mixed 1..1024, H 64 / KV 8", (1, 64, 200, 333, 512, 700, 960,
+                                       1024), (0,) * 8, 4096, 0, 8, 64),
 )
 
 
@@ -1212,14 +1230,15 @@ DECODE_CASES = (("lengths 1..1024", "spread"),
 MOE_DECODE_CASES = (("lengths 1..1024, KV 16", "spread", 16),
                     ("full load, every row 1024, KV 16", "full", 16))
 #: the newer served models' paged decode: (label, lengths, KV, H, dh):
-#: Qwen2-VL's group 7 and StarCoder2's group 12 at dh 128, MusicGen's
-#: group 1 at dh 64.  Their tolerance allows one bf16 ulp of the output
-#: (2**-7 relative) beside DECODE_TOL's atol: 48 heads give outputs near
-#: 3, where one ulp (1/64) passes DECODE_TOL
+#: Qwen2-VL's group 7, StarCoder2's group 12 and Qwen3-32B's group 8 at
+#: dh 128, MusicGen's group 1 at dh 64.  Their tolerance allows one bf16
+#: ulp of the output (2**-7 relative) beside DECODE_TOL's atol: 48 heads
+#: give outputs near 3, where one ulp (1/64) passes DECODE_TOL
 MODEL_DECODE_TOL = dict(atol=4e-3, rtol=2 ** -7)
 MODEL_DECODE_CASES = tuple(
     (f"{which_label}, H {h} / KV {kv}, dh {dh}", which, kv, h, dh)
-    for kv, h, dh in ((4, 28, 128), (4, 48, 128), (32, 32, 64))
+    for kv, h, dh in ((4, 28, 128), (4, 48, 128), (32, 32, 64),
+                      (8, 64, 128))
     for which_label, which in (("lengths 1..1024", "spread"),
                                ("full load", "full")))
 
@@ -1708,11 +1727,13 @@ def check_sample(dev, gen, results):
     lines.append(sample_case(dev, gen, torch.bfloat16, v=49152))
     lines.append(sample_case(dev, gen, torch.bfloat16, v=65024))
     lines.append(sample_case(dev, gen, torch.bfloat16, v=32000))
+    # Qwen3-32B's
+    lines.append(sample_case(dev, gen, torch.bfloat16, v=151936))
     for line in lines:
         emit(line)
-    plan = sampling_plan_facts(152064)
     emit({"phase": "sample_build", **sample_build_facts(),
-          "plan_v152064": plan})
+          "plan_v152064": sampling_plan_facts(152064),
+          "plan_v151936": sampling_plan_facts(151936)})
     results["fused_sample"] = dict(
         lines[1], max_abs_err=max(ln["max_abs_err"] for ln in lines),
         route="cuda", source="src/repro_torch/csrc/sampling.cu",
@@ -1925,11 +1946,13 @@ def attention_layers(cfg) -> int:
 
 
 def norms_per_pass(cfg) -> int:
-    """Norm launches of one pass: two a transformer layer, one a mamba
-    layer and two a shared-block application, and the final norm."""
-    if cfg.family in ("ssm", "hybrid"):
-        return cfg.num_layers + 2 * attention_layers(cfg) + 1
-    return 2 * cfg.num_layers + 1
+    """Norm launches of one pass: two an attention layer (a transformer
+    layer, or a shared-block application of a hybrid) and two more, q's
+    and k's, where the model has qk-norm; one a mamba layer; and the
+    final norm."""
+    per_attention = 4 if cfg.qk_norm else 2
+    mamba = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    return mamba + per_attention * attention_layers(cfg) + 1
 
 
 def model_line(arch: str, cfg) -> str:
@@ -1956,11 +1979,12 @@ def model_line(arch: str, cfg) -> str:
 #: the plain-torch scan (900 to 1450 prompt tokens a second a row at
 #: full width, tools/ssm_cost.py), so the phases serve with 4 slots
 SSM_SLOTS = 4
-#: and the first 6 requests of the serve mix (before the grow's prompt):
+#: and the first 4 requests of the serve mix (before the grow's prompt):
 #: each new exact length is a prefill cell captured while serving and
 #: every stream is served again alone, so the depth is cut here to pay
-#: for the distributed phase's SSM runs
-SSM_REQUESTS = 6
+#: for the distributed phase's SSM runs (14 -> 6) and for serve_qwen3
+#: (6 -> 4; the grow's prompt still waits for a slot)
+SSM_REQUESTS = 4
 
 
 def serve(dev, card: str, layout: str = "paged",
@@ -1991,17 +2015,47 @@ def serve(dev, card: str, layout: str = "paged",
     else:
         buckets = (128, 256, 512, 1024, 2048)
         layout_kw = dict(kv_layout="contiguous", max_len=1024)
-    # from_arch warms up by default, as the reference's does: the client
-    # runs warmup_aot before serving, which on the card captures the
-    # prefill cells it walks and both decode-tick cells as CUDA graphs
+    # the client's warm-up (what from_arch runs by default, as the
+    # reference's does: warmup_aot, which on the card captures the prefill
+    # cells it walks and both decode-tick cells as CUDA graphs) runs
+    # below, before the first request, once the requests' alone runs are
+    # done
     client = TurboClient.from_arch(
         arch, smoke=False, device=dev, seq_buckets=buckets,
         batch_buckets=(slots,), max_slots=slots, cap_new=64,
-        init_seed=SEED, **layout_kw)
+        init_seed=SEED, warmup=False, **layout_kw)
     engine = client.backend.engine
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    warm = dict(client.warmup_stats)
+    vocab = engine.cfg.vocab_size
+    specs = serve_specs(vocab, rng)[:requests]
+    n_first = min(8, len(specs))            # the rest arrive mid-decode
+    if layout == "contiguous":
+        # arrives mid-decode and needs the 2048 bucket: the slot cache
+        # grows past its 1024 positions
+        specs.append(([int(t) for t in rng.integers(1, vocab, 1200)],
+                       GenerationParams(max_new_tokens=48, seed=1099)))
+    first, later = specs[:n_first], specs[n_first:]
+    # each greedy request alone (generate() at the serving batch's
+    # shape), and each prompt's last-token logits from a packed pass
+    # against its own prefill's (packed prefill runs the products at
+    # other shapes, so its logits may round otherwise: how far, on these
+    # prompts), before the pool and the cells exist: beside Qwen3-32B's
+    # weights, pool and cells there is no room for generate's own pool
+    t_alone = time.perf_counter()
+    greedy_alone = {i: engine.generate([prompt],
+                                       max_new_tokens=params.max_new_tokens)[0]
+                    for i, (prompt, params) in enumerate(specs)
+                    if params.temperature <= 0}
+    packed_dlogit, packed_ulps = packed_logit_drift(
+        engine, [p for p, _ in specs]) if layout == "paged" else (0.0, 0.0)
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t_alone
+    release_memory()
+    t_warm = time.perf_counter()
+    warm = dict(client.backend.warmup_aot())
+    torch.cuda.synchronize()
+    build_s += time.perf_counter() - t_warm
     cells = client.backend.tick_cells
     warm_cells = cell_stats(engine)
     if len(cells) != 2 or warm["compile_count"] != \
@@ -2013,15 +2067,6 @@ def serve(dev, card: str, layout: str = "paged",
     captures0, warm_ticks0 = cells.captures, cells.warm_ticks
     warm_capture_s = cells.capture_seconds
     pool_after_warmup = cells.pool_bytes()
-    vocab = engine.cfg.vocab_size
-    specs = serve_specs(vocab, rng)[:requests]
-    n_first = min(8, len(specs))            # the rest arrive mid-decode
-    if layout == "contiguous":
-        # arrives mid-decode and needs the 2048 bucket: the slot cache
-        # grows past its 1024 positions
-        specs.append(([int(t) for t in rng.integers(1, vocab, 1200)],
-                       GenerationParams(max_new_tokens=48, seed=1099)))
-    first, later = specs[:n_first], specs[n_first:]
 
     torch.cuda.reset_peak_memory_stats(dev)
     cuda_lib.reset_launches()
@@ -2102,10 +2147,10 @@ def serve(dev, card: str, layout: str = "paged",
     if plans != (prefills if layout == "paged" else 0):
         raise AssertionError(f"{layout} serving: {plans} packed-plan "
                              f"launches over {prefills} prefill dispatches")
-    # two norms a layer (one a mamba layer, two a shared-block
-    # application) and the final one, in every decode tick (each replay
-    # adds what its capture recorded), every eager tick that warmed a
-    # capture, and every prefill
+    # two norms a layer and two qk-norms where the model has them (one a
+    # mamba layer, two a shared-block application) and the final one, in
+    # every decode tick (each replay adds what its capture recorded),
+    # every eager tick that warmed a capture, and every prefill
     norms_per_step = norms_per_pass(cfg)
     steps = ticks + warm_ticks + prefills
     if launches["norm"] != norms_per_step * steps:
@@ -2138,19 +2183,15 @@ def serve(dev, card: str, layout: str = "paged",
             raise AssertionError(f"request {h.req_id}: bad result shape")
         if any(not 0 <= t < vocab for t in out):
             raise AssertionError(f"request {h.req_id}: token out of range")
-    # packed prefill runs the products at other shapes than a prompt's own
-    # prefill, so its logits may round otherwise: how far, on these prompts
-    packed_dlogit, packed_ulps = packed_logit_drift(
-        engine, [p for p, _ in specs]) if layout == "paged" else (0.0, 0.0)
-    # greedy streams against generate() alone; sampled streams depend on
-    # their own seed alone, so against the request served again alone
+    # greedy streams against generate() alone (run above); sampled streams
+    # depend on their own seed alone, so against the request served again
+    # alone
     greedy_checked, sampled_checked, divergences = 0, 0, []
-    for (prompt, params), res in zip(specs, results):
+    for i, ((prompt, params), res) in enumerate(zip(specs, results)):
         if params.temperature > 0:
             alone = client.submit(prompt, params).result()
         else:
-            alone = engine.generate([prompt],
-                                    max_new_tokens=params.max_new_tokens)[0]
+            alone = greedy_alone[i]
         if alone != res:
             divergences.append(explain_divergence(
                 engine, prompt, params, alone, res, packed_dlogit))
@@ -2184,7 +2225,8 @@ def serve(dev, card: str, layout: str = "paged",
           "peak_mem_gib": peak / 2 ** 30,
           "peak_mem_note": "the serve window's peak, the cells' pools and "
                            "static buffers included",
-          "stack_build_s": build_s, "warmup_aot": warm,
+          "stack_build_s": build_s, "alone_runs_s": alone_s,
+          "warmup_aot": warm,
           "prefill_cells": {
               "by_warmup_aot": warm_cells["cells_by_kind"],
               "capture_s_by_warmup_aot": warm_cells["capture_s"],
@@ -2219,6 +2261,79 @@ def serve(dev, card: str, layout: str = "paged",
                              f"request alone beyond the margin rule: "
                              f"{beyond}")
     return client, launches
+
+
+#: Qwen3-32B on one card (61 GiB of bf16 weights): the serve mix's first
+#: 10 requests (8 at once, 2 mid-decode), and the most its init may hold
+#: above the weights (one leaf's f32 draw, 0.52 GB for w_gate)
+QWEN3_ARCH = "qwen3-32b"
+QWEN3_REQUESTS = 10
+QWEN3_INIT_OVER_WEIGHTS_BYTES = 1.1e9
+
+
+@contextlib.contextmanager
+def init_peak_recorded(dev, phase: str, limit_bytes: float):
+    """Within the block, ``repro_torch.models.init_params`` (what
+    ``TurboClient.from_arch`` calls) is measured: the peak device memory
+    it allocates above what was allocated before, beside the bytes of
+    the weights it returns; the line is emitted as soon as the weights
+    exist, and the call raises where the peak exceeds the weights by more
+    than ``limit_bytes``."""
+    import repro_torch.models as models
+    real = models.init_params
+
+    def measured(cfg, *args, **kw):
+        torch.cuda.synchronize(dev)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = real(cfg, *args, **kw)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        weights = sum(t.numel() * t.element_size()
+                      for t in param_leaves(params))
+        free, total = torch.cuda.mem_get_info(dev)
+        emit({"phase": phase + "_init", "init_s": time.perf_counter() - t0,
+              "weights_bytes": weights, "init_peak_bytes": peak,
+              "init_peak_over_weights_bytes": peak - weights,
+              "limit_over_weights_bytes": limit_bytes,
+              "free_bytes_after_init": free, "total_bytes": total})
+        if peak - weights > limit_bytes:
+            raise AssertionError(f"{phase}: init_params peaked at {peak} "
+                                 f"bytes for {weights} bytes of weights "
+                                 f"(limit: {limit_bytes} above them)")
+        return params
+    models.init_params = measured
+    try:
+        yield
+    finally:
+        models.init_params = real
+
+
+def serve_qwen3(dev, card: str):
+    """Full-width Qwen3-32B (64 layers, H 64 over KV 8 at dh 128,
+    qk-norm, vocab 151,936) through ``serve``'s paged path and holds: the
+    card's free memory before the build, the init's peak beside the
+    weights, and an out-of-memory error turned into a failure that
+    carries those numbers (never a smaller model)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(QWEN3_ARCH)
+    free, total = torch.cuda.mem_get_info(dev)
+    emit({"phase": "serve_qwen3_memory", "card": card,
+          "free_bytes_before_build": free, "total_bytes": total,
+          "allocated_bytes_before_build": torch.cuda.memory_allocated(dev),
+          "weights_bytes_expected": cfg.param_count() * 2})
+    try:
+        with init_peak_recorded(dev, "serve_qwen3",
+                                QWEN3_INIT_OVER_WEIGHTS_BYTES):
+            return serve(dev, card, arch=QWEN3_ARCH, phase="serve_qwen3",
+                         requests=QWEN3_REQUESTS)
+    except torch.cuda.OutOfMemoryError as e:
+        raise AssertionError(
+            f"serve_qwen3: out of device memory ({free} of {total} bytes "
+            f"free before the build, {torch.cuda.memory_allocated(dev)} "
+            f"allocated, {torch.cuda.max_memory_allocated(dev)} at the "
+            f"peak): {e}") from e
 
 
 #: the replay audit's prompts: the serve mix's shortest, greedy
@@ -2804,10 +2919,11 @@ def classify_phase(dev, card: str, n_requests: int = 64):
 # ---------------------------------------------------------------------------
 
 #: the reference benchmark's stream (benchmarks/bench_allocator.py:28-29):
-#: lengths uniform in 5..500 from random.Random(0), its first 16 of 24
-#: requests (each traces the full-width forward, ~4.7 s: the depth cut to
-#: pay for the distributed phase's SSM runs)
-ALLOC_REQUESTS = 16
+#: lengths uniform in 5..500 from random.Random(0), its first 4 of 24
+#: requests (each traces the full-width forward, ~4.7 s: the depth cut
+#: to 16 paid for the distributed phase's SSM runs, to 4 for
+#: serve_qwen3)
+ALLOC_REQUESTS = 4
 ALLOC_LENGTHS = (5, 500)
 #: that benchmark's smallest record (its records_for_fn's min_size)
 ALLOC_MIN_SIZE = 4096
@@ -3277,9 +3393,46 @@ def eager_ticks(engine, state, ticks: int):
 
 #: a graphed decode window's most host launch calls per tick
 GRAPHED_LAUNCH_CALLS_PER_TICK = 10
+#: the ticks of each profile_decode window (10 before serve_qwen3: the
+#: trace's processing grows with its events, 4507 kernels a tick of
+#: Qwen3-32B's eager window)
+PROFILE_TICKS = 3
 
 
-def profile_decode(client, card: str, ticks: int = 10,
+def tick_byte_bound(engine, lens: torch.Tensor, ticks: int):
+    """The least time of ``ticks`` decode ticks of a dense transformer
+    over rows at ``lens`` cached positions: the bytes each tick must read,
+    every weight once (of the token table only the rows' embeddings,
+    unless the head is tied to it) and every live K and V row of every
+    layer in the cache's type, over the card's memory rate (the tick's
+    products are far below the operations' bound at 8 rows).  None for
+    the MoE (its experts read depend on the routing) and SSM families."""
+    cfg = engine.cfg
+    if cfg.family not in ("dense", "vlm", "audio"):
+        return None
+    weights = sum(t.numel() * t.element_size()
+                  for t in param_leaves(engine.params))
+    tok = engine.params["embed"]["tok"]
+    rows = int(lens.numel())
+    if not cfg.tie_embeddings:
+        weights -= tok.numel() * tok.element_size()
+        weights += rows * max(cfg.num_codebooks, 1) * cfg.d_model * \
+            tok.element_size()
+    # tick i reads lens + i positions and writes one more
+    positions = int(lens.sum()) * ticks + rows * ticks * (ticks + 1) // 2
+    kv_elem = 4             # the engines' f32 cache
+    per_position = 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim * \
+        kv_elem
+    kv = positions * per_position / ticks
+    return {"weights_bytes": weights, "kv_bytes_per_tick": kv,
+            "bound_ms": (weights + kv) / H100_BYTES_PER_S * 1e3,
+            "bound_by": "bytes",
+            "counts": "every weight read once a tick (the token table's "
+                      "rows only); each row's live K and V of every layer "
+                      "read, f32; over 3.35 TB/s"}
+
+
+def profile_decode(client, card: str, ticks: int = PROFILE_TICKS,
                    sampled: bool = False, phase: str = "profile_decode",
                    family=kernel_family, rows: int = 8) -> None:
     """``rows`` rows (eight by default) decoding at full width, greedy or
@@ -3314,6 +3467,8 @@ def profile_decode(client, card: str, ticks: int = 10,
         client.pump(max_ticks=1)
     client.pump(max_ticks=2)                     # settle into decode
     name = phase + ("_sampled" if sampled else "")
+    bound = tick_byte_bound(engine, ce.state.cache["len"][
+        [h.session.slot for h in handles]], ticks)
     compiles = engine.compile_count
     graphed = decode_window(lambda: client.pump(max_ticks=ticks), ticks,
                             family)
@@ -3322,7 +3477,12 @@ def profile_decode(client, card: str, ticks: int = 10,
                              "a cell")
     if any(h.session.is_finished for h in handles):
         raise AssertionError(f"{name}: a row finished inside the window")
-    copy = clone_state(ce.state)
+    # the eager window decodes a copy of the rows that shares the paged
+    # pool: the rows are cancelled, and nothing else is live, so their
+    # blocks are written by these ticks alone (a copy of Qwen3-32B's pool
+    # takes 4 GiB more than the card has to spare)
+    copy = clone_state(ce.state, shared=("k", "v") if ce.block_table
+                       is not None else ())
     for h in handles:
         h.cancel()
     eager = decode_window(lambda: eager_ticks(engine, copy, ticks), ticks,
@@ -3359,6 +3519,14 @@ def profile_decode(client, card: str, ticks: int = 10,
             "tick_speedup": eager["tick_ms"] / graphed["tick_ms"],
             "tick_speedup_unprofiled": eager["tick_ms_unprofiled"] /
             graphed["tick_ms_unprofiled"]}
+    if bound is not None:
+        line["tick_byte_bound"] = {
+            **bound, "graphed_share_unprofiled":
+            bound["bound_ms"] / graphed["tick_ms_unprofiled"]}
+        busy = graphed["device_busy_ms_per_tick"]
+        if isinstance(busy, float):
+            line["tick_byte_bound"]["share_of_graphed_busy"] = \
+                bound["bound_ms"] / busy
     if sampled:
         line["gumbel_noise_alone"] = gumbel_noise_cost(len(handles), 64,
                                                        ticks)
@@ -3703,10 +3871,13 @@ def pass_segments(key, inputs) -> list:
             for r, n in enumerate(lens)]
 
 
-def clone_state(state):
+def clone_state(state, shared=()):
+    """A copy of a decode state; the cache leaves named in ``shared`` are
+    the same tensors."""
     from repro_torch.runtime.engine import GenState
     from repro_torch.runtime.graphs import CONTROL
-    return GenState(cache={k: v.clone() for k, v in state.cache.items()},
+    return GenState(cache={k: v if k in shared else v.clone()
+                           for k, v in state.cache.items()},
                     **{n: getattr(state, n).clone() for n in CONTROL},
                     sampling=state.sampling)
 
@@ -3820,6 +3991,10 @@ class MoeAudit:
         return outs
 
 
+#: the MoE phase's requests: the serve mix's first 10 (8 at once, 2
+#: mid-decode; 14 before serve_qwen3), each served twice and alone
+MOE_REQUESTS = 10
+
 #: how far a packed pass's logits may lie from each prompt's own prefill's,
 #: at every position of every prompt, in bf16 ulps of the row's largest
 #: |logit|, with no capacity binding.  Routing free: 20.5 in each of three
@@ -3827,9 +4002,9 @@ class MoeAudit:
 #: expert choices the change of shape flips included.  Routing pinned to
 #: the own prefill's choices: rounding alone.  Both are wider than the
 #: dense rule's ``PACKED_LOGIT_ULPS``, which holds the last position of
-#: each prompt only: here every position of 14 prompts is held (about
-#: 5500 rows), through 16 layers that each sum eight experts' outputs in
-#: bf16
+#: each prompt only: here every position of 14 prompts was held (about
+#: 5500 rows; 10 since MOE_REQUESTS), through 16 layers that each sum
+#: eight experts' outputs in bf16
 MOE_PACKED_LOGIT_ULPS = 24
 MOE_ROUNDING_ULPS = 8
 
@@ -3982,8 +4157,8 @@ def moe_launches_check(cfg, launches: dict, ticks: int,
 
 def serve_moe(dev, card: str):
     """Full-width OLMoE-1B-7B through ``TurboClient.from_arch``: the
-    serve phase's 14 requests served twice, first timed (tok/s, TTFT,
-    peak memory, launches), then again with every graph replay held to
+    serve mix's first ``MOE_REQUESTS`` served twice, first timed (tok/s,
+    TTFT, peak memory, launches), then again with every graph replay held to
     its eager body and every prefill pass's routing read (capacity,
     largest load of its first layer, dropped assignments); each stream
     against the request alone (greedy: ``generate``; sampled: served
@@ -4013,7 +4188,7 @@ def serve_moe(dev, card: str):
     if len(cells) != 2 or warm["compile_count"] != \
             2 + engine.prefill_cells.captures:
         raise AssertionError(f"serve_moe: warmup_aot captured {warm}")
-    specs = serve_specs(cfg.vocab_size, rng)
+    specs = serve_specs(cfg.vocab_size, rng)[:MOE_REQUESTS]
     first, later = specs[:8], specs[8:]
 
     def serve_once():
@@ -6361,6 +6536,12 @@ def run_phases(worker, started: float) -> int:
                                  phase="serve_starcoder2")
     del client
     release_memory()
+    # the largest dense model on one card (Qwen3-32B: group 8, qk-norm
+    # over 64 heads, V 151,936), its tick bound by its weight reads
+    client, qwen3_launches = serve_qwen3(dev, card)
+    profile_decode(client, card, phase="profile_decode_qwen3")
+    del client
+    release_memory()
     musicgen_launches = generate_musicgen(dev, card)
     release_memory()
     # the SSM and hybrid families over the contiguous slot cache:
@@ -6416,6 +6597,7 @@ def run_phases(worker, started: float) -> int:
         item["launches_in_serve_pool"] = pool_launches.get(counter, 0)
         item["launches_in_serve_vlm"] = vlm_launches.get(counter, 0)
         item["launches_in_serve_starcoder2"] = sc2_launches.get(counter, 0)
+        item["launches_in_serve_qwen3"] = qwen3_launches.get(counter, 0)
         item["launches_in_generate_musicgen"] = \
             musicgen_launches.get(counter, 0)
         item["launches_in_serve_falcon_mamba"] = \

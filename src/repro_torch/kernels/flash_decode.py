@@ -22,10 +22,10 @@ __all__ = ["flash_decode_cuda", "flash_decode_paged_cuda",
            "flash_decode_paged_ref", "flash_decode_ref"]
 
 # what the kernel is instantiated for (csrc/flash_decode.cuh): the (H / KV,
-# head dim) pairs of the served models (InternLM2 8, OLMoE 1, Qwen2-VL 7,
-# StarCoder2 12 at dh 128; MusicGen 1 at dh 64), of the card tests, and of
-# the local heads of tensor parallelism (Qwen3-32B's 64 / 8 at model 16 is
-# 4 query heads a rank over one kv head)
+# head dim) pairs of the served models (InternLM2-1.8B 2, Qwen3-32B 8,
+# OLMoE 1, Qwen2-VL 7, StarCoder2 12 at dh 128; MusicGen 1 at dh 64), of
+# the card tests, and of the local heads of tensor parallelism (Qwen3-32B's
+# 64 / 8 at model 16 is 4 query heads a rank over one kv head)
 INSTANTIATIONS = ((1, 128), (2, 128), (4, 128), (7, 128), (8, 128),
                   (12, 128), (1, 64))
 Q_DTYPES = (torch.float32, torch.bfloat16)

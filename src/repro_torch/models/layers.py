@@ -59,13 +59,23 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...],
                in_axis_size: int, dtype: torch.dtype,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Normal weights scaled by 1/sqrt(fan-in), drawn from ``gen`` (which
-    must live on ``device``)."""
+    must live on ``device``) in f32 and cast to ``dtype``: into ``out``
+    where given (a layer's slice of a stacked leaf), so the draw holds
+    one f32 temporary beside it."""
     scale = 1.0 / math.sqrt(max(in_axis_size, 1))
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (w * scale).to(dtype)
+    return out.copy_(w.mul_(scale))
+
+
+def slot(out: Optional[Params], key: str) -> Optional[torch.Tensor]:
+    """``out[key]``, the destination of one leaf's draw, or None."""
+    return None if out is None else out[key]
 
 
 def init_norm(cfg: ModelConfig, dim: int, dtype: torch.dtype,
@@ -77,13 +87,19 @@ def init_norm(cfg: ModelConfig, dim: int, dtype: torch.dtype,
 
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator,
-                   dtype: torch.dtype, device: torch.device) -> Params:
+                   dtype: torch.dtype, device: torch.device,
+                   out: Optional[Params] = None) -> Params:
+    """The projections drawn from ``gen`` (into ``out``'s leaves where
+    given, as `dense_init`), and qk-norm's scales."""
     d, h, kv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {
-        "wq": dense_init(gen, (d, h, dh), d, dtype, device),
-        "wk": dense_init(gen, (d, kv, dh), d, dtype, device),
-        "wv": dense_init(gen, (d, kv, dh), d, dtype, device),
-        "wo": dense_init(gen, (h, dh, d), h * dh, dtype, device),
+        "wq": dense_init(gen, (d, h, dh), d, dtype, device, slot(out, "wq")),
+        "wk": dense_init(gen, (d, kv, dh), d, dtype, device,
+                         slot(out, "wk")),
+        "wv": dense_init(gen, (d, kv, dh), d, dtype, device,
+                         slot(out, "wv")),
+        "wo": dense_init(gen, (h, dh, d), h * dh, dtype, device,
+                         slot(out, "wo")),
     }
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((dh,), dtype=dtype, device=device)
@@ -92,18 +108,24 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
 
 
 def init_ffn(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
-             device: torch.device) -> Params:
+             device: torch.device, out: Optional[Params] = None) -> Params:
+    """The FFN's matrices drawn from ``gen`` (into ``out``'s leaves where
+    given, as `dense_init`), its biases zero."""
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act == "swiglu":
         return {
-            "w_gate": dense_init(gen, (d, f), d, dtype, device),
-            "w_up": dense_init(gen, (d, f), d, dtype, device),
-            "w_down": dense_init(gen, (f, d), f, dtype, device),
+            "w_gate": dense_init(gen, (d, f), d, dtype, device,
+                                 slot(out, "w_gate")),
+            "w_up": dense_init(gen, (d, f), d, dtype, device,
+                               slot(out, "w_up")),
+            "w_down": dense_init(gen, (f, d), f, dtype, device,
+                                 slot(out, "w_down")),
         }
     return {
-        "w_up": dense_init(gen, (d, f), d, dtype, device),
+        "w_up": dense_init(gen, (d, f), d, dtype, device, slot(out, "w_up")),
         "b_up": torch.zeros((f,), dtype=dtype, device=device),
-        "w_down": dense_init(gen, (f, d), f, dtype, device),
+        "w_down": dense_init(gen, (f, d), f, dtype, device,
+                             slot(out, "w_down")),
         "b_down": torch.zeros((d,), dtype=dtype, device=device),
     }
 

@@ -32,30 +32,34 @@ expert gets more than B assignments.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import axis_size, constrain, is_dtensor
-from repro_torch.models.layers import dense_init, gather_rows
+from repro_torch.models.layers import dense_init, gather_rows, slot
 
 Params = Dict[str, torch.Tensor]
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
-             device: torch.device) -> Params:
+             device: torch.device, out: Optional[Params] = None) -> Params:
     """The router in f32 (its logits are f32 products), the experts in
-    ``dtype``."""
+    ``dtype``; into ``out``'s leaves where given, as `dense_init`."""
     if cfg.moe is None:
         raise ValueError(f"{cfg.name}: init_moe needs a MoE config")
     e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
     return {
-        "router": dense_init(gen, (d, e), d, torch.float32, device),
-        "w_gate": dense_init(gen, (e, d, f), d, dtype, device),
-        "w_up": dense_init(gen, (e, d, f), d, dtype, device),
-        "w_down": dense_init(gen, (e, f, d), f, dtype, device),
+        "router": dense_init(gen, (d, e), d, torch.float32, device,
+                             slot(out, "router")),
+        "w_gate": dense_init(gen, (e, d, f), d, dtype, device,
+                             slot(out, "w_gate")),
+        "w_up": dense_init(gen, (e, d, f), d, dtype, device,
+                           slot(out, "w_up")),
+        "w_down": dense_init(gen, (e, f, d), f, dtype, device,
+                             slot(out, "w_down")),
     }
 
 

@@ -35,7 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (constrain, from_local,
                                               fsdp_gathered, is_dtensor,
                                               shard_offset, to_local)
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, slot
 
 Params = Dict[str, torch.Tensor]
 
@@ -54,27 +54,32 @@ def num_ssm_heads(cfg: ModelConfig) -> int:
 
 
 def init_mamba(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
-               device: torch.device) -> Params:
+               device: torch.device, out: Optional[Params] = None) -> Params:
     """One block's weights in ``dtype``, drawn from ``gen`` (which must
-    live on ``device``); ``A_log``, ``D`` and ``dt_bias`` are f32, as in
-    the JAX package."""
+    live on ``device``; into ``out``'s leaves where given, as
+    `dense_init`); ``A_log``, ``D`` and ``dt_bias`` are f32, as in the
+    JAX package."""
     ssm = cfg.ssm
     d, di, n = cfg.d_model, cfg.d_inner, ssm.state_dim
     f32 = dict(dtype=torch.float32, device=device)
     p: Params = {
-        "in_proj": dense_init(gen, (d, 2 * di), d, dtype, device),
+        "in_proj": dense_init(gen, (d, 2 * di), d, dtype, device,
+                              slot(out, "in_proj")),
         "conv_w": dense_init(gen, (ssm.conv_kernel, di), ssm.conv_kernel,
-                             dtype, device),
+                             dtype, device, slot(out, "conv_w")),
         "conv_b": torch.zeros((di,), dtype=dtype, device=device),
-        "out_proj": dense_init(gen, (di, d), di, dtype, device),
+        "out_proj": dense_init(gen, (di, d), di, dtype, device,
+                               slot(out, "out_proj")),
     }
     if ssm.variant == "mamba1":
         r = dt_rank(cfg)
         lo, hi = math.log(1e-3), math.log(1e-1)
         u = torch.rand((di,), generator=gen, **f32) * (hi - lo) + lo
         p.update({
-            "x_proj": dense_init(gen, (di, r + 2 * n), di, dtype, device),
-            "dt_proj": dense_init(gen, (r, di), r, dtype, device),
+            "x_proj": dense_init(gen, (di, r + 2 * n), di, dtype, device,
+                                 slot(out, "x_proj")),
+            "dt_proj": dense_init(gen, (r, di), r, dtype, device,
+                                  slot(out, "dt_proj")),
             "dt_bias": torch.log(torch.expm1(
                 torch.clamp(torch.exp(u), min=1e-4))),
             "A_log": torch.log(torch.arange(1, n + 1, **f32)).expand(
@@ -84,8 +89,10 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
     else:  # mamba2
         h = num_ssm_heads(cfg)
         p.update({
-            "bc_proj": dense_init(gen, (di, 2 * n), di, dtype, device),
-            "dt_w": dense_init(gen, (di, h), di, dtype, device),
+            "bc_proj": dense_init(gen, (di, 2 * n), di, dtype, device,
+                                  slot(out, "bc_proj")),
+            "dt_w": dense_init(gen, (di, h), di, dtype, device,
+                               slot(out, "dt_w")),
             "dt_bias": torch.zeros((h,), **f32),
             "A_log": torch.log(torch.linspace(1.0, 16.0, h, **f32)),
             "D": torch.ones((h,), **f32),

@@ -143,21 +143,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         draw = torch.randint(0, 2 ** 62, (1,), generator=gen, device=dev)
         # fake tensors (abstract_params) hold no value: any seed will do
         shared_seed = 0 if _is_fake(draw) else int(draw)
-    blocks = []
-    for _ in range(cfg.num_layers):
-        if cfg.family in SSM_FAMILIES:
-            blocks.append({"norm1": L.init_norm(cfg, cfg.d_model, dtype, dev),
-                           "mamba": S.init_mamba(cfg, gen, dtype, dev)})
-            continue
-        blk = {"norm1": L.init_norm(cfg, cfg.d_model, dtype, dev),
-               "attn": L.init_attention(cfg, gen, dtype, dev),
-               "norm2": L.init_norm(cfg, cfg.d_model, dtype, dev)}
-        if cfg.family == "moe":
-            blk["moe"] = M.init_moe(cfg, gen, dtype, dev)
-        else:
-            blk["ffn"] = L.init_ffn(cfg, gen, dtype, dev)
-        blocks.append(blk)
-    params["layers"] = _stack(blocks)
+    params["layers"] = _init_layers(cfg, gen, dtype, dev)
     if cfg.family == "hybrid":
         sgen = torch.Generator(device=dev)
         sgen.manual_seed(shared_seed)
@@ -185,20 +171,62 @@ def abstract_params(cfg: ModelConfig, param_dtype: Optional[str] = None
         return init_params(cfg, device="cpu", param_dtype=param_dtype)
 
 
-def _stack(blocks):
-    first = blocks[0]
-    if isinstance(first, dict):
-        return {k: _stack([b[k] for b in blocks]) for k in first}
-    return torch.stack(blocks)
+def _init_block(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
+                dev: torch.device, out: Optional[Params] = None) -> Params:
+    """One layer's block, its weights drawn from ``gen`` (into ``out``'s
+    leaves where given)."""
+    if cfg.family in SSM_FAMILIES:
+        return {"norm1": L.init_norm(cfg, cfg.d_model, dtype, dev),
+                "mamba": S.init_mamba(cfg, gen, dtype, dev,
+                                      L.slot(out, "mamba"))}
+    blk = {"norm1": L.init_norm(cfg, cfg.d_model, dtype, dev),
+           "attn": L.init_attention(cfg, gen, dtype, dev,
+                                    L.slot(out, "attn")),
+           "norm2": L.init_norm(cfg, cfg.d_model, dtype, dev)}
+    if cfg.family == "moe":
+        blk["moe"] = M.init_moe(cfg, gen, dtype, dev, L.slot(out, "moe"))
+    else:
+        blk["ffn"] = L.init_ffn(cfg, gen, dtype, dev, L.slot(out, "ffn"))
+    return blk
+
+
+def _init_layers(cfg: ModelConfig, gen: torch.Generator, dtype: torch.dtype,
+                 dev: torch.device) -> Params:
+    """Every layer's block stacked on a leading ``L`` dim, each stacked
+    leaf allocated once and layer ``i`` drawn straight into slice ``[i]``:
+    the draws of a per-layer init followed by a stack, in the same order,
+    while the peak is the weights plus one leaf's f32 draw."""
+    # the tree's shapes and dtypes: a draw on the meta device holds no
+    # memory and leaves its (throwaway) generator where it was
+    shapes = _init_block(cfg, torch.Generator(), dtype, torch.device("meta"))
+    n = cfg.num_layers
+    layers = _tree_map(lambda m: torch.empty((n,) + tuple(m.shape),
+                                             dtype=m.dtype, device=dev),
+                       shapes)
+    for i in range(n):
+        into = _tree_map(lambda t: t[i], layers)
+        blk = _init_block(cfg, gen, dtype, dev, into)
+        _tree_map(_copy_made, into, blk)
+    return layers
+
+
+def _copy_made(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy a leaf made rather than drawn (a norm scale, a bias, the
+    SSM's constants) into its slice; a drawn leaf is its slice already."""
+    if src is not dst:
+        dst.copy_(src)
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def layer_params(params: Params, i: int) -> Params:
     """Layer ``i``'s slice of the stacked tree (views, no copies)."""
-    def pick(tree):
-        if isinstance(tree, dict):
-            return {k: pick(v) for k, v in tree.items()}
-        return tree[i]
-    return pick(params["layers"])
+    return _tree_map(lambda t: t[i], params["layers"])
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import functools
+import math
 import threading
 import time
 from dataclasses import dataclass, replace
@@ -1829,14 +1830,22 @@ class ContinuousEngine(PipelineBackend):
                             or ladder.seq_bucket(plen) != pb:
                         continue
                     cells.append((plen, budget))
-            for plen, budget in cells:
-                for n in sizes:
-                    if self.block_table is not None:
-                        bn = self.block_table.blocks_needed(plen + budget)
-                        if bn * n > self.block_table.num_blocks - 1:
-                            continue
-                    self._warm_round(plen, budget, n, temperature=0.8)
-                    _bump()
+            walk = [(plen, budget, n) for plen, budget in cells
+                    for n in sizes if self.block_table is None or
+                    self.block_table.blocks_needed(plen + budget) * n <=
+                    self.block_table.num_blocks - 1]
+            if walk and self.supports_packed_prefill() and \
+                    eng.device.type == "cuda":
+                # the walk's largest pack sizes the cells' K/V outputs
+                # before the first capture (`graphs.CellArena.reserve`)
+                pack_b = max(ladder.pack_bucket(plen * n)
+                             for plen, _, n in walk)
+                for name, (shape, dtype) in eng._kv_spec(pack_b).items():
+                    eng.cell_arena.reserve("out:" + name, math.prod(shape),
+                                           dtype)
+            for plen, budget, n in walk:
+                self._warm_round(plen, budget, n, temperature=0.8)
+                _bump()
             self.state.sampling = False
             plen = max(seqs[0] - 3, 1)
             for n in sizes:

@@ -433,11 +433,24 @@ class CellArena:
         need = math.prod(shape)
         buf = self._buffers.get((name, dtype))
         if buf is None or buf.numel() < need:
-            size = max(need, 2 * buf.numel() if buf is not None else 1)
-            buf = torch.empty((size,), dtype=dtype, device=self.device)
-            self._buffers[(name, dtype)] = buf
-            self._held.append(buf)
+            buf = self._new(name, dtype, max(
+                need, 2 * buf.numel() if buf is not None else 1))
         return buf[:need].view(shape)
+
+    def reserve(self, name: str, numel: int, dtype: torch.dtype) -> None:
+        """Make ``name``'s buffer hold ``numel`` elements before the cells
+        that view it are captured: a buffer outgrown stays held by the
+        cells captured on it, so one grown cell by cell holds about twice
+        its largest view."""
+        buf = self._buffers.get((name, dtype))
+        if buf is None or buf.numel() < numel:
+            self._new(name, dtype, numel)
+
+    def _new(self, name: str, dtype: torch.dtype, size: int) -> torch.Tensor:
+        buf = torch.empty((size,), dtype=dtype, device=self.device)
+        self._buffers[(name, dtype)] = buf
+        self._held.append(buf)
+        return buf
 
     def buffer_bytes(self) -> int:
         """Device memory held by the static buffers, the replaced ones

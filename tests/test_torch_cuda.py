@@ -2327,3 +2327,58 @@ def test_cuda_train_steps_are_bit_equal(cuda):
         return [tree]
     for x, y in zip(leaves(a), leaves(b)):
         assert torch.equal(x, y)
+
+
+def test_cuda_init_params_peak_is_the_weights_and_one_draw(cuda):
+    """Full-width InternLM2-1.8B's `init_params` holds the stacked
+    weights once: its peak above what was allocated before stays within
+    the weights' bytes, the largest layer leaf's two f32 temporaries (its
+    draw and scaled copy) and 64 MiB of the allocator's rounding.  (The
+    token table and head are drawn first, while far less is held.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("internlm2-1.8b")
+    torch.cuda.synchronize(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    params = init_params(cfg, seed=0, device=cuda)
+    torch.cuda.synchronize(cuda)
+    peak = torch.cuda.max_memory_allocated(cuda) - before
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        return [tree]
+    weights = sum(t.numel() * t.element_size() for t in leaves(params))
+    largest = max(t[0].numel() for t in leaves(params["layers"]))
+    assert peak <= weights + 2 * 4 * largest + 64 * 2 ** 20, (peak, weights)
+
+
+def test_cuda_warmup_reserves_one_kv_output_buffer_for_every_pack(cuda):
+    """``warmup_aot`` on the packed path sizes the cells' K/V outputs at
+    the walk's largest pack before its first capture: every prefill
+    cell's K and V are views of one buffer each, none of a smaller one
+    that a later cell outgrew."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.runtime.bucketing import BucketLadder
+    from repro_torch.runtime.engine import ContinuousEngine, InferenceEngine
+    cfg = dataclasses.replace(get_smoke_config("internlm2-1.8b"),
+                              d_head=128, dtype="bfloat16")
+    engine = InferenceEngine(
+        cfg, init_params(cfg, device=cuda),
+        ladder=BucketLadder(seq_buckets=(32, 64, 128), batch_buckets=(4,)),
+        device=cuda)
+    ce = ContinuousEngine(engine, max_slots=4, cap_new=24)
+    assert ce.supports_packed_prefill()
+    ce.warmup_aot()
+    arena = engine.cell_arena
+    cells = list(engine.prefill_cells._cells.values())
+    assert len(cells) > 3
+    for name in ("k", "v"):
+        buf = arena._buffers[("out:" + name, torch.float32)]
+        assert buf.numel() == max(c.outputs[name].numel() for c in cells)
+        for c in cells:
+            assert c.outputs[name].data_ptr() == buf.data_ptr(), c.key

@@ -473,3 +473,20 @@ def test_no_collection_runs_inside_collector_held():
         gc.set_threshold(*thresholds)
     gc.collect()
     assert ref() is None
+
+
+def test_cell_arena_reserve_keeps_one_buffer_under_growing_views():
+    """Views of a reserved buffer up to its size share it; without the
+    reservation each larger view leaves the smaller buffer held (by the
+    cells captured on it)."""
+    from repro_torch.runtime.graphs import CellArena
+    sizes = [(4, 8), (4, 16), (4, 64), (4, 128)]
+    reserved, grown = CellArena(torch.device("cpu")), \
+        CellArena(torch.device("cpu"))
+    reserved.reserve("out:k", 4 * 128, torch.float32)
+    views = [reserved.view("out:k", s, torch.float32) for s in sizes]
+    for s in sizes:
+        grown.view("out:k", s, torch.float32)
+    assert reserved.buffer_bytes() == 4 * 128 * 4
+    assert {v.data_ptr() for v in views} == {views[0].data_ptr()}
+    assert grown.buffer_bytes() > 4 * 128 * 4

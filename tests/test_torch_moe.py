@@ -214,13 +214,15 @@ def test_bridged_tree_equals_port_tree_with_an_f32_router(arch):
                                   "apply_moe"])
 def test_moe_signatures_match_reference(name):
     """The reference's parameter names, in order; ``init_moe`` draws from
-    a torch generator on a device where the reference takes a key, as
+    a torch generator on a device where the reference takes a key, and
+    into ``out`` (a layer's slices of the stacked leaves) where given, as
     the port's other ``init_*`` functions do."""
     import inspect
     ref = list(inspect.signature(getattr(JM, name)).parameters)
     port = list(inspect.signature(getattr(M, name)).parameters)
     if name == "init_moe":
-        ref = [("gen" if p == "key" else p) for p in ref] + ["device"]
+        ref = [("gen" if p == "key" else p) for p in ref] + ["device",
+                                                            "out"]
     assert port == ref
 
 

@@ -216,3 +216,42 @@ def test_packed_drift_is_rounding_alone_at_f32():
     assert drift["positions_with_a_flipped_choice"] == 0
     assert drift["max_bf16_ulps"] < 0.01
     assert drift["routing_pinned"]["max_bf16_ulps"] < 0.01
+
+
+def _count_norms(monkeypatch) -> dict:
+    """Count the calls of the port's norm wrappers (every norm and
+    qk-norm of the models goes through one of the two)."""
+    from repro_torch.kernels import ops
+    calls = {"norm": 0}
+    for name in ("fused_rmsnorm", "fused_layernorm"):
+        real = getattr(ops, name)
+
+        def counted(*args, _real=real, **kw):
+            calls["norm"] += 1
+            return _real(*args, **kw)
+        monkeypatch.setattr(ops, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen3-32b",
+                                  "falcon-mamba-7b", "zamba2-1.2b"])
+def test_norms_per_pass_counts_the_norm_calls(arch, step, monkeypatch):
+    """``norms_per_pass`` (the serve phases' norm launches a step) equals
+    the norm calls of one prefill and of one decode step on the CPU: a
+    model without qk-norm, one with it, an SSM and a hybrid model."""
+    from repro_torch.models import decode_step, prefill
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    tokens = torch.randint(1, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator().manual_seed(0))
+    if step == "prefill":
+        calls = _count_norms(monkeypatch)
+        prefill(cfg, params, tokens, max_len=16)
+    else:
+        logits, cache = prefill(cfg, params, tokens, max_len=16)
+        calls = _count_norms(monkeypatch)
+        decode_step(cfg, params, cache, logits.argmax(-1))
+    assert calls["norm"] == chip_smoke.norms_per_pass(cfg)
+    if cfg.qk_norm:
+        assert calls["norm"] == 4 * cfg.num_layers + 1
