@@ -27,13 +27,14 @@ Phases, each printing one JSON line:
    segments of 1024, on mixed lengths padded to their pack bucket and on
    segments after prefix keys, against SDPA with the dense mask, each
    over its pack's plan built before and timed apart, case (a) beside
-   the causal kernel at B 8 x 1024 (the same visible pairs; fails above
-   ``PACKED_OVER_CAUSAL_LIMIT`` times its device time, or where its rows
-   differ from the causal kernel's by a bit); the packed mode's plan
-   kernel on the three packs and on random ids and positions, equal to
-   its plain version entry for entry; the newer models' shapes: the
-   norm in LayerNorm mode at C 6144 and RMS at C 3584, the causal kernel
-   at dh 64 (32 heads, B 8 x 1024, the wgmma body), the packed mode at
+   the causal kernel at B 8 x 1024 (the same visible pairs, timed in
+   rounds of both, the order turned each round; fails where the median
+   round is above ``PACKED_OVER_CAUSAL_LIMIT`` times its device time, or
+   where its rows differ from the causal kernel's by a bit); the packed
+   mode's plan kernel on the three packs and on random ids and
+   positions, equal to its plain version entry for entry; the newer
+   models' shapes: the norm in LayerNorm mode at C 6144 and RMS at
+   C 3584, the causal kernel at dh 64 (32 heads, B 8 x 1024, the wgmma body), the packed mode at
    groups 7 and 12, the paged decode at groups 7 and 12 and at dh 64,
    the sampler at V 152064 and 49152; Qwen3-32B's: the paged decode and
    the packed mode at group 8 (H 64 over KV 8), qk-norm over 64 heads
@@ -271,8 +272,14 @@ Phases, each printing one JSON line:
    results checked, its seconds;
 12. dryrun: the dry run of InternLM2-1.8B's three global shapes at full
    width, traced on the CPU by a worker process started with the script
-   (``dryrun_worker``, pinned to one CPU, fake tensors only), its records
-   printed; then the card's own steps (``DRYRUN_CHIP_SHAPES``: prefill B
+   (``dryrun_worker``, pinned to ``DRYRUN_WORKER_CPUS`` CPUs, fake
+   tensors only), its records
+   printed: scaled records (`repro_torch.launch.dryrun.run_scaled`, short
+   traces extended to the full depth and microbatches), and beside them
+   the full trace of ``train_4k`` on one card, every field's relative
+   difference printed (``dryrun_scaled_vs_full``, held to
+   ``DRYRUN_SCALED_REL``); then the card's own steps
+   (``DRYRUN_CHIP_SHAPES``: prefill B
    8 x 1024, the decode tick's 8 rows over 1024 positions, the train
    step of 8 x 512 in two microbatches), each run eager with weights
    from a seed beside its record: the dry run's FLOPs against
@@ -283,7 +290,11 @@ Phases, each printing one JSON line:
    the roofline fraction of each (the decode tick over the bf16 cache
    the dry run traces, its bf16 decode launches required); and the
    worker's mesh records (``--mesh single``: one rank of the (16, 16)
-   pod, ``pod16x16``) of the same three shapes, per device; then
+   pod, ``pod16x16``) of the same three shapes and, scaled, of
+   ``DRYRUN_MESH_CELLS`` (Llama3-405B's, Falcon-Mamba-7B's and
+   Zamba2-1.2B's ``train_4k``, through the CLI, each trace in a process
+   of its own on the worker's ``DRYRUN_WORKER_CPUS`` CPUs), per device,
+   each with its trace seconds; then
    ``KV_DTYPE_STEPS`` greedy decode steps of 8 prompts over a bf16 cache
    against the same steps over an f32 one (``PLAIN_LOGIT_ULPS``, ties by
    ``greedy_near_ties``, each run's decode launches by shape class);
@@ -1019,15 +1030,46 @@ def packed_case(dev, gen, label, fresh, prefix, width, pre_width,
         line["device_share_of_bound"] = b_ms / dev_t["device_ms"]
     if label.startswith("a"):
         line["against_causal"] = packed_against_causal(
-            dev, gen, q, k, v, out, fresh, dev_t["device_ms"], k_ms, iters)
+            q, k, v, out, fresh, kernel, iters)
     return line
 
 
-def packed_against_causal(dev, gen, q, k, v, packed_out, fresh,
-                          packed_device_ms, packed_ms, iters) -> dict:
+#: rounds of the packed kernel beside the causal one, the order turned
+#: each round, so that a clock or a host that drifts during the check
+#: weighs on both alike
+PACKED_CAUSAL_ROUNDS = 4
+#: cycles of the spin kernel that ``queued_ms`` puts in front of the
+#: timed calls (about 50 ms at the H100's 1.98 GHz)
+SPIN_CYCLES = 100_000_000
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, from
+    CUDA events, the calls queued behind a spin kernel so that the
+    host's launch time stays off the clock (``time_ms`` counts it where
+    the host falls behind the card)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def packed_against_causal(q, k, v, packed_out, fresh, packed,
+                          iters) -> dict:
     """Case (a) beside the causal kernel at B 8 x 1024 on the same rows
-    (the same visible pairs): their times, and whether the packed rows
-    equal the causal ones bit for bit (each segment starts on a tile)."""
+    (the same visible pairs): their device times in
+    ``PACKED_CAUSAL_ROUNDS`` rounds, the order turned each round, the
+    ratio the median of the rounds' ratios; and whether the packed rows
+    equal the causal ones bit for bit (each segment starts on a tile).
+    A round takes the profiler's device time of both, or, where the
+    profiler shows none for either, ``queued_ms`` of both."""
     from repro_torch.kernels import flash_attention
     b, s = len(fresh), fresh[0]
 
@@ -1042,17 +1084,25 @@ def packed_against_causal(dev, gen, q, k, v, packed_out, fresh,
     torch.cuda.synchronize()
     equal = bool(torch.equal(out, rows(packed_out)))
     c_ms = time_ms(causal, iters)
-    c_dev = device_ms(causal, iters)["port"]
-    if isinstance(packed_device_ms, float) and isinstance(c_dev, float):
-        ratio, by = packed_device_ms / c_dev, "device_ms"
-    else:
-        ratio, by = packed_ms / c_ms, "ms"
+    rounds = []
+    for i in range(PACKED_CAUSAL_ROUNDS):
+        order = (packed, causal) if i % 2 == 0 else (causal, packed)
+        got = {fn: device_ms(fn, iters)["port"] for fn in order}
+        by = "device_ms"
+        if not all(isinstance(t, float) for t in got.values()):
+            got = {fn: queued_ms(fn, iters) for fn in order}
+            by = "queued_ms"
+        rounds.append({"packed": got[packed], "causal": got[causal],
+                       "by": by, "ratio": got[packed] / got[causal]})
+    ratio = float(np.median([r["ratio"] for r in rounds]))
     flops = 4.0 * b * 16 * 128 * s * (s + 1) / 2
     nbytes = b * s * 128 * 2 * (2 * 16 + 2 * 8)
     return {"causal_shape": {"B": b, "S": s}, "causal_ms": c_ms,
-            "causal_device_ms": c_dev,
+            "causal_device_ms": float(np.median(
+                [r["causal"] for r in rounds])),
             "causal_bound_ms": bound_ms(nbytes, flops, H100_BF16_FLOPS)[0],
-            "packed_over_causal": ratio, "compared_by": by,
+            "packed_over_causal": ratio, "rounds": rounds,
+            "compared_by": "median of the rounds' device-time ratios",
             "limit": PACKED_OVER_CAUSAL_LIMIT,
             "bit_equal_to_causal": equal}
 
@@ -5736,6 +5786,22 @@ DRYRUN_KERNELS = {"prefill": ("norm", "flash_attention"),
                   "decode": ("norm", "flash_decode"),
                   "train": ("norm", "softmax")}
 DRYRUN_WAIT_S = 600
+#: the ``pod16x16`` cells the worker records, scaled: the arch's three
+#: shapes, and the 405B's and Falcon-Mamba's ``train_4k``, which no full
+#: trace has made, and Zamba2's (its full trace: 935.82 s)
+DRYRUN_MESH_CELLS = ((DRYRUN_ARCH, "train_4k"), (DRYRUN_ARCH, "prefill_32k"),
+                     (DRYRUN_ARCH, "decode_32k"),
+                     ("llama3-405b", "train_4k"),
+                     ("falcon-mamba-7b", "train_4k"),
+                     ("zamba2-1.2b", "train_4k"))
+#: the CPUs of the dry-run worker, the highest ones: the CLI traces
+#: each part of a record in a process of its own, as many at once as
+#: these, so the card's phases keep the others
+DRYRUN_WORKER_CPUS = 2
+#: the scaled record against the full trace: the counts and the
+#: arguments, outputs and aliases equal (a float sum's rounding apart);
+#: the temporaries, a live-bytes peak extended in depth, within 2 %
+DRYRUN_SCALED_REL = {"exact": 1e-12, "temp_bytes": 0.02}
 
 
 def card_cell(kind: str, s: int, b: int):
@@ -5756,22 +5822,39 @@ def dryrun_dir() -> Path:
 
 def dryrun_worker(out: str) -> int:
     """The dry run's CPU half, in a process of its own while the card's
-    phases run: the arch's global shapes through the CLI, then a record
-    of each of the card's shapes.  Fake tensors only: no card, no device
-    memory.  Pinned to one CPU, so the card's phases keep the others."""
+    phases run: the arch's global shapes on one card through the CLI
+    (scaled records), the full trace of its ``train_4k`` beside them, a
+    record of each of the card's shapes, then the ``pod16x16`` records
+    of ``DRYRUN_MESH_CELLS`` through the CLI.  Fake tensors only: no
+    card, no device memory.  Pinned to ``DRYRUN_WORKER_CPUS`` CPUs, which
+    the CLI's trace processes share."""
     import os
 
     from repro_torch.launch import dryrun
-    os.sched_setaffinity(0, {max(os.sched_getaffinity(0))})
+    cpus = sorted(os.sched_getaffinity(0))
+    os.sched_setaffinity(0, set(cpus[-DRYRUN_WORKER_CPUS:]))
     rc = dryrun.main(["--arch", DRYRUN_ARCH, "--shape", "all", "--out", out,
                       "--force"])
-    rc = rc or dryrun.main(["--arch", DRYRUN_ARCH, "--shape", "all",
-                            "--mesh", "single", "--out", out, "--force"])
+    cell = dryrun.build_cell(DRYRUN_ARCH, "train_4k")
+    full = dryrun.run_cell(cell, ops_path=str(
+        Path(out) / f"full_{DRYRUN_ARCH}_train_4k_card.ops.json.gz"))
+    with open(Path(out) / f"full_{DRYRUN_ARCH}_train_4k_card.json",
+              "w") as f:
+        json.dump(full, f, indent=1)
     for kind, s, b in DRYRUN_CHIP_SHAPES:
-        rec = dryrun.run_cell(card_cell(kind, s, b), ops_path=str(
+        rec = dryrun.run_scaled(card_cell(kind, s, b), ops_path=str(
             Path(out) / f"card_{kind}.ops.json.gz"))
         with open(Path(out) / f"card_{kind}.json", "w") as f:
             json.dump(rec, f, indent=1)
+    shapes: dict = {}
+    for arch, shape in DRYRUN_MESH_CELLS:
+        shapes.setdefault(arch, []).append(shape)
+    groups: dict = {}
+    for arch, names in shapes.items():
+        groups.setdefault(",".join(names), []).append(arch)
+    for names, archs in groups.items():
+        rc = dryrun.main(["--arch", ",".join(archs), "--shape", names,
+                          "--mesh", "single", "--out", out, "--force"]) or rc
     return rc
 
 
@@ -5786,7 +5869,8 @@ def start_dryrun_worker(root: Path):
         [sys.executable, "-c", "import sys, chip_smoke; "
          "sys.exit(chip_smoke.dryrun_worker(sys.argv[1]))", str(out)],
         cwd=root, stdout=log, stderr=subprocess.STDOUT,
-        env=dict(os.environ, PYTHONPATH=str(root / "src")))
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+        start_new_session=True)
     log.close()
     return proc
 
@@ -5828,14 +5912,17 @@ def mesh_record_line(rec: dict) -> dict:
 
 def flops_by_op(table) -> dict:
     """An op table's flops by op (``aten.mm``, ``repro_torch.fused_norm``,
-    as ``FlopCounterMode`` names them)."""
+    as ``FlopCounterMode`` names them); a scaled record's table adds its
+    parts' with their weights."""
     from repro_torch.launch import graph_analysis as ga
     out: dict = {}
-    for row in table:
-        flops = ga.row_cost(row)[0]
-        if flops:
-            op = row["op"].rsplit(".", 1)[0]
-            out[op] = out.get(op, 0) + flops
+    for part in table["parts"] if isinstance(table, dict) else [
+            {"weight": 1, "table": table}]:
+        for row in part["table"]:
+            flops = ga.row_cost(row)[0]
+            if flops:
+                op = row["op"].rsplit(".", 1)[0]
+                out[op] = out.get(op, 0) + part["weight"] * flops
     return out
 
 
@@ -6024,6 +6111,48 @@ def decode_bf16_vs_f32(dev, card: str) -> dict:
     return line
 
 
+def scaled_vs_full(card: str, out: Path) -> dict:
+    """The worker's scaled record of the arch's ``train_4k`` on one card
+    against its full trace: every field's relative difference, held to
+    ``DRYRUN_SCALED_REL``."""
+    recs = {}
+    for tag in ("", "full_"):
+        with open(out / f"{tag}{DRYRUN_ARCH}_train_4k_card.json") as f:
+            recs[tag or "scaled"] = json.load(f)
+    scaled, full = recs["scaled"], recs["full_"]
+
+    def fields(rec):
+        cost, coll = rec["cost"], rec["collectives"]
+        return {"ops": rec["ops"],
+                "bytes_per_device": cost["bytes_per_device"],
+                **{f"flops_{c}": v for c, v in
+                   cost["flops_by_class"].items()},
+                **{f"collective_{t}": v for t, v in
+                   coll["bytes_by_type"].items()},
+                **{f"collective_count_{t}": v for t, v in
+                   coll["counts"].items()},
+                **{k: v for k, v in rec["memory"].items()}}
+    a, b = fields(full), fields(scaled)
+    rel = {k: (abs(b.get(k, 0) - v) / abs(v) if v else float(b.get(k, 0)
+                                                            != 0))
+           for k, v in a.items()}
+    rel.update({k: 1.0 for k in b if k not in a})
+    line = {"phase": "dryrun_scaled_vs_full", "card": card,
+            "arch": DRYRUN_ARCH, "shape": "train_4k", "mesh": "card",
+            "rel_diff": rel, "limits": DRYRUN_SCALED_REL,
+            "trace_s": {"scaled": scaled["trace_s"],
+                        "full": full["trace_s"]},
+            "scaled": scaled["scaled"]}
+    emit(line)
+    for k, d in rel.items():
+        limit = DRYRUN_SCALED_REL.get(
+            "temp_bytes" if k in ("temp_bytes", "peak_bytes") else "exact")
+        if d > limit:
+            raise AssertionError(f"dryrun scaled against full: {k} "
+                                 f"{b.get(k)} against {a.get(k)}")
+    return line
+
+
 def dryrun_phase(dev, card: str, worker) -> None:
     """The dry run: its records of the arch's three global shapes at full
     width (the CPU worker started with the script), then each of the
@@ -6040,10 +6169,10 @@ def dryrun_phase(dev, card: str, worker) -> None:
         with open(path) as f:
             rec = json.load(f)
         records[rec["shape"]] = record_line(rec)
-    for path in sorted(out.glob(f"{DRYRUN_ARCH}_*_pod16x16.json")):
+    for path in sorted(out.glob("*_pod16x16.json")):
         with open(path) as f:
             rec = json.load(f)
-        mesh_records[rec["shape"]] = mesh_record_line(rec)
+        mesh_records[f"{rec['arch']} {rec['shape']}"] = mesh_record_line(rec)
     emit({"phase": "dryrun", "card": card, "arch": DRYRUN_ARCH,
           "constants": "H100 SXM data sheet: 989 TFLOP/s bf16, 67 f32, "
                        "3.35 TB/s HBM, 900 GB/s NVLink, 80 GB",
@@ -6056,10 +6185,12 @@ def dryrun_phase(dev, card: str, worker) -> None:
                        "InfiniBand 50 GB/s a GPU across nodes (DGX H100 "
                        "data sheet)",
           "records": mesh_records})
+    want_mesh = sorted(f"{a} {s}" for a, s in DRYRUN_MESH_CELLS)
     if sorted(records) != ["decode_32k", "prefill_32k", "train_4k"] or \
-            sorted(mesh_records) != sorted(records):
+            sorted(mesh_records) != want_mesh:
         raise AssertionError(f"dryrun: records {sorted(records)}, mesh "
                              f"records {sorted(mesh_records)}")
+    scaled_vs_full(card, out)
     for kind, s, b in DRYRUN_CHIP_SHAPES:
         with open(out / f"card_{kind}.json") as f:
             rec = json.load(f)
@@ -6444,9 +6575,13 @@ def main() -> int:
     try:
         return run_phases(worker, started)
     finally:
-        if worker.poll() is None:
-            worker.kill()
-            worker.wait()
+        import os
+        import signal
+        try:   # the worker and the trace processes it spawned
+            os.killpg(worker.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        worker.wait()
 
 
 def run_phases(worker, started: float) -> int:

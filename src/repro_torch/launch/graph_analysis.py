@@ -35,15 +35,21 @@ packed call as one segment filling its pack: an upper bound).  A size
 that an op's output takes from the data (the embedding gradient's unique
 rows) counts at the upper bound the trace's shape environment gives it.
 
-The port's forward is an unrolled Python loop over layers, so a graph
-holds each layer's ops: there is no while loop whose body must be
-multiplied by a trip count (the HLO analysis's ``_trip_count``), and L
-stacked layers cost L times one by construction.
+The port's forward is an unrolled Python loop over layers and over
+microbatches, so one graph holds each layer's ops and has no while loop
+whose body the HLO analysis would multiply by its trip count
+(``_trip_count``).  The dry run scales instead: it traces a step at two
+depths and, for train, two microbatch counts, and adds the four
+profiles with the weights that extend them to the full step
+(:meth:`Profile.add`; `repro_torch.launch.dryrun.run_scaled`), which
+is exact where the layers and microbatches repeat.
 
 A graph is summarised as an op table (:func:`op_table`: each node's op,
 its arguments' shapes and dtypes, its outputs'), which is JSON and is
-what `repro_torch.launch.reanalyze` re-reads; :func:`analyze` and
-:func:`top_contributors` take a GraphModule or such a table.
+what `repro_torch.launch.reanalyze` re-reads; a scaled record's table is
+``{"parts": [{"weight": w, "table": rows, ...}, ...]}``.
+:func:`analyze` takes a GraphModule or either table,
+:func:`top_contributors` a GraphModule or one graph's rows.
 """
 from __future__ import annotations
 
@@ -86,6 +92,21 @@ class Profile:
     collective_by_group: Dict[str, float] = field(default_factory=dict)
     #: ``flops`` by class (:data:`BF16`, :data:`F32`)
     flops_by_class: Dict[str, float] = field(default_factory=dict)
+
+    def add(self, other: "Profile", scale: float = 1.0) -> None:
+        """Add ``scale`` times ``other`` (a loop body times its trips, or
+        a trace's weight in a scaled record)."""
+        self.flops += other.flops * scale
+        self.hbm_bytes += other.hbm_bytes * scale
+        self.collective_bytes += other.collective_bytes * scale
+        for mine, theirs in ((self.collective_by_type,
+                              other.collective_by_type),
+                             (self.collective_counts, other.collective_counts),
+                             (self.collective_by_group,
+                              other.collective_by_group),
+                             (self.flops_by_class, other.flops_by_class)):
+            for k, v in theirs.items():
+                mine[k] = mine.get(k, 0.0) + v * scale
 
 
 # ---------------------------------------------------------------------------
@@ -357,8 +378,14 @@ def _rows(graph: Graph) -> Sequence[dict]:
     return graph
 
 
-def analyze(graph: Graph) -> Profile:
-    """The graph's flops (by class), HBM bytes and collective bytes."""
+def analyze(graph: Union[Graph, dict]) -> Profile:
+    """The graph's flops (by class), HBM bytes and collective bytes; of a
+    scaled table, its parts' profiles each times its weight."""
+    if isinstance(graph, dict):
+        prof = Profile()
+        for part in graph["parts"]:
+            prof.add(analyze(part["table"]), part["weight"])
+        return prof
     prof = Profile()
     for row in _rows(graph):
         flops, nbytes, cls, coll = row_cost(row)

@@ -10,6 +10,8 @@ JSON, stdlib only) gets its ``cost``, ``collectives`` and ``roofline``
 rewritten with the H100 constants of `repro_torch.launch.dryrun` (a mesh
 record's collectives at the rates of its ``collective_axes``); its
 ``memory`` (a property of the traced graph's lifetimes) is kept.  A
+scaled record's table holds each of its traces' rows with its weight,
+and the profile is their weighted sum, as the dry run added it.  A
 one-card record written before the one-card tag became ``card`` (mesh
 ``single``, one chip) is read as one and rewritten as ``card``.
 """

@@ -20,6 +20,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import constrain, is_dtensor
+
 
 @dataclass(frozen=True)
 class OptimizerConfig:
@@ -139,6 +141,15 @@ def adafactor_init(params: Any, cfg: OptimizerConfig) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
 
+def _placed_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` redistributed to ``like``'s placements where both are
+    DTensors (a pending sum reduced); else ``t``."""
+    if is_dtensor(t) and is_dtensor(like) and \
+            tuple(t.placements) != tuple(like.placements):
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
 @torch.no_grad()
 def adafactor_update(params: Any, grads: Any, state: Dict[str, Any],
                      cfg: OptimizerConfig, lr=None):
@@ -152,10 +163,18 @@ def adafactor_update(params: Any, grads: Any, state: Dict[str, Any],
         gf = g.float()
         g2 = gf * gf + eps1
         if _factored(p.shape):
-            vr = beta2t * v["vr"] + (1 - beta2t) * torch.mean(g2, dim=-1)
-            vc = beta2t * v["vc"] + (1 - beta2t) * torch.mean(g2, dim=-2)
-            denom = torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
-                                min=eps1)
+            # over a mesh the statistics keep their own placements and
+            # the row mean is replicated: each is a pending sum, which
+            # DTensor would otherwise scatter over the stacked layer dim
+            # (a dim the rules never shard), unevenly where it does not
+            # divide
+            vr = _placed_as(beta2t * v["vr"] + (1 - beta2t) * torch.mean(
+                g2, dim=-1), v["vr"])
+            vc = _placed_as(beta2t * v["vc"] + (1 - beta2t) * torch.mean(
+                g2, dim=-2), v["vc"])
+            denom = torch.clamp(constrain(
+                torch.mean(vr, dim=-1, keepdim=True),
+                *([None] * vr.dim())), min=eps1)
             vhat = (vr[..., None] * vc[..., None, :]) / denom[..., None]
             update = gf / torch.sqrt(vhat + eps1)
             v["vr"].copy_(vr)

@@ -8,9 +8,12 @@ each case reads its world's results (`tests/torch_world_cases.py`):
 
 - 4 ranks, a (2, 2) ``("data", "model")`` mesh: the sharded train step
   (internlm2 smoke, f32, ``grad_accum`` 2) against the reference's
-  ``jax.jit(step)``; ``seq_shard`` on and off through ``forward_train``;
-  the grouped MoE (olmoe smoke, ``data`` 2: two dispatch groups with a
-  capacity each, a capacity that drops) against the reference's
+  ``jax.jit(step)``; an Adafactor step of the same model cut to 3
+  layers (a stacked dim that ``data`` 2 does not divide) against the
+  same step on one device and the reference's; ``seq_shard`` on and
+  off through ``forward_train``; the grouped MoE (olmoe smoke, ``data``
+  2: two dispatch groups with a capacity each, a capacity that drops)
+  against the reference's
   ``apply_moe`` with two groups, and which assignments drop against its
   ``_dispatch_group``; the Mamba-1 family (falcon-mamba smoke, d_inner
   over ``model``): its loss, a prefill's logits and state and 4 decode
@@ -74,6 +77,20 @@ def train_inputs():
     cfg = jconfigs.get_smoke_config("internlm2-1.8b")
     state = jinit_state(cfg, _tc(2), 0)
     batch = synthetic_train_batch(cfg, jax.random.key(1), 4, 32)
+    return cfg, state, batch
+
+
+def _tc_adafactor():
+    return JTrain(optimizer=JOpt(name="adafactor", learning_rate=1e-3),
+                  compute_dtype="float32", grad_accum=2)
+
+
+@functools.lru_cache(maxsize=None)
+def adafactor_inputs():
+    cfg = dataclasses.replace(jconfigs.get_smoke_config("internlm2-1.8b"),
+                              num_layers=3)
+    state = jinit_state(cfg, _tc_adafactor(), 0)
+    batch = synthetic_train_batch(cfg, jax.random.key(4), 4, 32)
     return cfg, state, batch
 
 
@@ -149,6 +166,7 @@ def worlds(tmp_path_factory):
     _, mp, x = moe_inputs()
     _, sparams, sbatch = ssm_inputs()
     _, hparams, htoks, hsteps = hybrid_inputs()
+    _, astate, abatch = adafactor_inputs()
     a = start_world(4, "torch_world_cases:world_a",
                     str(tmp_path_factory.mktemp("world_a")),
                     {"train_state": _np(state), "train_batch": _np(batch),
@@ -156,7 +174,8 @@ def worlds(tmp_path_factory):
                      "ssm_params": _np(sparams), "ssm_batch": _np(sbatch),
                      "ssm_steps": _steps(9, 4),
                      "hybrid_params": _np(hparams), "hybrid_tokens": htoks,
-                     "hybrid_steps": hsteps},
+                     "hybrid_steps": hsteps, "ada_state": _np(astate),
+                     "ada_batch": _np(abatch)},
                     timeout=TIMEOUT)
     out_a = a.wait()
     _, params, toks, _, nxt = decode_inputs()
@@ -198,6 +217,31 @@ def test_sharded_train_step_matches_reference(world_a):
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=2e-4)
     # wq (L, d, H, dh): FSDP over data, heads over model
     assert world_a["train_placed"] == "(Shard(dim=1), Shard(dim=2))"
+
+
+def test_adafactor_over_uneven_layers_matches_one_device_and_reference(
+        world_a):
+    cfg, state, batch = adafactor_inputs()
+    s_ref, m_ref = jax.jit(jmake_step(cfg, _tc_adafactor(), JRuntime()))(
+        state, batch)
+    for loss in (world_a["ada_loss"], world_a["ada_one_loss"]):
+        assert abs(loss - float(m_ref["loss"])) < 1e-4
+    want = jax.tree.leaves(_np(s_ref["params"]))
+    one = jax.tree.leaves(jax.tree.map(lambda t: t.numpy(),
+                                       world_a["ada_one_params"]))
+    got = jax.tree.leaves(jax.tree.map(lambda t: t.numpy(),
+                                       world_a["ada_params"]))
+    assert len(got) == len(one) == len(want)
+    for g, o, w in zip(got, one, want):
+        np.testing.assert_allclose(g, w, rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(g, o, rtol=2e-4, atol=2e-4)
+    # the row statistics of the stacked wq (L, d, H): 3 layers on both
+    vr_ref = np.asarray(s_ref["opt"]["factored"]["layers"]["attn"]["wq"]
+                        ["vr"])
+    assert world_a["ada_vr"].shape == world_a["ada_one_vr"].shape == \
+        vr_ref.shape
+    np.testing.assert_allclose(world_a["ada_vr"].numpy(), vr_ref,
+                               rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("on", [False, True])

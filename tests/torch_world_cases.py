@@ -1,6 +1,7 @@
 """What each rank of `tests/test_torch_distributed.py`'s worlds runs.
 
-``world_a`` (4 ranks): the sharded train step on (2, 2), the grouped MoE
+``world_a`` (4 ranks): the sharded train step on (2, 2), an Adafactor
+step over 3 stacked layers on (2, 2) and on one device, the grouped MoE
 on (2, 2) (two dispatch groups), ``seq_shard`` off and on through
 ``forward_train``, the Mamba-1 family's loss, prefill and decode steps,
 the hybrid's (Mamba-2, scan and SSD forms) prefill and decode steps, and a
@@ -79,6 +80,25 @@ def world_a(rank, world, inputs):
         out["train_params"] = dplan.gather(st["params"])
         out["train_placed"] = str(st["params"]["layers"]["attn"]["wq"]
                                   .placements)
+    # 1b. Adafactor over 3 stacked layers, which the data dim (2) does
+    # not divide, against the same step on one device
+    acfg = dataclasses.replace(cfg, num_layers=3)
+    atc = TrainConfig(optimizer=OptimizerConfig(name="adafactor",
+                                                learning_rate=1e-3),
+                      compute_dtype="float32", grad_accum=2)
+    astep = make_train_step(acfg, atc, ModelRuntime())
+    st, m = _run(rules, astep, _tensors(inputs["ada_state"]),
+                 _tensors(inputs["ada_batch"]), 1)
+    with sharding_rules(rules):
+        out["ada_loss"] = float(_full(m["loss"]))
+        out["ada_params"] = dplan.gather(st["params"])
+        out["ada_vr"] = dplan.gather(st["opt"]["factored"]["layers"]["attn"]
+                                     ["wq"]["vr"])
+    one, m1 = astep(_tensors(inputs["ada_state"]),
+                    _tensors(inputs["ada_batch"]))
+    out["ada_one_loss"] = float(m1["loss"])
+    out["ada_one_params"] = one["params"]
+    out["ada_one_vr"] = one["opt"]["factored"]["layers"]["attn"]["wq"]["vr"]
     # 2. seq_shard off and on through forward_train
     params = _tensors(inputs["train_state"]["params"])
     with sharding_rules(rules):
